@@ -1,0 +1,268 @@
+"""Configuration for the PyTorch/CUDA port of the VALL-E framework.
+
+Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
+so every JSON config written for the JAX package loads here unchanged.  The
+port serves the TTS path only so far (ROADMAP.md): a non-default value of a
+feature outside that path raises ``NotImplementedError`` naming the ROADMAP item
+that will bring it, instead of being silently ignored.
+
+Backend switches differ from the JAX package:
+
+- ``use_flash_attention`` / ``use_fused_decode`` ``'auto'`` mean "on when the
+  tensors live on a CUDA device" (``flash_enabled`` / ``fused_decode_enabled``
+  take the device).  On the CPU the kernels' plain PyTorch versions run.
+- ``matmul_precision='highest'`` is the parity switch: it turns TF32 off for
+  both cuBLAS matmuls and cuDNN convolutions (``precision_scope``).  Any other
+  value leaves TF32 on, the speed setting.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Literal
+
+import torch
+
+# (field, default, ROADMAP.md item that ports it)
+_NOT_YET = (
+    ('decode_unroll', 1, 'queue 1 item 11 (decode features)'),
+    ('decode_attn_buckets', 4, 'queue 2 item 4 (fused_decode_step variants)'),
+    ('decode_chunk', 0, 'queue 2 item 4 (fused_decode_step variants, chunked cache)'),
+    ('speculative_k', 0, 'queue 1 item 11 and queue 2 item 5 (speculative decode)'),
+    ('weight_dtype', 'compute', 'queue 1 item 10 (quantized serving)'),
+    ('mesh_data', 1, 'queue 1 item 14 (parallelism)'),
+    ('mesh_model', 1, 'queue 1 item 14 (parallelism)'),
+    ('mesh_pipe', 1, 'queue 1 item 14 (parallelism)'),
+    ('mesh_ctx', 1, 'queue 1 item 14 (parallelism)'),
+)
+
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+@dataclass
+class ConfigValle:
+    # Data
+    dataset: str = 'keithito/lj_speech'
+    num_workers: int = 4
+
+    # Input features
+    vocab_size: int = 256
+    num_audio_tokens: int = 1024
+    num_quantizers: int = 8
+    sampling_rate: int = 16000
+    polling_factor: int = 320
+
+    # Model
+    d_model: int = 256
+    n_heads: int = 4
+    dim_feedforward: int = 1024
+    dropout: float = 0.1
+    activation: Literal['relu', 'gelu'] = 'relu'
+    num_layers: int = 8
+    norm: Literal['AdaptiveLayerNorm', 'LayerNorm'] = 'AdaptiveLayerNorm'
+
+    # Optimizer
+    lr: float = 1e-4
+    lr_warmup: int = 1000
+    betas: tuple = (0.9, 0.98)
+    weight_decay: float = 0.1
+    use_fused_adam: bool = True
+    gradient_clip_val: float = 1.0
+    grad_accum: int = 1
+
+    # Generation
+    max_audio_len: int = 1024
+    num_beams: int = 4
+    use_kv_cache: bool = True
+    top_k: int = 50
+    tok_p: float = 1.0
+    temperature: float = 1.0
+    length_penalty: float = 1.0
+
+    # Training
+    seed: int = 42
+    batch_size: int = 4
+    valid_batch_size: int = 1
+    max_steps: int = 1000
+    log_every_n_steps: int = 100
+    ckpt_path: Path = Path('models/checkpoints')
+    log_path: Path = Path('models/logs')
+
+    # ---- additions of the JAX package (same names and defaults) ----
+    dtype: str = field(default='float32', metadata={
+        'help': 'Activation/compute dtype: float32 (parity) or bfloat16 (speed)'})
+    param_dtype: str = 'float32'
+    matmul_precision: str = field(default='default', metadata={
+        'help': "'highest' turns TF32 off for matmul and cuDNN (parity runs)"})
+    mask_loss_pads: bool = True
+    use_flash_attention: bool | str = field(default='auto', metadata={
+        'help': "CUDA flash-attention kernel for the AR prefill: True | False | "
+                "'auto' (on when the tensors are on CUDA)"})
+    remat: bool = False
+    train_scan_unroll: int = 1
+    train_rng_impl: Literal['threefry2x32', 'rbg'] = 'rbg'
+    mesh_data: int = 1
+    mesh_model: int = 1
+    mesh_pipe: int = 1
+    pp_microbatches: int = 1
+    mesh_ctx: int = 1
+    pp_schedule: Literal['gpipe', '1f1b'] = 'gpipe'
+    bucket_sizes: tuple = (128, 256, 384, 512, 768, 1024)
+    direction: Literal['tts', 'asr'] = 'tts'
+    schedule: Literal['cosine_restarts', 'warmup_cosine', 'constant'] = 'cosine_restarts'
+    ckpt_every_n_steps: int = 500
+    ignore_eos: bool = field(default=False, metadata={
+        'help': 'Decode exactly max_audio_len steps (benchmarking)'})
+    kv_cache_dtype: str = field(default='bfloat16', metadata={
+        'help': "Decode KV cache storage: 'float32' | 'bfloat16'"})
+    codec_ckpt: str = ''
+    codes_cache_dir: str = ''
+    keep_checkpoints: int = 0
+    async_checkpoint: bool = True
+    preempt_checkpoint: bool = True
+    compile_cache_dir: str = ''
+    aot_cache_dir: str = ''
+    prefetch_batches: int = 2
+    weight_dtype: str = 'compute'
+    decode_attn_buckets: int = field(default=4, metadata={
+        'help': 'Accepted at its default only; the port reads the valid cache '
+                'slots directly, so prefix buckets have nothing to save'})
+    decode_unroll: int = 1
+    decode_chunk: int = 0
+    zero1: bool = False
+    sequence_parallel: bool = False
+    speculative_k: int = 0
+    speculative_ngram: int = 3
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple = ('qkv', 'out', 'lin1', 'lin2')
+    lora_base: str = ''
+    nar_corrupt_p: float = 0.0
+    use_fused_decode: bool | str = field(default='auto', metadata={
+        'help': "CUDA fused whole-stack decode step: True | False | 'auto' (on "
+                'when the tensors are on CUDA)'})
+
+    def __post_init__(self):
+        if self.dataset is None:
+            raise ValueError('Dataset must be provided')
+        if self.norm not in ('AdaptiveLayerNorm', 'LayerNorm'):
+            raise ValueError('Normalization layer must be AdaptiveLayerNorm or LayerNorm')
+        if self.activation not in ('relu', 'gelu'):
+            raise ValueError('Activation function must be relu or gelu')
+        if self.weight_dtype not in ('compute', 'int8', 'int4'):
+            raise ValueError("weight_dtype must be 'compute', 'int8' or 'int4'")
+        if self.pp_schedule not in ('gpipe', '1f1b'):
+            raise ValueError("pp_schedule must be 'gpipe' or '1f1b', got "
+                             f'{self.pp_schedule!r}')
+        for name, default, item in _NOT_YET:
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f'{name}={getattr(self, name)!r} is not ported to PyTorch yet '
+                    f'(ROADMAP.md {item})')
+        if self.kv_cache_dtype == 'int8':
+            raise NotImplementedError(
+                "kv_cache_dtype='int8' is not ported to PyTorch yet (ROADMAP.md "
+                'queue 1 item 10 and queue 2 item 4, int8 KV cache)')
+        for name in ('dtype', 'param_dtype', 'kv_cache_dtype'):
+            if getattr(self, name) not in _DTYPES:
+                raise ValueError(f'{name} must be one of {sorted(_DTYPES)}, got '
+                                 f'{getattr(self, name)!r}')
+        self.ckpt_path = Path(self.ckpt_path)
+        self.log_path = Path(self.log_path)
+        self.betas = tuple(self.betas)
+        self.bucket_sizes = tuple(self.bucket_sizes)
+        self.lora_targets = tuple(self.lora_targets)
+
+    # Derived properties — reference config.py:79-89.
+    @property
+    def quantization_factor(self) -> int:
+        return self.sampling_rate // self.polling_factor
+
+    @property
+    def bos_token(self) -> int:
+        return self.num_audio_tokens + 1
+
+    @property
+    def eos_token(self) -> int:
+        return self.num_audio_tokens
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def torch_param_dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def torch_cache_dtype(self) -> torch.dtype:
+        return _DTYPES[self.kv_cache_dtype]
+
+    def flash_enabled(self, device) -> bool:
+        """Resolve ``use_flash_attention`` for tensors on ``device``: 'auto' is
+        on exactly for CUDA.  (A method, not the JAX package's property: the
+        answer depends on where the tensors live, not on a global backend.)"""
+        if self.use_flash_attention == 'auto':
+            return torch.device(device).type == 'cuda'
+        return bool(self.use_flash_attention)
+
+    def fused_decode_enabled(self, device) -> bool:
+        """Resolve ``use_fused_decode`` for tensors on ``device`` ('auto' = CUDA).
+        Unlike the JAX gate, 'highest' precision does not turn it off: the CUDA
+        kernel computes in full f32 when the model is f32."""
+        if self.use_fused_decode == 'auto':
+            return torch.device(device).type == 'cuda'
+        return bool(self.use_fused_decode)
+
+    @classmethod
+    def from_dict(cls, hparams_dict: dict) -> 'ConfigValle':
+        """Build from a dict; unknown keys are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in hparams_dict.items() if k in names})
+
+    @classmethod
+    def from_json(cls, json_file) -> 'ConfigValle':
+        with open(json_file, encoding='utf-8') as f:
+            return cls.from_dict(json.load(f))
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d['ckpt_path'] = str(d['ckpt_path'])
+        d['log_path'] = str(d['log_path'])
+        return d
+
+
+@contextlib.contextmanager
+def precision_scope(config: ConfigValle):
+    """Counterpart of ``jax.default_matmul_precision(config.matmul_precision)``:
+    'highest' turns TF32 off for cuBLAS and cuDNN inside the scope; any other
+    value turns it on.  The previous settings are restored on exit."""
+    allow = config.matmul_precision != 'highest'
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """'float32' | 'bfloat16' → the torch dtype."""
+    return _DTYPES[name]
+
+
+def bucket_len(bucket_sizes, n: int) -> int:
+    """Smallest bucket >= n, or n itself when none fits (the JAX package's rule)."""
+    for b in bucket_sizes:
+        if n <= b:
+            return b
+    return n
