@@ -1,8 +1,11 @@
 """The port's kernel modules, held against the JAX Pallas kernels (interpret
-mode on the CPU, as tests/test_kernels.py runs them).  On the CPU each wrapper
-takes its plain PyTorch version, so these tests pin down what the CUDA
-kernels must compute; chip_smoke.py holds the kernels against the plain
-versions on the card.  float32; tolerances as in tests/test_kernels.py."""
+mode on the CPU, as tests/test_kernels.py runs them): the flash forward, the
+flash backward on both JAX routes, and the fused decode step.  On the CPU
+each wrapper takes its plain PyTorch version, so these tests pin down what
+the CUDA kernels must compute; chip_smoke.py holds the kernels against the
+plain versions on the card.  float32; tolerances as in tests/test_kernels.py."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +14,7 @@ import pytest
 import torch
 from torch_port_helpers import close, to_torch
 
-from valle2_tpu.kernels.flash_attention import _flash_fwd, reference_attention
+from valle2_tpu.kernels.flash_attention import _flash_fwd, flash_attention, reference_attention
 from valle2_tpu.kernels.fused_decode import fused_cache_layout as j_fused_cache_layout
 from valle2_tpu.kernels.fused_decode import fused_decode_step as j_fused_decode_step
 from valle2_tpu.ops.transformer import KVCache as JKVCache
@@ -70,6 +73,77 @@ def test_flash_fully_masked_rows_are_uniform_not_nan():
     want = reference_attention(*(jnp.asarray(a) for a in (q, k, v)),
                                jnp.asarray(meta), 4, True)
     close(o, want, atol=1e-5)
+
+
+# JAX backward routes: default (whole-row) blocks run the fused #3 kernel at
+# these s; explicit 64-blocks run #4 (dq) then #5 (dk, dv).
+BWD_ROUTES = {'fused': (None, None), 'split': (64, 64)}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_flash_vjp(case, route):
+    """(inputs, dO, (dq, dk, dv)) of jax.vjp of the JAX flash_attention
+    (Pallas interpret mode) on the case's inputs."""
+    b, h, s, hd, tt, meta, causal = FLASH_CASES[case]
+    q, k, v = qkv(sorted(FLASH_CASES).index(case), b, h, s, hd)
+    do = np.random.RandomState(50 + sorted(FLASH_CASES).index(case)).standard_normal(
+        (b, h, s, hd)).astype(np.float32)
+    meta = np.asarray(meta, np.int32)
+    bq, bk = BWD_ROUTES[route]
+    _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(q_, k_, v_, jnp.asarray(meta), tt,
+                                                          causal, block_q=bq, block_k=bk),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    grads = tuple(np.asarray(g) for g in vjp(jnp.asarray(do)))
+    return (q, k, v, meta), do, grads
+
+
+@pytest.mark.parametrize('route', sorted(BWD_ROUTES))
+@pytest.mark.parametrize('case', sorted(FLASH_CASES))
+def test_flash_bwd_plain_matches_jax_vjp(case, route):
+    """flash_attention_bwd_plain on the plain forward's (o, lse) == jax.vjp of
+    the Pallas kernels, on both JAX routes (fused #3; dq #4 + dkv #5)."""
+    (q, k, v, meta), do, want = jax_flash_vjp(case, route)
+    _, _, _, _, tt, _, causal = FLASH_CASES[case]
+    t = [torch.from_numpy(a) for a in (q, k, v, meta, do)]
+    o, lse = tflash.flash_attention_plain(*t[:4], tt, causal)
+    counts = [c.count for c in (tflash.BWD_FUSED_COUNTER, tflash.BWD_DQ_COUNTER,
+                                tflash.BWD_DKV_COUNTER)]
+    got = tflash.flash_attention_bwd(*t[:4], o, lse, t[4], tt, causal)
+    assert [c.count for c in (tflash.BWD_FUSED_COUNTER, tflash.BWD_DQ_COUNTER,
+                              tflash.BWD_DKV_COUNTER)] == counts   # CPU: no kernel launch
+    for g, w in zip(got, want):
+        close(g, w, atol=2e-5)
+
+
+@pytest.mark.parametrize('case', sorted(FLASH_CASES))
+def test_flash_function_grads_match_jax_vjp(case):
+    """The FlashAttention autograd Function on the CPU: grads of q, k, v ==
+    jax.vjp of the JAX flash_attention (default route)."""
+    (q, k, v, meta), do, want = jax_flash_vjp(case, 'fused')
+    _, _, _, _, tt, _, causal = FLASH_CASES[case]
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = tflash.FlashAttention.apply(q, k, v, torch.from_numpy(meta), tt, causal)
+    o.backward(torch.from_numpy(do))
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        close(g, w, atol=2e-5)
+
+
+def test_flash_bwd_plain_zero_grad_for_rows_that_see_nothing():
+    """tokens_valid = 0: token rows see no key, so dq is 0 there (the Pallas
+    kernels force p to 0 where the mask is false)."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(5, 1, 1, 12, 16))
+    meta = torch.tensor([[0, 12]], dtype=torch.int32)
+    o, lse = tflash.flash_attention_plain(q, k, v, meta, 4, True)
+    dq, dk, dv = tflash.flash_attention_bwd_plain(q, k, v, meta, o, lse, torch.ones_like(o),
+                                                  4, True)
+    assert float(dq[0, 0, :4].abs().max()) == 0.0
+    assert float(dq[0, 0, 4:].abs().max()) > 0.0
+
+
+def test_bwd_route_follows_the_jax_bound():
+    assert tflash.FUSED_BWD_MAX_SEQ == 768
+    assert tflash.uses_fused_bwd(640) and tflash.uses_fused_bwd(768)
+    assert not tflash.uses_fused_bwd(769) and not tflash.uses_fused_bwd(1280)
 
 
 def fused_setup(L=2, rows=3, h=2, hd=16, dff=64, S=40):

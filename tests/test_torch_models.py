@@ -103,7 +103,7 @@ def test_ar_greedy_tokens_equal_jax_decode_fn(route, ar_weights):
 def test_ar_batched_equals_solo(ar_weights):
     _, tp = ar_weights
     cfg = ConfigValle(**dict(GEN, max_audio_len=6, ignore_eos=False))
-    model = tar.ValleAR(cfg, params=tp)
+    model = tar.ValleAR(cfg, params=tp, device='cpu')
     rs = np.random.RandomState(3)
     items = [(rs.randint(0, 256, (n,)), rs.randint(0, 1024, (m, 8)))
              for n, m in ((7, 4), (3, 9), (11, 2))]
@@ -138,7 +138,7 @@ def test_nar_greedy_codes_equal_jax_generate_fn(nar_weights):
 def test_nar_generate_wrapper_matches_batched_fn(nar_weights):
     _, tp = nar_weights
     cfg = ConfigValle(**GEN)
-    model = tnar.ValleNAR(cfg, params=tp)
+    model = tnar.ValleNAR(cfg, params=tp, device='cpu')
     rs = np.random.RandomState(5)
     tok, tgt = rs.randint(0, 256, (6,)), rs.randint(0, 256, (3,))
     pc, first = rs.randint(0, 1024, (5, 8)), rs.randint(0, 1024, (7,))
@@ -174,3 +174,17 @@ def test_unported_features_raise_naming_the_roadmap_item():
     assert set(cfg) == jfields
     jdefault = dataclasses.asdict(JConfig())
     assert {k: str(v) for k, v in cfg.items()} == {k: str(v) for k, v in jdefault.items()}
+
+
+@pytest.mark.parametrize('entry', ['ValleAR', 'ValleNAR', 'ValleTTS', 'Encodec'])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """device=None means the CUDA card; without one the entry point raises
+    instead of falling back to the CPU."""
+    from valle2_tpu_torch.codec.encodec import Encodec
+    from valle2_tpu_torch.tts import ValleTTS
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = ConfigValle(**GEN)
+    build = {'ValleAR': lambda: tar.ValleAR(cfg), 'ValleNAR': lambda: tnar.ValleNAR(cfg),
+             'ValleTTS': lambda: ValleTTS(cfg), 'Encodec': lambda: Encodec()}[entry]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()

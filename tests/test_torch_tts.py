@@ -45,7 +45,7 @@ def test_codec_decode_matches_jax(codec_params):
     got = tenc.decode(tp, torch.from_numpy(codes))
     assert got.shape == (2, 4 * 320)
     close(got, want, atol=1e-4)
-    codec = tenc.Encodec(params=tp)           # batch size changes the conv sum order
+    codec = tenc.Encodec(params=tp, device='cpu')   # batch size changes the sum order
     close(codec.batch_decode(codes), got, atol=1e-6)
     close(codec.decode(codes[1]), got[1], atol=1e-6)
 
@@ -90,7 +90,7 @@ def test_end_to_end_greedy_matches_jax_fused_tts(codec_params):
 def test_batch_synthesize_lengths_and_batched_equals_solo(codec_params):
     _, tcp = codec_params
     cfg = ConfigValle(**dict(GEN, max_audio_len=5))
-    tts = ttts.ValleTTS(cfg, codec=tenc.Encodec(params=tcp))
+    tts = ttts.ValleTTS(cfg, codec=tenc.Encodec(params=tcp, device='cpu'), device='cpu')
     rs = np.random.RandomState(2)
     texts = ['hello there', 'a much longer sentence to say']
     pts = [rs.randint(0, 256, (4,)), rs.randint(0, 256, (7,))]

@@ -4,7 +4,8 @@ A second package beside the JAX one (``valle2_tpu``), which stays the
 reference.  It imports neither JAX nor ``valle2_tpu``.  Ported so far: the TTS
 serving path (``tts.ValleTTS``) with hand-written CUDA kernels for the AR
 prefill (``kernels.flash_attention``) and the AR token step
-(``kernels.fused_decode``); see ROADMAP.md for what remains.
+(``kernels.fused_decode``), and training on one device (``train``) through
+the flash forward and backward kernels; see ROADMAP.md for what remains.
 """
 
 from .config import ConfigValle, bucket_len

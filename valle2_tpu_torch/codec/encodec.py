@@ -12,7 +12,7 @@ from typing import Any
 
 import torch
 
-from ..config import torch_dtype
+from ..config import resolve_device, torch_dtype
 from ..ops.transformer import map_tree
 from . import rvq as _rvq
 from . import seanet
@@ -44,7 +44,7 @@ class Encodec:
 
     def __init__(self, params: Params | None = None, seed: int = 0,
                  decode_dtype: str = 'float32', device=None):
-        self.device = torch.device(device if device is not None else 'cpu')
+        self.device = resolve_device(device)
         if params is None:
             params = init_params(torch.Generator().manual_seed(seed))
         ddtype = torch_dtype(decode_dtype)

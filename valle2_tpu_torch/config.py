@@ -2,15 +2,22 @@
 
 Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
 so every JSON config written for the JAX package loads here unchanged.  The
-port serves the TTS path only so far (ROADMAP.md): a non-default value of a
-feature outside that path raises ``NotImplementedError`` naming the ROADMAP item
-that will bring it, instead of being silently ignored.
+port serves the TTS path and trains the AR, NAR and ASR models on one device
+so far (ROADMAP.md): a non-default value of a feature outside those paths
+raises ``NotImplementedError`` naming the ROADMAP item that will bring it,
+instead of being silently ignored.
 
 Backend switches differ from the JAX package:
 
 - ``use_flash_attention`` / ``use_fused_decode`` ``'auto'`` mean "on when the
   tensors live on a CUDA device" (``flash_enabled`` / ``fused_decode_enabled``
-  take the device).  On the CPU the kernels' plain PyTorch versions run.
+  take the device); flash routes the AR prefill and the AR/NAR training losses.
+  On the CPU the kernels' plain PyTorch versions run.
+- ``train_rng_impl`` and ``train_scan_unroll`` are JAX compilation choices
+  (the PRNG implementation, the layer scan's unroll) with no counterpart in
+  an eager PyTorch step: accepted for config compatibility and not read.
+- Entry points put their tensors on the CUDA card unless the caller asks for
+  another device (``resolve_device``).
 - ``matmul_precision='highest'`` is the parity switch: it turns TF32 off for
   both cuBLAS matmuls and cuDNN convolutions (``precision_scope``).  Any other
   value leaves TF32 on, the speed setting.
@@ -30,14 +37,20 @@ import torch
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
     ('decode_unroll', 1, 'queue 1 item 11 (decode features)'),
-    ('decode_attn_buckets', 4, 'queue 2 item 4 (fused_decode_step variants)'),
-    ('decode_chunk', 0, 'queue 2 item 4 (fused_decode_step variants, chunked cache)'),
-    ('speculative_k', 0, 'queue 1 item 11 and queue 2 item 5 (speculative decode)'),
+    ('decode_attn_buckets', 4, 'queue 2 item 5 (fused_decode_step variants)'),
+    ('decode_chunk', 0, 'queue 2 item 5 (fused_decode_step variants, chunked cache)'),
+    ('speculative_k', 0, 'queue 1 item 11 and queue 2 item 6 (speculative decode)'),
     ('weight_dtype', 'compute', 'queue 1 item 10 (quantized serving)'),
+    ('lora_rank', 0, 'queue 1 item 13 (lora.py)'),
+    ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
+    ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
+    ('sequence_parallel', False, 'queue 1 item 14 (parallelism, sequence parallel)'),
     ('mesh_data', 1, 'queue 1 item 14 (parallelism)'),
     ('mesh_model', 1, 'queue 1 item 14 (parallelism)'),
     ('mesh_pipe', 1, 'queue 1 item 14 (parallelism)'),
     ('mesh_ctx', 1, 'queue 1 item 14 (parallelism)'),
+    ('pp_microbatches', 1, 'queue 1 item 14 (parallelism, pipeline)'),
+    ('pp_schedule', 'gpipe', 'queue 1 item 14 (parallelism, pipeline)'),
 )
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -103,8 +116,8 @@ class ConfigValle:
         'help': "CUDA flash-attention kernel for the AR prefill: True | False | "
                 "'auto' (on when the tensors are on CUDA)"})
     remat: bool = False
-    train_scan_unroll: int = 1
-    train_rng_impl: Literal['threefry2x32', 'rbg'] = 'rbg'
+    train_scan_unroll: int = 1            # JAX scan unroll: not read by the port
+    train_rng_impl: Literal['threefry2x32', 'rbg'] = 'rbg'   # JAX PRNG: not read
     mesh_data: int = 1
     mesh_model: int = 1
     mesh_pipe: int = 1
@@ -166,7 +179,7 @@ class ConfigValle:
         if self.kv_cache_dtype == 'int8':
             raise NotImplementedError(
                 "kv_cache_dtype='int8' is not ported to PyTorch yet (ROADMAP.md "
-                'queue 1 item 10 and queue 2 item 4, int8 KV cache)')
+                'queue 1 item 10 and queue 2 item 5, int8 KV cache)')
         for name in ('dtype', 'param_dtype', 'kv_cache_dtype'):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f'{name} must be one of {sorted(_DTYPES)}, got '
@@ -222,6 +235,12 @@ class ConfigValle:
             return torch.device(device).type == 'cuda'
         return bool(self.use_fused_decode)
 
+    def ensure_dirs(self) -> None:
+        """Create the checkpoint and log dirs (at trainer start, not here in
+        the config, so that building a config touches no file)."""
+        self.ckpt_path.mkdir(parents=True, exist_ok=True)
+        self.log_path.mkdir(parents=True, exist_ok=True)
+
     @classmethod
     def from_dict(cls, hparams_dict: dict) -> 'ConfigValle':
         """Build from a dict; unknown keys are ignored."""
@@ -253,6 +272,18 @@ def precision_scope(config: ConfigValle):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point puts its tensors on: the CUDA card unless the
+    caller names another.  Without a card, ``None`` raises instead of falling
+    back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA card is available: pass device="cpu" to run on '
+                               'the CPU')
+        return torch.device('cuda')
+    return torch.device(device)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -21,7 +21,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
-KERNEL_SOURCES = ('flash_attention', 'fused_decode')
+KERNEL_SOURCES = ('flash_attention', 'flash_attention_bwd', 'fused_decode')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 

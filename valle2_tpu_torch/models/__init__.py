@@ -1,4 +1,4 @@
-"""VALL-E AR / NAR models (decode paths) for PyTorch."""
+"""VALL-E AR / NAR models (decode and training) for PyTorch."""
 
 from .ar import ValleAR
 from .nar import ValleNAR

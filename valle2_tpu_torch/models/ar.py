@@ -10,7 +10,11 @@ the codes buffer do not change), so the loop asks the device whether every
 row has finished only every ``FINISHED_CHECK_EVERY`` steps, instead of
 syncing the host on every token, and returns the same tokens.
 
-Training (``loss_fn``) comes with the training slice (ROADMAP.md).
+Training: ``forward`` and ``loss_fn`` (``valle2_tpu/models/ar.py:104-209``)
+embed the source and target streams with their own sinusoidal positions, run
+the prefix-LM stack (the flash route, or the materialized bias), project the
+target block and take the masked cross-entropy.  The same functions train the
+ASR direction (``config.direction='asr'``).
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ from typing import Any
 
 import torch
 
-from ..config import ConfigValle, bucket_len, precision_scope
+from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
 from ..kernels.fused_decode import fused_cache_layout, fused_decode_step, slot_mask
-from ..ops import (KVCache, add_positional, best_beam_index, embedding, embedding_init,
-                   linear, linear_init, prefix_lm_bias, sinusoidal_table, topk_sampling,
+from ..ops import (KVCache, add_positional, best_beam_index, build_pad_mask,
+                   cast_to_compute, embedding, embedding_init, linear, linear_init,
+                   prefix_lm_bias, sinusoidal_table, topk_sampling, transformer,
                    transformer_decode_step, transformer_init, transformer_prefill)
 from ..ops.transformer import map_tree
 
@@ -67,6 +72,78 @@ def init_params(gen: torch.Generator, config: ConfigValle) -> Params:
         # num_audio_tokens + 1 outputs (codes + EOS), bias-free
         'proj': linear_init(gen, config.d_model, tgt_vocab - 1, use_bias=False, dtype=dtype),
     }
+
+
+def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: torch.Tensor,
+            tokens_lens: torch.Tensor | None, codes_lens: torch.Tensor | None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Logits over the target block: (b, codes_len, target_vocab - 1) f32.
+
+    tokens: (b, Tt) source ids; codes: (b, Tc) BOS-prefixed target ids.
+    ``generator``: dropout on (``config.dropout``), drawn in stream order:
+    source positions, target positions, then the layers; None = no dropout.
+    The flash route uses meta [tokens_lens, Tt + codes_lens], causal; the bias
+    route the same mask materialized (prefix-LM pattern, target-pad and
+    source-pad keys)."""
+    dev = tokens.device
+    pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
+    drop = config.dropout if generator is not None else 0.0
+    # Differentiable cast of the f32 master params to the compute dtype.
+    params = cast_to_compute(params, config)
+    x_tok = add_positional(pe, embedding(params['tokens_emb'], tokens), dropout_rate=drop,
+                           generator=generator)
+    x_aud = add_positional(pe, embedding(params['audio_emb'], codes), dropout_rate=drop,
+                           generator=generator)
+    b, tt = tokens.shape
+    tc = codes.shape[1]
+    tv = tokens_lens if tokens_lens is not None else torch.full((b,), tt, device=dev)
+    ce = tt + codes_lens if codes_lens is not None else torch.full((b,), tt + tc, device=dev)
+    bias, flash = None, None
+    if config.flash_enabled(dev):
+        flash = {'meta': torch.stack([tv.to(torch.int32), ce.to(torch.int32)], dim=1)
+                 .contiguous(), 'tokens_total': tt, 'causal': True}
+    else:
+        bias = prefix_lm_bias(tt + tc, tt, tv, ce)
+    x = torch.cat([x_tok, x_aud], dim=1).to(config.torch_dtype)
+    y = transformer(params['transformer'], x, config.n_heads, bias, flash=flash,
+                    dropout_rate=drop, generator=generator)
+    return linear(params['proj'], y[:, tt:]).float()
+
+
+def masked_ce(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor):
+    """(loss, acc, n_valid) of the cross-entropy over the ``valid`` positions
+    (a mask that broadcasts against ``target``)."""
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
+    n_valid = valid.sum()
+    denom = n_valid.clamp(min=1)
+    loss = (nll * valid).sum() / denom
+    acc = ((logits.argmax(-1) == target) & valid).sum() / denom
+    return loss, acc, n_valid
+
+
+def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
+            generator: torch.Generator | None = None):
+    """Masked cross-entropy over the target stream.  Returns (loss, metrics)
+    with metrics {'loss', 'acc', 'n_valid'} detached.
+
+    ``config.mask_loss_pads``: True counts each row's true positions; False
+    (the reference's mode) counts every position up to the batch's longest
+    row, so bucket columns past it never count."""
+    tokens, codes = batch['tokens'].long(), batch['codes'].long()
+    codes_lens = batch.get('codes_lens')
+    logits = forward(params, config, tokens, codes, batch.get('tokens_lens'), codes_lens,
+                     generator)
+    target = batch['target'].long()
+    if codes_lens is not None:
+        if config.mask_loss_pads:
+            valid = ~build_pad_mask(codes_lens, target.shape[1])
+        else:
+            pos = torch.arange(target.shape[1], device=target.device)[None, :]
+            valid = (pos < codes_lens.max()).expand(target.shape)
+    else:
+        valid = torch.ones_like(target, dtype=torch.bool)
+    loss, acc, n_valid = masked_ce(logits, target, valid)
+    return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'n_valid': n_valid.detach()}
 
 
 @dataclass
@@ -212,12 +289,13 @@ def move_tree(tree, device):
 
 
 class ValleAR:
-    """Holds config + params; decode entry points mirror the JAX ValleAR."""
+    """Holds config + params; the decode and training entry points mirror the
+    JAX ValleAR."""
 
     def __init__(self, config: ConfigValle, params: Params | None = None,
                  seed: int | None = None, device=None):
         self.config = config
-        self.device = torch.device(device if device is not None else 'cpu')
+        self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
             params = init_params(gen, config)
@@ -230,6 +308,21 @@ class ValleAR:
     @property
     def bos_token(self) -> int:
         return _specials(self.config)[1]
+
+    def training_step(self, batch: dict, generator: torch.Generator | None = None):
+        """(loss, metrics) of ``loss_fn`` on the model's params."""
+        with precision_scope(self.config):
+            return loss_fn(self.params, self.config, batch, generator)
+
+    def save(self, path) -> None:
+        """Save the params to one file (``models.checkpoint.save_params``)."""
+        from .checkpoint import save_params
+        save_params(path, self.params)
+
+    def load(self, path) -> None:
+        """Load params from a params file or a trainer step dir."""
+        from .checkpoint import load_params
+        self.params = load_params(path, self.params)
 
     def generate(self, prompt_tokens, prompt_codes, target_tokens=None,
                  generator: torch.Generator | None = None, bucket: bool = True):

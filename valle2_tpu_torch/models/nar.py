@@ -8,7 +8,12 @@ n (bug Q5 of the reference fixed, as in the JAX package).  Attention is dense
 with a key-padding bias: its three-range key mask does not fit the flash
 kernel's two-scalar meta, and the JAX package has no Pallas kernel here.
 
-Training (``loss_fn``) comes with the training slice (ROADMAP.md).
+Training (``valle2_tpu/models/nar.py:71-278``): a stage n in [1, 7] is drawn
+per step; the input sums all codebook embeddings over the acoustic prefix
+and those below n over the suffix; the loss is the cross-entropy on codebook
+n over the suffix.  Attention is bidirectional over tokens and codes with
+the padded keys masked: the flash route with meta [tokens_lens, Tt +
+codes_lens], ``causal=False``, or the same key-padding bias.
 """
 
 from __future__ import annotations
@@ -17,12 +22,12 @@ from typing import Any
 
 import torch
 
-from ..config import ConfigValle, bucket_len, precision_scope
-from ..ops import (add_positional, categorical, embedding, embedding_init, linear,
-                   linear_init, mask_to_bias, sinusoidal_table, transformer,
-                   transformer_init)
+from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
+from ..ops import (add_positional, build_pad_mask, cast_to_compute, categorical, embedding,
+                   embedding_init, linear, linear_init, mask_to_bias, sinusoidal_table,
+                   transformer, transformer_init)
 from ..ops.transformer import map_tree
-from .ar import MAX_POS, check_max_pos, default_generator, move_tree
+from .ar import MAX_POS, check_max_pos, default_generator, masked_ce, move_tree
 
 Params = dict[str, Any]
 
@@ -50,6 +55,134 @@ def init_params(gen: torch.Generator, config: ConfigValle) -> Params:
 def _embed_codes_all(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(nq, V, d) tables + (..., T, nq) ids → (..., T, nq, d) per-quantizer embeddings."""
     return torch.stack([tables[q][codes[..., q]] for q in range(codes.shape[-1])], dim=-2)
+
+
+def prefix_length(config: ConfigValle, codes_len):
+    """min(T // 3, 3 s of frames) of the batch's longest true length (the
+    reference's rule, with its 50 frames a second)."""
+    if isinstance(codes_len, int):
+        return min(codes_len // 3, 3 * config.quantization_factor)
+    return torch.clamp(codes_len // 3, max=3 * config.quantization_factor)
+
+
+def prepare_audio_embedding(params: Params, codes: torch.Tensor, stage,
+                            prefix_len) -> torch.Tensor:
+    """Summed codebook embeddings: every quantizer over the prefix, those
+    below ``stage`` over the suffix.  codes (b, T, nq) → (b, T, d), summed in
+    the tables' dtype in quantizer order, as the JAX scan sums."""
+    tables = params['codes_embs']
+    b, t, nq = codes.shape
+    pos = torch.arange(t, device=codes.device)
+    in_prefix = pos < prefix_len
+    acc = torch.zeros((b, t, tables.shape[-1]), dtype=tables.dtype, device=codes.device)
+    for q in range(nq):
+        w = torch.where(in_prefix, 1.0, (q < stage).to(torch.float32))
+        acc = acc + tables[q][codes[:, :, q]] * w[None, :, None].to(tables.dtype)
+    return acc
+
+
+def corrupt_conditioning(codes: torch.Tensor, prefix_len, p: float,
+                         generator: torch.Generator, v: int) -> torch.Tensor:
+    """Replace a fraction ``p`` of the suffix's codebook-0 conditioning codes
+    (positions >= prefix_len) with uniform random codes; the prefix and the
+    other codebooks stay as they are.  Returns a new tensor."""
+    b, t, _ = codes.shape
+    dev = codes.device
+    mask = torch.rand((b, t), generator=generator, device=dev) < p
+    mask = mask & (torch.arange(t, device=dev)[None, :] >= prefix_len)
+    rand = torch.randint(0, v, (b, t), generator=generator, device=dev, dtype=codes.dtype)
+    out = codes.clone()
+    out[:, :, 0] = torch.where(mask, rand, codes[:, :, 0])
+    return out
+
+
+def forward_stage(params: Params, config: ConfigValle, x_tok: torch.Tensor,
+                  codes_emb: torch.Tensor, stage: torch.Tensor, bias: torch.Tensor | None,
+                  generator: torch.Generator | None = None,
+                  flash: dict | None = None) -> torch.Tensor:
+    """One stage's transformer pass → logits (b, T_codes, V) f32 for codebook
+    ``stage`` (a (1,) long tensor: conditioning row and head gathered on the
+    device)."""
+    pe = sinusoidal_table(MAX_POS, config.d_model, device=x_tok.device)
+    drop = config.dropout if generator is not None else 0.0
+    codes_emb = add_positional(pe, codes_emb, dropout_rate=drop, generator=generator)
+    x = torch.cat([x_tok, codes_emb], dim=1).to(config.torch_dtype)
+    cond = params['stage_embs'].index_select(0, stage - 1)                 # (1, d)
+    y = transformer(params['transformer'], x, config.n_heads, bias, cond, flash=flash,
+                    dropout_rate=drop, generator=generator)
+    head = params['proj_layers'].index_select(0, stage - 1)[0]             # (d, V)
+    return (y[:, x_tok.shape[1]:] @ head).float()
+
+
+def draw_stage(config: ConfigValle, generator: torch.Generator) -> torch.Tensor:
+    """The step's stage, uniform in [1, nq - 1], as a (1,) long tensor on the
+    generator's device (no host sync)."""
+    return torch.randint(1, config.num_quantizers, (1,), generator=generator,
+                         device=generator.device)
+
+
+def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
+            generator: torch.Generator, train: bool = True):
+    """Stage-sampled NAR loss: draws the stage from ``generator``, then
+    ``loss_at_stage``.  ``train=False`` keeps the draw and turns dropout and
+    conditioning corruption off (evaluation)."""
+    stage = draw_stage(config, generator)
+    return loss_at_stage(params, config, batch, stage, generator if train else None)
+
+
+def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
+                  stage, generator: torch.Generator | None = None):
+    """The NAR loss body at a given ``stage`` (int or (1,) tensor);
+    ``generator`` None = no dropout and no corruption.  Returns (loss,
+    metrics) with metrics {'loss', 'acc', 'stage', 'n_valid'} detached."""
+    codes, tokens = batch['codes'].long(), batch['tokens'].long()
+    codes_lens, tokens_lens = batch.get('codes_lens'), batch.get('tokens_lens')
+    dev = codes.device
+    b, t_codes, nq = codes.shape
+    t_tok = tokens.shape[1]
+    stage = torch.as_tensor(stage, dtype=torch.long, device=dev).reshape(1)
+    # The acoustic prefix follows the batch's longest TRUE length, so the
+    # objective does not move with the bucket the batch was padded to.
+    max_true = codes_lens.max() if codes_lens is not None else t_codes
+    prefix_len = prefix_length(config, max_true)
+    params = cast_to_compute(params, config)
+    pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
+    drop = config.dropout if generator is not None else 0.0
+    x_tok = add_positional(pe, embedding(params['tokens_emb'], tokens), dropout_rate=drop,
+                           generator=generator)
+    cond_codes = codes
+    if generator is not None and config.nar_corrupt_p > 0:
+        cond_codes = corrupt_conditioning(codes, prefix_len, config.nar_corrupt_p, generator,
+                                          config.num_audio_tokens)
+    codes_emb = prepare_audio_embedding(params, cond_codes, stage, prefix_len)
+
+    bias, flash = None, None
+    if config.flash_enabled(dev):
+        tv = tokens_lens if tokens_lens is not None else torch.full((b,), t_tok, device=dev)
+        ce = (t_tok + codes_lens if codes_lens is not None
+              else torch.full((b,), t_tok + t_codes, device=dev))
+        flash = {'meta': torch.stack([tv.to(torch.int32), ce.to(torch.int32)], dim=1)
+                 .contiguous(), 'tokens_total': t_tok, 'causal': False}
+    elif codes_lens is not None or tokens_lens is not None:
+        pad = torch.zeros((b, t_tok + t_codes), dtype=torch.bool, device=dev)
+        if codes_lens is not None:
+            pad[:, t_tok:] |= build_pad_mask(codes_lens, t_codes)
+        if tokens_lens is not None:
+            pad[:, :t_tok] |= build_pad_mask(tokens_lens, t_tok)
+        bias = mask_to_bias(pad)[:, None, None, :]
+
+    logits = forward_stage(params, config, x_tok, codes_emb, stage, bias, generator, flash)
+    target = codes.index_select(2, stage)[..., 0]
+    pos = torch.arange(t_codes, device=dev)[None, :]
+    valid = pos >= prefix_len
+    if codes_lens is not None:
+        if config.mask_loss_pads:
+            valid = valid & (pos < codes_lens[:, None])
+        else:
+            valid = (valid & (pos < max_true)).expand(target.shape)
+    loss, acc, n_valid = masked_ce(logits, target, valid)
+    return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'stage': stage[0],
+                  'n_valid': n_valid.detach()}
 
 
 def _generate_fn(params: Params, tokens: torch.Tensor, tokens_len: torch.Tensor,
@@ -103,18 +236,34 @@ def _generate_fn(params: Params, tokens: torch.Tensor, tokens_len: torch.Tensor,
 
 
 class ValleNAR:
-    """Holds config + params; ``generate`` mirrors the JAX ValleNAR."""
+    """Holds config + params; ``generate`` and the training entry points
+    mirror the JAX ValleNAR."""
 
     def __init__(self, config: ConfigValle, params: Params | None = None,
                  seed: int | None = None, device=None):
         self.config = config
-        self.device = torch.device(device if device is not None else 'cpu')
+        self.device = resolve_device(device)
         self.eos_token = config.num_audio_tokens
         self.bos_token = config.num_audio_tokens + 1
         if params is None:
             gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
             params = init_params(gen, config)
         self.params = move_tree(params, self.device)
+
+    def training_step(self, batch: dict, generator: torch.Generator):
+        """(loss, metrics) of ``loss_fn`` on the model's params."""
+        with precision_scope(self.config):
+            return loss_fn(self.params, self.config, batch, generator)
+
+    def save(self, path) -> None:
+        """Save the params to one file (``models.checkpoint.save_params``)."""
+        from .checkpoint import save_params
+        save_params(path, self.params)
+
+    def load(self, path) -> None:
+        """Load params from a params file or a trainer step dir."""
+        from .checkpoint import load_params
+        self.params = load_params(path, self.params)
 
     def generate(self, prompt_tokens, prompt_codes, target_tokens, target_codes_first_layer,
                  generator: torch.Generator | None = None, bucket: bool = True):

@@ -2,8 +2,9 @@
 
 Fused QKV projection (no bias), output projection (bias), scale 1/sqrt(head_dim),
 float32 softmax.  ``mha``'s ``flash`` route sends the prefix-LM attention
-through ``kernels.flash_attention`` (the CUDA kernel on the card, its plain
-version on the CPU) instead of materializing a (b, 1, s, s) bias.
+through ``kernels.flash_attention.FlashAttention`` (the CUDA forward and
+backward kernels on the card, their plain versions on the CPU), with grad on
+or off, instead of materializing a (b, 1, s, s) bias.
 """
 
 from __future__ import annotations
@@ -65,10 +66,10 @@ def mha(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = No
     'tokens_total': int, 'causal': bool} — the flash kernel route."""
     q, k, v = qkv_proj(p, x, n_heads)
     if flash is not None:
-        from ..kernels.flash_attention import flash_attention
-        attn, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  flash['meta'], flash['tokens_total'],
-                                  flash.get('causal', True))
+        from ..kernels.flash_attention import FlashAttention
+        attn = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    flash['meta'], flash['tokens_total'],
+                                    flash.get('causal', True))
     else:
         attn = sdpa(q, k, v, bias)
     out = linear(p['out'], merge_heads(attn))

@@ -11,6 +11,11 @@ import torch
 NEG_INF = -1e30
 
 
+def build_pad_mask(lens: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(b, max_len) bool, True where position >= length (padding)."""
+    return torch.arange(max_len, device=lens.device)[None, :] >= lens[:, None]
+
+
 def mask_to_bias(mask: torch.Tensor | None, dtype=torch.float32) -> torch.Tensor | None:
     """Bool mask (True = masked) → additive bias (0 attend / NEG_INF masked)."""
     if mask is None:
@@ -21,7 +26,8 @@ def mask_to_bias(mask: torch.Tensor | None, dtype=torch.float32) -> torch.Tensor
 
 def prefix_lm_attend(s: int, tokens_total: int, tokens_lens: torch.Tensor,
                      kv_end: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """(b, s, s) bool, True = attend: the flash kernel's in-kernel mask
+    """(b, s, s) bool, True = attend (b, 1, s when not causal: the
+    bidirectional mask does not vary with q): the flash kernel's in-kernel mask
     ``((k < tokens_valid) | (k >= tokens_total & k <= q)) & (k < kv_end)``
     (``ar.py:541-546``; without ``k <= q`` for the bidirectional NAR block)."""
     dev = tokens_lens.device

@@ -91,9 +91,32 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
             'lin2': linear_init(gen, d_ff, d_model, dtype=dtype)}
 
 
-def ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Linear → exact (erf) GELU → Linear (inference: no dropout)."""
-    return linear(p['lin2'], F.gelu(linear(p['lin1'], x)))
+def cast_to_compute(params: Params, config) -> Params:
+    """Differentiable mixed-precision cast: every leaf in the master
+    ``param_dtype`` becomes the compute ``dtype`` (bf16 training); other leaves
+    pass through.  Autograd of the cast returns the grads in the master dtype."""
+    cdtype, pdtype = config.torch_dtype, config.torch_param_dtype
+    if cdtype == pdtype:
+        return params
+    from .transformer import map_tree
+    return map_tree(lambda a: a.to(cdtype) if a.dtype == pdtype else a, params)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator``; identity when it is None
+    (deterministic / eval mode) or ``rate`` <= 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def ffn(p: Params, x: torch.Tensor, dropout_rate: float = 0.0,
+        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Linear → exact (erf) GELU → dropout → Linear."""
+    h = dropout(F.gelu(linear(p['lin1'], x)), dropout_rate, generator)
+    return linear(p['lin2'], h)
 
 
 def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,
@@ -109,7 +132,9 @@ def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,
     return pe.to(dtype)
 
 
-def add_positional(pe: torch.Tensor, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
-    """x[..., t, :] += pe[offset + t]."""
+def add_positional(pe: torch.Tensor, x: torch.Tensor, offset: int = 0,
+                   dropout_rate: float = 0.0,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """x[..., t, :] += pe[offset + t], then dropout."""
     seq_len = x.shape[-2]
-    return x + pe[offset:offset + seq_len].to(x.dtype)
+    return dropout(x + pe[offset:offset + seq_len].to(x.dtype), dropout_rate, generator)

@@ -16,7 +16,8 @@ import torch
 
 from .attention import merge_heads, mha, mha_init, qkv_proj, sdpa
 from .masks import NEG_INF
-from .nn import adaln, adaln_init, ffn, ffn_init, layernorm, layernorm_init, linear
+from .nn import (adaln, adaln_init, dropout, ffn, ffn_init, layernorm, layernorm_init,
+                 linear)
 
 Params = dict[str, Any]
 
@@ -81,25 +82,33 @@ def _norm(p: Params, x: torch.Tensor, cond: torch.Tensor | None) -> torch.Tensor
 
 def encoder_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None,
                   cond: torch.Tensor | None, return_kv: bool = False,
-                  flash: dict | None = None):
-    """One pre-norm block: ``x + attn(norm1(x))``; ``x + ffn(norm2(x))``."""
+                  flash: dict | None = None, dropout_rate: float = 0.0,
+                  generator: torch.Generator | None = None):
+    """One pre-norm block: ``x + drop(attn(norm1(x)))``; ``x + drop(ffn(norm2(x)))``,
+    with the FFN's hidden dropout too.  The three masks are drawn from
+    ``generator`` in that order (the JAX package splits one key per layer)."""
     h = _norm(p['norm1'], x, cond)
     if return_kv:
         attn_out, k, v = mha(p['attn'], h, n_heads, bias, return_kv=True, flash=flash)
     else:
         attn_out = mha(p['attn'], h, n_heads, bias, flash=flash)
-    x = x + attn_out
-    x = x + ffn(p['ffn'], _norm(p['norm2'], x, cond))
+    x = x + dropout(attn_out, dropout_rate, generator)
+    h = ffn(p['ffn'], _norm(p['norm2'], x, cond), dropout_rate, generator)
+    x = x + dropout(h, dropout_rate, generator)
     if return_kv:
         return x, k, v
     return x
 
 
 def transformer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = None,
-                cond: torch.Tensor | None = None, flash: dict | None = None) -> torch.Tensor:
-    """Full-sequence forward over the stacked layers."""
+                cond: torch.Tensor | None = None, flash: dict | None = None,
+                dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Full-sequence forward over the stacked layers; dropout masks come from
+    one generator in layer order."""
     for i in range(num_layers_of(p)):
-        x = encoder_layer(layer_slice(p, i), x, n_heads, bias, cond, flash=flash)
+        x = encoder_layer(layer_slice(p, i), x, n_heads, bias, cond, flash=flash,
+                          dropout_rate=dropout_rate, generator=generator)
     return x
 
 

@@ -19,7 +19,7 @@ import torch
 
 from .codec import Encodec
 from .codec import encodec as codec_mod
-from .config import ConfigValle, bucket_len, precision_scope
+from .config import ConfigValle, bucket_len, precision_scope, resolve_device
 from .data.frontend import PhonemeTokenizer
 from .models import ValleAR, ValleNAR
 from .models import ar as ar_mod
@@ -98,7 +98,7 @@ class ValleTTS:
             raise NotImplementedError('meshes are not ported to PyTorch yet (ROADMAP.md '
                                       'queue 1 item 14, parallelism)')
         self.config = config
-        self.device = torch.device(device if device is not None else 'cpu')
+        self.device = resolve_device(device)
         self.ar = ar if ar is not None else ValleAR(config, device=self.device)
         self.nar = nar if nar is not None else ValleNAR(config, device=self.device)
         self.codec = codec if codec is not None else Encodec(decode_dtype=config.dtype,
