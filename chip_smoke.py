@@ -39,7 +39,33 @@ Phases, each printing JSON lines:
                 steps, checkpoints every 10), then a resumed fit to 25.
 10. profile  -- torch.profiler over 3 bench train steps (AR, then NAR):
                 device time by kernel group and the top kernels.
+11. kernels  -- RVQ encode #8 against its plain version (float32, TF32 off)
+   (codec)      at a 2 s prompt (B=1, T=150), a dataset batch of 4 s (B=16,
+                T=300) and a ragged case (B=3, T=77, n_q=4): codes equal but
+                for ties within f32 rounding (the plain stages replayed on the
+                kernel's codes: every kernel code scores within 1e-5 *
+                max(1, |best|) of the plain best), with the count of such ties
+                and the worst gap, CUDA-event times and the bound.
+12. codec    -- a seeded full-geometry Encodec: batch_encode of 3 waveforms
+                of 3 s through the kernel against the plain RVQ on the same
+                latents under the tie rule; get_embedding finite.
+13. clone    -- the slice's main path at the serving config of phase 5: 3
+                requests through ValleTTS.__call__(text, 3 s prompt at 16 kHz,
+                its transcript) (resample, encode, staged synthesize), then
+                batch_synthesize on the three prepared prompts.  Counts zeroed
+                before, read after: #1, #6 and #8 must have launched; every
+                waveform finite and len(codes)*320 long.
+14. asr      -- ValleASRPipeline at the same widths (direction 'asr',
+                max_audio_len=256, float32, greedy): batch_transcribe of 3
+                utterances of 3 s at 24 kHz equals each solo transcription;
+                #1, #6 and #8 must have launched.
+15. data     -- ValleDataset over 32 seeded in-memory items (1-4 s at 16 /
+                22.05 / 24 kHz): precompute_codes(batch_size=16) into a disk
+                cache launches #8; a second dataset on the same items loads
+                the cache with 0 launches and identical codes; then 3 AR train
+                steps on a DataLoader over it.
 
+``main`` runs them in this order: 1-3, 11, 4, 5, 12-14, 6-8, 15, 9, 10.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -75,6 +101,11 @@ TRAIN_RUNS = (('ValleAR', 32, 512, 10), ('ValleNAR', 32, 512, 10), ('ValleAR', 8
 # of a leaf over that leaf's largest |grad| (f32, TF32 off; sums in another
 # order through 8 layers).
 GRAD_RTOL = 1e-4
+DTYPE_LABEL = {'bfloat16': 'bf16', 'float32': 'f32'}
+# RVQ encode #8 cases: (B, T, n_q) -- a 2 s prompt, a dataset batch of 4 s,
+# a ragged frame count with fewer stages.
+RVQ_CASES = {'prompt_1x150': (1, 150, 8), 'batch_16x300': (16, 300, 8),
+             'ragged_3x77': (3, 77, 4)}
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and dense peaks by input type
 # (f32 inputs with TF32 off run on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -154,22 +185,28 @@ def sdpa_ms(q, k, v, mask, do=None) -> float:
         return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True))
 
 
-def reset_counters() -> None:
+def counters() -> dict:
     from valle2_tpu_torch.kernels import flash_attention as fa
     from valle2_tpu_torch.kernels import fused_decode as fd
-    for c in (fa.COUNTER, fa.BWD_FUSED_COUNTER, fa.BWD_DQ_COUNTER, fa.BWD_DKV_COUNTER,
-              fd.COUNTER):
+    from valle2_tpu_torch.kernels import rvq as krvq
+    return {'flash_attention_fwd': fa.COUNTER, 'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
+            'flash_bwd_dq': fa.BWD_DQ_COUNTER, 'flash_bwd_dkv': fa.BWD_DKV_COUNTER,
+            'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER}
+
+
+def reset_counters() -> None:
+    for c in counters().values():
         c.reset()
 
 
 def read_counters() -> dict:
-    from valle2_tpu_torch.kernels import flash_attention as fa
-    from valle2_tpu_torch.kernels import fused_decode as fd
-    return {'flash_attention_fwd': fa.COUNTER.count,
-            'flash_bwd_fused': fa.BWD_FUSED_COUNTER.count,
-            'flash_bwd_dq': fa.BWD_DQ_COUNTER.count,
-            'flash_bwd_dkv': fa.BWD_DKV_COUNTER.count,
-            'fused_decode_step': fd.COUNTER.count}
+    return {name: c.count for name, c in counters().items()}
+
+
+def require_launches(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            fail(f'the {path} path never launched {name}')
 
 
 def phase_device():
@@ -354,9 +391,7 @@ def phase_main():
             fail(f'waveform of {r.waveform.shape} for gen_len {n}')
         if not np.isfinite(r.waveform).all():
             fail('non-finite waveform samples')
-    for name in ('flash_attention_fwd', 'fused_decode_step'):
-        if launches[name] <= 0:
-            fail(f'the main path never launched {name}')
+    require_launches('main', launches, ('flash_attention_fwd', 'fused_decode_step'))
     t = batch[0].timings
     rows = len(texts) * cfg.num_beams
     emit(phase='main', requests=len(texts), max_audio_len=max_new, rows=rows,
@@ -583,9 +618,8 @@ def phase_train(smi: str) -> dict:
              first_loss=losses[0], last_loss=losses[-1], card=smi)
         del state, data
     launches = read_counters()
-    for name in ('flash_attention_fwd', 'flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv'):
-        if launches[name] <= 0:
-            fail(f'the training path never launched {name}')
+    require_launches('training', launches, ('flash_attention_fwd', 'flash_bwd_fused',
+                                            'flash_bwd_dq', 'flash_bwd_dkv'))
     emit(phase='train', launches=launches)
     return launches
 
@@ -692,6 +726,303 @@ def phase_profile(smi: str, model: str = 'ValleAR', b: int = 32, frames: int = 5
          card=smi)
 
 
+def check_ties(name: str, codebooks, latents, got, want) -> dict:
+    """Hold kernel codes to the plain ones under the tie rule; returns the
+    tie statistics (codes that differ, ties with a positive gap, the worst
+    gap, and the worst gap over its allowance)."""
+    from valle2_tpu_torch.kernels import rvq as krvq
+    gaps, tops = krvq.code_gaps(codebooks, latents, got)
+    allowed = krvq.TIE_RTOL * tops.clamp(min=1.0)
+    worst = float(gaps.max())
+    if not bool((gaps <= allowed).all()):
+        fail(f'{name}: a kernel code scores {worst:.3e} below the plain best, over the '
+             f'tie allowance {krvq.TIE_RTOL:g} * max(1, |best|)')
+    return {'codes_differ': int((got != want).sum()), 'ties': int((gaps > 0).sum()),
+            'worst_gap': worst, 'worst_gap_over_allowed': float((gaps / allowed).max())}
+
+
+def phase_rvq_kernel(results: dict):
+    """RVQ encode #8 against its plain version at the codec path's shapes."""
+    import torch
+    from valle2_tpu_torch.config import tf32_scope
+    from valle2_tpu_torch.kernels import rvq as krvq
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(8)
+    cb = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1).to(dev)
+    with tf32_scope(False), torch.inference_mode():
+        for case, (b, t, n_q) in RVQ_CASES.items():
+            lat = torch.randn(b, t, 128, generator=gen).to(dev)
+            got = krvq.rvq_encode_fused(cb, lat, n_q)
+            want = krvq.rvq_encode_plain(cb, lat, n_q)
+            torch.cuda.synchronize()
+            ties = check_ties(f'rvq_encode ({case})', cb, lat, got, want)
+            rows, v, d = b * t, cb.shape[1], cb.shape[2]
+            r = dict(max_abs_err=ties['worst_gap'],
+                     ms=cuda_ms(lambda: krvq.rvq_encode_fused(cb, lat, n_q)),
+                     plain_ms=cuda_ms(lambda: krvq.rvq_encode_plain(cb, lat, n_q)),
+                     library_ms=None,
+                     tol=f'codes equal but for ties: gap <= {krvq.TIE_RTOL:g}*max(1,|best|)')
+            r['bound_ms'], r['bound_by'] = bound(4 * (rows * d + n_q * v * d + rows * n_q),
+                                                 2 * rows * n_q * v * d, 'float32')
+            results[('rvq_encode', case, 'float32')] = r
+            emit(phase='kernels', path='codec', kernel='rvq_encode', case=case,
+                 shape=dict(B=b, T=t, n_q=n_q, V=v, D=d), **ties,
+                 **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+                 achieved_tflops=2 * rows * n_q * v * d / r['ms'] / 1e9)
+
+
+def speech_like(rs, seconds: float, sr: int):
+    """A seeded waveform: a few drifting harmonics under noise, peak 0.5."""
+    import numpy as np
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rs.uniform(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * rs.uniform(1, 4) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(np.sin(k * phase) / k for k in range(1, 6)) + 0.2 * rs.randn(len(t))
+    return (0.5 * wav / np.abs(wav).max()).astype(np.float32)
+
+
+def phase_codec():
+    """A seeded full-geometry Encodec on the card: the kernel route against
+    the plain RVQ on the same latents."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.codec import Encodec
+    from valle2_tpu_torch.config import tf32_scope
+    from valle2_tpu_torch.kernels import rvq as krvq
+
+    codec = Encodec(seed=0, device='cuda')
+    rs = np.random.RandomState(12)
+    wavs = np.stack([speech_like(rs, 3.0, 24000) for _ in range(3)])
+    codes = codec.batch_encode(wavs)
+    emb = codec.batch_get_embedding(wavs)
+    latents = emb.transpose(1, 2).contiguous()
+    codebooks = codec.params['rvq']['codebooks']
+    with tf32_scope(False), torch.inference_mode():
+        plain = krvq.rvq_encode_plain(codebooks, latents)
+        torch.cuda.synchronize()
+        if codes.shape != (3, 8, 225) or not torch.isfinite(emb).all():
+            fail(f'codec: codes of {tuple(codes.shape)}, finite embedding '
+                 f'{bool(torch.isfinite(emb).all())}')
+        ties = check_ties('codec encode', codebooks, latents, codes, plain)
+    solo = codec.get_embedding(wavs[0])
+    if solo.shape != (128, 225) or not torch.isfinite(solo).all():
+        fail(f'codec: get_embedding of {tuple(solo.shape)}')
+    emit(phase='codec', batch=list(wavs.shape), codes=list(codes.shape), **ties,
+         embedding_absmax=float(emb.abs().max()))
+
+
+def clone_requests(seed: int = 5):
+    """3 cloning requests: a text, a 3 s prompt at 16 kHz and its transcript."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    texts, _, _ = make_requests()
+    prompt_texts = ['we heard the bells ring out at noon.',
+                    'he read the letter twice before he spoke.',
+                    'the river was cold and very still.']
+    return [(text, speech_like(rs, 3.0, 16000), 16000, pt)
+            for text, pt in zip(texts, prompt_texts)]
+
+
+def phase_clone():
+    """Voice cloning from audio at the serving config: ValleTTS.__call__ for
+    3 requests, then batch_synthesize on the three prepared prompts."""
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.tts import ValleTTS
+
+    max_new = SLICE['max_new']
+    cfg = ConfigValle(max_audio_len=max_new, ignore_eos=True, dropout=0.0,
+                      dtype='bfloat16')
+    tts = ValleTTS(cfg, device='cuda')
+    reqs = clone_requests()
+    tts(*reqs[0])                                        # warm-up
+    torch.cuda.synchronize()
+
+    reset_counters()
+    calls, prepare_s, prompts = [], [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        result = tts(*req)
+        calls.append((time.perf_counter() - t0, result))
+    for _, audio, sr, prompt_text in reqs:
+        t0 = time.perf_counter()
+        prompts.append(tts.prepare_prompt(audio, sr, prompt_text))
+        prepare_s.append(time.perf_counter() - t0)
+    batch = tts.batch_synthesize([r[0] for r in reqs], [p[0] for p in prompts],
+                                 [p[1] for p in prompts])
+    launches = read_counters()
+    encode_profile = profile_prepare_prompt(tts, reqs[0])
+
+    for r in [c[1] for c in calls] + batch:
+        if r.waveform.shape != (len(r.codes) * 320,) or not np.isfinite(r.waveform).all():
+            fail(f'clone: waveform of {r.waveform.shape} for {len(r.codes)} frames')
+    for _, codes in prompts:
+        if codes.shape != (225, 8):                      # 3 s at 24 kHz / 320
+            fail(f'clone: prompt codes of {codes.shape}')
+    require_launches('clone', launches, ('flash_attention_fwd', 'fused_decode_step',
+                                         'rvq_encode'))
+    stages = ('frontend', 'ar_decode', 'nar_refine', 'codec_decode')
+    per_call = [dict(wall_s=wall, prompt_s=wall - sum(r.timings.values()),
+                     **{k: r.timings[k] for k in stages}, frames=len(r.codes), rtf=r.rtf)
+                for wall, r in calls]
+    t = batch[0].timings
+    audio_s = sum(len(r.waveform) for _, r in calls) / 24000
+    emit(phase='clone', requests=len(reqs), prompt_frames=[len(p[1]) for p in prompts],
+         max_audio_len=max_new, calls=per_call,
+         prepare_prompt_s=prepare_s,
+         calls_rtf=sum(w for w, _ in calls) / audio_s,
+         batch_stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
+         batch_wall_s=t['batched'], batch_rtf=batch[0].rtf, launches=launches,
+         prepare_prompt_profile=encode_profile)
+    return launches
+
+
+def profile_prepare_prompt(tts, req) -> dict:
+    """Where one prepare_prompt (resample + encode of a 3 s prompt) spends
+    its time: torch.profiler's device time by kernel group against the wall
+    time, and the device's busy share."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, audio, sr, prompt_text = req
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tts.prepare_prompt(audio, sr, prompt_text)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = {'rvq_encode (#8)': ('rvq_encode_kernel', 'code_sq_norm'),
+              'convolutions (cuDNN)': ('conv', 'cudnn', 'implicit', 'xmma', 'winograd', 'fft'),
+              'gemm and gemv (cuBLAS, LSTM)': ('gemm', 'gemv', 'nvjet', 'cutlass'),
+              'elementwise and reductions': ('elementwise', 'reduce_kernel')}
+    by_group = dict.fromkeys([*groups, 'other'], 0.0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in kernels:
+        name = e.key.lower()
+        key = next((g for g, pats in groups.items() if any(x in name for x in pats)), 'other')
+        by_group[key] += e.self_device_time_total / 1e3
+    device_ms = sum(by_group.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                kernel_launches=sum(e.count for e in kernels), device_ms_by_group=by_group,
+                top_kernels=[{'name': e.key[:80], 'calls': e.count,
+                              'ms': e.self_device_time_total / 1e3} for e in top])
+
+
+def phase_asr():
+    """Batched ASR from audio: batch == each solo transcription (greedy)."""
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.tts import ValleASRPipeline
+
+    cfg = ConfigValle(direction='asr', max_audio_len=256, dropout=0.0, temperature=0.0,
+                      matmul_precision='highest', kv_cache_dtype='float32')
+    asr = ValleASRPipeline(cfg, device='cuda')
+    rs = np.random.RandomState(14)
+    audios = [speech_like(rs, 3.0, 24000) for _ in range(3)]
+    srs = [24000] * 3
+    asr.transcribe(audios[0], srs[0], output='phonemes')  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    batch = asr.batch_transcribe(audios, srs, output='phonemes')
+    batch_s = time.perf_counter() - t0
+    launches = read_counters()
+    solo = [asr.transcribe(a, sr, output='phonemes') for a, sr in zip(audios, srs)]
+    if batch != solo:
+        fail(f'asr: batched transcriptions differ from solo ones: {batch} vs {solo}')
+    require_launches('asr', launches, ('flash_attention_fwd', 'fused_decode_step',
+                                       'rvq_encode'))
+    emit(phase='asr', utterances=len(audios), seconds_each=3.0, batch_wall_s=batch_s,
+         rtf=batch_s / 9.0, phonemes=[len(p) for p in batch], first=batch[0][:8],
+         batched_equals_solo=True, launches=launches)
+    return launches
+
+
+def dataset_items(n: int = 32, seed: int = 15):
+    """n in-memory HF-style items, 1-4 s at 16 / 22.05 / 24 kHz."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    words = 'the a dog cat ran sat home fast slow red blue green one two'.split()
+    items = []
+    for i in range(n):
+        sr = (16000, 22050, 24000)[i % 3]
+        text = ' '.join(rs.choice(words, rs.randint(3, 9))) + '.'
+        items.append({'audio': {'array': speech_like(rs, rs.uniform(1.0, 4.0), sr),
+                                'sampling_rate': sr}, 'text': text})
+    return items
+
+
+def phase_data():
+    """Tokenize an in-memory audio dataset through the codec (disk cache),
+    reload it with no encode, and train 3 AR steps on it."""
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.codec import Encodec
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data import DataLoader, ValleDataset, get_collate
+    from valle2_tpu_torch.data.prefetch import to_device
+    from valle2_tpu_torch.train import init_state, make_train_step
+
+    dev = torch.device('cuda')
+    cfg = ConfigValle(dropout=0.1, batch_size=8, dtype='bfloat16')
+    items = dataset_items()
+    audio_s = sum(len(it['audio']['array']) / it['audio']['sampling_rate'] for it in items)
+    codec = Encodec(seed=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ValleDataset(items[:2], cfg, codec).precompute_codes(batch_size=16)   # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        first = ValleDataset(items, cfg, codec)
+        first.precompute_codes(batch_size=16, cache_dir=tmp)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        launches = read_counters()
+        require_launches('data', launches, ('rvq_encode',))
+        reset_counters()
+        second = ValleDataset(items, cfg, Encodec(seed=0, device=dev))
+        second.precompute_codes(batch_size=16, cache_dir=tmp)
+        reloaded = read_counters()['rvq_encode']
+        if reloaded != 0:
+            fail(f'data: loading the disk cache launched rvq_encode {reloaded} times')
+        for i in range(len(items)):
+            a, b = first[i], second[i]
+            sr = items[i]['audio']['sampling_rate']
+            samples = -(-len(items[i]['audio']['array']) * 24000 // sr)   # resampled
+            frames = -(-samples // 320)
+            if not (np.array_equal(a['codes'], b['codes'])
+                    and np.array_equal(a['tokens'], b['tokens'])) \
+                    or a['codes'].shape != (8, frames):
+                fail(f'data: item {i} codes {a["codes"].shape} (want (8, {frames})) or the '
+                     'reloaded cache differs')
+    state = init_state(cfg, 'ValleAR', device=dev)
+    step = make_train_step(cfg, 'ValleAR')
+    loader = DataLoader(second, cfg.batch_size, get_collate('ValleAR')(cfg), shuffle=True)
+    losses = []
+    for i, batch in zip(range(3), loader):
+        state, m = step(state, to_device(batch, dev), i)
+        losses.append(float(m['loss']))
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        fail(f'data: train losses {losses}')
+    emit(phase='data', items=len(items), audio_s=audio_s, encode_s=encode_s,
+         audio_s_per_s=audio_s / encode_s, launches=launches, cache_reload_launches=reloaded,
+         train_losses=losses)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -705,36 +1036,50 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_rvq_kernel(results)
     phase_greedy()
-    serve = phase_main()
+    paths = {'serve': phase_main()}
+    phase_codec()
+    paths['clone'] = phase_clone()
+    paths['asr'] = phase_asr()
     phase_train_kernels(results)
     phase_grads()
-    train = phase_train(smi)
+    paths['train'] = phase_train(smi)
+    paths['data'] = phase_data()
     phase_fit()
     phase_profile(smi)
     phase_profile(smi, 'ValleNAR')
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
-    for name, src, replaces, shape_key, extra in (
+    for name, src, replaces, shape_key, extra, dtypes, on_paths in (
             ('flash_attention_fwd', 'flash_attention.cu', 'flash_attention.py:290', 'ar',
-             {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}),
+             {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}, ('bfloat16', 'float32'),
+             ('serve', 'clone', 'asr', 'train')),
             ('flash_bwd_fused', 'flash_attention_bwd.cu', 'flash_attention.py:560', 'ar',
-             {'nar': 'nar'}),
-            ('flash_bwd_dq', 'flash_attention_bwd.cu', 'flash_attention.py:582', 'ar_long', {}),
+             {'nar': 'nar'}, ('bfloat16', 'float32'), ('train',)),
+            ('flash_bwd_dq', 'flash_attention_bwd.cu', 'flash_attention.py:582', 'ar_long', {},
+             ('bfloat16', 'float32'), ('train',)),
             ('flash_bwd_dkv', 'flash_attention_bwd.cu', 'flash_attention.py:602', 'ar_long',
-             {}),
-            ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {})):
+             {}, ('bfloat16', 'float32'), ('train',)),
+            ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+             ('bfloat16', 'float32'), ('serve', 'clone', 'asr')),
+            ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
+             {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
+             ('clone', 'asr', 'data'))):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
+        by_path = {p: paths[p][name] for p in on_paths}
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
                      replaces=f'valle2_tpu/kernels/{replaces}',
-                     launches=serve[name] + train[name],
-                     launches_by_path={'serve': serve[name], 'train': train[name]},
-                     dtype='bfloat16', case=shape_key or 'serve',
-                     **pick(shape_key, 'bfloat16'), f32=pick(shape_key, 'float32'))
+                     launches=sum(by_path.values()), launches_by_path=by_path,
+                     dtype=dtypes[0], case=shape_key or 'serve', **pick(shape_key, dtypes[0]))
+        if len(dtypes) > 1:
+            entry['f32'] = pick(shape_key, 'float32')
         for label, key in extra.items():
-            entry[label] = dict(bf16=pick(key, 'bfloat16'), f32=pick(key, 'float32'))
+            entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
+        if entry['launches'] <= 0:
+            fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)
     emit(kernels=kernels)
     print(smi, flush=True)

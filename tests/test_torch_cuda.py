@@ -10,8 +10,10 @@ use.)  ``chip_smoke.py`` holds the kernels at the main path's shapes; these
 cover the rest of what the wrappers accept: every head dim, ragged and fully
 masked rows, the bidirectional mask, both backward routes on both sides of
 ``FUSED_BWD_MAX_SEQ``, more rows than one projection block holds, the last
-cache slot, a bfloat16 cache under a float32 model, and the wrappers'
-refusals.
+cache slot, a bfloat16 cache under a float32 model, RVQ encode at frame
+counts that are not a multiple of its 32-frame block, the codec's encode on
+the card against its CPU route and under a caller's TF32 scope, and the
+wrappers' refusals.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 from valle2_tpu_torch.config import ConfigValle, precision_scope
 from valle2_tpu_torch.kernels import flash_attention as fa
 from valle2_tpu_torch.kernels import fused_decode as fd
+from valle2_tpu_torch.kernels import rvq as krvq
 from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +265,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match='outside'):
         fd.fused_decode_step(p, x, 2, KVCache(ck.bfloat16(), cv.bfloat16()), ttm + pm - 1,
                              tl, cl, ttm, pm)
+
+
+RVQ_CASES = {   # (B, T, n_q): the chip_smoke shapes, then tails of 1 and 31 frames
+    'prompt_1x150': (1, 150, 8), 'batch_16x300': (16, 300, 8), 'ragged_3x77': (3, 77, 4),
+    'tail_1x33': (1, 33, 8), 'tail_2x31': (2, 31, 2)}
+
+
+def assert_codes_within_ties(codebooks, latents, got, want):
+    """Kernel codes equal the plain ones except at ties within f32 rounding
+    (``krvq.TIE_RTOL``), judged by replaying the plain stages on the kernel's
+    codes."""
+    gaps, tops = krvq.code_gaps(codebooks, latents, got)
+    assert bool((gaps <= krvq.TIE_RTOL * tops.clamp(min=1.0)).all()), float(gaps.max())
+    assert float((got != want).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize('case', sorted(RVQ_CASES))
+def test_rvq_kernel_matches_plain(dev, case):
+    b, t, n_q = RVQ_CASES[case]
+    gen = torch.Generator().manual_seed(b * 1000 + t)
+    cb = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1).to(dev)
+    lat = torch.randn(b, t, 128, generator=gen).to(dev)
+    before = krvq.COUNTER.count
+    got = krvq.rvq_encode_fused(cb, lat, n_q)
+    assert krvq.COUNTER.count == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (b, n_q, t)
+    assert_codes_within_ties(cb, lat, got, krvq.rvq_encode_plain(cb, lat, n_q))
+
+
+def test_rvq_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    cb = torch.rand(8, 1024, 128, device=dev)
+    lat = torch.randn(1, 10, 128, device=dev)
+    with pytest.raises(TypeError, match='float32'):
+        krvq.rvq_encode_fused(cb, lat.bfloat16())
+    with pytest.raises(ValueError, match='128'):
+        krvq.rvq_encode_fused(cb[..., :64].contiguous(), lat[..., :64].contiguous())
+    with pytest.raises(ValueError, match='contiguous'):
+        krvq.rvq_encode_fused(cb, torch.randn(1, 128, 10, device=dev).transpose(1, 2))
+    with pytest.raises(ValueError, match='multiple'):
+        krvq.rvq_encode_fused(cb[:, :1000].contiguous(), lat)
+    with pytest.raises(ValueError, match='n_q'):
+        krvq.rvq_encode_fused(cb, lat, 9)
+
+
+@pytest.fixture
+def codecs(dev):
+    from valle2_tpu_torch.codec import Encodec
+    cpu = Encodec(seed=3, device='cpu')
+    return cpu, Encodec(params=cpu.params, device=dev)
+
+
+def test_encodec_encode_on_card_equals_cpu_route(dev, codecs):
+    cpu, card = codecs
+    rs = np.random.RandomState(0)
+    wavs = (rs.randn(2, 24000) * 0.3).astype(np.float32)
+    before = krvq.COUNTER.count
+    got = card.batch_encode(wavs)
+    assert krvq.COUNTER.count == before + 1
+    want = cpu.batch_encode(wavs)
+    latents = card.batch_get_embedding(wavs).transpose(1, 2).contiguous()
+    assert_codes_within_ties(card.params['rvq']['codebooks'], latents, got, want.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_encode_ignores_the_callers_tf32_scope(dev, codecs):
+    from valle2_tpu_torch.config import tf32_scope
+    _, card = codecs
+    wav = (np.random.RandomState(1).randn(36000) * 0.3).astype(np.float32)
+    with tf32_scope(False):
+        exact = card.encode(wav)
+        emb = card.get_embedding(wav)
+    with tf32_scope(True):
+        assert torch.equal(card.encode(wav), exact)
+        assert torch.equal(card.get_embedding(wav), emb)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32

@@ -107,7 +107,9 @@ def test_batch_synthesize_lengths_and_batched_equals_solo(codec_params):
 def test_port_imports_no_jax():
     code = ('import sys, valle2_tpu_torch, valle2_tpu_torch.tts, '
             'valle2_tpu_torch.kernels.flash_attention, valle2_tpu_torch.kernels.fused_decode, '
-            'valle2_tpu_torch.models.convert\n'
+            'valle2_tpu_torch.models.convert, valle2_tpu_torch.utils, '
+            'valle2_tpu_torch.codec.convert, valle2_tpu_torch.kernels.rvq, '
+            'valle2_tpu_torch.data.dataset\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", '
             '"valle2_tpu"))\n'
             'assert not bad, bad')

@@ -1,9 +1,9 @@
-"""SEANet decoder, EnCodec-24kHz geometry (``valle2_tpu/codec/seanet.py``).
+"""SEANet encoder and decoder, EnCodec-24kHz geometry (``valle2_tpu/codec/seanet.py``).
 
-n_filters=32, dimension=128, ratios=[8,5,4,2], kernel 7, residual kernel 3,
-compress 2, one residual layer, 2 LSTM layers, ELU, causal reflect padding.
-Hop = 8*5*4*2 = 320 → 75 fps at 24 kHz.  Channel-last (B, T, C) throughout.
-The encoder is not on the TTS path and waits for a later slice (ROADMAP.md).
+n_filters=32, dimension=128, ratios=[8,5,4,2] (the encoder downsamples in the
+reverse order 2,4,5,8), kernel 7, residual kernel 3, compress 2, one residual
+layer, 2 LSTM layers, ELU, causal reflect padding.  Hop = 8*5*4*2 = 320 → 75
+fps at 24 kHz.  Channel-last (B, T, C) throughout.
 """
 
 from __future__ import annotations
@@ -39,6 +39,31 @@ def _resblock(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = causal_conv1d(p['conv1'], F.elu(x))
     h = causal_conv1d(p['conv2'], F.elu(h))
     return causal_conv1d(p['shortcut'], x) + h
+
+
+def encoder_init(gen: torch.Generator, dtype=torch.float32) -> Params:
+    mult = 1
+    p: Params = {'stem': conv1d_init(gen, 1, N_FILTERS, KERNEL, dtype)}
+    stages = []
+    for ratio in reversed(RATIOS):                                 # 2, 4, 5, 8
+        ch = mult * N_FILTERS
+        stages.append({'res': _resblock_init(gen, ch, dtype),
+                       'down': conv1d_init(gen, ch, ch * 2, ratio * 2, dtype)})
+        mult *= 2
+    p['stages'] = stages
+    p['lstm'] = lstm_init(gen, mult * N_FILTERS, mult * N_FILTERS, LSTM_LAYERS, dtype)
+    p['head'] = conv1d_init(gen, mult * N_FILTERS, DIMENSION, KERNEL, dtype)
+    return p
+
+
+def encode(p: Params, wav: torch.Tensor) -> torch.Tensor:
+    """(B, T) waveform → (B, ceil(T/320), 128) latents."""
+    x = causal_conv1d(p['stem'], wav[:, :, None])
+    for stage, ratio in zip(p['stages'], reversed(RATIOS)):
+        x = _resblock(stage['res'], x)
+        x = causal_conv1d(stage['down'], F.elu(x), stride=ratio)
+    x = lstm(p['lstm'], x)
+    return causal_conv1d(p['head'], F.elu(x))
 
 
 def decoder_init(gen: torch.Generator, dtype=torch.float32) -> Params:

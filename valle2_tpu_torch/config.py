@@ -2,10 +2,12 @@
 
 Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
 so every JSON config written for the JAX package loads here unchanged.  The
-port serves the TTS path and trains the AR, NAR and ASR models on one device
-so far (ROADMAP.md): a non-default value of a feature outside those paths
-raises ``NotImplementedError`` naming the ROADMAP item that will bring it,
-instead of being silently ignored.
+port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
+datasets and trains the AR, NAR and ASR models on one device so far
+(ROADMAP.md): a non-default value of a feature outside those paths raises
+``NotImplementedError`` naming the ROADMAP item that will bring it, instead
+of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
+in ``data.ValleDataset``, as in the JAX package.
 
 Backend switches differ from the JAX package:
 
@@ -20,7 +22,8 @@ Backend switches differ from the JAX package:
   another device (``resolve_device``).
 - ``matmul_precision='highest'`` is the parity switch: it turns TF32 off for
   both cuBLAS matmuls and cuDNN convolutions (``precision_scope``).  Any other
-  value leaves TF32 on, the speed setting.
+  value leaves TF32 on, the speed setting.  Codec encode ignores it and
+  always runs with TF32 off (``tf32_scope(False)``): its codes feed an argmax.
 """
 
 from __future__ import annotations
@@ -260,11 +263,9 @@ class ConfigValle:
 
 
 @contextlib.contextmanager
-def precision_scope(config: ConfigValle):
-    """Counterpart of ``jax.default_matmul_precision(config.matmul_precision)``:
-    'highest' turns TF32 off for cuBLAS and cuDNN inside the scope; any other
-    value turns it on.  The previous settings are restored on exit."""
-    allow = config.matmul_precision != 'highest'
+def tf32_scope(allow: bool):
+    """TF32 on or off for both cuBLAS and cuDNN inside the scope; the previous
+    settings are restored on exit."""
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
@@ -272,6 +273,13 @@ def precision_scope(config: ConfigValle):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def precision_scope(config: ConfigValle):
+    """Counterpart of ``jax.default_matmul_precision(config.matmul_precision)``:
+    'highest' turns TF32 off for cuBLAS and cuDNN inside the scope; any other
+    value turns it on."""
+    return tf32_scope(config.matmul_precision != 'highest')
 
 
 def resolve_device(device=None) -> torch.device:

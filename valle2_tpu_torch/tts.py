@@ -1,16 +1,20 @@
-"""End-to-end TTS (text + cloning prompt → 24 kHz waveform) on PyTorch/CUDA.
+"""End-to-end VALL-E X pipelines on PyTorch/CUDA (``valle2_tpu/tts.py``).
 
-Port of the serving path of ``valle2_tpu/tts.py``: ``_fused_tts_fn`` runs the
-AR first-codebook decode (flash prefill, fused decode steps, best-of-N pick),
-the NAR 7-stage refinement and the codec decode over padded batches with true
-lengths.  ``ValleTTS.batch_synthesize`` / ``synthesize_fused`` are its entry
-points.  The cloning prompt enters as codec codes: ``prepare_prompt`` needs the
-codec encoder, which waits for a later slice (ROADMAP.md), as do streaming,
-long-form synthesis and meshes.
+TTS (text + cloning prompt → 24 kHz waveform): ``prepare_prompt`` resamples
+the prompt recording and encodes it through the codec (the RVQ-encode
+kernel), then ``_fused_tts_fn`` runs the AR first-codebook decode (flash
+prefill, fused decode steps, best-of-N pick), the NAR 7-stage refinement and
+the codec decode over padded batches with true lengths
+(``batch_synthesize`` / ``synthesize_fused``), or ``synthesize`` runs the
+same stages one model call at a time.  ASR (``ValleASRPipeline``): audio →
+codec encode → the direction-swapped AR decode over the phoneme vocabulary,
+batched.  ``main`` is the command line of both.  Streaming, long-form
+synthesis and meshes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -24,6 +28,7 @@ from .data.frontend import PhonemeTokenizer
 from .models import ValleAR, ValleNAR
 from .models import ar as ar_mod
 from .models import nar as nar_mod
+from .utils import normalize_audio
 
 
 class StageClock:
@@ -105,6 +110,15 @@ class ValleTTS:
                                                              device=self.device)
         self.tokenizer = tokenizer if tokenizer is not None else PhonemeTokenizer()
 
+    def prepare_prompt(self, prompt_audio, prompt_sr: int, prompt_text: str
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Cloning prompt → (prompt_tokens, prompt_codes (T, nq)): the audio
+        (on the model's device) resampled to 24 kHz and encoded."""
+        audio = torch.as_tensor(prompt_audio, dtype=torch.float32, device=self.device)
+        wav = normalize_audio(audio, prompt_sr, self.codec.sampling_rate)
+        codes = self.codec.encode(wav).cpu().numpy().T
+        return self.tokenizer(prompt_text), codes
+
     def batch_synthesize(self, texts: list, prompt_tokens_list: list,
                          prompt_codes_list: list, generator: torch.Generator | None = None,
                          bucket: bool = True) -> list[TTSResult]:
@@ -158,3 +172,146 @@ class ValleTTS:
         """One utterance through ``batch_synthesize``."""
         return self.batch_synthesize([text], [prompt_tokens], [prompt_codes],
                                      generator=generator, bucket=bucket)[0]
+
+    def synthesize(self, text: str, prompt_tokens, prompt_codes,
+                   generator: torch.Generator | None = None) -> TTSResult:
+        """The staged pipeline, one model call per stage: AR decode, NAR
+        refinement, codec decode.  prompt_codes: (T, num_quantizers) from
+        ``prepare_prompt``.  Greedy codes equal ``synthesize_fused``'s."""
+        if generator is None:
+            generator = ar_mod.default_generator(self.config, self.device)
+        clock = StageClock(self.device)
+        target_tokens = self.tokenizer(text)
+        clock.mark('frontend')
+        first_layer = self.ar.generate(prompt_tokens, prompt_codes, target_tokens,
+                                       generator=generator)
+        clock.mark('ar_decode')
+        codes = self.nar.generate(prompt_tokens, prompt_codes, target_tokens, first_layer,
+                                  generator=generator).numpy()
+        clock.mark('nar_refine')
+        wav = self.codec.decode(codes.T).cpu().numpy()
+        clock.mark('codec_decode')
+        rtf = sum(clock.times.values()) / max(len(wav) / self.codec.sampling_rate, 1e-9)
+        return TTSResult(wav, codes, rtf, clock.times)
+
+    def __call__(self, text: str, prompt_audio, prompt_sr: int, prompt_text: str,
+                 generator: torch.Generator | None = None) -> TTSResult:
+        tokens, codes = self.prepare_prompt(prompt_audio, prompt_sr, prompt_text)
+        return self.synthesize(text, tokens, codes, generator)
+
+
+class ValleASRPipeline:
+    """audio → codec tokens → phoneme transcription (direction-swapped AR
+    model): the source stream is the first-codebook codes, the target stream
+    the phonemes with BOS/EOS at vocab_size + 1 / vocab_size."""
+
+    def __init__(self, config: ConfigValle, ar: ValleAR | None = None,
+                 codec: Encodec | None = None, tokenizer: PhonemeTokenizer | None = None,
+                 device=None):
+        if config.direction != 'asr':
+            config = dataclasses.replace(config, direction='asr')
+        self.config = config
+        self.device = resolve_device(device)
+        self.ar = ar if ar is not None else ValleAR(config, device=self.device)
+        self.codec = codec if codec is not None else Encodec(device=self.device)
+        self.tokenizer = tokenizer if tokenizer is not None else PhonemeTokenizer()
+
+    def transcribe(self, audio, sr: int, generator: torch.Generator | None = None,
+                   output: str = 'text'):
+        """One utterance → English text (``output='phonemes'``: the ARPAbet
+        symbol list)."""
+        return self.batch_transcribe([audio], [sr], generator, output=output)[0]
+
+    def batch_transcribe(self, audios: list, srs: list[int],
+                         generator: torch.Generator | None = None, output: str = 'text'):
+        """All utterances' codec tokens decode through one batched AR loop;
+        per-item masks keep each result equal to its solo decode.
+        ``output='text'`` inverts the phonemes to words through the bundled
+        lexicon; ``output='phonemes'`` returns the ARPAbet symbol lists."""
+        if output not in ('text', 'phonemes'):
+            raise ValueError(f"output must be 'text' or 'phonemes', got {output!r}")
+        tokens_list, codes_list = [], []
+        for audio, sr in zip(audios, srs):
+            audio = torch.as_tensor(audio, dtype=torch.float32, device=self.codec.device)
+            wav = normalize_audio(audio, sr, self.codec.sampling_rate)
+            tokens_list.append(self.codec.encode(wav)[0].cpu())    # first codebook
+            codes_list.append(np.zeros((0, self.config.num_quantizers), np.int64))
+        outs = self.ar.generate_batch(tokens_list, codes_list, generator=generator)
+        convert = self.tokenizer.decode if output == 'phonemes' else self.tokenizer.to_text
+        return [convert(ids.numpy()) for ids in outs]
+
+
+def main(argv=None):
+    """CLI: synthesize speech or transcribe audio.
+
+    TTS:  python -m valle2_tpu_torch.tts -c cfg.json --text "..." \\
+            --prompt-wav p.wav --prompt-text "..." -o out.wav \\
+            [--ar-ckpt PATH --nar-ckpt PATH --codec-ckpt FILE] [--device cuda|cpu]
+    ASR:  python -m valle2_tpu_torch.tts -c cfg.json --transcribe in.wav
+    """
+    import argparse
+    from pathlib import Path
+
+    from .utils import load_audio, log_info, save_wav
+
+    parser = argparse.ArgumentParser(description='VALL-E X synthesis/transcription '
+                                                 '(PyTorch/CUDA)')
+    parser.add_argument('-c', '--config', type=Path, default=None)
+    parser.add_argument('--text', type=str, help='Text to synthesize')
+    parser.add_argument('--prompt-wav', type=Path, help='Cloning prompt audio (wav)')
+    parser.add_argument('--prompt-text', type=str, default='',
+                        help='Transcript of the prompt audio')
+    parser.add_argument('-o', '--output', type=Path, default=Path('out.wav'))
+    parser.add_argument('--transcribe', type=Path, default=None,
+                        help='ASR mode: audio file to transcribe')
+    parser.add_argument('--ar-ckpt', type=Path, default=None,
+                        help='AR params file or trainer step dir')
+    parser.add_argument('--nar-ckpt', type=Path, default=None,
+                        help='NAR params file or trainer step dir')
+    parser.add_argument('--codec-ckpt', type=Path, default=None,
+                        help='Pretrained EnCodec torch checkpoint to convert')
+    parser.add_argument('--seed', type=int, default=None)
+    parser.add_argument('--device', type=str, default='cuda', help="'cuda' or 'cpu'")
+    parser.add_argument('--compile-cache', type=Path, default=None,
+                        help='XLA compilation cache of the JAX package: not ported')
+    parser.add_argument('--aot-cache', type=Path, default=None,
+                        help='AOT executable cache of the JAX package: not ported')
+    args = parser.parse_args(argv)
+
+    for flag in ('compile_cache', 'aot_cache'):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f'--{flag.replace("_", "-")} is an XLA cache with no PyTorch counterpart yet '
+                '(ROADMAP.md queue 1 item 13, aot.py and compile_cache.py)')
+    config = ConfigValle.from_json(args.config) if args.config else ConfigValle()
+    if args.seed is not None:
+        config.seed = args.seed
+    device = torch.device(args.device)
+    codec = Encodec(checkpoint=str(args.codec_ckpt) if args.codec_ckpt else None,
+                    decode_dtype=config.dtype, device=device)
+
+    if args.transcribe is not None:
+        asr = ValleASRPipeline(config, codec=codec, device=device)
+        if args.ar_ckpt:
+            asr.ar.load(args.ar_ckpt)
+        wav = load_audio(args.transcribe, target_sr=codec.sampling_rate, device=device)
+        print(asr.transcribe(wav, codec.sampling_rate))
+        return
+
+    if not (args.text and args.prompt_wav):
+        parser.error('--text and --prompt-wav are required for TTS')
+    tts = ValleTTS(config, codec=codec, device=device)
+    if args.ar_ckpt:
+        tts.ar.load(args.ar_ckpt)
+    if args.nar_ckpt:
+        tts.nar.load(args.nar_ckpt)
+    prompt = load_audio(args.prompt_wav, target_sr=codec.sampling_rate, device=device)
+    tokens, codes = tts.prepare_prompt(prompt, codec.sampling_rate, args.prompt_text)
+    result = tts.synthesize_fused(args.text, tokens, codes)
+    save_wav(args.output, result.waveform, codec.sampling_rate)
+    log_info('Wrote %s (%.2f s audio, RTF %.4f)', args.output,
+             len(result.waveform) / codec.sampling_rate, result.rtf)
+
+
+if __name__ == '__main__':
+    main()
