@@ -64,8 +64,23 @@ Phases, each printing JSON lines:
                 cache launches #8; a second dataset on the same items loads
                 the cache with 0 launches and identical codes; then 3 AR train
                 steps on a DataLoader over it.
+16. kernels  -- every quantized variant of the fused decode step (#6a: int8
+   (quant)      W8A8, int4 W4A16, int8 KV cache, and both weight formats with
+                the int8 cache) against its plain version on the same codes
+                at the serving shape (L=8, rows=12, S=897, index ttm+pm+100),
+                in f32 with TF32 off and in bf16: y within the variant's
+                tolerance (TOL_QUANT), the W8A8 flip candidates, the int8
+                cache codes as integers, CUDA-event times (median of 30), the
+                plain version's time and the bound.
+17. quant    -- quantized serving: batch_synthesize of phase 5's 3 requests
+                under each #6a configuration (weight_dtype int8 / int4 and
+                kv_cache_dtype int8, alone and combined) and the dense one, at
+                the serving config of phase 5.  Counts zeroed before, read
+                after each: #1 and that configuration's #6a variant (and no
+                other) must have launched; waveforms finite and gen_len*320
+                long; stage times, decode ms/step, RTF and peak memory.
 
-``main`` runs them in this order: 1-3, 11, 4, 5, 12-14, 6-8, 15, 9, 10.
+``main`` runs them in this order: 1-3, 16, 11, 4, 5, 17, 12-14, 6-8, 15, 9, 10.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -73,6 +88,7 @@ is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -109,12 +125,40 @@ RVQ_CASES = {'prompt_1x150': (1, 150, 8), 'batch_16x300': (16, 300, 8),
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and dense peaks by input type
 # (f32 inputs with TF32 off run on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'int8': 1979e12}
+# The quantized fused step (#6a), against its plain version on the same codes.
+# W8A8 in f32: the kernel and the plain version compute the LayerNorm in other
+# orders, so an activation x / sx within rounding of a .5 boundary rounds to
+# the neighbouring int8 code ("a flip").  One flip moves that row's outputs by
+# one activation step, sx * max|w| ~ (4 / 127) * (1 / 16) ~ 2e-3 at the serving
+# widths (LN outputs reach ~4, weights 1 / sqrt(256)); every later projection
+# of the row then re-rounds about |shift| / sx of its activations, so the row's
+# error walks on to ~10 steps over 8 layers (measured: 8 steps).  25 steps
+# (5e-2) bound the row that flipped; rows are independent, so no more than
+# W8A8_ROWS_OFF of them may leave the dense f32 tolerance.  An int8 cache with
+# dense weights: a k/v code of the new slot that flips moves y by up to
+# ~5e-3, the JAX package's own tolerance for its int8-cache kernel
+# (tests/test_kernels.py).  In bf16 the dense tolerance holds every variant.
+TOL_QUANT = {'w8a8': {'atol': 5e-2, 'rtol': 0.0}, 'kv8': {'atol': 5e-3, 'rtol': 5e-3}}
+W8A8_ROWS_OFF = 3
+# A W8A8 activation within this many activation steps of a .5 boundary counts
+# as a flip candidate: the f32 LayerNorm in another order moves x / sx by ~1e-5.
+FLIP_MARGIN = 1e-4
+# The #6a variants: (weight_dtype, kv_cache_dtype) of the serving config that
+# launches each, and the JAX code each one ports.
+QUANT_VARIANTS = {
+    'w8a8': ('int8', 'bfloat16', 'fused_decode.py:176 _q8_dot'),
+    'w4a16': ('int4', 'bfloat16', 'fused_decode.py:191 _q4_dot'),
+    'kv8': ('compute', 'int8', 'fused_decode.py:135 quantize_kv_rowmajor, :223 '
+            '_fake_quant_row, :539-557 dequant'),
+    'w8a8_kv8': ('int8', 'int8', 'fused_decode.py:176 _q8_dot with the int8 cache'),
+    'w4a16_kv8': ('int4', 'int8', 'fused_decode.py:191 _q4_dot with the int8 cache'),
+}
 
 
-def tol_str(dtype_name: str) -> str:
+def tol_str(dtype_name: str, tol: dict | None = None) -> str:
     """A tolerance as text: the kernels line carries only measured numbers."""
-    t = TOL[dtype_name]
+    t = tol or TOL[dtype_name]
     return f"|err| <= {t['atol']:g} + {t['rtol']:g}*|plain|"
 
 
@@ -127,9 +171,9 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def check_close(name: str, got, want, dtype_name: str) -> float:
+def check_close(name: str, got, want, dtype_name: str, tol: dict | None = None) -> float:
     import torch
-    tol = TOL[dtype_name]
+    tol = tol or TOL[dtype_name]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     bound = tol['atol'] + tol['rtol'] * want.abs()
@@ -191,7 +235,8 @@ def counters() -> dict:
     from valle2_tpu_torch.kernels import rvq as krvq
     return {'flash_attention_fwd': fa.COUNTER, 'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
             'flash_bwd_dq': fa.BWD_DQ_COUNTER, 'flash_bwd_dkv': fa.BWD_DKV_COUNTER,
-            'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER}
+            'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER,
+            **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS}}
 
 
 def reset_counters() -> None:
@@ -323,6 +368,219 @@ def phase_kernels(results: dict):
                             index=index),
                  err_y=err_y, err_k=err_k, err_v=err_v, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, tol=tol_str(dtype_name))
+
+
+def quant_step_inputs(variant: str, dt, gen, dev):
+    """The serving step's stack and cache in ``variant``'s formats: weights
+    quantized by the port's quantize.py from a seeded f32 stack (scales then
+    in the compute dtype), a random cache (int8 through quantize_kv_rowmajor)."""
+    import torch
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
+    from valle2_tpu_torch.quantize import quantize_transformer
+    s = SLICE
+    weight_dtype, cache_dtype, _ = QUANT_VARIANTS[variant]
+    p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
+    if weight_dtype != 'compute':
+        p = quantize_transformer(p, bits=8 if weight_dtype == 'int8' else 4)
+    p = map_tree(lambda a: (a.to(dt) if a.is_floating_point() else a).to(dev).contiguous(),
+                 p)
+    rows, S = s['b'] * 4, s['ttm'] + s['pm'] + s['max_new']
+    ck, cv = (torch.randn(s['L'], rows, S, s['d'], generator=gen) for _ in range(2))
+    if cache_dtype == 'int8':
+        (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, s['h']) for c in (ck, cv))
+        return p, KVCache(*(t.to(dev) for t in (kq, vq, ks, vs)))
+    return p, KVCache(ck.to(dev, dt), cv.to(dev, dt))
+
+
+@contextlib.contextmanager
+def w8a8_flip_candidates():
+    """Count, over the plain step's int8 matmuls, the activations whose x / sx
+    lies within FLIP_MARGIN of a .5 rounding boundary (where the kernel's
+    LayerNorm, summed in another order, can round to the neighbouring code),
+    and the largest activation step sx * max|w| of any projection."""
+    from valle2_tpu_torch.ops import nn as nn_mod
+    inner = nn_mod.int8_matmul
+    stats = {'activations': 0, 'flip_candidates': 0, 'max_activation_step': 0.0}
+
+    def recording(x, q, scale):
+        x32 = x.float()
+        sx = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+        u = x32 / sx
+        stats['activations'] += u.numel()
+        stats['flip_candidates'] += int(((u - u.floor() - 0.5).abs() < FLIP_MARGIN).sum())
+        w_max = float((q.float().abs().amax(dim=0) * scale.float()).max())
+        stats['max_activation_step'] = max(stats['max_activation_step'],
+                                           float(sx.max()) * w_max)
+        return inner(x, q, scale)
+    nn_mod.int8_matmul = recording
+    try:
+        yield stats
+    finally:
+        nn_mod.int8_matmul = inner
+
+
+def dequantized(cache, h: int):
+    """The (L, rows, S, d) f32 values of a fused cache, int8 or float."""
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    if cache.k_scale is None:
+        return cache.k.float(), cache.v.float()
+    view = fd.per_head_view(cache, h)
+    return tuple((c.float() * sc.float()).permute(0, 1, 3, 2, 4).flatten(-2)
+                 for c, sc in ((view.k, view.k_scale), (view.v, view.v_scale)))
+
+
+def phase_quant_kernels(results: dict):
+    """Every #6a variant of the fused step against its plain version at the
+    serving shape, on the same codes, in f32 (TF32 off) and bf16."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache
+    from valle2_tpu_torch.train import tree_leaves
+
+    dev = torch.device('cuda')
+    s = SLICE
+    gen = torch.Generator().manual_seed(6)
+    tl, cl = slice_lengths(dev)
+    rows = s['b'] * 4
+    index = s['ttm'] + s['pm'] + 100
+    tl_f, pl_f = tl.repeat_interleave(4), cl.repeat_interleave(4)
+    args = (tl_f, pl_f, s['ttm'], s['pm'])
+    slots = int((tl_f + pl_f).sum()) + rows * (index - s['ttm'] - s['pm'] + 1)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            for variant in QUANT_VARIANTS:
+                name = f'fused_decode_step_{variant}'
+                p, cache = quant_step_inputs(variant, dt, gen, dev)
+                x = torch.randn(rows, 1, s['d'], generator=gen).to(dev, dt)
+                c_k, c_p = KVCache(*(c.clone() for c in cache if c is not None)), \
+                    KVCache(*(c.clone() for c in cache if c is not None))
+                y, _ = fd.fused_decode_step(p, x, s['h'], c_k, index, *args)
+                with w8a8_flip_candidates() as flips:
+                    y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args)
+                torch.cuda.synchronize()
+                if dtype_name == 'bfloat16':
+                    tol = TOL['bfloat16']
+                else:
+                    tol = TOL_QUANT['w8a8'] if variant.startswith('w8a8') else (
+                        TOL_QUANT['kv8'] if variant.endswith('kv8') else TOL['float32'])
+                err_y = check_close(f'{name} y', y, y_ref, dtype_name, tol)
+                extra = {}
+                if variant.startswith('w8a8') and dtype_name == 'float32':
+                    off = int(((y - y_ref).abs().amax(dim=(1, 2))
+                               > TOL['float32']['atol']).sum())
+                    if off > W8A8_ROWS_OFF:
+                        fail(f'{name} (float32): {off} of {rows} rows off the dense '
+                             f'tolerance, more than flips explain ({W8A8_ROWS_OFF})')
+                    extra['rows_off_dense_tol'] = off
+                if cache.k_scale is not None and dtype_name == 'float32':
+                    # codes as integers: within one int8 step of the plain ones
+                    # (a W8A8 row that flipped is held to TOL_QUANT below)
+                    diffs = [(a.int() - b.int()).abs() for a, b in zip(c_k[:2], c_p[:2])]
+                    worst = max(int(d_.max()) for d_ in diffs)
+                    if worst > 1 and not variant.startswith('w8a8'):
+                        fail(f'{name} (float32): a cache code {worst} steps off the plain one')
+                    extra.update(cache_codes_differ=sum(int((d_ > 0).sum()) for d_ in diffs),
+                                 cache_codes_written=2 * s['L'] * rows * s['d'],
+                                 cache_code_max_diff=worst)
+                codes_held = (cache.k_scale is not None and dtype_name == 'float32'
+                              and not variant.startswith('w8a8'))
+                if codes_held:
+                    for a, b in zip(c_k[2:], c_p[2:]):
+                        check_close(f'{name} cache scales', a, b, dtype_name,
+                                    {'atol': 0.0, 'rtol': 2 ** -7})   # one bf16 step
+                    err_c = 0.0
+                else:     # values: bf16, a float cache, or a W8A8 row that flipped
+                    err_c = max(check_close(f'{name} cache', a, b, dtype_name, tol)
+                                for a, b in zip(dequantized(c_k, s['h']),
+                                                dequantized(c_p, s['h'])))
+                if variant.startswith('w8a8') and dtype_name == 'float32':
+                    extra.update(flips, err_in_activation_steps=err_y
+                                 / max(flips['max_activation_step'], 1e-30))
+                ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
+                plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p,
+                                                                      index, *args))
+                # Bound: every weight byte (codes, scales, norms, biases), the
+                # valid slots' k/v (and int8 scales) read once, the new slot,
+                # x and y written; products at the int8 (W8A8) or compute peak.
+                w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+                slot_bytes = 2 * s['d'] * cache.k.element_size() + (
+                    2 * s['h'] * 2 if cache.k_scale is not None else 0)
+                nbytes = (w_bytes + s['L'] * (slots + rows) * slot_bytes
+                          + 2 * rows * s['d'] * x.element_size())
+                proj_ops = rows * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
+                attn_ops = s['L'] * 2 * 2 * slots * s['d']
+                t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8')
+                                                else dtype_name]
+                         + attn_ops / PEAK_FLOPS[dtype_name])
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), \
+                    'bytes' if t_bytes >= t_ops else 'operations'
+                results[(name, dtype_name)] = dict(
+                    max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    tol=tol_str(dtype_name, tol))
+                emit(phase='kernels', path='quant', kernel=name, variant=variant,
+                     dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
+                     shape=dict(L=s['L'], rows=rows, S=cache.k.shape[2], d=s['d'],
+                                h=s['h'], dff=s['dff'], index=index),
+                     err_y=err_y, err_cache=err_c, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     tol=tol_str(dtype_name, tol), **extra)
+                del p, cache, c_k, c_p
+
+
+def phase_quant(smi: str) -> dict:
+    """Quantized serving: batch_synthesize of phase main's 3 requests under
+    each #6a configuration (and the dense one beside them), weights shared.
+    Counts zeroed before, read after each: the config's variant of the fused
+    step and the flash prefill must have launched."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.tts import ValleTTS
+
+    max_new = SLICE['max_new']
+    base_kw = dict(max_audio_len=max_new, ignore_eos=True, dropout=0.0, dtype='bfloat16')
+    base = ValleTTS(ConfigValle(**base_kw), device='cuda')
+    texts, pts, pcs = make_requests()
+    total = dict.fromkeys(read_counters(), 0)
+    configs = {'dense': ('compute', 'bfloat16')}
+    configs.update({v: wk[:2] for v, wk in QUANT_VARIANTS.items()})
+    for variant, (weight_dtype, cache_dtype) in configs.items():
+        cfg = ConfigValle(**base_kw, weight_dtype=weight_dtype, kv_cache_dtype=cache_dtype)
+        tts = ValleTTS(cfg, ar=ValleAR(cfg, params=base.ar.params, device='cuda'),
+                       nar=base.nar, codec=base.codec, device='cuda')
+        tts.batch_synthesize(texts, pts, pcs)           # warm-up: quantizes, allocator
+        torch.cuda.synchronize()
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        batch = tts.batch_synthesize(texts, pts, pcs)
+        launches = read_counters()
+        for r in batch:
+            n = len(r.codes)
+            if n != max_new or r.waveform.shape != (n * 320,) \
+                    or not np.isfinite(r.waveform).all():
+                fail(f'quant ({variant}): waveform of {r.waveform.shape} for gen_len {n}')
+        kernel = 'fused_decode_step' + ('' if variant == 'dense' else f'_{variant}')
+        require_launches(f'quant ({variant})', launches, ('flash_attention_fwd', kernel))
+        others = {k: n for k, n in launches.items()
+                  if k.startswith('fused_decode_step') and k != kernel and n}
+        if others:
+            fail(f'quant ({variant}): launched other fused-step variants {others}')
+        for k, n in launches.items():
+            total[k] += n
+        t = batch[0].timings
+        emit(phase='quant', variant=variant, weight_dtype=weight_dtype,
+             kv_cache_dtype=cache_dtype, requests=len(texts), max_audio_len=max_new,
+             stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
+             batch_wall_s=t['batched'], decode_ms_per_step=1e3 * t['decode'] / max_new,
+             ar_tokens_per_s=len(texts) * max_new / t['decode'], rtf=batch[0].rtf,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches={k: n for k, n in launches.items() if n}, card=smi)
+    return total
 
 
 def make_requests(seed: int = 2):
@@ -1036,9 +1294,11 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_quant_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
+    paths['quant'] = phase_quant(smi)
     phase_codec()
     paths['clone'] = phase_clone()
     paths['asr'] = phase_asr()
@@ -1065,7 +1325,9 @@ def main() -> int:
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr')),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
-             ('clone', 'asr', 'data'))):
+             ('clone', 'asr', 'data')),
+            *((f'fused_decode_step_{v}', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+               ('bfloat16', 'float32'), ('quant',)) for v in QUANT_VARIANTS)):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
@@ -1078,6 +1340,8 @@ def main() -> int:
             entry['f32'] = pick(shape_key, 'float32')
         for label, key in extra.items():
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
+        if name.startswith('fused_decode_step_'):
+            entry['ports'] = 'valle2_tpu/kernels/' + QUANT_VARIANTS[name.removeprefix('fused_decode_step_')][2]
         if entry['launches'] <= 0:
             fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)

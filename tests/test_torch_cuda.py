@@ -10,7 +10,9 @@ use.)  ``chip_smoke.py`` holds the kernels at the main path's shapes; these
 cover the rest of what the wrappers accept: every head dim, ragged and fully
 masked rows, the bidirectional mask, both backward routes on both sides of
 ``FUSED_BWD_MAX_SEQ``, more rows than one projection block holds, the last
-cache slot, a bfloat16 cache under a float32 model, RVQ encode at frame
+cache slot, a bfloat16 cache under a float32 model, the quantized variants of
+the fused step (int8 W8A8, int4 W4A16 with more than two scale groups, an
+int8 cache, alone and combined) at every head dim, RVQ encode at frame
 counts that are not a multiple of its 32-frame block, the codec's encode on
 the card against its CPU route and under a caller's TF32 scope, and the
 wrappers' refusals.
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from valle2_tpu_torch import quantize as tq
 from valle2_tpu_torch.config import ConfigValle, precision_scope
 from valle2_tpu_torch.kernels import flash_attention as fa
 from valle2_tpu_torch.kernels import fused_decode as fd
@@ -31,6 +34,18 @@ pytestmark = pytest.mark.cuda
 # Kernel against plain version: f32 sums in another order; in bf16 the plain
 # versions round intermediates to bf16 where the kernels keep f32.
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+# The fused step with int8 W8A8 weights in f32: the kernel and the plain version
+# compute the LayerNorm in other orders, so an activation x / sx that lands
+# within rounding of a .5 boundary rounds to the neighbouring int8 code.  One
+# such flip moves that row's outputs by one activation step, sx * max|w| ~
+# (4 / 127) * (1 / sqrt(d)) <= 4e-3 at these widths, and every later
+# projection of the row re-rounds about |shift| / sx of its activations, so
+# the row's error walks on to ~10 steps (chip_smoke.py's TOL_QUANT); rows are
+# independent, so only a few may leave the dense tolerance.  With dense weights
+# and an int8 cache, a k/v code that flips moves y by up to ~5e-3, the JAX
+# package's own tolerance for its int8-cache kernel (tests/test_kernels.py).
+TOL_W8A8 = dict(atol=5e-2, rtol=0.0)
+TOL_KV8 = dict(atol=5e-3, rtol=5e-3)
 
 
 @pytest.fixture
@@ -265,6 +280,118 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match='outside'):
         fd.fused_decode_step(p, x, 2, KVCache(ck.bfloat16(), cv.bfloat16()), ttm + pm - 1,
                              tl, cl, ttm, pm)
+
+
+QUANT_VARIANTS = ('w8a8', 'w4a16', 'kv8', 'w8a8_kv8', 'w4a16_kv8')
+
+
+def quant_inputs(dev, variant, dtype, hd, rows, L=2, h=2, ttm=24, pm=16, max_new=12):
+    """A stack of ``variant`` (dff = 8d: int4 has four or more scale groups
+    over the FFN's hidden input) and a cache of its format."""
+    d = h * hd
+    gen = torch.Generator().manual_seed(rows + hd)
+    p = transformer_init(gen, L, d, h, 8 * d, adaptive_norm=False)
+    if variant.startswith(('w8a8', 'w4a16')):
+        p = tq.quantize_transformer(p, bits=8 if variant.startswith('w8a8') else 4)
+    p = map_tree(lambda a: (a.to(dtype) if a.is_floating_point() else a).to(dev)
+                 .contiguous(), p)
+    S = ttm + pm + max_new
+    ck, cv = (torch.randn(L, rows, S, d, generator=gen) for _ in range(2))
+    if variant.endswith('kv8'):
+        (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h) for c in (ck, cv))
+        cache = [t.to(dev) for t in (kq, vq, ks, vs)]
+    else:
+        cache = [c.to(dev, dtype) for c in (ck, cv)]
+    x = torch.randn(rows, 1, d, generator=gen).to(dev, dtype)
+    rs = np.random.RandomState(rows)
+    tl = rs.randint(0, ttm + 1, rows)
+    tl[0] = 0
+    cl = rs.randint(1, pm + 1, rows)
+    lens = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (tl, cl)]
+    return p, x, cache, lens, ttm, pm
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('rows', [5, 20], ids=['first_slot', 'last_slot_two_row_blocks'])
+@pytest.mark.parametrize('variant', QUANT_VARIANTS)
+def test_fused_step_quant_kernel_matches_plain(dev, variant, rows, hd, dtype):
+    """Each #6a variant against the plain version on the same codes: y within
+    its tolerance, int8 cache codes within one step (bf16 scales within a
+    bf16 step) and only slot ``index`` written."""
+    p, x, cache, (tl, cl), ttm, pm = quant_inputs(dev, variant, dtype, hd, rows)
+    S = cache[0].shape[2]
+    index = ttm + pm if rows == 5 else S - 1
+    c_k, c_p = KVCache(*(c.clone() for c in cache)), KVCache(*(c.clone() for c in cache))
+    counter = fd.COUNTERS[variant]
+    before = counter.count
+    y, out = fd.fused_decode_step(p, x, 2, c_k, index, tl, cl, ttm, pm)
+    assert counter.count == before + 1 and out.k is c_k.k
+    y_ref, _ = fd.fused_decode_step_plain(p, x, 2, c_p, index, tl, cl, ttm, pm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    if dtype == torch.bfloat16:
+        tol = TOL[dtype]
+    else:
+        tol = TOL_W8A8 if variant.startswith('w8a8') else (
+            TOL_KV8 if variant.endswith('kv8') else TOL[dtype])
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    if variant.startswith('w8a8') and dtype == torch.float32:
+        rows_off = (y - y_ref).abs().amax(dim=(1, 2)) > TOL[dtype]['atol']
+        assert int(rows_off.sum()) <= max(2, rows // 4)
+    untouched = torch.ones(S, dtype=torch.bool)
+    untouched[index] = False
+    for got, want, orig in zip(c_k, c_p, cache):
+        assert torch.equal(got[:, :, untouched], orig[:, :, untouched])
+    if variant in ('kv8', 'w4a16_kv8') and dtype == torch.float32:
+        for got, want in zip(c_k[:2], c_p[:2]):       # codes within one step
+            diff = (got.int() - want.int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+        for got, want in zip(c_k[2:], c_p[2:]):       # bf16 of an f32 amax / 127
+            torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -7)
+    else:   # bf16, or a W8A8 row that flipped: the new slot's k/v differ as y does
+        for got, want in zip(dequant(c_k), dequant(c_p)):
+            torch.testing.assert_close(got, want, **tol)
+
+
+def dequant(cache):
+    """The (L, rows, S, d) f32 values of a fused cache, int8 or float."""
+    if cache.k_scale is None:
+        return cache.k.float(), cache.v.float()
+    view = fd.per_head_view(cache, 2)
+    return tuple((c.float() * s.float()).permute(0, 1, 3, 2, 4).flatten(-2)
+                 for c, s in ((view.k, view.k_scale), (view.v, view.v_scale)))
+
+
+def test_fused_step_refuses_what_the_quant_kernel_does_not_take(dev):
+    p, x, cache, (tl, cl), ttm, pm = quant_inputs(dev, 'w4a16_kv8', torch.bfloat16, 32, 3)
+    kq, vq, ks, vs = cache
+    with pytest.raises(ValueError, match='int8 cache scale'):
+        fd.fused_decode_step(p, x, 2, KVCache(kq, vq), ttm + pm, tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='int8 cache scale'):
+        fd.fused_decode_step(p, x, 2, KVCache(kq, vq, ks.float(), vs), ttm + pm, tl, cl,
+                             ttm, pm)
+    with pytest.raises(ValueError, match='int8 cache scale'):
+        fd.fused_decode_step(p, x, 2, KVCache(kq, vq, ks[:, :, :-1].contiguous(), vs),
+                             ttm + pm, tl, cl, ttm, pm)
+    dense = KVCache(kq.bfloat16(), vq.bfloat16())
+    with pytest.raises(ValueError, match='int8 cache only'):
+        fd.fused_decode_step(p, x, 2, KVCache(dense.k, dense.v, ks, vs), ttm + pm, tl, cl,
+                             ttm, pm)
+    wide = map_tree(lambda a: a, p)
+    wide['ffn']['lin2'] = dict(p['ffn']['lin2'], q4=torch.cat([p['ffn']['lin2']['q4']] * 2,
+                                                               dim=1))
+    with pytest.raises(ValueError, match="'q4' weight"):
+        fd.fused_decode_step(wide, x, 2, dense, ttm + pm, tl, cl, ttm, pm)
+    fp32_scales = map_tree(lambda a: a, p)
+    fp32_scales['attn']['qkv'] = dict(p['attn']['qkv'],
+                                      scale4=p['attn']['qkv']['scale4'].float())
+    with pytest.raises(ValueError, match='group scale'):
+        fd.fused_decode_step(fp32_scales, x, 2, dense, ttm + pm, tl, cl, ttm, pm)
+    mixed = map_tree(lambda a: a, p)
+    mixed['ffn']['lin1'] = tq.quantize_linear(tq.dequantize_linear_int4(p['ffn']['lin1']))
+    with pytest.raises(ValueError, match='layout'):
+        fd.fused_decode_step(mixed, x, 2, dense, ttm + pm, tl, cl, ttm, pm)
 
 
 RVQ_CASES = {   # (B, T, n_q): the chip_smoke shapes, then tails of 1 and 31 frames

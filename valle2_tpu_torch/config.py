@@ -3,7 +3,9 @@
 Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
 so every JSON config written for the JAX package loads here unchanged.  The
 port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
-datasets and trains the AR, NAR and ASR models on one device so far
+datasets and trains the AR, NAR and ASR models on one device so far, and
+serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
+W4A16, ``quantize.py``) and an int8 KV cache (``kv_cache_dtype='int8'``)
 (ROADMAP.md): a non-default value of a feature outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it, instead
 of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
@@ -43,7 +45,6 @@ _NOT_YET = (
     ('decode_attn_buckets', 4, 'queue 2 item 5 (fused_decode_step variants)'),
     ('decode_chunk', 0, 'queue 2 item 5 (fused_decode_step variants, chunked cache)'),
     ('speculative_k', 0, 'queue 1 item 11 and queue 2 item 6 (speculative decode)'),
-    ('weight_dtype', 'compute', 'queue 1 item 10 (quantized serving)'),
     ('lora_rank', 0, 'queue 1 item 13 (lora.py)'),
     ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
     ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
@@ -57,6 +58,7 @@ _NOT_YET = (
 )
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+_CACHE_DTYPES = dict(_DTYPES, int8=torch.int8)
 
 
 @dataclass
@@ -134,7 +136,8 @@ class ConfigValle:
     ignore_eos: bool = field(default=False, metadata={
         'help': 'Decode exactly max_audio_len steps (benchmarking)'})
     kv_cache_dtype: str = field(default='bfloat16', metadata={
-        'help': "Decode KV cache storage: 'float32' | 'bfloat16'"})
+        'help': "Decode KV cache storage: 'float32' | 'bfloat16' | 'int8' "
+                '(per-(slot, head) symmetric int8 with bfloat16 scales)'})
     codec_ckpt: str = ''
     codes_cache_dir: str = ''
     keep_checkpoints: int = 0
@@ -179,13 +182,10 @@ class ConfigValle:
                 raise NotImplementedError(
                     f'{name}={getattr(self, name)!r} is not ported to PyTorch yet '
                     f'(ROADMAP.md {item})')
-        if self.kv_cache_dtype == 'int8':
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' is not ported to PyTorch yet (ROADMAP.md "
-                'queue 1 item 10 and queue 2 item 5, int8 KV cache)')
-        for name in ('dtype', 'param_dtype', 'kv_cache_dtype'):
-            if getattr(self, name) not in _DTYPES:
-                raise ValueError(f'{name} must be one of {sorted(_DTYPES)}, got '
+        for name, allowed in (('dtype', _DTYPES), ('param_dtype', _DTYPES),
+                              ('kv_cache_dtype', _CACHE_DTYPES)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f'{name} must be one of {sorted(allowed)}, got '
                                  f'{getattr(self, name)!r}')
         self.ckpt_path = Path(self.ckpt_path)
         self.log_path = Path(self.log_path)
@@ -220,7 +220,7 @@ class ConfigValle:
 
     @property
     def torch_cache_dtype(self) -> torch.dtype:
-        return _DTYPES[self.kv_cache_dtype]
+        return _CACHE_DTYPES[self.kv_cache_dtype]
 
     def flash_enabled(self, device) -> bool:
         """Resolve ``use_flash_attention`` for tensors on ``device``: 'auto' is

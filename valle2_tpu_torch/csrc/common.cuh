@@ -1,8 +1,9 @@
-// Shared helpers of the port's CUDA kernels: dtype conversion and warp sums.
+// Shared helpers of the port's CUDA kernels: dtype conversion and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace valle2 {
 
@@ -13,6 +14,8 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -28,6 +31,12 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 

@@ -2,12 +2,17 @@
 // layer of the transformer stack, over the head-major (L, rows, S, d) KV cache.
 //
 // Replaces the Pallas TPU kernel valle2_tpu/kernels/fused_decode.py
-// (fused_decode_step -> _kernel), base variant: dense weights, a float32 or
-// bfloat16 cache, one scalar write index for every row, no tensor parallelism.
+// (fused_decode_step -> _kernel) with one scalar write index for every row and
+// no tensor parallelism, in the serving path's formats:
+//   weights  dense (#6); int8 W8A8 (_q8_dot) and int4 W4A16 (_q4_dot) (#6a);
+//   cache    float32 or bfloat16 (#6); int8 with per-(slot, head) bfloat16
+//            scales (#6a: quantize_kv_rowmajor, _fake_quant_row, the dequant).
+// The formats are template parameters of the same kernels.
 //
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order, so the step is five hand-written
-// kernels per layer, launched in turn on one stream by one host call:
+// kernels per layer (six with an int8 cache), launched in turn on one stream
+// by one host call:
 //
 //   1. proj<QKV>:  LN1 -> fused QKV.  q (pre-scaled by 1/sqrt(hd), f32) goes to
 //                  scratch; k_new / v_new are rounded to the cache dtype and
@@ -15,32 +20,54 @@
 //                  never writes the cache: it merges the new token's k/v in
 //                  register after the same rounding, so attending over the
 //                  written slot gives the same numbers (the caller's cache
-//                  update is then done, too).
+//                  update is then done, too).  With an int8 cache k_new / v_new
+//                  go, rounded to the compute dtype, to an f32 scratch instead:
+//   1b. kv_quant:  one warp per (row, head, k|v), because a head spans hd/32
+//                  projection column blocks: scale32 = max(amax, 1e-8) / 127,
+//                  codes clamp(rint(x / scale32), +-127) into slot `index`, and
+//                  bf16(scale32) into the scale tensor.  Attention then reads
+//                  the slot back like any other, which is _fake_quant_row's
+//                  round trip (quantize with the f32 scale, dequantize with
+//                  the stored bf16 one).
 //   2. attend:     one block per (row, head): online softmax in f32 over the
 //                  valid slots only -- [0, tokens_len), [ttm, ttm + codes_len)
-//                  and [ttm + pm, index] -- so masked slots are never read.
+//                  and [ttm + pm, index] -- so masked slots are never read.  An
+//                  int8 slot is code * f32(bf16 scale), one scale per slot.
 //   3. proj<OUT>:  out-projection + bias + residual -> f32 mid state.
 //   4. proj<FFN1>: LN2 (of the f32 mid state) -> FFN1 + bias -> erf-GELU.
 //   5. proj<FFN2>: FFN2 + bias + residual -> hidden state in the compute dtype.
 //
 // The rounding points are the Pallas kernel's: the hidden state is stored in
-// the compute dtype between layers, LayerNorm statistics are f32, every matrix
-// operand rounds to the compute dtype before its product and products
-// accumulate in f32, the mid-layer residual stays f32.  GELU uses erff (the
-// Pallas kernel's polynomial exists only because Mosaic lacks erf).
+// the compute dtype between layers, LayerNorm statistics are f32, the
+// mid-layer residual stays f32, GELU uses erff (the Pallas kernel's polynomial
+// exists only because Mosaic lacks erf).  Per weight format, the A operand of
+// a projection (the LN output, the attention output, the GELU output) is
+//   dense, int4: rounded to the compute dtype; products accumulate in f32.
+//                int4 weights are (nibble * group scale) in f32 rounded to the
+//                compute dtype; byte k of the packed (K/2, N) weight holds
+//                row k in its low nibble and row k + K/2 in its high one.
+//   int8:        kept in f32 and quantized per row, sx = max(amax, 1e-8) / 127,
+//                codes clamp(rint(x / sx), +-127) (rint: half to even, as
+//                jnp.round; true division, no fast math); int8 x int8 products
+//                accumulate exactly in int32 (__dp4a), and y = acc * sx *
+//                scale[col] in f32.
 //
 // What bounds it on this card: at rows = 12 a step streams the weights (about
-// 1.5 MB per layer in bf16) and the valid cache prefix, and does far too little
-// arithmetic to need the tensor cores, so the products are f32 FMAs on the CUDA
-// cores; launch latency of the 5 * L kernels is the other cost.  With so few
-// blocks in flight, memory latency bounds each kernel, so the loops issue
-// their loads in batches: the projections read each weight once for up to 16
-// rows (rows in registers, K split over 16 warps, 8 loads in flight per
-// warp), and the attention loads 8 slots' k and v before using any.  A
-// persistent kernel or a CUDA graph is later work.
+// 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and the
+// valid cache prefix (half the bytes in int8), and does far too little
+// arithmetic to need the tensor cores, so the products run on the CUDA cores
+// (f32 FMAs; __dp4a for int8); launch latency of the 5-6 * L kernels is the
+// other cost.  With so few blocks in flight, memory latency bounds each
+// kernel, so the loops issue their loads in batches: the projections read
+// each weight once for up to 16 rows (rows in registers, K split over 16
+// warps, 8 loads in flight per warp), and the attention loads 8 slots' k and
+// v before using any.  A persistent kernel, tensor-core products or a CUDA
+// graph is later work.
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -53,45 +80,63 @@ constexpr int NCOL = 32;     // output columns per projection block (one per lan
 constexpr int KSPLIT = 16;   // warps per projection block, each a slice of K
 constexpr int PNT = NCOL * KSPLIT;
 constexpr int KUNR = 8;      // weight loads in flight per warp
-constexpr int MAX_K = 3072;  // widest projection input: MAXR rows of it fill shared memory
 constexpr int ANW = 8;       // warps per attention block
 constexpr int UNR = 8;       // slots per warp iteration in the attention loop
+constexpr int KVQ_WARPS = 4; // warps per block of the int8 cache write
 constexpr float LN_EPS = 1e-5f;
 
 enum Mode { QKV = 0, OUT = 1, FFN1 = 2, FFN2 = 3 };
+enum WFmt { DENSE = 0, W8 = 1, W4 = 2 };
 
-template <typename T, typename TC>
+// Widest projection input: MAXR rows of it (f32, and int8 codes for W8) fill
+// shared memory.
+constexpr int max_k(int wf) { return wf == W8 ? 2048 : 3072; }
+
+template <typename T>
 struct ProjArgs {
   const T* x;          // (rows, d) hidden state entering the layer
   const float* a32;    // f32 operand: attention (OUT), mid state (FFN1), hidden (FFN2)
   const T* ln_s;       // LayerNorm scale/bias of this layer (QKV, FFN1)
   const T* ln_b;
-  const T* w;          // (K, N) weight of this layer
+  const void* w;       // this layer's weight: T (K, N), int8 (K, N) or packed int8 (K/2, N)
+  const T* wscale;     // W8: (N,) channel scales; W4: (K / group, N) group scales
   const T* bias;       // (N,) or null
   float* q;            // QKV: (rows, d) pre-scaled queries
-  TC* ck;              // QKV: this layer's (rows, S, d) cache
-  TC* cv;
+  void* ck;            // QKV: this layer's (rows, S, d) cache, or with an int8
+  void* cv;            //      cache the (rows, 2d) f32 k/v scratch (ck only)
   float* out32;        // OUT: (rows, d) mid state; FFN1: (rows, N) GELU output
   const float* res32;  // FFN2: (rows, d) mid state
   T* y;                // FFN2: (rows, d) hidden state leaving the layer
-  int rows, K, N, d, S, index;
+  int rows, K, N, d, S, index, group;
   float scale;
 };
 
-size_t proj_smem(int K) { return sizeof(float) * ((size_t)MAXR * K + KSPLIT * MAXR * NCOL); }
+size_t proj_smem(int K, int wf) {
+  size_t bytes = sizeof(float) * ((size_t)MAXR * K + KSPLIT * MAXR * NCOL);
+  if (wf == W8) bytes += sizeof(float) * MAXR + (size_t)MAXR * K;
+  return bytes;
+}
+
+__device__ __forceinline__ int sext4(int b) {   // low nibble of b, sign-extended
+  return (int)((unsigned)b << 28) >> 28;
+}
 
 // out[r, j] = epilogue(sum_k A[r, k] W[k, j]) for a tile of MAXR rows x NCOL
 // columns; the A operand (with its LayerNorm prologue) sits in shared memory,
-// already rounded to the compute dtype.
-template <typename T, typename TC, int MODE>
-__global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T, TC> a) {
-  extern __shared__ float sm[];
+// rounded to the compute dtype, or quantized to int8 codes for W8.
+template <typename T, typename TC, int MODE, int WF>
+__global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
+  extern __shared__ __align__(16) float sm[];
   float* As = sm;                    // [MAXR][K]
   float* red = sm + MAXR * a.K;      // [KSPLIT][MAXR][NCOL]
+  float* sxs = red + KSPLIT * MAXR * NCOL;                 // W8: [MAXR] row scales
+  int8_t* Aq = reinterpret_cast<int8_t*>(sxs + MAXR);      // W8: [MAXR][K] codes
   const int K = a.K, N = a.N;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.y * MAXR;
   const int nr = min(MAXR, a.rows - r0);
+  // W8 quantizes the f32 operand; the other formats round it to T first.
+  auto operand = [](float v) { return WF == W8 ? v : round_to<T>(v); };
 
   if constexpr (MODE == QKV || MODE == FFN1) {
     for (int r = warp; r < MAXR; r += KSPLIT) {
@@ -117,57 +162,160 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T, TC> a) {
       const float inv = 1.f / sqrtf(warp_sum(sq) / K + LN_EPS);
 #pragma unroll 4
       for (int kk = lane; kk < K; kk += 32)
-        dst[kk] = round_to<T>((dst[kk] - mean) * inv * to_f<T>(a.ln_s[kk]) +
-                              to_f<T>(a.ln_b[kk]));
+        dst[kk] = operand((dst[kk] - mean) * inv * to_f<T>(a.ln_s[kk]) +
+                          to_f<T>(a.ln_b[kk]));
     }
   } else {
 #pragma unroll 4
     for (int i = tid; i < MAXR * K; i += PNT)
-      As[i] = i < nr * K ? round_to<T>(a.a32[(size_t)r0 * K + i]) : 0.f;
+      As[i] = i < nr * K ? operand(a.a32[(size_t)r0 * K + i]) : 0.f;
   }
   __syncthreads();
 
+  if constexpr (WF == W8) {
+    // Dynamic per-row activation quantization (_q8_dot): one warp per row.
+    for (int r = warp; r < MAXR; r += KSPLIT) {
+      const float* src = As + r * K;
+      float amax = 0.f;
+      for (int kk = lane; kk < K; kk += 32) amax = fmaxf(amax, fabsf(src[kk]));
+      const float sx = fmaxf(warp_max(amax), 1e-8f) / 127.f;
+      for (int kk = lane; kk < K; kk += 32)
+        Aq[r * K + kk] = (int8_t)fminf(fmaxf(rintf(src[kk] / sx), -127.f), 127.f);
+      if (lane == 0) sxs[r] = sx;
+    }
+    __syncthreads();
+  }
+
   const int col = blockIdx.x * NCOL + lane;
   float acc[MAXR];
+  int iacc[MAXR];
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-  const int kper = (K + KSPLIT - 1) / KSPLIT;
-  const int k0 = warp * kper, k1 = min(K, k0 + kper);
-  if (col < N) {
-    // KUNR weight loads are issued before their FMAs, so each warp keeps that
-    // many in flight instead of waiting out one load latency per k.
-    int kk = k0;
-    for (; kk + KUNR <= k1; kk += KUNR) {
-      float wv[KUNR];
+  for (int r = 0; r < MAXR; ++r) {
+    acc[r] = 0.f;
+    iacc[r] = 0;
+  }
+  if constexpr (WF == DENSE) {
+    const T* w = static_cast<const T*>(a.w);
+    const int kper = (K + KSPLIT - 1) / KSPLIT;
+    const int k0 = warp * kper, k1 = min(K, k0 + kper);
+    if (col < N) {
+      // KUNR weight loads are issued before their FMAs, so each warp keeps that
+      // many in flight instead of waiting out one load latency per k.
+      int kk = k0;
+      for (; kk + KUNR <= k1; kk += KUNR) {
+        float wv[KUNR];
 #pragma unroll
-      for (int u = 0; u < KUNR; ++u) wv[u] = to_f<T>(a.w[(size_t)(kk + u) * N + col]);
+        for (int u = 0; u < KUNR; ++u) wv[u] = to_f<T>(w[(size_t)(kk + u) * N + col]);
 #pragma unroll
-      for (int u = 0; u < KUNR; ++u)
+        for (int u = 0; u < KUNR; ++u)
 #pragma unroll
-        for (int r = 0; r < MAXR; ++r) acc[r] = fmaf(As[r * K + kk + u], wv[u], acc[r]);
+          for (int r = 0; r < MAXR; ++r) acc[r] = fmaf(As[r * K + kk + u], wv[u], acc[r]);
+      }
+      for (; kk < k1; ++kk) {
+        const float wv = to_f<T>(w[(size_t)kk * N + col]);
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) acc[r] = fmaf(As[r * K + kk], wv, acc[r]);
+      }
     }
-    for (; kk < k1; ++kk) {
-      const float wv = to_f<T>(a.w[(size_t)kk * N + col]);
+  } else if constexpr (WF == W8) {
+    // K slices of a multiple of 4 (K % 8 == 0): 4 codes of a row are one int.
+    const int8_t* w = static_cast<const int8_t*>(a.w);
+    const int kper = (K + 4 * KSPLIT - 1) / (4 * KSPLIT) * 4;
+    const int k0 = warp * kper, k1 = min(K, k0 + kper);
+    if (col < N) {
+      for (int kk = k0; kk < k1; kk += KUNR) {
+        const int n4 = min(KUNR, k1 - kk) / 4;   // 2, or 1 at a slice's tail
+        int wv[KUNR];
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r) acc[r] = fmaf(As[r * K + kk], wv, acc[r]);
+        for (int u = 0; u < KUNR; ++u)
+          wv[u] = u < 4 * n4 ? (int)w[(size_t)(kk + u) * N + col] : 0;
+#pragma unroll
+        for (int g = 0; g < KUNR / 4; ++g) {
+          if (g >= n4) break;
+          const int w4 = (wv[4 * g] & 0xff) | (wv[4 * g + 1] & 0xff) << 8 |
+                         (wv[4 * g + 2] & 0xff) << 16 | (int)((unsigned)wv[4 * g + 3] << 24);
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r)
+            iacc[r] = __dp4a(*reinterpret_cast<const int*>(Aq + r * K + kk + 4 * g), w4,
+                             iacc[r]);
+        }
+      }
+    }
+  } else {
+    // W4: byte kb of the packed weight holds rows kb (low) and kb + K/2 (high).
+    const int8_t* w = static_cast<const int8_t*>(a.w);
+    const int half = K / 2, g = a.group;
+    const int kper = (half + KSPLIT - 1) / KSPLIT;
+    const int k0 = warp * kper, k1 = min(half, k0 + kper);
+    if (col < N) {
+      int kb = k0;
+      for (; kb + KUNR <= k1; kb += KUNR) {
+        int bv[KUNR];
+        float slo[KUNR], shi[KUNR];
+#pragma unroll
+        for (int u = 0; u < KUNR; ++u) {
+          bv[u] = w[(size_t)(kb + u) * N + col];
+          slo[u] = to_f<T>(a.wscale[(size_t)((kb + u) / g) * N + col]);
+          shi[u] = to_f<T>(a.wscale[(size_t)((kb + u + half) / g) * N + col]);
+        }
+#pragma unroll
+        for (int u = 0; u < KUNR; ++u) {
+          const float wlo = round_to<T>((float)sext4(bv[u]) * slo[u]);
+          const float whi = round_to<T>((float)(bv[u] >> 4) * shi[u]);
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) {
+            acc[r] = fmaf(As[r * K + kb + u], wlo, acc[r]);
+            acc[r] = fmaf(As[r * K + kb + u + half], whi, acc[r]);
+          }
+        }
+      }
+      for (; kb < k1; ++kb) {
+        const int b = w[(size_t)kb * N + col];
+        const float slo = to_f<T>(a.wscale[(size_t)(kb / g) * N + col]);
+        const float shi = to_f<T>(a.wscale[(size_t)((kb + half) / g) * N + col]);
+        const float wlo = round_to<T>((float)sext4(b) * slo);
+        const float whi = round_to<T>((float)(b >> 4) * shi);
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) {
+          acc[r] = fmaf(As[r * K + kb], wlo, acc[r]);
+          acc[r] = fmaf(As[r * K + kb + half], whi, acc[r]);
+        }
+      }
     }
   }
+  int* ired = reinterpret_cast<int*>(red);
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) red[(warp * MAXR + r) * NCOL + lane] = acc[r];
+  for (int r = 0; r < MAXR; ++r) {
+    if constexpr (WF == W8) {
+      ired[(warp * MAXR + r) * NCOL + lane] = iacc[r];
+    } else {
+      red[(warp * MAXR + r) * NCOL + lane] = acc[r];
+    }
+  }
   __syncthreads();
 
   for (int i = tid; i < nr * NCOL; i += PNT) {
     const int r = i / NCOL, j = blockIdx.x * NCOL + i % NCOL;
     if (j >= N) continue;
-    float s = 0.f;
+    float s;
+    if constexpr (WF == W8) {
+      int is = 0;   // exact: the int32 sum of the warps' int32 partials
 #pragma unroll
-    for (int w = 0; w < KSPLIT; ++w) s += red[(w * MAXR + r) * NCOL + i % NCOL];
+      for (int w = 0; w < KSPLIT; ++w) is += ired[(w * MAXR + r) * NCOL + i % NCOL];
+      s = (float)is * sxs[r] * to_f<T>(a.wscale[j]);
+    } else {
+      s = 0.f;
+#pragma unroll
+      for (int w = 0; w < KSPLIT; ++w) s += red[(w * MAXR + r) * NCOL + i % NCOL];
+    }
     const int row = r0 + r, d = a.d;
     if constexpr (MODE == QKV) {
       if (j < d) {
         a.q[(size_t)row * d + j] = s * a.scale;
+      } else if constexpr (std::is_same<TC, int8_t>::value) {
+        static_cast<float*>(a.ck)[(size_t)row * 2 * d + (j - d)] = round_to<T>(s);
       } else {
-        TC* cache = j < 2 * d ? a.ck : a.cv;
+        TC* cache = static_cast<TC*>(j < 2 * d ? a.ck : a.cv);
         cache[((size_t)row * a.S + a.index) * d + (j % d)] = from_f<TC>(s);
       }
     } else if constexpr (MODE == OUT) {
@@ -183,17 +331,46 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T, TC> a) {
   }
 }
 
+// int8 cache write of the new token (quantize_kv_rowmajor): one warp per
+// (row, head, k|v) of the (rows, 2d) f32 scratch, into slot `index`.
+template <int HD>
+__global__ void __launch_bounds__(KVQ_WARPS * 32)
+kv_quant_kernel(const float* __restrict__ kvnew, int8_t* __restrict__ ck,
+                int8_t* __restrict__ cv, __nv_bfloat16* __restrict__ ks,
+                __nv_bfloat16* __restrict__ vs, int rows, int h, int S, int d, int index) {
+  constexpr int DPL = HD / 32;
+  const int wid = blockIdx.x * KVQ_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (wid >= rows * 2 * h) return;
+  const int row = wid / (2 * h), kv = wid / h % 2, hh = wid % h;
+  const float* src = kvnew + (size_t)row * 2 * d + kv * d + hh * HD + lane * DPL;
+  float xv[DPL], amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    xv[i] = src[i];
+    amax = fmaxf(amax, fabsf(xv[i]));
+  }
+  const float sc = fmaxf(warp_max(amax), 1e-8f) / 127.f;
+  const size_t slot = (size_t)row * S + index;
+  int8_t* dst = (kv ? cv : ck) + slot * d + hh * HD + lane * DPL;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) dst[i] = (int8_t)fminf(fmaxf(rintf(xv[i] / sc), -127.f), 127.f);
+  if (lane == 0) (kv ? vs : ks)[slot * h + hh] = __float2bfloat16_rn(sc);
+}
+
 // One block per (row, head): softmax(q . k_s) v_s over the valid slots of the
 // row, online in f32.  Each warp walks its own share of the slots UNR at a time
 // (each lane holds HD/32 dims), then the warps' partial (max, sum, acc) merge.
+// An int8 cache (TC = int8_t) dequantizes each slot by its head's bf16 scale.
 template <typename TC, int HD>
 __global__ void __launch_bounds__(ANW * 32)
 attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
-              const TC* __restrict__ cv, const int* __restrict__ tokens_lens,
+              const TC* __restrict__ cv, const __nv_bfloat16* __restrict__ ks,
+              const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tokens_lens,
               const int* __restrict__ codes_lens, float* __restrict__ out, int h, int S,
               int d, int index, int ttm, int pm) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int DPL = HD / 32;
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   __shared__ float m_w[ANW], l_w[ANW], acc_w[ANW][HD];
   const int row = blockIdx.x / h, hh = blockIdx.x % h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -223,10 +400,16 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
       const int slot = j < n1 ? j : (j < n1 + n2 ? ttm + (j - n1) : ttm + pm + (j - n1 - n2));
       const size_t off = row_base + (size_t)slot * d + dim0;
       const bool in = j < n_valid;
+      float ksc = 1.f, vsc = 1.f;
+      if constexpr (QUANT) {
+        const size_t soff = ((size_t)row * S + slot) * h + hh;
+        ksc = in ? __bfloat162float(ks[soff]) : 0.f;
+        vsc = in ? __bfloat162float(vs[soff]) : 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
-        kr[u][i] = in ? to_f<TC>(ck[off + i]) : 0.f;
-        vr[u][i] = in ? to_f<TC>(cv[off + i]) : 0.f;
+        kr[u][i] = in ? to_f<TC>(ck[off + i]) * ksc : 0.f;
+        vr[u][i] = in ? to_f<TC>(cv[off + i]) * vsc : 0.f;
       }
     }
     float sc[UNR];
@@ -277,41 +460,62 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
   }
 }
 
-template <typename T, typename TC, int MODE>
-int launch_proj(const ProjArgs<T, TC>& a, cudaStream_t stream) {
-  if (a.K > MAX_K) return (int)cudaErrorInvalidValue;
+template <typename T, typename TC, int MODE, int WF>
+int launch_proj(const ProjArgs<T>& a, cudaStream_t stream) {
+  if (a.K > max_k(WF)) return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(proj_kernel<T, TC, MODE>,
+    cudaError_t err = cudaFuncSetAttribute(proj_kernel<T, TC, MODE, WF>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)proj_smem(MAX_K));
+                                           (int)proj_smem(max_k(WF), WF));
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((a.N + NCOL - 1) / NCOL, (a.rows + MAXR - 1) / MAXR);
-  proj_kernel<T, TC, MODE><<<grid, PNT, proj_smem(a.K), stream>>>(a);
+  proj_kernel<T, TC, MODE, WF><<<grid, PNT, proj_smem(a.K, WF), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 struct StepArgs {
   const void *x, *n1s, *n1b, *wqkv, *wout, *bout, *n2s, *n2b, *w1, *b1, *w2, *b2;
   void *y, *ck, *cv;
+  const void *sqkv, *sout, *s1, *s2;   // weight scales (W8, W4) or null
+  void *ks, *vs;                       // int8 cache scales (L, rows, S, h) or null
   const int *tokens_lens, *codes_lens;
-  float *qbuf, *abuf, *xmid, *hmid;
-  int L, rows, S, d, h, dff, index, ttm, pm;
+  float *qbuf, *abuf, *xmid, *hmid, *kvnew;
+  int L, rows, S, d, h, dff, index, ttm, pm, groups_d, groups_ff;
   float scale;
 };
 
-template <typename T, typename TC, int HD>
+// The weight of layer l of a stacked (L, K, N) weight in format WF.
+template <typename T, int WF>
+const void* layer_weight(const void* w, int l, int K, int N) {
+  const size_t n = (size_t)K * N;
+  if (WF == DENSE) return static_cast<const T*>(w) + l * n;
+  return static_cast<const int8_t*>(w) + l * (WF == W4 ? n / 2 : n);
+}
+
+// This layer's scales of a stacked (L, K, N) weight: (L, N) or (L, groups, N).
+template <typename T, int WF>
+const T* layer_scale(const void* s, int l, int N, int groups) {
+  if (WF == DENSE) return nullptr;
+  return static_cast<const T*>(s) + (size_t)l * (WF == W4 ? groups : 1) * N;
+}
+
+template <typename T, typename TC, int HD, int WF>
 int step(const StepArgs& s, cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   const int d = s.d, dff = s.dff;
   const size_t cache_layer = (size_t)s.rows * s.S * d;
+  const size_t scale_layer = (size_t)s.rows * s.S * s.h;
   int err;
   for (int l = 0; l < s.L; ++l) {
     const T* x = l == 0 ? static_cast<const T*>(s.x) : static_cast<const T*>(s.y);
     TC* ck = static_cast<TC*>(s.ck) + l * cache_layer;
     TC* cv = static_cast<TC*>(s.cv) + l * cache_layer;
-    ProjArgs<T, TC> a{};
+    __nv_bfloat16* ks = QUANT ? static_cast<__nv_bfloat16*>(s.ks) + l * scale_layer : nullptr;
+    __nv_bfloat16* vs = QUANT ? static_cast<__nv_bfloat16*>(s.vs) + l * scale_layer : nullptr;
+    ProjArgs<T> a{};
     a.x = x;
     a.rows = s.rows;
     a.d = d;
@@ -321,77 +525,111 @@ int step(const StepArgs& s, cudaStream_t stream) {
 
     a.ln_s = static_cast<const T*>(s.n1s) + (size_t)l * d;
     a.ln_b = static_cast<const T*>(s.n1b) + (size_t)l * d;
-    a.w = static_cast<const T*>(s.wqkv) + (size_t)l * d * 3 * d;
+    a.w = layer_weight<T, WF>(s.wqkv, l, d, 3 * d);
+    a.wscale = layer_scale<T, WF>(s.sqkv, l, 3 * d, s.groups_d);
+    a.group = d / s.groups_d;
     a.K = d;
     a.N = 3 * d;
     a.q = s.qbuf;
-    a.ck = ck;
+    a.ck = QUANT ? static_cast<void*>(s.kvnew) : static_cast<void*>(ck);
     a.cv = cv;
-    if ((err = launch_proj<T, TC, QKV>(a, stream))) return err;
+    if ((err = launch_proj<T, TC, QKV, WF>(a, stream))) return err;
+    if constexpr (QUANT) {
+      const int warps = s.rows * 2 * s.h;
+      kv_quant_kernel<HD><<<(warps + KVQ_WARPS - 1) / KVQ_WARPS, KVQ_WARPS * 32, 0, stream>>>(
+          s.kvnew, ck, cv, ks, vs, s.rows, s.h, s.S, d, s.index);
+      if ((err = (int)cudaGetLastError())) return err;
+    }
 
     attend_kernel<TC, HD><<<s.rows * s.h, ANW * 32, 0, stream>>>(
-        s.qbuf, ck, cv, s.tokens_lens, s.codes_lens, s.abuf, s.h, s.S, d, s.index, s.ttm,
-        s.pm);
+        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.abuf, s.h, s.S, d, s.index,
+        s.ttm, s.pm);
     if ((err = (int)cudaGetLastError())) return err;
 
     a.a32 = s.abuf;
-    a.w = static_cast<const T*>(s.wout) + (size_t)l * d * d;
+    a.w = layer_weight<T, WF>(s.wout, l, d, d);
+    a.wscale = layer_scale<T, WF>(s.sout, l, d, s.groups_d);
     a.bias = static_cast<const T*>(s.bout) + (size_t)l * d;
     a.N = d;
     a.out32 = s.xmid;
-    if ((err = launch_proj<T, TC, OUT>(a, stream))) return err;
+    if ((err = launch_proj<T, T, OUT, WF>(a, stream))) return err;
 
     a.a32 = s.xmid;
     a.ln_s = static_cast<const T*>(s.n2s) + (size_t)l * d;
     a.ln_b = static_cast<const T*>(s.n2b) + (size_t)l * d;
-    a.w = static_cast<const T*>(s.w1) + (size_t)l * d * dff;
+    a.w = layer_weight<T, WF>(s.w1, l, d, dff);
+    a.wscale = layer_scale<T, WF>(s.s1, l, dff, s.groups_d);
     a.bias = static_cast<const T*>(s.b1) + (size_t)l * dff;
     a.N = dff;
     a.out32 = s.hmid;
-    if ((err = launch_proj<T, TC, FFN1>(a, stream))) return err;
+    if ((err = launch_proj<T, T, FFN1, WF>(a, stream))) return err;
 
     a.a32 = s.hmid;
-    a.w = static_cast<const T*>(s.w2) + (size_t)l * dff * d;
+    a.w = layer_weight<T, WF>(s.w2, l, dff, d);
+    a.wscale = layer_scale<T, WF>(s.s2, l, d, s.groups_ff);
+    a.group = dff / s.groups_ff;
     a.bias = static_cast<const T*>(s.b2) + (size_t)l * d;
     a.K = dff;
     a.N = d;
     a.res32 = s.xmid;
     a.y = static_cast<T*>(s.y);
-    if ((err = launch_proj<T, TC, FFN2>(a, stream))) return err;
+    if ((err = launch_proj<T, T, FFN2, WF>(a, stream))) return err;
   }
   return 0;
 }
 
-template <typename T, typename TC>
+template <typename T, typename TC, int WF>
 int dispatch_hd(const StepArgs& s, cudaStream_t stream) {
   switch (s.d / s.h) {
-    case 32: return step<T, TC, 32>(s, stream);
-    case 64: return step<T, TC, 64>(s, stream);
-    case 128: return step<T, TC, 128>(s, stream);
+    case 32: return step<T, TC, 32, WF>(s, stream);
+    case 64: return step<T, TC, 64, WF>(s, stream);
+    case 128: return step<T, TC, 128, WF>(s, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename TC>
+int dispatch_wf(int wfmt, const StepArgs& s, cudaStream_t stream) {
+  switch (wfmt) {
+    case DENSE: return dispatch_hd<T, TC, DENSE>(s, stream);
+    case W8: return dispatch_hd<T, TC, W8>(s, stream);
+    case W4: return dispatch_hd<T, TC, W4>(s, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype / cache_dtype: 0 = float32, 1 = bfloat16 (bf16 compute needs a bf16
-// cache).  Weights are the stacked (L, ...) tensors of the JAX layout: qkv
-// (L, d, 3d), out (L, d, d), lin1 (L, d, dff), lin2 (L, dff, d); norms and
-// biases (L, width).  Scratch: qbuf/abuf/xmid (rows, d) f32, hmid (rows, dff)
-// f32.  Returns the first non-zero cudaGetLastError() of the 5 * L launches.
+// dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32, 1 = bfloat16,
+// 2 = int8 (bf16 compute needs a bf16 or int8 cache); wfmt: 0 = dense, 1 =
+// int8 W8A8, 2 = int4 W4A16.  Weights are the stacked (L, ...) tensors of the
+// JAX layout: qkv (L, d, 3d), out (L, d, d), lin1 (L, d, dff), lin2 (L, dff,
+// d), int8 in formats 1 and 2 (packed (L, K/2, N) in 2); norms and biases (L,
+// width).  Weight scales (compute dtype): (L, N) in format 1, (L, groups, N)
+// in format 2 with groups_d / groups_ff groups over the d- / dff-wide inputs;
+// null in format 0.  An int8 cache has (L, rows, S, h) bf16 scales ks / vs.
+// Scratch: qbuf/abuf/xmid (rows, d) f32, hmid (rows, dff) f32, kvnew (rows,
+// 2d) f32 (int8 cache only).  Returns the first non-zero cudaGetLastError()
+// of the launches.
 extern "C" int valle2_fused_decode_step(
-    int dtype, int cache_dtype, const void* x, void* y, const void* n1s, const void* n1b,
-    const void* wqkv, const void* wout, const void* bout, const void* n2s,
+    int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
+    const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
     const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
-    void* ck, void* cv, const int* tokens_lens, const int* codes_lens, float* qbuf,
-    float* abuf, float* xmid, float* hmid, int L, int rows, int S, int d, int h, int dff,
-    int index, int ttm, int pm, float scale, void* stream) {
-  StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv,
-             tokens_lens, codes_lens, qbuf, abuf, xmid, hmid, L, rows, S, d, h, dff,
-             index, ttm, pm, scale};
+    void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
+    void* ks, void* vs, const int* tokens_lens, const int* codes_lens, float* qbuf,
+    float* abuf, float* xmid, float* hmid, float* kvnew, int L, int rows, int S, int d,
+    int h, int dff, int index, int ttm, int pm, int groups_d, int groups_ff, float scale,
+    void* stream) {
+  StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
+             sout, s1, s2, ks, vs, tokens_lens, codes_lens, qbuf, abuf, xmid, hmid, kvnew,
+             L, rows, S, d, h, dff, index, ttm, pm, groups_d, groups_ff, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && cache_dtype == 0) return dispatch_hd<float, float>(s, st);
-  if (dtype == 0 && cache_dtype == 1) return dispatch_hd<float, __nv_bfloat16>(s, st);
-  if (dtype == 1 && cache_dtype == 1) return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(s, st);
+  if (groups_d < 1 || groups_ff < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && cache_dtype == 0) return dispatch_wf<float, float>(wfmt, s, st);
+  if (dtype == 0 && cache_dtype == 1) return dispatch_wf<float, __nv_bfloat16>(wfmt, s, st);
+  if (dtype == 0 && cache_dtype == 2) return dispatch_wf<float, int8_t>(wfmt, s, st);
+  if (dtype == 1 && cache_dtype == 1)
+    return dispatch_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, s, st);
+  if (dtype == 1 && cache_dtype == 2) return dispatch_wf<__nv_bfloat16, int8_t>(wfmt, s, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,6 +3,9 @@
 Decode path of ``valle2_tpu/models/ar.py``: prefill the KV cache through the
 prefix-LM flash kernel, then advance one token per step through the fused
 whole-stack decode kernel, then the length-penalized best-of-N beam pick.
+``ValleAR`` decodes from ``decode_params``: the params, or their quantized
+view under ``weight_dtype`` 'int8' / 'int4'; ``kv_cache_dtype='int8'`` keeps
+an int8 cache with per-(slot, head) scales.
 Where the JAX package runs the token loop as an on-device ``while_loop``, the
 port runs a Python loop with one fused-step call per token.  Steps past a
 row's EOS are exact no-ops (the sample is forced to EOS, the logprob sum and
@@ -31,6 +34,7 @@ from ..ops import (KVCache, add_positional, best_beam_index, build_pad_mask,
                    prefix_lm_bias, sinusoidal_table, topk_sampling, transformer,
                    transformer_decode_step, transformer_init, transformer_prefill)
 from ..ops.transformer import map_tree
+from ..quantize import quantize_decode_params
 
 Params = dict[str, Any]
 
@@ -158,8 +162,12 @@ class DecodeState:
 
 def compute_params(params: Params, config: ConfigValle) -> Params:
     """The transformer weights in the decode compute dtype, contiguous (the
-    layout the fused kernel reads)."""
-    return map_tree(lambda a: a.to(config.torch_dtype).contiguous(), params['transformer'])
+    layout the fused kernel reads).  Float leaves cast, quantization scales
+    included; the int8 codes of a quantized stack pass unchanged (JAX
+    ``_to_compute``)."""
+    def cast(a):
+        return (a.to(config.torch_dtype) if a.is_floating_point() else a).contiguous()
+    return map_tree(cast, params['transformer'])
 
 
 def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
@@ -195,8 +203,8 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     y_last = y[torch.arange(b, device=dev), (ttm + codes_lens - 1).long()]
     first_logits = linear(params['proj'], y_last.float())               # (B, V+1)
 
-    cache = KVCache(cache.k.repeat_interleave(beams, dim=1),
-                    cache.v.repeat_interleave(beams, dim=1))
+    cache = KVCache(*(None if a is None else a.repeat_interleave(beams, dim=1)
+                      for a in cache))
     if config.fused_decode_enabled(dev):
         cache = fused_cache_layout(cache)    # the layout tells the loop which path
     rows = b * beams
@@ -300,6 +308,24 @@ class ValleAR:
             gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
             params = init_params(gen, config)
         self.params = move_tree(params, self.device)
+        self._qdecode = self._qdecode_src = None
+
+    @property
+    def decode_params(self) -> Params:
+        """Params for the decode/serving paths: ``self.params``, or their view
+        with a quantized transformer stack under ``config.weight_dtype``
+        'int8' / 'int4' (``quantize.py``).  Quantized lazily and again whenever
+        ``self.params`` or its 'transformer' entry is rebound (``load``
+        rebinds); changing leaf tensors in place is not seen."""
+        if self.config.weight_dtype not in ('int8', 'int4'):
+            return self.params
+        src = self._qdecode_src
+        if not (src is not None and src[0] is self.params
+                and src[1] is self.params['transformer']):
+            bits = 8 if self.config.weight_dtype == 'int8' else 4
+            self._qdecode = quantize_decode_params(self.params, bits=bits)
+            self._qdecode_src = (self.params, self.params['transformer'])
+        return self._qdecode
 
     @property
     def eos_token(self) -> int:
@@ -363,8 +389,8 @@ class ValleAR:
         if generator is None:
             generator = default_generator(cfg, dev)
         with torch.inference_mode(), precision_scope(cfg):
-            codes_buf, _, best = _decode_fn(self.params, tokens, tokens_lens, codes,
-                                            codes_lens, cfg, generator)
+            codes_buf, _, best = _decode_fn(self.decode_params, tokens, tokens_lens,
+                                            codes, codes_lens, cfg, generator)
         codes_buf, best = codes_buf.cpu(), best.cpu()
         out = []
         for i in range(len(tokens_list)):

@@ -15,6 +15,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..quantize import int4_matmul, int8_matmul
+
 Params = dict[str, Any]
 
 
@@ -34,14 +36,21 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, use_bias: bool 
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b``.  Mixed float dtypes promote to the wider one, as JAX
-    promotes them (a bfloat16 attention output from a bfloat16 KV cache meets
-    float32 weights in the decode step)."""
-    w = p['w']
-    if x.dtype != w.dtype:
-        wide = torch.promote_types(x.dtype, w.dtype)
-        x, w = x.to(wide), w.to(wide)
-    y = x @ w
+    """``x @ w + b``, or the quantized product of ``quantize.py``'s layouts:
+    'q' (int8 W8A8) and 'q4' (int4 W4A16), the bias added after.  Mixed float
+    dtypes promote to the wider one, as JAX promotes them (a bfloat16
+    attention output from a bfloat16 KV cache meets float32 weights in the
+    decode step)."""
+    if 'q' in p:
+        y = int8_matmul(x, p['q'], p['scale'])
+    elif 'q4' in p:
+        y = int4_matmul(x, p['q4'], p['scale4'])
+    else:
+        w = p['w']
+        if x.dtype != w.dtype:
+            wide = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(wide), w.to(wide)
+        y = x @ w
     if 'b' in p:
         y = y + p['b']
     return y

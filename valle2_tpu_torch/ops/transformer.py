@@ -25,9 +25,25 @@ Params = dict[str, Any]
 class KVCache(NamedTuple):
     """Per-layer KV cache: k, v of shape (L, b, h, max_len, hd), or the fused
     decode kernel's head-major (L, rows, max_len, d) layout
-    (``kernels.fused_decode.fused_cache_layout``)."""
+    (``kernels.fused_decode.fused_cache_layout``).
+
+    An int8 cache holds per-(slot, head) bfloat16 scales in ``k_scale`` /
+    ``v_scale``, (L, b, h, max_len, 1) (head-major: (L, rows, max_len, h));
+    the value of a slot is int8 * scale."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot (last-axis) symmetric int8 quantization → (int8 values,
+    bfloat16 scales (..., 1)).  The scale and the rounding are float32
+    whatever x's dtype, as the fused kernel quantizes its own slots."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    q = torch.round(x32 / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
 
 
 def encoder_layer_init(gen: torch.Generator, d_model: int, n_heads: int, d_ff: int,
@@ -63,7 +79,7 @@ def layer_slice(p: Params, i: int) -> Params:
 
 
 def num_layers_of(p: Params) -> int:
-    return p['attn']['qkv']['w'].shape[0]
+    return next(iter(p['attn']['qkv'].values())).shape[0]   # 'w', or 'q' / 'q4'
 
 
 def transformer_init(gen: torch.Generator, num_layers: int, d_model: int, n_heads: int,
@@ -116,19 +132,33 @@ def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
                         bias: torch.Tensor | None = None, cond: torch.Tensor | None = None,
                         cache_dtype=None, flash: dict | None = None):
     """Forward pass that also fills a KV cache (L, b, h, max_len, hd) whose
-    slots [0, seq_len) hold the prefix keys/values and the rest zeros."""
+    slots [0, seq_len) hold the prefix keys/values and the rest zeros.
+    ``cache_dtype``: None (x's dtype), a float dtype, or ``torch.int8``: every
+    slot quantized by ``quantize_kv``, the zero padding included (its scale is
+    the 1e-8 floor's), as the JAX package quantizes the padded block."""
     num_layers = num_layers_of(p)
     b, seq_len, d = x.shape
     hd = d // n_heads
     dtype = cache_dtype if cache_dtype is not None else x.dtype
+    quant = dtype == torch.int8
     shape = (num_layers, b, n_heads, max_len, hd)
     ck = torch.zeros(shape, dtype=dtype, device=x.device)
     cv = torch.zeros(shape, dtype=dtype, device=x.device)
+    if quant:
+        cks, cvs = (torch.empty((*shape[:-1], 1), dtype=torch.bfloat16, device=x.device)
+                    for _ in range(2))
     for i in range(num_layers):
         x, k, v = encoder_layer(layer_slice(p, i), x, n_heads, bias, cond,
                                 return_kv=True, flash=flash)
-        ck[i, :, :, :seq_len] = k
-        cv[i, :, :, :seq_len] = v
+        if quant:
+            pad = (0, 0, 0, max_len - seq_len)
+            ck[i], cks[i] = quantize_kv(torch.nn.functional.pad(k, pad))
+            cv[i], cvs[i] = quantize_kv(torch.nn.functional.pad(v, pad))
+        else:
+            ck[i, :, :, :seq_len] = k
+            cv[i, :, :, :seq_len] = v
+    if quant:
+        return x, KVCache(ck, cv, cks, cvs)
     return x, KVCache(ck, cv)
 
 
@@ -136,9 +166,10 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
                             index: int, cond: torch.Tensor | None = None,
                             attend_mask: torch.Tensor | None = None):
     """Advance one token: x (b, 1, d) at absolute slot ``index`` (one scalar
-    for every row).  Writes slot ``index`` of each layer's k/v in place, then
-    attends over the slots ``attend_mask`` (b, max_len) allows — by default
-    [0, index].  Returns (y (b, 1, d), cache)."""
+    for every row).  Writes slot ``index`` of each layer's k/v in place
+    (quantized by ``quantize_kv`` into an int8 cache, whose slots then
+    dequantize in x's dtype), then attends over the slots ``attend_mask``
+    (b, max_len) allows — by default [0, index].  Returns (y (b, 1, d), cache)."""
     max_len = cache.k.shape[3]
     if attend_mask is None:
         attend_mask = (torch.arange(max_len, device=x.device) <= index)[None].expand(
@@ -148,9 +179,17 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
         lp = layer_slice(p, li)
         h = _norm(lp['norm1'], x, cond)
         q, k, v = qkv_proj(lp['attn'], h, n_heads)              # k, v: (b, h, 1, hd)
-        cache.k[li, :, :, index] = k[:, :, 0].to(cache.k.dtype)
-        cache.v[li, :, :, index] = v[:, :, 0].to(cache.v.dtype)
-        attn = sdpa(q, cache.k[li], cache.v[li], bias)
+        if cache.k_scale is not None:
+            for buf, sbuf, new in ((cache.k, cache.k_scale, k),
+                                   (cache.v, cache.v_scale, v)):
+                buf[li, :, :, index], sbuf[li, :, :, index] = quantize_kv(new[:, :, 0])
+            k_all = cache.k[li].to(x.dtype) * cache.k_scale[li].to(x.dtype)
+            v_all = cache.v[li].to(x.dtype) * cache.v_scale[li].to(x.dtype)
+        else:
+            cache.k[li, :, :, index] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[li, :, :, index] = v[:, :, 0].to(cache.v.dtype)
+            k_all, v_all = cache.k[li], cache.v[li]
+        attn = sdpa(q, k_all, v_all, bias)
         x = x + linear(lp['attn']['out'], merge_heads(attn))
         x = x + ffn(lp['ffn'], _norm(lp['norm2'], x, cond))
     return x, cache

@@ -147,8 +147,10 @@ class ValleTTS:
             generator = ar_mod.default_generator(cfg, dev)
         clock = StageClock(dev)
         with torch.inference_mode(), precision_scope(cfg):
+            # The AR decodes from its (possibly quantized) decode params; the
+            # NAR and the codec stay in full precision, as in the JAX package.
             wavs, gen_lens, out_codes = _fused_tts_fn(
-                self.ar.params, self.nar.params, self.codec.dec_params,
+                self.ar.decode_params, self.nar.params, self.codec.dec_params,
                 to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens,
                 cfg, generator, clock)
         wavs, gen_lens, out_codes = wavs.cpu().numpy(), gen_lens.cpu().numpy(), \
