@@ -80,7 +80,36 @@ Phases, each printing JSON lines:
                 other) must have launched; waveforms finite and gen_len*320
                 long; stage times, decode ms/step, RTF and peak memory.
 
-``main`` runs them in this order: 1-3, 16, 11, 4, 5, 17, 12-14, 6-8, 15, 9, 10.
+18. kernels  -- the speculative verify step (#7) in all six variants (dense,
+   (spec)       and the five of phase 16) against its plain version at the
+                serving cell (L=8, 3 rows x K=4 tokens, S=901, per-row start
+                slots ttm+pm+{100, 137, 203}), f32 with TF32 off and bf16:
+                y within the variant's tolerance, the cache as in phase 16,
+                CUDA-event times (median of 30), the plain version's time and
+                the bound; no one PyTorch call computes the step.
+19. spec     -- n-gram speculative decode: phase 5's 3 requests through
+                batch_synthesize with one beam (bf16, max_audio_len=512,
+                ignore_eos), the plain loop (#6) and speculative_k=4,
+                speculative_ngram=3 (#7) on the same weights in turns (plain,
+                spec, spec, plain), then spec under each quantized
+                configuration of phase 17.  Counts zeroed before, read after
+                each: #1 and the run's step kernel must have launched, no
+                other step kernel.  Turns, mean accepted tokens per turn, ms
+                per turn, decode ms per token, RTF and peak memory.  Then the
+                full-width greedy check in f32, TF32 off: spec IDs through #7
+                == plain-loop IDs through #6 == spec IDs through the plain
+                route (use_fused_decode=False).
+20. large    -- the 204M geometry (GRAMMAR_V3_TPU_204M.json: d 1024, 16
+                heads, dff 4096, 16 layers), dense and weight_dtype='int8':
+                one utterance of 512 steps in bf16 through the plain loop and
+                the speculative loop (#6 / #7 must launch; the 4096-wide FFN2
+                input takes the 8-row projection tile), then greedy IDs in
+                f32, TF32 off: kernels == the plain route, plain loop and
+                speculative loop (W8A8: equal, or parted only at a near-tie,
+                GREEDY_W8A8_GAP).
+
+``main`` runs them in this order: 1-3, 16, 18, 11, 4, 5, 17, 19, 12-14, 6-8, 15,
+9, 10, 20.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -156,10 +185,41 @@ QUANT_VARIANTS = {
 }
 
 
+# The speculative verify step (#7) at the serving cell: 3 requests x 1 beam,
+# a K-token block, rows at three depths of the 512-step budget.
+SPEC = dict(rows=3, K=4, ngram=3, offsets=(100, 137, 203))
+VERIFY_VARIANTS = ('dense', *QUANT_VARIANTS)
+# The 204M geometry (GRAMMAR_V3_TPU_204M.json, examples/train_ar_dp_pp_tp.json:3).
+LARGE = dict(d_model=1024, n_heads=16, dim_feedforward=4096, num_layers=16)
+GREEDY_STEPS = 64     # greedy-ID checks of the spec and large phases
+# W8A8 greedy picks may part between the kernels and the plain route where an
+# activation code flipped (TOL_QUANT's reason) at a near-tie of two logits.
+# One flipped code moves that activation by one step sx (<= ~4 / 127), so a
+# projection's output by sx * |w| ~ 3e-2 * 1/32 ~ 1e-3 per flip at d = 1024;
+# through 16 layers and the logits head that stays well under 5e-2.
+GREEDY_W8A8_GAP = 5e-2
+
+
+def step_name(kernel: str, variant: str) -> str:
+    """The counter name of a fused step kernel's variant ('fused_decode_step'
+    or 'fused_verify_step'; the dense variant carries the bare name)."""
+    return kernel if variant == 'dense' else f'{kernel}_{variant}'
+
+
 def tol_str(dtype_name: str, tol: dict | None = None) -> str:
     """A tolerance as text: the kernels line carries only measured numbers."""
     t = tol or TOL[dtype_name]
     return f"|err| <= {t['atol']:g} + {t['rtol']:g}*|plain|"
+
+
+def variant_tol(variant: str, dtype_name: str) -> dict:
+    """A fused step variant's tolerance against its plain version (the reason
+    is at TOL_QUANT)."""
+    if dtype_name == 'bfloat16':
+        return TOL['bfloat16']
+    if variant.startswith('w8a8'):
+        return TOL_QUANT['w8a8']
+    return TOL_QUANT['kv8'] if variant.endswith('kv8') else TOL['float32']
 
 
 def emit(**obj) -> None:
@@ -236,7 +296,9 @@ def counters() -> dict:
     return {'flash_attention_fwd': fa.COUNTER, 'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
             'flash_bwd_dq': fa.BWD_DQ_COUNTER, 'flash_bwd_dkv': fa.BWD_DKV_COUNTER,
             'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER,
-            **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS}}
+            **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS},
+            **{step_name('fused_verify_step', v): fd.VERIFY_COUNTERS[v]
+               for v in VERIFY_VARIANTS}}
 
 
 def reset_counters() -> None:
@@ -370,22 +432,24 @@ def phase_kernels(results: dict):
                  bound_ms=bound_ms, bound_by=bound_by, tol=tol_str(dtype_name))
 
 
-def quant_step_inputs(variant: str, dt, gen, dev):
-    """The serving step's stack and cache in ``variant``'s formats: weights
-    quantized by the port's quantize.py from a seeded f32 stack (scales then
-    in the compute dtype), a random cache (int8 through quantize_kv_rowmajor)."""
+def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
+                      S: int = SLICE['ttm'] + SLICE['pm'] + SLICE['max_new']):
+    """The serving step's stack and cache in ``variant``'s formats ('dense' or
+    one of QUANT_VARIANTS): weights quantized by the port's quantize.py from a
+    seeded f32 stack (scales then in the compute dtype), a random (L, rows, S,
+    d) cache (int8 through quantize_kv_rowmajor)."""
     import torch
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
     from valle2_tpu_torch.quantize import quantize_transformer
     s = SLICE
-    weight_dtype, cache_dtype, _ = QUANT_VARIANTS[variant]
+    weight_dtype, cache_dtype = (('compute', 'bfloat16') if variant == 'dense'
+                                 else QUANT_VARIANTS[variant][:2])
     p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
     if weight_dtype != 'compute':
         p = quantize_transformer(p, bits=8 if weight_dtype == 'int8' else 4)
     p = map_tree(lambda a: (a.to(dt) if a.is_floating_point() else a).to(dev).contiguous(),
                  p)
-    rows, S = s['b'] * 4, s['ttm'] + s['pm'] + s['max_new']
     ck, cv = (torch.randn(s['L'], rows, S, s['d'], generator=gen) for _ in range(2))
     if cache_dtype == 'int8':
         (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, s['h']) for c in (ck, cv))
@@ -460,11 +524,7 @@ def phase_quant_kernels(results: dict):
                 with w8a8_flip_candidates() as flips:
                     y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args)
                 torch.cuda.synchronize()
-                if dtype_name == 'bfloat16':
-                    tol = TOL['bfloat16']
-                else:
-                    tol = TOL_QUANT['w8a8'] if variant.startswith('w8a8') else (
-                        TOL_QUANT['kv8'] if variant.endswith('kv8') else TOL['float32'])
+                tol = variant_tol(variant, dtype_name)
                 err_y = check_close(f'{name} y', y, y_ref, dtype_name, tol)
                 extra = {}
                 if variant.startswith('w8a8') and dtype_name == 'float32':
@@ -580,6 +640,384 @@ def phase_quant(smi: str) -> dict:
              ar_tokens_per_s=len(texts) * max_new / t['decode'], rtf=batch[0].rtf,
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              launches={k: n for k, n in launches.items() if n}, card=smi)
+    return total
+
+
+def phase_spec_kernels(results: dict):
+    """Every variant of the verify step (#7) against its plain version at the
+    serving cell's block, on the same codes, in f32 (TF32 off) and bf16."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache
+    from valle2_tpu_torch.train import tree_leaves
+
+    dev = torch.device('cuda')
+    s = SLICE
+    rows, K = SPEC['rows'], SPEC['K']
+    S = s['ttm'] + s['pm'] + s['max_new'] + K
+    gen = torch.Generator().manual_seed(7)
+    tl, cl = slice_lengths(dev)
+    index = torch.tensor([s['ttm'] + s['pm'] + o for o in SPEC['offsets']], dtype=torch.int32,
+                         device=dev)
+    args = (tl, cl, s['ttm'], s['pm'])
+    # Query i of row r attends tl + pl + (index - ttm - pm + 1 + i) slots; a
+    # row's slots are read once (the last query's range, the block's own
+    # slots included: written, then read).
+    gen_slots = [o + 1 for o in SPEC['offsets']]
+    prompt_slots = int((tl + cl).sum())
+    read_slots = prompt_slots + sum(g + K - 1 for g in gen_slots)
+    pairs = K * prompt_slots + sum(K * g + K * (K - 1) // 2 for g in gen_slots)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            for variant in VERIFY_VARIANTS:
+                name = step_name('fused_verify_step', variant)
+                p, cache = quant_step_inputs(variant, dt, gen, dev, rows=rows, S=S)
+                x = torch.randn(rows, K, s['d'], generator=gen).to(dev, dt)
+                c_k, c_p = KVCache(*(c.clone() for c in cache if c is not None)), \
+                    KVCache(*(c.clone() for c in cache if c is not None))
+                y, _ = fd.fused_verify_step(p, x, s['h'], c_k, index, *args)
+                with w8a8_flip_candidates() as flips:
+                    y_ref, _ = fd.fused_verify_step_plain(p, x, s['h'], c_p, index, *args)
+                torch.cuda.synchronize()
+                tol = variant_tol(variant, dtype_name)
+                err_y = check_close(f'{name} y', y, y_ref, dtype_name, tol)
+                extra = {}
+                if variant.startswith('w8a8') and dtype_name == 'float32':
+                    off = int(((y - y_ref).abs().amax(dim=2) > TOL['float32']['atol']).sum())
+                    if off > W8A8_ROWS_OFF:
+                        fail(f'{name} (float32): {off} of {rows * K} query rows off the dense '
+                             f'tolerance, more than flips explain ({W8A8_ROWS_OFF})')
+                    extra.update(flips, query_rows_off_dense_tol=off,
+                                 err_in_activation_steps=err_y
+                                 / max(flips['max_activation_step'], 1e-30))
+                if cache.k_scale is not None and dtype_name == 'float32':
+                    diffs = [(a.int() - b.int()).abs() for a, b in zip(c_k[:2], c_p[:2])]
+                    worst = max(int(d_.max()) for d_ in diffs)
+                    if worst > 1 and not variant.startswith('w8a8'):
+                        fail(f'{name} (float32): a cache code {worst} steps off the plain one')
+                    extra.update(cache_codes_differ=sum(int((d_ > 0).sum()) for d_ in diffs),
+                                 cache_codes_written=2 * s['L'] * rows * K * s['d'],
+                                 cache_code_max_diff=worst)
+                if (cache.k_scale is not None and dtype_name == 'float32'
+                        and not variant.startswith('w8a8')):
+                    for a, b in zip(c_k[2:], c_p[2:]):
+                        check_close(f'{name} cache scales', a, b, dtype_name,
+                                    {'atol': 0.0, 'rtol': 2 ** -7})   # one bf16 step
+                    err_c = 0.0
+                else:
+                    err_c = max(check_close(f'{name} cache', a, b, dtype_name, tol)
+                                for a, b in zip(dequantized(c_k, s['h']),
+                                                dequantized(c_p, s['h'])))
+                ms = cuda_ms(lambda: fd.fused_verify_step(p, x, s['h'], c_k, index, *args))
+                plain_ms = cuda_ms(lambda: fd.fused_verify_step_plain(p, x, s['h'], c_p, index,
+                                                                      *args))
+                # Bound: every weight byte, each row's valid slots (k/v and
+                # int8 scales) once, x and y; products at the int8 (W8A8) or
+                # compute peak, the attention at the compute peak.
+                w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+                slot_bytes = 2 * s['d'] * cache.k.element_size() + (
+                    2 * s['h'] * 2 if cache.k_scale is not None else 0)
+                nbytes = (w_bytes + s['L'] * read_slots * slot_bytes
+                          + 2 * rows * K * s['d'] * x.element_size())
+                proj_ops = rows * K * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
+                attn_ops = s['L'] * 2 * 2 * pairs * s['d']
+                t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8')
+                                                else dtype_name]
+                         + attn_ops / PEAK_FLOPS[dtype_name])
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), \
+                    'bytes' if t_bytes >= t_ops else 'operations'
+                results[(name, dtype_name)] = dict(
+                    max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    tol=tol_str(dtype_name, tol))
+                emit(phase='kernels', path='spec', kernel=name, variant=variant,
+                     dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
+                     shape=dict(L=s['L'], rows=rows, K=K, S=S, d=s['d'], h=s['h'],
+                                dff=s['dff'], index=index.tolist()),
+                     err_y=err_y, err_cache=err_c, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     tol=tol_str(dtype_name, tol), **extra)
+                del p, cache, c_k, c_p
+
+
+def step_launches(launches: dict) -> dict:
+    """The nonzero counts of the fused step kernels (#6, #6a-q, #7)."""
+    return {k: n for k, n in launches.items()
+            if k.startswith(('fused_decode_step', 'fused_verify_step')) and n}
+
+
+def phase_spec(smi: str) -> dict:
+    """Speculative decode at the serving config with one beam, beside the
+    plain loop on the same weights, then under each quantized config; then
+    the full-width greedy check.  Returns the launch counts of the spec runs."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.tts import ValleTTS
+
+    max_new = SLICE['max_new']
+    base_kw = dict(max_audio_len=max_new, ignore_eos=True, dropout=0.0, dtype='bfloat16',
+                   num_beams=1)
+    spec_kw = dict(speculative_k=SPEC['K'], speculative_ngram=SPEC['ngram'])
+    base = ValleTTS(ConfigValle(**base_kw), device='cuda')
+    texts, pts, pcs = make_requests()
+    total = dict.fromkeys(read_counters(), 0)
+    plain_ms = []
+
+    def run(label: str, cfg, kernel: str, counted: bool):
+        tts = ValleTTS(cfg, ar=ValleAR(cfg, params=base.ar.params, device='cuda'),
+                       nar=base.nar, codec=base.codec, device='cuda')
+        tts.batch_synthesize(texts, pts, pcs)           # warm-up: quantizes, allocator
+        torch.cuda.synchronize()
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        batch = tts.batch_synthesize(texts, pts, pcs)
+        launches = read_counters()
+        for r in batch:
+            n = len(r.codes)
+            if n != max_new or r.waveform.shape != (n * 320,) \
+                    or not np.isfinite(r.waveform).all():
+                fail(f'spec ({label}): waveform of {r.waveform.shape} for gen_len {n}')
+        require_launches(f'spec ({label})', launches, ('flash_attention_fwd', kernel))
+        others = {k: n for k, n in step_launches(launches).items() if k != kernel}
+        if others:
+            fail(f'spec ({label}): launched other fused-step kernels {others}')
+        if counted:
+            for k, n in launches.items():
+                total[k] += n
+        t, counts = batch[0].timings, batch[0].counts
+        out = dict(phase='spec', run=label, kernel=kernel, weight_dtype=cfg.weight_dtype,
+                   kv_cache_dtype=cfg.kv_cache_dtype, speculative_k=cfg.speculative_k,
+                   requests=len(texts), max_audio_len=max_new,
+                   stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
+                   batch_wall_s=t['batched'], decode_ms_per_token=1e3 * t['decode'] / max_new,
+                   ar_tokens_per_s=len(texts) * max_new / t['decode'], rtf=batch[0].rtf,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=step_launches(launches), card=smi)
+        if counts:
+            turns = counts['ar_turns']
+            out.update(turns=turns, tokens=counts['ar_tokens'],
+                       mean_accepted_per_turn=counts['ar_tokens'] / (len(texts) * turns),
+                       ms_per_turn=1e3 * t['decode'] / turns,
+                       verify_launches_per_turn=launches[kernel] / turns)
+        else:
+            plain_ms.append(out['decode_ms_per_token'])
+        emit(**out)
+
+    plain_cfg, spec_cfg = ConfigValle(**base_kw), ConfigValle(**base_kw, **spec_kw)
+    for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg), ('spec', spec_cfg),
+                       ('plain', plain_cfg)):
+        run(label, cfg, 'fused_decode_step' if label == 'plain' else 'fused_verify_step',
+            label == 'spec')
+    for variant, (weight_dtype, cache_dtype, _) in QUANT_VARIANTS.items():
+        run(f'spec_{variant}', ConfigValle(**base_kw, **spec_kw, weight_dtype=weight_dtype,
+                                           kv_cache_dtype=cache_dtype),
+            step_name('fused_verify_step', variant), True)
+    for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg)):
+        emit(phase='spec', run=label, decode_profile=profile_decode(
+            ValleAR(cfg, params=base.ar.params, device='cuda'), texts, pts, pcs), card=smi)
+    greedy_spec_check('serving', {}, smi)
+    return total
+
+
+def profile_decode(model, texts, pts, pcs) -> dict:
+    """Where one AR decode of the 3 requests (generate_batch: prefill and
+    token loop) spends its time: torch.profiler's device time by kernel
+    group against the wall time (the profiler's own host cost included),
+    the device's busy share and the launches."""
+    import time
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+
+    tok = PhonemeTokenizer()
+    tokens = [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+    model.generate_batch(tokens, pcs)                     # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.generate_batch(tokens, pcs)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = {'fused step (#6, #7)': ('proj_kernel', 'attend_kernel', 'kv_quant'),
+              'flash prefill (#1)': ('flash_fwd',),
+              'gemm (cuBLAS, logits)': ('gemm', 'gemv', 'nvjet', 'cutlass'),
+              'sampling, drafts and bookkeeping': ('elementwise', 'reduce', 'topk', 'sort',
+                                                   'scatter', 'gather', 'index', 'softmax',
+                                                   'cumsum', 'scan', 'fill', 'copy')}
+    by_group = dict.fromkeys([*groups, 'other'], 0.0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in kernels:
+        name = e.key.lower()
+        key = next((g for g, pats in groups.items() if any(x in name for x in pats)), 'other')
+        by_group[key] += e.self_device_time_total / 1e3
+    device_ms = sum(by_group.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                kernel_launches=sum(e.count for e in kernels), device_ms_by_group=by_group,
+                top_kernels=[{'name': e.key[:80], 'calls': e.count,
+                              'ms': e.self_device_time_total / 1e3} for e in top])
+
+
+def greedy_spec_check(label: str, widths: dict, smi: str, weight_dtype: str = 'compute'):
+    """Greedy IDs in f32 with TF32 off, GREEDY_STEPS steps of phase 5's first
+    request (all three at the serving widths), four ways: speculative decode
+    through #7, the plain loop through #6, and both through the plain route
+    (use_fused_decode=False).  Dense weights: all four equal.  W8A8: the
+    kernels' and PyTorch's LayerNorms sum in other orders, so an activation
+    code can flip (TOL_QUANT) and a greedy pick can follow it at a near-tie:
+    where two runs part, the plain route's teacher-forced logits of the two
+    tokens at that step must lie within GREEDY_W8A8_GAP of each other."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.tts import StageClock
+
+    cfg = ConfigValle(**widths, max_audio_len=GREEDY_STEPS, ignore_eos=True, dropout=0.0,
+                      temperature=0.0, num_beams=1, kv_cache_dtype='float32',
+                      matmul_precision='highest', weight_dtype=weight_dtype)
+    texts, pts, pcs = make_requests()
+    n = 1 if widths else len(texts)
+    tok = PhonemeTokenizer()
+    tokens = [np.concatenate([pt, tok(t)]) for t, pt in zip(texts[:n], pts[:n])]
+    ref = ValleAR(cfg, device='cuda')
+    variant = {'compute': 'dense', 'int8': 'w8a8', 'int4': 'w4a16'}[weight_dtype]
+    runs = {}
+    for name, kw, kernel in (
+            ('spec_kernel', dict(speculative_k=SPEC['K']), 'fused_verify_step'),
+            ('plain_kernel', {}, 'fused_decode_step'),
+            ('spec_plain_route', dict(speculative_k=SPEC['K'], use_fused_decode=False), None),
+            ('plain_route', dict(use_fused_decode=False), None)):
+        model = ValleAR(dataclasses.replace(cfg, **kw), params=ref.params, device='cuda')
+        reset_counters()
+        clock = StageClock('cuda')
+        ids = model.generate_batch(tokens, pcs[:n], clock=clock)
+        launched = step_launches(read_counters())
+        want = {step_name(kernel, variant)} if kernel else set()
+        if set(launched) != want:
+            fail(f'greedy ({label}, {name}): step kernels launched {launched}')
+        runs[name] = (ids, clock.counts)
+    ids0 = runs['spec_kernel'][0]
+    parted = {}
+    for name, (ids, _) in runs.items():
+        for i, (a, b) in enumerate(zip(ids, ids0)):
+            if not torch.equal(a, b):
+                j = int((a[:len(b)] != b[:len(a)]).int().argmax()) \
+                    if not torch.equal(a[:len(b)], b[:len(a)]) else min(len(a), len(b))
+                parted[f'{name}/{i}'] = dict(step=j, tokens=[int(b[j]), int(a[j])]
+                                             if j < min(len(a), len(b)) else None)
+    for key, where in parted.items():
+        if variant != 'w8a8' or where['tokens'] is None:
+            fail(f'greedy ({label}): {key} IDs differ from the speculative kernel run '
+                 f'from step {where["step"]}')
+        gap = teacher_forced_gap(ref, cfg, tokens[int(key.split('/')[1])],
+                                 pcs[int(key.split('/')[1])],
+                                 runs['spec_kernel'][0][int(key.split('/')[1])][:where['step']],
+                                 where['tokens'])
+        where.update(logit_gap=gap, allowed=GREEDY_W8A8_GAP)
+        if gap > GREEDY_W8A8_GAP:
+            fail(f'greedy ({label}): {key} parts from the speculative kernel run at step '
+                 f'{where["step"]} where the plain logits of its tokens {where["tokens"]} '
+                 f'are {gap:.3e} apart, over {GREEDY_W8A8_GAP:g}')
+    counts = runs['spec_kernel'][1]
+    emit(phase='greedy', path=label, dtype='float32', weight_dtype=weight_dtype,
+         steps=GREEDY_STEPS, rows=n, equal=not parted, parted_at_near_ties=parted,
+         runs=sorted(runs), spec_turns=counts['ar_turns'],
+         mean_accepted_per_turn=counts['ar_tokens'] / (n * counts['ar_turns']),
+         first_tokens=[g[:8].tolist() for g in ids0], card=smi)
+
+
+def teacher_forced_gap(model, cfg, tokens, prompt_codes, prefix, pair) -> float:
+    """|logit(a) - logit(b)| of the plain route (bias attention, PyTorch
+    products) at the step after ``prefix``, teacher-forced on the prompt and
+    the prefix: how near a tie the two greedy picks ``pair`` were."""
+    import dataclasses
+
+    import torch
+    from valle2_tpu_torch.models import ar as ar_mod
+    plain = dataclasses.replace(cfg, use_flash_attention=False)
+    dev = torch.device('cuda')
+    toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)[None]
+    codes = torch.cat([torch.tensor([model.bos_token]),
+                       torch.as_tensor(prompt_codes, dtype=torch.long)[:, 0],
+                       prefix.long()])[None].to(dev)
+    with torch.inference_mode():
+        logits = ar_mod.forward(model.decode_params, plain, toks, codes, None, None)[0, -1]
+    return float((logits[pair[0]] - logits[pair[1]]).abs())
+
+
+def phase_large(smi: str) -> dict:
+    """The 204M geometry, dense and int8 W8A8: one utterance of 512 steps in
+    bf16 through the plain loop and the speculative loop, then the greedy
+    check.  Returns the launch counts of the timed runs."""
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.tts import StageClock
+
+    max_new = SLICE['max_new']
+    texts, pts, pcs = make_requests()
+    tokens = [np.concatenate([pts[0], PhonemeTokenizer()(texts[0])])]
+    total = dict.fromkeys(read_counters(), 0)
+    ref = None
+    for weight_dtype, variant in (('compute', 'dense'), ('int8', 'w8a8')):
+        for label, kw, kernel in (('plain', {}, 'fused_decode_step'),
+                                  ('spec', dict(speculative_k=SPEC['K'],
+                                                speculative_ngram=SPEC['ngram']),
+                                   'fused_verify_step')):
+            cfg = ConfigValle(**LARGE, max_audio_len=max_new, ignore_eos=True, dropout=0.0,
+                              dtype='bfloat16', num_beams=1, weight_dtype=weight_dtype, **kw)
+            if not cfg.fused_decode_enabled('cuda'):
+                fail(f'large: the fused kernels refuse the {weight_dtype} 204M stack')
+            model = ValleAR(cfg, params=None if ref is None else ref.params, device='cuda')
+            ref = ref or model
+            model.generate_batch(tokens, pcs[:1])           # warm-up: quantizes, allocator
+            torch.cuda.synchronize()
+            reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            clock = StageClock('cuda')
+            t0 = time.perf_counter()
+            ids = model.generate_batch(tokens, pcs[:1], clock=clock)
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+            name = step_name(kernel, variant)
+            require_launches(f'large ({weight_dtype}, {label})', launches,
+                             ('flash_attention_fwd', name))
+            # max_new steps (the output strips the EOS ids a random model
+            # samples): one launch a step, or max_new committed tokens.
+            steps = clock.counts['ar_tokens'] if clock.counts else launches[name]
+            if steps != max_new or step_launches(launches) != {name: launches[name]}:
+                fail(f'large ({weight_dtype}, {label}): {steps} steps, step kernels '
+                     f'{step_launches(launches)}')
+            for k, n in launches.items():
+                total[k] += n
+            out = dict(phase='large', run=label, weight_dtype=weight_dtype, kernel=name,
+                       **LARGE, max_audio_len=max_new, wall_s=wall,
+                       stage_s=dict(clock.times),
+                       decode_ms_per_token=1e3 * clock.times['decode'] / max_new,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=step_launches(launches), card=smi)
+            if clock.counts:
+                turns = clock.counts['ar_turns']
+                out.update(turns=turns, mean_accepted_per_turn=clock.counts['ar_tokens'] / turns,
+                           ms_per_turn=1e3 * clock.times['decode'] / turns)
+            emit(**out)
+            del model
+        greedy_spec_check(f'large_{variant}', LARGE, smi, weight_dtype)
     return total
 
 
@@ -1295,10 +1733,12 @@ def main() -> int:
     results: dict = {}
     phase_kernels(results)
     phase_quant_kernels(results)
+    phase_spec_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
     paths['quant'] = phase_quant(smi)
+    paths['spec'] = phase_spec(smi)
     phase_codec()
     paths['clone'] = phase_clone()
     paths['asr'] = phase_asr()
@@ -1309,12 +1749,13 @@ def main() -> int:
     phase_fit()
     phase_profile(smi)
     phase_profile(smi, 'ValleNAR')
+    paths['large'] = phase_large(smi)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
     for name, src, replaces, shape_key, extra, dtypes, on_paths in (
             ('flash_attention_fwd', 'flash_attention.cu', 'flash_attention.py:290', 'ar',
              {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}, ('bfloat16', 'float32'),
-             ('serve', 'clone', 'asr', 'train')),
+             ('serve', 'clone', 'asr', 'train', 'spec', 'large')),
             ('flash_bwd_fused', 'flash_attention_bwd.cu', 'flash_attention.py:560', 'ar',
              {'nar': 'nar'}, ('bfloat16', 'float32'), ('train',)),
             ('flash_bwd_dq', 'flash_attention_bwd.cu', 'flash_attention.py:582', 'ar_long', {},
@@ -1322,12 +1763,16 @@ def main() -> int:
             ('flash_bwd_dkv', 'flash_attention_bwd.cu', 'flash_attention.py:602', 'ar_long',
              {}, ('bfloat16', 'float32'), ('train',)),
             ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {},
-             ('bfloat16', 'float32'), ('serve', 'clone', 'asr')),
+             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
              ('clone', 'asr', 'data')),
             *((f'fused_decode_step_{v}', 'fused_decode.cu', 'fused_decode.py:706', None, {},
-               ('bfloat16', 'float32'), ('quant',)) for v in QUANT_VARIANTS)):
+               ('bfloat16', 'float32'), ('quant', 'large') if v == 'w8a8' else ('quant',))
+              for v in QUANT_VARIANTS),
+            *((step_name('fused_verify_step', v), 'fused_decode.cu', 'fused_decode.py:1017',
+               None, {}, ('bfloat16', 'float32'), ('spec', 'large') if v in ('dense', 'w8a8')
+               else ('spec',)) for v in VERIFY_VARIANTS)):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
@@ -1342,6 +1787,9 @@ def main() -> int:
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
         if name.startswith('fused_decode_step_'):
             entry['ports'] = 'valle2_tpu/kernels/' + QUANT_VARIANTS[name.removeprefix('fused_decode_step_')][2]
+        if name.startswith('fused_verify_step_'):
+            entry['ports'] = ('valle2_tpu/kernels/fused_decode.py:752 _verify_kernel with '
+                              + QUANT_VARIANTS[name.removeprefix('fused_verify_step_')][2])
         if entry['launches'] <= 0:
             fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)

@@ -12,10 +12,13 @@ masked rows, the bidirectional mask, both backward routes on both sides of
 ``FUSED_BWD_MAX_SEQ``, more rows than one projection block holds, the last
 cache slot, a bfloat16 cache under a float32 model, the quantized variants of
 the fused step (int8 W8A8, int4 W4A16 with more than two scale groups, an
-int8 cache, alone and combined) at every head dim, RVQ encode at frame
-counts that are not a multiple of its 32-frame block, the codec's encode on
-the card against its CPU route and under a caller's TF32 scope, and the
-wrappers' refusals.
+int8 cache, alone and combined) at every head dim, the speculative verify
+step (#7) in all six variants with blocks of 1 to 9 tokens at distinct
+per-row slots (one block ending at the last slot), both steps at the 204M
+widths (d 1024, dff 4096: the 8-row projection tile), the 'auto' route of a
+head dim no kernel takes, RVQ encode at frame counts that are not a multiple
+of its 32-frame block, the codec's encode on the card against its CPU route
+and under a caller's TF32 scope, and the wrappers' refusals.
 """
 
 import numpy as np
@@ -224,7 +227,7 @@ def fused_inputs(dev, dtype, cache_dtype, hd, rows, L=2, h=2, ttm=24, pm=16, max
                                     (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.bfloat16)],
                          ids=['f32', 'f32_bf16cache', 'bf16'])
-@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
 @pytest.mark.parametrize('rows', [5, 20], ids=['first_slot', 'last_slot_two_row_blocks'])
 def test_fused_step_kernel_matches_plain(dev, rows, hd, dtypes):
     dtype, cache_dtype = dtypes
@@ -312,7 +315,7 @@ def quant_inputs(dev, variant, dtype, hd, rows, L=2, h=2, ttm=24, pm=16, max_new
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
-@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
 @pytest.mark.parametrize('rows', [5, 20], ids=['first_slot', 'last_slot_two_row_blocks'])
 @pytest.mark.parametrize('variant', QUANT_VARIANTS)
 def test_fused_step_quant_kernel_matches_plain(dev, variant, rows, hd, dtype):
@@ -392,6 +395,182 @@ def test_fused_step_refuses_what_the_quant_kernel_does_not_take(dev):
     mixed['ffn']['lin1'] = tq.quantize_linear(tq.dequantize_linear_int4(p['ffn']['lin1']))
     with pytest.raises(ValueError, match='layout'):
         fd.fused_decode_step(mixed, x, 2, dense, ttm + pm, tl, cl, ttm, pm)
+
+
+VERIFY_VARIANTS = ('dense',) + QUANT_VARIANTS
+# (K, rows): blocks of one token, of 4 (12 query rows, one projection tile)
+# and of 9 (27 query rows over two tiles; two query groups in the attention)
+VERIFY_BLOCKS = [(1, 5), (4, 3), (9, 1), (9, 3)]
+
+
+def verify_inputs(dev, variant, dtype, hd, rows, K, L=2, h=2, ttm=24, pm=16, max_new=12):
+    """A stack and cache of ``variant`` (quant_inputs) with a (rows, K, d)
+    block and distinct per-row start slots, the last row's block ending at
+    slot S - 1."""
+    if variant == 'dense':
+        p, _, ck, cv, lens, ttm, pm = fused_inputs(dev, dtype, dtype, hd, rows, L, h, ttm, pm,
+                                                   max_new + K)
+        cache = [ck, cv]
+    else:
+        p, _, cache, lens, ttm, pm = quant_inputs(dev, variant, dtype, hd, rows, L, h, ttm, pm,
+                                                  max_new + K)
+    S = cache[0].shape[2]
+    gen = torch.Generator().manual_seed(100 * K + rows)
+    x = torch.randn(rows, K, h * hd, generator=gen).to(dev, dtype)
+    starts = [ttm + pm + (5 * r) % max_new for r in range(rows - 1)] + [S - K]
+    index = torch.tensor(starts, dtype=torch.int32, device=dev)
+    return p, x, cache, lens, ttm, pm, index
+
+
+def written_slots(index, K, S):
+    """(rows, S) bool: the slots a verify block writes."""
+    slots = torch.arange(S, device=index.device)[None, :]
+    return (slots >= index[:, None]) & (slots < index[:, None] + K)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
+@pytest.mark.parametrize('K,rows', VERIFY_BLOCKS, ids=[f'K{k}_rows{r}' for k, r in
+                                                       VERIFY_BLOCKS])
+@pytest.mark.parametrize('variant', VERIFY_VARIANTS)
+def test_fused_verify_kernel_matches_plain(dev, variant, K, rows, hd, dtype):
+    """#7 against fused_verify_step_plain: y within the variant's tolerance,
+    every written cache slot as the plain version writes it (int8 codes
+    within one step on under 1% in f32), every other slot untouched, and the
+    variant's launch counted once."""
+    p, x, cache, (tl, cl), ttm, pm, index = verify_inputs(dev, variant, dtype, hd, rows, K)
+    S = cache[0].shape[2]
+    c_k, c_p = KVCache(*(c.clone() for c in cache)), KVCache(*(c.clone() for c in cache))
+    counter = fd.VERIFY_COUNTERS[variant]
+    before = counter.count
+    y, out = fd.fused_verify_step(p, x, 2, c_k, index, tl, cl, ttm, pm)
+    assert counter.count == before + 1 and out.k is c_k.k and y.shape == x.shape
+    y_ref, _ = fd.fused_verify_step_plain(p, x, 2, c_p, index, tl, cl, ttm, pm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    if dtype == torch.bfloat16:
+        tol = TOL[dtype]
+    else:
+        tol = TOL_W8A8 if variant.startswith('w8a8') else (
+            TOL_KV8 if variant.endswith('kv8') else TOL[dtype])
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    written = written_slots(index, K, S)
+    for got, orig in zip(c_k, cache):
+        assert torch.equal(got[:, ~written], orig[:, ~written])
+    if variant in ('kv8', 'w4a16_kv8') and dtype == torch.float32:
+        for got, want in zip(c_k[:2], c_p[:2]):
+            diff = (got[:, written].int() - want[:, written].int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+        for got, want in zip(c_k[2:], c_p[2:]):
+            torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -7)
+    else:
+        for got, want in zip(dequant(c_k), dequant(c_p)):
+            torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize('variant', ['dense', 'w8a8'])
+def test_wide_stack_steps_match_plain(dev, variant):
+    """The 204M widths (d 1024, 16 heads, dff 4096): FFN2's 4096-wide input
+    takes the 8-row projection tile.  #6 at 12 rows (two 8-row tiles) and #7
+    at 3 rows x 4 tokens against their plain versions, f32 with TF32 off."""
+    d, h, dff, L, ttm, pm, max_new = 1024, 16, 4096, 2, 24, 16, 16
+    gen = torch.Generator().manual_seed(7)
+    p = transformer_init(gen, L, d, h, dff, adaptive_norm=False)
+    if variant == 'w8a8':
+        p = tq.quantize_transformer(p, bits=8)
+    p = map_tree(lambda a: a.to(dev).contiguous(), p)
+    assert fd.fit_error(d, h, dff, fd.weight_format(p)) is None
+    S = ttm + pm + max_new
+    tol = TOL_W8A8 if variant == 'w8a8' else TOL[torch.float32]
+    for rows, K in ((12, 1), (3, 4)):
+        ck, cv = (torch.randn(L, rows, S, d, generator=gen).to(dev) for _ in range(2))
+        x = torch.randn(rows, K, d, generator=gen).to(dev)
+        tl = torch.full((rows,), 20, dtype=torch.int32, device=dev)
+        cl = torch.full((rows,), 9, dtype=torch.int32, device=dev)
+        c_k, c_p = KVCache(ck.clone(), cv.clone()), KVCache(ck.clone(), cv.clone())
+        if K == 1:
+            y, _ = fd.fused_decode_step(p, x, h, c_k, ttm + pm + 3, tl, cl, ttm, pm)
+            y_ref, _ = fd.fused_decode_step_plain(p, x, h, c_p, ttm + pm + 3, tl, cl, ttm, pm)
+        else:
+            index = torch.tensor([ttm + pm, ttm + pm + 7, S - K], dtype=torch.int32,
+                                 device=dev)
+            y, _ = fd.fused_verify_step(p, x, h, c_k, index, tl, cl, ttm, pm)
+            y_ref, _ = fd.fused_verify_step_plain(p, x, h, c_p, index, tl, cl, ttm, pm)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        torch.testing.assert_close(y, y_ref, **tol)
+        torch.testing.assert_close(c_k.k, c_p.k, **tol)
+        torch.testing.assert_close(c_k.v, c_p.v, **tol)
+
+
+def test_verify_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    p, x, cache, (tl, cl), ttm, pm, index = verify_inputs(dev, 'dense', torch.float32, 32, 3, 4)
+    c = KVCache(*cache)
+    with pytest.raises(ValueError, match='start slots'):
+        fd.fused_verify_step(p, x, 2, c, index.long(), tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='start slots'):
+        fd.fused_verify_step(p, x, 2, c, index[:2].contiguous(), tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='start slots'):
+        fd.fused_verify_step(p, x, 2, c, index.cpu(), tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='start slots'):
+        fd.fused_verify_step(p, x, 2, c, ttm + pm, tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='block'):
+        fd.fused_verify_step(p, x[:, 0], 2, c, index, tl, cl, ttm, pm)
+    with pytest.raises(ValueError, match='contiguous'):
+        fd.fused_verify_step(p, x.transpose(0, 1).contiguous().transpose(0, 1), 2, c, index,
+                             tl, cl, ttm, pm)
+    with pytest.raises(TypeError, match='bfloat16 cache'):
+        fd.fused_verify_step(map_tree(lambda a: a.bfloat16(), p), x.bfloat16(), 2, c, index,
+                             tl, cl, ttm, pm)
+    odd = torch.randn(1, 2, 4, 96, device=dev)           # hd 48: no kernel takes it
+    pw = transformer_init(torch.Generator().manual_seed(0), 1, 96, 2, 192, adaptive_norm=False)
+    pw = map_tree(lambda a: a.to(dev).contiguous(), pw)
+    ow = KVCache(*(torch.zeros(1, 1, 48, 96, device=dev) for _ in range(2)))
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for call in (lambda: fd.fused_verify_step(pw, odd[:, :1].reshape(1, 4, 96)
+                                              .contiguous(), 2, ow, 40, one, one, 8, 8),
+                 lambda: fd.fused_decode_step(pw, odd[0, :1, :1].contiguous(), 2, ow, 40, one,
+                                              one, 8, 8)):
+        with pytest.raises(ValueError, match='head dims'):
+            call()
+    assert 'widths up to 5120' in fd.fit_error(512, 4, 6144, 'q')
+
+
+def test_head_dim_16_routes_to_the_plain_path(dev):
+    """hd 16 under 'auto' decodes (speculative and plain) and trains on the
+    card through the plain versions, with no kernel launch; forcing either
+    kernel raises, naming the head dims."""
+    import dataclasses
+
+    from valle2_tpu_torch.models import ar as ar_mod
+    from valle2_tpu_torch.models import ValleAR
+    cfg = ConfigValle(d_model=64, n_heads=4, dim_feedforward=128, num_layers=2, dropout=0.0,
+                      max_audio_len=6, num_beams=1, temperature=0.0, ignore_eos=True,
+                      kv_cache_dtype='float32', matmul_precision='highest')
+    assert not cfg.flash_enabled(dev) and not cfg.fused_decode_enabled(dev)
+    rs = np.random.RandomState(0)
+    toks, codes = [rs.randint(0, 256, (5,))], [rs.randint(0, 1024, (4, 8))]
+    counters = [fa.COUNTER, fa.BWD_FUSED_COUNTER, *fd.COUNTERS.values(),
+                *fd.VERIFY_COUNTERS.values()]
+    before = [c.count for c in counters]
+    model = ValleAR(cfg, device=dev)
+    plain = model.generate_batch(toks, codes)
+    spec = ValleAR(dataclasses.replace(cfg, speculative_k=3), params=model.params,
+                   device=dev).generate_batch(toks, codes)
+    assert torch.equal(plain[0], spec[0]) and len(plain[0]) == 6
+    batch = {'tokens': rs.randint(0, 256, (2, 8)), 'tokens_lens': [8, 6],
+             'codes': rs.randint(0, 1026, (2, 12)), 'codes_lens': [12, 9],
+             'target': rs.randint(0, 1025, (2, 12))}
+    with torch.inference_mode(False), torch.enable_grad():
+        batch = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        params = map_tree(lambda a: a.clone().requires_grad_(), model.params)
+        loss, _ = ar_mod.loss_fn(params, cfg, batch)
+        loss.backward()
+    assert torch.isfinite(loss) and [c.count for c in counters] == before
+    for forced in (dict(use_fused_decode=True), dict(use_flash_attention=True)):
+        with pytest.raises(ValueError, match='head dims'):
+            ValleAR(dataclasses.replace(cfg, **forced), params=model.params,
+                    device=dev).generate_batch(toks, codes)
 
 
 RVQ_CASES = {   # (B, T, n_q): the chip_smoke shapes, then tails of 1 and 31 frames

@@ -164,7 +164,7 @@ def test_example_configs_load_alike(example):
 
 
 def test_unported_features_raise_naming_the_roadmap_item():
-    for field, value in (('decode_unroll', 2), ('speculative_k', 3),
+    for field, value in (('decode_unroll', 2), ('decode_attn_buckets', 2),
                          ('lora_rank', 4), ('remat', True),
                          ('decode_chunk', 128), ('mesh_model', 2)):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):

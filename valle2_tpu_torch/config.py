@@ -5,7 +5,8 @@ so every JSON config written for the JAX package loads here unchanged.  The
 port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
 datasets and trains the AR, NAR and ASR models on one device so far, and
 serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
-W4A16, ``quantize.py``) and an int8 KV cache (``kv_cache_dtype='int8'``)
+W4A16, ``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and
+n-gram speculative decode (``speculative_k`` >= 2 with one beam)
 (ROADMAP.md): a non-default value of a feature outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it, instead
 of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
@@ -14,9 +15,13 @@ in ``data.ValleDataset``, as in the JAX package.
 Backend switches differ from the JAX package:
 
 - ``use_flash_attention`` / ``use_fused_decode`` ``'auto'`` mean "on when the
-  tensors live on a CUDA device" (``flash_enabled`` / ``fused_decode_enabled``
-  take the device); flash routes the AR prefill and the AR/NAR training losses.
-  On the CPU the kernels' plain PyTorch versions run.
+  tensors live on a CUDA device and the kernels take the model's shape"
+  (``flash_enabled`` / ``fused_decode_enabled`` take the device and read the
+  head dim and widths from the config, before any launch); flash routes the
+  AR prefill and the AR/NAR training losses, the fused step the decode and
+  speculative verify loops.  Elsewhere the kernels' plain PyTorch versions
+  run.  ``True`` sends every tensor to the kernels, which raise on a shape
+  they do not take.
 - ``train_rng_impl`` and ``train_scan_unroll`` are JAX compilation choices
   (the PRNG implementation, the layer scan's unroll) with no counterpart in
   an eager PyTorch step: accepted for config compatibility and not read.
@@ -41,10 +46,9 @@ import torch
 
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
-    ('decode_unroll', 1, 'queue 1 item 11 (decode features)'),
-    ('decode_attn_buckets', 4, 'queue 2 item 5 (fused_decode_step variants)'),
-    ('decode_chunk', 0, 'queue 2 item 5 (fused_decode_step variants, chunked cache)'),
-    ('speculative_k', 0, 'queue 1 item 11 and queue 2 item 6 (speculative decode)'),
+    ('decode_unroll', 1, 'queue 1 item 11b (decode features)'),
+    ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
+    ('decode_chunk', 0, 'queue 2 item 5b (fused_decode_step, chunked cache)'),
     ('lora_rank', 0, 'queue 1 item 13 (lora.py)'),
     ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
     ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
@@ -224,18 +228,33 @@ class ConfigValle:
 
     def flash_enabled(self, device) -> bool:
         """Resolve ``use_flash_attention`` for tensors on ``device``: 'auto' is
-        on exactly for CUDA.  (A method, not the JAX package's property: the
-        answer depends on where the tensors live, not on a global backend.)"""
+        on for CUDA when the flash kernels take the head dim (32, 64 or 128);
+        another head dim (16, 96, ...) takes the plain attention on the card,
+        decided here from the config before any launch.  ``True`` always takes
+        the kernels, which raise on another head dim.  (A method, not the JAX
+        package's property: the answer depends on where the tensors live, not
+        on a global backend.)"""
         if self.use_flash_attention == 'auto':
-            return torch.device(device).type == 'cuda'
+            from .kernels.flash_attention import HEAD_DIMS
+            return (torch.device(device).type == 'cuda' and self.d_model % self.n_heads == 0
+                    and self.head_dim in HEAD_DIMS)
         return bool(self.use_flash_attention)
 
     def fused_decode_enabled(self, device) -> bool:
-        """Resolve ``use_fused_decode`` for tensors on ``device`` ('auto' = CUDA).
-        Unlike the JAX gate, 'highest' precision does not turn it off: the CUDA
-        kernel computes in full f32 when the model is f32."""
+        """Resolve ``use_fused_decode`` for tensors on ``device``: 'auto' is on
+        for CUDA when the fused decode and verify kernels take the stack --
+        head dim 32, 64, 96 or 128, projection inputs up to 6144 wide (5120
+        under ``weight_dtype='int8'``; ``kernels.fused_decode.fit_error``), the
+        counterpart of the JAX ``_fused_gate``'s fit check; another stack
+        takes the plain step on the card, decided here before the loop.
+        ``True`` always takes the kernels, which raise on such a stack.
+        Unlike the JAX gate, 'highest' precision does not turn it off: the
+        CUDA kernel computes in full f32 when the model is f32."""
         if self.use_fused_decode == 'auto':
-            return torch.device(device).type == 'cuda'
+            from .kernels.fused_decode import LAYOUT_OF_WEIGHT_DTYPE, fit_error
+            return torch.device(device).type == 'cuda' and fit_error(
+                self.d_model, self.n_heads, self.dim_feedforward,
+                LAYOUT_OF_WEIGHT_DTYPE[self.weight_dtype]) is None
         return bool(self.use_fused_decode)
 
     def ensure_dirs(self) -> None:

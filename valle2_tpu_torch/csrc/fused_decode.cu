@@ -1,13 +1,21 @@
-// Fused AR decode step for Hopper (sm_90a), CUDA C++: one token through every
-// layer of the transformer stack, over the head-major (L, rows, S, d) KV cache.
+// Fused AR decode step (#6) and speculative verify step (#7) for Hopper
+// (sm_90a), CUDA C++: one token (decode) or a block of K tokens per row
+// (verify) through every layer of the transformer stack, over the head-major
+// (L, rows, S, d) KV cache.
 //
-// Replaces the Pallas TPU kernel valle2_tpu/kernels/fused_decode.py
-// (fused_decode_step -> _kernel) with one scalar write index for every row and
-// no tensor parallelism, in the serving path's formats:
+// Replaces the Pallas TPU kernels of valle2_tpu/kernels/fused_decode.py:
+//   fused_decode_step -> _kernel (#6): one scalar write index for every row;
+//   fused_verify_step -> _verify_kernel (#7): K query tokens per row written
+//                        from each row's own start slot (the per-row write of
+//                        _write_rows_per_slot), in-block causal attention;
+// both without tensor parallelism, in the serving path's formats:
 //   weights  dense (#6); int8 W8A8 (_q8_dot) and int4 W4A16 (_q4_dot) (#6a);
 //   cache    float32 or bfloat16 (#6); int8 with per-(slot, head) bfloat16
 //            scales (#6a: quantize_kv_rowmajor, _fake_quant_row, the dequant).
-// The formats are template parameters of the same kernels.
+// The formats are template parameters of the same kernels, and #7 is the same
+// launcher as #6 with rows * K query rows and a device pointer to the per-row
+// start slots: the projections, the cache write and the FFN take every query
+// row alike; only the attention kernel differs.
 //
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order, so the step is five hand-written
@@ -16,23 +24,31 @@
 //
 //   1. proj<QKV>:  LN1 -> fused QKV.  q (pre-scaled by 1/sqrt(hd), f32) goes to
 //                  scratch; k_new / v_new are rounded to the cache dtype and
-//                  written into cache slot `index` IN PLACE.  The TPU kernel
-//                  never writes the cache: it merges the new token's k/v in
-//                  register after the same rounding, so attending over the
-//                  written slot gives the same numbers (the caller's cache
-//                  update is then done, too).  With an int8 cache k_new / v_new
+//                  written into the cache IN PLACE: query row (r, i) at slot
+//                  index_r + i (decode: index + 0).  The TPU kernels never
+//                  write the cache: they merge the new tokens' k/v in register
+//                  after the same rounding, so attending over the written
+//                  slots gives the same numbers (the caller's cache update is
+//                  then done, too).  A write at a slot >= S is skipped, where
+//                  JAX's dynamic_update_slice would clamp the block's start
+//                  and overwrite earlier slots; the callers keep K slots of
+//                  slack so neither happens.  With an int8 cache k_new / v_new
 //                  go, rounded to the compute dtype, to an f32 scratch instead:
-//   1b. kv_quant:  one warp per (row, head, k|v), because a head spans hd/32
-//                  projection column blocks: scale32 = max(amax, 1e-8) / 127,
-//                  codes clamp(rint(x / scale32), +-127) into slot `index`, and
-//                  bf16(scale32) into the scale tensor.  Attention then reads
-//                  the slot back like any other, which is _fake_quant_row's
-//                  round trip (quantize with the f32 scale, dequantize with
-//                  the stored bf16 one).
-//   2. attend:     one block per (row, head): online softmax in f32 over the
-//                  valid slots only -- [0, tokens_len), [ttm, ttm + codes_len)
-//                  and [ttm + pm, index] -- so masked slots are never read.  An
-//                  int8 slot is code * f32(bf16 scale), one scale per slot.
+//   1b. kv_quant:  one warp per (query row, head, k|v), because a head spans
+//                  hd/32 projection column blocks: scale32 = max(amax, 1e-8) /
+//                  127, codes clamp(rint(x / scale32), +-127) into the query
+//                  row's slot, and bf16(scale32) into the scale tensor.
+//                  Attention then reads the slot back like any other, which is
+//                  _fake_quant_row's round trip (quantize with the f32 scale,
+//                  dequantize with the stored bf16 one).
+//   2. attend:     one block per (query row, head): online softmax in f32
+//                  over the valid slots only -- query i of row r sees [0,
+//                  tl_r), [ttm, ttm + pl_r) and [ttm + pm, index_r + i] --
+//                  so masked slots are never read.  The block's own k/v are
+//                  in the cache already, so the in-block causal mask is the
+//                  end of that range, and a decode token is query 0 of a
+//                  block of one: #6 and #7 share the kernel.  An int8 slot is
+//                  code * f32(bf16 scale).
 //   3. proj<OUT>:  out-projection + bias + residual -> f32 mid state.
 //   4. proj<FFN1>: LN2 (of the f32 mid state) -> FFN1 + bias -> erf-GELU.
 //   5. proj<FFN2>: FFN2 + bias + residual -> hidden state in the compute dtype.
@@ -52,17 +68,26 @@
 //                accumulate exactly in int32 (__dp4a), and y = acc * sx *
 //                scale[col] in f32.
 //
-// What bounds it on this card: at rows = 12 a step streams the weights (about
-// 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and the
-// valid cache prefix (half the bytes in int8), and does far too little
+// What bounds it on this card: at 12 query rows a step streams the weights
+// (about 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and
+// the valid cache prefix (half the bytes in int8), and does far too little
 // arithmetic to need the tensor cores, so the products run on the CUDA cores
 // (f32 FMAs; __dp4a for int8); launch latency of the 5-6 * L kernels is the
 // other cost.  With so few blocks in flight, memory latency bounds each
 // kernel, so the loops issue their loads in batches: the projections read
-// each weight once for up to 16 rows (rows in registers, K split over 16
-// warps, 8 loads in flight per warp), and the attention loads 8 slots' k and
-// v before using any.  A persistent kernel, tensor-core products or a CUDA
-// graph is later work.
+// each weight once for a tile of up to 16 rows (rows in registers, K split
+// over 16 warps, 8 loads in flight per warp), and the attention loads 8
+// slots' k and v before using any.  A verify block's K queries read their
+// row's slots K times, from L2 after the first: a block per (row, head, 8
+// queries) that staged each 32-slot tile once in shared memory for all its
+// queries, one warp per query, took 0.067 ms a layer at 3 rows x K = 4 on an
+// H100 (torch.profiler), where the decode step's attention at 12 rows took
+// 0.014: its 12 blocks each walked every slot in turn.  The
+// tile's rows of the A operand sit in shared memory, so a projection input
+// wider than 3072 (2048 under W8A8, whose int8 codes sit beside it) takes a
+// tile of 8 rows, up to 6144 (5120): more than 8 query rows then read each
+// weight once per 8-row tile.  A persistent kernel, tensor-core products or a
+// CUDA graph is later work.
 
 #include <math.h>
 #include <stdint.h>
@@ -75,7 +100,6 @@ namespace {
 
 using namespace valle2;
 
-constexpr int MAXR = 16;     // rows per projection block (held in registers)
 constexpr int NCOL = 32;     // output columns per projection block (one per lane)
 constexpr int KSPLIT = 16;   // warps per projection block, each a slice of K
 constexpr int PNT = NCOL * KSPLIT;
@@ -88,9 +112,11 @@ constexpr float LN_EPS = 1e-5f;
 enum Mode { QKV = 0, OUT = 1, FFN1 = 2, FFN2 = 3 };
 enum WFmt { DENSE = 0, W8 = 1, W4 = 2 };
 
-// Widest projection input: MAXR rows of it (f32, and int8 codes for W8) fill
-// shared memory.
-constexpr int max_k(int wf) { return wf == W8 ? 2048 : 3072; }
+// Widest projection input of a tile of 16 and of 8 rows: the rows (f32, and
+// int8 codes for W8) and the reduction scratch fill the 227 KB of shared
+// memory a block can opt into.
+constexpr int max_k16(int wf) { return wf == W8 ? 2048 : 3072; }
+constexpr int max_k8(int wf) { return wf == W8 ? 5120 : 6144; }
 
 template <typename T>
 struct ProjArgs {
@@ -107,14 +133,21 @@ struct ProjArgs {
   float* out32;        // OUT: (rows, d) mid state; FFN1: (rows, N) GELU output
   const float* res32;  // FFN2: (rows, d) mid state
   T* y;                // FFN2: (rows, d) hidden state leaving the layer
-  int rows, K, N, d, S, index, group;
+  const int* idx;      // QKV, verify: (rows / qblk,) start slot of each cache row
+  int rows, K, N, d, S, index, group, qblk;   // rows: query rows; qblk per cache row
   float scale;
 };
 
-size_t proj_smem(int K, int wf) {
-  size_t bytes = sizeof(float) * ((size_t)MAXR * K + KSPLIT * MAXR * NCOL);
-  if (wf == W8) bytes += sizeof(float) * MAXR + (size_t)MAXR * K;
+size_t proj_smem(int K, int wf, int mr) {
+  size_t bytes = sizeof(float) * ((size_t)mr * K + KSPLIT * mr * NCOL);
+  if (wf == W8) bytes += sizeof(float) * mr + (size_t)mr * K;
   return bytes;
+}
+
+// The cache slot of query row `row`: qblk query rows per cache row, the i-th
+// at the row's start slot + i (the per-row `idx`, or the scalar `index`).
+__device__ __forceinline__ int query_slot(const int* idx, int index, int qblk, int row) {
+  return (idx ? idx[row / qblk] : index) + row % qblk;
 }
 
 __device__ __forceinline__ int sext4(int b) {   // low nibble of b, sign-extended
@@ -124,7 +157,7 @@ __device__ __forceinline__ int sext4(int b) {   // low nibble of b, sign-extende
 // out[r, j] = epilogue(sum_k A[r, k] W[k, j]) for a tile of MAXR rows x NCOL
 // columns; the A operand (with its LayerNorm prologue) sits in shared memory,
 // rounded to the compute dtype, or quantized to int8 codes for W8.
-template <typename T, typename TC, int MODE, int WF>
+template <typename T, typename TC, int MODE, int WF, int MAXR>
 __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
   extern __shared__ __align__(16) float sm[];
   float* As = sm;                    // [MAXR][K]
@@ -315,8 +348,11 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
       } else if constexpr (std::is_same<TC, int8_t>::value) {
         static_cast<float*>(a.ck)[(size_t)row * 2 * d + (j - d)] = round_to<T>(s);
       } else {
-        TC* cache = static_cast<TC*>(j < 2 * d ? a.ck : a.cv);
-        cache[((size_t)row * a.S + a.index) * d + (j % d)] = from_f<TC>(s);
+        const int slot = query_slot(a.idx, a.index, a.qblk, row);
+        if (slot < a.S) {
+          TC* cache = static_cast<TC*>(j < 2 * d ? a.ck : a.cv);
+          cache[((size_t)(row / a.qblk) * a.S + slot) * d + (j % d)] = from_f<TC>(s);
+        }
       }
     } else if constexpr (MODE == OUT) {
       a.out32[(size_t)row * d + j] = to_f<T>(a.x[(size_t)row * d + j]) +
@@ -331,17 +367,21 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
   }
 }
 
-// int8 cache write of the new token (quantize_kv_rowmajor): one warp per
-// (row, head, k|v) of the (rows, 2d) f32 scratch, into slot `index`.
+// int8 cache write of the new tokens (quantize_kv_rowmajor): one warp per
+// (query row, head, k|v) of the (rows, 2d) f32 scratch, into the query row's
+// slot (query_slot).
 template <int HD>
 __global__ void __launch_bounds__(KVQ_WARPS * 32)
 kv_quant_kernel(const float* __restrict__ kvnew, int8_t* __restrict__ ck,
                 int8_t* __restrict__ cv, __nv_bfloat16* __restrict__ ks,
-                __nv_bfloat16* __restrict__ vs, int rows, int h, int S, int d, int index) {
+                __nv_bfloat16* __restrict__ vs, const int* __restrict__ idx, int rows, int h,
+                int S, int d, int index, int qblk) {
   constexpr int DPL = HD / 32;
   const int wid = blockIdx.x * KVQ_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (wid >= rows * 2 * h) return;
   const int row = wid / (2 * h), kv = wid / h % 2, hh = wid % h;
+  const int slot_in_row = query_slot(idx, index, qblk, row);
+  if (slot_in_row >= S) return;                 // the whole warp: a skipped write
   const float* src = kvnew + (size_t)row * 2 * d + kv * d + hh * HD + lane * DPL;
   float xv[DPL], amax = 0.f;
 #pragma unroll
@@ -350,41 +390,46 @@ kv_quant_kernel(const float* __restrict__ kvnew, int8_t* __restrict__ ck,
     amax = fmaxf(amax, fabsf(xv[i]));
   }
   const float sc = fmaxf(warp_max(amax), 1e-8f) / 127.f;
-  const size_t slot = (size_t)row * S + index;
+  const size_t slot = (size_t)(row / qblk) * S + slot_in_row;
   int8_t* dst = (kv ? cv : ck) + slot * d + hh * HD + lane * DPL;
 #pragma unroll
   for (int i = 0; i < DPL; ++i) dst[i] = (int8_t)fminf(fmaxf(rintf(xv[i] / sc), -127.f), 127.f);
   if (lane == 0) (kv ? vs : ks)[slot * h + hh] = __float2bfloat16_rn(sc);
 }
 
-// One block per (row, head): softmax(q . k_s) v_s over the valid slots of the
-// row, online in f32.  Each warp walks its own share of the slots UNR at a time
-// (each lane holds HD/32 dims), then the warps' partial (max, sum, acc) merge.
-// An int8 cache (TC = int8_t) dequantizes each slot by its head's bf16 scale.
+// One block per (query row, head): softmax(q . k_s) v_s over the valid slots
+// of the query's cache row, online in f32.  Each warp walks its own share of
+// the slots UNR at a time (each lane holds HD/32 dims), then the warps'
+// partial (max, sum, acc) merge.  An int8 cache (TC = int8_t) dequantizes each
+// slot by its head's bf16 scale.
 template <typename TC, int HD>
 __global__ void __launch_bounds__(ANW * 32)
 attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
               const TC* __restrict__ cv, const __nv_bfloat16* __restrict__ ks,
               const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tokens_lens,
-              const int* __restrict__ codes_lens, float* __restrict__ out, int h, int S,
-              int d, int index, int ttm, int pm) {
+              const int* __restrict__ codes_lens, const int* __restrict__ idx,
+              float* __restrict__ out, int h, int S, int d, int index, int qblk, int ttm,
+              int pm) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int DPL = HD / 32;
   constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   __shared__ float m_w[ANW], l_w[ANW], acc_w[ANW][HD];
-  const int row = blockIdx.x / h, hh = blockIdx.x % h;
+  const int rq = blockIdx.x / h, hh = blockIdx.x % h;   // query row, head
+  const int row = rq / qblk;                            // its cache row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int dim0 = hh * HD + lane * DPL;
   const size_t row_base = (size_t)row * S * d;
 
   float qv[DPL];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) qv[i] = q[(size_t)row * d + dim0 + i];
+  for (int i = 0; i < DPL; ++i) qv[i] = q[(size_t)rq * d + dim0 + i];
   // Valid slots: the three ranges of the Pallas kernel's attend formula, which
-  // are disjoint because tokens_len <= ttm and codes_len <= pm.
+  // are disjoint because tokens_len <= ttm and codes_len <= pm; the generated
+  // range ends at the query's own slot (past S: at S - 1).
   const int n1 = min(max(tokens_lens[row], 0), ttm);
   const int n2 = min(max(codes_lens[row], 0), pm);
-  const int n_valid = n1 + n2 + (index - ttm - pm + 1);
+  const int last = min(query_slot(idx, index, qblk, rq), S - 1);
+  const int n_valid = n1 + n2 + max(0, last - ttm - pm + 1);
 
   float m = NEG_INF, l = 0.f, acc[DPL];
 #pragma unroll
@@ -456,24 +501,32 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
       lt += l_w[w] * f;
       at += acc_w[w][e] * f;
     }
-    out[(size_t)row * d + hh * HD + e] = at / fmaxf(lt, 1e-30f);
+    out[(size_t)rq * d + hh * HD + e] = at / fmaxf(lt, 1e-30f);
   }
 }
 
-template <typename T, typename TC, int MODE, int WF>
-int launch_proj(const ProjArgs<T>& a, cudaStream_t stream) {
-  if (a.K > max_k(WF)) return (int)cudaErrorInvalidValue;
+template <typename T, typename TC, int MODE, int WF, int MR>
+int launch_proj_tile(const ProjArgs<T>& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(proj_kernel<T, TC, MODE, WF>,
+    const int kmax = MR == 16 ? max_k16(WF) : max_k8(WF);
+    cudaError_t err = cudaFuncSetAttribute(proj_kernel<T, TC, MODE, WF, MR>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)proj_smem(max_k(WF), WF));
+                                           (int)proj_smem(kmax, WF, MR));
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid((a.N + NCOL - 1) / NCOL, (a.rows + MAXR - 1) / MAXR);
-  proj_kernel<T, TC, MODE, WF><<<grid, PNT, proj_smem(a.K, WF), stream>>>(a);
+  dim3 grid((a.N + NCOL - 1) / NCOL, (a.rows + MR - 1) / MR);
+  proj_kernel<T, TC, MODE, WF, MR><<<grid, PNT, proj_smem(a.K, WF, MR), stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// A tile of 16 rows where its operand fits shared memory, else of 8.
+template <typename T, typename TC, int MODE, int WF>
+int launch_proj(const ProjArgs<T>& a, cudaStream_t stream) {
+  if (a.K <= max_k16(WF)) return launch_proj_tile<T, TC, MODE, WF, 16>(a, stream);
+  if (a.K <= max_k8(WF)) return launch_proj_tile<T, TC, MODE, WF, 8>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 struct StepArgs {
@@ -482,8 +535,9 @@ struct StepArgs {
   const void *sqkv, *sout, *s1, *s2;   // weight scales (W8, W4) or null
   void *ks, *vs;                       // int8 cache scales (L, rows, S, h) or null
   const int *tokens_lens, *codes_lens;
+  const int* idx;                      // verify: (rows,) start slots; decode: null
   float *qbuf, *abuf, *xmid, *hmid, *kvnew;
-  int L, rows, S, d, h, dff, index, ttm, pm, groups_d, groups_ff;
+  int L, rows, S, d, h, dff, index, qblk, ttm, pm, groups_d, groups_ff;
   float scale;
 };
 
@@ -506,6 +560,7 @@ template <typename T, typename TC, int HD, int WF>
 int step(const StepArgs& s, cudaStream_t stream) {
   constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   const int d = s.d, dff = s.dff;
+  const int rows_q = s.rows * s.qblk;   // query rows through the projections
   const size_t cache_layer = (size_t)s.rows * s.S * d;
   const size_t scale_layer = (size_t)s.rows * s.S * s.h;
   int err;
@@ -517,10 +572,12 @@ int step(const StepArgs& s, cudaStream_t stream) {
     __nv_bfloat16* vs = QUANT ? static_cast<__nv_bfloat16*>(s.vs) + l * scale_layer : nullptr;
     ProjArgs<T> a{};
     a.x = x;
-    a.rows = s.rows;
+    a.rows = rows_q;
     a.d = d;
     a.S = s.S;
     a.index = s.index;
+    a.idx = s.idx;
+    a.qblk = s.qblk;
     a.scale = s.scale;
 
     a.ln_s = static_cast<const T*>(s.n1s) + (size_t)l * d;
@@ -535,15 +592,15 @@ int step(const StepArgs& s, cudaStream_t stream) {
     a.cv = cv;
     if ((err = launch_proj<T, TC, QKV, WF>(a, stream))) return err;
     if constexpr (QUANT) {
-      const int warps = s.rows * 2 * s.h;
+      const int warps = rows_q * 2 * s.h;
       kv_quant_kernel<HD><<<(warps + KVQ_WARPS - 1) / KVQ_WARPS, KVQ_WARPS * 32, 0, stream>>>(
-          s.kvnew, ck, cv, ks, vs, s.rows, s.h, s.S, d, s.index);
+          s.kvnew, ck, cv, ks, vs, s.idx, rows_q, s.h, s.S, d, s.index, s.qblk);
       if ((err = (int)cudaGetLastError())) return err;
     }
 
-    attend_kernel<TC, HD><<<s.rows * s.h, ANW * 32, 0, stream>>>(
-        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.abuf, s.h, s.S, d, s.index,
-        s.ttm, s.pm);
+    attend_kernel<TC, HD><<<rows_q * s.h, ANW * 32, 0, stream>>>(
+        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, s.abuf, s.h, s.S, d,
+        s.index, s.qblk, s.ttm, s.pm);
     if ((err = (int)cudaGetLastError())) return err;
 
     a.a32 = s.abuf;
@@ -583,6 +640,7 @@ int dispatch_hd(const StepArgs& s, cudaStream_t stream) {
   switch (s.d / s.h) {
     case 32: return step<T, TC, 32, WF>(s, stream);
     case 64: return step<T, TC, 64, WF>(s, stream);
+    case 96: return step<T, TC, 96, WF>(s, stream);
     case 128: return step<T, TC, 128, WF>(s, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -598,6 +656,18 @@ int dispatch_wf(int wfmt, const StepArgs& s, cudaStream_t stream) {
   }
 }
 
+int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s.groups_d < 1 || s.groups_ff < 1 || s.qblk < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && cache_dtype == 0) return dispatch_wf<float, float>(wfmt, s, st);
+  if (dtype == 0 && cache_dtype == 1) return dispatch_wf<float, __nv_bfloat16>(wfmt, s, st);
+  if (dtype == 0 && cache_dtype == 2) return dispatch_wf<float, int8_t>(wfmt, s, st);
+  if (dtype == 1 && cache_dtype == 1)
+    return dispatch_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, s, st);
+  if (dtype == 1 && cache_dtype == 2) return dispatch_wf<__nv_bfloat16, int8_t>(wfmt, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32, 1 = bfloat16,
@@ -608,9 +678,12 @@ int dispatch_wf(int wfmt, const StepArgs& s, cudaStream_t stream) {
 // width).  Weight scales (compute dtype): (L, N) in format 1, (L, groups, N)
 // in format 2 with groups_d / groups_ff groups over the d- / dff-wide inputs;
 // null in format 0.  An int8 cache has (L, rows, S, h) bf16 scales ks / vs.
-// Scratch: qbuf/abuf/xmid (rows, d) f32, hmid (rows, dff) f32, kvnew (rows,
-// 2d) f32 (int8 cache only).  Returns the first non-zero cudaGetLastError()
-// of the launches.
+// Scratch, per query row (rows for the decode step, rows * qblk for the
+// verify step): qbuf/abuf/xmid (., d) f32, hmid (., dff) f32, kvnew (., 2d)
+// f32 (int8 cache only).  Returns the first non-zero cudaGetLastError() of the
+// launches.
+
+// #6: one token per row, x and y (rows, d), written at slot `index`.
 extern "C" int valle2_fused_decode_step(
     int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
     const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
@@ -621,15 +694,28 @@ extern "C" int valle2_fused_decode_step(
     int h, int dff, int index, int ttm, int pm, int groups_d, int groups_ff, float scale,
     void* stream) {
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
-             sout, s1, s2, ks, vs, tokens_lens, codes_lens, qbuf, abuf, xmid, hmid, kvnew,
-             L, rows, S, d, h, dff, index, ttm, pm, groups_d, groups_ff, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (groups_d < 1 || groups_ff < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && cache_dtype == 0) return dispatch_wf<float, float>(wfmt, s, st);
-  if (dtype == 0 && cache_dtype == 1) return dispatch_wf<float, __nv_bfloat16>(wfmt, s, st);
-  if (dtype == 0 && cache_dtype == 2) return dispatch_wf<float, int8_t>(wfmt, s, st);
-  if (dtype == 1 && cache_dtype == 1)
-    return dispatch_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, s, st);
-  if (dtype == 1 && cache_dtype == 2) return dispatch_wf<__nv_bfloat16, int8_t>(wfmt, s, st);
-  return (int)cudaErrorInvalidValue;
+             sout, s1, s2, ks, vs, tokens_lens, codes_lens, nullptr, qbuf, abuf, xmid,
+             hmid, kvnew, L, rows, S, d, h, dff, index, 1, ttm, pm, groups_d, groups_ff,
+             scale};
+  return dispatch(dtype, cache_dtype, wfmt, s, stream);
+}
+
+// #7: qblk tokens per row, x and y (rows, qblk, d); row r's block is written
+// at slots idx[r] .. idx[r] + qblk - 1 (a device pointer, never read by the
+// host), each slot >= S skipped.
+extern "C" int valle2_fused_verify_step(
+    int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
+    const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
+    const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
+    void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
+    void* ks, void* vs, const int* tokens_lens, const int* codes_lens, const int* idx,
+    float* qbuf, float* abuf, float* xmid, float* hmid, float* kvnew, int L, int rows,
+    int S, int d, int h, int dff, int qblk, int ttm, int pm, int groups_d, int groups_ff,
+    float scale, void* stream) {
+  if (idx == nullptr) return (int)cudaErrorInvalidValue;
+  StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
+             sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
+             hmid, kvnew, L, rows, S, d, h, dff, 0, qblk, ttm, pm, groups_d, groups_ff,
+             scale};
+  return dispatch(dtype, cache_dtype, wfmt, s, stream);
 }

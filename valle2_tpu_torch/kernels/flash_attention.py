@@ -31,7 +31,7 @@ BWD_FUSED_COUNTER = _build.LaunchCounter()
 BWD_DQ_COUNTER = _build.LaunchCounter()
 BWD_DKV_COUNTER = _build.LaunchCounter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)
 # The JAX package's bound for its one-pass backward (flash_attention.py:50):
 # the fused kernel runs when s rounded up to 128 is at most this.
 FUSED_BWD_MAX_SEQ = 768
@@ -102,8 +102,8 @@ def _check_qkv(name: str, q, others, meta):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f'{name} kernel takes float32 or bfloat16, got {q.dtype}')
     b, _, _, hd = q.shape
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f'{name} kernel takes head dims {_HEAD_DIMS}, got {hd}')
+    if hd not in HEAD_DIMS:
+        raise ValueError(f'{name} kernel takes head dims {HEAD_DIMS}, got {hd}')
     if meta.shape != (b, 2) or meta.dtype != torch.int32 or meta.device != q.device:
         raise ValueError('meta must be a (b, 2) int32 tensor on the device of q')
     if not all(t.is_contiguous() for t in (q, *others, meta)):

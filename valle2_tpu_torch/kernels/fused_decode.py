@@ -1,21 +1,28 @@
-"""Fused AR decode step: the CUDA kernel and its plain version.
+"""Fused AR decode step (#6) and speculative verify step (#7): the CUDA
+kernels and their plain versions.
 
-Replaces the Pallas TPU kernel ``valle2_tpu/kernels/fused_decode.py``
-(``fused_decode_step`` → ``_kernel``) with one scalar write index and no
-tensor parallelism, in every weight and cache format the serving path uses:
-dense weights (#6), int8 W8A8 and int4 W4A16 weights (the ``'q'`` / ``'q4'``
-layouts of ``quantize.py``), and a float32, bfloat16 or int8 cache (#6a).
-The kernels are ``csrc/fused_decode.cu`` (see its header for the design); the
-wrapper launches all of one step's kernels with one host call.
+Replace the Pallas TPU kernels of ``valle2_tpu/kernels/fused_decode.py``:
+``fused_decode_step`` → ``_kernel`` with one scalar write index, and
+``fused_verify_step`` → ``_verify_kernel``, a block of K query tokens per row
+written from each row's own start slot (the per-row write of
+``_write_rows_per_slot``), both without tensor parallelism and in every
+weight and cache format the serving path uses: dense weights (#6), int8 W8A8
+and int4 W4A16 weights (the ``'q'`` / ``'q4'`` layouts of ``quantize.py``),
+and a float32, bfloat16 or int8 cache (#6a).  The kernels are
+``csrc/fused_decode.cu`` (see its header for the design); each wrapper
+launches all of one step's kernels with one host call.
 
 Both versions take the cache in the fused head-major layout (L, rows, S, d)
 (``fused_cache_layout``), an int8 cache with its per-(slot, head) bfloat16
-scales (L, rows, S, h), and update it IN PLACE: slot ``index`` of every layer
-receives the new token's k/v (the JAX version returns new k/v for the caller to
-write; the resulting cache is the same).  The plain version is
+scales (L, rows, S, h), and update it IN PLACE: the new tokens' k/v go into
+their slots of every layer (the JAX versions return new k/v for the caller to
+write; the resulting cache is the same).  The plain versions are
 ``ops.transformer.transformer_decode_step`` over the per-head view of that
-cache, with the three-range slot mask of ``ar.py:612-615, 647``.  The wrapper
-takes the plain version only for tensors on the CPU.
+cache, with the three-range slot mask of ``ar.py:612-615, 647`` in its
+per-query form of ``ar.py:759-762`` (``verify_slot_mask``).  The wrappers
+take the plain versions only for tensors on the CPU.  ``fit_error`` says
+which stacks the kernels take; the config's 'auto' route asks it before any
+launch.
 """
 
 from __future__ import annotations
@@ -32,10 +39,28 @@ from . import _build
 VARIANTS = ('dense', 'w8a8', 'w4a16', 'kv8', 'w8a8_kv8', 'w4a16_kv8')
 COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}
 COUNTER = COUNTERS['dense']    # the base variant (#6): dense weights, float cache
+VERIFY_COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}    # #7
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WEIGHT_FORMATS = {'w': (0, 'dense'), 'q': (1, 'w8a8'), 'q4': (2, 'w4a16')}
-_HEAD_DIMS = (32, 64, 128)
-_MAX_K = {0: 3072, 1: 2048, 2: 3072}   # widest projection input the shared tile holds
+# config.weight_dtype -> the layout quantize.py gives the stack
+LAYOUT_OF_WEIGHT_DTYPE = {'compute': 'w', 'int8': 'q', 'int4': 'q4'}
+HEAD_DIMS = (32, 64, 96, 128)
+# Widest projection input: a tile of 8 rows of it (f32, and int8 codes for
+# W8A8) in shared memory (csrc/fused_decode.cu max_k8).
+_MAX_K = {0: 6144, 1: 5120, 2: 6144}
+
+
+def fit_error(d: int, n_heads: int, dff: int, layout: str) -> str | None:
+    """Why the kernels cannot take a stack of these widths in this weight
+    layout ('w', 'q' or 'q4'), or None when they can."""
+    if d % n_heads or d // n_heads not in HEAD_DIMS:
+        return (f'the fused decode kernels take head dims {HEAD_DIMS}, got d={d}, '
+                f'n_heads={n_heads}')
+    wcode = _WEIGHT_FORMATS[layout][0]
+    if max(d, dff) > _MAX_K[wcode] or (layout != 'w' and dff % 8):
+        return (f'the fused decode kernels take widths up to {_MAX_K[wcode]} for '
+                f'{layout!r} weights (quantized: dff a multiple of 8), got d={d}, dff={dff}')
+    return None
 
 
 def fused_cache_layout(cache: KVCache) -> KVCache:
@@ -75,17 +100,36 @@ def quantize_kv_rowmajor(x: torch.Tensor, n_heads: int):
     return q.reshape(*lead, d), scale[..., 0].to(torch.bfloat16)
 
 
-def slot_mask(S: int, index: int, tokens_lens, codes_lens, ttm: int, pm: int):
-    """(rows, S) bool: the slots a decode token attends (``ar.py:612-615, 647``)."""
-    slots = torch.arange(S, device=tokens_lens.device)[None, :]
-    return ((slots < tokens_lens[:, None])
-            | ((slots >= ttm) & (slots < ttm + codes_lens[:, None]))
-            | ((slots >= ttm + pm) & (slots <= index)))
+def verify_slot_mask(S: int, index, q_len: int, tokens_lens, codes_lens, ttm: int,
+                     pm: int):
+    """(rows, q_len, S) bool: the slots query i of a block of q_len tokens
+    attends (``ar.py:612-615, 647, 759-762``): the valid source and prompt
+    slots, and generated slots up to index + i (a decode token: q_len = 1).
+    ``index``: one int or a (rows,) tensor of per-row start slots."""
+    dev = tokens_lens.device
+    slots = torch.arange(S, device=dev)[None, None, :]
+    start = index.long()[:, None, None] if torch.is_tensor(index) else int(index)
+    last = start + torch.arange(q_len, device=dev)[None, :, None]
+    return ((slots < tokens_lens[:, None, None])
+            | ((slots >= ttm) & (slots < ttm + codes_lens[:, None, None]))
+            | ((slots >= ttm + pm) & (slots <= last)))
 
 
 def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index: int,
                             tokens_lens, codes_lens, ttm: int, pm: int):
-    attend = slot_mask(cache.k.shape[2], index, tokens_lens, codes_lens, ttm, pm)
+    attend = verify_slot_mask(cache.k.shape[2], index, 1, tokens_lens, codes_lens, ttm, pm)
+    y, _ = transformer_decode_step(p, x, n_heads, per_head_view(cache, n_heads), index,
+                                   attend_mask=attend)
+    return y, cache
+
+
+def fused_verify_step_plain(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
+                            codes_lens, ttm: int, pm: int):
+    """The q-block ``transformer_decode_step`` over the per-head view, under
+    the speculative mask: row r's block written from its slot index[r]
+    (``index + q <= S``), query i attending up to index[r] + i."""
+    attend = verify_slot_mask(cache.k.shape[2], index, x.shape[1], tokens_lens, codes_lens,
+                              ttm, pm)
     y, _ = transformer_decode_step(p, x, n_heads, per_head_view(cache, n_heads), index,
                                    attend_mask=attend)
     return y, cache
@@ -110,22 +154,26 @@ def variant(p, cache: KVCache) -> str:
     return 'kv8' if name == 'dense' else f'{name}_kv8'
 
 
-def _lib():
-    fn = _build.load('fused_decode').valle2_fused_decode_step
+def _lib(verify: bool):
+    lib = _build.load('fused_decode')
+    fn = lib.valle2_fused_verify_step if verify else lib.valle2_fused_decode_step
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # formats; x, y, 11 weights, cache k/v, 4 weight scales, 2 cache scales,
-        # lengths, 5 scratch buffers; 11 sizes; the q scale and the stream
-        fn.argtypes = [ci] * 3 + [vp] * 28 + [ci] * 11 + [ctypes.c_float, vp]
+        # lengths (and the verify step's start slots), 5 scratch buffers; 11
+        # sizes (the decode step's index or the verify step's block length
+        # among them); the q scale and the stream
+        fn.argtypes = [ci] * 3 + [vp] * (29 if verify else 28) + [ci] * 11 + [
+            ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(t, shape, dtype, what: str):
-    if t is None or t.shape != shape or t.dtype != dtype or not t.is_contiguous() \
-            or t.device.type != 'cuda':
-        got = 'None' if t is None else f'{tuple(t.shape)} {t.dtype} on {t.device}'
-        raise ValueError(f'fused_decode_step kernel needs {what} as a contiguous CUDA '
+def _check(t, shape, dtype, what: str, name: str = 'fused_decode_step'):
+    if not torch.is_tensor(t) or t.shape != shape or t.dtype != dtype \
+            or not t.is_contiguous() or t.device.type != 'cuda':
+        got = f'{tuple(t.shape)} {t.dtype} on {t.device}' if torch.is_tensor(t) else repr(t)
+        raise ValueError(f'{name} kernel needs {what} as a contiguous CUDA '
                          f'{tuple(shape)} {dtype} tensor; got {got}')
     return t
 
@@ -165,6 +213,65 @@ def _weights(p, fmt: str, dtype, L: int, d: int, dff: int) -> tuple[list, list, 
     return ws, scales, groups
 
 
+def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: int,
+                         tokens_lens, codes_lens):
+    """The checks both wrappers share (on the host, no device sync): formats,
+    shapes and widths.  Returns (the launcher's leading arguments up to the
+    lengths, its scratch buffers, (L, rows, S, d, dff), the int4 group counts,
+    the output y and the variant's name)."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name} runs on CPU or CUDA tensors, got {x.device}')
+    L, rows, S, d = cache.k.shape
+    fmt = weight_format(p)
+    wcode, _ = _WEIGHT_FORMATS[fmt]
+    dff = p['ffn']['lin1'][fmt].shape[-1]
+    if x.shape != (rows, q_len, d) or x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError(f'x must be a contiguous ({rows}, {q_len}, {d}) float32/bfloat16 '
+                         'tensor')
+    quant = cache.k.dtype == torch.int8
+    if cache.v.shape != cache.k.shape or cache.k.dtype not in _DTYPE_CODE \
+            or cache.v.dtype != cache.k.dtype \
+            or not (cache.k.is_contiguous() and cache.v.is_contiguous()):
+        raise ValueError('cache k/v must be contiguous (L, rows, S, d) float32, bfloat16 '
+                         'or int8 tensors of one dtype')
+    if quant:
+        scales = [_check(s, (L, rows, S, n_heads), torch.bfloat16, 'an int8 cache scale',
+                         name) for s in (cache.k_scale, cache.v_scale)]
+    elif cache.k_scale is not None or cache.v_scale is not None:
+        raise ValueError('cache scales belong to an int8 cache only')
+    else:
+        scales = [None, None]
+    if x.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
+        raise TypeError(f'{name} kernel: a bfloat16 model needs a bfloat16 cache')
+    reason = fit_error(d, n_heads, dff, fmt)
+    if reason is not None:
+        raise ValueError(f'{name}: {reason}')
+    for t in (tokens_lens, codes_lens):
+        if t.shape != (rows,) or t.dtype != torch.int32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError('tokens_lens / codes_lens must be contiguous (rows,) int32 '
+                             'tensors on the device of x')
+    ws, wscales, groups = _weights(p, fmt, x.dtype, L, d, dff)
+    y = torch.empty((rows, q_len, d), dtype=x.dtype, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    rq = rows * q_len
+    qbuf, abuf, xmid = (torch.empty((rq, d), **f32) for _ in range(3))
+    hmid = torch.empty((rq, dff), **f32)
+    kvnew = torch.empty((rq, 2 * d), **f32) if quant else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    lead = [_DTYPE_CODE[x.dtype], _DTYPE_CODE[cache.k.dtype], wcode, x.data_ptr(),
+            y.data_ptr(), *(w.data_ptr() for w in ws), cache.k.data_ptr(),
+            cache.v.data_ptr(), *(ptr(s) for s in wscales), *(ptr(s) for s in scales),
+            tokens_lens.data_ptr(), codes_lens.data_ptr()]
+    scratch = [qbuf.data_ptr(), abuf.data_ptr(), xmid.data_ptr(), hmid.data_ptr(),
+               ptr(kvnew)]
+    sizes = (L, rows, S, d, dff)
+    return lead, scratch, sizes, groups, y, variant(p, cache)
+
+
 def fused_decode_step(p, x, n_heads: int, cache: KVCache, index: int, tokens_lens,
                       codes_lens, ttm: int, pm: int):
     """One token through the whole stack.  p: stacked layer dict (L, ...),
@@ -178,62 +285,46 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index: int, tokens_len
     if x.device.type == 'cpu':
         return fused_decode_step_plain(p, x, n_heads, cache, index, tokens_lens,
                                        codes_lens, ttm, pm)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_decode_step runs on CPU or CUDA tensors, got {x.device}')
-    L, rows, S, d = cache.k.shape
-    fmt = weight_format(p)
-    wcode, _ = _WEIGHT_FORMATS[fmt]
-    dff = p['ffn']['lin1'][fmt].shape[-1]
-    hd = d // n_heads
-    if x.shape != (rows, 1, d) or x.dtype not in (torch.float32, torch.bfloat16) \
-            or not x.is_contiguous():
-        raise ValueError(f'x must be a contiguous ({rows}, 1, {d}) float32/bfloat16 tensor')
-    quant = cache.k.dtype == torch.int8
-    if cache.v.shape != cache.k.shape or cache.k.dtype not in _DTYPE_CODE \
-            or cache.v.dtype != cache.k.dtype \
-            or not (cache.k.is_contiguous() and cache.v.is_contiguous()):
-        raise ValueError('cache k/v must be contiguous (L, rows, S, d) float32, bfloat16 '
-                         'or int8 tensors of one dtype')
-    if quant:
-        scales = [_check(s, (L, rows, S, n_heads), torch.bfloat16, 'an int8 cache scale')
-                  for s in (cache.k_scale, cache.v_scale)]
-    elif cache.k_scale is not None or cache.v_scale is not None:
-        raise ValueError('cache scales belong to an int8 cache only')
-    else:
-        scales = [None, None]
-    if x.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
-        raise TypeError('fused_decode_step kernel: a bfloat16 model needs a bfloat16 cache')
-    if d % n_heads or hd not in _HEAD_DIMS:
-        raise ValueError(f'fused_decode_step kernel takes head dims {_HEAD_DIMS}, got '
-                         f'd={d}, n_heads={n_heads}')
-    if max(d, dff) > _MAX_K[wcode] or (fmt != 'w' and dff % 8):
-        raise ValueError(f'fused_decode_step kernel takes widths up to {_MAX_K[wcode]} '
-                         f'for {fmt!r} weights (quantized: dff a multiple of 8), got '
-                         f'd={d}, dff={dff}')
+    lead, scratch, (L, rows, S, d, dff), groups, y, var = _checked_launch_args(
+        'fused_decode_step', p, x, n_heads, cache, 1, tokens_lens, codes_lens)
     if not ttm + pm <= index < S:
         raise ValueError(f'index {index} outside [ttm + pm, S) = [{ttm + pm}, {S})')
-    for t in (tokens_lens, codes_lens):
-        if t.shape != (rows,) or t.dtype != torch.int32 or t.device != x.device \
-                or not t.is_contiguous():
-            raise ValueError('tokens_lens / codes_lens must be contiguous (rows,) int32 '
-                             'tensors on the device of x')
-    ws, wscales, groups = _weights(p, fmt, x.dtype, L, d, dff)
-    y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    qbuf, abuf, xmid = (torch.empty((rows, d), **f32) for _ in range(3))
-    hmid = torch.empty((rows, dff), **f32)
-    kvnew = torch.empty((rows, 2 * d), **f32) if quant else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib()(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[cache.k.dtype], wcode, x.data_ptr(),
-        y.data_ptr(), *(w.data_ptr() for w in ws), cache.k.data_ptr(), cache.v.data_ptr(),
-        *(ptr(s) for s in wscales), *(ptr(s) for s in scales), tokens_lens.data_ptr(),
-        codes_lens.data_ptr(), qbuf.data_ptr(), abuf.data_ptr(), xmid.data_ptr(),
-        hmid.data_ptr(), ptr(kvnew), L, rows, S, d, n_heads, dff, int(index), int(ttm),
-        int(pm), *groups, 1.0 / math.sqrt(hd), stream)
+    status = _lib(False)(*lead, *scratch, L, rows, S, d, n_heads, dff, int(index), int(ttm),
+                         int(pm), *groups, 1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, 'fused_decode_step')
-    COUNTERS[variant(p, cache)].count += 1
-    return y[:, None, :], cache
+    COUNTERS[var].count += 1
+    return y, cache
+
+
+def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, codes_lens,
+                      ttm: int, pm: int):
+    """A K-token verify block through the whole stack (speculative decode).
+    p, cache, tokens_lens, codes_lens as in ``fused_decode_step``; x: (rows,
+    K, d) block embeddings at positions index[r] .. index[r] + K - 1; index:
+    a contiguous (rows,) int32 tensor of per-row start slots on the device
+    of x (the plain version also takes one int for every row), which the
+    host never reads: the caller keeps
+    ttm + pm <= index and index + K <= S (ar._decode_prefill leaves K slots of
+    slack).  The kernel skips a write at a slot >= S, where JAX's
+    ``dynamic_update_slice`` would clamp the block's start.  Returns (y (rows,
+    K, d), cache) with every row's K slots written in place; query i of row r
+    attends up to slot index[r] + i."""
+    if x.device.type == 'cpu':
+        return fused_verify_step_plain(p, x, n_heads, cache, index, tokens_lens,
+                                       codes_lens, ttm, pm)
+    if x.dim() != 3 or x.shape[1] < 1:
+        raise ValueError(f'x must be a (rows, K, d) block with K >= 1, got {tuple(x.shape)}')
+    q_len = x.shape[1]
+    lead, scratch, (L, rows, S, d, dff), groups, y, var = _checked_launch_args(
+        'fused_verify_step', p, x, n_heads, cache, q_len, tokens_lens, codes_lens)
+    _check(index, (rows,), torch.int32, 'the per-row start slots', 'fused_verify_step')
+    if index.device != x.device:
+        raise ValueError('the per-row start slots must be on the device of x')
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _lib(True)(*lead, index.data_ptr(), *scratch, L, rows, S, d, n_heads, dff,
+                        q_len, int(ttm), int(pm), *groups, 1.0 / math.sqrt(d // n_heads),
+                        stream)
+    _build.check(status, 'fused_verify_step')
+    VERIFY_COUNTERS[var].count += 1
+    return y, cache

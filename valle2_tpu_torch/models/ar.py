@@ -3,6 +3,11 @@
 Decode path of ``valle2_tpu/models/ar.py``: prefill the KV cache through the
 prefix-LM flash kernel, then advance one token per step through the fused
 whole-stack decode kernel, then the length-penalized best-of-N beam pick.
+With ``speculative_k`` >= 2 and one beam the loop is instead the n-gram
+(prompt-lookup) speculative decode of ``_decode_advance_spec``: each turn
+verifies a block of K tokens per row through the fused verify kernel and
+commits the accepted prefix (greedy: bit-identical tokens to the plain loop;
+sampled: the same distribution, by rejection sampling).
 ``ValleAR`` decodes from ``decode_params``: the params, or their quantized
 view under ``weight_dtype`` 'int8' / 'int4'; ``kv_cache_dtype='int8'`` keeps
 an int8 cache with per-(slot, head) scales.
@@ -28,11 +33,13 @@ from typing import Any
 import torch
 
 from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
-from ..kernels.fused_decode import fused_cache_layout, fused_decode_step, slot_mask
-from ..ops import (KVCache, add_positional, best_beam_index, build_pad_mask,
-                   cast_to_compute, embedding, embedding_init, linear, linear_init,
-                   prefix_lm_bias, sinusoidal_table, topk_sampling, transformer,
-                   transformer_decode_step, transformer_init, transformer_prefill)
+from ..kernels.fused_decode import (fused_cache_layout, fused_decode_step,
+                                    fused_verify_step, verify_slot_mask)
+from ..ops import (NEG_INF, KVCache, add_positional, best_beam_index, build_pad_mask,
+                   cast_to_compute, categorical, embedding, embedding_init, linear,
+                   linear_init, prefix_lm_bias, sinusoidal_table, top_k_top_p_filter,
+                   topk_sampling, transformer, transformer_decode_step, transformer_init,
+                   transformer_prefill)
 from ..ops.transformer import map_tree
 from ..quantize import quantize_decode_params
 
@@ -40,6 +47,7 @@ Params = dict[str, Any]
 
 MAX_POS = 5000               # sinusoidal table length (reference modules.py:56)
 FINISHED_CHECK_EVERY = 16    # decode steps between host checks of all(finished)
+SPEC_CHECK_EVERY = 4         # speculative turns between host checks of all(finished)
 
 
 def check_max_pos(token_hi: int, audio_hi: int, where: str) -> None:
@@ -152,8 +160,8 @@ def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
 
 @dataclass
 class DecodeState:
-    step: int                  # tokens generated so far
-    codes: torch.Tensor        # (rows, Pm + max_new) int64, EOS-filled pads/tail
+    step: int | torch.Tensor   # tokens generated so far; per row (rows,) when speculative
+    codes: torch.Tensor        # (rows, Pm + max_new [+ K]) int64, EOS-filled pads/tail
     logits: torch.Tensor       # (rows, V+1) f32 logits for the next position
     cache: KVCache
     sum_logprobs: torch.Tensor  # (rows,) f32
@@ -170,6 +178,59 @@ def compute_params(params: Params, config: ConfigValle) -> Params:
     return map_tree(cast, params['transformer'])
 
 
+def _spec_enabled(config: ConfigValle) -> bool:
+    """True when the n-gram speculative decode path applies (see _spec_gate)."""
+    return config.speculative_k >= 2 and config.num_beams == 1
+
+
+def _spec_gate(config: ConfigValle) -> bool:
+    """Validate and resolve the speculative-decoding request (JAX
+    ``_spec_gate``): off at ``speculative_k`` 0; else single-beam only (a
+    best-of-N pick needs N independent sequences), a block of at least two
+    tokens and an n-gram of at least one.  The verify pass follows the fused
+    gate like the plain loop: the fused verify kernel (#7) where the prefill
+    chose the fused layout, else the q-block ``transformer_decode_step``."""
+    k = config.speculative_k
+    if k <= 0:
+        return False
+    if k < 2:
+        raise ValueError('speculative_k must be >= 2: one model-guaranteed token plus at '
+                         'least one draft per verify block')
+    if config.num_beams != 1:
+        raise ValueError('speculative decoding requires num_beams == 1')
+    if config.speculative_ngram < 1:
+        raise ValueError('speculative_ngram must be >= 1 (drafts continue a match strictly '
+                         'after the buffer start; ngram 0 could draft the BOS slot)')
+    return True
+
+
+def _ngram_draft(codes: torch.Tensor, vlen: torch.Tensor, g: int, m: int,
+                 fallback: torch.Tensor) -> torch.Tensor:
+    """Prompt-lookup drafting (JAX ``_ngram_draft``): continue the most recent
+    earlier occurrence of each row's last ``g`` tokens.  codes: (rows, T)
+    token buffer (what lies past ``vlen`` is harmless: bad drafts are
+    rejected); vlen: (rows,) valid lengths.  Returns (rows, m) drafts; a row
+    with no match, or a continuation that runs past its written region,
+    drafts ``fallback`` (token repetition) there.  Tensor ops on the
+    buffer's device, no host sync."""
+    rows, t = codes.shape
+    dev = codes.device
+    vlen = vlen.long()
+    gi = torch.arange(g, device=dev)[None, :]
+    last = codes.gather(1, (vlen[:, None] - g + gi).clamp(0, t - 1))          # (rows, g)
+    nj = t - g + 1
+    eq = torch.ones((rows, nj), dtype=torch.bool, device=dev)
+    for i in range(g):
+        eq &= codes[:, i:i + nj] == last[:, i:i + 1]
+    j = torch.arange(nj, device=dev)[None, :]
+    ok = eq & (j < vlen[:, None] - g)             # strictly before the suffix itself
+    jstar = torch.where(ok, j, -1).amax(dim=1)                                # (rows,)
+    di0 = jstar[:, None] + g + torch.arange(m, device=dev)[None, :]
+    draft = codes.gather(1, di0.clamp(0, t - 1))
+    draft = torch.where(di0 < vlen[:, None], draft, fallback[:, None])
+    return torch.where((jstar >= 0)[:, None], draft, fallback[:, None])
+
+
 def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
                     codes: torch.Tensor, codes_lens: torch.Tensor, config: ConfigValle,
                     tparams: Params):
@@ -177,13 +238,17 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
 
     Cache slot layout per item: [0, Ttm) source | [Ttm, Ttm+Pm) prompt codes |
     [Ttm+Pm, +max_new) generated; per-item lengths mask the padding, so batched
-    results equal each item's solo decode.  Returns (DecodeState, tl_f, pl_f)."""
+    results equal each item's solo decode.  Speculative decode adds K slots of
+    slack to the cache and the codes buffer: a row writes its K-token block
+    from its own step, up to max_new (JAX ar.py:485-491).  Returns
+    (DecodeState, tl_f, pl_f)."""
     eos, _ = _specials(config)
     beams, max_new = config.num_beams, config.max_audio_len
     b, ttm = tokens.shape
     pm = codes.shape[1]
-    total_max = ttm + pm + max_new
-    check_max_pos(ttm, pm + max_new, 'AR decode')
+    max_new_pad = max_new + (config.speculative_k if _spec_enabled(config) else 0)
+    total_max = ttm + pm + max_new_pad
+    check_max_pos(ttm, pm + max_new_pad, 'AR decode')
     dev = tokens.device
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
 
@@ -209,7 +274,7 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
         cache = fused_cache_layout(cache)    # the layout tells the loop which path
     rows = b * beams
     prompt_valid = torch.arange(pm, device=dev)[None, :] < codes_lens[:, None]
-    codes_buf = torch.full((rows, pm + max_new), eos, dtype=torch.long, device=dev)
+    codes_buf = torch.full((rows, pm + max_new_pad), eos, dtype=torch.long, device=dev)
     codes_buf[:, :pm] = torch.where(prompt_valid, codes, eos).repeat_interleave(beams, 0)
     state = DecodeState(
         step=0, codes=codes_buf, logits=first_logits.repeat_interleave(beams, 0),
@@ -252,12 +317,138 @@ def _decode_advance(params: Params, tparams: Params, state: DecodeState,
             y, cache = fused_decode_step(tparams, x, config.n_heads, cache, index,
                                          tl_f, pl_f, ttm, pm)
         else:
-            attend = slot_mask(cache.k.shape[3], index, tl_f, pl_f, ttm, pm)
+            attend = verify_slot_mask(cache.k.shape[3], index, 1, tl_f, pl_f, ttm, pm)
             y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, index,
                                                attend_mask=attend)
         logits = linear(params['proj'], y[:, 0].float())
         step += 1
     return DecodeState(step, codes, logits, cache, sum_lp, finished)
+
+
+
+def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
+                         tl_f: torch.Tensor, pl_f: torch.Tensor, config: ConfigValle,
+                         ttm: int, pm: int, generator: torch.Generator | None):
+    """N-gram (prompt-lookup) speculative decode loop (JAX
+    ``_decode_advance_spec``), to ``max_audio_len`` tokens per row.
+
+    Each turn verifies a K-token block per row in ONE pass: the token the
+    carried logits give, then K-1 drafts from ``_ngram_draft``.  Greedy
+    (temperature 0) accepts a draft iff it equals the model's own argmax
+    there, so the committed tokens equal the plain loop's.  Sampled decode
+    accepts draft d at position j with probability p_j(d) under the
+    filtered, temperature-scaled distribution, and on the first rejection
+    draws a replacement from p_j with d removed: the committed sequence is
+    distributed as plain sampled decode (not bitwise: the draws differ).  The
+    replacement's k/v is not in the cache, so it commits through a forced
+    one-hot carry that the next turn's verify pass writes; its logprob counts
+    in the turn that drew it.  Commits stop at a committed EOS and at the
+    budget.  ``step`` becomes a per-row (rows,) tensor.
+
+    The host checks ``all(finished)`` every ``SPEC_CHECK_EVERY`` turns only;
+    a turn after every row finished writes EOS over EOS and cache slots no
+    committed token reads, so the result is the same.  Returns (final state,
+    turns): the number of turns in which some row was still decoding, a
+    device scalar; mean accepted tokens per turn is sum(step) / (rows *
+    turns)."""
+    eos, _ = _specials(config)
+    max_new, k_blk = config.max_audio_len, config.speculative_k
+    use_fused = state.cache.k.dim() == 4
+    dev = state.codes.device
+    rows = state.codes.shape[0]
+    pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
+    sampled = bool(config.temperature and config.temperature > 0.0)
+    temp = float(config.temperature) if sampled else 1.0
+    codes, logits, cache = state.codes, state.logits, state.cache
+    sum_lp, finished = state.sum_logprobs, state.finished
+    step = torch.zeros(rows, dtype=torch.long, device=dev)
+    turns = torch.zeros((), dtype=torch.long, device=dev)
+    blk = torch.arange(k_blk, device=dev)[None, :]
+    row_ids = torch.arange(rows, device=dev)
+    n = 0
+    while not (n % SPEC_CHECK_EVERY == 0 and bool(finished.all())):
+        n += 1
+        alive = ~finished & (step < max_new)
+        turns += alive.any()
+        # The guaranteed token from the carried logits (a forced one-hot carry
+        # resolves to its token with probability 1).
+        t0, lp0 = topk_sampling(logits, top_k=config.top_k, tok_p=config.tok_p,
+                                temperature=config.temperature, generator=generator)
+        t0 = torch.where(alive, t0, eos)
+        # Draft K-1 continuations from the history including t0.
+        codes.scatter_(1, (pm + step)[:, None], t0[:, None])
+        draft = _ngram_draft(codes, pm + step + 1, config.speculative_ngram, k_blk - 1, t0)
+        block = torch.cat([t0[:, None], draft], dim=1)                       # (rows, K)
+
+        # One K-token verify pass: writes all K slots of each row, in-block causal.
+        x = embedding(params['audio_emb'], block) + pe[pl_f.long()[:, None] + step[:, None]
+                                                       + blk]
+        x = x.to(config.torch_dtype).contiguous()
+        write_idx = (ttm + pm + step).to(torch.int32)
+        if use_fused:
+            y, cache = fused_verify_step(tparams, x, config.n_heads, cache, write_idx,
+                                         tl_f, pl_f, ttm, pm)
+        else:
+            attend = verify_slot_mask(cache.k.shape[3], write_idx, k_blk, tl_f, pl_f, ttm, pm)
+            y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, write_idx,
+                                               attend_mask=attend)
+        flat3 = linear(params['proj'], y.float())                            # (rows, K, V)
+        vocab = flat3.shape[-1]
+
+        if not sampled:
+            g_tok, g_lp = topk_sampling(flat3.reshape(rows * k_blk, vocab), top_k=config.top_k,
+                                        tok_p=config.tok_p, temperature=config.temperature,
+                                        generator=generator)
+            g_tok, g_lp = g_tok.reshape(rows, k_blk), g_lp.reshape(rows, k_blk)
+            match = (block[:, 1:] == g_tok[:, :-1]).long()
+            lp_blk = torch.cat([lp0[:, None], g_lp[:, :-1]], dim=1)
+        else:
+            # Accept d_j with probability p_j(d_j), position j scored by the
+            # verify logits at j - 1.
+            filt = top_k_top_p_filter(flat3 / temp, config.top_k, config.tok_p)
+            logp = torch.log_softmax(filt, dim=-1)
+            lp_draft = logp[:, :-1].gather(-1, block[:, 1:, None])[..., 0]    # (rows, K-1)
+            u = torch.rand(lp_draft.shape, generator=generator, device=dev)
+            match = (torch.log(u) < lp_draft).long()
+            lp_blk = torch.cat([lp0[:, None], lp_draft], dim=1)
+        c_acc = torch.cumprod(match, dim=1).sum(dim=1) + 1                     # 1..K
+
+        # Commit length: the accepted run, cut at the first EOS and the budget.
+        c = c_acc
+        if not config.ignore_eos:
+            is_eos = block == eos
+            first_eos = is_eos.int().argmax(dim=1)
+            c = torch.where(is_eos.any(dim=1), torch.minimum(c, first_eos + 1), c)
+        c = torch.where(alive, torch.minimum(c, max_new - step), 0)
+        take = blk < c[:, None]
+        # Per-token logprobs as the plain loop sums them: block[0] scored by
+        # the carried logits, block[j] by verify position j - 1.
+        sum_lp = sum_lp + (lp_blk * take).sum(dim=1)
+        codes.scatter_(1, pm + step[:, None] + blk, torch.where(take, block, eos))
+        step_new = step + c
+        finished = finished | (step_new >= max_new)
+        if not config.ignore_eos:
+            finished = finished | ((block == eos) & take).any(dim=1)
+        ci = (c - 1).clamp(0, k_blk - 1)
+        logits_next = torch.where((c > 0)[:, None], flat3[row_ids, ci], logits)
+
+        if sampled:
+            # Residual resample at the first rejected position (block index
+            # c_acc, scored by verify logits c_acc - 1), committed next turn
+            # through a forced one-hot carry when the commit ended by
+            # rejection and the row goes on.
+            prev = (c_acc - 1).clamp(0, k_blk - 1)
+            d_rej = block[row_ids, c_acc.clamp(0, k_blk - 1)]
+            vocab_ids = torch.arange(vocab, device=dev)[None, :]
+            resid = torch.where(vocab_ids == d_rej[:, None], NEG_INF, filt[row_ids, prev])
+            x_new = categorical(torch.softmax(resid, dim=-1), generator)
+            lp_new = logp[row_ids, prev, x_new]
+            do_force = alive & (c_acc < k_blk) & (c == c_acc) & ~finished
+            sum_lp = sum_lp + torch.where(do_force, lp_new, 0.0)
+            force_row = torch.where(vocab_ids == x_new[:, None], 0.0, NEG_INF)
+            logits_next = torch.where(do_force[:, None], force_row, logits_next)
+        step, logits = step_new, logits_next
+    return DecodeState(step, codes, logits, cache, sum_lp, finished), turns
 
 
 def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
@@ -267,22 +458,33 @@ def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
 
     tokens: (B, Ttm) padded source ids; tokens_lens: (B,) true lengths.
     codes: (B, Pm) padded BOS-prefixed first-codebook prompts; codes_lens: (B,).
-    ``clock``: optional ``StageClock`` that records 'prefill' and 'decode'.
+    ``clock``: optional ``StageClock`` that records 'prefill' and 'decode'
+    (and under speculative decode the counts 'ar_turns' and 'ar_tokens', read
+    after the decode's synchronize).  Routes to ``_decode_advance_spec`` when
+    ``_spec_gate`` passes.
     Returns (codes_buf (B, beams, Pm+max_new), sum_logprobs (B, beams), best (B,))."""
     eos, _ = _specials(config)
     beams, max_new = config.num_beams, config.max_audio_len
     b, ttm = tokens.shape
     pm = codes.shape[1]
+    spec = _spec_gate(config)
     tparams = compute_params(params, config)
     state, tl_f, pl_f = _decode_prefill(params, tokens, tokens_lens, codes, codes_lens,
                                         config, tparams)
     if clock is not None:
         clock.mark('prefill')
-    final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm,
-                            generator)
+    if spec:
+        final, turns = _decode_advance_spec(params, tparams, state, tl_f, pl_f, config, ttm,
+                                            pm, generator)
+    else:
+        final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm,
+                                generator)
     if clock is not None:
         clock.mark('decode')
-    codes_out = final.codes.reshape(b, beams, pm + max_new)
+        if spec:
+            clock.count('ar_turns', int(turns))
+            clock.count('ar_tokens', int(final.step.sum()))
+    codes_out = final.codes[:, :pm + max_new].reshape(b, beams, pm + max_new)
     lp_out = final.sum_logprobs.reshape(b, beams)
     best = best_beam_index(codes_out, lp_out, eos, config.length_penalty)
     return codes_out, lp_out, best
@@ -366,9 +568,10 @@ class ValleAR:
 
     def generate_batch(self, tokens_list, prompt_codes_list,
                        generator: torch.Generator | None = None,
-                       bucket: bool = True) -> list[torch.Tensor]:
+                       bucket: bool = True, clock=None) -> list[torch.Tensor]:
         """Batched decode; per-item masks keep each result equal to its solo
-        decode.  Returns a list of 1-D int64 CPU tensors."""
+        decode.  ``clock``: optional ``tts.StageClock`` (see ``_decode_fn``).
+        Returns a list of 1-D int64 CPU tensors."""
         cfg, dev = self.config, self.device
         tokens_list = [torch.as_tensor(t, dtype=torch.long).reshape(-1) for t in tokens_list]
         codes0_list = [torch.cat([torch.tensor([self.bos_token]),
@@ -390,7 +593,7 @@ class ValleAR:
             generator = default_generator(cfg, dev)
         with torch.inference_mode(), precision_scope(cfg):
             codes_buf, _, best = _decode_fn(self.decode_params, tokens, tokens_lens,
-                                            codes, codes_lens, cfg, generator)
+                                            codes, codes_lens, cfg, generator, clock)
         codes_buf, best = codes_buf.cpu(), best.cpu()
         out = []
         for i in range(len(tokens_list)):

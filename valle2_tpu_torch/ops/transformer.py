@@ -5,7 +5,8 @@ Layer parameters are stacked on a leading layer axis, as in the JAX package,
 so weight dicts cross between the two unchanged; the stack runs as a Python
 loop over that axis.  The decode step writes the new token's k/v into the
 cache IN PLACE (PyTorch tensors are mutable; the JAX version returns an
-updated copy) and returns the same cache object.
+updated copy) and returns the same cache object; it takes one token or a
+q-token block, at one slot for every row or at per-row slots.
 """
 
 from __future__ import annotations
@@ -163,31 +164,54 @@ def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
 
 
 def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVCache,
-                            index: int, cond: torch.Tensor | None = None,
+                            index, cond: torch.Tensor | None = None,
                             attend_mask: torch.Tensor | None = None):
-    """Advance one token: x (b, 1, d) at absolute slot ``index`` (one scalar
-    for every row).  Writes slot ``index`` of each layer's k/v in place
-    (quantized by ``quantize_kv`` into an int8 cache, whose slots then
-    dequantize in x's dtype), then attends over the slots ``attend_mask``
-    (b, max_len) allows — by default [0, index].  Returns (y (b, 1, d), cache)."""
+    """Advance one token or a q-token block: x (b, q, d) at absolute slots
+    ``index .. index + q - 1``.  ``index`` is one int for every row or a (b,)
+    tensor of per-row start slots (speculative rows advance by different
+    amounts); the block must fit, ``index + q <= max_len``.  Writes those
+    slots of each layer's k/v in place (quantized by ``quantize_kv`` into an
+    int8 cache, whose slots then dequantize in x's dtype; per-row slots by
+    advanced indexing), then attends over the slots ``attend_mask`` allows:
+    (b, max_len) for every query of the block, or (b, q, max_len) per query
+    (the speculative block's in-block causality) -- by default query i sees
+    [0, index + i].  Returns (y (b, q, d), cache)."""
     max_len = cache.k.shape[3]
+    b, q_len = x.shape[:2]
+    per_row = torch.is_tensor(index) and index.dim() == 1
+    if per_row:
+        slots = index.long()[:, None] + torch.arange(q_len, device=x.device)   # (b, q)
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, q_len)
+
+        def write(buf, li, new):              # new (b, h, q, w) into its (b, q) slots
+            buf[li][rows, :, slots] = new.transpose(1, 2)
+    else:
+        index = int(index)
+
+        def write(buf, li, new):
+            buf[li, :, :, index:index + q_len] = new
     if attend_mask is None:
-        attend_mask = (torch.arange(max_len, device=x.device) <= index)[None].expand(
-            x.shape[0], max_len)
-    bias = torch.where(attend_mask, 0.0, NEG_INF)[:, None, None, :]
+        start = slots[:, :1, None] if per_row else index
+        attend_mask = (torch.arange(max_len, device=x.device)[None, None, :]
+                       <= start + torch.arange(q_len, device=x.device)[None, :, None])
+        attend_mask = attend_mask.expand(b, q_len, max_len)
+    bias = torch.where(attend_mask, 0.0, NEG_INF)
+    bias = bias[:, None] if bias.dim() == 3 else bias[:, None, None, :]
     for li in range(num_layers_of(p)):
         lp = layer_slice(p, li)
         h = _norm(lp['norm1'], x, cond)
-        q, k, v = qkv_proj(lp['attn'], h, n_heads)              # k, v: (b, h, 1, hd)
+        q, k, v = qkv_proj(lp['attn'], h, n_heads)              # k, v: (b, h, q, hd)
         if cache.k_scale is not None:
             for buf, sbuf, new in ((cache.k, cache.k_scale, k),
                                    (cache.v, cache.v_scale, v)):
-                buf[li, :, :, index], sbuf[li, :, :, index] = quantize_kv(new[:, :, 0])
+                codes, scale = quantize_kv(new)
+                write(buf, li, codes)
+                write(sbuf, li, scale)
             k_all = cache.k[li].to(x.dtype) * cache.k_scale[li].to(x.dtype)
             v_all = cache.v[li].to(x.dtype) * cache.v_scale[li].to(x.dtype)
         else:
-            cache.k[li, :, :, index] = k[:, :, 0].to(cache.k.dtype)
-            cache.v[li, :, :, index] = v[:, :, 0].to(cache.v.dtype)
+            write(cache.k, li, k.to(cache.k.dtype))
+            write(cache.v, li, v.to(cache.v.dtype))
             k_all, v_all = cache.k[li], cache.v[li]
         attn = sdpa(q, k_all, v_all, bias)
         x = x + linear(lp['attn']['out'], merge_heads(attn))

@@ -33,12 +33,17 @@ from .utils import normalize_audio
 
 class StageClock:
     """Wall time per pipeline stage.  ``mark`` synchronizes the device first,
-    so each stage's time includes its queued device work."""
+    so each stage's time includes its queued device work.  ``count`` adds to
+    a named count of the run (the speculative decode's turns and tokens)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.times: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
         self._last = self._now()
+
+    def count(self, name: str, n: int) -> None:
+        self.counts[name] = self.counts.get(name, 0) + int(n)
 
     def _now(self) -> float:
         if self.device.type == 'cuda':
@@ -91,6 +96,7 @@ class TTSResult:
     codes: np.ndarray               # (frames, num_quantizers)
     rtf: float                      # wall-clock / audio-seconds
     timings: dict[str, float]
+    counts: dict[str, int] = dataclasses.field(default_factory=dict)   # StageClock.counts
 
 
 class ValleTTS:
@@ -162,7 +168,8 @@ class ValleTTS:
             n = int(gen_lens[i])
             wav = wavs[i, :n * codec_mod.HOP]
             total_secs += len(wav) / self.codec.sampling_rate
-            results.append(TTSResult(wav, out_codes[i, :n], 0.0, timings))
+            results.append(TTSResult(wav, out_codes[i, :n], 0.0, timings,
+                                     dict(clock.counts)))
         rtf = wall / max(total_secs, 1e-9)
         for r in results:
             r.rtf = rtf
