@@ -10,8 +10,10 @@ Phases, each printing JSON lines:
                 per source, all started together).
 3. kernels   -- the serving kernels (flash forward #1, fused decode step #6)
                 against their plain PyTorch versions at the TTS slice's
-                shapes, in float32 with TF32 off and in bfloat16, with
-                CUDA-event times of both (median of 30).
+                shapes (#6 at 12 rows with the cache the prefill gives them:
+                ``serving_len``, which chunks a bf16 cache at 640 slots), in
+                float32 with TF32 off and in bfloat16, with CUDA-event times
+                of both (median of 30).
 4. greedy    -- the full-width AR model, float32 and TF32 off: greedy token
                 IDs of 32 steps through both kernels equal the IDs through the
                 plain versions.
@@ -108,8 +110,33 @@ Phases, each printing JSON lines:
                 speculative loop (W8A8: equal, or parted only at a near-tie,
                 GREEDY_W8A8_GAP).
 
-``main`` runs them in this order: 1-3, 16, 18, 11, 4, 5, 17, 19, 12-14, 6-8, 15,
-9, 10, 20.
+21. kernels  -- the chunked branch of #6 and #7 (the split over the cache and
+   (chunked)    its merge) against its plain version (the online softmax over
+                the chunks) and the whole-S kernel on the same inputs, f32
+                (TF32 off) and bf16: #6 at one row, S=1536 (the stream's),
+                chunk 512, mid-stream; #7 at 3 rows x K=4, S=1024, chunk 512,
+                one block straddling slot 512.  Times of all three, the bound.
+22. stream   -- streaming at the serving model's default max_audio_len (1024,
+                bf16): 3 requests through synthesize_streaming (chunk_frames
+                75, lookahead 38, ignore_eos); the streaming model forces
+                chunk 512; counts zeroed before, read after: #6 and its
+                chunked branch on every step, no plain version.  Time to
+                first audio, chunk walls, decode ms per step beside one-beam
+                decodes whole-S and chunked, RTF.  Then in f32 (TF32 off,
+                greedy): streamed tokens == one advance == the plain route;
+                full lookahead == synthesize_fused; synthesize_longform over
+                three sentences, carry 'prompt' == each sentence streamed,
+                carry 'chain' == prompt mode in its first sentence.
+23. kernels  -- #6 (at 4 rows, chunked 512 of 1024, and at one row, whole)
+   (large)      and #7 (1 row x K=4) at the 204M widths in bf16 against their
+                plain versions, with times and the bound.
+Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
+chunked); phase 20 adds the 204M stack at its default 4 beams through
+batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
+step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
+
+``main`` runs them in this order: 1-3, 16, 18, 21, 11, 4, 5, 17, 19, 22, 12-14,
+6-8, 15, 9, 10, 23, 20.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -185,6 +212,16 @@ QUANT_VARIANTS = {
 }
 
 
+# The chunked branch of the two fused steps: what it ports (#6a-rest).
+CHUNK_PORTS = {
+    'fused_decode_step_chunked': (
+        'valle2_tpu/kernels/fused_decode.py:74-115 pick_chunk/chunk_for, :470-474 the chunk '
+        'clamp, :523-584 the online softmax over chunks, :644-651 the seq % chunk refusal, '
+        ':672-676 the clamped index map'),
+    'fused_verify_step_chunked': (
+        'valle2_tpu/kernels/fused_decode.py:777-779 the chunk clamp, :839-909 the online '
+        'softmax over chunks of _verify_kernel, :960-965 the refusal')}
+
 # The speculative verify step (#7) at the serving cell: 3 requests x 1 beam,
 # a K-token block, rows at three depths of the 512-step budget.
 SPEC = dict(rows=3, K=4, ngram=3, offsets=(100, 137, 203))
@@ -192,6 +229,11 @@ VERIFY_VARIANTS = ('dense', *QUANT_VARIANTS)
 # The 204M geometry (GRAMMAR_V3_TPU_204M.json, examples/train_ar_dp_pp_tp.json:3).
 LARGE = dict(d_model=1024, n_heads=16, dim_feedforward=4096, num_layers=16)
 GREEDY_STEPS = 64     # greedy-ID checks of the spec and large phases
+# The stream phase: the serving model at the default max_audio_len, whose
+# streaming model forces the 512-slot chunk; the prompt buckets of phase
+# main's requests (48 phonemes + text in 128, 150 frames + BOS in 256); the
+# JAX package's default chunk and lookahead frames.
+STREAM = dict(max_new=1024, chunk=512, ttm=128, pm=256, chunk_frames=75, lookahead=38)
 # W8A8 greedy picks may part between the kernels and the plain route where an
 # activation code flipped (TOL_QUANT's reason) at a near-tie of two logits.
 # One flipped code moves that activation by one step sx (<= ~4 / 127), so a
@@ -260,6 +302,21 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 30) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def enqueue_ms(fn, reps: int = 8) -> float:
+    """Host time of one call of ``fn`` with the device idle before it: the
+    launches' enqueue, without waiting for them (8 calls stay inside the
+    launch queue)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return 1e3 * t
+
+
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     """(ms, 'bytes' | 'operations'): the least time the card could take to
     move ``nbytes`` and do ``flops`` of ``dtype_name`` work."""
@@ -298,12 +355,20 @@ def counters() -> dict:
             'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER,
             **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS},
             **{step_name('fused_verify_step', v): fd.VERIFY_COUNTERS[v]
-               for v in VERIFY_VARIANTS}}
+               for v in VERIFY_VARIANTS},
+            **{f'{k}_chunked': c for k, c in fd.CHUNKED_COUNTERS.items()}}
 
 
 def reset_counters() -> None:
-    for c in counters().values():
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    for c in (*counters().values(), fd.PLAIN_CALLS):
         c.reset()
+
+
+def plain_calls() -> int:
+    """Calls of the fused steps' plain versions since the last reset."""
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    return fd.PLAIN_CALLS.count
 
 
 def read_counters() -> dict:
@@ -360,10 +425,10 @@ def phase_kernels(results: dict):
     tl, cl = slice_lengths(dev)
     beams = 4
     rows = s['b'] * beams
-    S = s['ttm'] + s['pm'] + s['max_new']
     index = s['ttm'] + s['pm'] + 100
     with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
         for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            S = serving_len(rows, dt)
             # Flash prefill: (b, h, s, hd) with s = ttm + pm.
             s_pre = s['ttm'] + s['pm']
             q, k, v = (torch.randn(s['b'], s['h'], s_pre, s['hd'], generator=gen)
@@ -427,17 +492,29 @@ def phase_kernels(results: dict):
                 tol=tol_str(dtype_name))
             emit(phase='kernels', kernel='fused_decode_step', dtype=dtype_name,
                  shape=dict(L=s['L'], rows=rows, S=S, d=s['d'], h=s['h'], dff=s['dff'],
-                            index=index),
+                            index=index, chunk=fd.cache_chunk(c_k, s['h'], None)),
                  err_y=err_y, err_k=err_k, err_v=err_v, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, tol=tol_str(dtype_name))
 
 
+def serving_len(rows: int, cache_dtype, total: int | None = None) -> int:
+    """The cache length the prefill gives ``rows`` rows of the serving cell
+    (ttm + pm + max_new slots, padded to a multiple of the chunk that
+    ``chunk_for`` picks for that cache: at 12 rows a bf16 cache of 897 slots
+    passes the TPU kernel's 8 MB block cap, so 640 slots, padded to 1280)."""
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    s = SLICE
+    total = total or s['ttm'] + s['pm'] + s['max_new']
+    return fd.padded_cache_len(total, rows, s['d'], s['h'], cache_dtype)
+
+
 def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
-                      S: int = SLICE['ttm'] + SLICE['pm'] + SLICE['max_new']):
+                      S: int | None = None):
     """The serving step's stack and cache in ``variant``'s formats ('dense' or
     one of QUANT_VARIANTS): weights quantized by the port's quantize.py from a
     seeded f32 stack (scales then in the compute dtype), a random (L, rows, S,
-    d) cache (int8 through quantize_kv_rowmajor)."""
+    d) cache (int8 through quantize_kv_rowmajor; S by default the main
+    path's, ``serving_len``)."""
     import torch
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
@@ -445,6 +522,8 @@ def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
     s = SLICE
     weight_dtype, cache_dtype = (('compute', 'bfloat16') if variant == 'dense'
                                  else QUANT_VARIANTS[variant][:2])
+    if S is None:
+        S = serving_len(rows, torch.int8 if cache_dtype == 'int8' else dt)
     p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
     if weight_dtype != 'compute':
         p = quantize_transformer(p, bits=8 if weight_dtype == 'int8' else 4)
@@ -626,8 +705,7 @@ def phase_quant(smi: str) -> dict:
                 fail(f'quant ({variant}): waveform of {r.waveform.shape} for gen_len {n}')
         kernel = 'fused_decode_step' + ('' if variant == 'dense' else f'_{variant}')
         require_launches(f'quant ({variant})', launches, ('flash_attention_fwd', kernel))
-        others = {k: n for k, n in launches.items()
-                  if k.startswith('fused_decode_step') and k != kernel and n}
+        others = {k: n for k, n in step_launches(launches).items() if k != kernel}
         if others:
             fail(f'quant ({variant}): launched other fused-step variants {others}')
         for k, n in launches.items():
@@ -743,9 +821,11 @@ def phase_spec_kernels(results: dict):
 
 
 def step_launches(launches: dict) -> dict:
-    """The nonzero counts of the fused step kernels (#6, #6a-q, #7)."""
+    """The nonzero counts of the fused step kernels (#6, #6a-q, #7), without
+    the chunked counters (a chunked launch counts in its variant too)."""
     return {k: n for k, n in launches.items()
-            if k.startswith(('fused_decode_step', 'fused_verify_step')) and n}
+            if k.startswith(('fused_decode_step', 'fused_verify_step'))
+            and not k.endswith('_chunked') and n}
 
 
 def phase_spec(smi: str) -> dict:
@@ -797,6 +877,12 @@ def phase_spec(smi: str) -> dict:
                    ar_tokens_per_s=len(texts) * max_new / t['decode'], rtf=batch[0].rtf,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    launches=step_launches(launches), card=smi)
+        chunked = launches[('fused_verify_step' if 'verify' in kernel
+                            else 'fused_decode_step') + '_chunked']
+        if cfg.decode_chunk and chunked != launches[kernel]:
+            fail(f'spec ({label}): {chunked} of {launches[kernel]} steps took the chunked '
+                 'branch')
+        out['chunked_launches'] = chunked
         if counts:
             turns = counts['ar_turns']
             out.update(turns=turns, tokens=counts['ar_tokens'],
@@ -816,6 +902,10 @@ def phase_spec(smi: str) -> dict:
         run(f'spec_{variant}', ConfigValle(**base_kw, **spec_kw, weight_dtype=weight_dtype,
                                            kv_cache_dtype=cache_dtype),
             step_name('fused_verify_step', variant), True)
+    # decode_chunk 512: the cache padded from 901 to 1024 slots, every verify
+    # pass through the split attention.
+    run('spec_chunked', ConfigValle(**base_kw, **spec_kw, decode_chunk=STREAM['chunk']),
+        'fused_verify_step', True)
     for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg)):
         emit(phase='spec', run=label, decode_profile=profile_decode(
             ValleAR(cfg, params=base.ar.params, device='cuda'), texts, pts, pcs), card=smi)
@@ -845,7 +935,8 @@ def profile_decode(model, texts, pts, pcs) -> dict:
         model.generate_batch(tokens, pcs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {'fused step (#6, #7)': ('proj_kernel', 'attend_kernel', 'kv_quant'),
+    groups = {'fused step (#6, #7)': ('proj_kernel', 'attend_kernel', 'merge_kernel',
+                                      'kv_quant'),
               'flash prefill (#1)': ('flash_fwd',),
               'gemm (cuBLAS, logits)': ('gemm', 'gemv', 'nvjet', 'cutlass'),
               'sampling, drafts and bookkeeping': ('elementwise', 'reduce', 'topk', 'sort',
@@ -1018,7 +1109,409 @@ def phase_large(smi: str) -> dict:
             emit(**out)
             del model
         greedy_spec_check(f'large_{variant}', LARGE, smi, weight_dtype)
+    for k, n in large_beams(ref.params, smi).items():
+        total[k] += n
     return total
+
+
+def large_beams(ar_params, smi: str) -> dict:
+    """The 204M stack at its default 4 beams through batch_synthesize (one
+    request, bf16, 512 steps): 4 rows of a bf16 cache of 896 slots pass the
+    TPU kernel's block cap, so chunk_for picks 512 on its own and the
+    prefill pads the cache to 1024; every step must take the chunked
+    branch.  Then greedy IDs in f32 (TF32 off, 64 steps) through the kernels
+    == through the plain route.  Returns the launch counts of the timed run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.tts import ValleTTS
+
+    max_new = SLICE['max_new']
+    texts, pts, pcs, tokens = stream_requests()
+    cfg = ConfigValle(**LARGE, max_audio_len=max_new, ignore_eos=True, dropout=0.0,
+                      dtype='bfloat16', num_beams=4)
+    S = fd.padded_cache_len(STREAM['ttm'] + STREAM['pm'] + max_new, 4, cfg.d_model,
+                            cfg.n_heads, torch.bfloat16)
+    chunk = fd.chunk_for(S, 4, cfg.d_model, cfg.n_heads, torch.bfloat16)
+    if (S, chunk) != (1024, 512):
+        fail(f'large (4 beams): chunk_for picks {chunk} of {S} slots, not 512 of 1024')
+    tts = ValleTTS(cfg, ar=ValleAR(cfg, params=ar_params, device='cuda'), device='cuda')
+    tts.batch_synthesize(texts[:1], pts[:1], pcs[:1])          # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    result = tts.batch_synthesize(texts[:1], pts[:1], pcs[:1])[0]
+    launches, plain = read_counters(), plain_calls()
+    if len(result.codes) != max_new or not np.isfinite(result.waveform).all():
+        fail(f'large (4 beams): {len(result.codes)} frames')
+    if plain or step_launches(launches) != {'fused_decode_step': max_new} \
+            or launches['fused_decode_step_chunked'] != max_new:
+        fail(f'large (4 beams): {plain} plain calls, step launches '
+             f'{step_launches(launches)}, {launches["fused_decode_step_chunked"]} chunked')
+    t = result.timings
+    emit(phase='large', run='beams4', **LARGE, num_beams=4, rows=4, S=S, chunk=chunk,
+         max_audio_len=max_new, stage_s={k: t[k] for k in ('prefill', 'decode', 'nar',
+                                                           'codec')},
+         decode_ms_per_step=1e3 * t['decode'] / max_new, rtf=result.rtf,
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    greedy = ConfigValle(**LARGE, max_audio_len=GREEDY_STEPS, ignore_eos=True, dropout=0.0,
+                         temperature=0.0, num_beams=4, kv_cache_dtype='float32',
+                         matmul_precision='highest')
+    ids = {}
+    for route in ('kernels', 'plain_route'):
+        c = greedy if route == 'kernels' else dataclasses.replace(greedy, use_fused_decode=False)
+        reset_counters()
+        ids[route] = ValleAR(c, params=ar_params, device='cuda').generate_batch(tokens[:1],
+                                                                               pcs[:1])[0]
+        counts = read_counters()
+        if (route == 'kernels') != (counts['fused_decode_step_chunked'] > 0):
+            fail(f'large (4 beams, {route}): {counts["fused_decode_step_chunked"]} '
+                 'chunked launches')
+    if not torch.equal(ids['kernels'], ids['plain_route']):
+        fail('large (4 beams): greedy IDs through the chunked kernels differ from the plain '
+             'route')
+    emit(phase='greedy', path='large_beams4', dtype='float32', steps=GREEDY_STEPS, rows=4,
+         equal=True, first_tokens=ids['kernels'][:8].tolist(), card=smi)
+    return launches
+
+
+def phase_large_kernels(results: dict):
+    """#6 and #7 at the 204M widths (d 1024, 16 heads, dff 4096, 16 layers)
+    against their plain versions, the shapes the large phase gives them: #6
+    at 4 rows (4 beams), S 1024 in chunks of 512, and at one row, S 896
+    whole; #7 at one row x K=4, S 900.  Index mid-utterance (ttm + pm +
+    256).  Held in f32 with TF32 off (through 16 layers bf16 rounding alone
+    walks past the bf16 tolerance), timed in bf16, the large phase's type."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
+
+    dev = torch.device('cuda')
+    L, d, h, dff = (LARGE[k] for k in ('num_layers', 'd_model', 'n_heads',
+                                      'dim_feedforward'))
+    ttm, pm, max_new, K = STREAM['ttm'], STREAM['pm'], SLICE['max_new'], SPEC['K']
+    gen = torch.Generator().manual_seed(13)
+    tl, cl = slice_lengths(dev)
+    p32 = map_tree(lambda a: a.to(dev).contiguous(),
+                   transformer_init(gen, L, d, h, dff, adaptive_norm=False))
+    p = map_tree(lambda a: a.to(torch.bfloat16).contiguous(), p32)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for name, rows, q, total in (('fused_decode_step_chunked', 4, 1, ttm + pm + max_new),
+                                     ('fused_decode_step', 1, 1, ttm + pm + max_new),
+                                     ('fused_verify_step', 1, K, ttm + pm + max_new + K)):
+            S = fd.padded_cache_len(total, rows, d, h, torch.bfloat16)
+            chunked = fd.chunk_for(S, rows, d, h, torch.bfloat16) < S
+            if chunked != name.endswith('_chunked'):
+                fail(f'large kernels: {name} at {rows} rows, S {S}: chunked={chunked}')
+            cache = [torch.randn(L, rows, S, d, generator=gen).to(dev) for _ in range(2)]
+            x = torch.randn(rows, q, d, generator=gen).to(dev)
+            start = ttm + pm + 256
+            if q > 1:
+                index = torch.full((rows,), start, dtype=torch.int32, device=dev)
+                kernel, plain = fd.fused_verify_step, fd.fused_verify_step_plain
+            else:
+                index = start
+                kernel, plain = fd.fused_decode_step, fd.fused_decode_step_plain
+            lens = (tl[:1].repeat(rows), cl[:1].repeat(rows), ttm, pm)
+            # f32 with the bf16 run's chunk: the f32 cache's own would be smaller
+            chunk = fd.chunk_for(S, rows, d, h, torch.bfloat16)
+            c_k, c_p = (KVCache(*(a.clone() for a in cache)) for _ in range(2))
+            y, _ = kernel(p32, x, h, c_k, index, *lens, chunk_override=chunk)
+            y_ref, _ = plain(p32, x, h, c_p, index, *lens, chunk_override=chunk)
+            torch.cuda.synchronize()
+            err = check_close(f'large {name} y', y, y_ref, 'float32')
+            del c_p
+            x = x.bfloat16()
+            c_k = KVCache(*(a.bfloat16() for a in cache))
+            ms = cuda_ms(lambda: kernel(p, x, h, c_k, index, *lens))
+            plain_ms = cuda_ms(lambda: plain(p, x, h, c_k, index, *lens), warmup=2, reps=10)
+            prompt_slots = rows * int(tl[0] + cl[0])
+            g = start - ttm - pm + 1
+            nbytes, bound_ms, bound_by = step_bound(
+                p, L, d, dff, rows * q, prompt_slots + rows * (g + q - 1),
+                rows * (q * int(tl[0] + cl[0]) + q * g + q * (q - 1) // 2), 2 * d * 2, 2,
+                'bfloat16')
+            results[(name, 'large', 'bfloat16')] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, tol=tol_str('float32') + ' (f32)')
+            emit(phase='kernels', path='large', kernel=name, dtype='bfloat16',
+                 shape=dict(L=L, rows=rows, K=q, S=S, chunk=chunk, d=d, h=h, dff=dff,
+                            index=start),
+                 err_y_f32=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, bytes=nbytes, tol=tol_str('float32'))
+            del c_k, cache
+
+
+def step_bound(p, L: int, d: int, dff: int, query_rows: int, read_slots: int, pairs: int,
+               slot_bytes: int, x_elt: int, dtype_name: str) -> tuple[int, float, str]:
+    """(bytes, ms, 'bytes' | 'operations') of a dense fused step: every weight
+    byte, the slots the step reads (each row's valid ones, the new ones
+    written then read) once, x and y; the projections and the (query, slot)
+    pairs' two products per dim at the compute peak."""
+    from valle2_tpu_torch.train import tree_leaves
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+    nbytes = w_bytes + L * read_slots * slot_bytes + 2 * query_rows * d * x_elt
+    flops = (query_rows * L * 2 * (4 * d ** 2 + 2 * d * dff) + L * 2 * 2 * pairs * d)
+    return (nbytes, *bound(nbytes, flops, dtype_name))
+
+
+def phase_chunk_kernels(results: dict):
+    """The chunked branch (the split over the cache and its merge) against its
+    plain version (the online softmax over the chunks) and against the
+    whole-S kernel on the same inputs, in f32 (TF32 off) and bf16: #6 at one
+    row and the stream phase's S (ttm 128 + pm 256 + 1024 frames, padded to
+    1536, chunk 512) at the middle of the stream, and #7 at the serving
+    cell's verify block (3 rows x K=4, chunk 512, S padded from 901 to 1024,
+    row 1's block straddling slot 512).  CUDA-event times of all three, the
+    bound; no one PyTorch call computes the step."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
+
+    dev = torch.device('cuda')
+    s, st = SLICE, STREAM
+    gen = torch.Generator().manual_seed(11)
+    tl, cl = slice_lengths(dev)
+    chunk = st['chunk']
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
+            p = map_tree(lambda a: a.to(dev, dt).contiguous(), p)
+            cases = {
+                'fused_decode_step_chunked': dict(
+                    rows=1, K=1, total=st['ttm'] + st['pm'] + st['max_new'], ttm=st['ttm'],
+                    pm=st['pm'], index=st['ttm'] + st['pm'] + st['max_new'] // 2),
+                'fused_verify_step_chunked': dict(
+                    rows=SPEC['rows'], K=SPEC['K'],
+                    total=s['ttm'] + s['pm'] + s['max_new'] + SPEC['K'], ttm=s['ttm'],
+                    pm=s['pm'], offsets=(100, chunk - 2 - s['ttm'] - s['pm'], 203))}
+            for name, c in cases.items():
+                rows, K, ttm, pm = c['rows'], c['K'], c['ttm'], c['pm']
+                S = fd.padded_cache_len(c['total'], rows, s['d'], s['h'], dt, chunk)
+                verify = K > 1
+                if verify:
+                    index = torch.tensor([ttm + pm + o for o in c['offsets']],
+                                         dtype=torch.int32, device=dev)
+                    starts = index.tolist()
+                    kernel, plain = fd.fused_verify_step, fd.fused_verify_step_plain
+                else:
+                    index = c['index']
+                    starts = [index]
+                    kernel, plain = fd.fused_decode_step, fd.fused_decode_step_plain
+                if fd.chunk_for(S, rows, s['d'], s['h'], dt) != S:
+                    fail(f'{name}: the whole-S kernel does not take S={S}')
+                cache = [torch.randn(s['L'], rows, S, s['d'], generator=gen).to(dev, dt)
+                         for _ in range(2)]
+                x = torch.randn(rows, K, s['d'], generator=gen).to(dev, dt)
+                args = (tl[:rows], cl[:rows], ttm, pm)
+                c_k, c_p, c_w = (KVCache(*(a.clone() for a in cache)) for _ in range(3))
+                y, _ = kernel(p, x, s['h'], c_k, index, *args, chunk_override=chunk)
+                y_ref, _ = plain(p, x, s['h'], c_p, index, *args, chunk_override=chunk)
+                y_w, _ = kernel(p, x, s['h'], c_w, index, *args)
+                torch.cuda.synchronize()
+                errs = [check_close(f'{name} y', y, y_ref, dtype_name),
+                        check_close(f'{name} whole-S y', y_w, y_ref, dtype_name),
+                        *(check_close(f'{name} cache', a, b, dtype_name)
+                          for a, b in zip(c_k[:2], c_p[:2]))]
+                ms = cuda_ms(lambda: kernel(p, x, s['h'], c_k, index, *args,
+                                            chunk_override=chunk))
+                whole_ms = cuda_ms(lambda: kernel(p, x, s['h'], c_w, index, *args))
+                host_ms = {label: enqueue_ms(lambda: kernel(p, x, s['h'], cc, index, *args,
+                                                            chunk_override=co))
+                           for label, cc, co in (('chunked', c_k, chunk), ('whole', c_w, None))}
+                plain_ms = cuda_ms(lambda: plain(p, x, s['h'], c_p, index, *args,
+                                                 chunk_override=chunk))
+                prompt_slots = int((tl[:rows] + cl[:rows]).sum())
+                gen_slots = [i - ttm - pm + 1 for i in starts]
+                read = prompt_slots + sum(g + K - 1 for g in gen_slots)
+                pairs = K * prompt_slots + sum(K * g + K * (K - 1) // 2 for g in gen_slots)
+                nbytes, bound_ms, bound_by = step_bound(
+                    p, s['L'], s['d'], s['dff'], rows * K, read, pairs,
+                    2 * s['d'] * cache[0].element_size(), x.element_size(), dtype_name)
+                results[(name, dtype_name)] = dict(
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None, tol=tol_str(dtype_name),
+                    whole_s_ms=whole_ms)
+                emit(phase='kernels', path='chunked', kernel=name, dtype=dtype_name,
+                     shape=dict(L=s['L'], rows=rows, K=K, S=S, chunk=chunk, d=s['d'],
+                                h=s['h'], dff=s['dff'], index=starts),
+                     blocks_per_layer=dict(chunked=rows * K * s['h'] * (S // chunk),
+                                           whole=rows * K * s['h']),
+                     err=max(errs), ms=ms, whole_s_ms=whole_ms, host_enqueue_ms=host_ms,
+                     plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     tol=tol_str(dtype_name))
+
+
+def stream_requests():
+    """The stream phase's requests: phase main's, as (tokens, prompt codes)."""
+    import numpy as np
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    texts, pts, pcs = make_requests()
+    tok = PhonemeTokenizer()
+    return texts, pts, pcs, [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+
+
+def phase_stream(smi: str) -> dict:
+    """Streaming synthesis at the serving model's default max_audio_len
+    (1024, bf16): 3 requests through synthesize_streaming (chunk_frames 75,
+    lookahead 38, ignore_eos).  The streaming model forces the 512-slot chunk;
+    counts zeroed before, read after: the fused step and its chunked branch
+    on every step, no plain version.  Time to first audio, the chunks'
+    walls, decode ms per step beside one-beam decodes unchunked and chunked
+    in the same call (in turns), RTF.  Then ``stream_parity``.  Returns the
+    launch counts of the 3 streams."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.tts import StageClock, ValleTTS
+
+    n = STREAM['max_new']
+    cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16')
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs, tokens = stream_requests()
+    kw = dict(chunk_frames=STREAM['chunk_frames'], lookahead_frames=STREAM['lookahead'])
+    list(tts.synthesize_streaming(texts[0], pts[0], pcs[0], **kw))     # warm-up
+    if tts._stream_ar.config.decode_chunk != STREAM['chunk']:
+        fail(f'stream: the streaming model took decode_chunk '
+             f'{tts._stream_ar.config.decode_chunk}, not {STREAM["chunk"]}')
+    torch.cuda.synchronize()
+    reset_counters()
+    runs = []
+    for text, pt, pc in zip(texts, pts, pcs):
+        t0 = time.perf_counter()
+        stream = tts.synthesize_streaming(text, pt, pc, **kw)
+        chunks = list(stream)
+        wall = time.perf_counter() - t0
+        total = np.concatenate(chunks)
+        if total.shape != (n * 320,) or not np.isfinite(total).all():
+            fail(f'stream: {total.shape} samples for {n} frames')
+        runs.append((wall, stream, len(chunks)))
+    launches, plain = read_counters(), plain_calls()
+    require_launches('stream', launches, ('flash_attention_fwd', 'fused_decode_step',
+                                          'fused_decode_step_chunked'))
+    steps = len(texts) * n
+    if plain or step_launches(launches) != {'fused_decode_step': steps} \
+            or launches['fused_decode_step_chunked'] != steps:
+        fail(f'stream: {plain} plain calls, step launches {step_launches(launches)}, '
+             f'{launches["fused_decode_step_chunked"]} chunked, for {steps} steps')
+    # One-beam decodes of request 0, whole-S and chunked, in turns.
+    decode_ms = {}
+    for c in (0, STREAM['chunk'], STREAM['chunk'], 0):
+        model = ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c),
+                        params=tts.ar.params, device='cuda')
+        model.generate_batch(tokens[:1], pcs[:1])
+        clock = StageClock('cuda')
+        model.generate_batch(tokens[:1], pcs[:1], clock=clock)
+        decode_ms.setdefault('chunked' if c else 'whole_s', []).append(
+            1e3 * clock.times['decode'] / n)
+    profiles = {label: profile_decode(
+        ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c), params=tts.ar.params,
+                device='cuda'), texts, pts, pcs) for label, c in (('whole_s', 0),
+                                                                  ('chunked', STREAM['chunk']))}
+    audio_s = n * 320 / 24000
+    emit(phase='stream', requests=len(texts), max_audio_len=n, forced_chunk=STREAM['chunk'],
+         chunk_frames=kw['chunk_frames'], lookahead_frames=kw['lookahead_frames'],
+         first_audio_s=[st.first_audio_s for _, st, _ in runs],
+         chunks=[k for _, _, k in runs],
+         chunk_wall_s=dict(median=float(np.median([w for _, st, _ in runs
+                                                   for w in st.chunk_s])),
+                           max=max(w for _, st, _ in runs for w in st.chunk_s),
+                           first_request=runs[0][1].chunk_s),
+         stage_s=[dict(st.clock.times) for _, st, _ in runs],
+         stream_decode_ms_per_step=[1e3 * st.clock.times['decode'] / n for _, st, _ in runs],
+         one_beam_decode_ms_per_step=decode_ms, one_beam_decode_profile=profiles,
+         wall_s=[w for w, _, _ in runs], rtf=[w / audio_s for w, _, _ in runs],
+         launches={k: v for k, v in launches.items() if v}, plain_calls=plain, card=smi)
+    stream_parity(smi)
+    return launches
+
+
+def stream_parity(smi: str):
+    """f32, TF32 off, temperature 0, at max_audio_len 1024 (the forced chunk
+    512, the cache 1536 slots): (1) the streamed tokens of 300 steps in
+    segments of 75 == one advance of 300 == the plain route
+    (use_fused_decode=False); (2) lookahead >= max_audio_len gives one
+    emission, synthesize_fused's waveform within TOL's f32 tolerance, and
+    the fused codes' first codebook starts with (1)'s tokens; (3)
+    synthesize_longform over three sentences with carry 'prompt' == each
+    sentence streamed alone, and with carry 'chain' its first sentence's
+    chunks == prompt mode's, every chunk finite."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data.frontend import split_sentences
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.models.ar import DecodeStream
+    from valle2_tpu_torch.tts import ValleTTS
+
+    n, steps = STREAM['max_new'], 300
+    cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, temperature=0.0,
+                      num_beams=1, kv_cache_dtype='float32', matmul_precision='highest')
+    tts = ValleTTS(cfg, device='cuda')
+    model = tts._ensure_stream_models()
+    texts, pts, pcs, tokens = stream_requests()
+    reset_counters()
+    seg = DecodeStream(model, tokens[0], pcs[0])
+    ids_seg = []
+    while seg.steps_done < steps:
+        ids_seg.extend(seg.advance(75))
+    one = DecodeStream(model, tokens[0], pcs[0]).advance(steps)
+    launches = read_counters()
+    cache = seg._state.cache
+    chunk = fd.cache_chunk(cache, cfg.n_heads, model.config.decode_chunk)
+    if (cache.k.shape[2], chunk) != (1536, STREAM['chunk']) \
+            or launches['fused_decode_step_chunked'] != 2 * steps:
+        fail(f'stream parity: S {cache.k.shape[2]}, chunk {chunk}, '
+             f'{launches["fused_decode_step_chunked"]} chunked launches for {2 * steps} steps')
+    plain_model = ValleAR(dataclasses.replace(model.config, use_fused_decode=False),
+                          params=model.params, device='cuda')
+    plain = DecodeStream(plain_model, tokens[0], pcs[0]).advance(steps)
+    if not (np.array_equal(ids_seg, one) and np.array_equal(one, plain)):
+        fail('stream parity: segmented, one-advance and plain-route tokens differ')
+    fused = tts.synthesize_fused(texts[0], pts[0], pcs[0])
+    full = list(tts.synthesize_streaming(texts[0], pts[0], pcs[0], chunk_frames=75,
+                                         lookahead_frames=n))
+    if len(full) != 1 or not np.array_equal(fused.codes[:steps, 0], one):
+        fail(f'stream parity: {len(full)} emissions with full lookahead, or the fused '
+             'codes differ from the stream')
+    err_full = check_close('full-lookahead stream', torch.from_numpy(full[0]),
+                           torch.from_numpy(fused.waveform), 'float32')
+    text3 = ' '.join(texts)
+    sentences = split_sentences(text3)
+    kw = dict(chunk_frames=256, lookahead_frames=STREAM['lookahead'])
+    streamed = [list(tts.synthesize_streaming(sent, pts[0], pcs[0], **kw))
+                for sent in sentences]
+    per_sentence = [c for chunks in streamed for c in chunks]
+    prompt_mode = list(tts.synthesize_longform(text3, pts[0], pcs[0], carry='prompt', **kw))
+    chain_mode = list(tts.synthesize_longform(text3, pts[0], pcs[0], carry='chain', **kw))
+    if len(sentences) != 3 or len(prompt_mode) != len(per_sentence):
+        fail(f'stream parity: {len(sentences)} sentences, {len(prompt_mode)} long-form '
+             f'chunks against {len(per_sentence)} streamed')
+    err_long = max(check_close('long-form prompt mode', torch.from_numpy(a),
+                               torch.from_numpy(b), 'float32')
+                   for a, b in zip(prompt_mode, per_sentence))
+    first = len(streamed[0])
+    if not all(np.array_equal(a, b) for a, b in zip(chain_mode[:first], prompt_mode[:first])) \
+            or not all(np.isfinite(c).all() for c in chain_mode):
+        fail('stream parity: chain mode parts from prompt mode in its first sentence')
+    emit(phase='stream', check='parity', dtype='float32', steps=steps,
+         tokens_equal=True, full_lookahead_err=err_full, longform_prompt_err=err_long,
+         longform_chunks=len(prompt_mode), chain_chunks=len(chain_mode),
+         chain_samples=sum(len(c) for c in chain_mode),
+         prompt_samples=sum(len(c) for c in prompt_mode), card=smi)
 
 
 def make_requests(seed: int = 2):
@@ -1734,11 +2227,13 @@ def main() -> int:
     phase_kernels(results)
     phase_quant_kernels(results)
     phase_spec_kernels(results)
+    phase_chunk_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
     paths['quant'] = phase_quant(smi)
     paths['spec'] = phase_spec(smi)
+    paths['stream'] = phase_stream(smi)
     phase_codec()
     paths['clone'] = phase_clone()
     paths['asr'] = phase_asr()
@@ -1749,6 +2244,7 @@ def main() -> int:
     phase_fit()
     phase_profile(smi)
     phase_profile(smi, 'ValleNAR')
+    phase_large_kernels(results)
     paths['large'] = phase_large(smi)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
@@ -1764,6 +2260,10 @@ def main() -> int:
              {}, ('bfloat16', 'float32'), ('train',)),
             ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
+            ('fused_decode_step_chunked', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'quant', 'stream', 'large')),
+            ('fused_verify_step_chunked', 'fused_decode.cu', 'fused_decode.py:1017', None, {},
+             ('bfloat16', 'float32'), ('spec',)),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
              ('clone', 'asr', 'data')),
@@ -1785,9 +2285,16 @@ def main() -> int:
             entry['f32'] = pick(shape_key, 'float32')
         for label, key in extra.items():
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
-        if name.startswith('fused_decode_step_'):
+        if (name, 'large', 'bfloat16') in results:
+            entry['large'] = {'bf16': pick('large', 'bfloat16')}
+        if name.endswith('_chunked'):
+            entry['whole_s_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['whole_s_ms']
+                                   for d in dtypes}
+            entry['ports'] = CHUNK_PORTS[name]
+            entry['case'] = 'stream' if 'decode' in name else 'spec'
+        elif name.startswith('fused_decode_step_'):
             entry['ports'] = 'valle2_tpu/kernels/' + QUANT_VARIANTS[name.removeprefix('fused_decode_step_')][2]
-        if name.startswith('fused_verify_step_'):
+        elif name.startswith('fused_verify_step_'):
             entry['ports'] = ('valle2_tpu/kernels/fused_decode.py:752 _verify_kernel with '
                               + QUANT_VARIANTS[name.removeprefix('fused_verify_step_')][2])
         if entry['launches'] <= 0:

@@ -14,7 +14,11 @@ cache slot, a bfloat16 cache under a float32 model, the quantized variants of
 the fused step (int8 W8A8, int4 W4A16 with more than two scale groups, an
 int8 cache, alone and combined) at every head dim, the speculative verify
 step (#7) in all six variants with blocks of 1 to 9 tokens at distinct
-per-row slots (one block ending at the last slot), both steps at the 204M
+per-row slots (one block ending at the last slot), the chunked cache of
+both steps (the split over the cache and its merge) in every cache format
+and head dim at chunks of 128 to 512 (the index in the first chunk, on a
+boundary and at S - 1, a verify block straddling a boundary, 1 and 12
+rows) and the refusal of a chunk that does not divide S, both steps at the 204M
 widths (d 1024, dff 4096: the 8-row projection tile), the 'auto' route of a
 head dim no kernel takes, RVQ encode at frame counts that are not a multiple
 of its 32-frame block, the codec's encode on the card against its CPU route
@@ -466,6 +470,105 @@ def test_fused_verify_kernel_matches_plain(dev, variant, K, rows, hd, dtype):
     else:
         for got, want in zip(dequant(c_k), dequant(c_p)):
             torch.testing.assert_close(got, want, **tol)
+
+
+# The chunked cache: (model dtype, cache dtype) of each cache format.
+CHUNK_CACHES = {'f32': (torch.float32, torch.float32), 'bf16': (torch.bfloat16, torch.bfloat16),
+                'int8': (torch.float32, torch.int8)}
+CHUNK_TOL = {'f32': TOL[torch.float32], 'bf16': TOL[torch.bfloat16], 'int8': TOL_KV8}
+
+
+def chunked_inputs(dev, cache_name, hd, rows, S, K, L=2, h=2, ttm=24, pm=16):
+    """A dense stack, a (L, rows, S, d) cache in ``cache_name``'s format, a
+    (rows, K, d) block and per-row lengths (row 0 with no source tokens)."""
+    dtype, cache_dtype = CHUNK_CACHES[cache_name]
+    d = h * hd
+    gen = torch.Generator().manual_seed(S + rows + hd)
+    p = transformer_init(gen, L, d, h, 4 * d, adaptive_norm=False)
+    p = map_tree(lambda a: a.to(dev, dtype).contiguous(), p)
+    ck, cv = (torch.randn(L, rows, S, d, generator=gen) for _ in range(2))
+    if cache_dtype == torch.int8:
+        (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h) for c in (ck, cv))
+        cache = [t.to(dev) for t in (kq, vq, ks, vs)]
+    else:
+        cache = [c.to(dev, dtype) for c in (ck, cv)]
+    x = torch.randn(rows, K, d, generator=gen).to(dev, dtype)
+    rs = np.random.RandomState(rows + hd)
+    tl = rs.randint(0, ttm + 1, rows)
+    tl[0] = 0
+    cl = rs.randint(1, pm + 1, rows)
+    lens = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (tl, cl)]
+    return p, x, cache, lens, ttm, pm
+
+
+def assert_same_cache(got, want, cache_name):
+    """Kernel cache against the plain version's: int8 codes within one step
+    on under 1% (bf16 scales within one bf16 step), float slots within the
+    format's tolerance."""
+    if cache_name == 'int8':
+        for g, w in zip(got[:2], want[:2]):
+            diff = (g.int() - w.int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+        for g, w in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g.float(), w.float(), atol=0, rtol=2 ** -7)
+    else:
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g.float(), w.float(), **CHUNK_TOL[cache_name])
+
+
+@pytest.mark.parametrize('chunk', [128, 256, 512])
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
+@pytest.mark.parametrize('cache_name', sorted(CHUNK_CACHES))
+def test_chunked_steps_match_plain(dev, cache_name, hd, chunk):
+    """#6 and #7 with the cache split into chunks (S = 1024) against their
+    plain versions (the online softmax over the chunks): #6 with its index
+    in the first chunk, on a chunk boundary and at S - 1; #7 with blocks of
+    4 tokens, one straddling a chunk boundary and one ending at S - 1; at 1
+    and 12 rows.  Each launch counts once in its variant's counter and once
+    in the chunked one."""
+    S, K = 1024, 4
+    tol = CHUNK_TOL[cache_name]
+    for rows in (1, 12):
+        p, x, cache, (tl, cl), ttm, pm = chunked_inputs(dev, cache_name, hd, rows, S, K)
+        variant = 'kv8' if cache_name == 'int8' else 'dense'
+        starts = [chunk - 2, S - K, ttm + pm, chunk + 1] * 3
+        steps = [(fd.fused_decode_step, fd.fused_decode_step_plain, x[:, :1].contiguous(),
+                  index, fd.COUNTERS[variant]) for index in (ttm + pm + 5, chunk, S - 1)]
+        steps.append((fd.fused_verify_step, fd.fused_verify_step_plain, x,
+                      torch.tensor(starts[:rows], dtype=torch.int32, device=dev),
+                      fd.VERIFY_COUNTERS[variant]))
+        for kernel, plain, xq, index, counter in steps:
+            c_k, c_p = (KVCache(*(c.clone() for c in cache)) for _ in range(2))
+            chunked = fd.CHUNKED_COUNTERS[kernel.__name__]
+            before = (counter.count, chunked.count)
+            y, _ = kernel(p, xq, 2, c_k, index, tl, cl, ttm, pm, chunk_override=chunk)
+            assert (counter.count, chunked.count) == (before[0] + 1, before[1] + 1)
+            y_ref, _ = plain(p, xq, 2, c_p, index, tl, cl, ttm, pm, chunk_override=chunk)
+            torch.cuda.synchronize()
+            assert torch.isfinite(y).all()
+            torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+            assert_same_cache(c_k, c_p, cache_name)
+
+
+def test_chunk_must_divide_the_cache(dev):
+    """A chunk that does not divide S is refused by both kernels and both
+    plain versions; a chunk >= S takes the whole-S kernel (no chunked
+    launch)."""
+    p, x, cache, (tl, cl), ttm, pm = chunked_inputs(dev, 'f32', 32, 2, 1000, 4)
+    index = torch.tensor([ttm + pm, 900], dtype=torch.int32, device=dev)
+    c = KVCache(*cache)
+    for kernel in (fd.fused_decode_step, fd.fused_decode_step_plain):
+        with pytest.raises(ValueError, match='multiple'):
+            kernel(p, x[:, :1].contiguous(), 2, c, ttm + pm, tl, cl, ttm, pm,
+                   chunk_override=256)
+    for kernel in (fd.fused_verify_step, fd.fused_verify_step_plain):
+        with pytest.raises(ValueError, match='multiple'):
+            kernel(p, x, 2, c, index, tl, cl, ttm, pm, chunk_override=256)
+    before = fd.CHUNKED_COUNTERS['fused_decode_step'].count
+    fd.fused_decode_step(p, x[:, :1].contiguous(), 2, c, ttm + pm, tl, cl, ttm, pm,
+                         chunk_override=1000)
+    torch.cuda.synchronize()
+    assert fd.CHUNKED_COUNTERS['fused_decode_step'].count == before
 
 
 @pytest.mark.parametrize('variant', ['dense', 'w8a8'])

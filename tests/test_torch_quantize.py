@@ -20,13 +20,16 @@ from valle2_tpu.kernels import fused_decode as jfd
 from valle2_tpu.ops.nn import linear as j_linear
 from valle2_tpu.ops.transformer import KVCache as JKVCache
 from valle2_tpu.ops.transformer import quantize_kv as j_quantize_kv
-from valle2_tpu.ops.transformer import transformer_decode_step as j_decode_step
+from valle2_tpu.ops.transformer import transformer_decode_step as _j_decode_step
 from valle2_tpu.ops.transformer import transformer_init as j_transformer_init
 from valle2_tpu.ops.transformer import transformer_prefill as j_prefill
 from valle2_tpu_torch import quantize as tq
 from valle2_tpu_torch.kernels import fused_decode as tfd
 from valle2_tpu_torch.ops.nn import linear as t_linear
 from valle2_tpu_torch.ops.transformer import KVCache, quantize_kv, transformer_prefill
+
+# JAX's decode step as one compiled program (op-by-op dispatch compiles each op)
+j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
 
 
 def tt(tree):

@@ -25,7 +25,7 @@ from valle2_tpu.models import ar as jar
 from valle2_tpu.models.convert import export_ar_state_dict
 from valle2_tpu.ops.transformer import KVCache as JKVCache
 from valle2_tpu.ops.transformer import quantize_kv as j_quantize_kv
-from valle2_tpu.ops.transformer import transformer_decode_step as j_decode_step
+from valle2_tpu.ops.transformer import transformer_decode_step as _j_decode_step
 from valle2_tpu.ops.transformer import transformer_init as j_transformer_init
 from valle2_tpu_torch import tts as ttts
 from valle2_tpu_torch.codec import Encodec
@@ -38,6 +38,9 @@ from valle2_tpu_torch.ops.transformer import KVCache, transformer_decode_step
 
 SPEC = dict(SMALL, num_audio_tokens=96, vocab_size=24, temperature=0.0, num_beams=1,
             max_audio_len=16, bucket_sizes=(16, 32))
+
+# JAX's decode step as one compiled program (op-by-op dispatch compiles each op)
+j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
 
 
 def tt(tree):

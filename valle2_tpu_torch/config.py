@@ -6,7 +6,9 @@ port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
 datasets and trains the AR, NAR and ASR models on one device so far, and
 serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
 W4A16, ``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and
-n-gram speculative decode (``speculative_k`` >= 2 with one beam)
+n-gram speculative decode (``speculative_k`` >= 2 with one beam), and streams
+(``DecodeStream``, ``synthesize_streaming``, ``synthesize_longform``) with
+``decode_unroll`` and a chunked cache (``decode_chunk``, ``VALLE2_FUSED_CHUNK``)
 (ROADMAP.md): a non-default value of a feature outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it, instead
 of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
@@ -46,9 +48,7 @@ import torch
 
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
-    ('decode_unroll', 1, 'queue 1 item 11b (decode features)'),
     ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
-    ('decode_chunk', 0, 'queue 2 item 5b (fused_decode_step, chunked cache)'),
     ('lora_rank', 0, 'queue 1 item 13 (lora.py)'),
     ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
     ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
@@ -154,8 +154,13 @@ class ConfigValle:
     decode_attn_buckets: int = field(default=4, metadata={
         'help': 'Accepted at its default only; the port reads the valid cache '
                 'slots directly, so prefix buckets have nothing to save'})
-    decode_unroll: int = 1
-    decode_chunk: int = 0
+    decode_unroll: int = field(default=1, metadata={
+        'help': 'AR decode steps per loop turn (outputs identical for any value); '
+                'a stream advances in multiples of it'})
+    decode_chunk: int = field(default=0, metadata={
+        'help': 'Fused-decode cache chunk in slots: 0 = auto (whole-S unless the '
+                "TPU kernel's k+v block would pass 8 MB); a forced chunk splits the "
+                'attention over the cache (kernels.fused_decode.chunk_for)'})
     zero1: bool = False
     sequence_parallel: bool = False
     speculative_k: int = 0

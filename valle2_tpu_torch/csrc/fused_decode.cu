@@ -8,6 +8,8 @@
 //   fused_verify_step -> _verify_kernel (#7): K query tokens per row written
 //                        from each row's own start slot (the per-row write of
 //                        _write_rows_per_slot), in-block causal attention;
+//   both with the chunked cache (pick_chunk/chunk_for, the online softmax over
+//   chunks of _kernel and _verify_kernel, the clamped chunk index map);
 // both without tensor parallelism, in the serving path's formats:
 //   weights  dense (#6); int8 W8A8 (_q8_dot) and int4 W4A16 (_q4_dot) (#6a);
 //   cache    float32 or bfloat16 (#6); int8 with per-(slot, head) bfloat16
@@ -19,8 +21,8 @@
 //
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order, so the step is five hand-written
-// kernels per layer (six with an int8 cache), launched in turn on one stream
-// by one host call:
+// kernels per layer (six with an int8 cache, one more with a chunked cache),
+// launched in turn on one stream by one host call:
 //
 //   1. proj<QKV>:  LN1 -> fused QKV.  q (pre-scaled by 1/sqrt(hd), f32) goes to
 //                  scratch; k_new / v_new are rounded to the cache dtype and
@@ -49,6 +51,19 @@
 //                  end of that range, and a decode token is query 0 of a
 //                  block of one: #6 and #7 share the kernel.  An int8 slot is
 //                  code * f32(bf16 scale).
+//   2'. attend split + merge, when the cache is chunked (chunk < S): the TPU
+//                  kernel walks the chunks in turn, carrying the online
+//                  softmax in scratch, and its clamped index map stops the
+//                  reads at the last occupied chunk.  Here blocks run in no
+//                  order, so the chunk is a grid axis: one block per (query
+//                  row, head, chunk) walks the valid slots of its chunk (the
+//                  three ranges cut to it) and writes a partial (max, sum,
+//                  acc[hd]) in f32; a chunk past the query's own slot reads
+//                  nothing and writes the empty partial.  A second kernel per
+//                  (query row, head) merges the partials in chunk order.  At
+//                  one row and 4 heads (a stream) that is 4 * S / chunk
+//                  blocks a layer instead of 4: the split is the latency
+//                  cure the few blocks of a small batch need.
 //   3. proj<OUT>:  out-projection + bias + residual -> f32 mid state.
 //   4. proj<FFN1>: LN2 (of the f32 mid state) -> FFN1 + bias -> erf-GELU.
 //   5. proj<FFN2>: FFN2 + bias + residual -> hidden state in the compute dtype.
@@ -397,19 +412,24 @@ kv_quant_kernel(const float* __restrict__ kvnew, int8_t* __restrict__ ck,
   if (lane == 0) (kv ? vs : ks)[slot * h + hh] = __float2bfloat16_rn(sc);
 }
 
-// One block per (query row, head): softmax(q . k_s) v_s over the valid slots
-// of the query's cache row, online in f32.  Each warp walks its own share of
-// the slots UNR at a time (each lane holds HD/32 dims), then the warps'
-// partial (max, sum, acc) merge.  An int8 cache (TC = int8_t) dequantizes each
-// slot by its head's bf16 scale.
-template <typename TC, int HD>
+// One block per (query row, head), or per (query row, head, chunk) when the
+// cache is split (SPLIT): softmax(q . k_s) v_s over the valid slots of the
+// query's cache row (of its chunk), online in f32.  Each warp walks its own
+// share of the slots UNR at a time (each lane holds HD/32 dims), then the
+// warps' partial (max, sum, acc) merge.  An int8 cache (TC = int8_t)
+// dequantizes each slot by its head's bf16 scale.  Unsplit, the block writes
+// the normalized output; split, it writes its chunk's partial (max, sum,
+// unnormalized acc) to `part`, and merge_kernel combines a query's chunks.  A
+// chunk with no valid slot (past the query's own slot, or in the padding
+// between the ranges) writes the empty partial (NEG_INF, 0, 0).
+template <typename TC, int HD, bool SPLIT>
 __global__ void __launch_bounds__(ANW * 32)
 attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
               const TC* __restrict__ cv, const __nv_bfloat16* __restrict__ ks,
               const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tokens_lens,
               const int* __restrict__ codes_lens, const int* __restrict__ idx,
-              float* __restrict__ out, int h, int S, int d, int index, int qblk, int ttm,
-              int pm) {
+              float* __restrict__ out, float* __restrict__ part, int h, int S, int d,
+              int index, int qblk, int ttm, int pm, int chunk) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int DPL = HD / 32;
   constexpr bool QUANT = std::is_same<TC, int8_t>::value;
@@ -425,11 +445,15 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
   for (int i = 0; i < DPL; ++i) qv[i] = q[(size_t)rq * d + dim0 + i];
   // Valid slots: the three ranges of the Pallas kernel's attend formula, which
   // are disjoint because tokens_len <= ttm and codes_len <= pm; the generated
-  // range ends at the query's own slot (past S: at S - 1).
-  const int n1 = min(max(tokens_lens[row], 0), ttm);
-  const int n2 = min(max(codes_lens[row], 0), pm);
+  // range ends at the query's own slot (past S: at S - 1).  Split, each range
+  // is cut to this block's chunk [lo, hi).
+  const int lo = SPLIT ? blockIdx.y * chunk : 0, hi = SPLIT ? min(lo + chunk, S) : S;
   const int last = min(query_slot(idx, index, qblk, rq), S - 1);
-  const int n_valid = n1 + n2 + max(0, last - ttm - pm + 1);
+  const int s1 = lo, e1 = min(min(max(tokens_lens[row], 0), ttm), hi);
+  const int s2 = max(ttm, lo), e2 = min(ttm + min(max(codes_lens[row], 0), pm), hi);
+  const int s3 = max(ttm + pm, lo), e3 = min(last + 1, hi);
+  const int n1 = max(0, e1 - s1), n2 = max(0, e2 - s2);
+  const int n_valid = n1 + n2 + max(0, e3 - s3);
 
   float m = NEG_INF, l = 0.f, acc[DPL];
 #pragma unroll
@@ -442,7 +466,7 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
 #pragma unroll
     for (int u = 0; u < UNR; ++u) {
       const int j = j0 + u;
-      const int slot = j < n1 ? j : (j < n1 + n2 ? ttm + (j - n1) : ttm + pm + (j - n1 - n2));
+      const int slot = j < n1 ? s1 + j : (j < n1 + n2 ? s2 + (j - n1) : s3 + (j - n1 - n2));
       const size_t off = row_base + (size_t)slot * d + dim0;
       const bool in = j < n_valid;
       float ksc = 1.f, vsc = 1.f;
@@ -492,6 +516,10 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc_w[warp][lane * DPL + i] = acc[i];
   __syncthreads();
+  // A warp with no slot holds (NEG_INF, 0, 0): exp(NEG_INF - mt) is 0 beside a
+  // warp that had slots, and 1 (times zeros) when none had.
+  float* rec = SPLIT ? part + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * (HD + 2)
+                     : nullptr;
   for (int e = threadIdx.x; e < HD; e += ANW * 32) {
     float mt = NEG_INF;
     for (int w = 0; w < ANW; ++w) mt = fmaxf(mt, m_w[w]);
@@ -501,8 +529,37 @@ attend_kernel(const float* __restrict__ q, const TC* __restrict__ ck,
       lt += l_w[w] * f;
       at += acc_w[w][e] * f;
     }
-    out[(size_t)rq * d + hh * HD + e] = at / fmaxf(lt, 1e-30f);
+    if constexpr (SPLIT) {
+      if (e == 0) {
+        rec[0] = mt;
+        rec[1] = lt;
+      }
+      rec[2 + e] = at;
+    } else {
+      out[(size_t)rq * d + hh * HD + e] = at / fmaxf(lt, 1e-30f);
+    }
   }
+}
+
+// The second pass of the split attention: one block per (query row, head)
+// combines its n_chunks partials in chunk order, rescaled to their common
+// max, and writes the normalized output.  Empty partials (NEG_INF, 0, 0) add
+// nothing; every query has at least its own slot, so the sum is positive.
+template <int HD>
+__global__ void __launch_bounds__(HD)
+merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h, int d,
+             int n_chunks) {
+  const int rq = blockIdx.x / h, hh = blockIdx.x % h, e = threadIdx.x;
+  const float* rec = part + (size_t)blockIdx.x * n_chunks * (HD + 2);
+  float mt = NEG_INF;
+  for (int c = 0; c < n_chunks; ++c) mt = fmaxf(mt, rec[c * (HD + 2)]);
+  float lt = 0.f, at = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float f = expf(rec[c * (HD + 2)] - mt);
+    lt += rec[c * (HD + 2) + 1] * f;
+    at += rec[c * (HD + 2) + 2 + e] * f;
+  }
+  out[(size_t)rq * d + hh * HD + e] = at / fmaxf(lt, 1e-30f);
 }
 
 template <typename T, typename TC, int MODE, int WF, int MR>
@@ -537,7 +594,8 @@ struct StepArgs {
   const int *tokens_lens, *codes_lens;
   const int* idx;                      // verify: (rows,) start slots; decode: null
   float *qbuf, *abuf, *xmid, *hmid, *kvnew;
-  int L, rows, S, d, h, dff, index, qblk, ttm, pm, groups_d, groups_ff;
+  float* part;                         // chunk < S: (rows * qblk * h * S / chunk, HD + 2)
+  int L, rows, S, d, h, dff, index, qblk, ttm, pm, groups_d, groups_ff, chunk;
   float scale;
 };
 
@@ -598,9 +656,18 @@ int step(const StepArgs& s, cudaStream_t stream) {
       if ((err = (int)cudaGetLastError())) return err;
     }
 
-    attend_kernel<TC, HD><<<rows_q * s.h, ANW * 32, 0, stream>>>(
-        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, s.abuf, s.h, s.S, d,
-        s.index, s.qblk, s.ttm, s.pm);
+    if (s.chunk < s.S) {
+      const int n_chunks = s.S / s.chunk;
+      attend_kernel<TC, HD, true><<<dim3(rows_q * s.h, n_chunks), ANW * 32, 0, stream>>>(
+          s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, nullptr, s.part, s.h,
+          s.S, d, s.index, s.qblk, s.ttm, s.pm, s.chunk);
+      if ((err = (int)cudaGetLastError())) return err;
+      merge_kernel<HD><<<rows_q * s.h, HD, 0, stream>>>(s.part, s.abuf, s.h, d, n_chunks);
+    } else {
+      attend_kernel<TC, HD, false><<<rows_q * s.h, ANW * 32, 0, stream>>>(
+          s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, s.abuf, nullptr, s.h,
+          s.S, d, s.index, s.qblk, s.ttm, s.pm, s.S);
+    }
     if ((err = (int)cudaGetLastError())) return err;
 
     a.a32 = s.abuf;
@@ -658,7 +725,9 @@ int dispatch_wf(int wfmt, const StepArgs& s, cudaStream_t stream) {
 
 int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.groups_d < 1 || s.groups_ff < 1 || s.qblk < 1) return (int)cudaErrorInvalidValue;
+  if (s.groups_d < 1 || s.groups_ff < 1 || s.qblk < 1 || s.chunk < 1 || s.S % s.chunk ||
+      (s.chunk < s.S && s.part == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0 && cache_dtype == 0) return dispatch_wf<float, float>(wfmt, s, st);
   if (dtype == 0 && cache_dtype == 1) return dispatch_wf<float, __nv_bfloat16>(wfmt, s, st);
   if (dtype == 0 && cache_dtype == 2) return dispatch_wf<float, int8_t>(wfmt, s, st);
@@ -680,8 +749,10 @@ int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stre
 // null in format 0.  An int8 cache has (L, rows, S, h) bf16 scales ks / vs.
 // Scratch, per query row (rows for the decode step, rows * qblk for the
 // verify step): qbuf/abuf/xmid (., d) f32, hmid (., dff) f32, kvnew (., 2d)
-// f32 (int8 cache only).  Returns the first non-zero cudaGetLastError() of the
-// launches.
+// f32 (int8 cache only), and with chunk < S (S a multiple of chunk) part
+// (., h, S / chunk, hd + 2) f32, the chunks' partial softmaxes; chunk == S
+// takes the one-block-per-(query row, head) attention.  Returns the first
+// non-zero cudaGetLastError() of the launches.
 
 // #6: one token per row, x and y (rows, d), written at slot `index`.
 extern "C" int valle2_fused_decode_step(
@@ -690,13 +761,13 @@ extern "C" int valle2_fused_decode_step(
     const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
     void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
     void* ks, void* vs, const int* tokens_lens, const int* codes_lens, float* qbuf,
-    float* abuf, float* xmid, float* hmid, float* kvnew, int L, int rows, int S, int d,
-    int h, int dff, int index, int ttm, int pm, int groups_d, int groups_ff, float scale,
-    void* stream) {
+    float* abuf, float* xmid, float* hmid, float* kvnew, float* part, int L, int rows,
+    int S, int d, int h, int dff, int index, int ttm, int pm, int groups_d, int groups_ff,
+    int chunk, float scale, void* stream) {
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
              sout, s1, s2, ks, vs, tokens_lens, codes_lens, nullptr, qbuf, abuf, xmid,
-             hmid, kvnew, L, rows, S, d, h, dff, index, 1, ttm, pm, groups_d, groups_ff,
-             scale};
+             hmid, kvnew, part, L, rows, S, d, h, dff, index, 1, ttm, pm, groups_d,
+             groups_ff, chunk, scale};
   return dispatch(dtype, cache_dtype, wfmt, s, stream);
 }
 
@@ -709,13 +780,13 @@ extern "C" int valle2_fused_verify_step(
     const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
     void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
     void* ks, void* vs, const int* tokens_lens, const int* codes_lens, const int* idx,
-    float* qbuf, float* abuf, float* xmid, float* hmid, float* kvnew, int L, int rows,
-    int S, int d, int h, int dff, int qblk, int ttm, int pm, int groups_d, int groups_ff,
-    float scale, void* stream) {
+    float* qbuf, float* abuf, float* xmid, float* hmid, float* kvnew, float* part, int L,
+    int rows, int S, int d, int h, int dff, int qblk, int ttm, int pm, int groups_d,
+    int groups_ff, int chunk, float scale, void* stream) {
   if (idx == nullptr) return (int)cudaErrorInvalidValue;
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
              sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
-             hmid, kvnew, L, rows, S, d, h, dff, 0, qblk, ttm, pm, groups_d, groups_ff,
-             scale};
+             hmid, kvnew, part, L, rows, S, d, h, dff, 0, qblk, ttm, pm, groups_d,
+             groups_ff, chunk, scale};
   return dispatch(dtype, cache_dtype, wfmt, s, stream);
 }

@@ -23,12 +23,22 @@ per-query form of ``ar.py:759-762`` (``verify_slot_mask``).  The wrappers
 take the plain versions only for tensors on the CPU.  ``fit_error`` says
 which stacks the kernels take; the config's 'auto' route asks it before any
 launch.
+
+The chunked cache (the chunk branch of the same Pallas calls): ``chunk_for``
+picks a chunk of the cache's S slots as the JAX package does (whole-S unless
+the k+v block of the TPU kernel would pass ``BLOCK_BYTES_CAP``, or a forced
+chunk, ``decode_chunk`` / ``VALLE2_FUSED_CHUNK``), and S must be a multiple
+of it (``padded_cache_len`` gives the prefill's length).  Below S, the plain
+versions run the attention as an online softmax over the chunks in slot
+order (``ops.attention.sdpa_chunked``) and the kernels split the cache over
+thread blocks, one partial softmax per chunk, merged by a second kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -40,6 +50,11 @@ VARIANTS = ('dense', 'w8a8', 'w4a16', 'kv8', 'w8a8_kv8', 'w4a16_kv8')
 COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}
 COUNTER = COUNTERS['dense']    # the base variant (#6): dense weights, float cache
 VERIFY_COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}    # #7
+# Launches that split the attention over the cache's chunks (every variant),
+# and calls of the plain versions (any device).
+CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
+                                                         'fused_verify_step')}
+PLAIN_CALLS = _build.LaunchCounter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WEIGHT_FORMATS = {'w': (0, 'dense'), 'q': (1, 'w8a8'), 'q4': (2, 'w4a16')}
 # config.weight_dtype -> the layout quantize.py gives the stack
@@ -48,6 +63,67 @@ HEAD_DIMS = (32, 64, 96, 128)
 # Widest projection input: a tile of 8 rows of it (f32, and int8 codes for
 # W8A8) in shared memory (csrc/fused_decode.cu max_k8).
 _MAX_K = {0: 6144, 1: 5120, 2: 6144}
+
+
+DEFAULT_CHUNK = 256   # the JAX package's chunk constant (valle2_tpu/kernels/fused_decode.py)
+BLOCK_BYTES_CAP = 8 * 1024 * 1024   # the TPU kernel's per-chunk k+v block budget
+
+
+def env_chunk() -> int | None:
+    """``VALLE2_FUSED_CHUNK``: the chunk that overrides every other choice."""
+    val = os.environ.get('VALLE2_FUSED_CHUNK')
+    return int(val) if val else None
+
+
+def pick_chunk(seq: int, rows: int, d: int, n_heads: int, cache_itemsize: int, quant: bool,
+               forced: int | None = None) -> int:
+    """Cache slots per chunk, the JAX package's choice: ``VALLE2_FUSED_CHUNK``,
+    else ``forced`` (``config.decode_chunk``) when it is below ``seq``, else
+    whole-``seq`` when the k+v block (int8: plus its bf16 scales) of all rows
+    fits ``BLOCK_BYTES_CAP``, else the largest multiple of 128 under the cap
+    (at least 128).  Callers pad the cache length to a multiple."""
+    forced = env_chunk() or forced
+    if forced is not None and 0 < forced < seq:
+        return forced
+    per_slot = rows * 2 * d * cache_itemsize + (rows * 4 * n_heads if quant else 0)
+    if seq * per_slot <= BLOCK_BYTES_CAP:
+        return seq
+    chunk = max(128, (BLOCK_BYTES_CAP // per_slot) // 128 * 128)
+    return min(chunk, seq)
+
+
+def chunk_for(seq: int, rows: int, d: int, n_heads: int, cache_dtype,
+              forced: int | None = None) -> int:
+    """``pick_chunk`` with the item size from the cache dtype: the one choice
+    that the prefill's padding, the plain versions and the kernels share."""
+    return pick_chunk(seq, rows, d, n_heads, cache_dtype.itemsize, cache_dtype == torch.int8,
+                      forced=forced)
+
+
+def padded_cache_len(total: int, rows: int, d: int, n_heads: int, cache_dtype,
+                     forced: int | None = None) -> int:
+    """The cache length the prefill allocates for ``total`` slots: the first
+    fixed point of rounding up to ``chunk_for``'s chunk (a forced chunk
+    between ``total`` and the padded length applies only to the padded one;
+    JAX ``_decode_prefill``)."""
+    for _ in range(3):
+        chunk = chunk_for(total, rows, d, n_heads, cache_dtype, forced)
+        if chunk >= total or total % chunk == 0:
+            break
+        total = -(-total // chunk) * chunk
+    return total
+
+
+def cache_chunk(cache: KVCache, n_heads: int, chunk_override: int | None,
+                name: str = 'fused_decode_step') -> int:
+    """The chunk of a fused (L, rows, S, d) cache; S must be a multiple."""
+    _, rows, seq, d = cache.k.shape
+    chunk = chunk_for(seq, rows, d, n_heads, cache.k.dtype, chunk_override)
+    if seq % chunk:
+        raise ValueError(f'{name}: cache length {seq} is not a multiple of the chunk '
+                         f'{chunk}; pad the cache to a multiple (padded_cache_len, as '
+                         'ar._decode_prefill does)')
+    return chunk
 
 
 def fit_error(d: int, n_heads: int, dff: int, layout: str) -> str | None:
@@ -115,24 +191,39 @@ def verify_slot_mask(S: int, index, q_len: int, tokens_lens, codes_lens, ttm: in
             | ((slots >= ttm + pm) & (slots <= last)))
 
 
-def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index: int,
-                            tokens_lens, codes_lens, ttm: int, pm: int):
-    attend = verify_slot_mask(cache.k.shape[2], index, 1, tokens_lens, codes_lens, ttm, pm)
+def _step_plain(name: str, p, x, n_heads: int, cache: KVCache, index, tokens_lens,
+                codes_lens, ttm: int, pm: int, chunk_override: int | None):
+    """The q-block ``transformer_decode_step`` over the per-head view under
+    ``verify_slot_mask``; below S, its attention is the online softmax over
+    the chunks up to the one that holds the deepest query's own slot (the
+    TPU kernels' clamp at max(index) // chunk, and for a verify block the
+    block's own slots, which they merge from registers)."""
+    PLAIN_CALLS.count += 1
+    seq, q_len = cache.k.shape[2], x.shape[1]
+    chunk = cache_chunk(cache, n_heads, chunk_override, name)
+    attend = verify_slot_mask(seq, index, q_len, tokens_lens, codes_lens, ttm, pm)
+    visit = None
+    if chunk < seq:
+        deepest = int(index.max()) if torch.is_tensor(index) else int(index)
+        visit = (chunk, min(deepest + q_len - 1, seq - 1) // chunk + 1)
     y, _ = transformer_decode_step(p, x, n_heads, per_head_view(cache, n_heads), index,
-                                   attend_mask=attend)
+                                   attend_mask=attend, chunks=visit)
     return y, cache
+
+
+def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index: int,
+                            tokens_lens, codes_lens, ttm: int, pm: int,
+                            chunk_override: int | None = None):
+    return _step_plain('fused_decode_step', p, x, n_heads, cache, index, tokens_lens,
+                       codes_lens, ttm, pm, chunk_override)
 
 
 def fused_verify_step_plain(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
-                            codes_lens, ttm: int, pm: int):
-    """The q-block ``transformer_decode_step`` over the per-head view, under
-    the speculative mask: row r's block written from its slot index[r]
-    (``index + q <= S``), query i attending up to index[r] + i."""
-    attend = verify_slot_mask(cache.k.shape[2], index, x.shape[1], tokens_lens, codes_lens,
-                              ttm, pm)
-    y, _ = transformer_decode_step(p, x, n_heads, per_head_view(cache, n_heads), index,
-                                   attend_mask=attend)
-    return y, cache
+                            codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
+    """Under the speculative mask: row r's block written from its slot
+    index[r] (``index + q <= S``), query i attending up to index[r] + i."""
+    return _step_plain('fused_verify_step', p, x, n_heads, cache, index, tokens_lens,
+                       codes_lens, ttm, pm, chunk_override)
 
 
 def weight_format(p) -> str:
@@ -160,10 +251,11 @@ def _lib(verify: bool):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # formats; x, y, 11 weights, cache k/v, 4 weight scales, 2 cache scales,
-        # lengths (and the verify step's start slots), 5 scratch buffers; 11
-        # sizes (the decode step's index or the verify step's block length
-        # among them); the q scale and the stream
-        fn.argtypes = [ci] * 3 + [vp] * (29 if verify else 28) + [ci] * 11 + [
+        # lengths (and the verify step's start slots), 6 scratch buffers (the
+        # last for the chunks' partial softmaxes); 12 sizes (the decode step's
+        # index or the verify step's block length among them, the chunk
+        # last); the q scale and the stream
+        fn.argtypes = [ci] * 3 + [vp] * (30 if verify else 29) + [ci] * 12 + [
             ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
@@ -214,11 +306,11 @@ def _weights(p, fmt: str, dtype, L: int, d: int, dff: int) -> tuple[list, list, 
 
 
 def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: int,
-                         tokens_lens, codes_lens):
+                         tokens_lens, codes_lens, chunk_override: int | None):
     """The checks both wrappers share (on the host, no device sync): formats,
-    shapes and widths.  Returns (the launcher's leading arguments up to the
-    lengths, its scratch buffers, (L, rows, S, d, dff), the int4 group counts,
-    the output y and the variant's name)."""
+    shapes, widths and the chunk.  Returns (the launcher's leading arguments
+    up to the lengths, its scratch buffers, (L, rows, S, d, dff), the int4
+    group counts and the chunk, the output y and the variant's name)."""
     if x.device.type != 'cuda':
         raise ValueError(f'{name} runs on CPU or CUDA tensors, got {x.device}')
     L, rows, S, d = cache.k.shape
@@ -252,6 +344,7 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
                 or not t.is_contiguous():
             raise ValueError('tokens_lens / codes_lens must be contiguous (rows,) int32 '
                              'tensors on the device of x')
+    chunk = cache_chunk(cache, n_heads, chunk_override, name)
     ws, wscales, groups = _weights(p, fmt, x.dtype, L, d, dff)
     y = torch.empty((rows, q_len, d), dtype=x.dtype, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -259,6 +352,10 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
     qbuf, abuf, xmid = (torch.empty((rq, d), **f32) for _ in range(3))
     hmid = torch.empty((rq, dff), **f32)
     kvnew = torch.empty((rq, 2 * d), **f32) if quant else None
+    # Per (query row, head, chunk): the chunk's running max, sum and
+    # unnormalized output (head dim) of its online softmax.
+    part = (torch.empty((rq * n_heads * (S // chunk), 2 + d // n_heads), **f32)
+            if chunk < S else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -267,38 +364,48 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
             cache.v.data_ptr(), *(ptr(s) for s in wscales), *(ptr(s) for s in scales),
             tokens_lens.data_ptr(), codes_lens.data_ptr()]
     scratch = [qbuf.data_ptr(), abuf.data_ptr(), xmid.data_ptr(), hmid.data_ptr(),
-               ptr(kvnew)]
+               ptr(kvnew), ptr(part)]
     sizes = (L, rows, S, d, dff)
-    return lead, scratch, sizes, groups, y, variant(p, cache)
+    return lead, scratch, sizes, [*groups, chunk], y, variant(p, cache)
+
+
+def _count(name: str, var: str, sizes, tail) -> None:
+    """One launch of a step kernel, and of its split attention below S."""
+    (COUNTERS if name == 'fused_decode_step' else VERIFY_COUNTERS)[var].count += 1
+    if tail[-1] < sizes[2]:
+        CHUNKED_COUNTERS[name].count += 1
 
 
 def fused_decode_step(p, x, n_heads: int, cache: KVCache, index: int, tokens_lens,
-                      codes_lens, ttm: int, pm: int):
+                      codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
     """One token through the whole stack.  p: stacked layer dict (L, ...),
     dense or in a ``quantize.py`` layout ('q' int8 or 'q4' int4 weights, their
     scales in the compute dtype); x: (rows, 1, d) token embeddings; cache:
     fused (L, rows, S, d) k/v in float32 / bfloat16, or int8 with (L, rows,
     S, h) bfloat16 scales; index: the write slot, ttm + pm <= index < S;
     tokens_lens / codes_lens: (rows,) int32 true lengths, tokens_lens <= ttm
-    and codes_lens <= pm.  Returns (y (rows, 1, d), cache) with the cache
+    and codes_lens <= pm; chunk_override: the forced chunk (``chunk_for``;
+    None: the automatic one).  Returns (y (rows, 1, d), cache) with the cache
     updated in place."""
     if x.device.type == 'cpu':
         return fused_decode_step_plain(p, x, n_heads, cache, index, tokens_lens,
-                                       codes_lens, ttm, pm)
-    lead, scratch, (L, rows, S, d, dff), groups, y, var = _checked_launch_args(
-        'fused_decode_step', p, x, n_heads, cache, 1, tokens_lens, codes_lens)
+                                       codes_lens, ttm, pm, chunk_override)
+    name = 'fused_decode_step'
+    lead, scratch, sizes, tail, y, var = _checked_launch_args(
+        name, p, x, n_heads, cache, 1, tokens_lens, codes_lens, chunk_override)
+    L, rows, S, d, dff = sizes
     if not ttm + pm <= index < S:
         raise ValueError(f'index {index} outside [ttm + pm, S) = [{ttm + pm}, {S})')
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib(False)(*lead, *scratch, L, rows, S, d, n_heads, dff, int(index), int(ttm),
-                         int(pm), *groups, 1.0 / math.sqrt(d // n_heads), stream)
-    _build.check(status, 'fused_decode_step')
-    COUNTERS[var].count += 1
+                         int(pm), *tail, 1.0 / math.sqrt(d // n_heads), stream)
+    _build.check(status, name)
+    _count(name, var, sizes, tail)
     return y, cache
 
 
 def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, codes_lens,
-                      ttm: int, pm: int):
+                      ttm: int, pm: int, chunk_override: int | None = None):
     """A K-token verify block through the whole stack (speculative decode).
     p, cache, tokens_lens, codes_lens as in ``fused_decode_step``; x: (rows,
     K, d) block embeddings at positions index[r] .. index[r] + K - 1; index:
@@ -309,22 +416,25 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     slack).  The kernel skips a write at a slot >= S, where JAX's
     ``dynamic_update_slice`` would clamp the block's start.  Returns (y (rows,
     K, d), cache) with every row's K slots written in place; query i of row r
-    attends up to slot index[r] + i."""
+    attends up to slot index[r] + i.  chunk_override as in
+    ``fused_decode_step``: a block may straddle a chunk boundary."""
     if x.device.type == 'cpu':
         return fused_verify_step_plain(p, x, n_heads, cache, index, tokens_lens,
-                                       codes_lens, ttm, pm)
+                                       codes_lens, ttm, pm, chunk_override)
     if x.dim() != 3 or x.shape[1] < 1:
         raise ValueError(f'x must be a (rows, K, d) block with K >= 1, got {tuple(x.shape)}')
+    name = 'fused_verify_step'
     q_len = x.shape[1]
-    lead, scratch, (L, rows, S, d, dff), groups, y, var = _checked_launch_args(
-        'fused_verify_step', p, x, n_heads, cache, q_len, tokens_lens, codes_lens)
-    _check(index, (rows,), torch.int32, 'the per-row start slots', 'fused_verify_step')
+    lead, scratch, sizes, tail, y, var = _checked_launch_args(
+        name, p, x, n_heads, cache, q_len, tokens_lens, codes_lens, chunk_override)
+    L, rows, S, d, dff = sizes
+    _check(index, (rows,), torch.int32, 'the per-row start slots', name)
     if index.device != x.device:
         raise ValueError('the per-row start slots must be on the device of x')
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib(True)(*lead, index.data_ptr(), *scratch, L, rows, S, d, n_heads, dff,
-                        q_len, int(ttm), int(pm), *groups, 1.0 / math.sqrt(d // n_heads),
+                        q_len, int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads),
                         stream)
-    _build.check(status, 'fused_verify_step')
-    VERIFY_COUNTERS[var].count += 1
+    _build.check(status, name)
+    _count(name, var, sizes, tail)
     return y, cache

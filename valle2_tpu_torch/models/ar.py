@@ -17,6 +17,12 @@ row's EOS are exact no-ops (the sample is forced to EOS, the logprob sum and
 the codes buffer do not change), so the loop asks the device whether every
 row has finished only every ``FINISHED_CHECK_EVERY`` steps, instead of
 syncing the host on every token, and returns the same tokens.
+``DecodeStream`` (one beam) prefills once and then advances the same loop in
+bounded segments: the sampler's generator, the EOS flags and the logprob sums
+ride in ``DecodeState``, so segments return exactly the tokens of one full
+decode.  A chunked cache (``decode_chunk``, or the automatic chunk of
+``kernels.fused_decode.chunk_for``) pads the cache to a multiple of the
+chunk and sends the fused steps through their chunked branch.
 
 Training: ``forward`` and ``loss_fn`` (``valle2_tpu/models/ar.py:104-209``)
 embed the source and target streams with their own sinusoidal positions, run
@@ -30,11 +36,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
 from ..kernels.fused_decode import (fused_cache_layout, fused_decode_step,
-                                    fused_verify_step, verify_slot_mask)
+                                    fused_verify_step, padded_cache_len, verify_slot_mask)
 from ..ops import (NEG_INF, KVCache, add_positional, best_beam_index, build_pad_mask,
                    cast_to_compute, categorical, embedding, embedding_init, linear,
                    linear_init, prefix_lm_bias, sinusoidal_table, top_k_top_p_filter,
@@ -161,11 +168,12 @@ def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
 @dataclass
 class DecodeState:
     step: int | torch.Tensor   # tokens generated so far; per row (rows,) when speculative
-    codes: torch.Tensor        # (rows, Pm + max_new [+ K]) int64, EOS-filled pads/tail
+    codes: torch.Tensor        # (rows, Pm + max_new_pad) int64, EOS-filled pads/tail
     logits: torch.Tensor       # (rows, V+1) f32 logits for the next position
     cache: KVCache
     sum_logprobs: torch.Tensor  # (rows,) f32
     finished: torch.Tensor     # (rows,) bool: the row's previous token was EOS
+    generator: torch.Generator | None = None   # the sampler's draws (JAX: the rng key)
 
 
 def compute_params(params: Params, config: ConfigValle) -> Params:
@@ -233,23 +241,33 @@ def _ngram_draft(codes: torch.Tensor, vlen: torch.Tensor, g: int, m: int,
 
 def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
                     codes: torch.Tensor, codes_lens: torch.Tensor, config: ConfigValle,
-                    tparams: Params):
+                    tparams: Params, generator: torch.Generator | None = None):
     """Embed the prompt streams, fill the KV cache, tile to beams.
 
     Cache slot layout per item: [0, Ttm) source | [Ttm, Ttm+Pm) prompt codes |
-    [Ttm+Pm, +max_new) generated; per-item lengths mask the padding, so batched
-    results equal each item's solo decode.  Speculative decode adds K slots of
-    slack to the cache and the codes buffer: a row writes its K-token block
-    from its own step, up to max_new (JAX ar.py:485-491).  Returns
-    (DecodeState, tl_f, pl_f)."""
+    [Ttm+Pm, +max_new_pad) generated; per-item lengths mask the padding, so
+    batched results equal each item's solo decode.  max_new_pad is max_new
+    rounded up to a multiple of ``decode_unroll`` (the last turn's overshoot
+    steps are EOS no-ops), plus, under speculative decode, K slots of slack:
+    a row writes its K-token block from its own step, up to max_new (JAX
+    ar.py:483-491).  The fused layout pads the cache further to a multiple of
+    its chunk (``padded_cache_len``, JAX ar.py:500-517).  Returns
+    (DecodeState, tl_f, pl_f); the state carries ``generator``."""
     eos, _ = _specials(config)
     beams, max_new = config.num_beams, config.max_audio_len
     b, ttm = tokens.shape
     pm = codes.shape[1]
-    max_new_pad = max_new + (config.speculative_k if _spec_enabled(config) else 0)
+    unroll = max(1, config.decode_unroll)
+    max_new_pad = -(-max_new // unroll) * unroll
+    if _spec_enabled(config):
+        max_new_pad += config.speculative_k
     total_max = ttm + pm + max_new_pad
     check_max_pos(ttm, pm + max_new_pad, 'AR decode')
     dev = tokens.device
+    use_fused = config.fused_decode_enabled(dev)
+    if use_fused:
+        total_max = padded_cache_len(total_max, b * beams, config.d_model, config.n_heads,
+                                     config.torch_cache_dtype, config.decode_chunk or None)
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
 
     x_tok = add_positional(pe, embedding(params['tokens_emb'], tokens))
@@ -270,7 +288,7 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
 
     cache = KVCache(*(None if a is None else a.repeat_interleave(beams, dim=1)
                       for a in cache))
-    if config.fused_decode_enabled(dev):
+    if use_fused:
         cache = fused_cache_layout(cache)    # the layout tells the loop which path
     rows = b * beams
     prompt_valid = torch.arange(pm, device=dev)[None, :] < codes_lens[:, None]
@@ -279,7 +297,7 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     state = DecodeState(
         step=0, codes=codes_buf, logits=first_logits.repeat_interleave(beams, 0),
         cache=cache, sum_logprobs=torch.zeros(rows, dtype=torch.float32, device=dev),
-        finished=torch.zeros(rows, dtype=torch.bool, device=dev))
+        finished=torch.zeros(rows, dtype=torch.bool, device=dev), generator=generator)
     tl_f = tokens_lens.repeat_interleave(beams).to(torch.int32).contiguous()
     pl_f = codes_lens.repeat_interleave(beams).to(torch.int32).contiguous()
     return state, tl_f, pl_f
@@ -287,48 +305,70 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
 
 def _decode_advance(params: Params, tparams: Params, state: DecodeState,
                     tl_f: torch.Tensor, pl_f: torch.Tensor, config: ConfigValle,
-                    ttm: int, pm: int, generator: torch.Generator | None) -> DecodeState:
-    """Advance until ``max_audio_len`` tokens or every row finished."""
+                    ttm: int, pm: int, limit: int | None = None) -> DecodeState:
+    """Advance ``state`` IN PLACE until ``state.step`` reaches ``limit``
+    (default ``max_audio_len``) or every row finished, in turns of
+    ``decode_unroll`` steps: the loop exits at the first multiple of the
+    unroll >= ``limit``, and steps at or past ``max_audio_len`` are EOS
+    no-ops (JAX ``_decode_advance``'s ``active`` guard).  The generator, EOS
+    flags and logprob sums ride in the state, so N advances to partial
+    limits give exactly the tokens of one advance to the full limit.
+    ``all(finished)`` is read on the host at the first turn and then every
+    ``FINISHED_CHECK_EVERY`` steps, so the loop may stop short of ``limit``:
+    ``state.step`` says where."""
     eos, _ = _specials(config)
     max_new = config.max_audio_len
+    limit = max_new if limit is None else limit
+    unroll = max(1, config.decode_unroll)
     use_fused = state.cache.k.dim() == 4
     dev = state.codes.device
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
     codes, logits, cache = state.codes, state.logits, state.cache
-    sum_lp, finished = state.sum_logprobs, state.finished
+    sum_lp, finished, generator = state.sum_logprobs, state.finished, state.generator
     step = state.step
     pos0 = pl_f.long()
-    while step < max_new:
-        if (not config.ignore_eos and step % FINISHED_CHECK_EVERY == 0
-                and bool(finished.all())):
-            break
-        samples, logprobs = topk_sampling(logits, top_k=config.top_k, tok_p=config.tok_p,
-                                          temperature=config.temperature,
-                                          generator=generator)
-        sum_lp = sum_lp + logprobs * ~finished
-        samples = torch.where(finished, eos, samples)
-        if not config.ignore_eos:
-            finished = finished | (samples == eos)
-        codes[:, pm + step] = samples
-        x = embedding(params['audio_emb'], samples[:, None]) + pe[pos0 + step][:, None]
-        x = x.to(config.torch_dtype).contiguous()
-        index = ttm + pm + step
-        if use_fused:
-            y, cache = fused_decode_step(tparams, x, config.n_heads, cache, index,
-                                         tl_f, pl_f, ttm, pm)
-        else:
-            attend = verify_slot_mask(cache.k.shape[3], index, 1, tl_f, pl_f, ttm, pm)
-            y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, index,
-                                               attend_mask=attend)
-        logits = linear(params['proj'], y[:, 0].float())
-        step += 1
-    return DecodeState(step, codes, logits, cache, sum_lp, finished)
+    next_check = step
+    while step < limit:
+        if not config.ignore_eos and step >= next_check:
+            if bool(finished.all()):
+                break
+            next_check = step + FINISHED_CHECK_EVERY
+        for _ in range(unroll):
+            active = step < max_new
+            samples, logprobs = topk_sampling(logits, top_k=config.top_k, tok_p=config.tok_p,
+                                              temperature=config.temperature,
+                                              generator=generator)
+            if active:
+                sum_lp = sum_lp + logprobs * ~finished
+                samples = torch.where(finished, eos, samples)
+                if not config.ignore_eos:
+                    finished = finished | (samples == eos)
+            else:                       # past max_new: EOS, every row finished
+                samples = torch.full_like(samples, eos)
+                finished = torch.ones_like(finished)
+            codes[:, pm + step] = samples
+            x = embedding(params['audio_emb'], samples[:, None]) + pe[pos0 + step][:, None]
+            x = x.to(config.torch_dtype).contiguous()
+            index = ttm + pm + step
+            if use_fused:
+                y, cache = fused_decode_step(tparams, x, config.n_heads, cache, index,
+                                             tl_f, pl_f, ttm, pm,
+                                             chunk_override=config.decode_chunk or None)
+            else:
+                attend = verify_slot_mask(cache.k.shape[3], index, 1, tl_f, pl_f, ttm, pm)
+                y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, index,
+                                                   attend_mask=attend)
+            logits = linear(params['proj'], y[:, 0].float())
+            step += 1
+    state.step, state.logits, state.cache = step, logits, cache
+    state.sum_logprobs, state.finished = sum_lp, finished
+    return state
 
 
 
 def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
                          tl_f: torch.Tensor, pl_f: torch.Tensor, config: ConfigValle,
-                         ttm: int, pm: int, generator: torch.Generator | None):
+                         ttm: int, pm: int):
     """N-gram (prompt-lookup) speculative decode loop (JAX
     ``_decode_advance_spec``), to ``max_audio_len`` tokens per row.
 
@@ -360,7 +400,7 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
     sampled = bool(config.temperature and config.temperature > 0.0)
     temp = float(config.temperature) if sampled else 1.0
     codes, logits, cache = state.codes, state.logits, state.cache
-    sum_lp, finished = state.sum_logprobs, state.finished
+    sum_lp, finished, generator = state.sum_logprobs, state.finished, state.generator
     step = torch.zeros(rows, dtype=torch.long, device=dev)
     turns = torch.zeros((), dtype=torch.long, device=dev)
     blk = torch.arange(k_blk, device=dev)[None, :]
@@ -387,7 +427,8 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
         write_idx = (ttm + pm + step).to(torch.int32)
         if use_fused:
             y, cache = fused_verify_step(tparams, x, config.n_heads, cache, write_idx,
-                                         tl_f, pl_f, ttm, pm)
+                                         tl_f, pl_f, ttm, pm,
+                                         chunk_override=config.decode_chunk or None)
         else:
             attend = verify_slot_mask(cache.k.shape[3], write_idx, k_blk, tl_f, pl_f, ttm, pm)
             y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, write_idx,
@@ -448,7 +489,7 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
             force_row = torch.where(vocab_ids == x_new[:, None], 0.0, NEG_INF)
             logits_next = torch.where(do_force[:, None], force_row, logits_next)
         step, logits = step_new, logits_next
-    return DecodeState(step, codes, logits, cache, sum_lp, finished), turns
+    return DecodeState(step, codes, logits, cache, sum_lp, finished, generator), turns
 
 
 def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
@@ -470,15 +511,14 @@ def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
     spec = _spec_gate(config)
     tparams = compute_params(params, config)
     state, tl_f, pl_f = _decode_prefill(params, tokens, tokens_lens, codes, codes_lens,
-                                        config, tparams)
+                                        config, tparams, generator)
     if clock is not None:
         clock.mark('prefill')
     if spec:
         final, turns = _decode_advance_spec(params, tparams, state, tl_f, pl_f, config, ttm,
-                                            pm, generator)
+                                            pm)
     else:
-        final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm,
-                                generator)
+        final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm)
     if clock is not None:
         clock.mark('decode')
         if spec:
@@ -511,6 +551,7 @@ class ValleAR:
             params = init_params(gen, config)
         self.params = move_tree(params, self.device)
         self._qdecode = self._qdecode_src = None
+        self._tparams = self._tparams_src = None
 
     @property
     def decode_params(self) -> Params:
@@ -528,6 +569,36 @@ class ValleAR:
             self._qdecode = quantize_decode_params(self.params, bits=bits)
             self._qdecode_src = (self.params, self.params['transformer'])
         return self._qdecode
+
+    def _decode_tparams(self) -> tuple[Params, Params]:
+        """(``decode_params``, its transformer stack in the compute dtype),
+        the cast kept until ``decode_params`` is rebound, so that a stream's
+        segments do not cast the stack again."""
+        p = self.decode_params
+        src = self._tparams_src
+        if not (src is not None and src[0] is p and src[1] is p['transformer']):
+            self._tparams = compute_params(p, self.config)
+            self._tparams_src = (p, p['transformer'])
+        return p, self._tparams
+
+    def prefill(self, tokens: torch.Tensor, tokens_lens: torch.Tensor, codes: torch.Tensor,
+                codes_lens: torch.Tensor, generator: torch.Generator):
+        """The decode's prefill (JAX ``_prefill_jit``): ``_decode_prefill`` on
+        the decode params.  Returns (DecodeState, tl_f, pl_f)."""
+        params, tparams = self._decode_tparams()
+        with torch.inference_mode(), precision_scope(self.config):
+            return _decode_prefill(params, tokens, tokens_lens, codes, codes_lens, self.config,
+                                   tparams, generator)
+
+    def advance(self, state: DecodeState, tl_f: torch.Tensor, pl_f: torch.Tensor, limit: int,
+                ttm: int, pm: int) -> DecodeState:
+        """One segment of the token loop (JAX ``_advance_jit``):
+        ``_decode_advance`` to ``limit`` on the decode params.  Updates
+        ``state`` in place (the cache and codes buffer too) and returns it."""
+        params, tparams = self._decode_tparams()
+        with torch.inference_mode(), precision_scope(self.config):
+            return _decode_advance(params, tparams, state, tl_f, pl_f, self.config, ttm, pm,
+                                   limit)
 
     @property
     def eos_token(self) -> int:
@@ -599,4 +670,68 @@ class ValleAR:
         for i in range(len(tokens_list)):
             row = codes_buf[i, int(best[i])][pm:]
             out.append(row[row != self.eos_token])
+        return out
+
+
+class DecodeStream:
+    """Incremental first-codebook decode (JAX ``DecodeStream``): prefill once,
+    then ``advance(k)`` in bounded segments with the loop state (codes
+    buffer, KV cache, generator, EOS and logprob statistics) held on the
+    device between calls.  Segment boundaries are invisible: N partial
+    advances give exactly the tokens of one full decode.  Needs
+    ``num_beams == 1``: a best-of-N pick needs the finished sequences."""
+
+    def __init__(self, model: ValleAR, tokens, prompt_codes,
+                 generator: torch.Generator | None = None, bucket: bool = True):
+        """tokens: (Tt,) source ids (prompt and target text); prompt_codes:
+        (Tp, num_quantizers) acoustic prompt (may be empty)."""
+        config = model.config
+        if config.num_beams != 1:
+            raise ValueError(f'streaming decode requires num_beams=1, got {config.num_beams}')
+        self.model = model
+        self.eos = model.eos_token
+        self.max_new = config.max_audio_len
+        dev = model.device
+        tokens = torch.as_tensor(tokens, dtype=torch.long).reshape(-1)
+        prompt_codes = torch.as_tensor(prompt_codes, dtype=torch.long).reshape(
+            -1, config.num_quantizers)
+        codes0 = torch.cat([torch.tensor([model.bos_token]), prompt_codes[:, 0]])
+        ttm, pm = tokens.shape[0], codes0.shape[0]
+        if bucket:
+            ttm, pm = bucket_len(config.bucket_sizes, ttm), bucket_len(config.bucket_sizes, pm)
+        tokens_pad = torch.nn.functional.pad(tokens, (0, ttm - tokens.shape[0]))[None].to(dev)
+        codes_pad = torch.nn.functional.pad(codes0, (0, pm - codes0.shape[0]))[None].to(dev)
+        if generator is None:
+            generator = default_generator(config, dev)
+        lens = torch.tensor([[tokens.shape[0]], [codes0.shape[0]]], dtype=torch.int32,
+                            device=dev)
+        self._state, self._tl, self._pl = model.prefill(tokens_pad, lens[0], codes_pad,
+                                                        lens[1], generator)
+        self._ttm, self._pm = ttm, pm
+        self.steps_done = 0
+        self.frames_done = 0          # valid (non-EOS) frames so far
+        self.finished = False
+
+    def advance(self, k: int) -> np.ndarray:
+        """Advance by about ``k`` tokens; returns the newly generated
+        first-codebook ids (EOS stripped).  ``k`` rounds up to a multiple of
+        ``decode_unroll``.  Sets ``finished`` once every row hit EOS or
+        ``max_audio_len`` was reached.  The loop may stop early where it
+        finds every row finished, so ``steps_done`` follows the state's step,
+        not the limit.  One small int row (the codes buffer and the finished
+        flag) comes to the host per call."""
+        if self.finished:
+            return np.zeros((0,), np.int64)
+        unroll = max(1, self.model.config.decode_unroll)
+        k_eff = -(-int(k) // unroll) * unroll
+        limit = min(self.steps_done + k_eff, self.max_new)
+        state = self.model.advance(self._state, self._tl, self._pl, limit, self._ttm,
+                                   self._pm)
+        new_step = int(state.step)
+        host = torch.cat([state.codes[0], state.finished.all().long()[None]]).cpu().numpy()
+        row = host[self._pm + self.steps_done:self._pm + new_step]
+        self.steps_done = new_step
+        self.finished = bool(host[-1]) or new_step >= self.max_new
+        out = row[row != self.eos]
+        self.frames_done += len(out)
         return out

@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from .masks import NEG_INF
 from .nn import linear, linear_init
 
 Params = dict[str, Any]
@@ -56,6 +57,33 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attend: torch.Tensor,
+                 chunk: int, n_chunks: int) -> torch.Tensor:
+    """``sdpa`` under a boolean ``attend`` mask (broadcastable to (b, h, sq,
+    sk)) as an online softmax over the key axis in chunks of ``chunk`` slots,
+    in slot order, visiting only the first ``n_chunks``: the chunked branch
+    of the fused decode kernels.  Per chunk: scores in f32, the running max
+    and sum rescaled by exp(old max - new max); a chunk with no attended slot
+    adds nothing (its probabilities are zeroed, not exp(-inf - -inf)).
+    Probabilities stay f32 for the PV product, as in those kernels."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float() * scale
+    m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ok = attend[..., sl]
+        s = torch.where(ok, torch.matmul(qf, k[..., sl, :].float().transpose(-1, -2)), NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, v[..., sl, :].float())
+        m = m_new
+    return (acc / denom.clamp(min=1e-30)[..., None]).to(v.dtype)
 
 
 def mha(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = None,

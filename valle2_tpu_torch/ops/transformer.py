@@ -15,7 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .attention import merge_heads, mha, mha_init, qkv_proj, sdpa
+from .attention import merge_heads, mha, mha_init, qkv_proj, sdpa, sdpa_chunked
 from .masks import NEG_INF
 from .nn import (adaln, adaln_init, dropout, ffn, ffn_init, layernorm, layernorm_init,
                  linear)
@@ -165,7 +165,8 @@ def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
 
 def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVCache,
                             index, cond: torch.Tensor | None = None,
-                            attend_mask: torch.Tensor | None = None):
+                            attend_mask: torch.Tensor | None = None,
+                            chunks: tuple[int, int] | None = None):
     """Advance one token or a q-token block: x (b, q, d) at absolute slots
     ``index .. index + q - 1``.  ``index`` is one int for every row or a (b,)
     tensor of per-row start slots (speculative rows advance by different
@@ -175,7 +176,10 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
     advanced indexing), then attends over the slots ``attend_mask`` allows:
     (b, max_len) for every query of the block, or (b, q, max_len) per query
     (the speculative block's in-block causality) -- by default query i sees
-    [0, index + i].  Returns (y (b, q, d), cache)."""
+    [0, index + i].  ``chunks`` = (chunk, n): the attention is
+    ``sdpa_chunked`` over the first n chunks of the cache (the fused
+    kernels' chunked branch) instead of one softmax over every slot.
+    Returns (y (b, q, d), cache)."""
     max_len = cache.k.shape[3]
     b, q_len = x.shape[:2]
     per_row = torch.is_tensor(index) and index.dim() == 1
@@ -195,8 +199,8 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
         attend_mask = (torch.arange(max_len, device=x.device)[None, None, :]
                        <= start + torch.arange(q_len, device=x.device)[None, :, None])
         attend_mask = attend_mask.expand(b, q_len, max_len)
-    bias = torch.where(attend_mask, 0.0, NEG_INF)
-    bias = bias[:, None] if bias.dim() == 3 else bias[:, None, None, :]
+    attend = attend_mask[:, None] if attend_mask.dim() == 3 else attend_mask[:, None, None, :]
+    bias = torch.where(attend, 0.0, NEG_INF)
     for li in range(num_layers_of(p)):
         lp = layer_slice(p, li)
         h = _norm(lp['norm1'], x, cond)
@@ -213,7 +217,10 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
             write(cache.k, li, k.to(cache.k.dtype))
             write(cache.v, li, v.to(cache.v.dtype))
             k_all, v_all = cache.k[li], cache.v[li]
-        attn = sdpa(q, k_all, v_all, bias)
+        if chunks is None:
+            attn = sdpa(q, k_all, v_all, bias)
+        else:
+            attn = sdpa_chunked(q, k_all, v_all, attend, *chunks)
         x = x + linear(lp['attn']['out'], merge_heads(attn))
         x = x + ffn(lp['ffn'], _norm(lp['norm2'], x, cond))
     return x, cache

@@ -6,15 +6,21 @@ kernel), then ``_fused_tts_fn`` runs the AR first-codebook decode (flash
 prefill, fused decode steps, best-of-N pick), the NAR 7-stage refinement and
 the codec decode over padded batches with true lengths
 (``batch_synthesize`` / ``synthesize_fused``), or ``synthesize`` runs the
-same stages one model call at a time.  ASR (``ValleASRPipeline``): audio →
-codec encode → the direction-swapped AR decode over the phoneme vocabulary,
-batched.  ``main`` is the command line of both.  Streaming, long-form
-synthesis and meshes are not ported yet (ROADMAP.md).
+same stages one model call at a time.  ``synthesize_streaming`` yields the
+waveform in chunks while a one-beam ``DecodeStream`` decodes in segments
+(each emission refines the frames so far through the NAR and the codec at a
+bucketed width), and ``synthesize_longform`` streams unbounded text sentence
+by sentence.  ASR (``ValleASRPipeline``): audio → codec encode → the
+direction-swapped AR decode over the phoneme vocabulary, batched.  ``main``
+is the command line of both.  Not ported yet (ROADMAP.md): continuous
+batching (queue 1 item 11b), the server and its stream hub (item 12), and
+meshes (item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass
 
@@ -24,7 +30,7 @@ import torch
 from .codec import Encodec
 from .codec import encodec as codec_mod
 from .config import ConfigValle, bucket_len, precision_scope, resolve_device
-from .data.frontend import PhonemeTokenizer
+from .data.frontend import PhonemeTokenizer, split_sentences
 from .models import ValleAR, ValleNAR
 from .models import ar as ar_mod
 from .models import nar as nar_mod
@@ -54,6 +60,11 @@ class StageClock:
         now = self._now()
         self.times[stage] = self.times.get(stage, 0.0) + now - self._last
         self._last = now
+
+    def skip(self) -> None:
+        """Start the next stage now: the time since the last mark counts in
+        no stage (a stream's consumer between two chunks)."""
+        self._last = self._now()
 
 
 def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
@@ -99,6 +110,45 @@ class TTSResult:
     counts: dict[str, int] = dataclasses.field(default_factory=dict)   # StageClock.counts
 
 
+class AudioStream:
+    """The waveform chunks of one streamed request (24 kHz float32 numpy
+    arrays), as an iterator, with their timings: ``clock``, a StageClock of
+    'prefill', 'decode' (the AR segments) and 'nar_codec' (the emissions'
+    NAR and codec passes); ``first_audio_s``, the wall time from the call to
+    the first chunk; ``chunk_s``, the wall time spent producing each chunk
+    (inside ``next``)."""
+
+    def __init__(self, chunks, clock: StageClock, t0: float):
+        self._chunks, self.clock, self._t0 = chunks, clock, t0
+        self.first_audio_s: float | None = None
+        self.chunk_s: list[float] = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        t = time.perf_counter()
+        wav = next(self._chunks)
+        now = time.perf_counter()
+        self.chunk_s.append(now - t)
+        if self.first_audio_s is None:
+            self.first_audio_s = now - self._t0
+        return wav
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
+
+
+def _split_seed(base: int, *key: int) -> tuple[int, int]:
+    """(AR seed, NAR seed) from ``base`` and ``key``: the port's
+    ``jax.random.split`` (and, with a sentence index as the key,
+    ``fold_in``), so that what one key's decode draws does not depend on
+    another's."""
+    ar_seed, nar_seed = np.random.SeedSequence([base, *key]).generate_state(2, np.uint64)
+    return int(ar_seed), int(nar_seed)
+
+
 class ValleTTS:
     """text (+ cloning prompt codes) → waveform, on one device."""
 
@@ -115,6 +165,8 @@ class ValleTTS:
         self.codec = codec if codec is not None else Encodec(decode_dtype=config.dtype,
                                                              device=self.device)
         self.tokenizer = tokenizer if tokenizer is not None else PhonemeTokenizer()
+        self._stream_lock = threading.Lock()
+        self._stream_ar: ValleAR | None = None
 
     def prepare_prompt(self, prompt_audio, prompt_sr: int, prompt_text: str
                        ) -> tuple[np.ndarray, np.ndarray]:
@@ -182,6 +234,126 @@ class ValleTTS:
         return self.batch_synthesize([text], [prompt_tokens], [prompt_codes],
                                      generator=generator, bucket=bucket)[0]
 
+    def synthesize_streaming(self, text: str, prompt_tokens, prompt_codes,
+                             chunk_frames: int = 75, lookahead_frames: int = 38,
+                             generator: torch.Generator | None = None,
+                             bucket: bool = True) -> AudioStream:
+        """24 kHz waveform chunks while the AR decode runs (JAX
+        ``synthesize_streaming``).  A one-beam ``DecodeStream`` advances
+        ``chunk_frames`` tokens per segment; its tokens equal one unsegmented
+        decode's.  A frame is emitted once the stream is ``lookahead_frames``
+        past it, refined by a NAR pass over the frames so far and decoded by
+        the codec (causal: emitted samples are exact given their codes); the
+        NAR is bidirectional, so the lookahead bounds how much later context
+        an emitted frame has seen.  With ``lookahead_frames >=
+        max_audio_len`` there is one emission, ``synthesize_fused``'s
+        waveform.  The prefill and the argument checks run at call time; the
+        returned ``AudioStream`` decodes as it is iterated."""
+        _check_stream_args(chunk_frames, lookahead_frames)
+        t0 = time.perf_counter()
+        clock = StageClock(self.device)
+        if generator is None:
+            generator = ar_mod.default_generator(self.config, self.device)
+        ar_seed, nar_seed = _split_seed(_draw_seed(generator))
+        model = self._ensure_stream_models()
+        tokens = np.concatenate([np.asarray(prompt_tokens, np.int64), self.tokenizer(text)])
+        pcodes = np.asarray(prompt_codes, np.int64).reshape(-1, self.config.num_quantizers)
+        stream = ar_mod.DecodeStream(model, tokens, pcodes, self._generator(ar_seed), bucket)
+        clock.mark('prefill')
+        emitter = _ChunkEmitter(self, tokens, pcodes, lookahead_frames, nar_seed, bucket)
+        return AudioStream(_stream_chunks(stream, emitter, chunk_frames, clock), clock, t0)
+
+    def synthesize_longform(self, text: str, prompt_tokens, prompt_codes,
+                            carry: str = 'prompt', max_chain_frames: int = 450,
+                            chunk_frames: int = 75, lookahead_frames: int = 38,
+                            generator: torch.Generator | None = None,
+                            bucket: bool = True) -> AudioStream:
+        """24 kHz waveform chunks for text of any length (JAX
+        ``synthesize_longform``): the text is split into sentences
+        (``data.frontend.split_sentences``) and each is streamed as by
+        ``synthesize_streaming``, so no decode passes ``max_audio_len``.
+        carry='prompt': every sentence is conditioned on the original prompt
+        (greedy: each sentence equals ``synthesize_streaming`` of it alone).
+        carry='chain': sentence i+1 is conditioned on the original prompt
+        followed by sentence i's text and its final refined codes, or on the
+        original prompt alone where those would pass ``max_chain_frames``.
+        Sentence i's generators derive from one draw of ``generator`` and i,
+        not from what earlier sentences drew."""
+        if carry not in ('prompt', 'chain'):
+            raise ValueError(f"carry must be 'prompt' or 'chain', got {carry!r}")
+        _check_stream_args(chunk_frames, lookahead_frames)
+        t0 = time.perf_counter()
+        clock = StageClock(self.device)
+        sentences = split_sentences(text)
+        if generator is None:
+            generator = ar_mod.default_generator(self.config, self.device)
+        base = _draw_seed(generator)
+        model = self._ensure_stream_models()
+        nq = self.config.num_quantizers
+        base_tokens = np.asarray(prompt_tokens, np.int64)
+        base_codes = np.asarray(prompt_codes, np.int64).reshape(-1, nq)
+
+        def chunks():
+            cur_tokens, cur_codes = base_tokens, base_codes
+            for i, sent in enumerate(sentences):
+                ar_seed, nar_seed = _split_seed(base, i)
+                sent_tokens = self.tokenizer(sent)
+                tokens = np.concatenate([cur_tokens, sent_tokens])
+                stream = ar_mod.DecodeStream(model, tokens, cur_codes,
+                                             self._generator(ar_seed), bucket)
+                clock.mark('prefill')
+                emitter = _ChunkEmitter(self, tokens, cur_codes, lookahead_frames, nar_seed,
+                                        bucket)
+                yield from _stream_chunks(stream, emitter, chunk_frames, clock)
+                if carry == 'chain' and emitter.last_codes is not None:
+                    chained = np.concatenate([base_codes, emitter.last_codes])
+                    if len(chained) <= max_chain_frames:
+                        cur_tokens = np.concatenate([base_tokens, sent_tokens])
+                        cur_codes = chained
+                    else:
+                        cur_tokens, cur_codes = base_tokens, base_codes
+
+        return AudioStream(chunks(), clock, t0)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _ensure_stream_models(self) -> ValleAR:
+        """The streaming AR model, made once under a lock: a one-beam sibling
+        of ``self.ar`` sharing its params (rebound here whenever ``self.ar``'s
+        are, so ``tts.ar.load()`` reaches streams) and, under ``weight_dtype``
+        int8 / int4, its quantized view.  At ``max_audio_len >= 1024`` it
+        forces the cache chunk to 512 slots, so the early steps of a stream
+        read the occupied chunks only; an explicit ``decode_chunk`` wins."""
+        with self._stream_lock:
+            if self._stream_ar is None:
+                chunk = self.config.decode_chunk
+                if chunk == 0 and self.config.max_audio_len >= 1024:
+                    chunk = 512
+                cfg1 = dataclasses.replace(self.config, num_beams=1, decode_chunk=chunk)
+                self._stream_ar = ValleAR(cfg1, params=self.ar.params, device=self.device)
+            model = self._stream_ar
+            if model.params is not self.ar.params:
+                model.params = self.ar.params
+            if self.config.weight_dtype in ('int8', 'int4'):
+                model._qdecode = self.ar.decode_params
+                model._qdecode_src = (model.params, model.params['transformer'])
+        return model
+
+    def _nar_wav(self, tokens, tokens_lens, pcodes, p_lens, first_layer: np.ndarray,
+                 n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+        """One emission's refinement: the NAR stages over the (1, width)
+        first-codebook buffer with true length ``n``, then the codec decode
+        at that width.  Returns (waveform (width * HOP,), codes (width, nq))."""
+        dev = self.device
+        first = torch.as_tensor(first_layer, dtype=torch.long)[None].to(dev)
+        gen_lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        with torch.inference_mode(), precision_scope(self.config):
+            codes = nar_mod._generate_fn(self.nar.params, tokens, tokens_lens, pcodes, p_lens,
+                                         first, gen_lens, self.config, self._generator(seed))
+            wav = codec_mod.decode(self.codec.dec_params, codes.transpose(1, 2)).float()
+        return wav[0].cpu().numpy(), codes[0].cpu().numpy()
+
     def synthesize(self, text: str, prompt_tokens, prompt_codes,
                    generator: torch.Generator | None = None) -> TTSResult:
         """The staged pipeline, one model call per stage: AR decode, NAR
@@ -207,6 +379,98 @@ class ValleTTS:
                  generator: torch.Generator | None = None) -> TTSResult:
         tokens, codes = self.prepare_prompt(prompt_audio, prompt_sr, prompt_text)
         return self.synthesize(text, tokens, codes, generator)
+
+
+HOP = codec_mod.HOP   # EnCodec-24kHz samples per codec frame
+
+
+def _check_stream_args(chunk_frames: int, lookahead_frames: int) -> None:
+    """At call time: a generator that checked them at its first step would
+    spin forever on chunk_frames 0."""
+    if int(chunk_frames) < 1:
+        raise ValueError(f'chunk_frames must be >= 1, got {chunk_frames}')
+    if int(lookahead_frames) < 0:
+        raise ValueError(f'lookahead_frames must be >= 0, got {lookahead_frames}')
+
+
+def stream_widths(config: ConfigValle) -> list[int]:
+    """The NAR widths of a stream's emissions: ``bucket_sizes`` below
+    ``max_audio_len``, then doublings, ending at ``max_audio_len``."""
+    max_new = config.max_audio_len
+    widths = [b for b in config.bucket_sizes if b < max_new]
+    w = widths[-1] if widths else 0
+    while w < max_new:
+        w = max_new if w == 0 else min(w * 2, max_new)
+        widths.append(w)
+    return widths
+
+
+def finalize_frames(n: int, done: bool, lookahead: int) -> int:
+    """Frames safe to emit: every frame once the stream ended, else those
+    ``lookahead`` frames behind the newest."""
+    return n if done else max(0, n - lookahead)
+
+
+def _stream_chunks(stream, emitter: _ChunkEmitter, chunk_frames: int, clock: StageClock):
+    """Advance ``stream`` by ``chunk_frames`` a segment and yield what each
+    segment lets ``emitter`` finalize, until the stream ends."""
+    while True:
+        new = stream.advance(chunk_frames)
+        clock.mark('decode')
+        wavs = emitter.push(new, stream.finished)
+        clock.mark('nar_codec')
+        for wav in wavs:
+            yield wav
+            clock.skip()
+        if stream.finished:
+            return
+
+
+class _ChunkEmitter:
+    """A stream's emission state (JAX ``_ChunkEmitter``): gathers the AR
+    first-codebook tokens and, once the stream is ``lookahead_frames`` past a
+    frame, refines the prefix through the NAR and the codec at the smallest
+    of ``stream_widths`` that holds it (positions past the true length are
+    masked, so a narrow pass gives the full-width pass's frames) and returns
+    the newly finalized samples.  Every pass draws from a generator seeded
+    with ``nar_seed`` anew, as JAX passes the same key to each."""
+
+    def __init__(self, tts: ValleTTS, tokens, pcodes, lookahead_frames: int, nar_seed: int,
+                 bucket: bool = True):
+        config, dev = tts.config, tts.device
+        self._tts = tts
+        self._lookahead = int(lookahead_frames)
+        self._seed = nar_seed
+        ttm, pm = len(tokens), len(pcodes)
+        if bucket:
+            ttm, pm = bucket_len(config.bucket_sizes, ttm), bucket_len(config.bucket_sizes, pm)
+        self._tokens = torch.as_tensor(np.pad(tokens, (0, ttm - len(tokens)))[None]).to(dev)
+        self._pcodes = torch.as_tensor(
+            np.pad(pcodes, ((0, pm - len(pcodes)), (0, 0)))[None]).to(dev)
+        self._lens = torch.tensor([[len(tokens)], [len(pcodes)]], dtype=torch.int32, device=dev)
+        self._widths = stream_widths(config)
+        self._buf = np.zeros((config.max_audio_len,), np.int64)
+        self._n = 0
+        self._emitted = 0
+        #: The last refinement's codes (n_generated, num_quantizers): the full
+        #: context's once the stream ended; None before the first emission.
+        self.last_codes: np.ndarray | None = None
+
+    def push(self, new, done: bool) -> list[np.ndarray]:
+        """Feed the newly decoded tokens and the stream's end flag; returns
+        the waveform chunks (none or one) this push finalizes."""
+        self._buf[self._n:self._n + len(new)] = new
+        self._n += len(new)
+        finalize = finalize_frames(self._n, done, self._lookahead)
+        if finalize <= self._emitted:
+            return []
+        width = next(b for b in self._widths if b >= self._n)
+        wav, codes = self._tts._nar_wav(self._tokens, self._lens[0], self._pcodes,
+                                        self._lens[1], self._buf[:width], self._n, self._seed)
+        out = wav[self._emitted * HOP:finalize * HOP]
+        self.last_codes = codes[:self._n]
+        self._emitted = finalize
+        return [out]
 
 
 class ValleASRPipeline:
