@@ -130,13 +130,41 @@ Phases, each printing JSON lines:
 23. kernels  -- #6 (at 4 rows, chunked 512 of 1024, and at one row, whole)
    (large)      and #7 (1 row x K=4) at the 204M widths in bf16 against their
                 plain versions, with times and the bound.
+24. kernels  -- #6 with a per-row index (continuous batching) against its plain
+   (per-row)    version, every weight x cache variant, whole-S and chunked
+                (chunk 128), f32 (TF32 off) and bf16: 8 rows at their own
+                depths (the first generated slot, both sides of a chunk
+                boundary, S - 1, and one row frozen at S, whose cache row must
+                not change), S=512.  CUDA-event times beside the scalar-index
+                #6 on the same inputs, the plain version and the bound.
+25. cb       -- continuous batching at the serving model with one beam (bf16,
+                max_audio_len 512, ignore_eos; hub geometry ttm = pm = 128,
+                advance chunk 25): N = 4 and 8 sessions as round-robin solo
+                DecodeStreams against one ContinuousDecoder (in turns),
+                aggregate tokens/s and ms per joint step; greedy ids joint ==
+                solo or parted only at a near-tie (GREEDY_BF16_GAP); sampled at
+                N = 4; one W8A8 + int8-cache run.  Counts per arm: every joint
+                step launched the per-row #6, no plain call.  Then in f32
+                (TF32 off, 256 steps): 6 sessions on 4 rows with staggered
+                joins and reused rows == their solo decodes, greedy and
+                sampled (per-row CUDA generators) bit for bit; the
+                speculative joint loop (K = 4, #7) == the plain joint loop.
+26. hub      -- StreamHub(n_slots=4, chunk_frames=25) at the streaming model
+                (bf16, max_audio_len 1024, forced chunk 512): 4 sessions from
+                4 threads at once, then the same 4 through solo
+                synthesize_streaming in turn; time to first audio, chunk
+                walls, aggregate RTF; counts: the per-row #6's chunked branch
+                on every joint step, no plain call, no driver failure.  Then
+                in f32 (max_audio_len 256, decode_chunk 128): hub tokens ==
+                solo streams', waveforms within f32 tolerance, open_longform
+                == synthesize_longform(carry='prompt'), stop(drain=True).
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
-``main`` runs them in this order: 1-3, 16, 18, 21, 11, 4, 5, 17, 19, 22, 12-14,
-6-8, 15, 9, 10, 23, 20.
+``main`` runs them in this order: 1-3, 16, 18, 21, 24, 11, 4, 5, 17, 19, 22, 25,
+26, 12-14, 6-8, 15, 9, 10, 23, 20.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -234,6 +262,32 @@ GREEDY_STEPS = 64     # greedy-ID checks of the spec and large phases
 # main's requests (48 phonemes + text in 128, 150 frames + BOS in 256); the
 # JAX package's default chunk and lookahead frames.
 STREAM = dict(max_new=1024, chunk=512, ttm=128, pm=256, chunk_frames=75, lookahead=38)
+# #6 with a per-row index (continuous batching): 8 rows of the serving widths
+# at their own depths past ttm + pm -- the first generated slot, the last slot
+# of a chunk and the first of the next (chunk 128), S - 1 and one row frozen
+# at S -- in a cache of 512 slots (128 + 128 + 256 frames), the largest
+# whole-S f32 cache of 8 rows under the 8 MB block cap, so that both branches
+# run in both dtypes.
+PER_ROW = dict(ttm=128, pm=128, S=512, chunk=128, depths=(0, 44, 127, 128, 200, 255, 256, 1),
+               tokens_lens=(112, 97, 81, 120, 64, 128, 100, 90),
+               codes_lens=(101, 101, 64, 128, 101, 80, 101, 50))
+PER_ROW_PORTS = {
+    'fused_decode_step_per_row': (
+        'valle2_tpu/kernels/fused_decode.py:636 per_row, :658 the per-row meta, :530 the '
+        "row's own slot, :452-460 and :731-734 _write_rows_per_slot"),
+    'fused_decode_step_per_row_chunked': (
+        'the same per-row index with the chunked cache (:470-474 the clamp at the deepest '
+        'row, :523-584 the online softmax over chunks)')}
+# Continuous batching and the hub: the serving model with one beam on the
+# JAX package's hub geometry (ttm = pm = 128: ContinuousDecoder's default,
+# min(bucket_sizes)), advance chunk 25, N sessions (BENCHMARKS.md:484-491);
+# prompts of 100 frames (101 code slots with BOS) fit pm.
+CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
+# A bf16 greedy pick of the joint loop may part from the solo loop's only at
+# a near-tie: the logits head runs at another row count (another cuBLAS
+# kernel, f32 sums in another order) over bf16 hidden states, whose rounding
+# (2^-8 relative) moves logits of |x| <= 8 by up to ~3e-2.
+GREEDY_BF16_GAP = 5e-2
 # W8A8 greedy picks may part between the kernels and the plain route where an
 # activation code flipped (TOL_QUANT's reason) at a near-tie of two logits.
 # One flipped code moves that activation by one step sx (<= ~4 / 127), so a
@@ -356,7 +410,8 @@ def counters() -> dict:
             **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS},
             **{step_name('fused_verify_step', v): fd.VERIFY_COUNTERS[v]
                for v in VERIFY_VARIANTS},
-            **{f'{k}_chunked': c for k, c in fd.CHUNKED_COUNTERS.items()}}
+            **{f'{k}_chunked': c for k, c in fd.CHUNKED_COUNTERS.items()},
+            **fd.PER_ROW_COUNTERS}
 
 
 def reset_counters() -> None:
@@ -573,6 +628,67 @@ def dequantized(cache, h: int):
                  for c, sc in ((view.k, view.k_scale), (view.v, view.v_scale)))
 
 
+def hold_variant(name: str, variant: str, dtype_name: str, y, y_ref, c_k, c_p
+                 ) -> tuple[float, float, dict]:
+    """Hold a fused step variant's y and written cache against its plain
+    version's: (max |err| of y, of the cache, details).  y within the
+    variant's tolerance, W8A8 in f32 with at most W8A8_ROWS_OFF rows beyond
+    the dense tolerance; an int8 cache in f32 as integers (codes within one
+    step, bf16 scales within one bf16 step), other caches as values."""
+    tol = variant_tol(variant, dtype_name)
+    L, rows, _, d = c_k.k.shape
+    err_y = check_close(f'{name} y', y, y_ref, dtype_name, tol)
+    extra = {}
+    if variant.startswith('w8a8') and dtype_name == 'float32':
+        off = int(((y - y_ref).abs().amax(dim=(1, 2)) > TOL['float32']['atol']).sum())
+        if off > W8A8_ROWS_OFF:
+            fail(f'{name} (float32): {off} of {rows} rows off the dense '
+                 f'tolerance, more than flips explain ({W8A8_ROWS_OFF})')
+        extra['rows_off_dense_tol'] = off
+    if c_k.k_scale is not None and dtype_name == 'float32':
+        # codes as integers: within one int8 step of the plain ones (a W8A8
+        # row that flipped is held to TOL_QUANT below)
+        diffs = [(a.int() - b.int()).abs() for a, b in zip(c_k[:2], c_p[:2])]
+        worst = max(int(d_.max()) for d_ in diffs)
+        if worst > 1 and not variant.startswith('w8a8'):
+            fail(f'{name} (float32): a cache code {worst} steps off the plain one')
+        extra.update(cache_codes_differ=sum(int((d_ > 0).sum()) for d_ in diffs),
+                     cache_codes_written=2 * L * rows * d, cache_code_max_diff=worst)
+    if c_k.k_scale is not None and dtype_name == 'float32' \
+            and not variant.startswith('w8a8'):
+        for a, b in zip(c_k[2:], c_p[2:]):
+            check_close(f'{name} cache scales', a, b, dtype_name,
+                        {'atol': 0.0, 'rtol': 2 ** -7})   # one bf16 step
+        err_c = 0.0
+    else:     # values: bf16, a float cache, or a W8A8 row that flipped
+        h = SLICE['h']
+        err_c = max(check_close(f'{name} cache', a, b, dtype_name, tol)
+                    for a, b in zip(dequantized(c_k, h), dequantized(c_p, h)))
+    return err_y, err_c, extra
+
+
+def variant_bound(p, variant: str, dtype_name: str, cache, rows: int, read_slots: int,
+                  x_elt: int) -> tuple[int, float, str]:
+    """(bytes, ms, 'bytes' | 'operations') of one fused step of ``variant``:
+    every weight byte (codes, scales, norms, biases), the valid slots' k/v
+    (and int8 scales) read once, the new slots, x and y written; products
+    at the int8 (W8A8) or compute peak."""
+    from valle2_tpu_torch.train import tree_leaves
+    L, _, _, d = cache.k.shape
+    h, dff = SLICE['h'], p['ffn']['lin1'][next(k for k in ('w', 'q', 'q4')
+                                               if k in p['ffn']['lin1'])].shape[-1]
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+    slot_bytes = 2 * d * cache.k.element_size() + (2 * h * 2 if cache.k_scale is not None
+                                                   else 0)
+    nbytes = w_bytes + L * (read_slots + rows) * slot_bytes + 2 * rows * d * x_elt
+    proj_ops = rows * L * 2 * (4 * d ** 2 + 2 * d * dff)
+    attn_ops = L * 2 * 2 * read_slots * d
+    t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8') else dtype_name]
+             + attn_ops / PEAK_FLOPS[dtype_name])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return nbytes, 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
 def phase_quant_kernels(results: dict):
     """Every #6a variant of the fused step against its plain version at the
     serving shape, on the same codes, in f32 (TF32 off) and bf16."""
@@ -580,7 +696,6 @@ def phase_quant_kernels(results: dict):
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.ops.transformer import KVCache
-    from valle2_tpu_torch.train import tree_leaves
 
     dev = torch.device('cuda')
     s = SLICE
@@ -604,58 +719,16 @@ def phase_quant_kernels(results: dict):
                     y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args)
                 torch.cuda.synchronize()
                 tol = variant_tol(variant, dtype_name)
-                err_y = check_close(f'{name} y', y, y_ref, dtype_name, tol)
-                extra = {}
-                if variant.startswith('w8a8') and dtype_name == 'float32':
-                    off = int(((y - y_ref).abs().amax(dim=(1, 2))
-                               > TOL['float32']['atol']).sum())
-                    if off > W8A8_ROWS_OFF:
-                        fail(f'{name} (float32): {off} of {rows} rows off the dense '
-                             f'tolerance, more than flips explain ({W8A8_ROWS_OFF})')
-                    extra['rows_off_dense_tol'] = off
-                if cache.k_scale is not None and dtype_name == 'float32':
-                    # codes as integers: within one int8 step of the plain ones
-                    # (a W8A8 row that flipped is held to TOL_QUANT below)
-                    diffs = [(a.int() - b.int()).abs() for a, b in zip(c_k[:2], c_p[:2])]
-                    worst = max(int(d_.max()) for d_ in diffs)
-                    if worst > 1 and not variant.startswith('w8a8'):
-                        fail(f'{name} (float32): a cache code {worst} steps off the plain one')
-                    extra.update(cache_codes_differ=sum(int((d_ > 0).sum()) for d_ in diffs),
-                                 cache_codes_written=2 * s['L'] * rows * s['d'],
-                                 cache_code_max_diff=worst)
-                codes_held = (cache.k_scale is not None and dtype_name == 'float32'
-                              and not variant.startswith('w8a8'))
-                if codes_held:
-                    for a, b in zip(c_k[2:], c_p[2:]):
-                        check_close(f'{name} cache scales', a, b, dtype_name,
-                                    {'atol': 0.0, 'rtol': 2 ** -7})   # one bf16 step
-                    err_c = 0.0
-                else:     # values: bf16, a float cache, or a W8A8 row that flipped
-                    err_c = max(check_close(f'{name} cache', a, b, dtype_name, tol)
-                                for a, b in zip(dequantized(c_k, s['h']),
-                                                dequantized(c_p, s['h'])))
+                err_y, err_c, extra = hold_variant(name, variant, dtype_name, y, y_ref, c_k,
+                                                   c_p)
                 if variant.startswith('w8a8') and dtype_name == 'float32':
                     extra.update(flips, err_in_activation_steps=err_y
                                  / max(flips['max_activation_step'], 1e-30))
                 ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
                 plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p,
                                                                       index, *args))
-                # Bound: every weight byte (codes, scales, norms, biases), the
-                # valid slots' k/v (and int8 scales) read once, the new slot,
-                # x and y written; products at the int8 (W8A8) or compute peak.
-                w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
-                slot_bytes = 2 * s['d'] * cache.k.element_size() + (
-                    2 * s['h'] * 2 if cache.k_scale is not None else 0)
-                nbytes = (w_bytes + s['L'] * (slots + rows) * slot_bytes
-                          + 2 * rows * s['d'] * x.element_size())
-                proj_ops = rows * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
-                attn_ops = s['L'] * 2 * 2 * slots * s['d']
-                t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8')
-                                                else dtype_name]
-                         + attn_ops / PEAK_FLOPS[dtype_name])
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), \
-                    'bytes' if t_bytes >= t_ops else 'operations'
+                nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache, rows,
+                                                           slots, x.element_size())
                 results[(name, dtype_name)] = dict(
                     max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -1514,6 +1587,516 @@ def stream_parity(smi: str):
          prompt_samples=sum(len(c) for c in prompt_mode), card=smi)
 
 
+def phase_per_row_kernels(results: dict):
+    """#6 with a (rows,) per-row index (continuous batching) against its plain
+    version on the same inputs, every weight x cache variant, whole-S and
+    chunked (chunk 128), f32 (TF32 off) and bf16: 8 rows at the depths of
+    PER_ROW, one frozen at slot S (it writes nothing; its cache row must not
+    change).  CUDA-event times of the per-row kernel, of the scalar-index #6
+    on the same inputs (every row at the middle depth) and of the plain
+    version; the bound.  No one PyTorch call computes the step."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache
+
+    dev = torch.device('cuda')
+    s, pr = SLICE, PER_ROW
+    rows, S, ttm, pm = len(pr['depths']), pr['S'], pr['ttm'], pr['pm']
+    gen = torch.Generator().manual_seed(21)
+    tl = torch.tensor(pr['tokens_lens'], dtype=torch.int32, device=dev)
+    cl = torch.tensor(pr['codes_lens'], dtype=torch.int32, device=dev)
+    index = torch.tensor([ttm + pm + g for g in pr['depths']], dtype=torch.int32, device=dev)
+    frozen = pr['depths'].index(S - ttm - pm)
+    scalar = ttm + pm + pr['depths'][4]
+    args = (tl, cl, ttm, pm)
+    read = int((tl + cl).sum()) + sum(min(int(i), S - 1) - ttm - pm + 1 for i in index)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            for variant in VERIFY_VARIANTS:
+                p, cache = quant_step_inputs(variant, dt, gen, dev, rows=rows, S=S)
+                x = torch.randn(rows, 1, s['d'], generator=gen).to(dev, dt)
+                for chunk in (None, pr['chunk']):
+                    base = 'fused_decode_step_per_row' + ('_chunked' if chunk else '')
+                    name = step_name(base, variant)
+                    if fd.cache_chunk(cache, s['h'], chunk) != (chunk or S):
+                        fail(f'{name}: S={S} does not take chunk {chunk or S}')
+                    c_k, c_p, c_s = (KVCache(*(c.clone() for c in cache if c is not None))
+                                     for _ in range(3))
+                    y, _ = fd.fused_decode_step(p, x, s['h'], c_k, index, *args,
+                                                chunk_override=chunk)
+                    y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args,
+                                                          chunk_override=chunk)
+                    torch.cuda.synchronize()
+                    err_y, err_c, extra = hold_variant(name, variant, dtype_name, y, y_ref,
+                                                       c_k, c_p)
+                    if not all(torch.equal(a[:, frozen], b[:, frozen])
+                               for a, b in zip(c_k, cache) if a is not None):
+                        fail(f'{name} ({dtype_name}): the row frozen at S wrote its cache')
+                    ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args,
+                                                              chunk_override=chunk))
+                    scalar_ms = cuda_ms(lambda: fd.fused_decode_step(
+                        p, x, s['h'], c_s, scalar, *args, chunk_override=chunk))
+                    plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(
+                        p, x, s['h'], c_p, index, *args, chunk_override=chunk))
+                    nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache,
+                                                               rows, read, x.element_size())
+                    tol = variant_tol(variant, dtype_name)
+                    results[(name, dtype_name)] = dict(
+                        max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        tol=tol_str(dtype_name, tol), scalar_index_ms=scalar_ms)
+                    emit(phase='kernels', path='per_row', kernel=name, variant=variant,
+                         dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
+                         shape=dict(L=s['L'], rows=rows, S=S, chunk=chunk or S, d=s['d'],
+                                    h=s['h'], dff=s['dff'], index=index.tolist()),
+                         err_y=err_y, err_cache=err_c, ms=ms, scalar_index_ms=scalar_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         bytes=nbytes, tol=tol_str(dtype_name, tol), **extra)
+                del p, cache
+
+
+def cb_requests(n: int, seed: int = 9):
+    """n requests inside the hub geometry: 48 prompt phonemes + a text (under
+    128 tokens) and CB['prompt_frames'] prompt frames; (texts, prompt
+    tokens, prompt codes, tokens)."""
+    import numpy as np
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    rs = np.random.RandomState(seed)
+    base, _, _ = make_requests()
+    texts = [base[i % len(base)] for i in range(n)]
+    pts = [rs.randint(0, 256, (48,)).astype(np.int64) for _ in texts]
+    pcs = [rs.randint(0, 1024, (CB['prompt_frames'], 8)).astype(np.int64) for _ in texts]
+    tok = PhonemeTokenizer()
+    return texts, pts, pcs, [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+
+
+def cb_arm(model, tokens, pcs, gens=None, **cb_kw) -> dict:
+    """Every request joins one ContinuousDecoder (n_slots = requests), then
+    advances of CB['chunk_frames'] until all finish: wall (joins included),
+    the joins' prefill share, ids per session, and the per-row #6 launches
+    of the arm against its fused-step launches and plain calls."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.models.continuous import ContinuousDecoder
+    before, plain0 = read_counters(), plain_calls()
+    cb = ContinuousDecoder(model, n_slots=len(tokens), ttm=CB['ttm'], pm=CB['pm'], **cb_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [cb.join(t, pc, generator=None if gens is None else gens[i])
+             for i, (t, pc) in enumerate(zip(tokens, pcs))]
+    t1 = time.perf_counter()
+    got = {sl: [] for sl in slots}
+    advances = 0
+    while not all(cb.finished(sl) for sl in slots):
+        for sl, new in cb.advance(CB['chunk_frames']).items():
+            got[sl].extend(new)
+        advances += 1
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    after = read_counters()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return dict(wall=t2 - t0, prefill=t1 - t0, decode=t2 - t1, advances=advances,
+                ids=[np.asarray(got[sl]) for sl in slots], launches=delta,
+                plain=plain_calls() - plain0, cache_len=cb._state.cache.k.shape[2])
+
+
+def solo_arm(model, tokens, pcs, gens=None) -> dict:
+    """The same requests as one-row DecodeStreams advanced round-robin by
+    CB['chunk_frames'] (the path without the hub)."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.models.ar import DecodeStream
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [DecodeStream(model, t, pc, None if gens is None else gens[i])
+               for i, (t, pc) in enumerate(zip(tokens, pcs))]
+    t1 = time.perf_counter()
+    got = [[] for _ in streams]
+    while not all(st.finished for st in streams):
+        for i, st in enumerate(streams):
+            if not st.finished:
+                got[i].extend(st.advance(CB['chunk_frames']))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(wall=t2 - t0, prefill=t1 - t0, decode=t2 - t1,
+                ids=[np.asarray(g) for g in got])
+
+
+def first_divergence(model, cfg, tokens, pcs, got, want) -> dict | None:
+    """None when every session's ids equal; else the first session and step
+    where they part, with the plain route's logit gap of the two picks
+    there (teacher-forced on the common prefix)."""
+    import numpy as np
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        if np.array_equal(g, w):
+            continue
+        n = min(len(g), len(w))
+        k = int(np.argmax(g[:n] != w[:n])) if (g[:n] != w[:n]).any() else n
+        if k == n:
+            fail(f'cb: session {i} ids differ in length ({len(g)} vs {len(w)})')
+        gap = teacher_forced_gap(model, cfg, tokens[i], pcs[i], torch.as_tensor(w[:k]),
+                                 (int(g[k]), int(w[k])))
+        return dict(session=i, step=k, pair=[int(g[k]), int(w[k])], logit_gap=gap)
+    return None
+
+
+def require_per_row(label: str, arm: dict, steps: int, variant: str = 'dense',
+                    chunked: bool = False) -> None:
+    """The arm's joint steps all launched the per-row #6 (its variant, and its
+    chunked branch where the cache is chunked), never the plain version."""
+    got = arm['launches']
+    n = got.get('fused_decode_step_per_row', 0)
+    if arm['plain'] or n < steps or got.get(step_name('fused_decode_step', variant), 0) != n \
+            or got.get('fused_decode_step_per_row_chunked', 0) != (n if chunked else 0):
+        fail(f'{label}: {arm["plain"]} plain calls and launches {got} for {steps} joint steps')
+
+
+def phase_cb(smi: str) -> dict:
+    """Continuous batching at the serving model with one beam (bf16,
+    max_audio_len 512, ignore_eos) on the hub geometry: for N = 4 and 8
+    sessions, round-robin solo DecodeStreams against one ContinuousDecoder
+    (in turns: solo, joint, joint, solo), aggregate tokens/s and ms per
+    joint step; greedy ids joint == solo (or parted at a near-tie); sampled
+    at N = 4 (per-row generators); one W8A8 + int8-cache joint run.  Counts
+    zeroed before, read after: every joint step launched the per-row #6, no
+    plain call.  Then ``cb_parity``.  Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR
+
+    max_new = SLICE['max_new']
+    cfg = ConfigValle(max_audio_len=max_new, ignore_eos=True, dropout=0.0, dtype='bfloat16',
+                      num_beams=1)
+    model = ValleAR(cfg, device='cuda')
+    texts, pts, pcs, tokens = cb_requests(max(CB['sessions']))
+    cb_arm(model, tokens[:2], pcs[:2])                      # warm-up
+    reset_counters()
+    arms, divergence = {}, {}
+    for n in CB['sessions']:
+        runs = {'solo': [], 'joint': []}
+        for label in ('solo', 'joint', 'joint', 'solo'):
+            arm = (solo_arm if label == 'solo' else cb_arm)(model, tokens[:n], pcs[:n])
+            if label == 'joint':
+                require_per_row(f'cb N={n}', arm, max_new)
+            runs[label].append(arm)
+        divergence[n] = first_divergence(model, cfg, tokens, pcs, runs['joint'][0]['ids'],
+                                         runs['solo'][0]['ids'])
+        if divergence[n] and divergence[n]['logit_gap'] > GREEDY_BF16_GAP:
+            fail(f'cb N={n}: joint and solo greedy ids part away from a near-tie: '
+                 f'{divergence[n]}')
+        arms[f'greedy_{n}'] = runs
+    sampled = ValleAR(dataclasses.replace(cfg, temperature=1.0, top_k=50), params=model.params,
+                      device='cuda')
+
+    def gens():
+        import torch
+        return [torch.Generator(device='cuda').manual_seed(500 + i) for i in range(4)]
+    arms['sampled_4'] = {'joint': [cb_arm(sampled, tokens[:4], pcs[:4], gens())],
+                         'solo': [solo_arm(sampled, tokens[:4], pcs[:4], gens())]}
+    require_per_row('cb sampled', arms['sampled_4']['joint'][0], max_new)
+    quant = ValleAR(dataclasses.replace(cfg, weight_dtype='int8', kv_cache_dtype='int8'),
+                    params=model.params, device='cuda')
+    arms['w8a8_kv8_4'] = {'joint': [cb_arm(quant, tokens[:4], pcs[:4])]}
+    require_per_row('cb w8a8_kv8', arms['w8a8_kv8_4']['joint'][0], max_new, 'w8a8_kv8')
+    launches = read_counters()
+    for ids in [a['ids'] for runs in arms.values() for rs in runs.values() for a in rs]:
+        if any(len(i) != max_new for i in ids):
+            fail(f'cb: sessions of {[len(i) for i in ids]} tokens for {max_new} steps')
+
+    def summary(a: dict, n: int) -> dict:
+        return dict(tok_per_s=n * max_new / a['wall'], wall_s=a['wall'], prefill_s=a['prefill'],
+                    decode_s=a['decode'], ms_per_step=1e3 * a['decode'] / max_new,
+                    advances=a.get('advances'), cache_len=a.get('cache_len'))
+    for key, runs in arms.items():
+        n = int(key.rsplit('_', 1)[1])
+        out = {label: [summary(a, n) for a in rs] for label, rs in runs.items()}
+        if 'solo' in runs:
+            out['joint_over_solo'] = (min(a['wall'] for a in runs['solo'])
+                                      / min(a['wall'] for a in runs['joint']))
+        emit(phase='cb', arm=key, sessions=n, max_audio_len=max_new,
+             chunk_frames=CB['chunk_frames'], geometry=dict(ttm=CB['ttm'], pm=CB['pm']),
+             greedy_divergence=divergence.get(n) if key.startswith('greedy') else None,
+             card=smi, **out)
+    cb_parity(smi)
+    return launches
+
+
+def cb_parity(smi: str):
+    """f32, TF32 off, max_audio_len 256, ignore_eos, 4 rows, 6 sessions:
+    two join, decode 50 steps, two more join, the first two finish and are
+    released, two more reuse their rows.  Greedy ids of every session ==
+    its solo DecodeStream; the speculative joint loop (K = 4) == the plain
+    joint loop; sampled sessions == their solo DecodeStreams on CUDA
+    generators of the same seeds, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.models.ar import DecodeStream
+    from valle2_tpu_torch.models.continuous import ContinuousDecoder
+
+    cfg = ConfigValle(max_audio_len=256, ignore_eos=True, dropout=0.0, temperature=0.0,
+                      num_beams=1, kv_cache_dtype='float32', matmul_precision='highest')
+    plain = ValleAR(cfg, device='cuda')
+    _, _, pcs, tokens = cb_requests(6, seed=17)
+
+    def gen(i):
+        return torch.Generator(device='cuda').manual_seed(700 + i)
+
+    def staggered(model, spec=False, sampled=False):
+        cb = ContinuousDecoder(model, n_slots=4, ttm=CB['ttm'], pm=CB['pm'], speculative=spec)
+        slot_of, ids = {}, [[] for _ in tokens]
+
+        def join(i):
+            slot_of[i] = cb.join(tokens[i], pcs[i], generator=gen(i) if sampled else None)
+
+        def step(k, live):
+            out = cb.advance(k)
+            for i in live:
+                ids[i].extend(out.get(slot_of[i], []))
+        join(0)
+        join(1)
+        step(50, (0, 1))
+        join(2)
+        join(3)
+        while not (cb.finished(slot_of[0]) and cb.finished(slot_of[1])):
+            step(25, (0, 1, 2, 3))
+        cb.release(slot_of[0])
+        cb.release(slot_of[1])
+        join(4)                    # into the released rows
+        join(5)
+        live = (2, 3, 4, 5)
+        while not all(cb.finished(slot_of[i]) for i in live):
+            step(25, live)
+        return [np.asarray(x) for x in ids], cb
+
+    reset_counters()
+    joint, cb = staggered(plain)
+    launches = read_counters()
+    solo = [DecodeStream(plain, t, pc).advance(10 ** 4) for t, pc in zip(tokens, pcs)]
+    for i, (g, w) in enumerate(zip(joint, solo)):
+        if not np.array_equal(g, w):
+            fail(f'cb parity: session {i} greedy ids joint != solo (f32)')
+    if plain_calls() or launches['fused_decode_step_per_row'] <= 0:
+        fail(f'cb parity: launches {launches}, {plain_calls()} plain calls')
+    spec_model = ValleAR(dataclasses.replace(cfg, speculative_k=4, speculative_ngram=3),
+                         params=plain.params, device='cuda')
+    before = read_counters()['fused_verify_step']
+    spec, _ = staggered(spec_model, spec=True)
+    if read_counters()['fused_verify_step'] <= before:
+        fail('cb parity: the speculative joint loop never launched #7')
+    for i, (g, w) in enumerate(zip(spec, joint)):
+        if not np.array_equal(g, w):
+            fail(f'cb parity: session {i} speculative joint ids != plain joint ids')
+    sampled = ValleAR(dataclasses.replace(cfg, temperature=1.0, top_k=50),
+                      params=plain.params, device='cuda')
+    got, _ = staggered(sampled, sampled=True)
+    want = [DecodeStream(sampled, t, pc, gen(i)).advance(10 ** 4)
+            for i, (t, pc) in enumerate(zip(tokens, pcs))]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            fail(f'cb parity: sampled session {i} joint != its solo DecodeStream')
+    emit(phase='cb', check='parity', dtype='float32', sessions=6, rows=4,
+         max_audio_len=cfg.max_audio_len, cache_len=cb._state.cache.k.shape[2],
+         greedy_equal=True, speculative_equal=True, sampled_equal=True,
+         per_row_launches=launches['fused_decode_step_per_row'], card=smi)
+
+
+def hub_sessions(hub, texts, pts, pcs) -> list[dict]:
+    """Every request opened on the hub from its own thread, all started
+    together: per session its wall, time to first audio, chunk walls and
+    samples (waveform)."""
+    import threading
+
+    import numpy as np
+    res, errs = [None] * len(texts), []
+
+    def run(i):
+        try:
+            # The first chunk's wall runs from the open call, the prefill
+            # included: the session's time to first audio.
+            t0 = t = time.perf_counter()
+            chunks = hub.open(texts[i], pts[i], pcs[i])
+            walls, out = [], []
+            for c in chunks:
+                now = time.perf_counter()
+                walls.append(now - t)
+                out.append(c)
+                t = now
+            res[i] = dict(wall=time.perf_counter() - t0, first_audio=walls[0], chunk_s=walls,
+                          wav=np.concatenate(out))
+        except Exception as e:      # noqa: BLE001 -- reported below
+            errs.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(texts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if errs or any(th.is_alive() for th in threads):
+        fail(f'hub: sessions failed or hung: {errs!r}')
+    if hub.errors:
+        fail(f'hub: the driver thread failed: {hub.errors!r}')
+    return res
+
+
+def phase_hub(smi: str) -> dict:
+    """StreamHub(n_slots=4, chunk_frames=25) at the streaming model (bf16,
+    max_audio_len 1024, the forced chunk 512, ignore_eos): 4 sessions
+    opened from 4 threads at once, then the same 4 requests through solo
+    synthesize_streaming in turn.  Counts zeroed before, read after the hub
+    run: every joint step launched the per-row #6 through its chunked
+    branch, no plain call; every waveform finite and 1024 * 320 long.  Each
+    session's time to first audio and chunk walls, the aggregate RTF of
+    both.  Then ``hub_parity``.  Returns the hub run's launch counts."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.stream_hub import StreamHub
+    from valle2_tpu_torch.tts import ValleTTS
+
+    n = STREAM['max_new']
+    cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16',
+                      num_beams=1)
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs, _ = cb_requests(4, seed=13)
+    hub = StreamHub(tts, n_slots=4, chunk_frames=CB['chunk_frames'])
+    try:
+        warm = hub.open(texts[0], pts[0], pcs[0])                   # warm-up: 3 chunks
+        for _ in range(3):
+            next(warm)
+        warm.close()
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        runs = hub_sessions(hub, texts, pts, pcs)
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters(), plain_calls()
+    finally:
+        hub.stop()
+    for r in runs:
+        if r['wav'].shape != (n * 320,) or not np.isfinite(r['wav']).all():
+            fail(f'hub: {r["wav"].shape} samples for {n} frames')
+    steps = launches['fused_decode_step_per_row']
+    if plain or steps < n or launches['fused_decode_step_per_row_chunked'] != steps \
+            or launches['fused_decode_step'] != steps:
+        fail(f"hub: {plain} plain calls and launches {launches} for {n} steps")
+    solo = []
+    for text, pt, pc in zip(texts, pts, pcs):
+        t1 = time.perf_counter()
+        stream = tts.synthesize_streaming(text, pt, pc, chunk_frames=CB['chunk_frames'])
+        total = np.concatenate(list(stream))
+        solo.append(dict(wall=time.perf_counter() - t1, first_audio=stream.first_audio_s,
+                         chunk_s=stream.chunk_s, samples=total.shape[0]))
+    audio_s = n * 320 / 24000
+    emit(phase='hub', sessions=len(texts), n_slots=4, chunk_frames=CB['chunk_frames'],
+         max_audio_len=n, cache_len=hub.cb._state.cache.k.shape[2],
+         forced_chunk=tts._stream_ar.config.decode_chunk,
+         first_audio_s=[r['first_audio'] for r in runs],
+         chunk_wall_s=dict(median=float(np.median([w for r in runs for w in r['chunk_s']])),
+                           max=max(w for r in runs for w in r['chunk_s']),
+                           chunks=[len(r['chunk_s']) for r in runs]),
+         session_wall_s=[r['wall'] for r in runs], wall_s=wall,
+         rtf=wall / (len(runs) * audio_s),
+         solo=dict(first_audio_s=[r['first_audio'] for r in solo],
+                   wall_s=[r['wall'] for r in solo],
+                   chunk_wall_median_s=float(np.median([w for r in solo
+                                                        for w in r['chunk_s']])),
+                   rtf=sum(r['wall'] for r in solo) / (len(solo) * audio_s)),
+         launches={k: v for k, v in launches.items() if v}, plain_calls=plain, card=smi)
+    hub_parity(smi)
+    return launches
+
+
+def hub_parity(smi: str):
+    """f32, TF32 off, greedy, ignore_eos, max_audio_len 256 with
+    decode_chunk 128 (the per-row step's chunked branch, S 512): (1) two
+    concurrent hub sessions (chunk_frames 64) == their solo streams: tokens
+    (codes_sink against one DecodeStream advance) exactly, waveforms within
+    TOL's f32 tolerance (the joint codec batch sums in another order); (2)
+    open_longform over three sentences == synthesize_longform(carry='prompt')
+    on the same generator seed, chunk by chunk; (3) stop(drain=True) while a
+    session streams returns its whole waveform."""
+    import threading
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models.ar import DecodeStream
+    from valle2_tpu_torch.stream_hub import StreamHub
+    from valle2_tpu_torch.tts import ValleTTS
+
+    cfg = ConfigValle(max_audio_len=256, decode_chunk=128, ignore_eos=True, dropout=0.0,
+                      temperature=0.0, num_beams=1, kv_cache_dtype='float32',
+                      matmul_precision='highest')
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs, tokens = cb_requests(2, seed=19)
+    kw = dict(chunk_frames=64)
+    hub = StreamHub(tts, n_slots=2, **kw)
+    sinks = [[], []]
+    try:
+        reset_counters()
+        runs = [None, None]
+
+        def run(i):
+            runs[i] = np.concatenate(list(hub.open(texts[i], pts[i], pcs[i],
+                                                   codes_sink=sinks[i])))
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        launches = read_counters()
+        if hub.errors or any(r is None for r in runs):
+            fail(f'hub parity: sessions failed: {hub.errors!r}')
+        model = tts._ensure_stream_models()
+        err = 0.0
+        for i in range(2):
+            want_ids = DecodeStream(model, tokens[i], pcs[i]).advance(10 ** 4)
+            if not np.array_equal(np.concatenate(sinks[i]), want_ids):
+                fail(f'hub parity: session {i} tokens != its solo stream')
+            want = np.concatenate(list(tts.synthesize_streaming(texts[i], pts[i], pcs[i],
+                                                                **kw)))
+            if runs[i].shape != want.shape:
+                fail(f'hub parity: {runs[i].shape} samples against {want.shape}')
+            err = max(err, check_close('hub waveform', torch.from_numpy(runs[i]),
+                                       torch.from_numpy(want), 'float32'))
+        if launches['fused_decode_step_per_row_chunked'] <= 0 or plain_calls():
+            fail(f'hub parity: launches {launches}, {plain_calls()} plain calls')
+        text3 = ' '.join(make_requests()[0])
+        got = list(hub.open_longform(text3, pts[0], pcs[0],
+                                     generator=torch.Generator(device='cuda').manual_seed(3)))
+        want = list(tts.synthesize_longform(text3, pts[0], pcs[0], chunk_frames=64,
+                                            generator=torch.Generator(device='cuda')
+                                            .manual_seed(3)))
+        if len(got) != len(want) or any(a.shape != b.shape for a, b in zip(got, want)):
+            fail(f'hub parity: long-form {len(got)} chunks against {len(want)}')
+        err_long = max(check_close('hub long-form', torch.from_numpy(a), torch.from_numpy(b),
+                                   'float32') for a, b in zip(got, want))
+        prefetched = hub.longform_prefetched
+        drained = {}
+        chunks = hub.open(texts[1], pts[1], pcs[1])
+        consumer = threading.Thread(
+            target=lambda: drained.setdefault('wav', np.concatenate(list(chunks))))
+        consumer.start()
+        hub.stop(drain=True)
+        consumer.join(timeout=600)
+        if drained.get('wav') is None or drained['wav'].shape != runs[1].shape:
+            fail('hub parity: stop(drain=True) cut the live session')
+    finally:
+        hub.stop()
+    emit(phase='hub', check='parity', dtype='float32', sessions=2,
+         max_audio_len=cfg.max_audio_len, decode_chunk=cfg.decode_chunk,
+         cache_len=hub.cb._state.cache.k.shape[2], tokens_equal=True, waveform_err=err,
+         longform_chunks=len(got), longform_err=err_long, longform_prefetched=prefetched,
+         drained_samples=int(drained['wav'].shape[0]), card=smi)
+
+
 def make_requests(seed: int = 2):
     """3 requests as bench.py builds them: random prompt phonemes (48) and
     prompt codes (150 frames), different texts."""
@@ -2228,12 +2811,15 @@ def main() -> int:
     phase_quant_kernels(results)
     phase_spec_kernels(results)
     phase_chunk_kernels(results)
+    phase_per_row_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
     paths['quant'] = phase_quant(smi)
     paths['spec'] = phase_spec(smi)
     paths['stream'] = phase_stream(smi)
+    paths['cb'] = phase_cb(smi)
+    paths['hub'] = phase_hub(smi)
     phase_codec()
     paths['clone'] = phase_clone()
     paths['asr'] = phase_asr()
@@ -2272,7 +2858,11 @@ def main() -> int:
               for v in QUANT_VARIANTS),
             *((step_name('fused_verify_step', v), 'fused_decode.cu', 'fused_decode.py:1017',
                None, {}, ('bfloat16', 'float32'), ('spec', 'large') if v in ('dense', 'w8a8')
-               else ('spec',)) for v in VERIFY_VARIANTS)):
+               else ('spec',)) for v in VERIFY_VARIANTS),
+            ('fused_decode_step_per_row', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+             ('bfloat16', 'float32'), ('cb', 'hub')),
+            ('fused_decode_step_per_row_chunked', 'fused_decode.cu', 'fused_decode.py:706',
+             None, {}, ('bfloat16', 'float32'), ('hub',))):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
@@ -2287,7 +2877,12 @@ def main() -> int:
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
         if (name, 'large', 'bfloat16') in results:
             entry['large'] = {'bf16': pick('large', 'bfloat16')}
-        if name.endswith('_chunked'):
+        if name in PER_ROW_PORTS:
+            entry['scalar_index_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['scalar_index_ms']
+                                        for d in dtypes}
+            entry['ports'] = PER_ROW_PORTS[name]
+            entry['case'] = 'per_row'
+        elif name.endswith('_chunked'):
             entry['whole_s_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['whole_s_ms']
                                    for d in dtypes}
             entry['ports'] = CHUNK_PORTS[name]

@@ -127,7 +127,8 @@ class TestChunkedStepsAgainstPallas:
         h, ttm, pm, chunk = c['h'], c['ttm'], c['pm'], c['chunk']
         index = np.asarray([14, 30], np.int32) if verify else 35
         jargs = (jnp.asarray(tl), jnp.asarray(plen), ttm, pm)
-        jstep = jfd.fused_verify_step if verify else jfd.fused_decode_step
+        jstep = jax.jit(jfd.fused_verify_step if verify else jfd.fused_decode_step,
+                        static_argnums=(2, 7, 8), static_argnames='chunk_override')
         yj, cj = jstep(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
                        jnp.asarray(index), *jargs, chunk_override=chunk)
         tcache = tfd.fused_cache_layout(KVCache(*tt(tuple(cache))))

@@ -18,7 +18,11 @@ per-row slots (one block ending at the last slot), the chunked cache of
 both steps (the split over the cache and its merge) in every cache format
 and head dim at chunks of 128 to 512 (the index in the first chunk, on a
 boundary and at S - 1, a verify block straddling a boundary, 1 and 12
-rows) and the refusal of a chunk that does not divide S, both steps at the 204M
+rows) and the refusal of a chunk that does not divide S, #6 with a per-row
+index (continuous batching: every variant, head dim and dtype, whole-S and
+chunked, rows at their own slots, one on a chunk boundary, one at S - 1 and
+one frozen at S) and a joint greedy decode through it equal to the solo
+decodes, both steps at the 204M
 widths (d 1024, dff 4096: the 8-row projection tile), the 'auto' route of a
 head dim no kernel takes, RVQ encode at frame counts that are not a multiple
 of its 32-frame block, the codec's encode on the card against its CPU route
@@ -548,6 +552,116 @@ def test_chunked_steps_match_plain(dev, cache_name, hd, chunk):
             assert torch.isfinite(y).all()
             torch.testing.assert_close(y.float(), y_ref.float(), **tol)
             assert_same_cache(c_k, c_p, cache_name)
+
+
+# #6 with a per-row index (continuous batching): rows at their own slots of
+# S = 512 -- the first generated slot, both sides of the chunk boundary at
+# 128, two deep ones, S - 2, S - 1, and one row frozen at S.
+def per_row_index(ttm, pm, S, dev):
+    return torch.tensor([ttm + pm, 127, 128, 200, 300, S - 2, S - 1, S], dtype=torch.int32,
+                        device=dev)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
+@pytest.mark.parametrize('chunk', [None, 128], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('variant', VERIFY_VARIANTS)
+def test_per_row_decode_kernel_matches_plain(dev, variant, chunk, hd, dtype):
+    """#6 with a (rows,) index against fused_decode_step_plain with the same
+    tensor: y within the variant's tolerance, each row's own slot written as
+    the plain version writes it, every other slot untouched (the row at S
+    writes nothing), and the launch counted in the variant's counter, the
+    per-row one and, below S, the chunked ones."""
+    p, x, cache, (tl, cl), ttm, pm = quant_inputs(dev, variant, dtype, hd, 8, max_new=472)
+    S = cache[0].shape[2]
+    index = per_row_index(ttm, pm, S, dev)
+    c_k, c_p = KVCache(*(c.clone() for c in cache)), KVCache(*(c.clone() for c in cache))
+    counters = (fd.COUNTERS[variant], fd.PER_ROW_COUNTERS['fused_decode_step_per_row'],
+                fd.PER_ROW_COUNTERS['fused_decode_step_per_row_chunked'],
+                fd.CHUNKED_COUNTERS['fused_decode_step'])
+    before = [c.count for c in counters]
+    y, out = fd.fused_decode_step(p, x, 2, c_k, index, tl, cl, ttm, pm, chunk_override=chunk)
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1] + [int(bool(chunk))] * 2
+    assert out.k is c_k.k
+    y_ref, _ = fd.fused_decode_step_plain(p, x, 2, c_p, index, tl, cl, ttm, pm,
+                                          chunk_override=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    if dtype == torch.bfloat16:
+        tol = TOL[dtype]
+    else:
+        tol = TOL_W8A8 if variant.startswith('w8a8') else (
+            TOL_KV8 if variant.endswith('kv8') else TOL[dtype])
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    if variant.startswith('w8a8') and dtype == torch.float32:
+        rows_off = (y - y_ref).abs().amax(dim=(1, 2)) > TOL[dtype]['atol']
+        assert int(rows_off.sum()) <= 2
+    written = written_slots(index, 1, S)
+    assert not written[-1].any()
+    for got, orig in zip(c_k, cache):
+        assert torch.equal(got[:, ~written], orig[:, ~written])
+    if variant in ('kv8', 'w4a16_kv8') and dtype == torch.float32:
+        for got, want in zip(c_k[:2], c_p[:2]):
+            diff = (got[:, written].int() - want[:, written].int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+        for got, want in zip(c_k[2:], c_p[2:]):
+            torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -7)
+    else:
+        for got, want in zip(dequant(c_k), dequant(c_p)):
+            torch.testing.assert_close(got, want, **tol)
+
+
+def test_per_row_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    p, x, cache, (tl, cl), ttm, pm = quant_inputs(dev, 'dense', torch.float32, 32, 8,
+                                                  max_new=472)
+    c = KVCache(*cache)
+    index = per_row_index(ttm, pm, cache[0].shape[2], dev)
+    for bad in (index.long(), index[:4].contiguous(), index.cpu()):
+        with pytest.raises(ValueError, match='start slots'):
+            fd.fused_decode_step(p, x, 2, c, bad, tl, cl, ttm, pm)
+
+
+@pytest.mark.parametrize('decode_chunk', [0, 32], ids=['whole_s', 'chunked'])
+def test_joint_greedy_decode_through_the_kernels_equals_solo(dev, decode_chunk):
+    """ContinuousDecoder on the card (f32, TF32 off): three sessions on two
+    rows, one joining mid-flight and one reusing a released row, decode the
+    greedy ids of their solo DecodeStreams; every joint step launched the
+    per-row #6 (below S its chunked branch), no plain version."""
+    from valle2_tpu_torch.models import ValleAR
+    from valle2_tpu_torch.models.ar import DecodeStream
+    from valle2_tpu_torch.models.continuous import ContinuousDecoder
+    cfg = ConfigValle(d_model=128, n_heads=2, dim_feedforward=256, num_layers=2,
+                      max_audio_len=40, num_beams=1, temperature=0.0, ignore_eos=True,
+                      kv_cache_dtype='float32', matmul_precision='highest',
+                      bucket_sizes=(32, 64, 128), decode_chunk=decode_chunk)
+    model = ValleAR(cfg, device='cuda')
+    rs = np.random.RandomState(3)
+    prompts = [(rs.randint(0, 70, (rs.randint(4, 20),)),
+                rs.randint(0, 1024, (rs.randint(3, 20), 8))) for _ in range(3)]
+    want = [DecodeStream(model, t, c).advance(10 ** 4) for t, c in prompts]
+    per_row = fd.PER_ROW_COUNTERS['fused_decode_step_per_row']
+    chunked = fd.PER_ROW_COUNTERS['fused_decode_step_per_row_chunked']
+    before = (per_row.count, chunked.count, fd.PLAIN_CALLS.count)
+    cb = ContinuousDecoder(model, n_slots=2)
+    got = [[], [], []]
+    s0 = cb.join(*prompts[0])
+    got[0].extend(cb.advance(7).get(s0, []))
+    s1 = cb.join(*prompts[1])
+    while not cb.finished(s0):
+        out = cb.advance(6)
+        got[0].extend(out.get(s0, []))
+        got[1].extend(out.get(s1, []))
+    cb.release(s0)
+    s2 = cb.join(*prompts[2])
+    while not (cb.finished(s1) and cb.finished(s2)):
+        out = cb.advance(6)
+        got[1].extend(out.get(s1, []))
+        got[2].extend(out.get(s2, []))
+    steps = per_row.count - before[0]
+    assert steps >= 2 * cfg.max_audio_len and fd.PLAIN_CALLS.count == before[2]
+    assert chunked.count - before[1] == (steps if decode_chunk else 0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w)
 
 
 def test_chunk_must_divide_the_cache(dev):

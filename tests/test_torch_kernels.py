@@ -16,12 +16,17 @@ from torch_port_helpers import close, to_torch
 
 from valle2_tpu.kernels.flash_attention import _flash_fwd, flash_attention, reference_attention
 from valle2_tpu.kernels.fused_decode import fused_cache_layout as j_fused_cache_layout
-from valle2_tpu.kernels.fused_decode import fused_decode_step as j_fused_decode_step
+from valle2_tpu.kernels.fused_decode import fused_decode_step as _j_fused_decode_step
 from valle2_tpu.ops.transformer import KVCache as JKVCache
 from valle2_tpu.ops.transformer import transformer_init
 from valle2_tpu_torch.kernels import flash_attention as tflash
 from valle2_tpu_torch.kernels import fused_decode as tfused
 from valle2_tpu_torch.ops.transformer import KVCache
+
+# The Pallas kernels (interpret mode) as one compiled program each: op-by-op
+# dispatch compiles every op of the interpreted kernel.
+j_flash_fwd = jax.jit(_flash_fwd, static_argnums=(4, 5, 6, 7))
+j_fused_decode_step = jax.jit(_j_fused_decode_step, static_argnums=(2, 7, 8))
 
 
 def qkv(seed, b, h, s, hd):
@@ -46,8 +51,8 @@ def test_flash_plain_matches_pallas_kernel(case):
     b, h, s, hd, tt, meta, causal = FLASH_CASES[case]
     q, k, v = qkv(sorted(FLASH_CASES).index(case), b, h, s, hd)
     meta = np.asarray(meta, np.int32)
-    o_j, lse_j = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                            jnp.asarray(meta), tt, causal, 64, 64)
+    o_j, lse_j = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(meta), tt, causal, 64, 64)
     o_t, lse_t = tflash.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                         torch.from_numpy(v), torch.from_numpy(meta), tt,
                                         causal)

@@ -28,8 +28,11 @@ from valle2_tpu_torch.kernels import fused_decode as tfd
 from valle2_tpu_torch.ops.nn import linear as t_linear
 from valle2_tpu_torch.ops.transformer import KVCache, quantize_kv, transformer_prefill
 
-# JAX's decode step as one compiled program (op-by-op dispatch compiles each op)
+# JAX's decode step and the Pallas fused step (interpret mode) as one compiled
+# program each (op-by-op dispatch compiles each op)
 j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
+j_fused_step = jax.jit(jfd.fused_decode_step, static_argnums=(2, 7, 8))
+j_quantize_transformer = jax.jit(jq.quantize_transformer, static_argnames='bits')
 
 
 def tt(tree):
@@ -155,9 +158,9 @@ def fused_case(variant, L=2, rows=3, h=2, hd=16, dff=512, S=40, ttm=6, pm=8):
     d = h * hd
     p = j_transformer_init(jax.random.key(0), L, d, h, dff, adaptive_norm=False)
     if variant.startswith('w8a8'):
-        p = jq.quantize_transformer(p, bits=8)
+        p = j_quantize_transformer(p, bits=8)
     elif variant.startswith('w4a16'):
-        p = jq.quantize_transformer(p, bits=4)
+        p = j_quantize_transformer(p, bits=4)
     kf, vf = weights((L, rows, h, S, hd), 9), weights((L, rows, h, S, hd), 10)
     if variant.endswith('kv8'):
         (kq, ks), (vq, vs) = (j_quantize_kv(jnp.asarray(a)) for a in (kf, vf))
@@ -176,9 +179,8 @@ def test_fused_step_plain_matches_pallas_and_xla(variant):
     with an int8 cache), cache codes within one step, no kernel launch."""
     p, cache, x, tl, plen, ttm, pm, index = fused_case(variant)
     h = 2
-    yj, cj = jfd.fused_decode_step(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
-                                   jnp.int32(index), jnp.asarray(tl), jnp.asarray(plen),
-                                   ttm, pm)
+    yj, cj = j_fused_step(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
+                          jnp.int32(index), jnp.asarray(tl), jnp.asarray(plen), ttm, pm)
     slots = jnp.arange(cache.k.shape[3])[None, :]
     attend = ((slots < tl[:, None]) | ((slots >= ttm) & (slots < ttm + plen[:, None]))
               | ((slots >= ttm + pm) & (slots <= index)))

@@ -41,6 +41,8 @@ SPEC = dict(SMALL, num_audio_tokens=96, vocab_size=24, temperature=0.0, num_beam
 
 # JAX's decode step as one compiled program (op-by-op dispatch compiles each op)
 j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
+# The Pallas verify kernel (interpret mode) as one compiled program.
+j_verify_step = jax.jit(jfd.fused_verify_step, static_argnums=(2, 7, 8))
 
 
 def tt(tree):
@@ -185,9 +187,8 @@ class TestVerifyStep:
         c = VERIFY
         p, cache, x, tl, plen, index = verify_case(variant, seed=len(variant))
         h, ttm, pm, S, K = c['h'], c['ttm'], c['pm'], c['S'], c['K']
-        yj, cj = jfd.fused_verify_step(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
-                                       jnp.asarray(index), jnp.asarray(tl),
-                                       jnp.asarray(plen), ttm, pm)
+        yj, cj = j_verify_step(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
+                               jnp.asarray(index), jnp.asarray(tl), jnp.asarray(plen), ttm, pm)
         yx, cx = j_decode_step(p, jnp.asarray(x), h, cache, jnp.asarray(index),
                                attend_mask=jax_attend(tl, plen, index, ttm, pm, S, K))
         tp = tt(p)

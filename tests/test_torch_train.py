@@ -8,6 +8,7 @@ Small config, float32 with matmul_precision='highest', dropout 0 for parity.
 
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 from pathlib import Path
@@ -116,8 +117,8 @@ def test_ar_loss_and_grads_match_jax(case):
     jcfg, cfg = JConfig(**kw), ConfigValle(**kw)
     jp = jar.init_params(jax.random.key(0), jcfg)
     batch = ar_batch(1, cfg.direction)
-    (jl, jm), jg = jax.value_and_grad(lambda p: jar.loss_fn(p, jcfg, to_j(batch), None),
-                                      has_aux=True)(jp)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: jar.loss_fn(p, jcfg, b, None), has_aux=True))(jp, to_j(batch))
     tp = trainable(load_ar_state_dict(export_ar_state_dict(jp)))
     loss, m = tar.loss_fn(tp, cfg, to_t(batch))
     close(loss, jl, atol=1e-5)
@@ -136,8 +137,8 @@ def test_nar_loss_and_grads_match_jax_at_its_stage(flash, seed):
     jp = jnar.init_params(jax.random.key(2), jcfg)
     batch = nar_batch(seed)
     key = jax.random.key(seed)
-    (jl, jm), jg = jax.value_and_grad(lambda p: jnar.loss_fn(p, jcfg, to_j(batch), key),
-                                      has_aux=True)(jp)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b, k: jnar.loss_fn(p, jcfg, b, k), has_aux=True))(jp, to_j(batch), key)
     stage = int(jm['stage'])
     tp = trainable(load_nar_state_dict(export_nar_state_dict(jp)))
     loss, m = tnar.loss_at_stage(tp, cfg, to_t(batch), stage)
@@ -327,15 +328,22 @@ def test_validate_weights_batches_by_token_count(tmp_path):
 
 
 def test_train_cli_on_the_cpu(tmp_path):
+    """The CLI's ``main`` in process (its module runs it under ``-m``); the
+    package logger reports the steps."""
     cfg_file = tmp_path / 'cfg.json'
     cfg_file.write_text(json.dumps(dict(TRAIN, max_steps=2, log_every_n_steps=1,
                                         ckpt_path=str(tmp_path / 'ckpt'),
                                         log_path=str(tmp_path / 'logs'))))
-    out = subprocess.run([sys.executable, '-m', 'valle2_tpu_torch.train', '-c', str(cfg_file),
-                          '-m', 'ValleNAR', '--synthetic', '--device', 'cpu'],
-                         capture_output=True, text=True, timeout=300, cwd=ROOT)
-    assert out.returncode == 0, out.stderr
-    assert 'step 2 | loss' in out.stderr
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logger = logging.getLogger('valle2_tpu_torch')
+    logger.addHandler(handler)
+    try:
+        ttrain.main(['-c', str(cfg_file), '-m', 'ValleNAR', '--synthetic', '--device', 'cpu'])
+    finally:
+        logger.removeHandler(handler)
+    assert any(m.startswith('step 2 | loss') for m in messages)
     assert (tmp_path / 'ckpt' / 'ValleNAR' / 'step_2' / 'state.pt').exists()
 
 

@@ -2,10 +2,12 @@
 
 A second package beside the JAX one (``valle2_tpu``), which stays the
 reference.  It imports neither JAX nor ``valle2_tpu``.  Ported so far: the TTS
-serving path (``tts.ValleTTS``, voice cloning from a prompt recording) and
-ASR (``tts.ValleASRPipeline``) with hand-written CUDA kernels for the AR
-prefill (``kernels.flash_attention``), the AR token step
-(``kernels.fused_decode``) and the codec's RVQ encode (``kernels.rvq``);
+serving path (``tts.ValleTTS``, voice cloning from a prompt recording,
+streaming and long-form synthesis) and ASR (``tts.ValleASRPipeline``) with
+hand-written CUDA kernels for the AR prefill (``kernels.flash_attention``),
+the AR token step (``kernels.fused_decode``) and the codec's RVQ encode
+(``kernels.rvq``); continuous batching (``models.continuous``) and the
+stream hub that serves concurrent streams through it (``stream_hub``);
 audio datasets tokenized through the codec (``data.ValleDataset``); and
 training on one device (``train``) through the flash forward and backward
 kernels; see ROADMAP.md for what remains.
@@ -13,4 +15,23 @@ kernels; see ROADMAP.md for what remains.
 
 from .config import ConfigValle, bucket_len
 
-__all__ = ['ConfigValle', 'bucket_len']
+# User-facing classes resolve lazily (PEP 562), as in the JAX package: the
+# config imports without the models.
+_LAZY = {
+    'ValleTTS': '.tts', 'ValleASRPipeline': '.tts', 'StreamHub': '.stream_hub',
+    'ValleAR': '.models', 'ValleNAR': '.models', 'Trainer': '.train',
+}
+
+__all__ = ['ConfigValle', 'bucket_len', *sorted(_LAZY)]
+
+
+def __getattr__(name: str):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+    import importlib
+    return getattr(importlib.import_module(target, __name__), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -40,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Literal
@@ -286,17 +287,38 @@ class ConfigValle:
         return d
 
 
+# The TF32 flags are process-wide, and the stream hub's threads open scopes
+# that overlap in time (a join's prefill beside the driver's decode), so the
+# open scopes are kept in one list: the flags follow the newest, and the
+# settings from before the first come back when the last closes, in whatever
+# order the threads close theirs.
+_TF32_LOCK = threading.Lock()
+_TF32_OPEN: list[tuple[object, bool]] = []   # (token, allow) per open scope, oldest first
+_TF32_BEFORE: list[tuple[bool, bool]] = []
+
+
+def _set_tf32(matmul: bool, cudnn: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+
+
 @contextlib.contextmanager
 def tf32_scope(allow: bool):
     """TF32 on or off for both cuBLAS and cuDNN inside the scope; the previous
-    settings are restored on exit."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.backends.cudnn.allow_tf32 = allow
+    settings are restored when the last open scope (of any thread) exits."""
+    mine = (object(), allow)
+    with _TF32_LOCK:
+        if not _TF32_OPEN:
+            _TF32_BEFORE[:] = [(torch.backends.cuda.matmul.allow_tf32,
+                                torch.backends.cudnn.allow_tf32)]
+        _TF32_OPEN.append(mine)
+        _set_tf32(allow, allow)
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+        with _TF32_LOCK:
+            _TF32_OPEN.remove(mine)    # equal only to itself: its token is unique
+            _set_tf32(*(2 * (_TF32_OPEN[-1][1],) if _TF32_OPEN else _TF32_BEFORE[0]))
 
 
 def precision_scope(config: ConfigValle):

@@ -4,7 +4,11 @@
 // (L, rows, S, d) KV cache.
 //
 // Replaces the Pallas TPU kernels of valle2_tpu/kernels/fused_decode.py:
-//   fused_decode_step -> _kernel (#6): one scalar write index for every row;
+//   fused_decode_step -> _kernel (#6): one write index for every row, or a
+//                        (rows,) vector of per-row indices (the per-row
+//                        branch: meta[1 + 2*rows + r], the attention's own
+//                        row slot, the write of _write_rows_per_slot), rows
+//                        at their own depths under continuous batching;
 //   fused_verify_step -> _verify_kernel (#7): K query tokens per row written
 //                        from each row's own start slot (the per-row write of
 //                        _write_rows_per_slot), in-block causal attention;
@@ -17,7 +21,10 @@
 // The formats are template parameters of the same kernels, and #7 is the same
 // launcher as #6 with rows * K query rows and a device pointer to the per-row
 // start slots: the projections, the cache write and the FFN take every query
-// row alike; only the attention kernel differs.
+// row alike; only the attention kernel differs.  #6 with a per-row index is
+// #6 with that pointer (a block of one token): every block of the attention
+// cuts its ranges to its own row's slot, so no row walks past its own depth
+// (the TPU kernel clamps its chunk walk at the deepest row, max(index)).
 //
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order, so the step is five hand-written
@@ -148,7 +155,7 @@ struct ProjArgs {
   float* out32;        // OUT: (rows, d) mid state; FFN1: (rows, N) GELU output
   const float* res32;  // FFN2: (rows, d) mid state
   T* y;                // FFN2: (rows, d) hidden state leaving the layer
-  const int* idx;      // QKV, verify: (rows / qblk,) start slot of each cache row
+  const int* idx;      // QKV: (rows / qblk,) start slot of each cache row, or null
   int rows, K, N, d, S, index, group, qblk;   // rows: query rows; qblk per cache row
   float scale;
 };
@@ -592,7 +599,7 @@ struct StepArgs {
   const void *sqkv, *sout, *s1, *s2;   // weight scales (W8, W4) or null
   void *ks, *vs;                       // int8 cache scales (L, rows, S, h) or null
   const int *tokens_lens, *codes_lens;
-  const int* idx;                      // verify: (rows,) start slots; decode: null
+  const int* idx;                      // (rows,) start slots, or null: `index`
   float *qbuf, *abuf, *xmid, *hmid, *kvnew;
   float* part;                         // chunk < S: (rows * qblk * h * S / chunk, HD + 2)
   int L, rows, S, d, h, dff, index, qblk, ttm, pm, groups_d, groups_ff, chunk;
@@ -754,18 +761,24 @@ int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stre
 // takes the one-block-per-(query row, head) attention.  Returns the first
 // non-zero cudaGetLastError() of the launches.
 
-// #6: one token per row, x and y (rows, d), written at slot `index`.
+// #6: one token per row, x and y (rows, d).  Row r's token sits at slot
+// idx[r] (a device pointer, never read by the host: the per-row index of
+// continuous batching, rows at their own depths) or, with idx null, at the
+// scalar `index` for every row.  A row at slot S (a frozen row that reached
+// its budget) skips its write, where JAX's dynamic_update_slice clamps it to
+// S - 1, and attends up to S - 1: only that row reads those slots, and its
+// output is discarded.
 extern "C" int valle2_fused_decode_step(
     int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
     const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
     const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
     void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
-    void* ks, void* vs, const int* tokens_lens, const int* codes_lens, float* qbuf,
-    float* abuf, float* xmid, float* hmid, float* kvnew, float* part, int L, int rows,
-    int S, int d, int h, int dff, int index, int ttm, int pm, int groups_d, int groups_ff,
-    int chunk, float scale, void* stream) {
+    void* ks, void* vs, const int* tokens_lens, const int* codes_lens, const int* idx,
+    float* qbuf, float* abuf, float* xmid, float* hmid, float* kvnew, float* part, int L,
+    int rows, int S, int d, int h, int dff, int index, int ttm, int pm, int groups_d,
+    int groups_ff, int chunk, float scale, void* stream) {
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
-             sout, s1, s2, ks, vs, tokens_lens, codes_lens, nullptr, qbuf, abuf, xmid,
+             sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
              hmid, kvnew, part, L, rows, S, d, h, dff, index, 1, ttm, pm, groups_d,
              groups_ff, chunk, scale};
   return dispatch(dtype, cache_dtype, wfmt, s, stream);

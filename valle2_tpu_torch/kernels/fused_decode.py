@@ -2,9 +2,10 @@
 kernels and their plain versions.
 
 Replace the Pallas TPU kernels of ``valle2_tpu/kernels/fused_decode.py``:
-``fused_decode_step`` → ``_kernel`` with one scalar write index, and
-``fused_verify_step`` → ``_verify_kernel``, a block of K query tokens per row
-written from each row's own start slot (the per-row write of
+``fused_decode_step`` → ``_kernel`` with one scalar write index or a (rows,)
+vector of per-row indices (continuous batching: rows at their own depths),
+and ``fused_verify_step`` → ``_verify_kernel``, a block of K query tokens per
+row written from each row's own start slot (the per-row write of
 ``_write_rows_per_slot``), both without tensor parallelism and in every
 weight and cache format the serving path uses: dense weights (#6), int8 W8A8
 and int4 W4A16 weights (the ``'q'`` / ``'q4'`` layouts of ``quantize.py``),
@@ -54,6 +55,10 @@ VERIFY_COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}    # #7
 # and calls of the plain versions (any device).
 CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
                                                          'fused_verify_step')}
+# #6 launches with a per-row index (every variant), and those of them that
+# split the attention over the cache's chunks.
+PER_ROW_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_per_row',
+                                                         'fused_decode_step_per_row_chunked')}
 PLAIN_CALLS = _build.LaunchCounter()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WEIGHT_FORMATS = {'w': (0, 'dense'), 'q': (1, 'w8a8'), 'q4': (2, 'w4a16')}
@@ -211,9 +216,10 @@ def _step_plain(name: str, p, x, n_heads: int, cache: KVCache, index, tokens_len
     return y, cache
 
 
-def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index: int,
-                            tokens_lens, codes_lens, ttm: int, pm: int,
-                            chunk_override: int | None = None):
+def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
+                            codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
+    """``index``: one int, or a (rows,) tensor of per-row slots; a row at
+    slot S writes nothing (as the kernel) and attends up to S - 1."""
     return _step_plain('fused_decode_step', p, x, n_heads, cache, index, tokens_lens,
                        codes_lens, ttm, pm, chunk_override)
 
@@ -251,12 +257,11 @@ def _lib(verify: bool):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # formats; x, y, 11 weights, cache k/v, 4 weight scales, 2 cache scales,
-        # lengths (and the verify step's start slots), 6 scratch buffers (the
-        # last for the chunks' partial softmaxes); 12 sizes (the decode step's
-        # index or the verify step's block length among them, the chunk
-        # last); the q scale and the stream
-        fn.argtypes = [ci] * 3 + [vp] * (30 if verify else 29) + [ci] * 12 + [
-            ctypes.c_float, vp]
+        # lengths, the per-row slots (null: the decode step's scalar index), 6
+        # scratch buffers (the last for the chunks' partial softmaxes); 12
+        # sizes (the decode step's scalar index or the verify step's block
+        # length among them, the chunk last); the q scale and the stream
+        fn.argtypes = [ci] * 3 + [vp] * 30 + [ci] * 12 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -369,24 +374,40 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
     return lead, scratch, sizes, [*groups, chunk], y, variant(p, cache)
 
 
-def _count(name: str, var: str, sizes, tail) -> None:
+def _count(name: str, var: str, sizes, tail, per_row: bool = False) -> None:
     """One launch of a step kernel, and of its split attention below S."""
     (COUNTERS if name == 'fused_decode_step' else VERIFY_COUNTERS)[var].count += 1
-    if tail[-1] < sizes[2]:
+    chunked = tail[-1] < sizes[2]
+    if chunked:
         CHUNKED_COUNTERS[name].count += 1
+    if per_row:
+        PER_ROW_COUNTERS['fused_decode_step_per_row'].count += 1
+        if chunked:
+            PER_ROW_COUNTERS['fused_decode_step_per_row_chunked'].count += 1
 
 
-def fused_decode_step(p, x, n_heads: int, cache: KVCache, index: int, tokens_lens,
+def _check_slots(index, rows: int, x, name: str) -> None:
+    """A (rows,) int32 tensor of per-row slots on the device of x, checked
+    without reading it (no host sync)."""
+    _check(index, (rows,), torch.int32, 'the per-row start slots', name)
+    if index.device != x.device:
+        raise ValueError(f'{name}: the per-row start slots must be on the device of x')
+
+
+def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
                       codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
     """One token through the whole stack.  p: stacked layer dict (L, ...),
     dense or in a ``quantize.py`` layout ('q' int8 or 'q4' int4 weights, their
     scales in the compute dtype); x: (rows, 1, d) token embeddings; cache:
     fused (L, rows, S, d) k/v in float32 / bfloat16, or int8 with (L, rows,
-    S, h) bfloat16 scales; index: the write slot, ttm + pm <= index < S;
-    tokens_lens / codes_lens: (rows,) int32 true lengths, tokens_lens <= ttm
-    and codes_lens <= pm; chunk_override: the forced chunk (``chunk_for``;
-    None: the automatic one).  Returns (y (rows, 1, d), cache) with the cache
-    updated in place."""
+    S, h) bfloat16 scales; index: the write slot of every row, ttm + pm <=
+    index < S, or a contiguous (rows,) int32 tensor of per-row slots on the
+    device of x, which the host never reads (continuous batching): the
+    caller keeps ttm + pm <= index[r] <= S, and a row at S (frozen at its
+    budget) writes nothing and attends up to S - 1; tokens_lens / codes_lens:
+    (rows,) int32 true lengths, tokens_lens <= ttm and codes_lens <= pm;
+    chunk_override: the forced chunk (``chunk_for``; None: the automatic
+    one).  Returns (y (rows, 1, d), cache) with the cache updated in place."""
     if x.device.type == 'cpu':
         return fused_decode_step_plain(p, x, n_heads, cache, index, tokens_lens,
                                        codes_lens, ttm, pm, chunk_override)
@@ -394,13 +415,19 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index: int, tokens_len
     lead, scratch, sizes, tail, y, var = _checked_launch_args(
         name, p, x, n_heads, cache, 1, tokens_lens, codes_lens, chunk_override)
     L, rows, S, d, dff = sizes
-    if not ttm + pm <= index < S:
+    per_row = torch.is_tensor(index)
+    if per_row:
+        _check_slots(index, rows, x, name)
+        slots, index = index.data_ptr(), 0
+    elif not ttm + pm <= index < S:
         raise ValueError(f'index {index} outside [ttm + pm, S) = [{ttm + pm}, {S})')
+    else:
+        slots = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(False)(*lead, *scratch, L, rows, S, d, n_heads, dff, int(index), int(ttm),
-                         int(pm), *tail, 1.0 / math.sqrt(d // n_heads), stream)
+    status = _lib(False)(*lead, slots, *scratch, L, rows, S, d, n_heads, dff, int(index),
+                         int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, name)
-    _count(name, var, sizes, tail)
+    _count(name, var, sizes, tail, per_row)
     return y, cache
 
 
@@ -428,9 +455,7 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     lead, scratch, sizes, tail, y, var = _checked_launch_args(
         name, p, x, n_heads, cache, q_len, tokens_lens, codes_lens, chunk_override)
     L, rows, S, d, dff = sizes
-    _check(index, (rows,), torch.int32, 'the per-row start slots', name)
-    if index.device != x.device:
-        raise ValueError('the per-row start slots must be on the device of x')
+    _check_slots(index, rows, x, name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib(True)(*lead, index.data_ptr(), *scratch, L, rows, S, d, n_heads, dff,
                         q_len, int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads),

@@ -168,12 +168,15 @@ def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
 @dataclass
 class DecodeState:
     step: int | torch.Tensor   # tokens generated so far; per row (rows,) when speculative
+    #                            or under continuous batching (models/continuous.py)
     codes: torch.Tensor        # (rows, Pm + max_new_pad) int64, EOS-filled pads/tail
     logits: torch.Tensor       # (rows, V+1) f32 logits for the next position
     cache: KVCache
     sum_logprobs: torch.Tensor  # (rows,) f32
     finished: torch.Tensor     # (rows,) bool: the row's previous token was EOS
-    generator: torch.Generator | None = None   # the sampler's draws (JAX: the rng key)
+    # The sampler's draws (JAX: the rng key); under continuous batching a
+    # list of per-row generators (JAX: a (rows,) key vector).
+    generator: torch.Generator | list | None = None
 
 
 def compute_params(params: Params, config: ConfigValle) -> Params:

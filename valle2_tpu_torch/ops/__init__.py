@@ -5,7 +5,8 @@ from .masks import NEG_INF, build_pad_mask, mask_to_bias, prefix_lm_attend, pref
 from .nn import (adaln, adaln_init, add_positional, cast_to_compute, dropout, embedding,
                  embedding_init, ffn, ffn_init, layernorm, layernorm_init, linear,
                  linear_init, sinusoidal_table)
-from .sampling import best_beam_index, categorical, top_k_top_p_filter, topk_sampling
+from .sampling import (best_beam_index, categorical, categorical_rows, top_k_top_p_filter,
+                       topk_sampling, topk_sampling_rows)
 from .transformer import (KVCache, encoder_layer, transformer, transformer_decode_step,
                           transformer_init, transformer_prefill)
 
@@ -14,7 +15,8 @@ __all__ = [
     'prefix_lm_attend', 'prefix_lm_bias', 'adaln', 'adaln_init', 'add_positional',
     'cast_to_compute', 'dropout', 'embedding', 'embedding_init', 'ffn', 'ffn_init',
     'layernorm', 'layernorm_init', 'linear', 'linear_init', 'sinusoidal_table',
-    'best_beam_index', 'categorical', 'top_k_top_p_filter', 'topk_sampling', 'KVCache',
+    'best_beam_index', 'categorical', 'categorical_rows', 'top_k_top_p_filter',
+    'topk_sampling', 'topk_sampling_rows', 'KVCache',
     'encoder_layer', 'transformer', 'transformer_decode_step', 'transformer_init',
     'transformer_prefill',
 ]

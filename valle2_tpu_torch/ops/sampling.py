@@ -43,6 +43,33 @@ def categorical(probs: torch.Tensor, generator: torch.Generator | None = None):
     return torch.argmax(probs / q, dim=-1)
 
 
+def categorical_rows(probs: torch.Tensor, generators: list) -> torch.Tensor:
+    """``categorical`` per row of (rows, vocab) probabilities, row r drawing
+    from its own ``generators[r]``: the (1, vocab) draw a one-row
+    ``categorical`` on that generator makes.  A row whose generator is None
+    draws nothing (a frozen row; its pick is argmax(p) and is discarded)."""
+    q = torch.ones_like(probs)
+    for r, g in enumerate(generators):
+        if g is not None:
+            q[r:r + 1].exponential_(1, generator=g)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def topk_sampling_rows(logits: torch.Tensor, generators: list, top_k: int = 50,
+                       tok_p: float = 1.0, temperature: float = 1.0):
+    """``topk_sampling`` with one generator per row (JAX ``one_row_sample``
+    under ``vmap``, each continuous-batching row on its own rng chain): row r
+    draws what ``topk_sampling`` of that row alone draws from
+    ``generators[r]``, so a session's samples do not depend on its
+    co-tenants.  Greedy draws nothing."""
+    if temperature is None or temperature <= 0.0:
+        return topk_sampling(logits, top_k, tok_p, temperature)
+    filtered = top_k_top_p_filter(logits / temperature, top_k, tok_p)
+    samples = categorical_rows(torch.softmax(filtered, dim=-1), generators)
+    logprobs = torch.log_softmax(filtered, dim=-1)
+    return samples, logprobs.gather(-1, samples[:, None])[:, 0]
+
+
 def topk_sampling(logits: torch.Tensor, top_k: int = 50, tok_p: float = 1.0,
                   temperature: float = 1.0, generator: torch.Generator | None = None):
     """Sample one token per row from (b, vocab) logits → (samples, logprobs)."""

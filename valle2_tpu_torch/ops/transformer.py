@@ -170,10 +170,14 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
     """Advance one token or a q-token block: x (b, q, d) at absolute slots
     ``index .. index + q - 1``.  ``index`` is one int for every row or a (b,)
     tensor of per-row start slots (speculative rows advance by different
-    amounts); the block must fit, ``index + q <= max_len``.  Writes those
-    slots of each layer's k/v in place (quantized by ``quantize_kv`` into an
-    int8 cache, whose slots then dequantize in x's dtype; per-row slots by
-    advanced indexing), then attends over the slots ``attend_mask`` allows:
+    amounts, continuous-batching rows sit at their own depths); the block
+    must fit, ``index + q <= max_len``, but for a per-row one-token step
+    (q = 1) at slot ``max_len``: that row writes nothing, as the fused
+    kernels skip it (a frozen row at its budget; only it could read the
+    slot).  Writes those slots of each layer's k/v in place (quantized by
+    ``quantize_kv`` into an int8 cache, whose slots then dequantize in x's
+    dtype; per-row slots by advanced indexing), then attends over the slots
+    ``attend_mask`` allows:
     (b, max_len) for every query of the block, or (b, q, max_len) per query
     (the speculative block's in-block causality) -- by default query i sees
     [0, index + i].  ``chunks`` = (chunk, n): the attention is
@@ -186,9 +190,13 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
     if per_row:
         slots = index.long()[:, None] + torch.arange(q_len, device=x.device)   # (b, q)
         rows = torch.arange(b, device=x.device)[:, None].expand(b, q_len)
+        # A slot past the cache keeps what it holds: written back to S - 1.
+        inside = (slots < max_len)[..., None, None]
+        slots = slots.clamp(max=max_len - 1)
 
         def write(buf, li, new):              # new (b, h, q, w) into its (b, q) slots
-            buf[li][rows, :, slots] = new.transpose(1, 2)
+            buf[li][rows, :, slots] = torch.where(inside, new.transpose(1, 2),
+                                                  buf[li][rows, :, slots])
     else:
         index = int(index)
 

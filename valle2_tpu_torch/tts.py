@@ -10,11 +10,12 @@ same stages one model call at a time.  ``synthesize_streaming`` yields the
 waveform in chunks while a one-beam ``DecodeStream`` decodes in segments
 (each emission refines the frames so far through the NAR and the codec at a
 bucketed width), and ``synthesize_longform`` streams unbounded text sentence
-by sentence.  ASR (``ValleASRPipeline``): audio → codec encode → the
-direction-swapped AR decode over the phoneme vocabulary, batched.  ``main``
-is the command line of both.  Not ported yet (ROADMAP.md): continuous
-batching (queue 1 item 11b), the server and its stream hub (item 12), and
-meshes (item 14).
+by sentence; ``stream_hub.StreamHub`` serves concurrent streams through one
+continuous-batching decode loop (``models.continuous``) and refines their
+emissions in one batched ``_nar_wav``.  ASR (``ValleASRPipeline``): audio →
+codec encode → the direction-swapped AR decode over the phoneme vocabulary,
+batched.  ``main`` is the command line of both.  Not ported yet (ROADMAP.md):
+the HTTP server (queue 1 item 12) and meshes (item 14).
 """
 
 from __future__ import annotations
@@ -254,13 +255,11 @@ class ValleTTS:
         clock = StageClock(self.device)
         if generator is None:
             generator = ar_mod.default_generator(self.config, self.device)
-        ar_seed, nar_seed = _split_seed(_draw_seed(generator))
-        model = self._ensure_stream_models()
+        seeds = _split_seed(_draw_seed(generator))
         tokens = np.concatenate([np.asarray(prompt_tokens, np.int64), self.tokenizer(text)])
         pcodes = np.asarray(prompt_codes, np.int64).reshape(-1, self.config.num_quantizers)
-        stream = ar_mod.DecodeStream(model, tokens, pcodes, self._generator(ar_seed), bucket)
+        stream, emitter = self._seeded_stream(tokens, pcodes, seeds, lookahead_frames, bucket)
         clock.mark('prefill')
-        emitter = _ChunkEmitter(self, tokens, pcodes, lookahead_frames, nar_seed, bucket)
         return AudioStream(_stream_chunks(stream, emitter, chunk_frames, clock), clock, t0)
 
     def synthesize_longform(self, text: str, prompt_tokens, prompt_codes,
@@ -288,7 +287,6 @@ class ValleTTS:
         if generator is None:
             generator = ar_mod.default_generator(self.config, self.device)
         base = _draw_seed(generator)
-        model = self._ensure_stream_models()
         nq = self.config.num_quantizers
         base_tokens = np.asarray(prompt_tokens, np.int64)
         base_codes = np.asarray(prompt_codes, np.int64).reshape(-1, nq)
@@ -296,14 +294,11 @@ class ValleTTS:
         def chunks():
             cur_tokens, cur_codes = base_tokens, base_codes
             for i, sent in enumerate(sentences):
-                ar_seed, nar_seed = _split_seed(base, i)
                 sent_tokens = self.tokenizer(sent)
                 tokens = np.concatenate([cur_tokens, sent_tokens])
-                stream = ar_mod.DecodeStream(model, tokens, cur_codes,
-                                             self._generator(ar_seed), bucket)
+                stream, emitter = self._seeded_stream(tokens, cur_codes, _split_seed(base, i),
+                                                      lookahead_frames, bucket)
                 clock.mark('prefill')
-                emitter = _ChunkEmitter(self, tokens, cur_codes, lookahead_frames, nar_seed,
-                                        bucket)
                 yield from _stream_chunks(stream, emitter, chunk_frames, clock)
                 if carry == 'chain' and emitter.last_codes is not None:
                     chained = np.concatenate([base_codes, emitter.last_codes])
@@ -317,6 +312,15 @@ class ValleTTS:
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _seeded_stream(self, tokens, pcodes, seeds: tuple[int, int], lookahead_frames: int,
+                       bucket: bool = True):
+        """One utterance's ``DecodeStream`` (prefilled now, sampling from
+        ``seeds[0]``) and its ``_ChunkEmitter`` (refining with ``seeds[1]``):
+        what a stream and each sentence of a long-form stream run."""
+        stream = ar_mod.DecodeStream(self._ensure_stream_models(), tokens, pcodes,
+                                     self._generator(seeds[0]), bucket)
+        return stream, _ChunkEmitter(self, tokens, pcodes, lookahead_frames, seeds[1], bucket)
 
     def _ensure_stream_models(self) -> ValleAR:
         """The streaming AR model, made once under a lock: a one-beam sibling
@@ -341,18 +345,22 @@ class ValleTTS:
         return model
 
     def _nar_wav(self, tokens, tokens_lens, pcodes, p_lens, first_layer: np.ndarray,
-                 n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
-        """One emission's refinement: the NAR stages over the (1, width)
-        first-codebook buffer with true length ``n``, then the codec decode
-        at that width.  Returns (waveform (width * HOP,), codes (width, nq))."""
+                 gen_lens, seed: int) -> tuple[np.ndarray, np.ndarray]:
+        """Emissions' refinement (JAX ``_nar_wav_jit``): the NAR stages over
+        the (rows, width) first-codebook buffers with true lengths
+        ``gen_lens`` (rows,), then the codec decode at that width; one row for
+        a stream's emission, every slot of a hub for its batched one.  tokens
+        (rows, Ttm), pcodes (rows, Pm, nq) and their lengths are on the
+        device.  Returns (waveforms (rows, width * HOP), codes (rows, width,
+        nq))."""
         dev = self.device
-        first = torch.as_tensor(first_layer, dtype=torch.long)[None].to(dev)
-        gen_lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        first = torch.as_tensor(first_layer, dtype=torch.long).to(dev)
+        gen = torch.as_tensor(np.asarray(gen_lens), dtype=torch.int32).to(dev)
         with torch.inference_mode(), precision_scope(self.config):
             codes = nar_mod._generate_fn(self.nar.params, tokens, tokens_lens, pcodes, p_lens,
-                                         first, gen_lens, self.config, self._generator(seed))
+                                         first, gen, self.config, self._generator(seed))
             wav = codec_mod.decode(self.codec.dec_params, codes.transpose(1, 2)).float()
-        return wav[0].cpu().numpy(), codes[0].cpu().numpy()
+        return wav.cpu().numpy(), codes.cpu().numpy()
 
     def synthesize(self, text: str, prompt_tokens, prompt_codes,
                    generator: torch.Generator | None = None) -> TTSResult:
@@ -466,9 +474,10 @@ class _ChunkEmitter:
             return []
         width = next(b for b in self._widths if b >= self._n)
         wav, codes = self._tts._nar_wav(self._tokens, self._lens[0], self._pcodes,
-                                        self._lens[1], self._buf[:width], self._n, self._seed)
-        out = wav[self._emitted * HOP:finalize * HOP]
-        self.last_codes = codes[:self._n]
+                                        self._lens[1], self._buf[None, :width], [self._n],
+                                        self._seed)
+        out = wav[0, self._emitted * HOP:finalize * HOP]
+        self.last_codes = codes[0, :self._n]
         self._emitted = finalize
         return [out]
 
