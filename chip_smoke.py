@@ -158,13 +158,40 @@ Phases, each printing JSON lines:
                 in f32 (max_audio_len 256, decode_chunk 128): hub tokens ==
                 solo streams', waveforms within f32 tolerance, open_longform
                 == synthesize_longform(carry='prompt'), stop(drain=True).
+27. kernels  -- the head-folded flash forward #2 (one block per q-tile and
+   (fold)       batch row, carrying every head) against its plain version and
+                bit for bit against #1 on the same inputs, f32 (TF32 off) and
+                bf16, at the serving prefill (b=3, h=4, s=385), the
+                serving-width train shapes (b=32, h=4, s=640, causal and
+                bidirectional) and the 204M train shape (b=16, h=16, s=640),
+                ragged meta with one row of tokens_valid 0: times of #2, #1,
+                SDPA on the same inputs and mask, the plain version; the bound.
+28. fold     -- the fold's path, VALLE2_FLASH_FOLD=1 against =0 in one call
+                (the variable restored after): phase main's batch_synthesize
+                greedy (temperature 0), AR ids equal with the fold on and off;
+                the 204M AR and NAR train steps (bench.py:441/457: b=16 x 512
+                frames, NAR falling back to b=8 only if 16 does not fit) in arm
+                runs off, fold, fold, off (step ms, frames/s, MFU against 989
+                TFLOP/s, peak GB, finite losses, the AR's descending) and the
+                serving-width AR at b=8 x 1024 (s=1280: #4 + #5); then f32
+                grads with and without the fold at the 204M widths cut to
+                FOLD_GRAD_LAYERS layers.  Counts zeroed before each arm: the
+                fold arm launched #2 and no #1 forward, the off arm the
+                reverse; the fold arms' launches are the path 'fold'.
+29. gemm     -- the GEMM roofline probe (valle2_tpu_torch.probes.gemm_roofline,
+                kernels #9 and #10 beside torch.matmul) at its three shapes
+                (4096^3 and the 204M step's 10240 x 1024 x 4096 and x 1024),
+                counts zeroed before and read after (the path 'gemm'); then #9
+                and #10 held against matmul_plain (one bf16 ulp of the result
+                plus the f32 summation-order error), with the plain version's
+                time and the bound.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 11, 4, 5, 17, 19, 22, 25,
-26, 12-14, 6-8, 15, 9, 10, 23, 20.
+26, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -288,6 +315,21 @@ CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
 # kernel, f32 sums in another order) over bf16 hidden states, whose rounding
 # (2^-8 relative) moves logits of |x| <= 8 by up to ~3e-2.
 GREEDY_BF16_GAP = 5e-2
+# The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
+# case -- the serving prefill of phase main, the serving-width train shapes
+# (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
+# ragged meta, and the last batch row with tokens_valid == 0.
+FOLD_CASES = {'serve': (3, 4, 385, 128, True), 'train_ar': (32, 4, 640, 128, True),
+              'train_nar': (32, 4, 640, 128, False), '204m': (16, 16, 640, 128, True)}
+FOLD_ENV = 'VALLE2_FLASH_FOLD'
+FOLD_ARMS = (('off', '0'), ('fold', '1'))
+# The 204M training step (bench.py:441 AR, :457 NAR): (model, batch, frames,
+# timed steps per arm run); the NAR falls back to b=8 only if b=16 does not
+# fit (bench.py:455-466).  Then the serving-width AR at s=1280 (#4 + #5).
+FOLD_TRAIN = (('ValleAR', 16, 512, 5), ('ValleNAR', 16, 512, 5))
+FOLD_LONG = ('ValleAR', 8, 1024, 2)
+# The f32 grads check of the fold: the 204M widths cut to this depth.
+FOLD_GRAD_LAYERS = 2
 # W8A8 greedy picks may part between the kernels and the plain route where an
 # activation code flipped (TOL_QUANT's reason) at a near-tie of two logits.
 # One flipped code moves that activation by one step sx (<= ~4 / 127), so a
@@ -403,8 +445,11 @@ def sdpa_ms(q, k, v, mask, do=None) -> float:
 def counters() -> dict:
     from valle2_tpu_torch.kernels import flash_attention as fa
     from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.kernels import gemm
     from valle2_tpu_torch.kernels import rvq as krvq
-    return {'flash_attention_fwd': fa.COUNTER, 'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
+    return {'flash_attention_fwd': fa.COUNTER, 'flash_attention_fwd_folded': fa.FOLD_COUNTER,
+            'matmul_fullk': gemm.FULLK_COUNTER, 'matmul_ksplit': gemm.KSPLIT_COUNTER,
+            'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
             'flash_bwd_dq': fa.BWD_DQ_COUNTER, 'flash_bwd_dkv': fa.BWD_DKV_COUNTER,
             'fused_decode_step': fd.COUNTER, 'rvq_encode': krvq.COUNTER,
             **{f'fused_decode_step_{v}': fd.COUNTERS[v] for v in QUANT_VARIANTS},
@@ -2795,6 +2840,302 @@ def phase_data():
     return launches
 
 
+@contextlib.contextmanager
+def fold_env(value: str):
+    """``VALLE2_FLASH_FOLD`` set to ``value`` inside, as it was outside."""
+    import os
+    old = os.environ.get(FOLD_ENV)
+    os.environ[FOLD_ENV] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(FOLD_ENV, None)
+        else:
+            os.environ[FOLD_ENV] = old
+
+
+def require_fold_arm(label: str, arm: str, launches: dict, names=()) -> None:
+    """The fold arm launched #2 and no #1 forward, the off arm the reverse,
+    and each launched ``names``."""
+    on, off = 'flash_attention_fwd_folded', 'flash_attention_fwd'
+    if arm == 'off':
+        on, off = off, on
+    if launches[on] <= 0 or launches[off] != 0:
+        fail(f'fold ({label}, {arm} arm): {launches[on]} launches of {on}, '
+             f'{launches[off]} of {off}')
+    require_launches(f'fold ({label}, {arm} arm)', launches, names)
+
+
+def phase_fold_kernels(results: dict):
+    """#2 against its plain version and against #1 on the same inputs
+    (bit-equal: the same tiles and per-row order, see csrc/flash_attention.cu)
+    at FOLD_CASES, f32 with TF32 off and bf16; times of #2, #1, SDPA and the
+    plain version, and the bound."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device('cuda')
+    hd = SLICE['hd']
+    gen = torch.Generator().manual_seed(3)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.no_grad():
+        for case, (b, h, s, tt, causal) in FOLD_CASES.items():
+            meta = train_meta(b, tt, s - tt, dev, seed=4)
+            meta[-1, 0] = 0
+            mask = attend_mask(meta, s, tt, causal)
+            pairs = int(mask.sum()) * h
+            args = (meta, tt, causal)
+            for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+                q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, dt)
+                           for _ in range(3))
+                o, lse = fa.flash_attention_folded(q, k, v, *args)
+                o1, lse1 = fa.flash_attention(q, k, v, *args, fold_heads=False)
+                o_ref, lse_ref = fa.flash_attention_plain(q, k, v, *args)
+                torch.cuda.synchronize()
+                err = max(check_close(f'folded o ({case})', o, o_ref, dtype_name),
+                          check_close(f'folded lse ({case})', lse, lse_ref, 'float32'))
+                if not (torch.equal(o, o1) and torch.equal(lse, lse1)):
+                    fail(f'folded ({case}, {dtype_name}): o or lse differs from #1 on the same '
+                         f'inputs by {(o.float() - o1.float()).abs().max().item():.3e}')
+                r = dict(max_abs_err=err,
+                         ms=cuda_ms(lambda: fa.flash_attention_folded(q, k, v, *args)),
+                         per_head_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, *args,
+                                                                        fold_heads=False)),
+                         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, *args)),
+                         library_ms=sdpa_ms(q, k, v, mask),
+                         tol=tol_str(dtype_name) + '; == #1 bit for bit')
+                r['bound_ms'], r['bound_by'] = bound(4 * q.numel() * q.element_size()
+                                                     + lse.numel() * 4, 2 * 2 * hd * pairs,
+                                                     dtype_name)
+                results[('flash_attention_fwd_folded', case, dtype_name)] = r
+                emit(phase='kernels', path='fold', case=case, dtype=dtype_name,
+                     shape=[b, h, s, hd], causal=causal, blocks=-(-s // 64) * b,
+                     per_head_blocks=-(-s // 64) * b * h, tokens_valid_zero_row=b - 1,
+                     attended_pairs=pairs, equal_to_per_head=True, **r)
+                del q, k, v, o, lse, o1, lse1, o_ref, lse_ref
+
+
+def fold_train_arms(model: str, b: int, frames: int, n: int, width: dict,
+                    total: dict) -> dict:
+    """One training configuration through make_train_step in arm runs off,
+    fold, fold, off (``n`` timed steps each after one untimed); adds the fold
+    runs' launches to ``total``.  Raises torch.cuda.OutOfMemoryError where
+    the card cannot hold the batch."""
+    import math
+
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.profiling import nar_train_step_flops, train_step_flops
+    from valle2_tpu_torch.train import init_state, make_train_step
+
+    dev = torch.device('cuda')
+    cfg = ConfigValle(dropout=0.1, batch_size=b, dtype='bfloat16', **width)
+    state = init_state(cfg, model, device=dev)
+    step = make_train_step(cfg, model)
+    data = bench_data(model, b, frames, dev)
+    flops_fn = nar_train_step_flops if model == 'ValleNAR' else train_step_flops
+    flops = flops_fn(cfg, b, frames // 4, frames)
+    losses, runs = [], []
+    with fold_env('0'):
+        state, m = step(state, data, 1)                  # warm-up: allocator, cuBLAS
+        losses.append(m['loss'])
+    for arm in ('off', 'fold', 'fold', 'off'):
+        with fold_env(dict(FOLD_ARMS)[arm]):
+            reset_counters()
+            state, m = step(state, data, 1)
+            losses.append(m['loss'])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, m = step(state, data, 1)
+                losses.append(m['loss'])
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / n
+            launches = read_counters()
+        bwd = ('flash_bwd_fused',) if frames // 4 + frames <= 768 else ('flash_bwd_dq',
+                                                                        'flash_bwd_dkv')
+        require_fold_arm(f'{model}, b={b}x{frames}', arm, launches, bwd)
+        if arm == 'fold':
+            for k, c in launches.items():
+                total[k] += c
+        runs.append(dict(arm=arm, step_ms=1e3 * step_s, frames_per_s=b * frames / step_s,
+                         model_tflops=flops / step_s / 1e12,
+                         mfu_vs_bf16_dense_peak=flops / step_s / PEAK_FLOPS['bfloat16'],
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f'fold ({model}, b={b}x{frames}): non-finite loss {losses}')
+    # The AR loss on the repeated batch descends; the NAR's is drawn at a
+    # random stage each step, so only its finiteness is held.
+    if model == 'ValleAR' and not losses[-1] < losses[0]:
+        fail(f'fold ({model}, b={b}x{frames}): the loss did not descend: {losses}')
+    return dict(model=model, batch=b, frames=frames, s=frames // 4 + frames,
+                steps_per_run=n, runs=runs, losses=losses)
+
+
+def fold_grads() -> list[dict]:
+    """f32 with TF32 off, the 204M widths cut to FOLD_GRAD_LAYERS layers: AR,
+    and NAR at stage 3, loss and every grad with the fold == without it."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.models import ar as ar_mod
+    from valle2_tpu_torch.models import nar as nar_mod
+    from valle2_tpu_torch.train import init_state, tree_leaves
+
+    dev = torch.device('cuda')
+    cfg = ConfigValle(dropout=0.0, matmul_precision='highest', use_flash_attention=True,
+                      **dict(LARGE, num_layers=FOLD_GRAD_LAYERS))
+    out = []
+    for model, loss in (('ValleAR', lambda p, bt: ar_mod.loss_fn(p, cfg, bt)),
+                        ('ValleNAR', lambda p, bt: nar_mod.loss_at_stage(p, cfg, bt, 3))):
+        params = init_state(cfg, model, device=dev).params
+        leaves = tree_leaves(params)
+        batch = synthetic_batch(model, cfg, 4, dev)
+        got = {}
+        for arm, value in FOLD_ARMS:
+            with fold_env(value), precision_scope(cfg):
+                reset_counters()
+                val, _ = loss(params, batch)
+                grads = torch.autograd.grad(val, leaves, allow_unused=True)
+                launches = read_counters()
+            require_fold_arm(f'grads {model}', arm, launches, ('flash_bwd_fused',))
+            got[arm] = (float(val.detach()), [torch.zeros_like(p) if g is None else g
+                                              for p, g in zip(leaves, grads)])
+        (lf, gf), (lo, go) = got['fold'], got['off']
+        if not abs(lf - lo) <= 1e-5 * abs(lo):
+            fail(f'fold grads ({model}): loss {lf} with the fold, {lo} without')
+        worst = 0.0
+        for i, (a, w) in enumerate(zip(gf, go)):
+            scale, diff = float(w.abs().max()), float((a - w).abs().max())
+            if not torch.isfinite(a).all() or diff > GRAD_RTOL * scale:
+                fail(f'fold grads ({model}): leaf {i} {tuple(w.shape)} differs by {diff:.3e}, '
+                     f'its max |grad| is {scale:.3e}')
+            worst = max(worst, diff / scale if scale > 0 else 0.0)
+        out.append(dict(model=model, dtype='float32', layers=FOLD_GRAD_LAYERS,
+                        batch=list(batch['codes'].shape), loss_fold=lf, loss_off=lo,
+                        leaves=len(leaves), worst_leaf_rel_err=worst,
+                        tol=f'max|dg| <= {GRAD_RTOL:g}*max|g| per leaf, loss within 1e-5 '
+                            'relative'))
+        del params, leaves, batch, got
+    return out
+
+
+def phase_fold(smi: str) -> dict:
+    """The fold's path: VALLE2_FLASH_FOLD=1 against =0 in turns, (a) the
+    serving batch_synthesize (greedy) of phase main's requests, (b) the 204M
+    AR and NAR train steps and the serving-width AR at s=1280, (c) the f32
+    grads.  Returns the fold arms' launches of (a) and (b)."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.tts import ValleTTS
+
+    total = dict.fromkeys(counters(), 0)
+    max_new = SLICE['max_new']
+    cfg = ConfigValle(max_audio_len=max_new, ignore_eos=True, dropout=0.0, dtype='bfloat16',
+                      temperature=0.0)
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs = make_requests()
+    with fold_env('0'):
+        tts.batch_synthesize(texts, pts, pcs)            # warm-up
+    torch.cuda.synchronize()
+    codes = {}
+    for arm, value in FOLD_ARMS:
+        with fold_env(value):
+            reset_counters()
+            batch = tts.batch_synthesize(texts, pts, pcs)
+            launches = read_counters()
+        for r in batch:
+            n = len(r.codes)
+            if n != max_new or r.waveform.shape != (n * 320,) \
+                    or not np.isfinite(r.waveform).all():
+                fail(f'fold (serve, {arm}): waveform of {r.waveform.shape} for gen_len {n}')
+        require_fold_arm('serve', arm, launches, ('fused_decode_step',))
+        if arm == 'fold':
+            for k, c in launches.items():
+                total[k] += c
+        codes[arm] = [np.asarray(r.codes) for r in batch]
+        t = batch[0].timings
+        emit(phase='fold', run='serve', arm=arm, requests=len(texts), max_audio_len=max_new,
+             stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
+             batch_wall_s=t['batched'], rtf=batch[0].rtf,
+             launches={k: c for k, c in launches.items() if c}, card=smi)
+    for i, (f, o) in enumerate(zip(codes['fold'], codes['off'])):
+        if not np.array_equal(f[:, 0], o[:, 0]):
+            fail(f'fold (serve): request {i} greedy AR ids differ with the fold on and off')
+    emit(phase='fold', run='serve', greedy_ar_ids_equal=True,
+         all_codes_equal=all(np.array_equal(f, o) for f, o in zip(codes['fold'], codes['off'])))
+    del tts
+
+    for model, b, frames, n in FOLD_TRAIN:
+        res = None
+        try:
+            res = fold_train_arms(model, b, frames, n, LARGE, total)
+        except torch.cuda.OutOfMemoryError:
+            if model != 'ValleNAR' or b != 16:
+                raise
+        if res is None:          # out of the except block: its frames are freed
+            torch.cuda.empty_cache()
+            emit(phase='fold', run='train', model=model, batch=b, note='out of memory, b=8')
+            res = fold_train_arms(model, 8, frames, n, LARGE, total)
+        emit(phase='fold', run='train', width='204M', **LARGE, dtype='bfloat16', card=smi,
+             **res)
+        torch.cuda.empty_cache()
+    model, b, frames, n = FOLD_LONG
+    emit(phase='fold', run='train', width='serving', dtype='bfloat16', card=smi,
+         **fold_train_arms(model, b, frames, n, {}, total))
+
+    for r in fold_grads():
+        emit(phase='fold', run='grads', card=smi, **r)
+    emit(phase='fold', launches={k: c for k, c in total.items() if c})
+    return total
+
+
+def phase_gemm(results: dict, smi: str) -> dict:
+    """The GEMM roofline probe (valle2_tpu_torch.probes.gemm_roofline) at its
+    three shapes, counts zeroed before and read after; then #9 and #10 (the
+    128 x 128 tile; #10 in 2 K slices) held against matmul_plain on the same
+    inputs, with the plain version's time."""
+    import torch
+    from valle2_tpu_torch.kernels import gemm
+    from valle2_tpu_torch.probes import gemm_roofline as probe
+
+    reset_counters()
+    records = probe.run(reps=30)
+    launches = read_counters()
+    require_launches('gemm', launches, ('matmul_fullk', 'matmul_ksplit'))
+    by = {(r['shape'], r['arm']): r for r in records}
+    tol = 'per element |err| <= 2^-7*|plain| + K*2^-24*max|a|*max|b|'
+    for sname, m, k, n in probe.SHAPES:
+        a, b = probe.operands(m, k, n, 'cuda')
+        want = gemm.matmul_plain(a, b)
+        allowed = probe.tolerance(a, b, want)
+        plain_ms = cuda_ms(lambda: gemm.matmul_plain(a, b))
+        for name, fn, arm in (('matmul_fullk', gemm.matmul_fullk, 'cuda_fullk_128x128'),
+                              ('matmul_ksplit', gemm.matmul_ksplit, 'cuda_ksplit_128x128_k2')):
+            got = fn(a, b)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if not torch.isfinite(got).all() or bool((err > allowed).any()):
+                fail(f'{name} ({sname}): max |err| {err.max().item():.3e} over {tol}')
+            kind = 'fullk' if name == 'matmul_fullk' else 'ksplit'
+            results[(name, sname, 'bfloat16')] = dict(
+                max_abs_err=err.max().item(), ms=by[(sname, arm)]['ms'], plain_ms=plain_ms,
+                library_ms=by[(sname, 'torch_matmul')]['ms'],
+                bound_ms=by[(sname, arm)]['bound_ms'], bound_by=by[(sname, arm)]['bound_by'],
+                tol=tol, arms_ms={a_: r['ms'] for (s_, a_), r in by.items()
+                                  if s_ == sname and kind in a_})
+        emit(phase='gemm', shape=sname, m=m, k=k, n=n, plain_ms=plain_ms,
+             torch_matmul_ms=by[(sname, 'torch_matmul')]['ms'],
+             **{name: results[(name, sname, 'bfloat16')]
+                for name in ('matmul_fullk', 'matmul_ksplit')}, card=smi)
+        del a, b, want, allowed
+    emit(phase='gemm', launches={k: c for k, c in launches.items() if c})
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2832,18 +3173,27 @@ def main() -> int:
     phase_profile(smi, 'ValleNAR')
     phase_large_kernels(results)
     paths['large'] = phase_large(smi)
+    phase_fold_kernels(results)
+    paths['fold'] = phase_fold(smi)
+    paths['gemm'] = phase_gemm(results, smi)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
     for name, src, replaces, shape_key, extra, dtypes, on_paths in (
             ('flash_attention_fwd', 'flash_attention.cu', 'flash_attention.py:290', 'ar',
              {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}, ('bfloat16', 'float32'),
              ('serve', 'clone', 'asr', 'train', 'spec', 'large')),
+            ('flash_attention_fwd_folded', 'flash_attention.cu', 'flash_attention.py:243',
+             '204m', {c: c for c in FOLD_CASES if c != '204m'}, ('bfloat16', 'float32'),
+             ('fold',)),
             ('flash_bwd_fused', 'flash_attention_bwd.cu', 'flash_attention.py:560', 'ar',
-             {'nar': 'nar'}, ('bfloat16', 'float32'), ('train',)),
+             {'nar': 'nar'}, ('bfloat16', 'float32'), ('train', 'fold')),
             ('flash_bwd_dq', 'flash_attention_bwd.cu', 'flash_attention.py:582', 'ar_long', {},
-             ('bfloat16', 'float32'), ('train',)),
+             ('bfloat16', 'float32'), ('train', 'fold')),
             ('flash_bwd_dkv', 'flash_attention_bwd.cu', 'flash_attention.py:602', 'ar_long',
-             {}, ('bfloat16', 'float32'), ('train',)),
+             {}, ('bfloat16', 'float32'), ('train', 'fold')),
+            *((name, 'gemm.cu', f'probes/_gemm_pallas_roofline.py:{line}', 'ffn1_204m',
+               {'square4096': 'square4096', 'out_204m': 'out_204m'}, ('bfloat16',), ('gemm',))
+              for name, line in (('matmul_fullk', 46), ('matmul_ksplit', 84))),
             ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
             ('fused_decode_step_chunked', 'fused_decode.cu', 'fused_decode.py:706', None, {},
@@ -2868,7 +3218,8 @@ def main() -> int:
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
-                     replaces=f'valle2_tpu/kernels/{replaces}',
+                     replaces=replaces if replaces.startswith('probes/')
+                     else f'valle2_tpu/kernels/{replaces}',
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      dtype=dtypes[0], case=shape_key or 'serve', **pick(shape_key, dtypes[0]))
         if len(dtypes) > 1:
@@ -2877,6 +3228,12 @@ def main() -> int:
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
         if (name, 'large', 'bfloat16') in results:
             entry['large'] = {'bf16': pick('large', 'bfloat16')}
+        if name == 'flash_attention_fwd_folded':
+            entry['per_head_ms'] = {DTYPE_LABEL[d]: {c: results[(name, c, d)]['per_head_ms']
+                                                     for c in FOLD_CASES} for d in dtypes}
+        elif name.startswith('matmul_'):
+            entry['arms_ms'] = {sname: results[(name, sname, 'bfloat16')]['arms_ms']
+                                for sname in ('square4096', 'ffn1_204m', 'out_204m')}
         if name in PER_ROW_PORTS:
             entry['scalar_index_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['scalar_index_ms']
                                         for d in dtypes}
@@ -2902,5 +3259,27 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """``main``; on a failure, the phase it came from and its traceback end
+    the standard error, and the process exits 1 at once: a device-side
+    assert's messages, which the CUDA runtime may still hold, would otherwise
+    print after them at the context's teardown and bury them."""
+    import os
+    import traceback
+    try:
+        return main()
+    except BaseException as exc:            # noqa: BLE001 -- reported, then exit 1
+        if isinstance(exc, SystemExit) and exc.code in (0, None):
+            raise
+        frames = traceback.extract_tb(exc.__traceback__)
+        phase = next((f.name for f in frames if f.name.startswith('phase_')), 'main')
+        if not isinstance(exc, SystemExit):
+            traceback.print_exception(exc, file=sys.stderr)
+        print(f'chip_smoke: FAILED in {phase}: {type(exc).__name__}: {exc}',
+              file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        os._exit(1)
+
+
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(run())

@@ -26,7 +26,11 @@ decodes, both steps at the 204M
 widths (d 1024, dff 4096: the 8-row projection tile), the 'auto' route of a
 head dim no kernel takes, RVQ encode at frame counts that are not a multiple
 of its 32-frame block, the codec's encode on the card against its CPU route
-and under a caller's TF32 scope, and the wrappers' refusals.
+and under a caller's TF32 scope, the head-folded flash forward (#2) against
+the plain version and bit for bit against #1 at 1 to 16 heads (and the
+fold's grads against the per-head route), the roofline probe's GEMMs (#9,
+#10) at every tile and K split they are built for, and the wrappers'
+refusals.
 """
 
 import numpy as np
@@ -621,6 +625,38 @@ def test_per_row_wrapper_refuses_what_the_kernel_does_not_take(dev):
             fd.fused_decode_step(p, x, 2, c, bad, tl, cl, ttm, pm)
 
 
+def test_fused_step_scratch_outlives_its_launch_beside_another_thread(dev):
+    """A stream hub's driver steps while a join's prefill allocates on another
+    thread.  The step's scratch must stay allocated until its kernels are
+    queued: freed before (and the launch releases the GIL), the other thread
+    takes the memory and its writes and the step's land in one buffer.  A
+    second thread allocates and fills buffers of the scratch's sizes while
+    this one steps: every step equals the first, every buffer holds its fill."""
+    import threading
+    p, x, ck, cv, (tl, cl), ttm, pm = fused_inputs(dev, torch.float32, torch.float32, 64, 20)
+    rows, d, dff = x.shape[0], x.shape[2], 4 * x.shape[2]
+
+    def step():
+        return fd.fused_decode_step(p, x, 2, KVCache(ck.clone(), cv.clone()), ttm + pm, tl,
+                                    cl, ttm, pm)[0]
+    want = step()
+    torch.cuda.synchronize()
+    stop, clobbered = threading.Event(), []
+
+    def allocate():
+        while not stop.is_set():
+            bufs = [torch.full((rows, n), 7.0, device=dev) for n in (d, d, d, dff)]
+            clobbered.extend(i for i, b in enumerate(bufs) if not bool((b == 7.0).all()))
+    other = threading.Thread(target=allocate)
+    other.start()
+    try:
+        differ = sum(not torch.equal(step(), want) for _ in range(300))
+    finally:
+        stop.set()
+        other.join()
+    assert differ == 0 and not clobbered
+
+
 @pytest.mark.parametrize('decode_chunk', [0, 32], ids=['whole_s', 'chunked'])
 def test_joint_greedy_decode_through_the_kernels_equals_solo(dev, decode_chunk):
     """ContinuousDecoder on the card (f32, TF32 off): three sessions on two
@@ -864,3 +900,137 @@ def test_encode_ignores_the_callers_tf32_scope(dev, codecs):
         assert torch.equal(card.encode(wav), exact)
         assert torch.equal(card.get_embedding(wav), emb)
         assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+FOLD_CASES = {
+    # (b, h, s, tokens_total, meta [tokens_valid, kv_end], causal): #2 walks
+    # the h heads of a (q-tile, batch row) block
+    'one_head_causal': (2, 1, 100, 30, [[30, 100], [12, 77]], True),
+    'four_heads_bidirectional': (2, 4, 130, 40, [[40, 130], [25, 90]], False),
+    'three_heads_no_tokens': (2, 3, 70, 20, [[0, 70], [20, 64]], True),
+    'sixteen_heads_causal': (2, 16, 200, 64, [[64, 200], [40, 150]], True),
+    'sixteen_heads_no_tokens_bidirectional': (1, 16, 129, 32, [[0, 129]], False),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('case', sorted(FOLD_CASES))
+def test_folded_flash_kernel_matches_plain_and_per_head(dev, monkeypatch, case, hd, dtype):
+    """#2 against the plain version, and bit for bit against #1 on the same
+    inputs (the same 64-key tiles and per-row order); ``fold_heads=None``
+    under VALLE2_FLASH_FOLD=1 launches #2 and not #1."""
+    b, h, s, tt, meta, causal = FOLD_CASES[case]
+    gen = torch.Generator().manual_seed(hd + h)
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, dtype) for _ in range(3))
+    meta = torch.tensor(meta, dtype=torch.int32, device=dev)
+    before = (fa.COUNTER.count, fa.FOLD_COUNTER.count)
+    o, lse = fa.flash_attention_folded(q, k, v, meta, tt, causal)
+    assert (fa.COUNTER.count, fa.FOLD_COUNTER.count) == (before[0], before[1] + 1)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, meta, tt, causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+    o1, lse1 = fa.flash_attention(q, k, v, meta, tt, causal, fold_heads=False)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    monkeypatch.setenv('VALLE2_FLASH_FOLD', '1')
+    before = (fa.COUNTER.count, fa.FOLD_COUNTER.count)
+    o2, _ = fa.flash_attention(q, k, v, meta, tt, causal)
+    assert (fa.COUNTER.count, fa.FOLD_COUNTER.count) == (before[0], before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o)
+
+
+@pytest.mark.parametrize('model', ['ValleAR', 'ValleNAR'])
+def test_fold_grads_equal_the_per_head_route(dev, monkeypatch, model):
+    """A 2-layer model at the serving widths (f32, TF32 off): loss and every
+    grad with VALLE2_FLASH_FOLD=1 == with it 0, each arm launching only its
+    forward (#2 or #1) and the fused backward #3."""
+    from valle2_tpu_torch.models import ar as ar_mod
+    from valle2_tpu_torch.models import nar as nar_mod
+    from valle2_tpu_torch.train import init_state, tree_leaves
+    cfg = ConfigValle(dropout=0.0, matmul_precision='highest', use_flash_attention=True,
+                      num_layers=2)
+    rs = np.random.RandomState(7)
+    batch = {'tokens': rs.randint(0, 256, (2, 24)), 'tokens_lens': np.asarray([24, 17]),
+             'codes_lens': np.asarray([96, 71])}
+    if model == 'ValleAR':
+        batch.update(codes=rs.randint(0, 1026, (2, 96)), target=rs.randint(0, 1025, (2, 96)))
+    else:
+        batch.update(codes=rs.randint(0, 1024, (2, 96, 8)))
+    with torch.inference_mode(False):
+        batch = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in batch.items()}
+        params = init_state(cfg, model, device=dev).params
+        leaves = tree_leaves(params)
+        got = {}
+        for arm in ('1', '0'):
+            monkeypatch.setenv('VALLE2_FLASH_FOLD', arm)
+            before = [c.count for c in (fa.COUNTER, fa.FOLD_COUNTER, fa.BWD_FUSED_COUNTER)]
+            with precision_scope(cfg):
+                loss, _ = (ar_mod.loss_fn(params, cfg, batch) if model == 'ValleAR'
+                           else nar_mod.loss_at_stage(params, cfg, batch, 3))
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            launched = [c.count - n for c, n in zip(
+                (fa.COUNTER, fa.FOLD_COUNTER, fa.BWD_FUSED_COUNTER), before)]
+            n = cfg.num_layers
+            assert launched == ([0, n, n] if arm == '1' else [n, 0, n])
+            got[arm] = (loss.detach(), [torch.zeros_like(p) if g is None else g
+                                        for p, g in zip(leaves, grads)])
+    (lf, gf), (lo, go) = got['1'], got['0']
+    torch.testing.assert_close(lf, lo, rtol=1e-5, atol=0)
+    for a, w in zip(gf, go):   # per leaf; #3 sums dq through atomics in a varying order
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+GEMM_CALLS = {
+    # name: (wrapper, keywords)
+    'fullk_128x128': ('matmul_fullk', dict(bm=128, bn=128)),
+    'fullk_128x256': ('matmul_fullk', dict(bm=128, bn=256)),
+    'ksplit_128x128_k2': ('matmul_ksplit', dict(splits=2, bm=128, bn=128)),
+    'ksplit_128x128_k3': ('matmul_ksplit', dict(splits=3, bm=128, bn=128)),
+    'ksplit_128x256_k4': ('matmul_ksplit', dict(splits=4, bm=128, bn=256)),
+}
+
+
+@pytest.mark.parametrize('shape', [(256, 384, 512), (128, 1536, 256), (1280, 768, 1024)],
+                         ids=str)
+@pytest.mark.parametrize('call', sorted(GEMM_CALLS))
+def test_gemm_kernels_match_plain(dev, call, shape):
+    """#9 and #10 against matmul_plain within one bf16 ulp of the result plus
+    the f32 summation-order error (gemm_roofline.tolerance); #10 is
+    deterministic (a fixed slice order, no atomics)."""
+    from valle2_tpu_torch.kernels import gemm
+    from valle2_tpu_torch.probes.gemm_roofline import tolerance
+    m, k, n = shape
+    name, kw = GEMM_CALLS[call]
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+    b = torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
+    counter = gemm.FULLK_COUNTER if name == 'matmul_fullk' else gemm.KSPLIT_COUNTER
+    before = counter.count
+    got = getattr(gemm, name)(a, b, **kw)
+    assert counter.count == before + 1
+    want = gemm.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs() <= tolerance(a, b, want)).all())
+    again = getattr(gemm, name)(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from valle2_tpu_torch.kernels import gemm
+    a = torch.ones(128, 64, dtype=torch.bfloat16, device=dev)
+    b = torch.ones(64, 128, dtype=torch.bfloat16, device=dev)
+    shifted = torch.ones(128 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(128, 64)
+    with pytest.raises(ValueError, match='aligned'):
+        gemm.matmul_fullk(shifted, b)
+    with pytest.raises(ValueError, match='one CPU or CUDA device'):
+        gemm.matmul_ksplit(a, b.cpu())
+    with pytest.raises(ValueError, match='K % 96'):
+        gemm.matmul_ksplit(a, b, splits=3)
+    with pytest.raises(TypeError):
+        gemm.matmul_fullk(a.float(), b.float())

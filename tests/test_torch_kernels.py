@@ -27,6 +27,7 @@ from valle2_tpu_torch.ops.transformer import KVCache
 # dispatch compiles every op of the interpreted kernel.
 j_flash_fwd = jax.jit(_flash_fwd, static_argnums=(4, 5, 6, 7))
 j_fused_decode_step = jax.jit(_j_fused_decode_step, static_argnums=(2, 7, 8))
+j_reference_attention = jax.jit(reference_attention, static_argnums=(4, 5))
 
 
 def qkv(seed, b, h, s, hd):
@@ -61,8 +62,8 @@ def test_flash_plain_matches_pallas_kernel(case):
     for i, (_, kv_end) in enumerate(meta):
         close(o_t[i, :, :kv_end], o_j[i, :, :kv_end], atol=2e-5)
         close(lse_t[i, :, :kv_end], lse_j[i, :, :kv_end], atol=2e-5)
-    want = reference_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                               jnp.asarray(meta), tt, causal)
+    want = j_reference_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(meta), tt, causal)
     close(o_t, want, atol=2e-5)
 
 
@@ -75,8 +76,8 @@ def test_flash_fully_masked_rows_are_uniform_not_nan():
                                     torch.from_numpy(meta), 4, True)
     assert torch.isfinite(o).all()
     close(o[0, 0, :4], np.broadcast_to(v[0, 0].mean(0), (4, 16)), atol=1e-5)
-    want = reference_attention(*(jnp.asarray(a) for a in (q, k, v)),
-                               jnp.asarray(meta), 4, True)
+    want = j_reference_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                 jnp.asarray(meta), 4, True)
     close(o, want, atol=1e-5)
 
 

@@ -24,6 +24,16 @@ def t(a):
     return torch.from_numpy(np.asarray(a))
 
 
+# JAX references compiled whole (op-by-op dispatch compiles every op).
+j_transformer = jax.jit(jops.transformer, static_argnums=2)
+j_transformer_prefill = jax.jit(jops.transformer_prefill, static_argnums=(2, 3),
+                                static_argnames='cache_dtype')
+j_transformer_decode_step = jax.jit(jops.transformer_decode_step, static_argnums=2)
+j_topk_sampling = jax.jit(jops.topk_sampling,
+                          static_argnames=('top_k', 'tok_p', 'temperature'))
+j_best_beam_index = jax.jit(jops.best_beam_index, static_argnums=(2, 3))
+
+
 def stacked(adaptive):
     return jops.transformer_init(jax.random.key(0), L, D, H, DFF, adaptive_norm=adaptive)
 
@@ -133,13 +143,13 @@ class TestSampling:
     def test_greedy_sampling_and_beam_pick(self):
         logits = rnd(15, 5, 30, scale=3.0)
         s_t, lp_t = tops.topk_sampling(t(logits), top_k=7, tok_p=0.9, temperature=0.0)
-        s_j, lp_j = jops.topk_sampling(jax.random.key(0), jnp.asarray(logits), top_k=7,
-                                       tok_p=0.9, temperature=0.0)
+        s_j, lp_j = j_topk_sampling(jax.random.key(0), jnp.asarray(logits), top_k=7,
+                                    tok_p=0.9, temperature=0.0)
         np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
         close(lp_t, lp_j)
         codes = np.random.RandomState(3).randint(0, 6, (3, 4, 9))
         lp = rnd(16, 3, 4)
-        want = [int(jops.best_beam_index(jnp.asarray(c), jnp.asarray(l), 5, 1.3))
+        want = [int(j_best_beam_index(jnp.asarray(c), jnp.asarray(l), 5, 1.3))
                 for c, l in zip(codes, lp)]
         got = tops.best_beam_index(t(codes), t(lp), 5, 1.3)
         assert got.tolist() == want
@@ -169,8 +179,8 @@ class TestTransformer:
         cond = rnd(19, 1, D) if adaptive else None
         bias = np.where(np.random.RandomState(4).rand(2, 1, 1, 9) > 0.2, 0.0,
                         -1e30).astype(np.float32)
-        want = jops.transformer(p, jnp.asarray(x), H, jnp.asarray(bias),
-                                None if cond is None else jnp.asarray(cond))
+        want = j_transformer(p, jnp.asarray(x), H, jnp.asarray(bias),
+                             None if cond is None else jnp.asarray(cond))
         got = tops.transformer(to_torch(p), t(x), H, t(bias),
                                None if cond is None else t(cond))
         close(got, want)
@@ -180,8 +190,8 @@ class TestTransformer:
         """A bfloat16 cache under a float32 model is the config default."""
         p = stacked(False)
         x = rnd(20, 2, 7, D)
-        yj, cj = jops.transformer_prefill(p, jnp.asarray(x), H, 12,
-                                          cache_dtype=jnp.dtype(cache_dtype))
+        yj, cj = j_transformer_prefill(p, jnp.asarray(x), H, 12,
+                                       cache_dtype=jnp.dtype(cache_dtype))
         yt, ct = tops.transformer_prefill(to_torch(p), t(x), H, 12,
                                           cache_dtype=getattr(torch, cache_dtype))
         assert ct.k.dtype == getattr(torch, cache_dtype)
@@ -191,8 +201,8 @@ class TestTransformer:
         xs = rnd(21, 2, 1, D)
         attend = np.random.RandomState(5).rand(2, 12) > 0.3
         attend[:, 9] = True
-        yj2, cj2 = jops.transformer_decode_step(p, jnp.asarray(xs), H, cj, jnp.int32(9),
-                                                attend_mask=jnp.asarray(attend))
+        yj2, cj2 = j_transformer_decode_step(p, jnp.asarray(xs), H, cj, jnp.int32(9),
+                                             attend_mask=jnp.asarray(attend))
         yt2, ct2 = tops.transformer_decode_step(to_torch(p), t(xs), H, ct, 9,
                                                 attend_mask=t(attend))
         close(yt2, yj2)

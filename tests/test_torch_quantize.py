@@ -33,6 +33,15 @@ from valle2_tpu_torch.ops.transformer import KVCache, quantize_kv, transformer_p
 j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
 j_fused_step = jax.jit(jfd.fused_decode_step, static_argnums=(2, 7, 8))
 j_quantize_transformer = jax.jit(jq.quantize_transformer, static_argnames='bits')
+# The JAX quantizers, products and cache helpers likewise.  jit may turn
+# x / 127 into a product by its reciprocal, which moves a scale by one ulp, so
+# test_quantizers_equal_jax, which holds the port's scales to JAX's op-by-op
+# ones bit for bit, stays op by op.
+jqj = {name: jax.jit(getattr(jq, name)) for name in (
+    'quantize_linear', 'quantize_linear_int4', 'unpack_int4', 'int8_matmul', 'int4_matmul')}
+j_linear_jit = jax.jit(j_linear)
+j_quantize_kv_jit = jax.jit(j_quantize_kv)
+j_fused_cache_layout = jax.jit(jfd.fused_cache_layout)
 
 
 def tt(tree):
@@ -84,7 +93,7 @@ def test_quantizers_equal_jax(shape):
             assert got[k].dtype == tt(want[k]).dtype, k
             np.testing.assert_array_equal(npy(got[k]), np.asarray(want[k]), err_msg=k)
         np.testing.assert_array_equal(tdeq(got)['w'].numpy(), np.asarray(deq(want)['w']))
-    for g, p in zip(tq.unpack_int4(got['q4']), jq.unpack_int4(want['q4'])):
+    for g, p in zip(tq.unpack_int4(got['q4']), jqj['unpack_int4'](want['q4'])):
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
     for n in (2, 6, 48, 64, 96, 200, 256, 600, 1024, 3072):
         assert tq.group4_for(n) == jq.group4_for(n)
@@ -98,14 +107,14 @@ def test_int8_matmul_equals_integer_simulation(k_in):
     quantize → s8 dot → rescale; K = 1500 > 1040 takes the split into exact
     float32 chunks."""
     x = weights((2, 5, k_in), 2) * 3.0
-    qp = jq.quantize_linear({'w': jnp.asarray(weights((k_in, 16), 3))})
+    qp = jqj['quantize_linear']({'w': jnp.asarray(weights((k_in, 16), 3))})
     q, scale = np.asarray(qp['q']), np.asarray(qp['scale'])
     got = tq.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(scale))
     sx = np.maximum(np.abs(x).max(-1, keepdims=True), 1e-8) / 127.0
     xq = np.clip(np.round(x / sx), -127, 127).astype(np.int32)
     want = (xq @ q.astype(np.int32)).astype(np.float32) * sx * scale
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jq.int8_matmul(jnp.asarray(x), q,
+    np.testing.assert_allclose(got.numpy(), np.asarray(jqj['int8_matmul'](jnp.asarray(x), q,
                                                                        scale)),
                                rtol=1e-6, atol=1e-6)
 
@@ -114,18 +123,18 @@ def test_int4_matmul_and_linear_dispatch_match_jax():
     x = weights((3, 4, 512), 4)
     p = {'w': jnp.asarray(weights((512, 24), 5) * 0.05),
          'b': jnp.asarray(weights((24,), 6))}
-    qp4 = jq.quantize_linear_int4(p)
+    qp4 = jqj['quantize_linear_int4'](p)
     assert qp4['scale4'].shape == (4, 24)                  # four groups of 128
     close(tq.int4_matmul(torch.from_numpy(x), tt(qp4['q4']), tt(qp4['scale4'])),
-          jq.int4_matmul(jnp.asarray(x), qp4['q4'], qp4['scale4']), atol=1e-5)
-    for layout in (p, jq.quantize_linear(p), qp4):
+          jqj['int4_matmul'](jnp.asarray(x), qp4['q4'], qp4['scale4']), atol=1e-5)
+    for layout in (p, jqj['quantize_linear'](p), qp4):
         close(t_linear(tt(layout), torch.from_numpy(x)),
-              j_linear(layout, jnp.asarray(x)), atol=1e-5)
+              j_linear_jit(layout, jnp.asarray(x)), atol=1e-5)
 
 
 def test_quantize_kv_equals_jax():
     x = weights((2, 3, 7, 32), 7)
-    for got, want in ((quantize_kv(torch.from_numpy(x)), j_quantize_kv(jnp.asarray(x))),
+    for got, want in ((quantize_kv(torch.from_numpy(x)), j_quantize_kv_jit(jnp.asarray(x))),
                       (tfd.quantize_kv_rowmajor(torch.from_numpy(x), 2),
                        jfd.quantize_kv_rowmajor(jnp.asarray(x), 2))):
         for g, w in zip(got, want):
@@ -163,7 +172,7 @@ def fused_case(variant, L=2, rows=3, h=2, hd=16, dff=512, S=40, ttm=6, pm=8):
         p = j_quantize_transformer(p, bits=4)
     kf, vf = weights((L, rows, h, S, hd), 9), weights((L, rows, h, S, hd), 10)
     if variant.endswith('kv8'):
-        (kq, ks), (vq, vs) = (j_quantize_kv(jnp.asarray(a)) for a in (kf, vf))
+        (kq, ks), (vq, vs) = (j_quantize_kv_jit(jnp.asarray(a)) for a in (kf, vf))
         cache = JKVCache(kq, vq, ks, vs)
     else:
         cache = JKVCache(jnp.asarray(kf), jnp.asarray(vf))
@@ -179,7 +188,7 @@ def test_fused_step_plain_matches_pallas_and_xla(variant):
     with an int8 cache), cache codes within one step, no kernel launch."""
     p, cache, x, tl, plen, ttm, pm, index = fused_case(variant)
     h = 2
-    yj, cj = j_fused_step(p, jnp.asarray(x), h, jfd.fused_cache_layout(cache),
+    yj, cj = j_fused_step(p, jnp.asarray(x), h, j_fused_cache_layout(cache),
                           jnp.int32(index), jnp.asarray(tl), jnp.asarray(plen), ttm, pm)
     slots = jnp.arange(cache.k.shape[3])[None, :]
     attend = ((slots < tl[:, None]) | ((slots >= ttm) & (slots < ttm + plen[:, None]))
@@ -197,7 +206,7 @@ def test_fused_step_plain_matches_pallas_and_xla(variant):
     atol = 5e-3 if variant.endswith('kv8') else 1e-4
     close(yt, yj, atol=atol, rtol=atol)
     close(yt, yx, atol=atol, rtol=atol)
-    for want in (cj, jfd.fused_cache_layout(cx)):
+    for want in (cj, j_fused_cache_layout(cx)):
         for g, w in zip(ct, want):
             if g is None:
                 assert w is None
@@ -213,7 +222,7 @@ def test_fused_layout_and_view_carry_the_scales():
     _, cache, *_ = fused_case('kv8')
     tcache = KVCache(*tt(tuple(cache)))
     fused = tfd.fused_cache_layout(tcache)
-    jfused = jfd.fused_cache_layout(cache)
+    jfused = j_fused_cache_layout(cache)
     assert fused.k_scale.shape == (2, 3, 40, 2) and fused.k_scale.is_contiguous()
     for g, w in zip(fused, jfused):
         np.testing.assert_array_equal(npy(g), np.asarray(w, np.float32)

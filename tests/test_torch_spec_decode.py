@@ -43,6 +43,7 @@ SPEC = dict(SMALL, num_audio_tokens=96, vocab_size=24, temperature=0.0, num_beam
 j_decode_step = jax.jit(_j_decode_step, static_argnums=2)
 # The Pallas verify kernel (interpret mode) as one compiled program.
 j_verify_step = jax.jit(jfd.fused_verify_step, static_argnums=(2, 7, 8))
+j_ngram_draft = jax.jit(jar._ngram_draft, static_argnums=(2, 3))
 
 
 def tt(tree):
@@ -119,8 +120,8 @@ class TestNgramDraft:
         codes[6, :12] = 3                              # a constant run
         vlen = np.asarray([30, 17, 9, g, 2, 25, 12])
         fb = rs.randint(50, 60, (7,))
-        want = jar._ngram_draft(jnp.asarray(codes, jnp.int32), jnp.asarray(vlen), g, m,
-                                jnp.asarray(fb, jnp.int32))
+        want = j_ngram_draft(jnp.asarray(codes, jnp.int32), jnp.asarray(vlen), g, m,
+                             jnp.asarray(fb, jnp.int32))
         got = tar._ngram_draft(torch.from_numpy(codes), torch.from_numpy(vlen), g, m,
                                torch.from_numpy(fb))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

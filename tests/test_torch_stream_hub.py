@@ -385,3 +385,51 @@ class TestAdaptiveVerifyTurns:
         hub._spec = False
         hub._observe_acceptance({0: (object(), np.zeros(9), False)}, turns=3)
         assert hub._accept_ema == 2.5
+
+
+class TestBatchedRefineWidth:
+    """The batched refine (``_route_batched``, host logic with a stand-in
+    ``_nar_wav``): each due session refines at the width its solo emitter
+    picks, one ``_nar_wav`` per width due, never at a wider co-tenant's."""
+
+    @staticmethod
+    def route(lengths, widths=(4, 8, 12)):
+        from types import SimpleNamespace
+
+        from valle2_tpu_torch.stream_hub import HOP, _Session
+        hub = StreamHub.__new__(StreamHub)     # host logic only: no decoder
+        hub._lock, hub._widths, hub._by_slot = threading.Lock(), list(widths), {}
+        hub._nar_gen = torch.Generator().manual_seed(0)
+        hub._nar_tokens = hub._nar_tl = hub._nar_pcodes = hub._nar_pl = None
+        hub.cb = SimpleNamespace(n_slots=len(lengths), release=lambda slot: None)
+        calls = []
+
+        def nar_wav(tok, tl, pc, pl, first, gen, seed):
+            calls.append((first.shape[1], gen.tolist(), first.copy()))
+            return np.full((first.shape[0], first.shape[1] * HOP), first.shape[1],
+                           np.float32), None
+        hub.tts = SimpleNamespace(_nar_wav=nar_wav)
+        sessions, out = [], {}
+        for slot, n in enumerate(lengths):
+            sess = _Session(lookahead=0, max_new=max(widths))
+            sess.slot = slot
+            hub._by_slot[slot] = sess
+            sessions.append(sess)
+            out[slot] = (sess, np.arange(1, n + 1), False)
+        hub._route_batched(out)
+        return calls, sessions, HOP
+
+    def test_sessions_of_two_widths_refine_apart(self):
+        calls, sessions, hop = self.route([7, 3])
+        assert sorted(w for w, _, _ in calls) == [4, 8]
+        for width, gen, first in calls:
+            slot = 0 if width == 8 else 1
+            assert gen == [7, 1] if slot == 0 else gen == [1, 3]
+            assert first[1 - slot].sum() == 0          # the other row rides idle
+        for sess, width in zip(sessions, (8, 4)):
+            chunk, done = sess.q.get_nowait()
+            assert not done and chunk.shape == (sess.n * hop,) and (chunk == width).all()
+
+    def test_one_width_one_refine(self):
+        calls, sessions, _ = self.route([6, 5, 8])
+        assert [(w, g) for w, g, _ in calls] == [(8, [6, 5, 8])]

@@ -2,24 +2,35 @@
 plain versions, and the ``torch.autograd.Function`` that joins them.
 
 Replaces the Pallas TPU kernels of ``valle2_tpu/kernels/flash_attention.py``:
-the forward ``_flash_fwd`` → ``_fwd_kernel`` (``csrc/flash_attention.cu``) on
-the AR prefill and in every training step, and the backward ``_flash_bwd``
-(``csrc/flash_attention_bwd.cu``): ``_bwd_fused_kernel`` when the padded row
-fits (``FUSED_BWD_MAX_SEQ``), else ``_bwd_dq_kernel`` then
-``_bwd_dkv_kernel``, the JAX package's routing rule.  See each source's header
-for its design.
+the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
+``_flash_fwd_folded`` → ``_fwd_kernel_folded`` (#2), both in
+``csrc/flash_attention.cu``, on the AR prefill and in every training step;
+and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``):
+``_bwd_fused_kernel`` when the padded row fits (``FUSED_BWD_MAX_SEQ``), else
+``_bwd_dq_kernel`` then ``_bwd_dkv_kernel``, the JAX package's routing rule.
+See each source's header for its design.
+
+Which forward runs is the JAX package's rule: ``fold_heads=None`` applies
+``_fold_default``, which reads ``VALLE2_FLASH_FOLD`` (unset: #1).  The port
+reads it at call time, where JAX reads it when it traces.  The JAX
+``block_q`` / ``block_k`` are TPU VMEM tile choices that no caller passes;
+the CUDA kernels fix their own tiles, so the port takes neither.
 
 Each wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises, and counts its launches.
 ``flash_attention_plain`` is a port of the JAX ``reference_attention`` that
-also returns the per-row logsumexp; ``flash_attention_bwd_plain`` is the
-explicit formulas of ``_bwd_fused_kernel`` on whole (s, s) matrices.
+also returns the per-row logsumexp.  It is the plain version of #1 and #2
+alike: both compute the same function, and the JAX package's own tests hold
+both Pallas kernels against the one ``reference_attention``.
+``flash_attention_bwd_plain`` is the explicit formulas of ``_bwd_fused_kernel``
+on whole (s, s) matrices.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -27,6 +38,7 @@ from ..ops.masks import NEG_INF, prefix_lm_attend
 from . import _build
 
 COUNTER = _build.LaunchCounter()
+FOLD_COUNTER = _build.LaunchCounter()
 BWD_FUSED_COUNTER = _build.LaunchCounter()
 BWD_DQ_COUNTER = _build.LaunchCounter()
 BWD_DKV_COUNTER = _build.LaunchCounter()
@@ -110,23 +122,52 @@ def _check_qkv(name: str, q, others, meta):
         raise ValueError(f'{name} kernel needs contiguous inputs')
 
 
-def flash_attention(q, k, v, meta, tokens_total: int, causal: bool = True):
-    """Prefix-LM attention of q, k, v (b, h, s, hd) with meta (b, 2) int32 =
-    [tokens_valid, kv_end] per batch row.  Returns (o, lse)."""
-    if q.device.type == 'cpu':
-        return flash_attention_plain(q, k, v, meta, tokens_total, causal)
-    _check_qkv('flash_attention', q, (k, v), meta)
+def _fold_default(h: int, s: int) -> bool:
+    """The JAX package's head-fold policy (``flash_attention.py:321-335``):
+    off unless ``VALLE2_FLASH_FOLD`` is set to anything but a falsey
+    spelling ('0', 'false', 'off', 'no', '', any case, outer spaces)."""
+    env = os.environ.get('VALLE2_FLASH_FOLD')
+    if env is not None:
+        return env.strip().lower() not in ('0', 'false', 'off', 'no', '')
+    return False
+
+
+def _forward(name: str, sym: str, counter, q, k, v, meta, tokens_total, causal):
+    _check_qkv(name, q, (k, v), meta)
     b, h, s, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _fn('flash_attention', 'valle2_flash_attention_fwd',
-             [_VP] * 6 + _SCALARS)
+    fn = _fn('flash_attention', sym, [_VP] * 6 + _SCALARS)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), meta.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, h, s, hd, int(tokens_total), int(bool(causal)),
                 _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), _stream(q))
-    _build.check(status, 'flash_attention')
-    COUNTER.count += 1
+    _build.check(status, name)
+    counter.count += 1
     return o, lse
+
+
+def flash_attention_folded(q, k, v, meta, tokens_total: int, causal: bool = True):
+    """Kernel #2, the head-folded forward: one block per (q-tile, batch row)
+    carrying every head.  Same arguments and result as ``flash_attention``."""
+    if q.device.type == 'cpu':
+        return flash_attention_plain(q, k, v, meta, tokens_total, causal)
+    return _forward('flash_attention_folded', 'valle2_flash_attention_fwd_folded',
+                    FOLD_COUNTER, q, k, v, meta, tokens_total, causal)
+
+
+def flash_attention(q, k, v, meta, tokens_total: int, causal: bool = True,
+                    fold_heads: bool | None = None):
+    """Prefix-LM attention of q, k, v (b, h, s, hd) with meta (b, 2) int32 =
+    [tokens_valid, kv_end] per batch row.  Returns (o, lse).  ``fold_heads``
+    True runs #2, False #1; None applies ``_fold_default``."""
+    if fold_heads is None:
+        fold_heads = _fold_default(q.shape[1], q.shape[2])
+    if fold_heads:
+        return flash_attention_folded(q, k, v, meta, tokens_total, causal)
+    if q.device.type == 'cpu':
+        return flash_attention_plain(q, k, v, meta, tokens_total, causal)
+    return _forward('flash_attention', 'valle2_flash_attention_fwd', COUNTER, q, k, v, meta,
+                    tokens_total, causal)
 
 
 def _stream(t) -> int:
@@ -213,14 +254,17 @@ def flash_attention_bwd(q, k, v, meta, o, lse, do, tokens_total: int, causal: bo
 
 
 class FlashAttention(torch.autograd.Function):
-    """``FlashAttention.apply(q, k, v, meta, tokens_total, causal)`` → o: the
-    forward kernel, with the backward kernels as its gradient (the JAX
-    ``_flash_attention_vjp``).  Saves q, k, v, o, lse and meta; meta is not
-    differentiable."""
+    """``FlashAttention.apply(q, k, v, meta, tokens_total, causal[, fold])`` →
+    o: the forward kernel (#2 when ``fold``, #1 otherwise; None, the default,
+    applies ``_fold_default``), with the backward kernels as its gradient (the
+    JAX ``_flash_attention_vjp``).  The backward is the same for both
+    forwards, on their (b, h, s) lse, as in the JAX ``_bwd_rule``.  Saves q,
+    k, v, o, lse and meta; meta is not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, meta, tokens_total: int, causal: bool):
-        o, lse = flash_attention(q, k, v, meta, tokens_total, causal)
+    def forward(ctx, q, k, v, meta, tokens_total: int, causal: bool,
+                fold: bool | None = None):
+        o, lse = flash_attention(q, k, v, meta, tokens_total, causal, fold_heads=fold)
         ctx.save_for_backward(q, k, v, o, lse, meta)
         ctx.tokens_total, ctx.causal = tokens_total, causal
         return o
@@ -230,4 +274,4 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, meta = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, meta, o, lse, do.contiguous(),
                                          ctx.tokens_total, ctx.causal)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

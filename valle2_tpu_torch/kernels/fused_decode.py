@@ -362,14 +362,15 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
     part = (torch.empty((rq * n_heads * (S // chunk), 2 + d // n_heads), **f32)
             if chunk < S else None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
     lead = [_DTYPE_CODE[x.dtype], _DTYPE_CODE[cache.k.dtype], wcode, x.data_ptr(),
             y.data_ptr(), *(w.data_ptr() for w in ws), cache.k.data_ptr(),
-            cache.v.data_ptr(), *(ptr(s) for s in wscales), *(ptr(s) for s in scales),
+            cache.v.data_ptr(), *map(_ptr, wscales), *map(_ptr, scales),
             tokens_lens.data_ptr(), codes_lens.data_ptr()]
-    scratch = [qbuf.data_ptr(), abuf.data_ptr(), xmid.data_ptr(), hmid.data_ptr(),
-               ptr(kvnew), ptr(part)]
+    # The scratch goes back as tensors, not pointers: the caller holds them
+    # until its launch is queued.  Freed any earlier, their memory could go to
+    # a tensor of another thread (a hub join's prefill beside the driver's
+    # step) whose kernels are queued first, and the two would write it both.
+    scratch = [qbuf, abuf, xmid, hmid, kvnew, part]
     sizes = (L, rows, S, d, dff)
     return lead, scratch, sizes, [*groups, chunk], y, variant(p, cache)
 
@@ -384,6 +385,10 @@ def _count(name: str, var: str, sizes, tail, per_row: bool = False) -> None:
         PER_ROW_COUNTERS['fused_decode_step_per_row'].count += 1
         if chunked:
             PER_ROW_COUNTERS['fused_decode_step_per_row_chunked'].count += 1
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _check_slots(index, rows: int, x, name: str) -> None:
@@ -424,8 +429,9 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
     else:
         slots = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(False)(*lead, slots, *scratch, L, rows, S, d, n_heads, dff, int(index),
-                         int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads), stream)
+    status = _lib(False)(*lead, slots, *map(_ptr, scratch), L, rows, S, d, n_heads, dff,
+                         int(index), int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads),
+                         stream)
     _build.check(status, name)
     _count(name, var, sizes, tail, per_row)
     return y, cache
@@ -457,9 +463,9 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     L, rows, S, d, dff = sizes
     _check_slots(index, rows, x, name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(True)(*lead, index.data_ptr(), *scratch, L, rows, S, d, n_heads, dff,
-                        q_len, int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads),
-                        stream)
+    status = _lib(True)(*lead, index.data_ptr(), *map(_ptr, scratch), L, rows, S, d,
+                        n_heads, dff, q_len, int(ttm), int(pm), *tail,
+                        1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, name)
     _count(name, var, sizes, tail)
     return y, cache

@@ -10,10 +10,13 @@ session ends.
 
 **Batched NAR refinement** (default): the emissions of every session that
 crossed its lookahead this cycle are refined in one ``ValleTTS._nar_wav``
-over all ``n_slots`` rows (per-row prompts kept on the device, rewritten only
-on a join; rows not due ride along at length 1), instead of one pass per
-session.  The NAR masks every position past a row's lengths and rows are
-independent, and sessions insert frozen until activation, so chunk cadence
+over all ``n_slots`` rows per width due (per-row prompts kept on the device,
+rewritten only on a join; rows not due ride along at length 1), instead of
+one pass per session.  Each session refines at the width its solo emitter
+picks, never at a wider co-tenant's: a wider pass reorders the float32 sums
+and can flip a near-tied NAR argmax.  The NAR masks every position past a
+row's lengths and rows are independent, and sessions insert frozen until
+activation, so chunk cadence
 and refinement depths match the solo streaming path: greedy AR tokens and
 NAR codes equal solo streaming's, and the waveform agrees to float32
 round-off (the joint codec decode sums in another order).  Sampled sessions
@@ -439,8 +442,9 @@ class StreamHub:
                 self._wake.notify_all()     # wake a drain waiter
 
     def _route_batched(self, out: dict) -> None:
-        """Refine every due session's prefix in ONE ``_nar_wav`` over all
-        rows, then deliver the newly final samples.  (1) Under the lock: fold
+        """Refine every due session's prefix in one ``_nar_wav`` over all
+        rows per width due (each session at its solo emitter's width), then
+        deliver the newly final samples.  (1) Under the lock: fold
         the tokens into the sessions' buffers and take the prompts'
         snapshot; (2) the refine, unlocked (the buffers are the driver's
         alone, the prompts are replaced, not written); (3) under the lock:
@@ -463,17 +467,26 @@ class StreamHub:
                     finish_only.append(sess)
             prompts = (self._nar_tokens, self._nar_tl, self._nar_pcodes, self._nar_pl)
 
-        wav = None
+        wavs: dict[int, np.ndarray] = {}
         if emits:
-            width = next(b for b in self._widths if b >= max(s.n for s, _, _ in emits))
-            first = np.zeros((n, width), np.int64)
-            gen = np.ones((n,), np.int32)           # idle rows: one valid slot
+            # Each session refines at its own width, the one its solo
+            # emitter picks: one refine per width that is due this cycle
+            # (one in the steady state), never a co-tenant's wider one.
+            by_width: dict[int, list[_Session]] = {}
             for sess, _, _ in emits:
-                first[sess.slot, :sess.n] = sess.buf[:sess.n]
-                gen[sess.slot] = sess.n
+                width = next(b for b in self._widths if b >= sess.n)
+                by_width.setdefault(width, []).append(sess)
+            seed = _draw_seed(self._nar_gen)
             try:
-                wav, _codes = self.tts._nar_wav(*prompts, first, gen,
-                                                _draw_seed(self._nar_gen))
+                for width, group in by_width.items():
+                    first = np.zeros((n, width), np.int64)
+                    gen = np.ones((n,), np.int32)   # idle rows: one valid slot
+                    for sess in group:
+                        first[sess.slot, :sess.n] = sess.buf[:sess.n]
+                        gen[sess.slot] = sess.n
+                    wav, _codes = self.tts._nar_wav(*prompts, first, gen, seed)
+                    for sess in group:
+                        wavs[sess.slot] = wav[sess.slot]
             except Exception as e:          # noqa: BLE001 -- the driver must survive
                 log_warning('stream hub batched refine failed (%s: %s): ending live '
                             'sessions', type(e).__name__, e)
@@ -485,7 +498,7 @@ class StreamHub:
             for sess, finalize, done in emits:
                 if self._by_slot.get(sess.slot) is not sess:
                     continue                # aborted during the refine
-                chunk = wav[sess.slot, sess.emitted * HOP:finalize * HOP]
+                chunk = wavs[sess.slot][sess.emitted * HOP:finalize * HOP]
                 sess.emitted = finalize
                 sess.q.put((chunk, done))
             for sess in finish_only:
