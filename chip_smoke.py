@@ -185,13 +185,38 @@ Phases, each printing JSON lines:
                 and #10 held against matmul_plain (one bf16 ulp of the result
                 plus the f32 summation-order error), with the plain version's
                 time and the bound.
+30. kernels  -- tensor parallelism with virtual ranks on one card (mp 2 and 4,
+   (tp)         one stream per rank): the TP all-reduce 5c alone, and the TP
+                fused decode step (#6 with 5c between its layers) and verify
+                step (#7) against their plain versions on the same inputs
+                (each rank's local heads, the rank-ordered f32 sum), f32
+                (TF32 off) and bf16: the serving shape (12 rows, S 1280,
+                index 485), its chunked cache (chunk 256), the per-row index
+                with the int8 cache (8 rows, S 512), int4 W4A16 (the ranked
+                packing) and #7 at 3 rows x K=4 (S 1024).  Every rank's y
+                bit-equal; times (median of 30), the plain version's, the
+                bound (bytes: every rank's weights and cache, and 5c's reads
+                of mp partials and its writes).
+31. tp       -- phase_tp(devices): the serving batch_synthesize of phase 5's
+                requests (f32, TF32 off, 128 steps) on a ('model',) mesh of
+                the devices (here ['cuda:0'] * 2) and on the solo model: codes
+                equal; then a speculative ValleAR (K=4) on the mesh against
+                solo.  Counts zeroed before the mesh runs, read after: the TP
+                steps and 5c launched, no plain fused call, no one-rank
+                step.  Wall, decode ms per step and RTF of mesh and solo.
+                ``phase_tp_large(devices)`` (the four-card call only): the
+                204M stack at mp 4, one generate_batch at 4 beams, greedy ids
+                mesh == solo.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
-``main`` runs them in this order: 1-3, 16, 18, 21, 24, 11, 4, 5, 17, 19, 22, 25,
-26, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
+``python3 chip_smoke.py --mesh-cards 4`` on a four-card host runs phases 1,
+2 and 31 over the four cards and ``phase_tp_large`` (after checking peer
+access between every pair of cards); with no argument it needs one card.
+``main`` runs them in this order: 1-3, 16, 18, 21, 24, 30, 11, 4, 5, 17, 19, 22,
+25, 26, 31, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -309,6 +334,25 @@ PER_ROW_PORTS = {
 # JAX package's hub geometry (ttm = pm = 128: ContinuousDecoder's default,
 # min(bucket_sizes)), advance chunk 25, N sessions (BENCHMARKS.md:484-491);
 # prompts of 100 frames (101 code slots with BOS) fit pm.
+# Tensor parallelism (phases 30-31): the virtual-rank cases of the TP steps
+# (rows, S, index or per-row depths, chunk, weights, cache) at the serving
+# widths; phase tp's mesh runs (max_audio_len, of phase main's requests).
+TP_CASES = {
+    'serve': dict(rows=12, S=1280, index=485, chunk=None, weights='compute', cache=None),
+    'chunked': dict(rows=12, S=1280, index=485, chunk=256, weights='compute', cache=None),
+    'per_row_kv8': dict(rows=8, S=512, index=None, chunk=None, weights='compute',
+                        cache='int8'),
+    'w4a16': dict(rows=12, S=1280, index=485, chunk=None, weights='int4', cache=None),
+}
+TP_MPS = (2, 4)
+TP_STEPS = 128
+TP_PORTS = {
+    'tp_allreduce': 'valle2_tpu/kernels/fused_decode.py:252-295 _ring_allreduce',
+    'fused_decode_step_tp': ('valle2_tpu/kernels/fused_decode.py:706 with tp: :480-490 the '
+                             'reduces of _kernel, :642 W8A8 refused, :660-662 the rank ids, '
+                             ':688-702 the comm scratch'),
+    'fused_verify_step_tp': 'valle2_tpu/kernels/fused_decode.py:1017 with tp: :786-792',
+}
 CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
 # A bf16 greedy pick of the joint loop may part from the solo loop's only at
 # a near-tie: the logits head runs at another row count (another cuBLAS
@@ -447,7 +491,9 @@ def counters() -> dict:
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.kernels import gemm
     from valle2_tpu_torch.kernels import rvq as krvq
-    return {'flash_attention_fwd': fa.COUNTER, 'flash_attention_fwd_folded': fa.FOLD_COUNTER,
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    return {'tp_allreduce': ta.COUNTER, **fd.TP_COUNTERS,
+            'flash_attention_fwd': fa.COUNTER, 'flash_attention_fwd_folded': fa.FOLD_COUNTER,
             'matmul_fullk': gemm.FULLK_COUNTER, 'matmul_ksplit': gemm.KSPLIT_COUNTER,
             'flash_bwd_fused': fa.BWD_FUSED_COUNTER,
             'flash_bwd_dq': fa.BWD_DQ_COUNTER, 'flash_bwd_dkv': fa.BWD_DKV_COUNTER,
@@ -3136,6 +3182,285 @@ def phase_gemm(results: dict, smi: str) -> dict:
     return launches
 
 
+def tp_inputs(case: dict, mp: int, dt, gen, dev):
+    """A TP case's inputs on ``dev``: a seeded f32 stack (int4: the ranked
+    packing) split over mp ranks, each rank's random (L, rows, S, d / mp)
+    cache of its local heads (int8 through quantize_kv_rowmajor), x, the
+    lengths and the index (per-row: PER_ROW's depths)."""
+    import torch
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, transformer_init
+    from valle2_tpu_torch.parallel import make_model_mesh, shard_stack
+    s = SLICE
+    rows, S, h_loc, da = case['rows'], case['S'], s['h'] // mp, s['d'] // mp
+    p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
+    mesh = make_model_mesh(mp, [dev] * mp)
+    trees = shard_stack(p, mesh, dt, case['weights'] == 'int4')
+    caches = []
+    for _ in range(mp):
+        ck, cv = (torch.randn(s['L'], rows, S, da, generator=gen) for _ in range(2))
+        if case['cache'] == 'int8':
+            (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h_loc) for c in (ck, cv))
+            caches.append(KVCache(*(t.to(dev) for t in (kq, vq, ks, vs))))
+        else:
+            caches.append(KVCache(ck.to(dev, dt), cv.to(dev, dt)))
+    if case['index'] is None and 'K' not in case:
+        pr = PER_ROW
+        lens = (pr['tokens_lens'], pr['codes_lens'])
+        index = torch.tensor([pr['ttm'] + pr['pm'] + g for g in pr['depths']],
+                             dtype=torch.int32, device=dev)
+        ttm, pm = pr['ttm'], pr['pm']
+    else:
+        lens = ([112, 97, 81] * (rows // 3), [151] * rows)
+        index, ttm, pm = case['index'], SLICE['ttm'], SLICE['pm']
+    tl, cl = (torch.tensor(v, dtype=torch.int32, device=dev) for v in lens)
+    q_len = case.get('K', 1)
+    x = torch.randn(rows, q_len, s['d'], generator=gen).to(dev, dt)
+    return mesh, trees, caches, x, index, tl, cl, ttm, pm
+
+
+def tp_step_bound(trees, caches, rows: int, q_len: int, read_slots: int, mp: int,
+                  dtype_name: str, x_elt: int) -> tuple[int, float, str]:
+    """(bytes, ms, 'bytes' | 'operations') of one TP step on one card: every
+    rank's weights and norms, its cache's valid slots read once and its new
+    slots written, x and y, and per layer 5c's two reduces (each rank reads
+    mp partials and writes one, f32); the products at the compute peak."""
+    from valle2_tpu_torch.train import tree_leaves
+    s = SLICE
+    L, d, dff, h = s['L'], s['d'], s['dff'], s['h']
+    w_bytes = sum(a.numel() * a.element_size() for t in trees for a in tree_leaves(t))
+    c = caches[0]
+    slot_bytes = 2 * (d // mp) * c.k.element_size() + (2 * (h // mp) * 2 if c.k_scale
+                                                       is not None else 0)
+    rq = rows * q_len
+    nbytes = (w_bytes + mp * L * (read_slots + rq) * slot_bytes + 2 * mp * rq * d * x_elt
+              + 2 * L * mp * (mp + 1) * rq * d * 4)
+    ops = rq * L * 2 * (4 * d ** 2 + 2 * d * dff) + L * 2 * 2 * read_slots * d * q_len
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype_name]
+    return nbytes, 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def phase_tp_kernels(results: dict):
+    """Phase 30: 5c and the TP fused steps against their plain versions with
+    virtual ranks on cuda:0, one stream per rank (the mesh's)."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    from valle2_tpu_torch.ops.transformer import KVCache
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(31)
+    cases = {**TP_CASES, 'verify': dict(rows=SPEC['rows'], S=1024, index=None, chunk=None,
+                                        weights='compute', cache=None, K=SPEC['K'])}
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for mp in TP_MPS:
+            # 5c alone at the serving step's partial, (12 rows, d) f32 per rank.
+            parts = [torch.randn(12, SLICE['d'], generator=gen).to(dev) for _ in range(mp)]
+            got = ta.tp_allreduce(parts)
+            want = ta.tp_allreduce_plain(parts)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f'tp_allreduce (mp {mp}): not the rank-ordered f32 sum bit for bit')
+            nbytes = mp * (mp + 1) * parts[0].numel() * 4
+            res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ta.tp_allreduce(parts)),
+                       plain_ms=cuda_ms(lambda: ta.tp_allreduce_plain(parts)),
+                       bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by='bytes',
+                       library_ms=None, tol='bit-equal')
+            results[('tp_allreduce', 'float32') if mp == 2 else
+                    ('tp_allreduce', f'mp{mp}', 'float32')] = res
+            emit(phase='kernels', path='tp', kernel='tp_allreduce', mp=mp, rows=12,
+                 d=SLICE['d'], bytes=nbytes, **res)
+            for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+                for label, case in cases.items():
+                    verify = 'K' in case
+                    name = 'fused_verify_step_tp' if verify else 'fused_decode_step_tp'
+                    mesh, trees, caches, x, index, tl, cl, ttm, pm = tp_inputs(
+                        case, mp, dt, gen, dev)
+                    if verify:
+                        index = torch.tensor([ttm + pm + o for o in SPEC['offsets']],
+                                             dtype=torch.int32, device=dev)
+                    h_loc = SLICE['h'] // mp
+                    step = fd.fused_verify_step if verify else fd.fused_decode_step
+                    args = (index, tl, cl, ttm, pm)
+                    c_k = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+                    c_p = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+                    ys, _ = step(None, x, h_loc, None, *args, chunk_override=case['chunk'],
+                                 tp=(mesh, trees, c_k))
+                    ys_ref, _ = fd._step_plain_tp(name, trees, [x] * mp, h_loc, c_p, *args,
+                                                  case['chunk'])
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(ys[0], y) for y in ys[1:]):
+                        fail(f'{name} ({label}, mp {mp}, {dtype_name}): y differs across ranks')
+                    variant = 'kv8' if case['cache'] == 'int8' else 'dense'
+                    tol = variant_tol(variant, dtype_name)
+                    err_y = check_close(f'{name} {label} y', ys[0], ys_ref[0], dtype_name, tol)
+                    err_c = 0.0
+                    for a, b in zip(c_k, c_p):     # as hold_variant: f32 int8 codes
+                        if a.k_scale is not None and dtype_name == 'float32':
+                            if max(int((u.int() - v.int()).abs().max())
+                                   for u, v in zip(a[:2], b[:2])) > 1:
+                                fail(f'{name} ({label}): an int8 cache code off by more '
+                                     'than one step')
+                        else:
+                            err_c = max(err_c, *(check_close(f'{name} {label} cache', u, v,
+                                                             dtype_name, tol)
+                                                 for u, v in zip(dequantized(a, h_loc),
+                                                                 dequantized(b, h_loc))))
+                    ms = cuda_ms(lambda: step(None, x, h_loc, None, *args,
+                                              chunk_override=case['chunk'],
+                                              tp=(mesh, trees, c_k)))
+                    plain_ms = cuda_ms(lambda: fd._step_plain_tp(
+                        name, trees, [x] * mp, h_loc, c_p, *args, case['chunk']))
+                    q_len = case.get('K', 1)
+                    if torch.is_tensor(index):
+                        read = int((tl + cl).sum()) + sum(
+                            min(int(i) + q_len - 1, case['S'] - 1) - ttm - pm + 1
+                            for i in index)
+                    else:
+                        read = int((tl + cl).sum()) + case['rows'] * (index - ttm - pm + 1)
+                    nbytes, bound_ms, bound_by = tp_step_bound(
+                        trees, caches, case['rows'], q_len, read, mp, dtype_name,
+                        x.element_size())
+                    key = (name, dtype_name) if label in ('serve', 'verify') and mp == 2 \
+                        else (name, f'mp{mp}' if label in ('serve', 'verify')
+                              else f'{label}_mp{mp}', dtype_name)
+                    res = dict(max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                               tol=tol_str(dtype_name, tol))
+                    results[key] = res
+                    emit(phase='kernels', path='tp', kernel=name, case=label, mp=mp,
+                         dtype=dtype_name, shape=dict(L=SLICE['L'], rows=case['rows'],
+                                                      S=case['S'], K=q_len,
+                                                      chunk=case['chunk'], d=SLICE['d'],
+                                                      h=SLICE['h'], dff=SLICE['dff']),
+                         err_y=err_y, err_cache=err_c, bytes=nbytes, **res)
+                    del trees, caches, c_k, c_p
+
+
+def tp_requests():
+    """Phase main's 3 requests, tokenized."""
+    import numpy as np
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    texts, pts, pcs = make_requests()
+    tok = PhonemeTokenizer()
+    return texts, pts, pcs, [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+
+
+def phase_tp(devices, smi: str = '') -> dict:
+    """Phase 31: tensor-parallel serving over a ('model',) mesh of
+    ``devices`` (['cuda:0'] * 2 in the one-card run: virtual ranks; the four
+    cards of a four-card host) against the solo model on the same weights:
+    batch_synthesize of phase main's requests and a speculative
+    generate_batch, f32 with TF32 off, greedy.  Returns the mesh runs'
+    launch counts."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.parallel import make_model_mesh
+    from valle2_tpu_torch.tts import StageClock, ValleTTS
+
+    mp = len(devices)
+    mesh = make_model_mesh(mp, devices)
+    cfg = ConfigValle(max_audio_len=TP_STEPS, ignore_eos=True, dropout=0.0, temperature=0.0,
+                      kv_cache_dtype='float32', matmul_precision='highest')
+    if not cfg.fused_decode_enabled('cuda', mp):
+        fail(f'tp: the fused TP steps refuse the serving stack at mp {mp}')
+    texts, pts, pcs, tokens = tp_requests()
+    solo = ValleTTS(cfg, device=devices[0])
+    tp = ValleTTS(cfg, ar=ValleAR(cfg, params=solo.ar.params, mesh=mesh), nar=solo.nar,
+                  codec=solo.codec, mesh=mesh)
+    spec_cfg = dataclasses.replace(cfg, num_beams=1, speculative_k=SPEC['K'],
+                                   speculative_ngram=SPEC['ngram'])
+    spec_solo = ValleAR(spec_cfg, params=solo.ar.params, device=devices[0])
+    spec_tp = ValleAR(spec_cfg, params=solo.ar.params, mesh=mesh)
+    runs = {}
+    for label, model in (('solo', solo), ('mesh', tp), ('mesh', tp), ('solo', solo)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.batch_synthesize(texts, pts, pcs)
+        runs.setdefault(label, []).append((time.perf_counter() - t0, out))
+    want_spec = spec_solo.generate_batch(tokens, pcs)
+    spec_tp.generate_batch(tokens, pcs)                 # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    got = tp.batch_synthesize(texts, pts, pcs)
+    clock = StageClock(devices[0])
+    got_spec = spec_tp.generate_batch(tokens, pcs, clock=clock)
+    launches = read_counters()
+    plain = plain_calls()
+    want = runs['solo'][-1][1]
+    for g, w in zip(got, want):
+        if not np.array_equal(g.codes, w.codes):
+            fail(f'tp (mp {mp}): mesh codes differ from the solo model\'s')
+        if not np.isfinite(g.waveform).all() or g.waveform.shape != w.waveform.shape:
+            fail(f'tp (mp {mp}): bad waveform {g.waveform.shape}')
+    for g, w in zip(got_spec, want_spec):
+        if not torch.equal(g, w):
+            fail(f'tp (mp {mp}): speculative mesh ids differ from solo')
+    require_launches(f'tp (mp {mp})', launches, ('fused_decode_step_tp',
+                                                 'fused_verify_step_tp', 'tp_allreduce'))
+    solo_steps = step_launches({k: v for k, v in launches.items() if not k.endswith('_tp')})
+    if plain or solo_steps:
+        fail(f'tp (mp {mp}): plain fused calls {plain}, one-rank step kernels {solo_steps}')
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    parts = [torch.randn(12, SLICE['d'], device=d) for d in mesh.devices]
+    allreduce_ms = cuda_ms(lambda: ta.tp_allreduce(parts))
+
+    def summary(label):
+        walls = [w for w, _ in runs[label]]
+        t = runs[label][-1][1][0].timings
+        return dict(wall_s=walls, decode_ms_per_step=1e3 * t['decode'] / TP_STEPS,
+                    stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
+                    rtf=runs[label][-1][1][0].rtf)
+    emit(phase='tp', mp=mp, devices=[str(d) for d in mesh.devices], steps=TP_STEPS,
+         requests=len(texts), dtype='float32', codes_equal=True, spec_ids_equal=True,
+         mesh=summary('mesh'), solo=summary('solo'),
+         spec_turns=clock.counts.get('ar_turns'), tp_allreduce_ms=allreduce_ms,
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+def phase_tp_large(devices, smi: str = '') -> dict:
+    """The 204M stack (LARGE) at mp = len(devices): one generate_batch of
+    phase main's first request at 4 beams, f32 with TF32 off, greedy, on the
+    mesh and solo: ids equal; decode ms per step of both."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.parallel import make_model_mesh
+    from valle2_tpu_torch.tts import StageClock
+
+    mp = len(devices)
+    mesh = make_model_mesh(mp, devices)
+    cfg = ConfigValle(**LARGE, max_audio_len=GREEDY_STEPS, ignore_eos=True, dropout=0.0,
+                      temperature=0.0, num_beams=4, kv_cache_dtype='float32',
+                      matmul_precision='highest')
+    _, _, pcs, tokens = tp_requests()
+    solo = ValleAR(cfg, device=devices[0])
+    tp = ValleAR(cfg, params=solo.params, mesh=mesh)
+    out = {}
+    for label, model in (('solo', solo), ('mesh', tp), ('mesh', tp), ('solo', solo)):
+        reset_counters()
+        clock = StageClock(devices[0])
+        ids = model.generate_batch(tokens[:1], pcs[:1], clock=clock)
+        out.setdefault(label, []).append((1e3 * clock.times['decode'] / GREEDY_STEPS, ids,
+                                          read_counters()))
+    for (_, a, _), (_, b, _) in zip(out['mesh'], out['solo']):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f'tp large (mp {mp}): mesh ids differ from solo')
+    launches = out['mesh'][-1][2]
+    require_launches(f'tp large (mp {mp})', launches, ('fused_decode_step_tp', 'tp_allreduce'))
+    emit(phase='tp_large', mp=mp, **LARGE, beams=4, steps=GREEDY_STEPS, ids_equal=True,
+         decode_ms_per_step={k: [m for m, _, _ in v] for k, v in out.items()},
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3153,6 +3478,7 @@ def main() -> int:
     phase_spec_kernels(results)
     phase_chunk_kernels(results)
     phase_per_row_kernels(results)
+    phase_tp_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
@@ -3161,6 +3487,7 @@ def main() -> int:
     paths['stream'] = phase_stream(smi)
     paths['cb'] = phase_cb(smi)
     paths['hub'] = phase_hub(smi)
+    paths['tp'] = phase_tp(['cuda:0'] * 2, smi)
     phase_codec()
     paths['clone'] = phase_clone()
     paths['asr'] = phase_asr()
@@ -3212,7 +3539,14 @@ def main() -> int:
             ('fused_decode_step_per_row', 'fused_decode.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('cb', 'hub')),
             ('fused_decode_step_per_row_chunked', 'fused_decode.cu', 'fused_decode.py:706',
-             None, {}, ('bfloat16', 'float32'), ('hub',))):
+             None, {}, ('bfloat16', 'float32'), ('hub',)),
+            ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', None, {'mp4': 'mp4'},
+             ('float32',), ('tp',)),
+            ('fused_decode_step_tp', 'fused_decode.cu', 'fused_decode.py:706', None,
+             {'mp4': 'mp4', **{f'{c}_mp{m}': f'{c}_mp{m}' for c in TP_CASES if c != 'serve'
+                               for m in TP_MPS}}, ('bfloat16', 'float32'), ('tp',)),
+            ('fused_verify_step_tp', 'fused_decode.cu', 'fused_decode.py:1017', None,
+             {'mp4': 'mp4'}, ('bfloat16', 'float32'), ('tp',))):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
@@ -3234,7 +3568,10 @@ def main() -> int:
         elif name.startswith('matmul_'):
             entry['arms_ms'] = {sname: results[(name, sname, 'bfloat16')]['arms_ms']
                                 for sname in ('square4096', 'ffn1_204m', 'out_204m')}
-        if name in PER_ROW_PORTS:
+        if name in TP_PORTS:
+            entry['ports'] = TP_PORTS[name]
+            entry['case'] = 'tp_virtual_ranks_mp2'
+        elif name in PER_ROW_PORTS:
             entry['scalar_index_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['scalar_index_ms']
                                         for d in dtypes}
             entry['ports'] = PER_ROW_PORTS[name]
@@ -3259,14 +3596,41 @@ def main() -> int:
     return 0
 
 
+def main_mesh(n: int) -> int:
+    """``python3 chip_smoke.py --mesh-cards N``, on a host of N cards: the
+    cards' peer access (every pair must have it), the build, phase tp over
+    cuda:0..N-1 and the 204M stack at mp N (``phase_tp_large``)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    smi = phase_device()
+    if torch.cuda.device_count() < n:
+        fail(f'--mesh-cards {n} needs {n} cards, found {torch.cuda.device_count()}')
+    peers = {f'{a}->{b}': torch.cuda.can_device_access_peer(a, b)
+             for a in range(n) for b in range(n) if a != b}
+    emit(phase='peers', cards=n, peer_access=peers)
+    if not all(peers.values()):
+        fail(f'tensor parallelism needs peer access between every pair of cards: {peers}')
+    phase_build()
+    devices = [f'cuda:{i}' for i in range(n)]
+    phase_tp(devices, smi)
+    phase_tp_large(devices, smi)
+    print(smi, flush=True)
+    emit(ok=True, device={'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+                          'count': torch.cuda.device_count()})
+    return 0
+
+
 def run() -> int:
-    """``main``; on a failure, the phase it came from and its traceback end
-    the standard error, and the process exits 1 at once: a device-side
-    assert's messages, which the CUDA runtime may still hold, would otherwise
-    print after them at the context's teardown and bury them."""
+    """``main`` (or ``main_mesh`` under ``--mesh-cards N``); on a failure,
+    the phase it came from and its traceback end the standard error, and the
+    process exits 1 at once: a device-side assert's messages, which the CUDA
+    runtime may still hold, would otherwise print after them at the context's
+    teardown and bury them."""
     import os
     import traceback
     try:
+        if sys.argv[1:2] == ['--mesh-cards']:
+            return main_mesh(int(sys.argv[2]))
         return main()
     except BaseException as exc:            # noqa: BLE001 -- reported, then exit 1
         if isinstance(exc, SystemExit) and exc.code in (0, None):

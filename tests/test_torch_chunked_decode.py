@@ -18,6 +18,7 @@ import pytest
 import torch
 from test_torch_spec_decode import compare_caches, tt
 from torch_port_helpers import SMALL, close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu.config import ConfigValle as JConfig
 from valle2_tpu.kernels import fused_decode as jfd

@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch_encodec_mirror import EncodecMirror
 from torch_port_helpers import SMALL, close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import tts as jtts
 from valle2_tpu.codec import EncodecTPU

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_encodec_mirror import EncodecMirror
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import utils as jutils
 from valle2_tpu.codec import EncodecTPU

@@ -42,7 +42,9 @@ from valle2_tpu_torch.config import ConfigValle, precision_scope
 from valle2_tpu_torch.kernels import flash_attention as fa
 from valle2_tpu_torch.kernels import fused_decode as fd
 from valle2_tpu_torch.kernels import rvq as krvq
+from valle2_tpu_torch.kernels import tp_allreduce as ta
 from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
+from valle2_tpu_torch.parallel import make_model_mesh, shard_stack
 
 pytestmark = pytest.mark.cuda
 
@@ -1034,3 +1036,157 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gemm.matmul_ksplit(a, b, splits=3)
     with pytest.raises(TypeError):
         gemm.matmul_fullk(a.float(), b.float())
+
+
+# --- Tensor parallelism: 5c and the TP steps, virtual ranks on one card ---
+
+TP_FORMATS = {   # (weights, cache): the formats the TP steps take
+    'dense': ('compute', None), 'kv8': ('compute', 'int8'), 'w4a16': ('int4', None),
+    'w4a16_kv8': ('int4', 'int8')}
+
+
+@pytest.mark.parametrize('mp', [1, 2, 3, 4, 8])
+def test_tp_allreduce_kernel_is_the_rank_ordered_sum(dev, mp):
+    gen = torch.Generator().manual_seed(mp)
+    parts = [torch.randn(5, 96, generator=gen).to(dev) for _ in range(mp)]
+    before = ta.COUNTER.count
+    got = ta.tp_allreduce(parts)
+    want = ta.tp_allreduce_plain(parts)
+    torch.cuda.synchronize()
+    assert ta.COUNTER.count == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def tp_inputs(dev, mp, fmt, dtype, hd, rows, K=1, L=2, h=4, ttm=24, pm=16, S=96):
+    """A stack split over mp virtual ranks on ``dev`` (int4: the ranked
+    packing), each rank's cache of its local heads, x, lengths."""
+    weights, cache_fmt = TP_FORMATS[fmt]
+    d = h * hd
+    gen = torch.Generator().manual_seed(rows + hd + mp)
+    p = transformer_init(gen, L, d, h, 4 * d, adaptive_norm=False)
+    mesh = make_model_mesh(mp, [dev] * mp)
+    trees = shard_stack(p, mesh, dtype, weights == 'int4')
+    caches = []
+    for _ in range(mp):
+        ck, cv = (torch.randn(L, rows, S, d // mp, generator=gen) for _ in range(2))
+        if cache_fmt == 'int8':
+            (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h // mp) for c in (ck, cv))
+            caches.append(KVCache(*(t.to(dev) for t in (kq, vq, ks, vs))))
+        else:
+            caches.append(KVCache(ck.to(dev, dtype), cv.to(dev, dtype)))
+    x = torch.randn(rows, K, d, generator=gen).to(dev, dtype)
+    rs = np.random.RandomState(rows)
+    lens = [torch.tensor(a, dtype=torch.int32, device=dev)
+            for a in (rs.randint(0, ttm + 1, rows), rs.randint(1, pm + 1, rows))]
+    index = torch.tensor(rs.randint(ttm + pm, S - K + 1, rows), dtype=torch.int32, device=dev)
+    return mesh, trees, caches, x, lens, ttm, pm, index
+
+
+def tp_values(cache, h):
+    """A rank's fused (L, rows, S, d / mp) cache as f32 values, int8 or float."""
+    if cache.k_scale is None:
+        return cache.k.float(), cache.v.float()
+    view = fd.per_head_view(cache, h)
+    return tuple((c.float() * s.float()).permute(0, 1, 3, 2, 4).flatten(-2)
+                 for c, s in ((view.k, view.k_scale), (view.v, view.v_scale)))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('chunk', [None, 32], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('step', ['decode', 'decode_per_row', 'verify'])
+@pytest.mark.parametrize('fmt', sorted(TP_FORMATS))
+@pytest.mark.parametrize('mp', [2, 4])
+def test_tp_steps_match_plain(dev, mp, fmt, step, chunk, hd, dtype):
+    """The TP decode / verify step (one host call, a stream per rank, 5c
+    between the layers) against its plain version (the rank-ordered sum) on
+    the same inputs: y within tolerance and bit-equal on every rank, every
+    rank's cache written as the plain version writes it, the launch counted
+    once."""
+    K = 3 if step == 'verify' else 1
+    mesh, trees, caches, x, (tl, cl), ttm, pm, index = tp_inputs(dev, mp, fmt, dtype, hd, 5, K)
+    if step == 'decode':
+        index = ttm + pm + 7
+    name = 'fused_verify_step_tp' if step == 'verify' else 'fused_decode_step_tp'
+    fn = fd.fused_verify_step if step == 'verify' else fd.fused_decode_step
+    c_k = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+    c_p = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+    before = fd.TP_COUNTERS[name].count
+    ys, out = fn(None, x, 4 // mp, None, index, tl, cl, ttm, pm, chunk_override=chunk,
+                 tp=(mesh, trees, c_k))
+    assert fd.TP_COUNTERS[name].count == before + 1 and out is c_k
+    ys_ref, _ = fd._step_plain_tp(name, trees, [x] * mp, 4 // mp, c_p, index, tl, cl, ttm, pm,
+                                  chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    tol = TOL[dtype] if dtype == torch.bfloat16 or not fmt.endswith('kv8') else TOL_KV8
+    torch.testing.assert_close(ys[0].float(), ys_ref[0].float(), **tol)
+    for a, b in zip(c_k, c_p):
+        if a.k_scale is not None and dtype == torch.float32:
+            assert max(int((u.int() - v.int()).abs().max()) for u, v in zip(a[:2], b[:2])) <= 1
+        else:     # values: a float cache, or bf16 codes (their own rounding) times scales
+            for u, v in zip(tp_values(a, 4 // mp), tp_values(b, 4 // mp)):
+                torch.testing.assert_close(u, v, **tol)
+
+
+def test_tp_step_refuses_w8a8_and_a_cpu_mix(dev):
+    mesh, trees, caches, x, (tl, cl), ttm, pm, _ = tp_inputs(dev, 2, 'dense', torch.float32,
+                                                             32, 3)
+    q8 = [tq.quantize_transformer(t, bits=8) for t in trees]
+    with pytest.raises(ValueError, match='int8 W8A8'):
+        fd.fused_decode_step(None, x, 2, None, ttm + pm, tl, cl, ttm, pm,
+                             tp=(mesh, q8, caches))
+    with pytest.raises(ValueError, match='mesh has 2 ranks'):
+        fd.fused_decode_step(None, x, 2, None, ttm + pm, tl, cl, ttm, pm,
+                             tp=(mesh, trees[:1], caches))
+    with pytest.raises(ValueError, match='one contiguous CUDA float32'):
+        ta.tp_allreduce([torch.ones(4, device=dev), torch.ones(4)])
+
+
+def test_tp_greedy_decode_through_the_kernels_equals_solo(dev):
+    """ValleAR on a mesh of two virtual ranks (TP steps, the prefill's 5c)
+    gives the solo model's greedy ids, beams and speculative."""
+    from valle2_tpu_torch.models.ar import ValleAR
+    for extra in ({}, dict(num_beams=1, speculative_k=3, speculative_ngram=2)):
+        cfg = ConfigValle(d_model=128, n_heads=4, dim_feedforward=256, num_layers=2,
+                          max_audio_len=24, temperature=0.0, matmul_precision='highest',
+                          kv_cache_dtype='float32', **extra)
+        solo = ValleAR(cfg, device=dev, seed=4)
+        tp = ValleAR(cfg, params=solo.params, mesh=make_model_mesh(2, [dev] * 2))
+        rs = np.random.RandomState(2)
+        toks = [rs.randint(0, cfg.vocab_size, n) for n in (9, 14)]
+        pcs = [rs.randint(0, cfg.num_audio_tokens, (n, 8)) for n in (20, 11)]
+        before = fd.TP_COUNTERS['fused_decode_step_tp'].count + \
+            fd.TP_COUNTERS['fused_verify_step_tp'].count
+        got, want = tp.generate_batch(toks, pcs), solo.generate_batch(toks, pcs)
+        assert fd.TP_COUNTERS['fused_decode_step_tp'].count + \
+            fd.TP_COUNTERS['fused_verify_step_tp'].count > before
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_tp_over_two_real_cards_equals_virtual_ranks(dev):
+    """Where the host has two or more cards: 5c and the TP decode step with
+    rank r on cuda:r (peer reads over NVLink) equal the virtual ranks of one
+    card bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards')
+    cards = [torch.device('cuda', i) for i in range(2)]
+    parts = [torch.randn(7, 64, device=c) for c in cards]
+    got = ta.tp_allreduce(parts)
+    want = ta.tp_allreduce_plain([p.to(cards[0]) for p in parts])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.to(cards[0]), want[0]) for g in got)
+    mesh, trees, caches, x, (tl, cl), ttm, pm, _ = tp_inputs(dev, 2, 'dense', torch.float32,
+                                                             64, 4)
+    real = make_model_mesh(2, cards)
+    r_trees = [map_tree(lambda a, c=c: a.to(c), t) for t, c in zip(trees, cards)]
+    r_caches = [KVCache(*(t.to(c, copy=True) for t in cache if t is not None))
+                for cache, c in zip(caches, cards)]
+    ys_v, _ = fd.fused_decode_step(None, x, 2, None, ttm + pm, tl, cl, ttm, pm,
+                                   tp=(mesh, trees, caches))
+    ys_r, _ = fd.fused_decode_step(None, x, 2, None, ttm + pm, tl, cl, ttm, pm,
+                                   tp=(real, r_trees, r_caches))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y.to(cards[0]), ys_v[0]) for y in ys_r)
+    for a, b in zip(r_caches, caches):
+        assert torch.equal(a.k.to(cards[0]), b.k)

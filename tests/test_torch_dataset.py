@@ -8,6 +8,8 @@ and a training batch collates from the tokenized items."""
 import numpy as np
 import pytest
 
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
+
 from valle2_tpu.codec import EncodecTPU
 from valle2_tpu.config import ConfigValle as JConfig
 from valle2_tpu.data.dataset import ValleDataset as JValleDataset

@@ -17,6 +17,7 @@ import pytest
 import torch
 from test_torch_train import TRAIN, ar_batch, leaves, nar_batch, to_j, to_t
 from torch_port_helpers import close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu.config import ConfigValle as JConfig
 from valle2_tpu.kernels.flash_attention import _flash_fwd_folded

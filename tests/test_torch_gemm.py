@@ -22,6 +22,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 from torch_port_helpers import close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 import valle2_tpu.compile_cache
 from valle2_tpu_torch.kernels import gemm

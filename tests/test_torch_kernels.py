@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import close, to_torch
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu.kernels.flash_attention import _flash_fwd, flash_attention, reference_attention
 from valle2_tpu.kernels.fused_decode import fused_cache_layout as j_fused_cache_layout

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import SMALL, close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu.config import ConfigValle as JConfig
 from valle2_tpu.models import ar as jar

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import close, to_torch
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import ops as jops
 from valle2_tpu.kernels.flash_attention import _attend_block

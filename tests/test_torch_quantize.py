@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import quantize as jq
 from valle2_tpu.kernels import fused_decode as jfd
@@ -97,8 +98,17 @@ def test_quantizers_equal_jax(shape):
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
     for n in (2, 6, 48, 64, 96, 200, 256, 600, 1024, 3072):
         assert tq.group4_for(n) == jq.group4_for(n)
-    with pytest.raises(NotImplementedError, match='queue 1 item 14'):
-        tq.quantize_transformer({}, bits=4, tp_mp=2)
+    # The ranked packing of tensor-parallel int4 (each rank's input rows on
+    # their own) equals JAX's, and so do its dequantized weights.
+    want = jq.quantize_linear_int4_ranked({'w': jnp.asarray(w), 'b': jnp.asarray(b)}, 2)
+    got = tq.quantize_linear_int4_ranked({'w': torch.from_numpy(w), 'b': torch.from_numpy(b)},
+                                         2)
+    for k in want:
+        np.testing.assert_array_equal(npy(got[k]), np.asarray(want[k]), err_msg=k)
+    np.testing.assert_array_equal(tq.dequantize_linear_int4_ranked(got, 2)['w'].numpy(),
+                                  np.asarray(jq.dequantize_linear_int4_ranked(want, 2)['w']))
+    with pytest.raises(ValueError, match='ranked packing is an int4'):
+        tq.quantize_transformer({}, bits=8, tp_mp=2)
 
 
 @pytest.mark.parametrize('k_in', [24, 1500])

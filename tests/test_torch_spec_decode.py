@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import SMALL, close
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import quantize as jq
 from valle2_tpu.config import ConfigValle as JConfig

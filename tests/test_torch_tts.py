@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import SMALL, close, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 from valle2_tpu import tts as jtts
 from valle2_tpu.codec import encodec as jenc

@@ -2,7 +2,22 @@
 pytrees cross between the packages as numpy arrays."""
 
 import numpy as np
+import pytest
 import torch
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """Torch's CPU ops run one thread while a port test module runs (each
+    imports this autouse fixture).  The suite runs in several pytest workers
+    on one machine; at these widths torch's intra-op threads gain nothing,
+    and a pool of one thread per core in every worker oversubscribes the
+    cores many times over: under six workers the port's files took about
+    eight times their serial time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SMALL = dict(d_model=32, n_heads=2, dim_feedforward=64, num_layers=2, dropout=0.0,
              kv_cache_dtype='float32', matmul_precision='highest')

@@ -10,7 +10,9 @@ the AR token step (``kernels.fused_decode``) and the codec's RVQ encode
 stream hub that serves concurrent streams through it (``stream_hub``);
 audio datasets tokenized through the codec (``data.ValleDataset``); and
 training on one device (``train``) through the flash forward and backward
-kernels; see ROADMAP.md for what remains.
+kernels; tensor-parallel serving over a ('model',) mesh of cards
+(``parallel``, the all-reduce ``kernels.tp_allreduce``); see ROADMAP.md for
+what remains.
 """
 
 from .config import ConfigValle, bucket_len

@@ -246,7 +246,7 @@ class ConfigValle:
                     and self.head_dim in HEAD_DIMS)
         return bool(self.use_flash_attention)
 
-    def fused_decode_enabled(self, device) -> bool:
+    def fused_decode_enabled(self, device, mp: int = 1) -> bool:
         """Resolve ``use_fused_decode`` for tensors on ``device``: 'auto' is on
         for CUDA when the fused decode and verify kernels take the stack --
         head dim 32, 64, 96 or 128, projection inputs up to 6144 wide (5120
@@ -255,12 +255,17 @@ class ConfigValle:
         takes the plain step on the card, decided here before the loop.
         ``True`` always takes the kernels, which raise on such a stack.
         Unlike the JAX gate, 'highest' precision does not turn it off: the
-        CUDA kernel computes in full f32 when the model is f32."""
+        CUDA kernel computes in full f32 when the model is f32.  ``mp`` > 1:
+        the tensor-parallel steps over mp ranks, the fit read at a rank's
+        widths; int8 weights always take the plain tensor-parallel path
+        (JAX ``_fused_gate`` with ``tp_mp``)."""
+        if mp > 1 and self.weight_dtype == 'int8':
+            return False
         if self.use_fused_decode == 'auto':
             from .kernels.fused_decode import LAYOUT_OF_WEIGHT_DTYPE, fit_error
             return torch.device(device).type == 'cuda' and fit_error(
                 self.d_model, self.n_heads, self.dim_feedforward,
-                LAYOUT_OF_WEIGHT_DTYPE[self.weight_dtype]) is None
+                LAYOUT_OF_WEIGHT_DTYPE[self.weight_dtype], mp) is None
         return bool(self.use_fused_decode)
 
     def ensure_dirs(self) -> None:

@@ -34,6 +34,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Runs `set` (a cudaFuncSetAttribute) once per card for the caller's static
+// mask, one bit per card: a kernel's attributes belong to the current device,
+// and tensor-parallel ranks launch the same kernels on several cards.
+template <typename F>
+inline cudaError_t once_per_device(unsigned& done, F&& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (done >> dev & 1u) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done |= 1u << dev;
+  return err;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));

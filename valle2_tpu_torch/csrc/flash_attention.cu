@@ -229,13 +229,11 @@ int launch(bool folded, const void* q, const void* k, const void* v, const int* 
            float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kernel = folded ? flash_fwd_folded_kernel<T, HD> : flash_fwd_kernel<T, HD>;
-  static bool configured[2] = {false, false};
-  if (!configured[folded]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[folded] = true;
-  }
+  static unsigned configured[2] = {0, 0};   // one bit per card
+  cudaError_t err = once_per_device(configured[folded], [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  });
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((s + BQ - 1) / BQ, folded ? b : b * h);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), meta,

@@ -14,10 +14,11 @@
 //                        _write_rows_per_slot), in-block causal attention;
 //   both with the chunked cache (pick_chunk/chunk_for, the online softmax over
 //   chunks of _kernel and _verify_kernel, the clamped chunk index map);
-// both without tensor parallelism, in the serving path's formats:
+// in the serving path's formats:
 //   weights  dense (#6); int8 W8A8 (_q8_dot) and int4 W4A16 (_q4_dot) (#6a);
 //   cache    float32 or bfloat16 (#6); int8 with per-(slot, head) bfloat16
-//            scales (#6a: quantize_kv_rowmajor, _fake_quant_row, the dequant).
+//            scales (#6a: quantize_kv_rowmajor, _fake_quant_row, the dequant);
+// and both under tensor parallelism (their `tp` argument, with 5c below).
 // The formats are template parameters of the same kernels, and #7 is the same
 // launcher as #6 with rows * K query rows and a device pointer to the per-row
 // start slots: the projections, the cache write and the FFN take every query
@@ -90,6 +91,45 @@
 //                accumulate exactly in int32 (__dp4a), and y = acc * sx *
 //                scale[col] in f32.
 //
+// Tensor parallelism (valle2_fused_step_tp; 5c replaces _ring_allreduce,
+// fused_decode.py:252-295, and the reduce sites of _kernel :480-490 and
+// _verify_kernel :786-792).  Rank r holds the Megatron split of the stack
+// (its h local heads, a (L, rows, S, da) cache with da = d / mp, its share of
+// dff; the hidden state stays d wide), and the OUT and FFN2 projections write
+// raw f32 partial sums instead of their epilogues.  5c, tp_allreduce_kernel,
+// then gives every rank the sum over ranks s = 0..mp-1 in rank order,
+// ((0 + p_0) + p_1) + ..., so every rank holds the same bits, with the bias
+// added once after the sum and then the residual (the one-rank epilogues,
+// moved after the sum).  Each rank's 5c reads the mp partials directly: its
+// own locally, its peers' over NVLink through peer pointers (the launcher
+// enables peer access; a pair without it is refused, never worked around).
+// On an NVSwitch H100 host every peer is one hop away, so no ring is needed;
+// the ring was the TPU torus's answer.  This departs from the usual mapping
+// of in-kernel remote copies to NCCL collectives outside the kernel, for
+// three reasons: NCCL refuses two ranks on one GPU (virtual ranks, how one
+// card checks the protocol); one process keeps ValleTTS(mesh=) a single
+// object, as under JAX's single controller; and a peer read needs no staging.
+//
+// The ordering protocol (one host thread, CUDA events; rank r's kernels run
+// on its own stream, virtual ranks on one card included): the TP step first
+// makes every rank's stream wait for every caller stream's queued work; then
+// per layer, each rank queues its attention phase, ending in its OUT partial
+// into its plane part_out; a barrier (each rank records its event, each rank's
+// stream waits for every rank's event); each rank's 5c over the mp part_out
+// planes into its f32 mid state, and its FFN phase, ending in its FFN2
+// partial into its plane part_ffn; a barrier; each rank's 5c over the part_ffn
+// planes into its hidden state.  Two planes suffice: rank r writes part_out
+// again only in the next layer, after the FFN barrier, which every rank
+// reaches only after its 5c has read the part_out planes (and part_ffn after
+// the next layer's OUT barrier, likewise).  At the end every caller stream
+// waits for every rank's last event, so no partial is freed, or reused by
+// PyTorch's allocator, while a peer still reads it.  A TP launch holds one
+// lock (the event pool: one event per (card, rank)).  5c alone
+// (valle2_tp_allreduce) serves the prefill's and the NAR's row-parallel
+// sums on the callers' streams, between the same two barriers.  What bounds
+// 5c: each rank reads mp partials of rows * d f32 and writes one, a few KB at
+// the serving shape, so its time is launch and synchronisation latency.
+//
 // What bounds it on this card: at 12 query rows a step streams the weights
 // (about 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and
 // the valid cache prefix (half the bytes in int8), and does far too little
@@ -114,6 +154,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -155,9 +197,11 @@ struct ProjArgs {
   float* out32;        // OUT: (rows, d) mid state; FFN1: (rows, N) GELU output
   const float* res32;  // FFN2: (rows, d) mid state
   T* y;                // FFN2: (rows, d) hidden state leaving the layer
+  float* partial;      // OUT, FFN2 under tensor parallelism: (rows, N) raw f32 sums,
+                       // the epilogue left to the all-reduce (null: fused here)
   const int* idx;      // QKV: (rows / qblk,) start slot of each cache row, or null
-  int rows, K, N, d, S, index, group, qblk;   // rows: query rows; qblk per cache row
-  float scale;
+  int rows, K, N, d, S, index, group, qblk;   // rows: query rows; qblk per cache row;
+  float scale;                                // d: the attention (cache) width
 };
 
 size_t proj_smem(int K, int wf, int mr) {
@@ -364,7 +408,9 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
       for (int w = 0; w < KSPLIT; ++w) s += red[(w * MAXR + r) * NCOL + i % NCOL];
     }
     const int row = r0 + r, d = a.d;
-    if constexpr (MODE == QKV) {
+    if ((MODE == OUT || MODE == FFN2) && a.partial) {
+      a.partial[(size_t)row * N + j] = s;
+    } else if constexpr (MODE == QKV) {
       if (j < d) {
         a.q[(size_t)row * d + j] = s * a.scale;
       } else if constexpr (std::is_same<TC, int8_t>::value) {
@@ -377,13 +423,13 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
         }
       }
     } else if constexpr (MODE == OUT) {
-      a.out32[(size_t)row * d + j] = to_f<T>(a.x[(size_t)row * d + j]) +
+      a.out32[(size_t)row * N + j] = to_f<T>(a.x[(size_t)row * N + j]) +
                                      (s + to_f<T>(a.bias[j]));
     } else if constexpr (MODE == FFN1) {
       const float t = s + to_f<T>(a.bias[j]);
       a.out32[(size_t)row * N + j] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
     } else {
-      a.y[(size_t)row * d + j] = from_f<T>(a.res32[(size_t)row * d + j] +
+      a.y[(size_t)row * N + j] = from_f<T>(a.res32[(size_t)row * N + j] +
                                            (s + to_f<T>(a.bias[j])));
     }
   }
@@ -571,15 +617,14 @@ merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h, int
 
 template <typename T, typename TC, int MODE, int WF, int MR>
 int launch_proj_tile(const ProjArgs<T>& a, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
+  static unsigned configured = 0;   // one bit per card: the attribute is per device
+  cudaError_t err = once_per_device(configured, [] {
     const int kmax = MR == 16 ? max_k16(WF) : max_k8(WF);
-    cudaError_t err = cudaFuncSetAttribute(proj_kernel<T, TC, MODE, WF, MR>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)proj_smem(kmax, WF, MR));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+    return cudaFuncSetAttribute(proj_kernel<T, TC, MODE, WF, MR>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)proj_smem(kmax, WF, MR));
+  });
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((a.N + NCOL - 1) / NCOL, (a.rows + MR - 1) / MR);
   proj_kernel<T, TC, MODE, WF, MR><<<grid, PNT, proj_smem(a.K, WF, MR), stream>>>(a);
   return (int)cudaGetLastError();
@@ -602,8 +647,9 @@ struct StepArgs {
   const int* idx;                      // (rows,) start slots, or null: `index`
   float *qbuf, *abuf, *xmid, *hmid, *kvnew;
   float* part;                         // chunk < S: (rows * qblk * h * S / chunk, HD + 2)
-  int L, rows, S, d, h, dff, index, qblk, ttm, pm, groups_d, groups_ff, chunk;
-  float scale;
+  float *part_out, *part_ffn;          // TP: this rank's (rows * qblk, d) f32 partials
+  int L, rows, S, d, da, h, dff, index, qblk, ttm, pm, groups_d, groups_att, groups_ff, chunk;
+  float scale;                         // da: the attention (cache) width, d unless TP
 };
 
 // The weight of layer l of a stacked (L, K, N) weight in format WF.
@@ -621,127 +667,315 @@ const T* layer_scale(const void* s, int l, int N, int groups) {
   return static_cast<const T*>(s) + (size_t)l * (WF == W4 ? groups : 1) * N;
 }
 
+// The projection arguments every phase of layer l shares.
+template <typename T>
+ProjArgs<T> layer_args(const StepArgs& s, int l) {
+  ProjArgs<T> a{};
+  a.x = l == 0 ? static_cast<const T*>(s.x) : static_cast<const T*>(s.y);
+  a.rows = s.rows * s.qblk;   // query rows through the projections
+  a.d = s.da;
+  a.S = s.S;
+  a.index = s.index;
+  a.idx = s.idx;
+  a.qblk = s.qblk;
+  a.scale = s.scale;
+  return a;
+}
+
+// Layer l up to the out-projection: LN1 + QKV (+ the int8 cache write), the
+// attention, and the out-projection, fused with its bias and residual into
+// the f32 mid state, or under TP (`partial`) its raw partial sum.
+template <typename T, typename TC, int HD, int WF>
+int attn_phase(const StepArgs& s, int l, float* partial, cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
+  const int d = s.d, da = s.da;
+  const int rows_q = s.rows * s.qblk;
+  const size_t cache_layer = (size_t)s.rows * s.S * da;
+  const size_t scale_layer = (size_t)s.rows * s.S * s.h;
+  TC* ck = static_cast<TC*>(s.ck) + l * cache_layer;
+  TC* cv = static_cast<TC*>(s.cv) + l * cache_layer;
+  __nv_bfloat16* ks = QUANT ? static_cast<__nv_bfloat16*>(s.ks) + l * scale_layer : nullptr;
+  __nv_bfloat16* vs = QUANT ? static_cast<__nv_bfloat16*>(s.vs) + l * scale_layer : nullptr;
+  ProjArgs<T> a = layer_args<T>(s, l);
+  int err;
+  a.ln_s = static_cast<const T*>(s.n1s) + (size_t)l * d;
+  a.ln_b = static_cast<const T*>(s.n1b) + (size_t)l * d;
+  a.w = layer_weight<T, WF>(s.wqkv, l, d, 3 * da);
+  a.wscale = layer_scale<T, WF>(s.sqkv, l, 3 * da, s.groups_d);
+  a.group = d / s.groups_d;
+  a.K = d;
+  a.N = 3 * da;
+  a.q = s.qbuf;
+  a.ck = QUANT ? static_cast<void*>(s.kvnew) : static_cast<void*>(ck);
+  a.cv = cv;
+  if ((err = launch_proj<T, TC, QKV, WF>(a, stream))) return err;
+  if constexpr (QUANT) {
+    const int warps = rows_q * 2 * s.h;
+    kv_quant_kernel<HD><<<(warps + KVQ_WARPS - 1) / KVQ_WARPS, KVQ_WARPS * 32, 0, stream>>>(
+        s.kvnew, ck, cv, ks, vs, s.idx, rows_q, s.h, s.S, da, s.index, s.qblk);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+
+  if (s.chunk < s.S) {
+    const int n_chunks = s.S / s.chunk;
+    attend_kernel<TC, HD, true><<<dim3(rows_q * s.h, n_chunks), ANW * 32, 0, stream>>>(
+        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, nullptr, s.part, s.h,
+        s.S, da, s.index, s.qblk, s.ttm, s.pm, s.chunk);
+    if ((err = (int)cudaGetLastError())) return err;
+    merge_kernel<HD><<<rows_q * s.h, HD, 0, stream>>>(s.part, s.abuf, s.h, da, n_chunks);
+  } else {
+    attend_kernel<TC, HD, false><<<rows_q * s.h, ANW * 32, 0, stream>>>(
+        s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, s.abuf, nullptr, s.h,
+        s.S, da, s.index, s.qblk, s.ttm, s.pm, s.S);
+  }
+  if ((err = (int)cudaGetLastError())) return err;
+
+  a.a32 = s.abuf;
+  a.w = layer_weight<T, WF>(s.wout, l, da, d);
+  a.wscale = layer_scale<T, WF>(s.sout, l, d, s.groups_att);
+  a.group = da / s.groups_att;
+  a.bias = static_cast<const T*>(s.bout) + (size_t)l * d;
+  a.K = da;
+  a.N = d;
+  a.out32 = s.xmid;
+  a.partial = partial;
+  return launch_proj<T, T, OUT, WF>(a, stream);
+}
+
+// The rest of layer l: LN2 (of the f32 mid state) + FFN1 + GELU, and FFN2,
+// fused with its bias and residual into the hidden state, or under TP
+// (`partial`) its raw partial sum.
+template <typename T, typename TC, int HD, int WF>
+int ffn_phase(const StepArgs& s, int l, float* partial, cudaStream_t stream) {
+  const int d = s.d, dff = s.dff;
+  ProjArgs<T> a = layer_args<T>(s, l);
+  int err;
+  a.a32 = s.xmid;
+  a.ln_s = static_cast<const T*>(s.n2s) + (size_t)l * d;
+  a.ln_b = static_cast<const T*>(s.n2b) + (size_t)l * d;
+  a.w = layer_weight<T, WF>(s.w1, l, d, dff);
+  a.wscale = layer_scale<T, WF>(s.s1, l, dff, s.groups_d);
+  a.group = d / s.groups_d;
+  a.bias = static_cast<const T*>(s.b1) + (size_t)l * dff;
+  a.K = d;
+  a.N = dff;
+  a.out32 = s.hmid;
+  if ((err = launch_proj<T, T, FFN1, WF>(a, stream))) return err;
+
+  a.a32 = s.hmid;
+  a.w = layer_weight<T, WF>(s.w2, l, dff, d);
+  a.wscale = layer_scale<T, WF>(s.s2, l, d, s.groups_ff);
+  a.group = dff / s.groups_ff;
+  a.bias = static_cast<const T*>(s.b2) + (size_t)l * d;
+  a.K = dff;
+  a.N = d;
+  a.res32 = s.xmid;
+  a.y = static_cast<T*>(s.y);
+  a.partial = partial;
+  return launch_proj<T, T, FFN2, WF>(a, stream);
+}
+
 template <typename T, typename TC, int HD, int WF>
 int step(const StepArgs& s, cudaStream_t stream) {
-  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
-  const int d = s.d, dff = s.dff;
-  const int rows_q = s.rows * s.qblk;   // query rows through the projections
-  const size_t cache_layer = (size_t)s.rows * s.S * d;
-  const size_t scale_layer = (size_t)s.rows * s.S * s.h;
   int err;
   for (int l = 0; l < s.L; ++l) {
-    const T* x = l == 0 ? static_cast<const T*>(s.x) : static_cast<const T*>(s.y);
-    TC* ck = static_cast<TC*>(s.ck) + l * cache_layer;
-    TC* cv = static_cast<TC*>(s.cv) + l * cache_layer;
-    __nv_bfloat16* ks = QUANT ? static_cast<__nv_bfloat16*>(s.ks) + l * scale_layer : nullptr;
-    __nv_bfloat16* vs = QUANT ? static_cast<__nv_bfloat16*>(s.vs) + l * scale_layer : nullptr;
-    ProjArgs<T> a{};
-    a.x = x;
-    a.rows = rows_q;
-    a.d = d;
-    a.S = s.S;
-    a.index = s.index;
-    a.idx = s.idx;
-    a.qblk = s.qblk;
-    a.scale = s.scale;
-
-    a.ln_s = static_cast<const T*>(s.n1s) + (size_t)l * d;
-    a.ln_b = static_cast<const T*>(s.n1b) + (size_t)l * d;
-    a.w = layer_weight<T, WF>(s.wqkv, l, d, 3 * d);
-    a.wscale = layer_scale<T, WF>(s.sqkv, l, 3 * d, s.groups_d);
-    a.group = d / s.groups_d;
-    a.K = d;
-    a.N = 3 * d;
-    a.q = s.qbuf;
-    a.ck = QUANT ? static_cast<void*>(s.kvnew) : static_cast<void*>(ck);
-    a.cv = cv;
-    if ((err = launch_proj<T, TC, QKV, WF>(a, stream))) return err;
-    if constexpr (QUANT) {
-      const int warps = rows_q * 2 * s.h;
-      kv_quant_kernel<HD><<<(warps + KVQ_WARPS - 1) / KVQ_WARPS, KVQ_WARPS * 32, 0, stream>>>(
-          s.kvnew, ck, cv, ks, vs, s.idx, rows_q, s.h, s.S, d, s.index, s.qblk);
-      if ((err = (int)cudaGetLastError())) return err;
-    }
-
-    if (s.chunk < s.S) {
-      const int n_chunks = s.S / s.chunk;
-      attend_kernel<TC, HD, true><<<dim3(rows_q * s.h, n_chunks), ANW * 32, 0, stream>>>(
-          s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, nullptr, s.part, s.h,
-          s.S, d, s.index, s.qblk, s.ttm, s.pm, s.chunk);
-      if ((err = (int)cudaGetLastError())) return err;
-      merge_kernel<HD><<<rows_q * s.h, HD, 0, stream>>>(s.part, s.abuf, s.h, d, n_chunks);
-    } else {
-      attend_kernel<TC, HD, false><<<rows_q * s.h, ANW * 32, 0, stream>>>(
-          s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx, s.abuf, nullptr, s.h,
-          s.S, d, s.index, s.qblk, s.ttm, s.pm, s.S);
-    }
-    if ((err = (int)cudaGetLastError())) return err;
-
-    a.a32 = s.abuf;
-    a.w = layer_weight<T, WF>(s.wout, l, d, d);
-    a.wscale = layer_scale<T, WF>(s.sout, l, d, s.groups_d);
-    a.bias = static_cast<const T*>(s.bout) + (size_t)l * d;
-    a.N = d;
-    a.out32 = s.xmid;
-    if ((err = launch_proj<T, T, OUT, WF>(a, stream))) return err;
-
-    a.a32 = s.xmid;
-    a.ln_s = static_cast<const T*>(s.n2s) + (size_t)l * d;
-    a.ln_b = static_cast<const T*>(s.n2b) + (size_t)l * d;
-    a.w = layer_weight<T, WF>(s.w1, l, d, dff);
-    a.wscale = layer_scale<T, WF>(s.s1, l, dff, s.groups_d);
-    a.bias = static_cast<const T*>(s.b1) + (size_t)l * dff;
-    a.N = dff;
-    a.out32 = s.hmid;
-    if ((err = launch_proj<T, T, FFN1, WF>(a, stream))) return err;
-
-    a.a32 = s.hmid;
-    a.w = layer_weight<T, WF>(s.w2, l, dff, d);
-    a.wscale = layer_scale<T, WF>(s.s2, l, d, s.groups_ff);
-    a.group = dff / s.groups_ff;
-    a.bias = static_cast<const T*>(s.b2) + (size_t)l * d;
-    a.K = dff;
-    a.N = d;
-    a.res32 = s.xmid;
-    a.y = static_cast<T*>(s.y);
-    if ((err = launch_proj<T, T, FFN2, WF>(a, stream))) return err;
+    if ((err = attn_phase<T, TC, HD, WF>(s, l, nullptr, stream))) return err;
+    if ((err = ffn_phase<T, TC, HD, WF>(s, l, nullptr, stream))) return err;
   }
   return 0;
 }
 
-template <typename T, typename TC, int WF>
-int dispatch_hd(const StepArgs& s, cudaStream_t stream) {
-  switch (s.d / s.h) {
-    case 32: return step<T, TC, 32, WF>(s, stream);
-    case 64: return step<T, TC, 64, WF>(s, stream);
-    case 96: return step<T, TC, 96, WF>(s, stream);
-    case 128: return step<T, TC, 128, WF>(s, stream);
+template <typename T> struct Tag { using type = T; };
+template <int V> using Int = std::integral_constant<int, V>;
+
+// f(Tag<T>, Tag<TC>, Int<HD>, Int<WF>) for the formats' template arguments:
+// T the compute dtype, TC the cache's, HD the head dim, WF the weight format.
+template <typename T, typename TC, int WF, typename F>
+int with_hd(int hd, F&& f) {
+  switch (hd) {
+    case 32: return f(Tag<T>{}, Tag<TC>{}, Int<32>{}, Int<WF>{});
+    case 64: return f(Tag<T>{}, Tag<TC>{}, Int<64>{}, Int<WF>{});
+    case 96: return f(Tag<T>{}, Tag<TC>{}, Int<96>{}, Int<WF>{});
+    case 128: return f(Tag<T>{}, Tag<TC>{}, Int<128>{}, Int<WF>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T, typename TC>
-int dispatch_wf(int wfmt, const StepArgs& s, cudaStream_t stream) {
+template <typename T, typename TC, typename F>
+int with_wf(int wfmt, int hd, F&& f) {
   switch (wfmt) {
-    case DENSE: return dispatch_hd<T, TC, DENSE>(s, stream);
-    case W8: return dispatch_hd<T, TC, W8>(s, stream);
-    case W4: return dispatch_hd<T, TC, W4>(s, stream);
+    case DENSE: return with_hd<T, TC, DENSE>(hd, f);
+    case W8: return with_hd<T, TC, W8>(hd, f);
+    case W4: return with_hd<T, TC, W4>(hd, f);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename F>
+int with_formats(int dtype, int cache_dtype, int wfmt, int hd, F&& f) {
+  if (dtype == 0 && cache_dtype == 0) return with_wf<float, float>(wfmt, hd, f);
+  if (dtype == 0 && cache_dtype == 1) return with_wf<float, __nv_bfloat16>(wfmt, hd, f);
+  if (dtype == 0 && cache_dtype == 2) return with_wf<float, int8_t>(wfmt, hd, f);
+  if (dtype == 1 && cache_dtype == 1) return with_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, hd, f);
+  if (dtype == 1 && cache_dtype == 2) return with_wf<__nv_bfloat16, int8_t>(wfmt, hd, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_args(const StepArgs& s) {
+  return s.groups_d < 1 || s.groups_att < 1 || s.groups_ff < 1 || s.qblk < 1 ||
+         s.chunk < 1 || s.S % s.chunk || (s.chunk < s.S && s.part == nullptr) || s.h < 1 ||
+         s.da % s.h;
 }
 
 int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.groups_d < 1 || s.groups_ff < 1 || s.qblk < 1 || s.chunk < 1 || s.S % s.chunk ||
-      (s.chunk < s.S && s.part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && cache_dtype == 0) return dispatch_wf<float, float>(wfmt, s, st);
-  if (dtype == 0 && cache_dtype == 1) return dispatch_wf<float, __nv_bfloat16>(wfmt, s, st);
-  if (dtype == 0 && cache_dtype == 2) return dispatch_wf<float, int8_t>(wfmt, s, st);
-  if (dtype == 1 && cache_dtype == 1)
-    return dispatch_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, s, st);
-  if (dtype == 1 && cache_dtype == 2) return dispatch_wf<__nv_bfloat16, int8_t>(wfmt, s, st);
-  return (int)cudaErrorInvalidValue;
+  if (bad_args(s)) return (int)cudaErrorInvalidValue;
+  return with_formats(dtype, cache_dtype, wfmt, s.da / s.h,
+                      [&](auto t, auto tc, auto hd, auto wf) {
+    return step<typename decltype(t)::type, typename decltype(tc)::type, decltype(hd)::value,
+                decltype(wf)::value>(s, st);
+  });
+}
+
+// ---- Tensor parallelism: 5c and the TP step ----
+
+constexpr int MAX_MP = 8;      // ranks of one launch
+constexpr int MAX_CARDS = 32;  // cards of the event pool
+constexpr int RED_THREADS = 256;
+constexpr int TP_PTRS = 32;    // device pointers per rank of valle2_fused_step_tp
+
+enum Epilogue { EPI_SUM = 0, EPI_OUT = 1, EPI_FFN2 = 2 };
+
+struct Partials {
+  const float* p[MAX_MP];      // rank r's partial: local, or a peer's over NVLink
+};
+
+// 5c: out[i] = sum over ranks in rank order of partial_r[i], f32, the same
+// bits on every rank.  EPI_SUM writes the sum (f32); EPI_OUT the f32 mid
+// state x + (sum + bias) (x the layer's input, compute dtype); EPI_FFN2 the
+// hidden state res32 + (sum + bias) in the compute dtype (the one-rank OUT and
+// FFN2 epilogues, after the sum).
+template <typename T, int EPI>
+__global__ void __launch_bounds__(RED_THREADS)
+tp_allreduce_kernel(Partials src, int mp, long n, int d, const T* __restrict__ bias,
+                    const T* __restrict__ x, const float* __restrict__ res32,
+                    float* __restrict__ out32, T* __restrict__ y) {
+  for (long i = blockIdx.x * (long)RED_THREADS + threadIdx.x; i < n;
+       i += (long)gridDim.x * RED_THREADS) {
+    float s = 0.f;
+    for (int r = 0; r < mp; ++r) s += src.p[r][i];
+    if constexpr (EPI == EPI_SUM) {
+      out32[i] = s;
+    } else if constexpr (EPI == EPI_OUT) {
+      out32[i] = to_f<T>(x[i]) + (s + to_f<T>(bias[i % d]));
+    } else {
+      y[i] = from_f<T>(res32[i] + (s + to_f<T>(bias[i % d])));
+    }
+  }
+}
+
+template <typename T, int EPI>
+int launch_reduce(const Partials& src, int mp, long n, int d, const T* bias, const T* x,
+                  const float* res32, float* out32, T* y, cudaStream_t stream) {
+  const int blocks = (int)std::min<long>((n + RED_THREADS - 1) / RED_THREADS, 1024);
+  tp_allreduce_kernel<T, EPI><<<blocks, RED_THREADS, 0, stream>>>(src, mp, n, d, bias, x,
+                                                                  res32, out32, y);
+  return (int)cudaGetLastError();
+}
+
+// The single host thread orders the ranks with one event per rank (made at
+// first use, per card), under one lock: a TP launch at a time.
+std::mutex tp_mutex;
+cudaEvent_t tp_events[MAX_CARDS][MAX_MP];
+
+struct DeviceRestore {        // puts the caller's current card back
+  int dev = 0;
+  DeviceRestore() { cudaGetDevice(&dev); }
+  ~DeviceRestore() { cudaSetDevice(dev); }
+};
+
+struct Ranks {
+  int mp;
+  int card[MAX_MP];
+  cudaStream_t stream[MAX_MP];   // where rank r's kernels run
+  cudaEvent_t ev[MAX_MP];
+
+  int init(int n, const int* cards, void* const* streams) {
+    mp = n;
+    if (mp < 1 || mp > MAX_MP) return (int)cudaErrorInvalidValue;
+    for (int r = 0; r < mp; ++r) {
+      card[r] = cards[r];
+      stream[r] = static_cast<cudaStream_t>(streams[r]);
+      if (card[r] < 0 || card[r] >= MAX_CARDS) return (int)cudaErrorInvalidDevice;
+      cudaEvent_t& e = tp_events[card[r]][r];
+      if (e == nullptr) {
+        cudaError_t err = cudaSetDevice(card[r]);
+        if (err == cudaSuccess) err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+        if (err != cudaSuccess) return (int)err;
+      }
+      ev[r] = e;
+    }
+    return 0;
+  }
+
+  // Every stream in `waiters` waits for all the work queued so far on every
+  // rank's `from` stream.
+  int barrier(cudaStream_t const* from, cudaStream_t const* waiters) {
+    cudaError_t err;
+    for (int r = 0; r < mp; ++r) {
+      if ((err = cudaSetDevice(card[r])) || (err = cudaEventRecord(ev[r], from[r])))
+        return (int)err;
+    }
+    for (int r = 0; r < mp; ++r) {
+      if ((err = cudaSetDevice(card[r]))) return (int)err;
+      for (int q = 0; q < mp; ++q)
+        if ((err = cudaStreamWaitEvent(waiters[r], ev[q], 0))) return (int)err;
+    }
+    return 0;
+  }
+};
+
+// The TP step: layer by layer, every rank's attention phase (its partial of
+// the out-projection into its plane part_out), a barrier, every rank's 5c over
+// the mp part_out planes into its mid state, every rank's FFN phase (its FFN2
+// partial into part_ffn), a barrier, every rank's 5c into its hidden state.
+template <typename T, typename TC, int HD, int WF>
+int step_tp(Ranks& k, const StepArgs* s, cudaStream_t const* caller) {
+  const long n = (long)s[0].rows * s[0].qblk * s[0].d;
+  const int d = s[0].d;
+  Partials out_p{}, ffn_p{};
+  for (int r = 0; r < k.mp; ++r) {
+    out_p.p[r] = s[r].part_out;
+    ffn_p.p[r] = s[r].part_ffn;
+  }
+  int err;
+  if ((err = k.barrier(caller, k.stream))) return err;          // fork
+  for (int l = 0; l < s[0].L; ++l) {
+    for (int r = 0; r < k.mp; ++r) {
+      cudaSetDevice(k.card[r]);
+      if ((err = attn_phase<T, TC, HD, WF>(s[r], l, s[r].part_out, k.stream[r]))) return err;
+    }
+    if ((err = k.barrier(k.stream, k.stream))) return err;
+    for (int r = 0; r < k.mp; ++r) {
+      cudaSetDevice(k.card[r]);
+      const T* x = static_cast<const T*>(l == 0 ? s[r].x : s[r].y);
+      if ((err = launch_reduce<T, EPI_OUT>(out_p, k.mp, n, d,
+                                           static_cast<const T*>(s[r].bout) + (size_t)l * d,
+                                           x, nullptr, s[r].xmid, nullptr, k.stream[r])))
+        return err;
+      if ((err = ffn_phase<T, TC, HD, WF>(s[r], l, s[r].part_ffn, k.stream[r]))) return err;
+    }
+    if ((err = k.barrier(k.stream, k.stream))) return err;
+    for (int r = 0; r < k.mp; ++r) {
+      cudaSetDevice(k.card[r]);
+      if ((err = launch_reduce<T, EPI_FFN2>(ffn_p, k.mp, n, d,
+                                            static_cast<const T*>(s[r].b2) + (size_t)l * d,
+                                            nullptr, s[r].xmid, nullptr,
+                                            static_cast<T*>(s[r].y), k.stream[r])))
+        return err;
+    }
+  }
+  return k.barrier(k.stream, caller);                            // join
 }
 
 }  // namespace
@@ -779,8 +1013,8 @@ extern "C" int valle2_fused_decode_step(
     int groups_ff, int chunk, float scale, void* stream) {
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
              sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
-             hmid, kvnew, part, L, rows, S, d, h, dff, index, 1, ttm, pm, groups_d,
-             groups_ff, chunk, scale};
+             hmid, kvnew, part, nullptr, nullptr, L, rows, S, d, d, h, dff, index, 1, ttm,
+             pm, groups_d, groups_d, groups_ff, chunk, scale};
   return dispatch(dtype, cache_dtype, wfmt, s, stream);
 }
 
@@ -799,7 +1033,105 @@ extern "C" int valle2_fused_verify_step(
   if (idx == nullptr) return (int)cudaErrorInvalidValue;
   StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
              sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
-             hmid, kvnew, part, L, rows, S, d, h, dff, 0, qblk, ttm, pm, groups_d,
-             groups_ff, chunk, scale};
+             hmid, kvnew, part, nullptr, nullptr, L, rows, S, d, d, h, dff, 0, qblk, ttm,
+             pm, groups_d, groups_d, groups_ff, chunk, scale};
   return dispatch(dtype, cache_dtype, wfmt, s, stream);
+}
+
+// Tensor parallelism over mp ranks (one host call for all of them).  ptrs:
+// TP_PTRS device pointers per rank, rank-major: those of the launchers above
+// in their order (x, y, the 11 weights, ck, cv, the 4 weight scales, ks, vs,
+// tokens_lens, codes_lens, idx, qbuf, abuf, xmid, hmid, kvnew, part), then the
+// rank's two (rows * qblk, d) f32 partial planes.  A rank's stack is its
+// Megatron split: qkv (L, d, 3 da), out (L, da, d), lin1 (L, d, dff), lin2
+// (L, dff, d), with da = d / mp and dff the rank's share; its cache (L,
+// rows, S, da) holds its h local heads; qbuf/abuf (., da), kvnew (., 2 da),
+// xmid (., d), hmid (., dff).  groups_att: the int4 groups of out's da-wide
+// input (the ranked packing).  cards[r]: rank r's card; streams[r]: the
+// stream its kernels run on; callers[r]: the caller's stream on that card,
+// which the step waits for first and which waits for the step at the end.
+// verify = 1: the verify step, index_or_qblk = qblk (idx required); else the
+// decode step with index_or_qblk the scalar index (idx null) or 0.  W8A8
+// weights are refused (cudaErrorInvalidValue).
+extern "C" int valle2_fused_step_tp(int verify, int dtype, int cache_dtype, int wfmt, int mp,
+                                    void* const* ptrs, const int* cards, void* const* streams,
+                                    void* const* callers, int L, int rows, int S, int d,
+                                    int da, int h, int dff, int index_or_qblk, int ttm, int pm,
+                                    int groups_d, int groups_att, int groups_ff, int chunk,
+                                    float scale) {
+  if (wfmt == W8 || mp < 1 || mp > MAX_MP) return (int)cudaErrorInvalidValue;
+  StepArgs s[MAX_MP];
+  cudaStream_t caller[MAX_MP];
+  for (int r = 0; r < mp; ++r) {
+    void* const* P = ptrs + (size_t)r * TP_PTRS;
+    StepArgs& a = s[r];
+    a.x = P[0], a.y = P[1], a.n1s = P[2], a.n1b = P[3], a.wqkv = P[4], a.wout = P[5];
+    a.bout = P[6], a.n2s = P[7], a.n2b = P[8], a.w1 = P[9], a.b1 = P[10], a.w2 = P[11];
+    a.b2 = P[12], a.ck = P[13], a.cv = P[14], a.sqkv = P[15], a.sout = P[16], a.s1 = P[17];
+    a.s2 = P[18], a.ks = P[19], a.vs = P[20];
+    a.tokens_lens = static_cast<const int*>(P[21]);
+    a.codes_lens = static_cast<const int*>(P[22]);
+    a.idx = static_cast<const int*>(P[23]);
+    a.qbuf = static_cast<float*>(P[24]), a.abuf = static_cast<float*>(P[25]);
+    a.xmid = static_cast<float*>(P[26]), a.hmid = static_cast<float*>(P[27]);
+    a.kvnew = static_cast<float*>(P[28]), a.part = static_cast<float*>(P[29]);
+    a.part_out = static_cast<float*>(P[30]), a.part_ffn = static_cast<float*>(P[31]);
+    a.L = L, a.rows = rows, a.S = S, a.d = d, a.da = da, a.h = h, a.dff = dff;
+    a.index = verify ? 0 : index_or_qblk, a.qblk = verify ? index_or_qblk : 1;
+    a.ttm = ttm, a.pm = pm, a.groups_d = groups_d, a.groups_att = groups_att;
+    a.groups_ff = groups_ff, a.chunk = chunk, a.scale = scale;
+    if (bad_args(a) || a.part_out == nullptr || a.part_ffn == nullptr ||
+        (verify && a.idx == nullptr))
+      return (int)cudaErrorInvalidValue;
+    caller[r] = static_cast<cudaStream_t>(callers[r]);
+  }
+  std::lock_guard<std::mutex> lock(tp_mutex);
+  DeviceRestore restore;
+  Ranks k;
+  int err = k.init(mp, cards, streams);
+  if (err) return err;
+  return with_formats(dtype, cache_dtype, wfmt, da / h, [&](auto t, auto tc, auto hd, auto wf) {
+    return step_tp<typename decltype(t)::type, typename decltype(tc)::type,
+                   decltype(hd)::value, decltype(wf)::value>(k, s, caller);
+  });
+}
+
+// 5c alone (EPI_SUM): rank r's out[r] (n f32) = the rank-ordered sum of the
+// mp partials, launched on streams[r] (the caller's current stream on card
+// cards[r]) after every rank's queued work, which then waits for every rank's
+// reads before it goes on.
+extern "C" int valle2_tp_allreduce(int mp, void* const* partials, void* const* outs,
+                                   const int* cards, void* const* streams, long n) {
+  if (mp < 1 || mp > MAX_MP || n < 0) return (int)cudaErrorInvalidValue;
+  Partials src{};
+  cudaStream_t st[MAX_MP];
+  for (int r = 0; r < mp; ++r) {
+    src.p[r] = static_cast<const float*>(partials[r]);
+    st[r] = static_cast<cudaStream_t>(streams[r]);
+  }
+  std::lock_guard<std::mutex> lock(tp_mutex);
+  DeviceRestore restore;
+  Ranks k;
+  int err = k.init(mp, cards, streams);
+  if (err || (err = k.barrier(st, st))) return err;
+  for (int r = 0; r < mp; ++r) {
+    cudaSetDevice(cards[r]);
+    if ((err = launch_reduce<float, EPI_SUM>(src, mp, n, 1, nullptr, nullptr, nullptr,
+                                             static_cast<float*>(outs[r]), nullptr, st[r])))
+      return err;
+  }
+  return k.barrier(st, st);
+}
+
+// Lets card `card`'s kernels read card `peer`'s memory (already enabled
+// counts as done).
+extern "C" int valle2_tp_enable_peer(int card, int peer) {
+  DeviceRestore restore;
+  cudaError_t err = cudaSetDevice(card);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  return (int)err;
 }

@@ -6,12 +6,16 @@ Replace the Pallas TPU kernels of ``valle2_tpu/kernels/fused_decode.py``:
 vector of per-row indices (continuous batching: rows at their own depths),
 and ``fused_verify_step`` → ``_verify_kernel``, a block of K query tokens per
 row written from each row's own start slot (the per-row write of
-``_write_rows_per_slot``), both without tensor parallelism and in every
-weight and cache format the serving path uses: dense weights (#6), int8 W8A8
-and int4 W4A16 weights (the ``'q'`` / ``'q4'`` layouts of ``quantize.py``),
-and a float32, bfloat16 or int8 cache (#6a).  The kernels are
-``csrc/fused_decode.cu`` (see its header for the design); each wrapper
-launches all of one step's kernels with one host call.
+``_write_rows_per_slot``), both in every weight and cache format the serving
+path uses: dense weights (#6), int8 W8A8 and int4 W4A16 weights (the ``'q'``
+/ ``'q4'`` layouts of ``quantize.py``), and a float32, bfloat16 or int8 cache
+(#6a).  Both also run tensor-parallel over a ('model',) mesh (their ``tp``
+argument, ``fused_step_tp``: each rank's local heads, the two row-parallel
+partials of every layer summed by the all-reduce 5c of
+``kernels.tp_allreduce``; dense and int4 weights, as in JAX).  The kernels
+are ``csrc/fused_decode.cu`` (see its header for the design and the TP
+ordering protocol); each wrapper launches all of one step's kernels, of
+every rank, with one host call.
 
 Both versions take the cache in the fused head-major layout (L, rows, S, d)
 (``fused_cache_layout``), an int8 cache with its per-(slot, head) bfloat16
@@ -43,8 +47,9 @@ import os
 
 import torch
 
-from ..ops.transformer import KVCache, transformer_decode_step
+from ..ops.transformer import KVCache, transformer_decode_step, transformer_decode_step_tp
 from . import _build
+from .tp_allreduce import MAX_MP, ensure_peer_access, tp_allreduce_plain
 
 # Launch counts per variant: weight format, then '_kv8' for an int8 cache.
 VARIANTS = ('dense', 'w8a8', 'w4a16', 'kv8', 'w8a8_kv8', 'w4a16_kv8')
@@ -60,6 +65,9 @@ CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
 PER_ROW_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_per_row',
                                                          'fused_decode_step_per_row_chunked')}
 PLAIN_CALLS = _build.LaunchCounter()
+# Launches of the tensor-parallel steps (one host call for every rank).
+TP_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_tp',
+                                                    'fused_verify_step_tp')}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WEIGHT_FORMATS = {'w': (0, 'dense'), 'q': (1, 'w8a8'), 'q4': (2, 'w4a16')}
 # config.weight_dtype -> the layout quantize.py gives the stack
@@ -131,16 +139,24 @@ def cache_chunk(cache: KVCache, n_heads: int, chunk_override: int | None,
     return chunk
 
 
-def fit_error(d: int, n_heads: int, dff: int, layout: str) -> str | None:
+def fit_error(d: int, n_heads: int, dff: int, layout: str, mp: int = 1) -> str | None:
     """Why the kernels cannot take a stack of these widths in this weight
-    layout ('w', 'q' or 'q4'), or None when they can."""
+    layout ('w', 'q' or 'q4'), split over ``mp`` tensor-parallel ranks, or
+    None when they can.  A rank's projection inputs are d wide (QKV, FFN1),
+    d / mp (the attention output) and dff / mp (FFN2)."""
     if d % n_heads or d // n_heads not in HEAD_DIMS:
         return (f'the fused decode kernels take head dims {HEAD_DIMS}, got d={d}, '
                 f'n_heads={n_heads}')
+    if mp > 1 and (n_heads % mp or dff % mp or layout == 'q'):
+        return (f'the tensor-parallel fused steps take heads and dff that split over {mp} '
+                f'ranks and dense or int4 weights (int8 W8A8 would need a global '
+                f'activation amax inside the step: the plain TP path takes it), got '
+                f'n_heads={n_heads}, dff={dff}, {layout!r} weights')
     wcode = _WEIGHT_FORMATS[layout][0]
-    if max(d, dff) > _MAX_K[wcode] or (layout != 'w' and dff % 8):
+    if max(d, dff // mp) > _MAX_K[wcode] or (layout != 'w' and (dff // mp) % 8):
         return (f'the fused decode kernels take widths up to {_MAX_K[wcode]} for '
-                f'{layout!r} weights (quantized: dff a multiple of 8), got d={d}, dff={dff}')
+                f'{layout!r} weights (quantized: dff a multiple of 8), got d={d}, '
+                f'dff={dff // mp} per rank')
     return None
 
 
@@ -232,6 +248,26 @@ def fused_verify_step_plain(p, x, n_heads: int, cache: KVCache, index, tokens_le
                        codes_lens, ttm, pm, chunk_override)
 
 
+def _step_plain_tp(name: str, trees, xs, n_heads: int, caches, index, tokens_lens,
+                   codes_lens, ttm: int, pm: int, chunk_override: int | None):
+    """``_step_plain`` over tensor-parallel ranks: each rank's local heads on
+    its cache, the row-parallel partials summed by ``tp_allreduce_plain``
+    (``transformer_decode_step_tp``)."""
+    PLAIN_CALLS.count += 1
+    seq, q_len = caches[0].k.shape[2], xs[0].shape[1]
+    chunk = cache_chunk(caches[0], n_heads, chunk_override, name)
+    attend = verify_slot_mask(seq, index, q_len, tokens_lens, codes_lens, ttm, pm)
+    visit = None
+    if chunk < seq:
+        deepest = int(index.max()) if torch.is_tensor(index) else int(index)
+        visit = (chunk, min(deepest + q_len - 1, seq - 1) // chunk + 1)
+    ys, _ = transformer_decode_step_tp(trees, xs, n_heads,
+                                       [per_head_view(c, n_heads) for c in caches], index,
+                                       attend_mask=attend, chunks=visit,
+                                       reduce=tp_allreduce_plain)
+    return ys, caches
+
+
 def weight_format(p) -> str:
     """'w' (dense), 'q' (int8 W8A8) or 'q4' (int4 W4A16): the layout of the
     stacked qkv projection, which every linear of the stack shares."""
@@ -275,14 +311,16 @@ def _check(t, shape, dtype, what: str, name: str = 'fused_decode_step'):
     return t
 
 
-def _weights(p, fmt: str, dtype, L: int, d: int, dff: int) -> tuple[list, list, list]:
+def _weights(p, fmt: str, dtype, L: int, d: int, da: int, dff: int
+             ) -> tuple[list, list, list]:
     """The stacked weights in the launcher's order, checked for the kernel:
     (norms, biases and weights), (the four weight scales, or none), and the
-    int4 group counts of the d-wide and dff-wide inputs."""
+    int4 group counts of the d-wide, da-wide (the attention output's: d / mp
+    under tensor parallelism) and dff-wide inputs."""
     def qshape(k_in, n):              # the weight tensor of a (k_in, n) linear
         return (L, k_in // 2, n) if fmt == 'q4' else (L, k_in, n)
     wdt = dtype if fmt == 'w' else torch.int8
-    lins = [(p['attn']['qkv'], d, 3 * d), (p['attn']['out'], d, d),
+    lins = [(p['attn']['qkv'], d, 3 * da), (p['attn']['out'], da, d),
             (p['ffn']['lin1'], d, dff), (p['ffn']['lin2'], dff, d)]
     qkv, out, lin1, lin2 = (_check(lin[fmt], qshape(k_in, n), wdt, f'the {fmt!r} weight')
                             for lin, k_in, n in lins)
@@ -293,35 +331,38 @@ def _weights(p, fmt: str, dtype, L: int, d: int, dff: int) -> tuple[list, list, 
                                         for t, n in vec)
     ws = [n1s, n1b, qkv, out, bout, n2s, n2b, lin1, b1, lin2, b2]
     if fmt == 'w':
-        return ws, [None] * 4, [1, 1]
+        return ws, [None] * 4, [1, 1, 1]
     if fmt == 'q':
         return ws, [_check(lin['scale'], (L, n), dtype, 'a weight scale')
-                    for lin, _, n in lins], [1, 1]
-    groups = []
-    for k_in in (d, dff):
+                    for lin, _, n in lins], [1, 1, 1]
+    groups = {}
+    for k_in in dict.fromkeys((d, da, dff)):
         g = [lin['scale4'].shape[1] for lin, kk, _ in lins if kk == k_in]
         if len(set(g)) != 1 or g[0] % 2 or (k_in // 2) % (g[0] // 2):
             raise ValueError(f'fused_decode_step kernel: int4 group counts {g} of the '
                              f'{k_in}-wide inputs must agree and align with the nibble '
                              'planes (quantize.group4_for)')
-        groups.append(g[0])
-    scales = [_check(lin['scale4'], (L, groups[kk != d], n), dtype, 'an int4 group scale')
+        groups[k_in] = g[0]
+    scales = [_check(lin['scale4'], (L, groups[kk], n), dtype, 'an int4 group scale')
               for lin, kk, n in lins]
-    return ws, scales, groups
+    return ws, scales, [groups[d], groups[da], groups[dff]]
 
 
 def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: int,
-                         tokens_lens, codes_lens, chunk_override: int | None):
+                         tokens_lens, codes_lens, chunk_override: int | None, mp: int = 1):
     """The checks both wrappers share (on the host, no device sync): formats,
-    shapes, widths and the chunk.  Returns (the launcher's leading arguments
-    up to the lengths, its scratch buffers, (L, rows, S, d, dff), the int4
-    group counts and the chunk, the output y and the variant's name)."""
+    shapes, widths and the chunk.  ``mp`` > 1: ``p`` and ``cache`` are one
+    tensor-parallel rank's, ``n_heads`` its local heads and the cache d / mp
+    wide.  Returns (the launcher's leading arguments up to the lengths, its
+    scratch buffers, (L, rows, S, d, d_att, dff), the int4 group counts and
+    the chunk, the output y and the variant's name)."""
     if x.device.type != 'cuda':
         raise ValueError(f'{name} runs on CPU or CUDA tensors, got {x.device}')
-    L, rows, S, d = cache.k.shape
+    L, rows, S, da = cache.k.shape
     fmt = weight_format(p)
     wcode, _ = _WEIGHT_FORMATS[fmt]
     dff = p['ffn']['lin1'][fmt].shape[-1]
+    d = da * mp
     if x.shape != (rows, q_len, d) or x.dtype not in (torch.float32, torch.bfloat16) \
             or not x.is_contiguous():
         raise ValueError(f'x must be a contiguous ({rows}, {q_len}, {d}) float32/bfloat16 '
@@ -341,7 +382,7 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
         scales = [None, None]
     if x.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
         raise TypeError(f'{name} kernel: a bfloat16 model needs a bfloat16 cache')
-    reason = fit_error(d, n_heads, dff, fmt)
+    reason = fit_error(d, n_heads * mp, dff * mp, fmt, mp)
     if reason is not None:
         raise ValueError(f'{name}: {reason}')
     for t in (tokens_lens, codes_lens):
@@ -350,16 +391,17 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
             raise ValueError('tokens_lens / codes_lens must be contiguous (rows,) int32 '
                              'tensors on the device of x')
     chunk = cache_chunk(cache, n_heads, chunk_override, name)
-    ws, wscales, groups = _weights(p, fmt, x.dtype, L, d, dff)
+    ws, wscales, groups = _weights(p, fmt, x.dtype, L, d, da, dff)
     y = torch.empty((rows, q_len, d), dtype=x.dtype, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     rq = rows * q_len
-    qbuf, abuf, xmid = (torch.empty((rq, d), **f32) for _ in range(3))
+    qbuf, abuf = (torch.empty((rq, da), **f32) for _ in range(2))
+    xmid = torch.empty((rq, d), **f32)
     hmid = torch.empty((rq, dff), **f32)
-    kvnew = torch.empty((rq, 2 * d), **f32) if quant else None
+    kvnew = torch.empty((rq, 2 * da), **f32) if quant else None
     # Per (query row, head, chunk): the chunk's running max, sum and
     # unnormalized output (head dim) of its online softmax.
-    part = (torch.empty((rq * n_heads * (S // chunk), 2 + d // n_heads), **f32)
+    part = (torch.empty((rq * n_heads * (S // chunk), 2 + da // n_heads), **f32)
             if chunk < S else None)
 
     lead = [_DTYPE_CODE[x.dtype], _DTYPE_CODE[cache.k.dtype], wcode, x.data_ptr(),
@@ -371,7 +413,7 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
     # a tensor of another thread (a hub join's prefill beside the driver's
     # step) whose kernels are queued first, and the two would write it both.
     scratch = [qbuf, abuf, xmid, hmid, kvnew, part]
-    sizes = (L, rows, S, d, dff)
+    sizes = (L, rows, S, d, da, dff)
     return lead, scratch, sizes, [*groups, chunk], y, variant(p, cache)
 
 
@@ -400,7 +442,8 @@ def _check_slots(index, rows: int, x, name: str) -> None:
 
 
 def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
-                      codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
+                      codes_lens, ttm: int, pm: int, chunk_override: int | None = None,
+                      tp: tuple | None = None):
     """One token through the whole stack.  p: stacked layer dict (L, ...),
     dense or in a ``quantize.py`` layout ('q' int8 or 'q4' int4 weights, their
     scales in the compute dtype); x: (rows, 1, d) token embeddings; cache:
@@ -412,14 +455,20 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
     budget) writes nothing and attends up to S - 1; tokens_lens / codes_lens:
     (rows,) int32 true lengths, tokens_lens <= ttm and codes_lens <= pm;
     chunk_override: the forced chunk (``chunk_for``; None: the automatic
-    one).  Returns (y (rows, 1, d), cache) with the cache updated in place."""
+    one).  Returns (y (rows, 1, d), cache) with the cache updated in place.
+    ``tp`` = (mesh, rank trees, rank caches): the tensor-parallel step
+    (``fused_step_tp``) in place of ``p`` and ``cache``, which are None."""
+    if tp is not None:
+        return fused_step_tp('fused_decode_step_tp', *tp, x, n_heads, index, tokens_lens,
+                             codes_lens, ttm, pm, chunk_override)
     if x.device.type == 'cpu':
         return fused_decode_step_plain(p, x, n_heads, cache, index, tokens_lens,
                                        codes_lens, ttm, pm, chunk_override)
     name = 'fused_decode_step'
     lead, scratch, sizes, tail, y, var = _checked_launch_args(
         name, p, x, n_heads, cache, 1, tokens_lens, codes_lens, chunk_override)
-    L, rows, S, d, dff = sizes
+    L, rows, S, d, _, dff = sizes
+    tail = [tail[0], *tail[2:]]            # d_att == d: its int4 groups are d's
     per_row = torch.is_tensor(index)
     if per_row:
         _check_slots(index, rows, x, name)
@@ -438,7 +487,8 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
 
 
 def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, codes_lens,
-                      ttm: int, pm: int, chunk_override: int | None = None):
+                      ttm: int, pm: int, chunk_override: int | None = None,
+                      tp: tuple | None = None):
     """A K-token verify block through the whole stack (speculative decode).
     p, cache, tokens_lens, codes_lens as in ``fused_decode_step``; x: (rows,
     K, d) block embeddings at positions index[r] .. index[r] + K - 1; index:
@@ -450,7 +500,11 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     ``dynamic_update_slice`` would clamp the block's start.  Returns (y (rows,
     K, d), cache) with every row's K slots written in place; query i of row r
     attends up to slot index[r] + i.  chunk_override as in
-    ``fused_decode_step``: a block may straddle a chunk boundary."""
+    ``fused_decode_step``: a block may straddle a chunk boundary.  ``tp`` as
+    in ``fused_decode_step``."""
+    if tp is not None:
+        return fused_step_tp('fused_verify_step_tp', *tp, x, n_heads, index, tokens_lens,
+                             codes_lens, ttm, pm, chunk_override)
     if x.device.type == 'cpu':
         return fused_verify_step_plain(p, x, n_heads, cache, index, tokens_lens,
                                        codes_lens, ttm, pm, chunk_override)
@@ -460,7 +514,8 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     q_len = x.shape[1]
     lead, scratch, sizes, tail, y, var = _checked_launch_args(
         name, p, x, n_heads, cache, q_len, tokens_lens, codes_lens, chunk_override)
-    L, rows, S, d, dff = sizes
+    L, rows, S, d, _, dff = sizes
+    tail = [tail[0], *tail[2:]]            # d_att == d: its int4 groups are d's
     _check_slots(index, rows, x, name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib(True)(*lead, index.data_ptr(), *map(_ptr, scratch), L, rows, S, d,
@@ -469,3 +524,86 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     _build.check(status, name)
     _count(name, var, sizes, tail)
     return y, cache
+
+
+def _tp_lib():
+    lib = _build.load('fused_decode')
+    fn = lib.valle2_fused_step_tp
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        # verify, formats, mp; per rank: 32 pointers (those of the one-rank
+        # launchers, then the two partial planes), its card, its stream and
+        # its caller's stream; 14 sizes; the q scale
+        fn.argtypes = [ci] * 5 + [vp] * 4 + [ci] * 14 + [ctypes.c_float]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_step_tp(name: str, mesh, trees, caches, x, n_heads: int, index, tokens_lens,
+                  codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
+    """The fused decode step (``name`` 'fused_decode_step_tp', x (rows, 1, d))
+    or verify step ('fused_verify_step_tp', x (rows, K, d), per-row start
+    slots) under tensor parallelism (JAX ``fused_decode_step`` /
+    ``fused_verify_step`` with ``tp``): rank r of ``mesh`` holds
+    ``trees[r]`` (``parallel.shard_decode_params``; dense or int4 weights in
+    the ranked packing) and ``caches[r]``, the fused (L, rows, S, d / mp)
+    cache of its ``n_heads`` local heads, updated in place.  x, the lengths
+    and a per-row index go to every rank's device.  On CUDA tensors one host
+    call launches every rank's kernels, layer by layer, on the ranks' own
+    streams, with the two row-parallel partials of each layer summed by 5c
+    (``kernels.tp_allreduce``) and the bias and residual added after the sum.
+    int8 W8A8 weights raise (``fit_error``): their activation scale would
+    need a global amax inside the step (the models take the plain
+    tensor-parallel path).
+    Returns (the ranks' y, equal on every rank, each on its device; caches)."""
+    devices = mesh.devices
+    mp = len(devices)
+    if len(trees) != mp or len(caches) != mp:
+        raise ValueError(f'{name}: the mesh has {mp} ranks, got {len(trees)} trees and '
+                         f'{len(caches)} caches')
+    per_row = torch.is_tensor(index)
+    xs = [x.to(dev) for dev in devices]
+    if x.device.type == 'cpu':
+        return _step_plain_tp(name, trees, xs, n_heads, caches, index, tokens_lens,
+                              codes_lens, ttm, pm, chunk_override)
+    if not 1 <= mp <= MAX_MP:
+        raise ValueError(f'{name}: 1 to {MAX_MP} ranks, got {mp}')
+    verify = name == 'fused_verify_step_tp'
+    q_len = x.shape[1]
+    if verify and not per_row:
+        raise ValueError(f'{name}: the verify step takes a (rows,) tensor of start slots')
+    ensure_peer_access(devices)
+    hold, ptrs, ys = [], [], []
+    tail = sizes = None
+    for dev, tree, cache, xr in zip(devices, trees, caches, xs):
+        tl, pl = tokens_lens.to(dev), codes_lens.to(dev)
+        lead, scratch, sizes_r, tail_r, y, var = _checked_launch_args(
+            name, tree, xr, n_heads, cache, q_len, tl, pl, chunk_override, mp)
+        if sizes is not None and (sizes_r, tail_r) != (sizes, tail):
+            raise ValueError(f'{name}: the ranks\' stacks and caches must agree in shape')
+        sizes, tail = sizes_r, tail_r
+        slots = None
+        if per_row:
+            slots = index.to(dev)
+            _check_slots(slots, cache.k.shape[1], xr, name)
+        planes = [torch.empty((x.shape[0] * q_len, x.shape[-1]), dtype=torch.float32,
+                              device=dev) for _ in range(2)]
+        # Every tensor whose pointer goes to the launcher is held until it returns.
+        hold += [tl, pl, slots, *scratch, *planes]
+        ptrs += [*lead[3:], _ptr(slots), *map(_ptr, scratch), *map(_ptr, planes)]
+        ys.append(y)
+    L, rows, S, d, da, dff = sizes
+    if not per_row and not ttm + pm <= index < S:
+        raise ValueError(f'index {index} outside [ttm + pm, S) = [{ttm + pm}, {S})')
+    cards = (ctypes.c_int * mp)(*(dev.index if dev.index is not None
+                                  else torch.cuda.current_device() for dev in devices))
+    streams = [s.cuda_stream for s in mesh.streams()]
+    callers = [torch.cuda.current_stream(dev).cuda_stream for dev in devices]
+    status = _tp_lib()(int(verify), *lead[:3], mp, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                       cards, (ctypes.c_void_p * mp)(*streams),
+                       (ctypes.c_void_p * mp)(*callers), L, rows, S, d, da, n_heads, dff,
+                       q_len if verify else (0 if per_row else int(index)), int(ttm),
+                       int(pm), *tail, 1.0 / math.sqrt(da // n_heads))
+    _build.check(status, name)
+    TP_COUNTERS[name].count += 1
+    return ys, caches

@@ -23,6 +23,11 @@ ride in ``DecodeState``, so segments return exactly the tokens of one full
 decode.  A chunked cache (``decode_chunk``, or the automatic chunk of
 ``kernels.fused_decode.chunk_for``) pads the cache to a multiple of the
 chunk and sends the fused steps through their chunked branch.
+On a ('model',) mesh (``ValleAR(mesh=)``, JAX ``tp``) every rank holds its
+Megatron split of the stack (``parallel.shard_stack``) and runs its local
+heads through the prefill and the TP fused steps (or, for int8 weights, the
+plain TP steps); the embeddings, the LM head, sampling and the beam pick run
+once, on the mesh's first device, whose hidden state every rank shares.
 
 Training: ``forward`` and ``loss_fn`` (``valle2_tpu/models/ar.py:104-209``)
 embed the source and target streams with their own sinusoidal positions, run
@@ -47,7 +52,8 @@ from ..ops import (NEG_INF, KVCache, add_positional, best_beam_index, build_pad_
                    linear_init, prefix_lm_bias, sinusoidal_table, top_k_top_p_filter,
                    topk_sampling, transformer, transformer_decode_step, transformer_init,
                    transformer_prefill)
-from ..ops.transformer import map_tree
+from ..ops.transformer import map_tree, transformer_decode_step_tp, transformer_prefill_tp
+from ..parallel import shard_stack, tp_divisible
 from ..quantize import quantize_decode_params
 
 Params = dict[str, Any]
@@ -244,7 +250,7 @@ def _ngram_draft(codes: torch.Tensor, vlen: torch.Tensor, g: int, m: int,
 
 def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
                     codes: torch.Tensor, codes_lens: torch.Tensor, config: ConfigValle,
-                    tparams: Params, generator: torch.Generator | None = None):
+                    tparams: Params, generator: torch.Generator | None = None, mesh=None):
     """Embed the prompt streams, fill the KV cache, tile to beams.
 
     Cache slot layout per item: [0, Ttm) source | [Ttm, Ttm+Pm) prompt codes |
@@ -255,7 +261,11 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     a row writes its K-token block from its own step, up to max_new (JAX
     ar.py:483-491).  The fused layout pads the cache further to a multiple of
     its chunk (``padded_cache_len``, JAX ar.py:500-517).  Returns
-    (DecodeState, tl_f, pl_f); the state carries ``generator``."""
+    (DecodeState, tl_f, pl_f); the state carries ``generator``.
+    ``mesh``: tensor parallelism (JAX ``tp``): ``tparams`` holds the ranks'
+    trees (``parallel.shard_stack``), each rank prefills its local heads, and the
+    state's cache is the list of the ranks' caches; everything outside the
+    stack runs once, on the mesh's first device."""
     eos, _ = _specials(config)
     beams, max_new = config.num_beams, config.max_audio_len
     b, ttm = tokens.shape
@@ -267,9 +277,11 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     total_max = ttm + pm + max_new_pad
     check_max_pos(ttm, pm + max_new_pad, 'AR decode')
     dev = tokens.device
-    use_fused = config.fused_decode_enabled(dev)
+    mp = 1 if mesh is None else mesh.size
+    n_heads = config.n_heads // mp             # a rank's local heads
+    use_fused = config.fused_decode_enabled(dev, mp)
     if use_fused:
-        total_max = padded_cache_len(total_max, b * beams, config.d_model, config.n_heads,
+        total_max = padded_cache_len(total_max, b * beams, config.d_model // mp, n_heads,
                                      config.torch_cache_dtype, config.decode_chunk or None)
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
 
@@ -283,16 +295,22 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     else:
         bias = prefix_lm_bias(ttm + pm, ttm, tokens_lens, kv_end)
     x = torch.cat([x_tok, x_aud], dim=1).to(config.torch_dtype)
-    y, cache = transformer_prefill(tparams, x, config.n_heads, total_max, bias,
-                                   cache_dtype=config.torch_cache_dtype, flash=flash)
+    if mesh is None:
+        y, cache = transformer_prefill(tparams, x, n_heads, total_max, bias,
+                                       cache_dtype=config.torch_cache_dtype, flash=flash)
+    else:
+        ys, cache = transformer_prefill_tp(tparams, [x.to(d) for d in mesh.devices], n_heads,
+                                           total_max, bias, cache_dtype=config.torch_cache_dtype,
+                                           flash=flash)
+        y = ys[0]
     # Logits at each item's last valid prompt position (ttm + p_len - 1).
     y_last = y[torch.arange(b, device=dev), (ttm + codes_lens - 1).long()]
     first_logits = linear(params['proj'], y_last.float())               # (B, V+1)
 
-    cache = KVCache(*(None if a is None else a.repeat_interleave(beams, dim=1)
-                      for a in cache))
-    if use_fused:
-        cache = fused_cache_layout(cache)    # the layout tells the loop which path
+    def tile(c):
+        c = KVCache(*(None if a is None else a.repeat_interleave(beams, dim=1) for a in c))
+        return fused_cache_layout(c) if use_fused else c   # the layout picks the path
+    cache = tile(cache) if mesh is None else [tile(c) for c in cache]
     rows = b * beams
     prompt_valid = torch.arange(pm, device=dev)[None, :] < codes_lens[:, None]
     codes_buf = torch.full((rows, pm + max_new_pad), eos, dtype=torch.long, device=dev)
@@ -306,9 +324,34 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
     return state, tl_f, pl_f
 
 
+def _stack_step(tparams, x: torch.Tensor, config: ConfigValle, cache, index, tl_f, pl_f,
+                ttm: int, pm: int, mesh, verify: bool):
+    """One token (verify: one K-token block) through the stack: the fused
+    kernel on the fused (4-D) cache layout, else the q-block
+    ``transformer_decode_step``; on a ``mesh``, over its ranks (``tparams``
+    and ``cache`` the ranks' lists).  Returns (y, cache), y on x's device."""
+    cache0 = cache if mesh is None else cache[0]
+    n_heads = config.n_heads // (1 if mesh is None else mesh.size)
+    q_len = x.shape[1]
+    if cache0.k.dim() == 4:
+        step = fused_verify_step if verify else fused_decode_step
+        kw = dict(chunk_override=config.decode_chunk or None)
+        if mesh is None:
+            return step(tparams, x, n_heads, cache, index, tl_f, pl_f, ttm, pm, **kw)
+        ys, cache = step(None, x, n_heads, None, index, tl_f, pl_f, ttm, pm,
+                         tp=(mesh, tparams, cache), **kw)
+        return ys[0], cache
+    attend = verify_slot_mask(cache0.k.shape[3], index, q_len, tl_f, pl_f, ttm, pm)
+    if mesh is None:
+        return transformer_decode_step(tparams, x, n_heads, cache, index, attend_mask=attend)
+    ys, cache = transformer_decode_step_tp(tparams, [x.to(d) for d in mesh.devices], n_heads,
+                                           cache, index, attend_mask=attend)
+    return ys[0], cache
+
+
 def _decode_advance(params: Params, tparams: Params, state: DecodeState,
                     tl_f: torch.Tensor, pl_f: torch.Tensor, config: ConfigValle,
-                    ttm: int, pm: int, limit: int | None = None) -> DecodeState:
+                    ttm: int, pm: int, limit: int | None = None, mesh=None) -> DecodeState:
     """Advance ``state`` IN PLACE until ``state.step`` reaches ``limit``
     (default ``max_audio_len``) or every row finished, in turns of
     ``decode_unroll`` steps: the loop exits at the first multiple of the
@@ -318,12 +361,11 @@ def _decode_advance(params: Params, tparams: Params, state: DecodeState,
     limits give exactly the tokens of one advance to the full limit.
     ``all(finished)`` is read on the host at the first turn and then every
     ``FINISHED_CHECK_EVERY`` steps, so the loop may stop short of ``limit``:
-    ``state.step`` says where."""
+    ``state.step`` says where.  ``mesh``: see ``_decode_prefill``."""
     eos, _ = _specials(config)
     max_new = config.max_audio_len
     limit = max_new if limit is None else limit
     unroll = max(1, config.decode_unroll)
-    use_fused = state.cache.k.dim() == 4
     dev = state.codes.device
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
     codes, logits, cache = state.codes, state.logits, state.cache
@@ -352,15 +394,8 @@ def _decode_advance(params: Params, tparams: Params, state: DecodeState,
             codes[:, pm + step] = samples
             x = embedding(params['audio_emb'], samples[:, None]) + pe[pos0 + step][:, None]
             x = x.to(config.torch_dtype).contiguous()
-            index = ttm + pm + step
-            if use_fused:
-                y, cache = fused_decode_step(tparams, x, config.n_heads, cache, index,
-                                             tl_f, pl_f, ttm, pm,
-                                             chunk_override=config.decode_chunk or None)
-            else:
-                attend = verify_slot_mask(cache.k.shape[3], index, 1, tl_f, pl_f, ttm, pm)
-                y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, index,
-                                                   attend_mask=attend)
+            y, cache = _stack_step(tparams, x, config, cache, ttm + pm + step, tl_f, pl_f,
+                                   ttm, pm, mesh, verify=False)
             logits = linear(params['proj'], y[:, 0].float())
             step += 1
     state.step, state.logits, state.cache = step, logits, cache
@@ -371,7 +406,7 @@ def _decode_advance(params: Params, tparams: Params, state: DecodeState,
 
 def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
                          tl_f: torch.Tensor, pl_f: torch.Tensor, config: ConfigValle,
-                         ttm: int, pm: int):
+                         ttm: int, pm: int, mesh=None):
     """N-gram (prompt-lookup) speculative decode loop (JAX
     ``_decode_advance_spec``), to ``max_audio_len`` tokens per row.
 
@@ -393,10 +428,9 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
     committed token reads, so the result is the same.  Returns (final state,
     turns): the number of turns in which some row was still decoding, a
     device scalar; mean accepted tokens per turn is sum(step) / (rows *
-    turns)."""
+    turns).  ``mesh``: see ``_decode_prefill``."""
     eos, _ = _specials(config)
     max_new, k_blk = config.max_audio_len, config.speculative_k
-    use_fused = state.cache.k.dim() == 4
     dev = state.codes.device
     rows = state.codes.shape[0]
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
@@ -427,15 +461,8 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
         x = embedding(params['audio_emb'], block) + pe[pl_f.long()[:, None] + step[:, None]
                                                        + blk]
         x = x.to(config.torch_dtype).contiguous()
-        write_idx = (ttm + pm + step).to(torch.int32)
-        if use_fused:
-            y, cache = fused_verify_step(tparams, x, config.n_heads, cache, write_idx,
-                                         tl_f, pl_f, ttm, pm,
-                                         chunk_override=config.decode_chunk or None)
-        else:
-            attend = verify_slot_mask(cache.k.shape[3], write_idx, k_blk, tl_f, pl_f, ttm, pm)
-            y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, write_idx,
-                                               attend_mask=attend)
+        y, cache = _stack_step(tparams, x, config, cache, (ttm + pm + step).to(torch.int32),
+                               tl_f, pl_f, ttm, pm, mesh, verify=True)
         flat3 = linear(params['proj'], y.float())                            # (rows, K, V)
         vocab = flat3.shape[-1]
 
@@ -497,7 +524,7 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
 
 def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
                codes: torch.Tensor, codes_lens: torch.Tensor, config: ConfigValle,
-               generator: torch.Generator | None = None, clock=None):
+               generator: torch.Generator | None = None, clock=None, tp: tuple | None = None):
     """Batched decode with per-item lengths: prefill → token loop → beam pick.
 
     tokens: (B, Ttm) padded source ids; tokens_lens: (B,) true lengths.
@@ -505,23 +532,25 @@ def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
     ``clock``: optional ``StageClock`` that records 'prefill' and 'decode'
     (and under speculative decode the counts 'ar_turns' and 'ar_tokens', read
     after the decode's synchronize).  Routes to ``_decode_advance_spec`` when
-    ``_spec_gate`` passes.
+    ``_spec_gate`` passes.  ``tp`` = (mesh, the ranks' trees,
+    ``ValleAR._decode_tparams``): tensor parallelism (see ``_decode_prefill``).
     Returns (codes_buf (B, beams, Pm+max_new), sum_logprobs (B, beams), best (B,))."""
     eos, _ = _specials(config)
     beams, max_new = config.num_beams, config.max_audio_len
     b, ttm = tokens.shape
     pm = codes.shape[1]
     spec = _spec_gate(config)
-    tparams = compute_params(params, config)
+    mesh, tparams = tp if tp is not None else (None, compute_params(params, config))
     state, tl_f, pl_f = _decode_prefill(params, tokens, tokens_lens, codes, codes_lens,
-                                        config, tparams, generator)
+                                        config, tparams, generator, mesh)
     if clock is not None:
         clock.mark('prefill')
     if spec:
         final, turns = _decode_advance_spec(params, tparams, state, tl_f, pl_f, config, ttm,
-                                            pm)
+                                            pm, mesh)
     else:
-        final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm)
+        final = _decode_advance(params, tparams, state, tl_f, pl_f, config, ttm, pm,
+                                mesh=mesh)
     if clock is not None:
         clock.mark('decode')
         if spec:
@@ -531,6 +560,20 @@ def _decode_fn(params: Params, tokens: torch.Tensor, tokens_lens: torch.Tensor,
     lp_out = final.sum_logprobs.reshape(b, beams)
     best = best_beam_index(codes_out, lp_out, eos, config.length_penalty)
     return codes_out, lp_out, best
+
+
+def check_tp(config: ConfigValle, mp: int) -> None:
+    """Raise unless the stack splits over ``mp`` tensor-parallel ranks: heads
+    and the FFN width divisible, and under int4 an even per-rank width of
+    both row-parallel inputs (the ranked packing).  The JAX package takes
+    the GSPMD path for the rest, which is not ported."""
+    int4_ok = config.weight_dtype != 'int4' or (
+        (config.d_model // mp) % 2 == 0 and (config.dim_feedforward // mp) % 2 == 0)
+    if not (tp_divisible(config.n_heads, config.dim_feedforward, mp) and int4_ok):
+        raise NotImplementedError(
+            f'n_heads={config.n_heads}, dim_feedforward={config.dim_feedforward} '
+            f'({config.weight_dtype}) do not split over {mp} ranks: the GSPMD path for such '
+            'splits is not ported (ROADMAP.md queue 1 item 14)')
 
 
 def default_generator(config: ConfigValle, device) -> torch.Generator:
@@ -546,8 +589,18 @@ class ValleAR:
     JAX ValleAR."""
 
     def __init__(self, config: ConfigValle, params: Params | None = None,
-                 seed: int | None = None, device=None):
+                 seed: int | None = None, device=None, mesh=None):
+        """``mesh``: a ('model',) ``parallel.Mesh``: ``generate`` /
+        ``generate_batch`` decode tensor-parallel over its ranks (the params
+        live on its first device, which ``device`` may name)."""
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            check_tp(config, mesh.size)
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f'device {device} is not the mesh\'s first device '
+                                 f'{mesh.devices[0]}')
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
@@ -580,7 +633,11 @@ class ValleAR:
         p = self.decode_params
         src = self._tparams_src
         if not (src is not None and src[0] is p and src[1] is p['transformer']):
-            self._tparams = compute_params(p, self.config)
+            # Under tensor parallelism int4 packs per rank, from the float stack.
+            int4 = self.config.weight_dtype == 'int4'
+            self._tparams = (compute_params(p, self.config) if self.mesh is None
+                             else shard_stack((self.params if int4 else p)['transformer'],
+                                              self.mesh, self.config.torch_dtype, int4))
             self._tparams_src = (p, p['transformer'])
         return p, self._tparams
 
@@ -588,6 +645,7 @@ class ValleAR:
                 codes_lens: torch.Tensor, generator: torch.Generator):
         """The decode's prefill (JAX ``_prefill_jit``): ``_decode_prefill`` on
         the decode params.  Returns (DecodeState, tl_f, pl_f)."""
+        self._solo_only('a decode stream')
         params, tparams = self._decode_tparams()
         with torch.inference_mode(), precision_scope(self.config):
             return _decode_prefill(params, tokens, tokens_lens, codes, codes_lens, self.config,
@@ -598,10 +656,18 @@ class ValleAR:
         """One segment of the token loop (JAX ``_advance_jit``):
         ``_decode_advance`` to ``limit`` on the decode params.  Updates
         ``state`` in place (the cache and codes buffer too) and returns it."""
+        self._solo_only('a decode stream')
         params, tparams = self._decode_tparams()
         with torch.inference_mode(), precision_scope(self.config):
             return _decode_advance(params, tparams, state, tl_f, pl_f, self.config, ttm, pm,
                                    limit)
+
+    def _solo_only(self, what: str) -> None:
+        """Streaming, continuous batching and the hub decode on one device:
+        the JAX package has them on no mesh either."""
+        if self.mesh is not None:
+            raise NotImplementedError(f'{what} does not run on a mesh (nor in the JAX '
+                                      'package): use a ValleAR without one')
 
     @property
     def eos_token(self) -> int:
@@ -666,8 +732,11 @@ class ValleAR:
         if generator is None:
             generator = default_generator(cfg, dev)
         with torch.inference_mode(), precision_scope(cfg):
-            codes_buf, _, best = _decode_fn(self.decode_params, tokens, tokens_lens,
-                                            codes, codes_lens, cfg, generator, clock)
+            params, tparams = self._decode_tparams() if self.mesh else (self.decode_params,
+                                                                        None)
+            codes_buf, _, best = _decode_fn(params, tokens, tokens_lens, codes, codes_lens, cfg,
+                                            generator, clock,
+                                            None if self.mesh is None else (self.mesh, tparams))
         codes_buf, best = codes_buf.cpu(), best.cpu()
         out = []
         for i in range(len(tokens_list)):

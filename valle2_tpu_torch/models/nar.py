@@ -26,7 +26,7 @@ from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
 from ..ops import (add_positional, build_pad_mask, cast_to_compute, categorical, embedding,
                    embedding_init, linear, linear_init, mask_to_bias, sinusoidal_table,
                    transformer, transformer_init)
-from ..ops.transformer import map_tree
+from ..ops.transformer import map_tree, transformer_tp
 from .ar import MAX_POS, check_max_pos, default_generator, masked_ce, move_tree
 
 Params = dict[str, Any]
@@ -188,17 +188,32 @@ def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Te
 def _generate_fn(params: Params, tokens: torch.Tensor, tokens_len: torch.Tensor,
                  prompt_codes: torch.Tensor, p_len: torch.Tensor,
                  first_layer: torch.Tensor, gen_len: torch.Tensor, config: ConfigValle,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, tp: tuple | None = None
+                 ) -> torch.Tensor:
     """All refinement stages, batched over padded widths with true lengths.
 
     tokens: (B, Ttm), tokens_len (B,); prompt_codes: (B, Pm, nq), p_len (B,);
     first_layer: (B, Nm) stage-0 codes, gen_len (B,).  Returns (B, Nm, nq)
-    codes (rows past each gen_len are don't-care)."""
+    codes (rows past each gen_len are don't-care).  ``tp`` = (mesh, the
+    ranks' trees of the stack, ``parallel.shard_stack``): tensor parallelism
+    (JAX ``tp``), each rank on its local heads; the embeddings, the AdaLN
+    conditioning, the heads and sampling run once, on the mesh's first
+    device."""
     nq = config.num_quantizers
     dev = tokens.device
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
     dtype = config.torch_dtype
-    tparams = map_tree(lambda a: a.to(dtype), params['transformer'])
+    if tp is None:
+        tparams = map_tree(lambda a: a.to(dtype), params['transformer'])
+
+        def stack(x, cond):
+            return transformer(tparams, x, config.n_heads, bias, cond)
+    else:
+        mesh, trees = tp
+
+        def stack(x, cond):
+            return transformer_tp(trees, [x.to(d) for d in mesh.devices],
+                                  config.n_heads // mesh.size, bias, cond)[0]
     b, ttm = tokens.shape
     pm, nm = prompt_codes.shape[1], first_layer.shape[1]
     s_total = ttm + pm + nm
@@ -223,7 +238,7 @@ def _generate_fn(params: Params, tokens: torch.Tensor, tokens_len: torch.Tensor,
         codes_emb = torch.cat([emb_prompt, emb_out], dim=1) + pos_rows
         x = torch.cat([x_tok, codes_emb.to(dtype)], dim=1)
         cond = params['stage_embs'][n - 1:n].to(dtype)
-        y = transformer(tparams, x, config.n_heads, bias, cond)[:, ttm + pm:]
+        y = stack(x, cond)[:, ttm + pm:]
         logits = linear({'w': params['proj_layers'][n - 1]}, y).float()   # (B, Nm, V)
         if config.temperature > 0.0:
             sampled = categorical(torch.softmax(logits / config.temperature, dim=-1),

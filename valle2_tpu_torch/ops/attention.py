@@ -15,7 +15,7 @@ from typing import Any
 import torch
 
 from .masks import NEG_INF
-from .nn import linear, linear_init
+from .nn import linear, linear_init, linear_row_parallel
 
 Params = dict[str, Any]
 
@@ -104,3 +104,33 @@ def mha(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = No
     if return_kv:
         return out, k, v
     return out
+
+
+def mha_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
+           bias: torch.Tensor | None = None, return_kv: bool = False,
+           flash: dict | None = None):
+    """``mha`` under tensor parallelism (JAX ``mha`` with ``tp_axis``): rank
+    r's fused qkv holds its ``n_heads`` local heads (``tp_permute_qkv``), it
+    attends over them (the flash kernel #1 on the card), and the row-split
+    output projection sums the ranks' partials (``linear_row_parallel``).
+    Returns one output per rank, or (outs, ks, vs) with each rank's local
+    k/v."""
+    from ..parallel.mesh import on_device
+    merged, ks, vs = [], [], []
+    for p, x in zip(ps, xs):
+        with on_device(x.device):
+            q, k, v = qkv_proj(p, x, n_heads)
+            if flash is not None:
+                from ..kernels.flash_attention import FlashAttention
+                attn = FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            flash['meta'].to(x.device), flash['tokens_total'],
+                                            flash.get('causal', True))
+            else:
+                attn = sdpa(q, k, v, None if bias is None else bias.to(x.device))
+        merged.append(merge_heads(attn))
+        ks.append(k)
+        vs.append(v)
+    outs = linear_row_parallel([p['out'] for p in ps], merged)
+    if return_kv:
+        return outs, ks, vs
+    return outs

@@ -15,7 +15,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..quantize import int4_matmul, int8_matmul
+from ..quantize import int4_matmul, int8_dot, int8_matmul
 
 Params = dict[str, Any]
 
@@ -54,6 +54,50 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if 'b' in p:
         y = y + p['b']
     return y
+
+
+def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None
+                        ) -> list[torch.Tensor]:
+    """Row-parallel linear under tensor parallelism (JAX
+    ``linear_row_parallel``): rank r's weight ``ps[r]`` holds a slice of the
+    input features and ``xs[r]`` the matching slice of the input, so its
+    product is a partial sum; the bias is added once, after the sum.  One
+    output per rank, on its device, equal across ranks.  int8 W8A8: the
+    activation scale takes the amax over every rank's slice (the solo row's
+    scale) and the ranks' int32 products sum exactly; dense and int4 W4A16
+    (the ranked packing) sum their float32 partials through
+    ``kernels.tp_allreduce`` (the rank-ordered sum; the CUDA kernel 5c on the
+    card), or ``reduce`` (``tp_allreduce_plain``: the plain version's sum)."""
+    from ..kernels.tp_allreduce import tp_allreduce
+    reduce = reduce or tp_allreduce
+    if 'q' in ps[0]:
+        x32s = [x.float() for x in xs]
+        dev0 = xs[0].device
+        amax = torch.stack([x.abs().amax(dim=-1, keepdim=True).to(dev0)
+                            for x in x32s]).amax(dim=0)
+        sx = amax.clamp(min=1e-8) / 127.0
+        acc = None
+        for p, x in zip(ps, x32s):
+            part = int8_dot(torch.round(x / sx.to(x.device)).clamp(-127, 127), p['q'])
+            acc = part.to(dev0) if acc is None else acc + part.to(dev0)
+        ys = [(acc.to(x.device).float() * sx.to(x.device) * p['scale']).to(x.dtype)
+              for p, x in zip(ps, xs)]
+    else:
+        parts = []
+        for p, x in zip(ps, xs):
+            if 'q4' in p:
+                parts.append(int4_matmul(x, p['q4'], p['scale4']).float())
+            else:
+                w = p['w']
+                wide = torch.promote_types(x.dtype, w.dtype)
+                parts.append((x.to(wide) @ w.to(wide)).float())
+        ys = reduce(parts)
+    out = []
+    for p, x, y in zip(ps, xs, ys):
+        if 'b' in p:
+            y = y + p['b']
+        out.append(y.to(x.dtype))
+    return out
 
 
 def embedding_init(gen: torch.Generator, vocab_size: int, dim: int,
@@ -126,6 +170,14 @@ def ffn(p: Params, x: torch.Tensor, dropout_rate: float = 0.0,
     """Linear → exact (erf) GELU → dropout → Linear."""
     h = dropout(F.gelu(linear(p['lin1'], x)), dropout_rate, generator)
     return linear(p['lin2'], h)
+
+
+def ffn_tp(ps: list[Params], xs: list[torch.Tensor], reduce=None) -> list[torch.Tensor]:
+    """``ffn`` under tensor parallelism: lin1 column-split (rank r's slice of
+    the hidden width, its bias slice), lin2 row-split (``linear_row_parallel``
+    with ``reduce``).  Inference only (no dropout)."""
+    hs = [F.gelu(linear(p['lin1'], x)) for p, x in zip(ps, xs)]
+    return linear_row_parallel([p['lin2'] for p in ps], hs, reduce)
 
 
 def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,

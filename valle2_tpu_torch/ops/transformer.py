@@ -15,10 +15,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .attention import merge_heads, mha, mha_init, qkv_proj, sdpa, sdpa_chunked
+from .attention import merge_heads, mha, mha_init, mha_tp, qkv_proj, sdpa, sdpa_chunked
 from .masks import NEG_INF
-from .nn import (adaln, adaln_init, dropout, ffn, ffn_init, layernorm, layernorm_init,
-                 linear)
+from .nn import (adaln, adaln_init, dropout, ffn, ffn_init, ffn_tp, layernorm,
+                 layernorm_init, linear, linear_row_parallel)
 
 Params = dict[str, Any]
 
@@ -137,30 +137,40 @@ def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
     ``cache_dtype``: None (x's dtype), a float dtype, or ``torch.int8``: every
     slot quantized by ``quantize_kv``, the zero padding included (its scale is
     the 1e-8 floor's), as the JAX package quantizes the padded block."""
-    num_layers = num_layers_of(p)
-    b, seq_len, d = x.shape
-    hd = d // n_heads
-    dtype = cache_dtype if cache_dtype is not None else x.dtype
-    quant = dtype == torch.int8
-    shape = (num_layers, b, n_heads, max_len, hd)
-    ck = torch.zeros(shape, dtype=dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=dtype, device=x.device)
-    if quant:
-        cks, cvs = (torch.empty((*shape[:-1], 1), dtype=torch.bfloat16, device=x.device)
-                    for _ in range(2))
-    for i in range(num_layers):
+    cache = _empty_cache(p, x, n_heads, max_len, cache_dtype)
+    for i in range(num_layers_of(p)):
         x, k, v = encoder_layer(layer_slice(p, i), x, n_heads, bias, cond,
                                 return_kv=True, flash=flash)
-        if quant:
-            pad = (0, 0, 0, max_len - seq_len)
-            ck[i], cks[i] = quantize_kv(torch.nn.functional.pad(k, pad))
-            cv[i], cvs[i] = quantize_kv(torch.nn.functional.pad(v, pad))
-        else:
-            ck[i, :, :, :seq_len] = k
-            cv[i, :, :, :seq_len] = v
-    if quant:
-        return x, KVCache(ck, cv, cks, cvs)
-    return x, KVCache(ck, cv)
+        _store_prefix(cache, i, k, v)
+    return x, cache
+
+
+def _empty_cache(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
+                 cache_dtype) -> KVCache:
+    """The prefill's (L, b, h, max_len, hd) cache of x's batch for the stack
+    ``p`` (its attention width from the qkv columns: a tensor-parallel rank's
+    local heads), zero slots (an int8 cache with empty scales)."""
+    width = next(iter(p['attn']['qkv'].values())).shape[-1] // 3
+    dtype = cache_dtype if cache_dtype is not None else x.dtype
+    shape = (num_layers_of(p), x.shape[0], n_heads, max_len, width // n_heads)
+    ck = torch.zeros(shape, dtype=dtype, device=x.device)
+    cv = torch.zeros(shape, dtype=dtype, device=x.device)
+    if dtype != torch.int8:
+        return KVCache(ck, cv)
+    return KVCache(ck, cv, *(torch.empty((*shape[:-1], 1), dtype=torch.bfloat16,
+                                         device=x.device) for _ in range(2)))
+
+
+def _store_prefix(cache: KVCache, i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Layer i's prefix k/v (b, h, seq_len, hd) into the cache's first slots;
+    an int8 cache quantizes the whole layer, zero padding included."""
+    if cache.k_scale is None:
+        cache.k[i, :, :, :k.shape[2]] = k
+        cache.v[i, :, :, :v.shape[2]] = v
+        return
+    pad = (0, 0, 0, cache.k.shape[3] - k.shape[2])
+    cache.k[i], cache.k_scale[i] = quantize_kv(torch.nn.functional.pad(k, pad))
+    cache.v[i], cache.v_scale[i] = quantize_kv(torch.nn.functional.pad(v, pad))
 
 
 def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVCache,
@@ -184,6 +194,20 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
     ``sdpa_chunked`` over the first n chunks of the cache (the fused
     kernels' chunked branch) instead of one softmax over every slot.
     Returns (y (b, q, d), cache)."""
+    attend = _decode_attention(x, cache, index, attend_mask, chunks)
+    for li in range(num_layers_of(p)):
+        lp = layer_slice(p, li)
+        attn = attend(lp['attn'], _norm(lp['norm1'], x, cond), n_heads, li)
+        x = x + linear(lp['attn']['out'], attn)
+        x = x + ffn(lp['ffn'], _norm(lp['norm2'], x, cond))
+    return x, cache
+
+
+def _decode_attention(x: torch.Tensor, cache: KVCache, index, attend_mask, chunks):
+    """The decode step's attention for x's block against ``cache``, as a
+    function (layer's attn params, normed input, heads, layer) -> merged
+    heads (b, q, h * hd), which writes the block's k/v into the layer's
+    slots first (see ``transformer_decode_step``)."""
     max_len = cache.k.shape[3]
     b, q_len = x.shape[:2]
     per_row = torch.is_tensor(index) and index.dim() == 1
@@ -209,10 +233,9 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
         attend_mask = attend_mask.expand(b, q_len, max_len)
     attend = attend_mask[:, None] if attend_mask.dim() == 3 else attend_mask[:, None, None, :]
     bias = torch.where(attend, 0.0, NEG_INF)
-    for li in range(num_layers_of(p)):
-        lp = layer_slice(p, li)
-        h = _norm(lp['norm1'], x, cond)
-        q, k, v = qkv_proj(lp['attn'], h, n_heads)              # k, v: (b, h, q, hd)
+
+    def attention(attn_p: Params, h: torch.Tensor, n_heads: int, li: int) -> torch.Tensor:
+        q, k, v = qkv_proj(attn_p, h, n_heads)              # k, v: (b, h, q, hd)
         if cache.k_scale is not None:
             for buf, sbuf, new in ((cache.k, cache.k_scale, k),
                                    (cache.v, cache.v_scale, v)):
@@ -229,6 +252,77 @@ def transformer_decode_step(p: Params, x: torch.Tensor, n_heads: int, cache: KVC
             attn = sdpa(q, k_all, v_all, bias)
         else:
             attn = sdpa_chunked(q, k_all, v_all, attend, *chunks)
-        x = x + linear(lp['attn']['out'], merge_heads(attn))
-        x = x + ffn(lp['ffn'], _norm(lp['norm2'], x, cond))
-    return x, cache
+        return merge_heads(attn)
+    return attention
+
+
+# --- Tensor parallelism (the JAX functions' ``tp_axis``): one tree, input
+# and cache per rank (``parallel.shard_decode_params``), rank r on its
+# tensors' device; the stack runs each rank's local heads and FFN slice and
+# sums the row-parallel partials over the ranks (``linear_row_parallel``),
+# so the hidden states stay equal on every rank. ---
+
+def _on(t, dev):
+    return None if t is None else t.to(dev)
+
+
+def encoder_layer_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
+                     bias: torch.Tensor | None, cond: torch.Tensor | None,
+                     return_kv: bool = False, flash: dict | None = None):
+    """``encoder_layer`` (inference) over the ranks; ``n_heads`` per rank.
+    Returns the ranks' outputs, or (outs, ks, vs) with their local k/v."""
+    hs = [_norm(p['norm1'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
+    res = mha_tp([p['attn'] for p in ps], hs, n_heads, bias, return_kv=return_kv, flash=flash)
+    attn = res[0] if return_kv else res
+    xs = [x + a for x, a in zip(xs, attn)]
+    hs = [_norm(p['norm2'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
+    xs = [x + f for x, f in zip(xs, ffn_tp([p['ffn'] for p in ps], hs))]
+    return (xs, *res[1:]) if return_kv else xs
+
+
+def transformer_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,
+                   bias: torch.Tensor | None = None, cond: torch.Tensor | None = None,
+                   flash: dict | None = None) -> list[torch.Tensor]:
+    """``transformer`` (inference) over the ranks."""
+    for i in range(num_layers_of(trees[0])):
+        xs = encoder_layer_tp([layer_slice(t, i) for t in trees], xs, n_heads, bias, cond,
+                              flash=flash)
+    return xs
+
+
+def transformer_prefill_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,
+                           max_len: int, bias: torch.Tensor | None = None,
+                           cond: torch.Tensor | None = None, cache_dtype=None,
+                           flash: dict | None = None):
+    """``transformer_prefill`` over the ranks: each rank's cache holds its
+    local heads.  Returns (the ranks' outputs, their caches)."""
+    caches = [_empty_cache(t, x, n_heads, max_len, cache_dtype)
+              for t, x in zip(trees, xs)]
+    for i in range(num_layers_of(trees[0])):
+        xs, ks, vs = encoder_layer_tp([layer_slice(t, i) for t in trees], xs, n_heads, bias,
+                                      cond, return_kv=True, flash=flash)
+        for cache, k, v in zip(caches, ks, vs):
+            _store_prefix(cache, i, k, v)
+    return xs, caches
+
+
+def transformer_decode_step_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,
+                               caches: list[KVCache], index,
+                               cond: torch.Tensor | None = None,
+                               attend_mask: torch.Tensor | None = None,
+                               chunks: tuple[int, int] | None = None, reduce=None):
+    """``transformer_decode_step`` over the ranks (``n_heads`` and the cache
+    width per rank; ``reduce``: the sum of ``linear_row_parallel``).
+    Returns (the ranks' outputs, their caches)."""
+    attends = [_decode_attention(x, c, _on(index, x.device) if torch.is_tensor(index)
+                                 else index, _on(attend_mask, x.device), chunks)
+               for x, c in zip(xs, caches)]
+    for li in range(num_layers_of(trees[0])):
+        lps = [layer_slice(t, li) for t in trees]
+        merged = [att(lp['attn'], _norm(lp['norm1'], x, _on(cond, x.device)), n_heads, li)
+                  for att, lp, x in zip(attends, lps, xs)]
+        outs = linear_row_parallel([lp['attn']['out'] for lp in lps], merged, reduce)
+        xs = [x + o for x, o in zip(xs, outs)]
+        hs = [_norm(lp['norm2'], x, _on(cond, x.device)) for lp, x in zip(lps, xs)]
+        xs = [x + f for x, f in zip(xs, ffn_tp([lp['ffn'] for lp in lps], hs, reduce))]
+    return xs, caches

@@ -64,13 +64,21 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     caller's scope), summed as int32."""
     x32 = x.float()
     sx = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
-    xq = torch.round(x32 / sx).clamp(-127, 127)
+    return (int8_dot(torch.round(x32 / sx).clamp(-127, 127), q).float() * sx
+            * scale).to(x.dtype)
+
+
+def int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of float-held int8 activation codes (..., in)
+    and int8 weights (in, out): float32 dots over at most ``EXACT_K`` inputs
+    (every partial sum below 2²⁴, TF32 off whatever the caller's scope),
+    summed as int32."""
     qf = q.float()
-    y = torch.zeros((*x.shape[:-1], q.shape[-1]), dtype=torch.int32, device=x.device)
+    y = torch.zeros((*xq.shape[:-1], q.shape[-1]), dtype=torch.int32, device=xq.device)
     with tf32_scope(False):
         for k0 in range(0, q.shape[0], EXACT_K):
             y += (xq[..., k0:k0 + EXACT_K] @ qf[k0:k0 + EXACT_K]).to(torch.int32)
-    return (y.float() * sx * scale).to(x.dtype)
+    return y
 
 
 def group4_for(in_dim: int, group: int = GROUP4) -> int:
@@ -136,20 +144,56 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch
     return y.to(x.dtype)
 
 
+def quantize_linear_int4_ranked(p: Params, mp: int, group: int = GROUP4) -> Params:
+    """``quantize_linear_int4`` of each of ``mp`` tensor-parallel ranks' input
+    row slices on its own, re-stacked rank-major: q4 (..., mp * in/mp/2, out),
+    scale4 (..., mp * groups_r, out).  The global half-split packing pairs row
+    k with row k + in/2 in one byte, so a contiguous row slice of it is no
+    rank's input features; packed per rank, the r-th 1/mp of the rows (and of
+    the group scales) is rank r's self-contained layout.  Where in/mp is a
+    multiple of the group, the values equal the global quantization's."""
+    w = p['w'].float()
+    in_dim = w.shape[-2]
+    if in_dim % mp or (in_dim // mp) % 2:
+        raise ValueError(f'int4 ranked packing needs in % mp == 0 and an even in/mp, got '
+                         f'{in_dim}/{mp}')
+    in_r = in_dim // mp
+    parts = [quantize_linear_int4({'w': w.narrow(-2, r * in_r, in_r)}, group)
+             for r in range(mp)]
+    return _with_bias({'q4': torch.cat([pt['q4'] for pt in parts], dim=-2),
+                       'scale4': torch.cat([pt['scale4'] for pt in parts], dim=-2)}, p)
+
+
+def dequantize_linear_int4_ranked(p: Params, mp: int, dtype=torch.float32) -> Params:
+    """Inverse of ``quantize_linear_int4_ranked``: the float weights a
+    tensor-parallel int4 decode multiplies by (tests, solo references)."""
+    q4, s4 = p['q4'], p['scale4']
+    half_r, groups_r = q4.shape[-2] // mp, s4.shape[-2] // mp
+    ws = [dequantize_linear_int4({'q4': q4.narrow(-2, r * half_r, half_r),
+                                  'scale4': s4.narrow(-2, r * groups_r, groups_r)})['w']
+          for r in range(mp)]
+    return _with_bias({'w': torch.cat(ws, dim=-2).to(dtype)}, p)
+
+
 def quantize_transformer(tp: Params, bits: int = 8, tp_mp: int = 1) -> Params:
     """Quantize the four big linears of a stacked transformer layer dict
     (int8 W8A8 for ``bits=8``, int4 W4A16 for ``bits=4``); norms pass
-    through.  ``tp_mp`` > 1 (the JAX package's per-rank int4 packing for
-    manual tensor parallelism) is not ported."""
-    if tp_mp > 1:
-        raise NotImplementedError('ranked int4 packing for manual tensor parallelism is '
-                                  'not ported to PyTorch yet (ROADMAP.md queue 1 item 14)')
+    through.  ``tp_mp`` > 1 (int4 only): the row-parallel linears (attn.out,
+    ffn.lin2) take the ranked packing (``quantize_linear_int4_ranked``), so
+    that a row split hands each rank a self-contained layout; qkv and lin1
+    keep the global packing (a rank holds their input rows whole)."""
     if bits not in (8, 4):
         raise ValueError(f'bits must be 8 or 4, got {bits}')
     quant = quantize_linear if bits == 8 else quantize_linear_int4
+    rquant = quant
+    if tp_mp > 1:
+        if bits != 4:
+            raise ValueError('ranked packing is an int4 (W4A16) layout')
+        def rquant(p):
+            return quantize_linear_int4_ranked(p, tp_mp)
     out = dict(tp)
-    out['attn'] = {'qkv': quant(tp['attn']['qkv']), 'out': quant(tp['attn']['out'])}
-    out['ffn'] = {'lin1': quant(tp['ffn']['lin1']), 'lin2': quant(tp['ffn']['lin2'])}
+    out['attn'] = {'qkv': quant(tp['attn']['qkv']), 'out': rquant(tp['attn']['out'])}
+    out['ffn'] = {'lin1': quant(tp['ffn']['lin1']), 'lin2': rquant(tp['ffn']['lin2'])}
     return out
 
 

@@ -14,8 +14,10 @@ by sentence; ``stream_hub.StreamHub`` serves concurrent streams through one
 continuous-batching decode loop (``models.continuous``) and refines their
 emissions in one batched ``_nar_wav``.  ASR (``ValleASRPipeline``): audio →
 codec encode → the direction-swapped AR decode over the phoneme vocabulary,
-batched.  ``main`` is the command line of both.  Not ported yet (ROADMAP.md):
-the HTTP server (queue 1 item 12) and meshes (item 14).
+batched.  ``main`` is the command line of both.  On a ('model',) mesh
+(``parallel.make_model_mesh``) the AR and the NAR of ``batch_synthesize`` run
+tensor-parallel.  Not ported yet (ROADMAP.md): the HTTP server (queue 1 item
+12), the data axis and the GSPMD fallback (item 14).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .data.frontend import PhonemeTokenizer, split_sentences
 from .models import ValleAR, ValleNAR
 from .models import ar as ar_mod
 from .models import nar as nar_mod
+from .parallel import shard_stack
 from .utils import normalize_audio
 
 
@@ -70,10 +73,17 @@ class StageClock:
 
 def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
                   prompt_codes, p_lens, config: ConfigValle,
-                  generator: torch.Generator | None = None, clock: StageClock | None = None):
+                  generator: torch.Generator | None = None, clock: StageClock | None = None,
+                  tp: tuple | None = None):
     """tokens: (B, Ttm), true lens tokens_lens (B,); prompt_codes: (B, Pm, nq),
     true lens p_lens (B,).  Returns (waveforms (B, max_new*320) f32,
-    gen_lens (B,), codes (B, max_new, nq)); slice wav[i, :gen_lens[i]*320]."""
+    gen_lens (B,), codes (B, max_new, nq)); slice wav[i, :gen_lens[i]*320].
+    ``tp`` = (mesh, the AR's rank trees, the NAR's): the AR and the NAR
+    tensor-parallel over the mesh's ranks; the codec decodes once, on the
+    first device."""
+    ar_tp = nar_tp = None
+    if tp is not None:
+        ar_tp, nar_tp = (tp[0], tp[1]), (tp[0], tp[2])
     eos, bos = config.eos_token, config.bos_token
     max_new = config.max_audio_len
     b, pm = prompt_codes.shape[0], prompt_codes.shape[1]
@@ -83,7 +93,7 @@ def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
     codes0 = torch.cat([torch.full((b, 1), bos, dtype=torch.long, device=dev),
                         prompt_codes[:, :, 0]], dim=1)
     codes_buf, _, best = ar_mod._decode_fn(ar_params, tokens, tokens_lens, codes0,
-                                           p_lens + 1, config, generator, clock)
+                                           p_lens + 1, config, generator, clock, ar_tp)
     rows = codes_buf[torch.arange(b, device=dev), best]             # (B, Pm+1+max_new)
     gen_region = rows[:, pm + 1:]
     is_eos = gen_region == eos
@@ -92,7 +102,7 @@ def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
     first_layer = torch.where(is_eos, 0, gen_region)                # in-vocab past EOS
 
     codes = nar_mod._generate_fn(nar_params, tokens, tokens_lens, prompt_codes, p_lens,
-                                 first_layer, gen_lens, config, generator)
+                                 first_layer, gen_lens, config, generator, nar_tp)
     if clock is not None:
         clock.mark('nar')
     # The codec is causal: frames past gen_len cannot change earlier samples.
@@ -151,23 +161,50 @@ def _split_seed(base: int, *key: int) -> tuple[int, int]:
 
 
 class ValleTTS:
-    """text (+ cloning prompt codes) → waveform, on one device."""
+    """text (+ cloning prompt codes) → waveform, on one device or
+    tensor-parallel over a ('model',) mesh."""
 
     def __init__(self, config: ConfigValle, ar: ValleAR | None = None,
                  nar: ValleNAR | None = None, codec: Encodec | None = None,
                  tokenizer: PhonemeTokenizer | None = None, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError('meshes are not ported to PyTorch yet (ROADMAP.md '
-                                      'queue 1 item 14, parallelism)')
+        """``mesh``: a ``parallel.Mesh``: ``batch_synthesize`` (and so
+        ``synthesize_fused``) runs the AR and the NAR tensor-parallel over its
+        ranks (JAX ``ValleTTS`` on a ('model',) mesh); the codec, the prompt
+        encode and everything outside the two stacks run on its first
+        device, as do streaming and the hub (on no mesh in the JAX package
+        either).  int8 weights and splits that do not divide take the JAX
+        package's GSPMD path, which is not ported, and raise."""
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            if config.weight_dtype == 'int8':
+                raise NotImplementedError('int8 weights on a mesh take the GSPMD path, which '
+                                          'is not ported (ROADMAP.md queue 1 item 14)')
+            ar_mod.check_tp(config, mesh.size)
+            if ar is not None and ar.mesh is not mesh:
+                raise ValueError('the AR model must be on the pipeline\'s mesh')
+            device = mesh.devices[0] if device is None else device
         self.device = resolve_device(device)
-        self.ar = ar if ar is not None else ValleAR(config, device=self.device)
+        self._nar_tp = None
+        self.ar = ar if ar is not None else ValleAR(config, device=self.device, mesh=mesh)
         self.nar = nar if nar is not None else ValleNAR(config, device=self.device)
         self.codec = codec if codec is not None else Encodec(decode_dtype=config.dtype,
                                                              device=self.device)
         self.tokenizer = tokenizer if tokenizer is not None else PhonemeTokenizer()
         self._stream_lock = threading.Lock()
         self._stream_ar: ValleAR | None = None
+
+    def _mesh_trees(self):
+        """(mesh, the AR's rank trees, the NAR's), the NAR's split once per
+        params rebind (JAX ``_mesh_params``), or None without a mesh."""
+        if self.mesh is None:
+            return None
+        p = self.nar.params
+        if self._nar_tp is None or self._nar_tp[0] is not p \
+                or self._nar_tp[1] is not p['transformer']:
+            self._nar_tp = (p, p['transformer'],
+                            shard_stack(p['transformer'], self.mesh, self.config.torch_dtype))
+        return self.mesh, self.ar._decode_tparams()[1], self._nar_tp[2]
 
     def prepare_prompt(self, prompt_audio, prompt_sr: int, prompt_text: str
                        ) -> tuple[np.ndarray, np.ndarray]:
@@ -211,7 +248,7 @@ class ValleTTS:
             wavs, gen_lens, out_codes = _fused_tts_fn(
                 self.ar.decode_params, self.nar.params, self.codec.dec_params,
                 to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens,
-                cfg, generator, clock)
+                cfg, generator, clock, self._mesh_trees())
         wavs, gen_lens, out_codes = wavs.cpu().numpy(), gen_lens.cpu().numpy(), \
             out_codes.cpu().numpy()
         wall = time.perf_counter() - t0
