@@ -7,13 +7,15 @@ Phases, each printing JSON lines:
 
 1. device    -- the card, and ``nvidia-smi``'s name and power limit.
 2. build     -- compile every kernel from ``valle2_tpu_torch/csrc`` (one nvcc
-                per source, all started together).
+                per build, all started together; the persistent #6 is built
+                once per weight format).
 3. kernels   -- the serving kernels (flash forward #1, fused decode step #6)
                 against their plain PyTorch versions at the TTS slice's
                 shapes (#6 at 12 rows with the cache the prefill gives them:
                 ``serving_len``, which chunks a bf16 cache at 640 slots), in
                 float32 with TF32 off and in bfloat16, with CUDA-event times
-                of both (median of 30).
+                of both (median of 30) and, for #1 in bf16, of its CUDA-core
+                route.
 4. greedy    -- the full-width AR model, float32 and TF32 off: greedy token
                 IDs of 32 steps through both kernels equal the IDs through the
                 plain versions.
@@ -207,6 +209,29 @@ Phases, each printing JSON lines:
                 ``phase_tp_large(devices)`` (the four-card call only): the
                 204M stack at mp 4, one generate_batch at 4 beams, greedy ids
                 mesh == solo.
+32. kernels  -- the persistent #6 (one cooperative launch a step) against the
+   (persistent) phased route on the same inputs (fused_verify_step with a block
+                of one token and the same start slots): y and the whole cache
+                bit for bit in every case of PERSISTENT_CASES (every weight x
+                cache variant at the serving shape, 4 rows whole-S, the
+                per-row index whole and chunked; one row at the stream's S;
+                the 204M widths at one row and at 4 rows chunked), f32 (TF32
+                off) and bf16; times of both (median of 30), their host
+                enqueue, the bound, the launcher's grid against the host plan
+                (persistent_plan), and the phase trace (step_phases: each
+                phase's slowest block and barrier, from %globaltimer).
+33. kernels  -- #1's tensor-core route (bf16) at head dims 32, 64 and 128
+   (flash tc)   (FLASH_TC_CASES: s=385, causal and bidirectional, a row with
+                tokens_valid 0) against its plain version and #2 bit for
+                bit; times of the tensor-core route, the CUDA-core route it
+                replaced (flash_attention_cuda_cores), SDPA and the plain
+                version.  Phases 3 and 6 time the CUDA-core route beside #1
+                at the serving prefill and the training shapes too.
+34. step     -- phase_step_profile: torch.profiler over the token loop of
+   profile      each single-card path (main, quant W8A8 + int8 cache and
+                W4A16, stream, cb, clone, hub, large): device kernels of the fused step
+                per launch (1), its device ms, span and gaps a step, the
+                device's busy share.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -215,8 +240,8 @@ step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 ``python3 chip_smoke.py --mesh-cards 4`` on a four-card host runs phases 1,
 2 and 31 over the four cards and ``phase_tp_large`` (after checking peer
 access between every pair of cards); with no argument it needs one card.
-``main`` runs them in this order: 1-3, 16, 18, 21, 24, 30, 11, 4, 5, 17, 19, 22,
-25, 26, 31, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
+``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
+34, 17, 19, 22, 25, 26, 31, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -359,6 +384,47 @@ CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
 # kernel, f32 sums in another order) over bf16 hidden states, whose rounding
 # (2^-8 relative) moves logits of |x| <= 8 by up to ~3e-2.
 GREEDY_BF16_GAP = 5e-2
+# The persistent #6 (one cooperative launch a step) against the phased
+# route on the same inputs: fused_verify_step with a block of one token and
+# the same start slots runs the phased kernels, whose device code each item
+# of the persistent step runs, so the two agree bit for bit.  Per case: rows,
+# S (None: the main path's, serving_len), the forced chunk, the per-row
+# index (PER_ROW's depths and lengths) or a scalar one, the widths (None:
+# the serving model's; 'large': LARGE) and the variants and dtypes it runs.
+ALL_STEP_VARIANTS = ('dense', *QUANT_VARIANTS)
+PERSISTENT_CASES = {
+    'serve': dict(rows=12, S=None, chunk=None, per_row=False, large=False,
+                  variants=ALL_STEP_VARIANTS, dtypes=('bfloat16', 'float32')),
+    'beam4_whole': dict(rows=4, S=640, chunk=None, per_row=False, large=False,
+                        variants=ALL_STEP_VARIANTS, dtypes=('bfloat16', 'float32')),
+    'per_row': dict(rows=8, S=512, chunk=None, per_row=True, large=False,
+                    variants=ALL_STEP_VARIANTS, dtypes=('bfloat16', 'float32')),
+    'per_row_chunked': dict(rows=8, S=512, chunk=128, per_row=True, large=False,
+                            variants=ALL_STEP_VARIANTS, dtypes=('bfloat16', 'float32')),
+    'stream': dict(rows=1, S=1536, chunk=512, per_row=False, large=False,
+                   variants=('dense',), dtypes=('bfloat16', 'float32')),
+    '204m': dict(rows=1, S=896, chunk=None, per_row=False, large=True,
+                 variants=('dense', 'w8a8'), dtypes=('bfloat16',)),
+    '204m_beams': dict(rows=4, S=1024, chunk=512, per_row=False, large=True,
+                       variants=('dense',), dtypes=('bfloat16',)),
+}
+# The kernels-line entries whose rows show the persistent step beside the
+# phased one: entry name -> (case, variant) pairs.
+PERSISTENT_ROWS = {
+    'fused_decode_step': (('serve', 'dense'), ('beam4_whole', 'dense'), ('204m', 'dense')),
+    **{f'fused_decode_step_{v}': (('serve', v), ('beam4_whole', v))
+       for v in QUANT_VARIANTS},
+    'fused_decode_step_chunked': (('stream', 'dense'), ('204m_beams', 'dense')),
+    'fused_decode_step_per_row': (('per_row', 'dense'),),
+    'fused_decode_step_per_row_chunked': (('per_row_chunked', 'dense'),),
+}
+# The flash forward's tensor-core route (bf16) across the head dims: (b, h,
+# s, tokens_total) at a ragged s (not a multiple of the 64-row tile), causal
+# and bidirectional, the last row with tokens_valid == 0.
+FLASH_TC_CASES = {f'hd{hd}': (3, 4, 385, 128, hd) for hd in (32, 64, 128)}
+# The device kernels of the fused decode step (#6), persistent or phased.
+STEP_KERNELS = ('step_persistent_kernel', 'proj_kernel', 'attend_kernel', 'merge_kernel',
+                'kv_quant_kernel')
 # The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
 # case -- the serving prefill of phase main, the serving-width train shapes
 # (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
@@ -544,8 +610,9 @@ def phase_build():
     from valle2_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
-    emit(phase='build', seconds=time.perf_counter() - t0,
-         sources=[f'valle2_tpu_torch/csrc/{n}.cu' for n in _build.KERNEL_SOURCES])
+    emit(phase='build', seconds=time.perf_counter() - t0, builds=list(_build.BUILDS),
+         sources=sorted({f'valle2_tpu_torch/csrc/{stem}.cu'
+                         for stem, _ in _build.BUILDS.values()}))
 
 
 def slice_lengths(device):
@@ -586,6 +653,9 @@ def phase_kernels(results: dict):
             err_o = check_close('flash o', o, o_ref, dtype_name)
             err_l = check_close('flash lse', lse, lse_ref, 'float32')
             ms = cuda_ms(lambda: fa.flash_attention(q, k, v, meta, s['ttm'], True))
+            cc_ms = (cuda_ms(lambda: fa.flash_attention_cuda_cores(q, k, v, meta, s['ttm'],
+                                                                   True))
+                     if dtype_name == 'bfloat16' else None)
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, meta, s['ttm'],
                                                                 True))
             mask = attend_mask(meta, s_pre, s['ttm'], True)
@@ -596,11 +666,11 @@ def phase_kernels(results: dict):
             results[('flash_attention_fwd', dtype_name)] = dict(
                 max_abs_err=max(err_o, err_l), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                tol=tol_str(dtype_name))
+                tol=tol_str(dtype_name), cuda_cores_ms=cc_ms)
             emit(phase='kernels', kernel='flash_attention_fwd', dtype=dtype_name,
                  shape=[s['b'], s['h'], s_pre, s['hd']], err_o=err_o, err_lse=err_l,
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, tol=tol_str(dtype_name))
+                 ms=ms, cuda_cores_ms=cc_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms, tol=tol_str(dtype_name))
 
             # Fused decode step: cache (L, rows, S, d), 8 layers.
             p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
@@ -655,17 +725,18 @@ def serving_len(rows: int, cache_dtype, total: int | None = None) -> int:
 
 
 def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
-                      S: int | None = None):
+                      S: int | None = None, widths: dict | None = None):
     """The serving step's stack and cache in ``variant``'s formats ('dense' or
     one of QUANT_VARIANTS): weights quantized by the port's quantize.py from a
     seeded f32 stack (scales then in the compute dtype), a random (L, rows, S,
     d) cache (int8 through quantize_kv_rowmajor; S by default the main
-    path's, ``serving_len``)."""
+    path's, ``serving_len``).  ``widths``: L, d, h, dff in place of the
+    serving model's."""
     import torch
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
     from valle2_tpu_torch.quantize import quantize_transformer
-    s = SLICE
+    s = {**SLICE, **(widths or {})}
     weight_dtype, cache_dtype = (('compute', 'bfloat16') if variant == 'dense'
                                  else QUANT_VARIANTS[variant][:2])
     if S is None:
@@ -1747,6 +1818,311 @@ def phase_per_row_kernels(results: dict):
                 del p, cache
 
 
+def persistent_case_inputs(case: str, variant: str, dt, gen, dev):
+    """(p, cache, x, index, (tokens_lens, codes_lens, ttm, pm), heads, read
+    slots) of a PERSISTENT_CASES case in ``variant``'s formats; index a
+    (rows,) int32 tensor (per-row cases) or one int."""
+    import torch
+    c = PERSISTENT_CASES[case]
+    widths = (dict(L=LARGE['num_layers'], d=LARGE['d_model'], h=LARGE['n_heads'],
+                   dff=LARGE['dim_feedforward']) if c['large'] else {})
+    w = {**SLICE, **widths}
+    rows = c['rows']
+    if c['per_row']:
+        pr = PER_ROW
+        ttm, pm = pr['ttm'], pr['pm']
+        tl = torch.tensor(pr['tokens_lens'], dtype=torch.int32, device=dev)
+        cl = torch.tensor(pr['codes_lens'], dtype=torch.int32, device=dev)
+        index = torch.tensor([ttm + pm + g for g in pr['depths']], dtype=torch.int32,
+                             device=dev)
+        depths = [int(i) for i in index]
+    else:
+        ttm, pm = (STREAM['ttm'], STREAM['pm']) if case == 'stream' else (SLICE['ttm'],
+                                                                          SLICE['pm'])
+        tl0, cl0 = slice_lengths(dev)
+        tl = tl0.repeat_interleave(4)[:rows].contiguous()
+        cl = cl0.repeat_interleave(4)[:rows].contiguous()
+        index = ttm + pm + {'stream': 700, '204m': 300, '204m_beams': 300}.get(case, 100)
+        depths = [index] * rows
+    p, cache = quant_step_inputs(variant, dt, gen, dev, rows=rows, S=c['S'], widths=widths)
+    S = cache.k.shape[2]
+    x = torch.randn(rows, 1, w['d'], generator=gen).to(dev, dt)
+    read = int((tl + cl).sum()) + sum(min(i, S - 1) - ttm - pm + 1 for i in depths)
+    return p, cache, x, index, (tl, cl, ttm, pm), w['h'], read
+
+
+PHASES = ('qkv', 'attention', 'out', 'ffn1', 'ffn2')
+
+
+def step_phases(fn, L: int, blocks: int) -> dict:
+    """One persistent #6 launch (fn) with its phase trace on
+    (fd.set_step_trace): per phase, summed over the L layers, in ms: work,
+    the slowest block's time from its own exit of the previous barrier to
+    the end of its share of the phase; mean_block, the mean block's; wake,
+    the spread of the blocks' exits from the previous barrier; barrier, from
+    the last block's end of the phase to the first block's exit; and the
+    whole launch."""
+    import torch
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    n = 5 * L
+    buf = torch.zeros(1 + 2 * n * blocks, dtype=torch.int64, device='cuda')
+    torch.cuda.synchronize()
+    fd.set_step_trace(buf)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        fd.set_step_trace(None)
+    t = buf.cpu().double()
+    start = t[0]
+    ends = t[1:1 + n * blocks].view(n, blocks)
+    exits = t[1 + n * blocks:].view(n, blocks)
+    if not (start > 0 and bool((exits > 0).all()) and bool((ends > 0).all())):
+        fail('the persistent step recorded no phase trace')
+    prev = torch.cat([torch.full((1, blocks), float(start), dtype=t.dtype), exits[:-1]])
+    own = ends - prev
+    out = {}
+    for i, name in enumerate(PHASES):
+        k = slice(i, n, 5)
+        out[name] = dict(
+            work_ms=float(own[k].max(dim=1).values.sum()) / 1e6,
+            mean_block_ms=float(own[k].mean(dim=1).sum()) / 1e6,
+            wake_ms=float((prev[k].max(dim=1).values - prev[k].min(dim=1).values).sum()) / 1e6,
+            barrier_ms=float((exits[k].min(dim=1).values - ends[k].max(dim=1).values).sum())
+            / 1e6)
+    out['launch_ms'] = float(exits[-1].max() - start) / 1e6
+    out['barriers'] = n
+    out['barrier_ms_each'] = float((exits.min(dim=1).values
+                                    - ends.max(dim=1).values).mean()) / 1e6
+    return out
+
+
+def phase_persistent_kernels(results: dict):
+    """The persistent #6 (one cooperative launch a step) against the phased
+    route on the same inputs (fused_verify_step, a block of one token, the
+    same start slots): y and the whole cache bit for bit, in every case of
+    PERSISTENT_CASES (every weight x cache variant, whole-S and chunked, the
+    scalar and the per-row index, the serving, stream and 204M widths), f32
+    with TF32 off and bf16.  CUDA-event times of both (median of 30), their
+    host enqueue and the wrapper's host checks, the bound, the launcher's
+    grid against the host plan, and the phase trace (dense and W8A8 + int8
+    cache).  phase_step_profile shows one device kernel a step on every path."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(31)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for case, c in PERSISTENT_CASES.items():
+            for dtype_name in c['dtypes']:
+                dt = getattr(torch, dtype_name)
+                for variant in c['variants']:
+                    p, cache, x, index, args, h, read = persistent_case_inputs(
+                        case, variant, dt, gen, dev)
+                    rows = x.shape[0]
+                    slots = (index if torch.is_tensor(index) else
+                             torch.full((rows,), index, dtype=torch.int32, device=dev))
+                    kw = dict(chunk_override=c['chunk'])
+                    c_a, c_b = (KVCache(*(t.clone() for t in cache if t is not None))
+                                for _ in range(2))
+
+                    def persistent(c_a=c_a, p=p, x=x, h=h, index=index, args=args, kw=kw):
+                        return fd.fused_decode_step(p, x, h, c_a, index, *args, **kw)
+
+                    def phased(c_b=c_b, p=p, x=x, h=h, slots=slots, args=args, kw=kw):
+                        return fd.fused_verify_step(p, x, h, c_b, slots, *args, **kw)
+
+                    chunk = fd.cache_chunk(cache, h, c['chunk'])
+                    fmt = fd.weight_format(p)
+                    L, d, dff = cache.k.shape[0], x.shape[-1], p['ffn']['lin1'][fmt].shape[-1]
+                    plan = fd.persistent_plan(L, rows, d, dff, h, cache.k.shape[2], chunk, fmt)
+                    grid = fd.step_grid(dt, cache.k.dtype, fmt, d // h, d, dff)
+                    if grid[0] < 1 or grid[1] != plan['smem_bytes']:
+                        fail(f'persistent #6 ({case}, {variant}): the launcher sizes {grid} '
+                             f"(blocks, shared bytes), the plan {plan['smem_bytes']} bytes")
+                    y_a, _ = persistent()
+                    y_b, _ = phased()
+                    torch.cuda.synchronize()
+                    same = torch.equal(y_a, y_b) and all(
+                        torch.equal(a, b) for a, b in zip(c_a, c_b) if a is not None)
+                    if not same:
+                        fail(f'persistent #6 ({case}, {variant}, {dtype_name}): differs from '
+                             f'the phased route by '
+                             f'{(y_a.float() - y_b.float()).abs().max().item():.3e} in y')
+                    ms, phased_ms = cuda_ms(persistent), cuda_ms(phased)
+                    phases = (step_phases(persistent, cache.k.shape[0], grid[0])
+                              if variant in ('dense', 'w8a8_kv8') else None)
+                    enq, enq_phased = enqueue_ms(persistent), enqueue_ms(phased)
+                    # the wrapper's host checks and allocations alone, no launch
+                    checks_ms = enqueue_ms(lambda: fd._checked_launch_args(
+                        'fused_decode_step', p, x, h, c_a, 1, args[0], args[1], c['chunk']))
+                    nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache,
+                                                               rows, read, x.element_size())
+                    r = dict(ms=ms, phased_ms=phased_ms, enqueue_ms=enq,
+                             phased_enqueue_ms=enq_phased, host_checks_ms=checks_ms,
+                             bound_ms=bound_ms,
+                             bound_by=bound_by, bit_equal=True, phases=phases)
+                    results[('persistent', case, variant, dtype_name)] = r
+                    emit(phase='kernels', path='persistent', case=case, variant=variant,
+                         dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
+                         shape=dict(L=L, rows=rows, S=cache.k.shape[2], chunk=chunk, d=d, h=h,
+                                    dff=dff, index=index.tolist() if torch.is_tensor(index)
+                                    else index),
+                         grid=dict(blocks=grid[0], smem_bytes=grid[1]),
+                         plan=plan, bytes=nbytes, **r)
+
+
+def kernel_label(name: str) -> str:
+    """A device kernel's name without its namespace and parameter list, the
+    template arguments kept (a projection's MODE: 0 QKV, 1 OUT, 2 FFN1, 3 FFN2)."""
+    import re
+    m = re.search(r'(\w+)(<[^()]*>)?\(', name)
+    return (m.group(1) + (m.group(2) or '')) if m else name[:80]
+
+
+def step_profile(label: str, fn) -> dict:
+    """torch.profiler over fn() (a decode through the fused step, warmed up
+    first): per launch of #6 (its counters), the device kernels of the step
+    (STEP_KERNELS: 1 for the persistent step), its device time, its span on
+    the device (first start to last end of each run of step kernels, one run
+    a step) and the gaps inside the span; the device's busy share of the
+    wall (the union of every kernel's interval) and the step's kernels by
+    name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from valle2_tpu_torch.kernels import fused_decode as fd
+
+    def launches():
+        return sum(c.count for c in fd.COUNTERS.values())
+    fn()
+    torch.cuda.synchronize()
+    n0 = launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    n = launches() - n0
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    runs, cur = [], []
+    for e in ev:
+        if any(k in e.name for k in STEP_KERNELS):
+            cur.append(e)
+        elif cur:
+            runs.append(cur)
+            cur = []
+    if cur:
+        runs.append(cur)
+    step_kernels = sum(len(r) for r in runs)
+    step_dev = sum(e.time_range.elapsed_us() for r in runs for e in r) / 1e3
+    spans = [(r[-1].time_range.end - r[0].time_range.start) / 1e3 for r in runs]
+    busy, end = 0.0, None
+    for e in ev:
+        a, b = e.time_range.start, e.time_range.end
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name: dict = {}
+    for r in runs:
+        for e in r:
+            k = kernel_label(e.name)
+            cnt, ms = by_name.get(k, (0, 0.0))
+            by_name[k] = (cnt + 1, ms + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return dict(label=label, launches=n, step_runs=len(runs), step_kernels=step_kernels,
+                device_kernels_per_step=step_kernels / max(n, 1),
+                step_device_ms=step_dev / max(n, 1),
+                step_span_ms=sum(spans) / max(len(spans), 1),
+                step_gap_ms=(sum(spans) - step_dev) / max(len(spans), 1),
+                wall_ms=wall_ms, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / 1e3 / wall_ms,
+                step_kernels_by_name={k: {'calls': cnt, 'ms': ms} for k, (cnt, ms) in top})
+
+
+def phase_step_profile(smi: str, require_one: bool = True) -> dict:
+    """The token-loop profile of every single-card path's step (step_profile):
+    main (the serving config: bf16, 4 beams, 512 steps, 3 requests), quant
+    (W8A8 with the int8 cache, and W4A16; 128 steps), stream (one row, the
+    streaming model's forced chunk 512 of 1024), cb (a ContinuousDecoder of 4
+    sessions: the per-row index), clone (ValleTTS.__call__ on a 3 s prompt
+    recording, one beam, 128 steps), hub (a StreamHub of two sessions from
+    their own threads), large (the 204M stack, one row, 64 steps).
+    ``require_one``: fail unless every path ran one device kernel a step."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data.frontend import PhonemeTokenizer
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.models.continuous import ContinuousDecoder
+    from valle2_tpu_torch.stream_hub import StreamHub
+    from valle2_tpu_torch.tts import ValleTTS
+
+    texts, pts, pcs = make_requests()
+    tok = PhonemeTokenizer()
+    tokens = [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+    base = dict(ignore_eos=True, dropout=0.0, dtype='bfloat16')
+    main = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], **base), device='cuda')
+    out = {}
+
+    def record(label, fn):
+        r = step_profile(label, fn)
+        out[label] = r
+        emit(phase='step_profile', card=smi, **r)
+        if require_one and (r['launches'] < 1 or r['device_kernels_per_step'] != 1.0):
+            fail(f'step profile ({label}): {r["step_kernels"]} device kernels for '
+                 f'{r["launches"]} launches of #6')
+
+    record('main', lambda: main.generate_batch(tokens, pcs))
+    for label, wd, kd in (('quant_w8a8_kv8', 'int8', 'int8'), ('quant_w4a16', 'int4',
+                                                                  'bfloat16')):
+        m = ValleAR(ConfigValle(max_audio_len=128, weight_dtype=wd, kv_cache_dtype=kd, **base),
+                    params=main.params, device='cuda')
+        record(label, lambda m=m: m.generate_batch(tokens, pcs))
+    stream = ValleAR(ConfigValle(max_audio_len=STREAM['max_new'], num_beams=1,
+                                 decode_chunk=STREAM['chunk'], **base),
+                     params=main.params, device='cuda')
+    record('stream', lambda: stream.generate_batch(tokens[:1], pcs[:1]))
+    one = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], num_beams=1, **base),
+                  params=main.params, device='cuda')
+    cb_texts, cb_pts, cb_pcs, cb_tokens = cb_requests(4)
+
+    def cb_run():
+        cb = ContinuousDecoder(one, n_slots=4, ttm=CB['ttm'], pm=CB['pm'])
+        for t, pc in zip(cb_tokens, cb_pcs):
+            cb.join(t, pc)
+        for _ in range(4):
+            cb.advance(CB['chunk_frames'])
+    record('cb', cb_run)
+    # Cloning (ValleTTS.__call__: a prompt recording through the codec, then
+    # the decode) and the stream hub (two sessions from their own threads).
+    tts = ValleTTS(ConfigValle(max_audio_len=128, num_beams=1, **base),
+                   ar=ValleAR(ConfigValle(max_audio_len=128, num_beams=1, **base),
+                              params=main.params, device='cuda'), device='cuda')
+    req = clone_requests()[0]
+    record('clone', lambda: tts(*req))
+
+    def hub_run():
+        hub = StreamHub(tts, n_slots=2, chunk_frames=CB['chunk_frames'])
+        try:
+            hub_sessions(hub, cb_texts[:2], cb_pts[:2], cb_pcs[:2])
+        finally:
+            hub.stop(drain=True)
+    record('hub', hub_run)
+    large = ValleAR(ConfigValle(max_audio_len=64, num_beams=1, **LARGE, **base),
+                    device='cuda')
+    record('large', lambda: large.generate_batch(tokens[:1], pcs[:1]))
+    del main, stream, one, large, tts
+    torch.cuda.empty_cache()
+    return out
+
+
 def cb_requests(n: int, seed: int = 9):
     """n requests inside the hub geometry: 48 prompt phonemes + a text (under
     128 tokens) and CB['prompt_frames'] prompt frames; (texts, prompt
@@ -2312,7 +2688,9 @@ def phase_train_kernels(results: dict):
                     ms=cuda_ms(lambda: fa.flash_attention(q, k, v, meta, tt, causal)),
                     plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, meta, tt,
                                                                       causal)),
-                    library_ms=sdpa_ms(q, k, v, mask), tol=tol_str(dtype_name))
+                    library_ms=sdpa_ms(q, k, v, mask), tol=tol_str(dtype_name),
+                    cuda_cores_ms=(cuda_ms(lambda: fa.flash_attention_cuda_cores(
+                        q, k, v, meta, tt, causal)) if dtype_name == 'bfloat16' else None))
                 fwd['bound_ms'], fwd['bound_by'] = bound(4 * n * elt + lse.numel() * 4,
                                                          2 * 2 * hd * pairs, dtype_name)
                 results[('flash_attention_fwd', case, dtype_name)] = fwd
@@ -2913,6 +3291,51 @@ def require_fold_arm(label: str, arm: str, launches: dict, names=()) -> None:
     require_launches(f'fold ({label}, {arm} arm)', launches, names)
 
 
+def phase_flash_tc_kernels(results: dict):
+    """#1's tensor-core route (bf16) against its plain version at every head
+    dim it takes (FLASH_TC_CASES: a ragged s, causal and bidirectional, the
+    last batch row with tokens_valid == 0), #2 bit for bit against it; times
+    of the tensor-core route, the CUDA-core route it replaced, SDPA and the
+    plain version, and the bound."""
+    import torch
+    from valle2_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(41)
+    with torch.no_grad():
+        for case, (b, h, s, tt, hd) in FLASH_TC_CASES.items():
+            meta = train_meta(b, tt, s - tt, dev, seed=5)
+            meta[-1, 0] = 0
+            for causal in (True, False):
+                args = (meta, tt, causal)
+                q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, torch.bfloat16)
+                           for _ in range(3))
+                o, lse = fa.flash_attention(q, k, v, *args, fold_heads=False)
+                o2, lse2 = fa.flash_attention_folded(q, k, v, *args)
+                o_ref, lse_ref = fa.flash_attention_plain(q, k, v, *args)
+                torch.cuda.synchronize()
+                label = f'{case} ({"causal" if causal else "bidirectional"})'
+                err = max(check_close(f'flash o {label}', o, o_ref, 'bfloat16'),
+                          check_close(f'flash lse {label}', lse, lse_ref, 'float32'))
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    fail(f'#2 {label}: differs from #1 on the same inputs')
+                mask = attend_mask(meta, s, tt, causal)
+                r = dict(max_abs_err=err,
+                         ms=cuda_ms(lambda: fa.flash_attention(q, k, v, *args,
+                                                               fold_heads=False)),
+                         cuda_cores_ms=cuda_ms(lambda: fa.flash_attention_cuda_cores(q, k, v,
+                                                                                     *args)),
+                         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, *args)),
+                         library_ms=sdpa_ms(q, k, v, mask), tol=tol_str('bfloat16'))
+                r['bound_ms'], r['bound_by'] = bound(
+                    4 * q.numel() * 2 + lse.numel() * 4, 2 * 2 * hd * int(mask.sum()) * h,
+                    'bfloat16')
+                results[('flash_attention_fwd', f'{case}_{int(causal)}', 'bfloat16')] = r
+                emit(phase='kernels', path='flash_tc', case=case, causal=causal,
+                     shape=[b, h, s, hd], tokens_valid_zero_row=b - 1, equal_to_fold=True,
+                     **r)
+
+
 def phase_fold_kernels(results: dict):
     """#2 against its plain version and against #1 on the same inputs
     (bit-equal: the same tiles and per-row order, see csrc/flash_attention.cu)
@@ -3478,10 +3901,13 @@ def main() -> int:
     phase_spec_kernels(results)
     phase_chunk_kernels(results)
     phase_per_row_kernels(results)
+    phase_persistent_kernels(results)
+    phase_flash_tc_kernels(results)
     phase_tp_kernels(results)
     phase_rvq_kernel(results)
     phase_greedy()
     paths = {'serve': phase_main()}
+    phase_step_profile(smi)
     paths['quant'] = phase_quant(smi)
     paths['spec'] = phase_spec(smi)
     paths['stream'] = phase_stream(smi)
@@ -3521,24 +3947,24 @@ def main() -> int:
             *((name, 'gemm.cu', f'probes/_gemm_pallas_roofline.py:{line}', 'ffn1_204m',
                {'square4096': 'square4096', 'out_204m': 'out_204m'}, ('bfloat16',), ('gemm',))
               for name, line in (('matmul_fullk', 46), ('matmul_ksplit', 84))),
-            ('fused_decode_step', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+            ('fused_decode_step', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
-            ('fused_decode_step_chunked', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+            ('fused_decode_step_chunked', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'quant', 'stream', 'large')),
             ('fused_verify_step_chunked', 'fused_decode.cu', 'fused_decode.py:1017', None, {},
              ('bfloat16', 'float32'), ('spec',)),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
              ('clone', 'asr', 'data')),
-            *((f'fused_decode_step_{v}', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+            *((f'fused_decode_step_{v}', 'fused_step.cu', 'fused_decode.py:706', None, {},
                ('bfloat16', 'float32'), ('quant', 'large') if v == 'w8a8' else ('quant',))
               for v in QUANT_VARIANTS),
             *((step_name('fused_verify_step', v), 'fused_decode.cu', 'fused_decode.py:1017',
                None, {}, ('bfloat16', 'float32'), ('spec', 'large') if v in ('dense', 'w8a8')
                else ('spec',)) for v in VERIFY_VARIANTS),
-            ('fused_decode_step_per_row', 'fused_decode.cu', 'fused_decode.py:706', None, {},
+            ('fused_decode_step_per_row', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('cb', 'hub')),
-            ('fused_decode_step_per_row_chunked', 'fused_decode.cu', 'fused_decode.py:706',
+            ('fused_decode_step_per_row_chunked', 'fused_step.cu', 'fused_decode.py:706',
              None, {}, ('bfloat16', 'float32'), ('hub',)),
             ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', None, {'mp4': 'mp4'},
              ('float32',), ('tp',)),
@@ -3586,6 +4012,21 @@ def main() -> int:
         elif name.startswith('fused_verify_step_'):
             entry['ports'] = ('valle2_tpu/kernels/fused_decode.py:752 _verify_kernel with '
                               + QUANT_VARIANTS[name.removeprefix('fused_verify_step_')][2])
+        if name in PERSISTENT_ROWS:
+            entry['persistent_vs_phased'] = {
+                f'{case}_{v}': {DTYPE_LABEL[d]: {k: results[('persistent', case, v, d)][k]
+                                                 for k in ('ms', 'phased_ms', 'enqueue_ms',
+                                                           'phased_enqueue_ms')}
+                                for d in PERSISTENT_CASES[case]['dtypes']}
+                for case, v in PERSISTENT_ROWS[name]}
+        if name == 'flash_attention_fwd':
+            entry['cuda_cores_ms'] = {
+                'serve': results[('flash_attention_fwd', 'bfloat16')]['cuda_cores_ms'],
+                **{c: results[('flash_attention_fwd', c, 'bfloat16')]['cuda_cores_ms']
+                   for c in TRAIN_CASES},
+                **{f'{c}_{ca}': results[('flash_attention_fwd', f'{c}_{ca}',
+                                         'bfloat16')]['cuda_cores_ms']
+                   for c in FLASH_TC_CASES for ca in (1, 0)}}
         if entry['launches'] <= 0:
             fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)

@@ -30,7 +30,13 @@ and under a caller's TF32 scope, the head-folded flash forward (#2) against
 the plain version and bit for bit against #1 at 1 to 16 heads (and the
 fold's grads against the per-head route), the roofline probe's GEMMs (#9,
 #10) at every tile and K split they are built for, and the wrappers'
-refusals.
+refusals.  The persistent #6 (one cooperative launch a step) is held bit for
+bit against the phased route (``fused_verify_step`` with a block of one
+token) in every weight x cache variant, whole-S and chunked, with a scalar
+and a per-row index, at the serving and 204M widths, and shown to be one
+device kernel a launch; the bf16 flash forward's CUDA-core route, which
+``chip_smoke.py`` times beside the tensor-core one, is held against the
+plain version too.
 """
 
 import numpy as np
@@ -85,6 +91,8 @@ FLASH_CASES = {
     'bidirectional': (2, 2, 130, 40, [[40, 130], [25, 90]], False),
     'no_tokens': (1, 2, 70, 20, [[0, 70]], True),
     'slice_rows': (3, 4, 385, 128, [[112, 279], [97, 279], [81, 279]], True),
+    'slice_bidirectional_no_tokens_row': (3, 4, 385, 128, [[112, 385], [0, 300], [81, 385]],
+                                          False),
 }
 
 
@@ -103,6 +111,10 @@ def test_flash_kernel_matches_plain(dev, case, hd, dtype):
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert_close(o, o_ref, dtype)
     assert_close(lse, lse_ref, torch.float32)
+    # The CUDA-core route that chip_smoke.py times beside the tensor cores'.
+    o_cc, lse_cc = fa.flash_attention_cuda_cores(q, k, v, meta, tt, causal)
+    assert_close(o_cc, o_ref, dtype)
+    assert_close(lse_cc, lse_ref, torch.float32)
 
 
 BWD_CASES = {
@@ -659,6 +671,24 @@ def test_fused_step_scratch_outlives_its_launch_beside_another_thread(dev):
     assert differ == 0 and not clobbered
 
 
+@pytest.mark.parametrize('wdtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+def test_decode_logits_do_not_depend_on_the_row_count(dev, wdtype):
+    """The decode loops' logits head gives a row the same bits alone as among
+    4 or 12 rows, under TF32 (the default precision) too: a joint decode
+    samples each row as its solo decode does."""
+    from valle2_tpu_torch.config import tf32_scope
+    from valle2_tpu_torch.ops import decode_logits, linear_init
+    gen = torch.Generator().manual_seed(11)
+    p = {k: v.to(dev, wdtype) for k, v in linear_init(gen, 256, 1025).items()}
+    y = torch.randn(12, 256, generator=gen).to(dev)
+    with tf32_scope(True):
+        full = decode_logits(p, y)
+        assert full.dtype == torch.float32
+        for rows in (1, 4):
+            for r in range(rows):
+                assert torch.equal(decode_logits(p, y[r:rows]), full[r:rows])
+
+
 @pytest.mark.parametrize('decode_chunk', [0, 32], ids=['whole_s', 'chunked'])
 def test_joint_greedy_decode_through_the_kernels_equals_solo(dev, decode_chunk):
     """ContinuousDecoder on the card (f32, TF32 off): three sessions on two
@@ -756,6 +786,160 @@ def test_wide_stack_steps_match_plain(dev, variant):
         torch.testing.assert_close(y, y_ref, **tol)
         torch.testing.assert_close(c_k.k, c_p.k, **tol)
         torch.testing.assert_close(c_k.v, c_p.v, **tol)
+
+
+# The persistent #6 (one cooperative launch a step) against the phased route
+# on the same inputs: fused_verify_step with a block of one token and the
+# same start slots runs the phased kernels, whose device code every item of
+# the persistent step runs, so the two agree bit for bit.  Widths (h, hd):
+# the serving model's (d 256) and the 204M stack's (d 1024, dff 4096: FFN2
+# takes the 8-row tile), 8 rows in a cache of S = 128, whole or chunked (64).
+PERSISTENT_WIDTHS = {'serving': (4, 64), 'w204m': (16, 64)}
+
+
+def persistent_inputs(dev, variant, dtype, widths, rows=8, L=2, ttm=24, pm=16, S=128):
+    h, hd = PERSISTENT_WIDTHS[widths]
+    d = h * hd
+    gen = torch.Generator().manual_seed(d + rows)
+    p = transformer_init(gen, L, d, h, 4 * d, adaptive_norm=False)
+    if variant.startswith(('w8a8', 'w4a16')):
+        p = tq.quantize_transformer(p, bits=8 if variant.startswith('w8a8') else 4)
+    p = map_tree(lambda a: (a.to(dtype) if a.is_floating_point() else a).to(dev)
+                 .contiguous(), p)
+    ck, cv = (torch.randn(L, rows, S, d, generator=gen) for _ in range(2))
+    if variant.endswith('kv8'):
+        (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h) for c in (ck, cv))
+        cache = KVCache(*(t.to(dev) for t in (kq, vq, ks, vs)))
+    else:
+        cache = KVCache(ck.to(dev, dtype), cv.to(dev, dtype))
+    x = torch.randn(rows, 1, d, generator=gen).to(dev, dtype)
+    rs = np.random.RandomState(rows)
+    tl = rs.randint(0, ttm + 1, rows)
+    tl[0] = 0
+    cl = rs.randint(1, pm + 1, rows)
+    lens = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (tl, cl)]
+    return p, x, cache, lens, ttm, pm, h
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('index_kind', ['scalar', 'per_row'])
+@pytest.mark.parametrize('chunk', [None, 64], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('widths', sorted(PERSISTENT_WIDTHS))
+@pytest.mark.parametrize('variant', VERIFY_VARIANTS)
+def test_persistent_step_equals_the_phased_route(dev, variant, widths, chunk, index_kind,
+                                                 dtype):
+    """y and the whole cache (codes and scales too) bit for bit; the per-row
+    rows at the first generated slot, both sides of the chunk boundary, S - 2,
+    S - 1 and frozen at S."""
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, dtype, widths)
+    S = cache.k.shape[2]
+    assert fd.cache_chunk(cache, h, chunk) == (chunk or S)
+    rows = x.shape[0]
+    if index_kind == 'per_row':
+        index = torch.tensor([ttm + pm, 50, 63, 64, 100, S - 2, S - 1, S], dtype=torch.int32,
+                             device=dev)
+        slots = index
+    else:
+        index = ttm + pm + 37
+        slots = torch.full((rows,), index, dtype=torch.int32, device=dev)
+    c_a, c_b = (KVCache(*(t.clone() for t in cache if t is not None)) for _ in range(2))
+    before = fd.COUNTERS[variant].count
+    y_a, _ = fd.fused_decode_step(p, x, h, c_a, index, tl, cl, ttm, pm, chunk_override=chunk)
+    assert fd.COUNTERS[variant].count == before + 1
+    y_b, _ = fd.fused_verify_step(p, x, h, c_b, slots, tl, cl, ttm, pm, chunk_override=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_a.float()).all()
+    assert torch.equal(y_a, y_b)
+    for a, b in zip(c_a, c_b):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('chunk', [None, 64], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('variant', ['dense', 'w8a8_kv8'])
+def test_persistent_step_rows_do_not_depend_on_each_other(dev, variant, chunk):
+    """Each row of an 8-row step (per-row index, bf16) equals that row stepped
+    alone, y and cache bit for bit, and three repeats of the 8-row step from
+    the same cache are identical: a joint decode's rows compute as their solo
+    decodes do."""
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, torch.bfloat16,
+                                                          'serving')
+    S = cache.k.shape[2]
+    index = torch.tensor([ttm + pm, 50, 63, 64, 100, S - 2, S - 1, S], dtype=torch.int32,
+                         device=dev)
+    runs = []
+    for _ in range(3):
+        c = KVCache(*(t.clone() for t in cache if t is not None))
+        y, _ = fd.fused_decode_step(p, x, h, c, index, tl, cl, ttm, pm, chunk_override=chunk)
+        runs.append((y, c))
+    y, full = runs[0]
+    for y2, c2 in runs[1:]:
+        assert torch.equal(y2, y) and all(torch.equal(a, b) for a, b in zip(c2, full)
+                                          if a is not None)
+    for r in range(x.shape[0]):
+        one = KVCache(*(t[:, r:r + 1].clone() for t in cache if t is not None))
+        y1, _ = fd.fused_decode_step(p, x[r:r + 1].contiguous(), h, one,
+                                     index[r:r + 1].contiguous(), tl[r:r + 1].contiguous(),
+                                     cl[r:r + 1].contiguous(), ttm, pm, chunk_override=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(y1[0], y[r])
+        assert all(torch.equal(a[:, r:r + 1], b) for a, b in zip(full, one) if a is not None)
+
+
+@pytest.mark.parametrize('variant', ['dense', 'w8a8_kv8'])
+def test_persistent_step_is_one_device_kernel(dev, variant):
+    """torch.profiler: three #6 launches (chunked, per-row index) run three
+    device kernels, each the persistent step; the phased route's kernels do
+    not run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, torch.bfloat16,
+                                                          'serving')
+    index = torch.tensor([ttm + pm, 50, 63, 64, 100, 126, 127, 128], dtype=torch.int32,
+                         device=dev)
+    fd.fused_decode_step(p, x, h, cache, index, tl, cl, ttm, pm, chunk_override=64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10000)   # the profiler may miss its window's first kernel
+        torch.cuda.synchronize()
+        for _ in range(3):
+            fd.fused_decode_step(p, x, h, cache, index, tl, cl, ttm, pm, chunk_override=64)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not any(w in e.name.lower() for w in ('sleep', 'spin'))]
+    assert len(names) == 3 and all('step_persistent_kernel' in n for n in names), names
+
+
+@pytest.mark.parametrize('layout', ['w', 'q', 'q4'])
+@pytest.mark.parametrize('dims', [(256, 4, 1024), (1024, 16, 4096), (3072, 24, 3072),
+                                  (6144, 48, 6144)], ids=['serving', 'w204m', 'k3072',
+                                                          'k6144'])
+def test_persistent_grid_fills_the_card(dev, layout, dims):
+    """The launcher's grid is every block the card holds at once (SM count x
+    blocks per SM, at least one a SM) and its shared memory the plan's."""
+    d, h, dff = dims
+    if fd.fit_error(d, h, dff, layout) is not None:
+        pytest.skip(f'the kernels do not take d={d}, dff={dff} in {layout!r}')
+    blocks, smem = fd.step_grid(torch.bfloat16, torch.bfloat16, layout, d // h, d, dff)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks >= sms and blocks % sms == 0
+    assert smem == fd.persistent_plan(2, 8, d, dff, h, 128, 128, layout)['smem_bytes']
+
+
+def test_persistent_step_refuses_what_it_does_not_take(dev):
+    """A block of more than one token a row is the verify step's (#7), and
+    the launcher's sizing refuses head dims and widths the kernel does not
+    take, and a bfloat16 model over a float32 cache, with a CUDA error."""
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, 'dense', torch.float32,
+                                                          'serving')
+    block = torch.randn(x.shape[0], 4, x.shape[2], device=dev)
+    with pytest.raises(ValueError, match='contiguous'):
+        fd.fused_decode_step(p, block, h, cache, ttm + pm, tl, cl, ttm, pm)
+    for hd, d, dff in ((48, 192, 768), (64, 256, 8192)):
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            fd.step_grid(torch.float32, torch.float32, 'w', hd, d, dff)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        fd.step_grid(torch.bfloat16, torch.float32, 'w', 64, 256, 1024)
 
 
 def test_verify_wrapper_refuses_what_the_kernel_does_not_take(dev):

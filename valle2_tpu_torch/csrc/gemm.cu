@@ -21,7 +21,7 @@
 // of shared-memory tiles filled by cp.async (16 bytes a thread), so the next
 // stages' loads are in flight while the tensor cores work on the current one.
 // Fragments come from shared memory by ldmatrix (B with .trans, as B is
-// stored K-major); rows are padded by 16 bytes so the 8 rows of an ldmatrix
+// stored K-major; the fragment helpers are common.cuh's, shared with #1); rows are padded by 16 bytes so the 8 rows of an ldmatrix
 // fall in distinct banks.
 //
 // #9 walks all of K in the block, keeps the sums in registers and writes bf16
@@ -31,12 +31,13 @@
 // allocates; a second kernel sums the slices in the order z = 0, 1, ... and
 // rounds to bf16.  The result is deterministic, with no atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
+using namespace valle2;
 using bf16 = __nv_bfloat16;
 
 constexpr int BK = 32;       // K per shared-memory stage
@@ -54,45 +55,6 @@ struct Tile {
   static constexpr size_t SMEM = sizeof(bf16) * STAGES * (A_ELEMS + B_ELEMS);
   static_assert(WTM % 16 == 0 && WTN % 16 == 0, "warp tile must hold whole fragments");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Issue the cp.async copies of one K stage: A[m0:m0+BM, k0:k0+BK] and
 // B[k0:k0+BK, n0:n0+BN].

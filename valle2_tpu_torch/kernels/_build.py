@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels in ``valle2_tpu_torch/csrc``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use by
-``nvcc`` (``-gencode arch=compute_90a,code=sm_90a``, Hopper) into
-``valle2_tpu_torch/_build/<name>-<source hash>.so`` (git-ignored), then loaded
-with ``ctypes``.  The file name carries a hash of the source, so an edited
-kernel is rebuilt and a stale library is never loaded.  Nothing here runs at
+Each build has a plain C interface and is compiled on first use by ``nvcc``
+(``-gencode arch=compute_90a,code=sm_90a``, Hopper) from one ``csrc/*.cu``
+source (``BUILDS``: a source may be built several times with other defines)
+into ``valle2_tpu_torch/_build/<name>-<source hash>.so`` (git-ignored), then
+loaded with ``ctypes``.  The file name carries a hash of the source, the
+headers and the flags, so an edited kernel is rebuilt and a stale library is
+never loaded.  Nothing here runs at
 import time: the CPU tests import every module without a CUDA toolchain.
 """
 
@@ -21,9 +23,25 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
-KERNEL_SOURCES = ('flash_attention', 'flash_attention_bwd', 'fused_decode', 'gemm', 'rvq')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+# The fused decode step contracts no multiply-add on its own (every FMA is an
+# explicit fmaf), so the persistent #6 and the phased kernels, which run the
+# same device code from other call sites, round alike.
+_FUSED = ('--fmad=false',)
+# build name -> (source stem in csrc/, its own nvcc flags).  The persistent
+# #6 (fused_step.cu) is built once per weight format, so the three compile in
+# parallel beside the others.
+BUILDS = {
+    'flash_attention': ('flash_attention', ()),
+    'flash_attention_bwd': ('flash_attention_bwd', ()),
+    'fused_decode': ('fused_decode', _FUSED),
+    **{f'fused_step_{fmt}': ('fused_step', (*_FUSED, f'-DVALLE2_STEP_WF={i}'))
+       for i, fmt in enumerate(('dense', 'w8a8', 'w4a16'))},
+    'gemm': ('gemm', ()),
+    'rvq': ('rvq', ()),
+}
+KERNEL_SOURCES = tuple(BUILDS)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -38,8 +56,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in [CSRC_DIR / f'{name}.cu', *sorted(CSRC_DIR.glob('*.cuh'))]:
+    stem, flags = BUILDS[name]
+    h = hashlib.sha256(' '.join((*NVCC_FLAGS, *flags)).encode())
+    for src in [CSRC_DIR / f'{stem}.cu', *sorted(CSRC_DIR.glob('*.cuh'))]:
         h.update(src.read_bytes())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:12]}.so'
 
@@ -52,7 +71,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
+    stem, flags = BUILDS[name]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, '-o', str(tmp), str(CSRC_DIR / f'{stem}.cu')]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -64,12 +84,12 @@ def _finish(name: str, started) -> None:
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{log}')
+        raise RuntimeError(f'nvcc failed for csrc/{BUILDS[name][0]}.cu ({name}):\n{log}')
     os.replace(tmp, out)          # atomic: a concurrent loader never sees half a file
 
 
 def build_all() -> None:
-    """Compile every kernel source at once (one nvcc per source, all started
+    """Compile every build at once (one nvcc per build, all started
     together)."""
     with _lock:
         started = {n: _start(n) for n in KERNEL_SOURCES}
@@ -78,7 +98,8 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
+    """The loaded library of build ``name`` (``BUILDS``), building it first if
+    needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -4,7 +4,8 @@ plain versions, and the ``torch.autograd.Function`` that joins them.
 Replaces the Pallas TPU kernels of ``valle2_tpu/kernels/flash_attention.py``:
 the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
 ``_flash_fwd_folded`` → ``_fwd_kernel_folded`` (#2), both in
-``csrc/flash_attention.cu``, on the AR prefill and in every training step;
+``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on the CUDA
+cores), on the AR prefill and in every training step;
 and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``):
 ``_bwd_fused_kernel`` when the padded row fits (``FUSED_BWD_MAX_SEQ``), else
 ``_bwd_dq_kernel`` then ``_bwd_dkv_kernel``, the JAX package's routing rule.
@@ -168,6 +169,19 @@ def flash_attention(q, k, v, meta, tokens_total: int, causal: bool = True,
         return flash_attention_plain(q, k, v, meta, tokens_total, causal)
     return _forward('flash_attention', 'valle2_flash_attention_fwd', COUNTER, q, k, v, meta,
                     tokens_total, causal)
+
+
+# Launches of the CUDA-core bf16 route, which only chip_smoke.py's timing calls.
+CUDA_CORES_COUNTER = _build.LaunchCounter()
+
+
+def flash_attention_cuda_cores(q, k, v, meta, tokens_total: int, causal: bool = True):
+    """#1 with bf16 products on the CUDA cores in f32 FMAs (the first design's
+    route of ``csrc/flash_attention.cu``; f32 runs there in either case), kept to time
+    the tensor-core route beside the design it replaced.  No path of the port
+    calls it; CUDA tensors only."""
+    return _forward('flash_attention_cuda_cores', 'valle2_flash_attention_fwd_cuda_cores',
+                    CUDA_CORES_COUNTER, q, k, v, meta, tokens_total, causal)
 
 
 def _stream(t) -> int:

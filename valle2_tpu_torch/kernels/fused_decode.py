@@ -14,8 +14,14 @@ argument, ``fused_step_tp``: each rank's local heads, the two row-parallel
 partials of every layer summed by the all-reduce 5c of
 ``kernels.tp_allreduce``; dense and int4 weights, as in JAX).  The kernels
 are ``csrc/fused_decode.cu`` (see its header for the design and the TP
-ordering protocol); each wrapper launches all of one step's kernels, of
-every rank, with one host call.
+ordering protocol) and ``csrc/fused_step.cu`` (the persistent #6, one build
+per weight format), on the device code of ``csrc/fused_decode.cuh``.  One
+card's #6 is ONE cooperative launch a step (the persistent step: every block
+walks the layers, a grid-wide barrier between the phases;
+``persistent_plan`` says what it does); #7 and the TP steps launch their
+phases' kernels in turn, with one host call for all of them.  The persistent
+#6 runs the phased route's device code on every item, so it is bit-equal to
+``fused_verify_step`` with a block of one token.
 
 Both versions take the cache in the fused head-major layout (L, rows, S, d)
 (``fused_cache_layout``), an int8 cache with its per-(slot, head) bfloat16
@@ -76,6 +82,91 @@ HEAD_DIMS = (32, 64, 96, 128)
 # Widest projection input: a tile of 8 rows of it (f32, and int8 codes for
 # W8A8) in shared memory (csrc/fused_decode.cu max_k8).
 _MAX_K = {0: 6144, 1: 5120, 2: 6144}
+
+
+# The persistent #6: one block shape for every phase, and its projections'
+# tiles (csrc/fused_decode.cu PNT, NCOL, KSPLIT, ANW, max_k16).
+PERSISTENT_THREADS = 512
+_NCOL, _KSPLIT, _ANW = 32, 16, 16
+_MAX_K16 = {0: 3072, 1: 2048, 2: 3072}
+SMEM_OPT_IN = 232448     # the shared memory an H100 block can opt into
+
+
+def proj_tile_rows(K: int, layout: str) -> int:
+    """The rows of a projection tile over a K-wide input: 16 where they fit
+    shared memory, else 8 (``launch_proj``, ``run_proj``)."""
+    return 16 if K <= _MAX_K16[_WEIGHT_FORMATS[layout][0]] else 8
+
+
+def proj_smem_bytes(K: int, layout: str) -> int:
+    """Shared memory of one projection tile (``proj_smem``): the tile's rows
+    of the operand in f32, the K slices' partials, and for W8A8 the rows'
+    scales and int8 codes."""
+    mr = proj_tile_rows(K, layout)
+    n = 4 * (mr * K + _KSPLIT * mr * _NCOL)
+    return n + 4 * mr + mr * K if layout == 'q' else n
+
+
+def persistent_plan(L: int, rows: int, d: int, dff: int, n_heads: int, S: int, chunk: int,
+                    layout: str = 'w') -> dict:
+    """What one launch of the persistent #6 does (``step_persistent_kernel``):
+    per layer, the tiles of each projection ((row tile, 32-column tile), 16
+    K slices each; ``proj_tile_rows``) and the attention items (query row,
+    head and, below S, chunk); the grid-wide barriers of the step (5 a layer
+    less the last); its dynamic shared memory a block, the largest of the
+    projections' tiles and the attention's two half-blocks (the launcher
+    sizes the grid by it: SM count x the blocks an SM holds).  An
+    ``attention`` item takes a block's 16 warps."""
+    if d % n_heads:
+        raise ValueError(f'd={d} does not split over {n_heads} heads')
+    hd = d // n_heads
+    n_chunks = S // chunk if chunk < S else 1
+
+    def tiles(K, N):
+        mr = proj_tile_rows(K, layout)
+        return -(-N // _NCOL) * -(-rows // mr)
+
+    smem = max(proj_smem_bytes(d, layout), proj_smem_bytes(dff, layout),
+               4 * (2 * _ANW + _ANW * hd))
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f'the persistent step needs {smem} bytes of shared memory a block, '
+                         f'over the {SMEM_OPT_IN} a block can take')
+    return dict(items={'qkv': tiles(d, 3 * d), 'attention': rows * n_heads * n_chunks,
+                       'out': tiles(d, d), 'ffn1': tiles(d, dff), 'ffn2': tiles(dff, d)},
+                barriers=5 * L - 1, smem_bytes=smem, threads=PERSISTENT_THREADS,
+                launches=1)
+
+
+def step_grid(dtype, cache_dtype, layout: str, hd: int, d: int, dff: int) -> tuple[int, int]:
+    """(blocks, shared bytes a block) of the persistent #6 launch on the
+    current card for a stack of these formats and widths (the launcher's own
+    sizing, ``valle2_fused_step_grid``); raises where the launch would fail:
+    a card with no cooperative launch, or no block that fits."""
+    fn = _build.load(_step_build(layout)).valle2_fused_step_grid
+    if fn.argtypes is None:
+        ci = ctypes.c_int
+        fn.argtypes = [ci] * 6 + [ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_long)]
+        fn.restype = ci
+    blocks, smem = ctypes.c_int(0), ctypes.c_long(0)
+    status = fn(_DTYPE_CODE[dtype], _DTYPE_CODE[cache_dtype], _WEIGHT_FORMATS[layout][0], hd,
+                d, dff, ctypes.byref(blocks), ctypes.byref(smem))
+    _build.check(status, 'fused_decode_step (persistent grid)')
+    return blocks.value, smem.value
+
+
+def set_step_trace(buf) -> None:
+    """The next persistent #6 launch records its phase timestamps into
+    ``buf``, a CUDA int64 tensor of 1 + 2 * 5 L * blocks elements
+    (``%globaltimer`` ns: [0] the start, then each block's end of each of the
+    5 L phases, then each block's exit from each phase's barrier); None
+    turns the hook off.  A measurement hook: no path of the port sets it.
+    Set in the build of every weight format."""
+    for layout in _WEIGHT_FORMATS:
+        fn = _build.load(_step_build(layout)).valle2_fused_step_trace
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = None
+        fn(None if buf is None else buf.data_ptr())
 
 
 DEFAULT_CHUNK = 256   # the JAX package's chunk constant (valle2_tpu/kernels/fused_decode.py)
@@ -287,8 +378,16 @@ def variant(p, cache: KVCache) -> str:
     return 'kv8' if name == 'dense' else f'{name}_kv8'
 
 
-def _lib(verify: bool):
-    lib = _build.load('fused_decode')
+def _step_build(layout: str) -> str:
+    """The build of the persistent #6 for a weight layout (csrc/fused_step.cu,
+    one build per format)."""
+    return f'fused_step_{_WEIGHT_FORMATS[layout][1]}'
+
+
+def _lib(verify: bool, layout: str = 'w'):
+    """#7 (the phased kernels, csrc/fused_decode.cu) or #6 (the persistent
+    step of ``layout``'s build)."""
+    lib = _build.load('fused_decode' if verify else _step_build(layout))
     fn = lib.valle2_fused_verify_step if verify else lib.valle2_fused_decode_step
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -457,7 +556,9 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
     chunk_override: the forced chunk (``chunk_for``; None: the automatic
     one).  Returns (y (rows, 1, d), cache) with the cache updated in place.
     ``tp`` = (mesh, rank trees, rank caches): the tensor-parallel step
-    (``fused_step_tp``) in place of ``p`` and ``cache``, which are None."""
+    (``fused_step_tp``) in place of ``p`` and ``cache``, which are None.
+    On one card the kernel is one cooperative launch (the persistent step),
+    which raises where the card takes none."""
     if tp is not None:
         return fused_step_tp('fused_decode_step_tp', *tp, x, n_heads, index, tokens_lens,
                              codes_lens, ttm, pm, chunk_override)
@@ -478,9 +579,9 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
     else:
         slots = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(False)(*lead, slots, *map(_ptr, scratch), L, rows, S, d, n_heads, dff,
-                         int(index), int(ttm), int(pm), *tail, 1.0 / math.sqrt(d // n_heads),
-                         stream)
+    status = _lib(False, weight_format(p))(*lead, slots, *map(_ptr, scratch), L, rows, S, d,
+                                            n_heads, dff, int(index), int(ttm), int(pm),
+                                            *tail, 1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, name)
     _count(name, var, sizes, tail, per_row)
     return y, cache

@@ -48,7 +48,7 @@ from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
 from ..kernels.fused_decode import (fused_cache_layout, fused_decode_step,
                                     fused_verify_step, padded_cache_len, verify_slot_mask)
 from ..ops import (NEG_INF, KVCache, add_positional, best_beam_index, build_pad_mask,
-                   cast_to_compute, categorical, embedding, embedding_init, linear,
+                   cast_to_compute, categorical, decode_logits, embedding, embedding_init, linear,
                    linear_init, prefix_lm_bias, sinusoidal_table, top_k_top_p_filter,
                    topk_sampling, transformer, transformer_decode_step, transformer_init,
                    transformer_prefill)
@@ -305,7 +305,7 @@ def _decode_prefill(params: Params, tokens: torch.Tensor, tokens_lens: torch.Ten
         y = ys[0]
     # Logits at each item's last valid prompt position (ttm + p_len - 1).
     y_last = y[torch.arange(b, device=dev), (ttm + codes_lens - 1).long()]
-    first_logits = linear(params['proj'], y_last.float())               # (B, V+1)
+    first_logits = decode_logits(params['proj'], y_last.float())        # (B, V+1)
 
     def tile(c):
         c = KVCache(*(None if a is None else a.repeat_interleave(beams, dim=1) for a in c))
@@ -396,7 +396,7 @@ def _decode_advance(params: Params, tparams: Params, state: DecodeState,
             x = x.to(config.torch_dtype).contiguous()
             y, cache = _stack_step(tparams, x, config, cache, ttm + pm + step, tl_f, pl_f,
                                    ttm, pm, mesh, verify=False)
-            logits = linear(params['proj'], y[:, 0].float())
+            logits = decode_logits(params['proj'], y[:, 0].float())
             step += 1
     state.step, state.logits, state.cache = step, logits, cache
     state.sum_logprobs, state.finished = sum_lp, finished
@@ -463,7 +463,7 @@ def _decode_advance_spec(params: Params, tparams: Params, state: DecodeState,
         x = x.to(config.torch_dtype).contiguous()
         y, cache = _stack_step(tparams, x, config, cache, (ttm + pm + step).to(torch.int32),
                                tl_f, pl_f, ttm, pm, mesh, verify=True)
-        flat3 = linear(params['proj'], y.float())                            # (rows, K, V)
+        flat3 = decode_logits(params['proj'], y.float())                     # (rows, K, V)
         vocab = flat3.shape[-1]
 
         if not sampled:

@@ -45,8 +45,8 @@ import torch
 from ..config import precision_scope
 from ..kernels.fused_decode import (fused_cache_layout, fused_decode_step, fused_verify_step,
                                     padded_cache_len, verify_slot_mask)
-from ..ops import (NEG_INF, KVCache, categorical_rows, embedding, linear, sinusoidal_table,
-                   top_k_top_p_filter, topk_sampling, topk_sampling_rows,
+from ..ops import (NEG_INF, KVCache, categorical_rows, decode_logits, embedding,
+                   sinusoidal_table, top_k_top_p_filter, topk_sampling, topk_sampling_rows,
                    transformer_decode_step)
 from .ar import (FINISHED_CHECK_EVERY, MAX_POS, SPEC_CHECK_EVERY, DecodeState, ValleAR, _dims,
                  _ngram_draft, _spec_gate, _specials, check_max_pos, default_generator)
@@ -123,8 +123,8 @@ def _cb_advance(params: Params, tparams: Params, state: DecodeState, tl_f: torch
                                                    write_idx, attend_mask=attend)
             # A frozen row keeps its carried logits: a pending row's prefill
             # logits give its first token after activation.
-            logits = torch.where(active[:, None], linear(params['proj'], y[:, 0].float()),
-                                 logits)
+            logits = torch.where(active[:, None],
+                                 decode_logits(params['proj'], y[:, 0].float()), logits)
             step = step + active
         n += unroll
     state.step, state.codes, state.logits, state.cache = step, codes, logits, cache
@@ -183,7 +183,7 @@ def _cb_advance_spec(params: Params, tparams: Params, state: DecodeState, tl_f: 
             attend = verify_slot_mask(seq, write_idx, k_blk, tl_f, pl_f, ttm, pm)
             y, cache = transformer_decode_step(tparams, x, config.n_heads, cache, write_idx,
                                                attend_mask=attend)
-        flat3 = linear(params['proj'], y.float())                             # (rows, K, V)
+        flat3 = decode_logits(params['proj'], y.float())                      # (rows, K, V)
         vocab = flat3.shape[-1]
         if not sampled:
             g_tok, g_lp = topk_sampling(flat3.reshape(rows * k_blk, vocab), top_k=config.top_k,

@@ -2,8 +2,8 @@
 
 from .attention import mha, mha_init, qkv_proj, sdpa
 from .masks import NEG_INF, build_pad_mask, mask_to_bias, prefix_lm_attend, prefix_lm_bias
-from .nn import (adaln, adaln_init, add_positional, cast_to_compute, dropout, embedding,
-                 embedding_init, ffn, ffn_init, layernorm, layernorm_init, linear,
+from .nn import (adaln, adaln_init, add_positional, cast_to_compute, decode_logits, dropout,
+                 embedding, embedding_init, ffn, ffn_init, layernorm, layernorm_init, linear,
                  linear_init, sinusoidal_table)
 from .sampling import (best_beam_index, categorical, categorical_rows, top_k_top_p_filter,
                        topk_sampling, topk_sampling_rows)
@@ -15,6 +15,7 @@ __all__ = [
     'prefix_lm_attend', 'prefix_lm_bias', 'adaln', 'adaln_init', 'add_positional',
     'cast_to_compute', 'dropout', 'embedding', 'embedding_init', 'ffn', 'ffn_init',
     'layernorm', 'layernorm_init', 'linear', 'linear_init', 'sinusoidal_table',
+    'decode_logits',
     'best_beam_index', 'categorical', 'categorical_rows', 'top_k_top_p_filter',
     'topk_sampling', 'topk_sampling_rows', 'KVCache',
     'encoder_layer', 'transformer', 'transformer_decode_step', 'transformer_init',

@@ -56,6 +56,23 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def decode_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The decode loops' logits head, ``linear(p, x)`` in float32, with the
+    same bits for a row whatever other rows share the batch.  On the card a
+    float32 GEMM rounds as the kernel cuBLAS picks for the row count does
+    (TF32 under the default precision), so a continuous-batching step's
+    logits parted from the solo step's and a sampled session could draw
+    another token; there the product runs in float64 (the products of
+    float32 or bfloat16 inputs are exact) and rounds to float32 once.  On the
+    CPU, and for quantized weights, it is ``linear``."""
+    if x.device.type != 'cuda' or 'w' not in p:
+        return linear(p, x).float()
+    y = x.double() @ p['w'].double()
+    if 'b' in p:
+        y = y + p['b'].double()
+    return y.float()
+
+
 def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None
                         ) -> list[torch.Tensor]:
     """Row-parallel linear under tensor parallelism (JAX
