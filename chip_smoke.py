@@ -278,6 +278,14 @@ TRAIN_RUNS = (('ValleAR', 32, 512, 10), ('ValleNAR', 32, 512, 10), ('ValleAR', 8
 # of a leaf over that leaf's largest |grad| (f32, TF32 off; sums in another
 # order through 8 layers).
 GRAD_RTOL = 1e-4
+# The same in bf16, on the same f32 master weights: kernels and plain route
+# each part from the f32 plain grads by their own bf16 roundings (the flash
+# forward's online softmax against the whole-row one; ds rounded before ds K
+# where autograd of the plain route rounds dP).  Per leaf, the kernels may part
+# from the plain route by k times the plain route's own distance from f32 --
+# two independent errors of that size, and one more for the other rounding
+# points -- plus one bf16 ulp (2^-8) of the leaf's largest f32 grad.
+GRAD_BF16 = {'k': 3.0, 'ulp': 2.0 ** -8}
 DTYPE_LABEL = {'bfloat16': 'bf16', 'float32': 'f32'}
 # RVQ encode #8 cases: (B, T, n_q) -- a 2 s prompt, a dataset batch of 4 s,
 # a ragged frame count with fewer stages.
@@ -2660,7 +2668,8 @@ def train_meta(b: int, tokens: int, frames: int, device, seed: int = 0):
 
 def phase_train_kernels(results: dict):
     """Flash forward (#1, causal and bidirectional) and backward (#3; #4 + #5
-    past FUSED_BWD_MAX_SEQ) at the training shapes against the plain versions."""
+    past FUSED_BWD_MAX_SEQ) at the training shapes against the plain versions;
+    in bf16 each also timed on the CUDA-core route it replaced."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import flash_attention as fa
@@ -2696,6 +2705,12 @@ def phase_train_kernels(results: dict):
                 results[('flash_attention_fwd', case, dtype_name)] = fwd
 
                 args = (q, k, v, meta, o, lse, do, tt, causal)
+
+                def cc_ms(wrapper):
+                    # bf16: the CUDA-core route it replaced, in the same call
+                    if dtype_name != 'bfloat16':
+                        return None
+                    return cuda_ms(lambda: wrapper(*args, cuda_cores=True))
                 want = fa.flash_attention_bwd_plain(*args)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args))
                 library_ms = sdpa_ms(q, k, v, mask, do)
@@ -2707,6 +2722,7 @@ def phase_train_kernels(results: dict):
                             for g, x, w in zip(('dq', 'dk', 'dv'), got, want)]
                     kern = {'flash_bwd_fused': dict(
                         max_abs_err=max(errs), ms=cuda_ms(lambda: fa.flash_bwd_fused(*args)),
+                        cuda_cores_ms=cc_ms(fa.flash_bwd_fused),
                         bound=bound(in_bytes + 3 * n * elt, 5 * 2 * hd * pairs, dtype_name))}
                 else:
                     dq = fa.flash_bwd_dq(*args)
@@ -2716,12 +2732,14 @@ def phase_train_kernels(results: dict):
                         'flash_bwd_dq': dict(
                             max_abs_err=check_close(f'dq ({case})', dq, want[0], dtype_name),
                             ms=cuda_ms(lambda: fa.flash_bwd_dq(*args)),
+                            cuda_cores_ms=cc_ms(fa.flash_bwd_dq),
                             bound=bound(in_bytes + n * elt, 3 * 2 * hd * pairs, dtype_name)),
                         'flash_bwd_dkv': dict(
                             max_abs_err=max(
                                 check_close(f'dk ({case})', dk, want[1], dtype_name),
                                 check_close(f'dv ({case})', dv, want[2], dtype_name)),
                             ms=cuda_ms(lambda: fa.flash_bwd_dkv(*args)),
+                            cuda_cores_ms=cc_ms(fa.flash_bwd_dkv),
                             bound=bound(in_bytes + 2 * n * elt, 4 * 2 * hd * pairs,
                                         dtype_name))}
                 for name, r in kern.items():
@@ -2742,14 +2760,32 @@ def synthetic_batch(model: str, cfg, n: int, device):
     return to_device(get_collate(model)(cfg)([ds[i] for i in range(n)]), device)
 
 
+def grads_arm(loss, params, leaves, cfg, batch, label: str, kernels: bool):
+    """(loss, grads) of one route under ``cfg``; fails unless the backward
+    kernels launched exactly when ``kernels``."""
+    import torch
+    from valle2_tpu_torch.config import precision_scope
+    from valle2_tpu_torch.kernels import flash_attention as fa
+    before = fa.BWD_FUSED_COUNTER.count + fa.BWD_DQ_COUNTER.count
+    with precision_scope(cfg):
+        value, _ = loss(params, cfg, batch)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    launched = fa.BWD_FUSED_COUNTER.count + fa.BWD_DQ_COUNTER.count - before
+    if (launched > 0) != kernels:
+        fail(f'grads ({label}): {launched} backward kernel launches')
+    return float(value.detach()), [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)]
+
+
 def phase_grads():
     """Loss and every grad through the kernels == through the plain bias
-    route, full width, f32 with TF32 off: AR, and NAR at stage 3."""
+    route, full width: f32 with TF32 off (GRAD_RTOL), and bf16 on the same f32
+    master weights (GRAD_BF16, against the plain route's own distance from
+    the f32 grads); AR, and NAR at stage 3."""
     import dataclasses
 
     import torch
-    from valle2_tpu_torch.config import ConfigValle, precision_scope
-    from valle2_tpu_torch.kernels import flash_attention as fa
+    from valle2_tpu_torch.config import ConfigValle
     from valle2_tpu_torch.models import ar as ar_mod
     from valle2_tpu_torch.models import nar as nar_mod
     from valle2_tpu_torch.train import init_state, tree_leaves
@@ -2762,18 +2798,12 @@ def phase_grads():
         params = init_state(kern_cfg, model, device=dev).params
         leaves = tree_leaves(params)
         batch = synthetic_batch(model, kern_cfg, 4, dev)
-        out = {}
-        for name, cfg in (('kernels', kern_cfg), ('plain', plain_cfg)):
-            before = fa.BWD_FUSED_COUNTER.count + fa.BWD_DQ_COUNTER.count
-            with precision_scope(cfg):
-                value, _ = loss(params, cfg, batch)
-                grads = torch.autograd.grad(value, leaves, allow_unused=True)
-            launched = fa.BWD_FUSED_COUNTER.count + fa.BWD_DQ_COUNTER.count - before
-            if (launched > 0) != (name == 'kernels'):
-                fail(f'grads ({model}, {name}): {launched} backward kernel launches')
-            out[name] = (float(value.detach()), [torch.zeros_like(p) if g is None else g
-                                        for p, g in zip(leaves, grads)])
-        (lk, gk), (lp, gp) = out['kernels'], out['plain']
+        out = {(name, dt): grads_arm(loss, params, leaves,
+                                     dataclasses.replace(cfg, dtype=dt), batch,
+                                     f'{model}, {name}, {dt}', name == 'kernels')
+               for dt in ('float32', 'bfloat16')
+               for name, cfg in (('kernels', kern_cfg), ('plain', plain_cfg))}
+        (lk, gk), (lp, gp) = out[('kernels', 'float32')], out[('plain', 'float32')]
         if not abs(lk - lp) <= 1e-5 * abs(lp):
             fail(f'grads ({model}): loss {lk} through the kernels, {lp} plain')
         worst = 0.0
@@ -2788,6 +2818,37 @@ def phase_grads():
              loss_kernels=lk, loss_plain=lp, leaves=len(leaves),
              worst_leaf_rel_err=worst, tol=f'max|dg| <= {GRAD_RTOL:g}*max|g| per leaf, '
                                              'loss within 1e-5 relative')
+
+        # bf16: each route parts from the f32 plain grads (gp) by its own
+        # rounding; the kernels may part from the plain route by at most
+        # GRAD_BF16['k'] times the plain route's distance plus GRAD_BF16['ulp']
+        # of the leaf's largest f32 grad.
+        (lk16, gk16), (lp16, gp16) = out[('kernels', 'bfloat16')], out[('plain', 'bfloat16')]
+        k, ulp = GRAD_BF16['k'], GRAD_BF16['ulp']
+        if not abs(lk16 - lp16) <= k * abs(lp16 - lp) + ulp * abs(lp):
+            fail(f'grads ({model}, bf16): loss {lk16} through the kernels, {lp16} plain, '
+                 f'{lp} plain in f32')
+        used = dist_k = dist_p = 0.0
+        for i, (a, w, ref) in enumerate(zip(gk16, gp16, gp)):
+            scale = float(ref.abs().max())
+            diff = float((a - w).abs().max())
+            own = float((w - ref).abs().max())
+            allowed = k * own + ulp * scale
+            if not torch.isfinite(a).all() or diff > allowed:
+                fail(f'grads ({model}, bf16): leaf {i} {tuple(w.shape)} differs from the plain '
+                     f'route by {diff:.3e}; the plain route from f32 by {own:.3e}; its max '
+                     f'|f32 grad| is {scale:.3e}')
+            if scale > 0:
+                used = max(used, diff / allowed)
+                dist_k = max(dist_k, float((a - ref).abs().max()) / scale)
+                dist_p = max(dist_p, own / scale)
+        emit(phase='grads', model=model, dtype='bfloat16', batch=list(batch['codes'].shape),
+             loss_kernels=lk16, loss_plain=lp16, loss_plain_f32=lp, leaves=len(leaves),
+             worst_share_of_tol=used, worst_leaf_rel_dist_from_f32={'kernels': dist_k,
+                                                                    'plain': dist_p},
+             tol=f'per leaf max|g_kernels - g_plain| <= {k:g}*max|g_plain - g_f32| + '
+                 f'{ulp:g}*max|g_f32|; the loss alike')
+        del params, leaves, batch, out
 
 
 def bench_data(model: str, b: int, frames: int, device):
@@ -4027,6 +4088,9 @@ def main() -> int:
                 **{f'{c}_{ca}': results[('flash_attention_fwd', f'{c}_{ca}',
                                          'bfloat16')]['cuda_cores_ms']
                    for c in FLASH_TC_CASES for ca in (1, 0)}}
+        elif name.startswith('flash_bwd_'):
+            entry['cuda_cores_ms'] = {c: results[(name, c, 'bfloat16')]['cuda_cores_ms']
+                                      for c in TRAIN_CASES if (name, c, 'bfloat16') in results}
         if entry['launches'] <= 0:
             fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)

@@ -34,9 +34,11 @@ refusals.  The persistent #6 (one cooperative launch a step) is held bit for
 bit against the phased route (``fused_verify_step`` with a block of one
 token) in every weight x cache variant, whole-S and chunked, with a scalar
 and a per-row index, at the serving and 204M widths, and shown to be one
-device kernel a launch; the bf16 flash forward's CUDA-core route, which
-``chip_smoke.py`` times beside the tensor-core one, is held against the
-plain version too.
+device kernel a launch; the bf16 CUDA-core routes of the flash forward and
+backward, which ``chip_smoke.py`` times beside the tensor-core ones, are
+held against the plain versions too.  The backward's tensor-core route
+gives zero dq to rows that see no key; #4 and #5 repeat bit for bit from
+call to call, and #3's dk, dv equal #5's bit for bit (one device body).
 """
 
 import numpy as np
@@ -164,6 +166,54 @@ def test_flash_bwd_kernels_match_plain(dev, case, hd, dtype):
             assert_close(g, w, dtype)
 
 
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('case', sorted(BWD_CASES))
+def test_flash_bwd_cuda_core_route_matches_plain(dev, case, hd):
+    """The bf16 CUDA-core route, which chip_smoke.py times beside the tensor
+    cores', follows the same router and matches the plain backward under the
+    same tolerance; its launches count apart from the main path's."""
+    args, tt, causal = bwd_inputs(dev, case, hd, torch.bfloat16)
+    want = fa.flash_attention_bwd_plain(*args, tt, causal)
+    main = (fa.BWD_FUSED_COUNTER, fa.BWD_DQ_COUNTER, fa.BWD_DKV_COUNTER)
+    before, cc = [c.count for c in main], fa.BWD_CUDA_CORES_COUNTER.count
+    got = fa.flash_attention_bwd_cuda_cores(*args, tt, causal)
+    assert [c.count for c in main] == before
+    assert fa.BWD_CUDA_CORES_COUNTER.count == cc + (1 if fa.uses_fused_bwd(args[0].shape[2])
+                                                    else 2)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert_close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('case', ['ragged_causal', 'split_causal_900'])
+def test_flash_bwd_split_kernels_repeat_bit_for_bit(dev, case, hd, dtype):
+    """#4 and #5 sum in a fixed order (no atomics): the same inputs give the
+    same bits from call to call."""
+    args, tt, causal = bwd_inputs(dev, case, hd, dtype)
+    first = (fa.flash_bwd_dq(*args, tt, causal), *fa.flash_bwd_dkv(*args, tt, causal))
+    second = (fa.flash_bwd_dq(*args, tt, causal), *fa.flash_bwd_dkv(*args, tt, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('case', ['ragged_causal', 'bidirectional', 'no_tokens',
+                                  'fused_edge_768'])
+def test_fused_bwd_dk_dv_equal_the_dkv_kernel(dev, case, hd, dtype):
+    """#3 and #5 run one device body over the q tiles in one order (only #3's
+    dq goes through atomics), so at s <= 768 #3's dk, dv equal #5's bit for
+    bit."""
+    args, tt, causal = bwd_inputs(dev, case, hd, dtype)
+    _, dk, dv = fa.flash_bwd_fused(*args, tt, causal)
+    dk_split, dv_split = fa.flash_bwd_dkv(*args, tt, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk_split) and torch.equal(dv, dv_split)
+
+
 def test_flash_bwd_fully_masked_rows_get_zero_grad(dev):
     """tokens_valid = 0: token rows see no key, so their dq is exactly 0 and
     they add nothing to dk, dv (the Pallas kernels' rule)."""
@@ -171,6 +221,18 @@ def test_flash_bwd_fully_masked_rows_get_zero_grad(dev):
     for dq in (fa.flash_bwd_fused(*args, tt, causal)[0], fa.flash_bwd_dq(*args, tt, causal)):
         torch.cuda.synchronize()
         assert float(dq[:, :, :tt].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('hd', [32, 64, 128])
+def test_flash_bwd_tensor_core_route_zero_grad_for_rows_that_see_nothing(dev, hd):
+    """The bf16 tensor-core route masks p to exactly 0 per accumulator
+    element, so token rows that see no key (tokens_valid = 0) get dq == 0 on
+    both routes, whatever their lse."""
+    args, tt, causal = bwd_inputs(dev, 'no_tokens', hd, torch.bfloat16)
+    for dq in (fa.flash_bwd_fused(*args, tt, causal)[0], fa.flash_bwd_dq(*args, tt, causal)):
+        torch.cuda.synchronize()
+        assert float(dq[:, :, :tt].abs().max()) == 0.0
+        assert float(dq[:, :, tt:].abs().max()) > 0.0
 
 
 def test_flash_function_grads_match_plain_route(dev):

@@ -3,7 +3,8 @@ mode on the CPU, as tests/test_kernels.py runs them): the flash forward, the
 flash backward on both JAX routes, and the fused decode step.  On the CPU
 each wrapper takes its plain PyTorch version, so these tests pin down what
 the CUDA kernels must compute; chip_smoke.py holds the kernels against the
-plain versions on the card.  float32; tolerances as in tests/test_kernels.py."""
+plain versions on the card.  float32, tolerances as in tests/test_kernels.py;
+the backward also in bfloat16 (``BF16_VJP_TOL``)."""
 
 import functools
 
@@ -88,19 +89,21 @@ BWD_ROUTES = {'fused': (None, None), 'split': (64, 64)}
 
 
 @functools.lru_cache(maxsize=None)
-def jax_flash_vjp(case, route):
+def jax_flash_vjp(case, route, dtype='float32'):
     """(inputs, dO, (dq, dk, dv)) of jax.vjp of the JAX flash_attention
-    (Pallas interpret mode) on the case's inputs."""
+    (Pallas interpret mode) on the case's inputs, cast to ``dtype`` first;
+    inputs and grads come back as float32 numpy arrays."""
     b, h, s, hd, tt, meta, causal = FLASH_CASES[case]
     q, k, v = qkv(sorted(FLASH_CASES).index(case), b, h, s, hd)
     do = np.random.RandomState(50 + sorted(FLASH_CASES).index(case)).standard_normal(
         (b, h, s, hd)).astype(np.float32)
     meta = np.asarray(meta, np.int32)
     bq, bk = BWD_ROUTES[route]
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(dtype) for a in (q, k, v, do))
     _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(q_, k_, v_, jnp.asarray(meta), tt,
                                                           causal, block_q=bq, block_k=bk),
-                     *(jnp.asarray(a) for a in (q, k, v)))
-    grads = tuple(np.asarray(g) for g in vjp(jnp.asarray(do)))
+                     jq, jk, jv)
+    grads = tuple(np.asarray(g.astype(jnp.float32)) for g in vjp(jdo))
     return (q, k, v, meta), do, grads
 
 
@@ -120,6 +123,35 @@ def test_flash_bwd_plain_matches_jax_vjp(case, route):
                               tflash.BWD_DKV_COUNTER)] == counts   # CPU: no kernel launch
     for g, w in zip(got, want):
         close(g, w, atol=2e-5)
+
+
+# bf16: each side computes its forward (o, lse) and then its backward with p
+# and ds rounded to bf16 at the Pallas points, and rounds each grad to bf16.
+# The two forwards round p in other orders (the Pallas forward per kv block
+# against the running max; the plain one after the whole-row softmax), so o,
+# and with it delta = rowsum(dO∘o), part by about one bf16 ulp; that moves
+# some p and ds across a bf16 rounding boundary.  Allowed: 4 bf16 ulps
+# (2^-6) of the grad's largest element -- one for each side's final
+# rounding, two for the flips of o, p and ds -- plus 2^-7 of the element.
+BF16_VJP_TOL = dict(atol=2.0 ** -6, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize('route', sorted(BWD_ROUTES))
+@pytest.mark.parametrize('case', sorted(FLASH_CASES))
+def test_flash_bwd_plain_matches_jax_vjp_bf16(case, route):
+    """The plain backward in bf16 (the version the tensor-core kernels are
+    held to on the card) == jax.vjp of the Pallas kernels in bf16, on both
+    JAX routes, within BF16_VJP_TOL."""
+    (q, k, v, meta), do, want = jax_flash_vjp(case, route, 'bfloat16')
+    _, _, _, _, tt, _, causal = FLASH_CASES[case]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    tmeta = torch.from_numpy(meta)
+    o, lse = tflash.flash_attention_plain(tq, tk, tv, tmeta, tt, causal)
+    got = tflash.flash_attention_bwd(tq, tk, tv, tmeta, o, lse, tdo, tt, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        scale = float(np.abs(w).max())
+        close(g.float(), w, atol=BF16_VJP_TOL['atol'] * scale, rtol=BF16_VJP_TOL['rtol'])
 
 
 @pytest.mark.parametrize('case', sorted(FLASH_CASES))

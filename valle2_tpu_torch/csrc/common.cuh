@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion, warp reductions,
 // and the tensor-core fragment helpers (cp.async, ldmatrix, mma.sync m16n8k16
-// bf16 -> f32) of the GEMM (#9, #10) and the flash forward's bf16 route (#1, #2).
+// bf16 -> f32) of the GEMM (#9, #10) and the flash forward and backward bf16
+// routes (#1-#5).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +74,13 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 4 bytes from src, or 4 zero bytes when !valid (.ca: the 16-byte form needs
+// 16-byte alignment, which a (b, h, s) f32 row at an odd s lacks).
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -106,6 +114,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- padded bf16 tiles of the flash kernels' tensor-core routes (#1-#5) ----
+
+// bf16 (16 bytes) of padding per shared row, so that the 8 rows an ldmatrix
+// reads fall in distinct banks.
+constexpr int TILE_PAD = 8;
+
+// 64 rows of an (s, HD) bf16 matrix, from row0 of the head at `base`, into a
+// shared tile of row stride HD + TILE_PAD, by cp.async over NTHREADS
+// threads; rows past s are zero-filled.
+template <int HD, int NTHREADS>
+__device__ __forceinline__ void cp_async_rows64(const __nv_bfloat16* src, __nv_bfloat16* dst,
+                                                size_t base, int row0, int s) {
+  constexpr int CH = HD / 8, RS = HD + TILE_PAD;
+  for (int c = threadIdx.x; c < 64 * CH; c += NTHREADS) {
+    const int r = c / CH, col = c % CH * 8, row = row0 + r;
+    const bool in = row < s;
+    cp_async16_zfill(dst + r * RS + col, src + base + (size_t)(in ? row : 0) * HD + col, in);
+  }
+}
+
+// The A fragment of the 16 rows from row0 at k-step kd, from a row-major
+// tile of row stride RS.
+template <int RS>
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                           int row0, int kd) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * RS + kd * 16 + (lane >> 4) * 8);
+}
+
+// B fragments {r[0], r[1]} and {r[2], r[3]} of the n-tiles at n0 and n0 + 8,
+// k-step kd, from a tile stored [n][k] (the col-major B operand).
+template <int RS>
+__device__ __forceinline__ void ldmatrix_b_nk(uint32_t (&r)[4], const __nv_bfloat16* tile,
+                                              int n0, int kd) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(r, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * RS + kd * 16 +
+                     ((lane >> 3) & 1) * 8);
+}
+
+// B fragments {r[0], r[1]} and {r[2], r[3]} of n-tiles nd and nd + 1, the
+// k-step of rows k0 .. k0 + 15, from a tile stored [k][n] (the row-major B
+// operand, by ldmatrix.trans).
+template <int RS>
+__device__ __forceinline__ void ldmatrix_b_kn(uint32_t (&r)[4], const __nv_bfloat16* tile,
+                                              int k0, int nd) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(r, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + nd * 8 +
+                           (lane >> 4) * 8);
 }
 
 // Two floats as one bf16x2 register, lo in the low half (the lower column).

@@ -100,7 +100,6 @@ constexpr int KTS = BK + 1;
 // bf16 route (tensor cores)
 constexpr int TC_WARPS = BQ / 16;      // one warp per 16 query rows
 constexpr int NT_TC = 32 * TC_WARPS;   // 128 threads
-constexpr int TC_PAD = 8;              // bf16 (16 bytes) of padding per shared row
 
 // TCR: the tensor-core route (bf16); else the CUDA-core one.
 template <bool TCR>
@@ -111,7 +110,7 @@ constexpr int block_threads() {
 template <int HD, bool TCR>
 constexpr size_t smem_bytes() {
   if constexpr (TCR)   // Q, and two stages each of K and V
-    return sizeof(bf16) * (BQ + 4 * BK) * (HD + TC_PAD);
+    return sizeof(bf16) * (BQ + 4 * BK) * (HD + TILE_PAD);
   else
     return sizeof(float) * (BQ * (HD + 4) + HD * KTS + BK * HD + BQ * PS);
 }
@@ -258,20 +257,6 @@ __device__ __forceinline__ void attend_head_cc(const T* __restrict__ q, const T*
   }
 }
 
-// bf16 route: 64 rows of one 16-byte-chunked (rows, HD) tile from src (rows
-// from row0 of the head at `base`) into a padded shared tile, by cp.async;
-// rows past s are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile_tc(const bf16* src, bf16* dst, size_t base, int row0,
-                                             int s) {
-  constexpr int CH = HD / 8, RS = HD + TC_PAD;
-  for (int c = threadIdx.x; c < 64 * CH; c += NT_TC) {
-    const int r = c / CH, col = c % CH * 8, row = row0 + r;
-    const bool in = row < s;
-    cp_async16_zfill(dst + r * RS + col, src + base + (size_t)(in ? row : 0) * HD + col, in);
-  }
-}
-
 // bf16 route: one head of one q-tile on the tensor cores (the design is in
 // the header).  Same arguments as attend_head_cc.
 template <int HD>
@@ -282,7 +267,7 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
                                                int q_blk, int n_tiles,
                                                const ThreadRows<true>& rr, float sm_scale,
                                                bf16* smem) {
-  constexpr int RS = HD + TC_PAD;
+  constexpr int RS = HD + TILE_PAD;
   constexpr int KD = HD / 16;    // k-steps of Q K^T
   constexpr int ND = HD / 8;     // n-tiles of O
   constexpr int NK = BK / 8;     // n-tiles of S
@@ -295,10 +280,10 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
   const size_t base = (size_t)bh * s * HD;
 
   __syncthreads();   // a previous head's last tile is no longer read
-  load_tile_tc<HD>(q, Qs, base, q_blk * BQ, s);
+  cp_async_rows64<HD, NT_TC>(q, Qs, base, q_blk * BQ, s);
   if (n_tiles > 0) {
-    load_tile_tc<HD>(k, Ks, base, 0, s);
-    load_tile_tc<HD>(v, Vs, base, 0, s);
+    cp_async_rows64<HD, NT_TC>(k, Ks, base, 0, s);
+    cp_async_rows64<HD, NT_TC>(v, Vs, base, 0, s);
   }
   cp_async_commit();
 
@@ -316,12 +301,12 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
     if (kb == 0) {
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd)
-        ldmatrix_x4(qf[kd], Qs + (warp * 16 + (lane & 15)) * RS + kd * 16 + (lane >> 4) * 8);
+        ldmatrix_a<RS>(qf[kd], Qs, warp * 16, kd);
     }
     if (kb + 1 < n_tiles) {
       const int st = (kb + 1) & 1;
-      load_tile_tc<HD>(k, Ks + st * BK * RS, base, (kb + 1) * BK, s);
-      load_tile_tc<HD>(v, Vs + st * BK * RS, base, (kb + 1) * BK, s);
+      cp_async_rows64<HD, NT_TC>(k, Ks + st * BK * RS, base, (kb + 1) * BK, s);
+      cp_async_rows64<HD, NT_TC>(v, Vs + st * BK * RS, base, (kb + 1) * BK, s);
     }
     cp_async_commit();
     const bf16* ks = Ks + (kb & 1) * BK * RS;
@@ -338,8 +323,7 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
 #pragma unroll
       for (int nt = 0; nt < NK; nt += 2) {
         uint32_t r[4];
-        ldmatrix_x4(r, ks + (nt * 8 + (lane & 7) + (lane >> 4) * 8) * RS + kd * 16 +
-                           ((lane >> 3) & 1) * 8);
+        ldmatrix_b_nk<RS>(r, ks, nt * 8, kd);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
         mma_bf16(sc[nt], qf[kd], b0);
         mma_bf16(sc[nt + 1], qf[kd], b1);
@@ -402,8 +386,7 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         uint32_t r[4];
-        ldmatrix_x4_trans(r, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                                 nd * 8 + (lane >> 4) * 8);
+        ldmatrix_b_kn<RS>(r, vs, kk * 16, nd);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
         mma_bf16(acc[nd], pa[kk], b0);
         mma_bf16(acc[nd + 1], pa[kk], b1);

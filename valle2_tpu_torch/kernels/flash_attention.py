@@ -6,10 +6,13 @@ the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
 ``_flash_fwd_folded`` → ``_fwd_kernel_folded`` (#2), both in
 ``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on the CUDA
 cores), on the AR prefill and in every training step;
-and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``):
-``_bwd_fused_kernel`` when the padded row fits (``FUSED_BWD_MAX_SEQ``), else
-``_bwd_dq_kernel`` then ``_bwd_dkv_kernel``, the JAX package's routing rule.
-See each source's header for its design.
+and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``, bf16 on
+the tensor cores, f32 on the CUDA cores): ``_bwd_fused_kernel`` (#3) when the
+padded row fits (``FUSED_BWD_MAX_SEQ``), else ``_bwd_dq_kernel`` (#4) then
+``_bwd_dkv_kernel`` (#5), the JAX package's routing rule.  See each source's
+header for its design.  ``flash_attention_cuda_cores`` and
+``flash_attention_bwd_cuda_cores`` run bf16 on the CUDA-core routes that the
+tensor-core ones replaced, for timing only.
 
 Which forward runs is the JAX package's rule: ``fold_heads=None`` applies
 ``_fold_default``, which reads ``VALLE2_FLASH_FOLD`` (unset: #1).  The port
@@ -188,66 +191,88 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _bwd_inputs(name: str, q, k, v, meta, o, lse, do):
+def _bwd_inputs(name: str, q, k, v, meta, o, lse, do, delta=None):
     """Checks of a backward wrapper; returns delta = rowsum(dO∘O) in f32 (a
-    PyTorch op, as in the JAX wrapper, which computes it outside the kernels)."""
+    PyTorch op, as in the JAX wrapper, which computes it outside the kernels),
+    or the caller's ``delta`` once checked."""
     _check_qkv(name, q, (k, v, o, do), meta)
-    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32 or lse.device != q.device
-            or not lse.is_contiguous()):
-        raise ValueError(f'{name}: lse must be a contiguous (b, h, s) float32 tensor')
-    return (do.float() * o.float()).sum(-1).contiguous()
+    for label, t in (('lse', lse), ('delta', delta)):
+        if t is not None and (t.shape != q.shape[:3] or t.dtype != torch.float32
+                              or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f'{name}: {label} must be a contiguous (b, h, s) float32 tensor')
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+    return delta
 
 
-def _bwd_scalars(q, tokens_total, causal):
+# b, h, s, hd, tokens_total, causal, dtype, cuda_cores, scale, stream
+_BWD_SCALARS = [_CI] * 8 + [ctypes.c_float, _VP]
+# Launches of the bf16 CUDA-core route, which only chip_smoke.py's timing calls.
+BWD_CUDA_CORES_COUNTER = _build.LaunchCounter()
+
+
+def _bwd_scalars(q, tokens_total, causal, cuda_cores):
     b, h, s, hd = q.shape
     return (b, h, s, hd, int(tokens_total), int(bool(causal)), _DTYPE_CODE[q.dtype],
-            1.0 / math.sqrt(hd), _stream(q))
+            int(bool(cuda_cores)), 1.0 / math.sqrt(hd), _stream(q))
 
 
-def flash_bwd_fused(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True):
+def _bwd_counted(counter, cuda_cores: bool) -> None:
+    (BWD_CUDA_CORES_COUNTER if cuda_cores else counter).count += 1
+
+
+def flash_bwd_fused(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True, *,
+                    delta=None, cuda_cores: bool = False):
     """Kernel #3: dq, dk, dv in one pass per kv tile (dq through an f32
-    scratch with atomics, then one pass that scales and casts it)."""
+    scratch with atomics, then one pass that scales and casts it).  ``delta``
+    (b, h, s) f32 = rowsum(dO∘O), computed here when None; ``cuda_cores``
+    runs bf16 on the CUDA cores (timing only)."""
     if q.device.type == 'cpu':
         return flash_attention_bwd_plain(q, k, v, meta, o, lse, do, tokens_total, causal)
-    delta = _bwd_inputs('flash_bwd_fused', q, k, v, meta, o, lse, do)
+    delta = _bwd_inputs('flash_bwd_fused', q, k, v, meta, o, lse, do, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_fused', [_VP] * 11 + _SCALARS)
+    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_fused', [_VP] * 11 + _BWD_SCALARS)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), meta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), dq_acc.data_ptr(), *_bwd_scalars(q, tokens_total, causal))
+                dv.data_ptr(), dq_acc.data_ptr(),
+                *_bwd_scalars(q, tokens_total, causal, cuda_cores))
     _build.check(status, 'flash_bwd_fused')
-    BWD_FUSED_COUNTER.count += 1
+    _bwd_counted(BWD_FUSED_COUNTER, cuda_cores)
     return dq, dk, dv
 
 
-def flash_bwd_dq(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True):
-    """Kernel #4: dq per 64-row q tile over the visible kv tiles."""
+def flash_bwd_dq(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True, *,
+                 delta=None, cuda_cores: bool = False):
+    """Kernel #4: dq per 64-row q tile over the visible kv tiles
+    (``delta``, ``cuda_cores`` as in ``flash_bwd_fused``)."""
     if q.device.type == 'cpu':
         return flash_attention_bwd_plain(q, k, v, meta, o, lse, do, tokens_total, causal)[0]
-    delta = _bwd_inputs('flash_bwd_dq', q, k, v, meta, o, lse, do)
+    delta = _bwd_inputs('flash_bwd_dq', q, k, v, meta, o, lse, do, delta)
     dq = torch.empty_like(q)
-    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_dq', [_VP] * 8 + _SCALARS)
+    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_dq', [_VP] * 8 + _BWD_SCALARS)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), meta.data_ptr(), dq.data_ptr(),
-                *_bwd_scalars(q, tokens_total, causal))
+                *_bwd_scalars(q, tokens_total, causal, cuda_cores))
     _build.check(status, 'flash_bwd_dq')
-    BWD_DQ_COUNTER.count += 1
+    _bwd_counted(BWD_DQ_COUNTER, cuda_cores)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True):
-    """Kernel #5: dk, dv per 64-key kv tile over the q tiles that see it."""
+def flash_bwd_dkv(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True, *,
+                  delta=None, cuda_cores: bool = False):
+    """Kernel #5: dk, dv per 64-key kv tile over the q tiles that see it
+    (``delta``, ``cuda_cores`` as in ``flash_bwd_fused``)."""
     if q.device.type == 'cpu':
         return flash_attention_bwd_plain(q, k, v, meta, o, lse, do, tokens_total, causal)[1:]
-    delta = _bwd_inputs('flash_bwd_dkv', q, k, v, meta, o, lse, do)
+    delta = _bwd_inputs('flash_bwd_dkv', q, k, v, meta, o, lse, do, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_dkv', [_VP] * 9 + _SCALARS)
+    fn = _fn('flash_attention_bwd', 'valle2_flash_bwd_dkv', [_VP] * 9 + _BWD_SCALARS)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), meta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                *_bwd_scalars(q, tokens_total, causal))
+                *_bwd_scalars(q, tokens_total, causal, cuda_cores))
     _build.check(status, 'flash_bwd_dkv')
-    BWD_DKV_COUNTER.count += 1
+    _bwd_counted(BWD_DKV_COUNTER, cuda_cores)
     return dk, dv
 
 
@@ -257,14 +282,38 @@ def uses_fused_bwd(s: int) -> bool:
     return -(-s // 128) * 128 <= FUSED_BWD_MAX_SEQ
 
 
+def _routed_bwd(q, k, v, meta, o, lse, do, tokens_total, causal, cuda_cores):
+    """#3, or #4 then #5 past ``FUSED_BWD_MAX_SEQ``, on CUDA tensors; the
+    split route computes delta once for both kernels."""
+    if uses_fused_bwd(q.shape[2]):
+        return flash_bwd_fused(q, k, v, meta, o, lse, do, tokens_total, causal,
+                               cuda_cores=cuda_cores)
+    delta = _bwd_inputs('flash_attention_bwd', q, k, v, meta, o, lse, do)
+    dq = flash_bwd_dq(q, k, v, meta, o, lse, do, tokens_total, causal, delta=delta,
+                      cuda_cores=cuda_cores)
+    dk, dv = flash_bwd_dkv(q, k, v, meta, o, lse, do, tokens_total, causal, delta=delta,
+                           cuda_cores=cuda_cores)
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, meta, o, lse, do, tokens_total: int, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention``: kernel #3, or #4 then #5 past
     ``FUSED_BWD_MAX_SEQ`` (for CPU tensors #3's wrapper takes the plain version)."""
-    if q.device.type == 'cpu' or uses_fused_bwd(q.shape[2]):
+    if q.device.type == 'cpu':
         return flash_bwd_fused(q, k, v, meta, o, lse, do, tokens_total, causal)
-    dq = flash_bwd_dq(q, k, v, meta, o, lse, do, tokens_total, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, meta, o, lse, do, tokens_total, causal)
-    return dq, dk, dv
+    return _routed_bwd(q, k, v, meta, o, lse, do, tokens_total, causal, False)
+
+
+def flash_attention_bwd_cuda_cores(q, k, v, meta, o, lse, do, tokens_total: int,
+                                   causal: bool = True):
+    """``flash_attention_bwd`` with bf16 products on the CUDA cores in f32 FMAs
+    (the first design's route of ``csrc/flash_attention_bwd.cu``; f32 runs
+    there in either case), through the same router, kept to time the
+    tensor-core route beside the design it replaced.  No path of the port
+    calls it; CUDA tensors only (counted by ``BWD_CUDA_CORES_COUNTER``)."""
+    if q.device.type != 'cuda':
+        raise ValueError(f'flash_attention_bwd_cuda_cores runs on CUDA tensors, got {q.device}')
+    return _routed_bwd(q, k, v, meta, o, lse, do, tokens_total, causal, True)
 
 
 class FlashAttention(torch.autograd.Function):
