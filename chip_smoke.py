@@ -186,7 +186,8 @@ Phases, each printing JSON lines:
                 counts zeroed before and read after (the path 'gemm'); then #9
                 and #10 held against matmul_plain (one bf16 ulp of the result
                 plus the f32 summation-order error), with the plain version's
-                time and the bound.
+                time, the bound, each arm's share of the bf16 peak, and its
+                back-to-back time (20 calls in a row, the device's pace).
 30. kernels  -- tensor parallelism with virtual ranks on one card (mp 2 and 4,
    (tp)         one stream per rank): the TP all-reduce 5c alone, and the TP
                 fused decode step (#6 with 5c between its layers) and verify
@@ -3623,11 +3624,17 @@ def phase_fold(smi: str) -> dict:
     return total
 
 
+GEMM_DESIGN = {   # how csrc/gemm.cu computes each kernel
+    'matmul_fullk': 'wgmma+tma, persistent, warp-specialised',
+    'matmul_ksplit': 'wgmma+tma, warp-specialised, cluster split-K (DSMEM reduction)'}
+
+
 def phase_gemm(results: dict, smi: str) -> dict:
     """The GEMM roofline probe (valle2_tpu_torch.probes.gemm_roofline) at its
     three shapes, counts zeroed before and read after; then #9 and #10 (the
     128 x 128 tile; #10 in 2 K slices) held against matmul_plain on the same
-    inputs, with the plain version's time."""
+    inputs, with the plain version's time.  Each record carries the probe's
+    share of the bf16 peak and its back-to-back time, per arm."""
     import torch
     from valle2_tpu_torch.kernels import gemm
     from valle2_tpu_torch.probes import gemm_roofline as probe
@@ -3651,12 +3658,18 @@ def phase_gemm(results: dict, smi: str) -> dict:
             if not torch.isfinite(got).all() or bool((err > allowed).any()):
                 fail(f'{name} ({sname}): max |err| {err.max().item():.3e} over {tol}')
             kind = 'fullk' if name == 'matmul_fullk' else 'ksplit'
+            rec, lib = by[(sname, arm)], by[(sname, 'torch_matmul')]
+            arms = {a_: r for (s_, a_), r in by.items() if s_ == sname and kind in a_}
             results[(name, sname, 'bfloat16')] = dict(
-                max_abs_err=err.max().item(), ms=by[(sname, arm)]['ms'], plain_ms=plain_ms,
-                library_ms=by[(sname, 'torch_matmul')]['ms'],
-                bound_ms=by[(sname, arm)]['bound_ms'], bound_by=by[(sname, arm)]['bound_by'],
-                tol=tol, arms_ms={a_: r['ms'] for (s_, a_), r in by.items()
-                                  if s_ == sname and kind in a_})
+                max_abs_err=err.max().item(), ms=rec['ms'], plain_ms=plain_ms,
+                library_ms=lib['ms'], bound_ms=rec['bound_ms'], bound_by=rec['bound_by'],
+                tol=tol, design=GEMM_DESIGN[name], peak_share=rec['peak_share'],
+                back_to_back_ms=rec['back_to_back_ms'],
+                back_to_back_peak_share=rec['back_to_back_peak_share'],
+                library_back_to_back_ms=lib['back_to_back_ms'],
+                arms_ms={a_: r['ms'] for a_, r in arms.items()},
+                arms_peak_share={a_: r['peak_share'] for a_, r in arms.items()},
+                arms_back_to_back_ms={a_: r['back_to_back_ms'] for a_, r in arms.items()})
         emit(phase='gemm', shape=sname, m=m, k=k, n=n, plain_ms=plain_ms,
              torch_matmul_ms=by[(sname, 'torch_matmul')]['ms'],
              **{name: results[(name, sname, 'bfloat16')]
@@ -4053,8 +4066,12 @@ def main() -> int:
             entry['per_head_ms'] = {DTYPE_LABEL[d]: {c: results[(name, c, d)]['per_head_ms']
                                                      for c in FOLD_CASES} for d in dtypes}
         elif name.startswith('matmul_'):
-            entry['arms_ms'] = {sname: results[(name, sname, 'bfloat16')]['arms_ms']
-                                for sname in ('square4096', 'ffn1_204m', 'out_204m')}
+            entry['design'] = GEMM_DESIGN[name]
+            for key in ('peak_share', 'back_to_back_ms', 'back_to_back_peak_share',
+                        'library_back_to_back_ms', 'arms_ms', 'arms_peak_share',
+                        'arms_back_to_back_ms'):
+                entry[key] = {sname: results[(name, sname, 'bfloat16')][key]
+                              for sname in ('square4096', 'ffn1_204m', 'out_204m')}
         if name in TP_PORTS:
             entry['ports'] = TP_PORTS[name]
             entry['case'] = 'tp_virtual_ranks_mp2'

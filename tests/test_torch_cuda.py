@@ -29,8 +29,10 @@ of its 32-frame block, the codec's encode on the card against its CPU route
 and under a caller's TF32 scope, the head-folded flash forward (#2) against
 the plain version and bit for bit against #1 at 1 to 16 heads (and the
 fold's grads against the per-head route), the roofline probe's GEMMs (#9,
-#10) at every tile and K split they are built for, and the wrappers'
-refusals.  The persistent #6 (one cooperative launch a step) is held bit for
+#10) at every tile and K split they are built for (#10 at one slice bit for
+bit equal to #9, clusters of 5 to 8 slices, #9's persistent grid with more
+and fewer tiles than SMs, #10's memory: C alone, and the SASS of both:
+wgmma and TMA, no mma.sync), and the wrappers' refusals.  The persistent #6 (one cooperative launch a step) is held bit for
 bit against the phased route (``fused_verify_step`` with a block of one
 token) in every weight x cache variant, whole-S and chunked, with a scalar
 and a per-row index, at the serving and 204M widths, and shown to be one
@@ -1282,6 +1284,104 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gemm.matmul_ksplit(a, b, splits=3)
     with pytest.raises(TypeError):
         gemm.matmul_fullk(a.float(), b.float())
+
+
+def _gemm_operands(m, k, n, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(m, k, generator=gen).to(dev, torch.bfloat16),
+            torch.randn(k, n, generator=gen).to(dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize('shape', [(256, 384, 512), (128, 96, 256)], ids=str)
+@pytest.mark.parametrize('bn', [128, 256])
+def test_gemm_ksplit_one_slice_equals_fullk_bit_for_bit(dev, bn, shape):
+    """#10 at splits=1 runs #9's mainloop over all of K and rounds the f32 sum
+    once: the same bits as #9 at the same tile (K = 96 ends on a half stage)."""
+    from valle2_tpu_torch.kernels import gemm
+    a, b = _gemm_operands(*shape, dev, seed=bn + shape[1])
+    full = gemm.matmul_fullk(a, b, bm=128, bn=bn)
+    split = gemm.matmul_ksplit(a, b, splits=1, bm=128, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.equal(full, split)
+
+
+@pytest.mark.parametrize('splits', [5, 6, 7, 8])
+@pytest.mark.parametrize('bn', [128, 256])
+def test_gemm_ksplit_wide_clusters_match_plain_and_repeat(dev, bn, splits):
+    """#10 with 5-8 K slices (a cluster of that many blocks, rows of the tile
+    shared unevenly among them at 5, 6 and 7) within gemm_roofline.tolerance
+    of matmul_plain, and the same bits from call to call."""
+    from valle2_tpu_torch.kernels import gemm
+    from valle2_tpu_torch.probes.gemm_roofline import tolerance
+    m, k, n = 256, 32 * splits * 3, 2 * bn
+    a, b = _gemm_operands(m, k, n, dev, seed=splits)
+    got = gemm.matmul_ksplit(a, b, splits=splits, bm=128, bn=bn)
+    want = gemm.matmul_plain(a, b)
+    again = gemm.matmul_ksplit(a, b, splits=splits, bm=128, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs() <= tolerance(a, b, want)).all())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('shape', [(4096, 1024, 4096), (128, 64, 256)], ids=str)
+@pytest.mark.parametrize('bn', [128, 256])
+def test_gemm_fullk_persistent_grid_more_and_fewer_tiles_than_sms(dev, bn, shape):
+    """#9's persistent grid: at 4096 x 4096 each block walks several tiles
+    (the raster wraps); at 128 x 256 there are fewer tiles than SMs and the
+    grid is that small."""
+    from valle2_tpu_torch.kernels import gemm
+    from valle2_tpu_torch.probes.gemm_roofline import tolerance
+    m, k, n = shape
+    a, b = _gemm_operands(m, k, n, dev, seed=m + bn)
+    tiles = (m // 128) * (n // bn)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (tiles > sms) == (m == 4096)
+    got = gemm.matmul_fullk(a, b, bm=128, bn=bn)
+    want = gemm.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert bool(((got.float() - want.float()).abs() <= tolerance(a, b, want)).all())
+
+
+@pytest.mark.parametrize('splits', [2, 8])
+def test_gemm_ksplit_allocates_only_its_output(dev, splits):
+    """#10 sums its K slices in the cluster's shared memory: a call adds no
+    more to the peak of allocated device memory than C's bytes."""
+    from valle2_tpu_torch.kernels import gemm
+    m, k, n = 2048, 32 * 8 * 4, 1024
+    a, b = _gemm_operands(m, k, n, dev, seed=splits)
+    gemm.matmul_ksplit(a, b, splits=splits)          # built and loaded before measuring
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    c = gemm.matmul_ksplit(a, b, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - before <= c.numel() * c.element_size()
+
+
+def test_gemm_sass_runs_wgmma_and_tma_not_mma_sync(dev):
+    """The built gemm library's #9 and #10 kernels issue HGMMA (wgmma) and
+    UTMALDG (TMA loads), and no HMMA (the warp-level mma.sync of before)."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from valle2_tpu_torch.kernels import _build
+    _build.load('gemm')
+    tool = shutil.which('cuobjdump') or str(Path(_build._nvcc()).with_name('cuobjdump'))
+    sass = subprocess.run([tool, '-sass', str(_build._lib_path('gemm'))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    bodies = {}
+    for part in re.split(r'\n\s*Function : ', sass)[1:]:
+        name, _, body = part.partition('\n')
+        bodies[name.strip()] = body
+    for kernel in ('gemm_fullk_kernel', 'gemm_ksplit_kernel'):
+        found = [b for name, b in bodies.items() if kernel in name]
+        assert len(found) == 2, (kernel, list(bodies))      # one per tile width
+        for body in found:
+            assert re.search(r'\bHGMMA\b', body) and re.search(r'\bUTMALDG\b', body)
+            assert not re.search(r'\bHMMA\b', body)
 
 
 # --- Tensor parallelism: 5c and the TP steps, virtual ranks on one card ---

@@ -118,6 +118,8 @@ REFUSALS = {
     'k_not_split_evenly': (128, 96, 128, torch.bfloat16, dict(splits=2), ValueError),
     'tile_not_built': (128, 64, 128, torch.bfloat16, dict(bm=64), ValueError),
     'no_splits': (128, 64, 128, torch.bfloat16, dict(splits=0), ValueError),
+    'more_splits_than_a_cluster': (128, 32 * 9, 128, torch.bfloat16, dict(splits=9),
+                                   ValueError),
 }
 
 

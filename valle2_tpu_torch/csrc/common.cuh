@@ -1,7 +1,7 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion, warp reductions,
 // and the tensor-core fragment helpers (cp.async, ldmatrix, mma.sync m16n8k16
-// bf16 -> f32) of the GEMM (#9, #10) and the flash forward and backward bf16
-// routes (#1-#5).
+// bf16 -> f32) of the flash forward and backward bf16 routes (#1-#5).  The
+// Hopper primitives of the GEMM (#9, #10) are in hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

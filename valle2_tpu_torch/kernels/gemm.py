@@ -4,10 +4,12 @@ two kernels and their plain version.
 Replaces the Pallas TPU kernels of ``probes/_gemm_pallas_roofline.py``:
 ``matmul_fullk`` → ``_fullk_kernel`` (#9, all of K in one program) and
 ``matmul_ksplit`` → ``_ksplit_kernel`` (#10, K carried over an f32
-accumulator), both in ``csrc/gemm.cu`` (see its header for the design).  They
-exist to measure how close a hand-written GEMM gets to the card's peak
-(``probes/gemm_roofline.py``); the port's models leave their matrix products
-to ``torch.matmul``, as the JAX package left them to XLA.
+accumulator), both in ``csrc/gemm.cu`` (see its header for the design): one
+warp-specialised ``wgmma`` + TMA mainloop, #9 persistent, #10 with its K
+slices summed inside a thread-block cluster, so that it allocates nothing
+but C.  They exist to measure how close a hand-written GEMM gets to the
+card's peak (``probes/gemm_roofline.py``); the port's models leave their
+matrix products to ``torch.matmul``, as the JAX package left them to XLA.
 
 Each wrapper checks its inputs first, on every device, and raises on what the
 kernels do not take, so a CPU run refuses the same shapes as the card.  It
@@ -26,7 +28,8 @@ from . import _build
 FULLK_COUNTER = _build.LaunchCounter()
 KSPLIT_COUNTER = _build.LaunchCounter()
 TILES = ((128, 128), (128, 256))   # (bm, bn) the kernels are built for
-BK = 32                            # K per shared-memory stage
+BK = 32                            # K granularity: half of a 64-deep stage
+MAX_SPLITS = 8                     # #10's K slices form one cluster: the portable size
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -72,8 +75,8 @@ def _stream(t) -> int:
 
 
 def matmul_fullk(a: torch.Tensor, b: torch.Tensor, bm: int = 128, bn: int = 128):
-    """Kernel #9: bf16 (M, K) @ (K, N) → bf16, one block per (bm, bn) output
-    tile walking all of K."""
+    """Kernel #9: bf16 (M, K) @ (K, N) → bf16, one persistent block per SM
+    walking (bm, bn) output tiles, each over all of K."""
     m, n, k = _check('matmul_fullk', a, b, bm, bn, BK)
     if a.device.type == 'cpu':
         return matmul_plain(a, b)
@@ -87,18 +90,19 @@ def matmul_fullk(a: torch.Tensor, b: torch.Tensor, bm: int = 128, bn: int = 128)
 
 def matmul_ksplit(a: torch.Tensor, b: torch.Tensor, splits: int = 2, bm: int = 128,
                   bn: int = 128):
-    """Kernel #10: the same product with K cut into ``splits`` slices, each
-    block writing an f32 partial to a (splits, M, N) workspace, then summed in
-    slice order and rounded to bf16."""
-    if splits < 1:
-        raise ValueError(f'matmul_ksplit: splits must be >= 1, got {splits}')
+    """Kernel #10: the same product with K cut into ``splits`` slices, one
+    block each, the blocks of an output tile one cluster that sums their f32
+    partials in slice order through distributed shared memory and rounds to
+    bf16."""
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f'matmul_ksplit: splits must be in 1..{MAX_SPLITS} (one cluster), '
+                         f'got {splits}')
     m, n, k = _check('matmul_ksplit', a, b, bm, bn, BK * splits)
     if a.device.type == 'cpu':
         return matmul_plain(a, b)
     c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-    fn = _fn('valle2_gemm_ksplit', [_VP] * 4 + [_CI] * 6 + [_VP])
-    _build.check(fn(a.data_ptr(), b.data_ptr(), ws.data_ptr(), c.data_ptr(), m, n, k, splits,
-                    bm, bn, _stream(a)), 'matmul_ksplit')
+    fn = _fn('valle2_gemm_ksplit', [_VP] * 3 + [_CI] * 6 + [_VP])
+    _build.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, splits, bm, bn,
+                    _stream(a)), 'matmul_ksplit')
     KSPLIT_COUNTER.count += 1
     return c

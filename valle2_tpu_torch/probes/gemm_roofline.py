@@ -12,11 +12,15 @@ the same three shapes:
   - ``cuda_ksplit_<bm>x<bn>_k<splits>``: kernel #10 (``matmul_ksplit``),
 
 two tile configurations of each.  Times are CUDA events, the median of
-``--reps`` calls after a warm-up.  Each arm's output is held against
-``matmul_plain`` first.  One JSON line per (shape, arm): ms, TFLOP/s, the
-share of the 989 TFLOP/s bf16 dense peak, the least time the card could take
-(operations or bytes, whichever bounds it), and the card's name and power
-limit from ``nvidia-smi``.  ``--device cpu`` runs every arm through its plain
+``--reps`` calls after a warm-up, each call between its own two events, so
+that ``ms`` includes the host's enqueue of the call (the wrappers' checks,
+the tensor maps, the launch); ``back_to_back_ms`` is the median over five
+windows of 20 calls in a row, where the device, not the host, sets the pace.
+Each arm's output is held against ``matmul_plain`` first.  One JSON line per
+(shape, arm): both times, TFLOP/s, the share of the 989 TFLOP/s bf16 dense
+peak at each, the least time the card could take (operations or bytes,
+whichever bounds it), and the card's name and power limit from
+``nvidia-smi``.  ``--device cpu`` runs every arm through its plain
 version at a small shape and prints only the agreement: a CPU run times
 nothing.
 """
@@ -81,6 +85,23 @@ def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def back_to_back_ms(fn, calls: int = 20, windows: int = 5) -> float:
+    """Median over ``windows`` of the CUDA-event time of ``calls`` calls of
+    fn() in a row, per call, in milliseconds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
 def card() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -121,8 +142,12 @@ def run(reps: int = 30, device: str = 'cuda') -> list[dict]:
                        max_abs_err=float(err.max()))
             if dev.type == 'cuda':
                 ms = cuda_ms(lambda: fn(a, b), reps)
-                rec.update(ms=ms, tflops=2.0 * m * k * n / ms / 1e9,
-                           peak_share=2.0 * m * k * n / (ms * 1e-3) / PEAK_BF16_FLOPS,
+                b2b = back_to_back_ms(lambda: fn(a, b))
+                flops = 2.0 * m * k * n
+                rec.update(ms=ms, tflops=flops / ms / 1e9,
+                           peak_share=flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+                           back_to_back_ms=b2b,
+                           back_to_back_peak_share=flops / (b2b * 1e-3) / PEAK_BF16_FLOPS,
                            kind=torch.cuda.get_device_name(dev), card=smi)
                 rec['bound_ms'], rec['bound_by'] = bound_ms(m, k, n)
             print(json.dumps(rec), flush=True)

@@ -4,15 +4,18 @@ unpacked by ``git archive`` into a git-ignored directory) can be held side
 by side on one card, in turns (change, parent, parent, change):
 
     python3 valle2_tpu_torch/probes/train_ab.py --tree PATH --label NAME \\
-        [--kernels | --first]
+        [--kernels | --first | --gemm]
 
 Run it as a script, not with ``-m``: the checkout at ``--tree`` must be the
 first on ``sys.path`` when its package is imported.  ``--kernels`` times the
 bf16 flash backward (#3; #4 and #5) at chip_smoke's ``TRAIN_CASES``, each
 route held against the plain version; otherwise phases ``train`` and
 ``profile`` (AR and NAR) and the 204M AR / NAR steps of phase ``fold``, with
-``--first`` also phases ``kernels (train)`` and ``grads``.  Prints one JSON
-line per phase.  Needs a CUDA card.
+``--first`` also phases ``kernels (train)`` and ``grads``; ``--gemm`` runs
+that checkout's GEMM roofline probe (``probes.gemm_roofline.run``: #9 and #10
+at the 204M step's shapes and 4096^3, beside ``torch.matmul``).  Prints one
+JSON line per phase (the probe one per shape and arm, then a summary of its
+ms).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -53,6 +56,15 @@ def kernels(cs, fa) -> dict:
     return out
 
 
+def gemm() -> dict:
+    """The checkout's GEMM probe; {shape: {arm: ms}}."""
+    from valle2_tpu_torch.probes import gemm_roofline
+    out: dict = {}
+    for r in gemm_roofline.run(reps=30):
+        out.setdefault(r['shape'], {})[r['arm']] = r['ms']
+    return out
+
+
 def training(cs, label: str, first: bool) -> None:
     import torch
     smi = cs.phase_device()
@@ -84,6 +96,7 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument('--kernels', action='store_true')
     mode.add_argument('--first', action='store_true')
+    mode.add_argument('--gemm', action='store_true')
     args = ap.parse_args()
     root = Path(args.tree).resolve()
     sys.path.insert(0, str(root))
@@ -95,6 +108,8 @@ def main() -> int:
     print(json.dumps({'tree': args.label}), flush=True)
     if args.kernels:
         print(json.dumps({'tree': args.label, **kernels(cs, fa)}), flush=True)
+    elif args.gemm:
+        print(json.dumps({'tree': args.label, 'gemm_ms': gemm()}), flush=True)
     else:
         training(cs, args.label, args.first)
     return 0
