@@ -160,17 +160,20 @@ Phases, each printing JSON lines:
                 in f32 (max_audio_len 256, decode_chunk 128): hub tokens ==
                 solo streams', waveforms within f32 tolerance, open_longform
                 == synthesize_longform(carry='prompt'), stop(drain=True).
-27. kernels  -- the head-folded flash forward #2 (one block per q-tile and
-   (fold)       batch row, carrying every head) against its plain version and
-                bit for bit against #1 on the same inputs, f32 (TF32 off) and
-                bf16, at the serving prefill (b=3, h=4, s=385), the
+27. kernels  -- the head-folded flash forward #2 (a persistent grid over
+   (fold)       (batch row, q-tile, group of heads) items; bf16 on wgmma fed by
+                TMA) against its plain version, bit for bit against #1 on the
+                same inputs and against itself on a second call, f32 (TF32
+                off) and bf16, with its design and item schedule
+                (FOLD_DESIGN, fold_plan), at the serving prefill (b=3, h=4, s=385), the
                 serving-width train shapes (b=32, h=4, s=640, causal and
                 bidirectional) and the 204M train shape (b=16, h=16, s=640),
                 ragged meta with one row of tokens_valid 0: times of #2, #1,
                 SDPA on the same inputs and mask, the plain version; the bound.
 28. fold     -- the fold's path, VALLE2_FLASH_FOLD=1 against =0 in one call
                 (the variable restored after): phase main's batch_synthesize
-                greedy (temperature 0), AR ids equal with the fold on and off;
+                greedy (temperature 0), in bf16 and in f32 with TF32 off, AR
+                ids equal with the fold on and off (#2 is bit-equal to #1);
                 the 204M AR and NAR train steps (bench.py:441/457: b=16 x 512
                 frames, NAR falling back to b=8 only if 16 does not fit) in arm
                 runs off, fold, fold, off (step ms, frames/s, MFU against 989
@@ -232,7 +235,10 @@ Phases, each printing JSON lines:
    profile      each single-card path (main, quant W8A8 + int8 cache and
                 W4A16, stream, cb, clone, hub, large): device kernels of the fused step
                 per launch (1), its device ms, span and gaps a step, the
-                device's busy share.
+                device's busy share.  A phased step kernel, or more step
+                kernels than launches, fails at once; fewer means lost
+                profiler records, and the path is profiled again (up to
+                PROFILE_REPEATS times) until one profile shows one a launch.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -434,6 +440,10 @@ FLASH_TC_CASES = {f'hd{hd}': (3, 4, 385, 128, hd) for hd in (32, 64, 128)}
 # The device kernels of the fused decode step (#6), persistent or phased.
 STEP_KERNELS = ('step_persistent_kernel', 'proj_kernel', 'attend_kernel', 'merge_kernel',
                 'kv_quant_kernel')
+# Profiles of a path taken again where torch.profiler saw fewer step kernels
+# than #6 launched (lost records: once 981 for 1024 launches, while every
+# repeat of that profile matched).
+PROFILE_REPEATS = 3
 # The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
 # case -- the serving prefill of phase main, the serving-width train shapes
 # (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
@@ -2027,6 +2037,8 @@ def step_profile(label: str, fn) -> dict:
     if cur:
         runs.append(cur)
     step_kernels = sum(len(r) for r in runs)
+    phased = sum(1 for r in runs for e in r
+                 if any(k in e.name for k in STEP_KERNELS[1:]))
     step_dev = sum(e.time_range.elapsed_us() for r in runs for e in r) / 1e3
     spans = [(r[-1].time_range.end - r[0].time_range.start) / 1e3 for r in runs]
     busy, end = 0.0, None
@@ -2046,7 +2058,7 @@ def step_profile(label: str, fn) -> dict:
             by_name[k] = (cnt + 1, ms + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return dict(label=label, launches=n, step_runs=len(runs), step_kernels=step_kernels,
-                device_kernels_per_step=step_kernels / max(n, 1),
+                phased_kernels=phased, device_kernels_per_step=step_kernels / max(n, 1),
                 step_device_ms=step_dev / max(n, 1),
                 step_span_ms=sum(spans) / max(len(spans), 1),
                 step_gap_ms=(sum(spans) - step_dev) / max(len(spans), 1),
@@ -2063,7 +2075,11 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     sessions: the per-row index), clone (ValleTTS.__call__ on a 3 s prompt
     recording, one beam, 128 steps), hub (a StreamHub of two sessions from
     their own threads), large (the 204M stack, one row, 64 steps).
-    ``require_one``: fail unless every path ran one device kernel a step."""
+    ``require_one``: fail unless every path ran one device kernel a step
+    (``record``: a phased step kernel, or more step kernels than launches,
+    fails at once; fewer means the profiler lost records, and the profile
+    is taken again, up to ``PROFILE_REPEATS`` times, until one shows exactly
+    one a launch).  Every attempt prints its own line."""
     import numpy as np
     import torch
     from valle2_tpu_torch.config import ConfigValle
@@ -2081,12 +2097,19 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     out = {}
 
     def record(label, fn):
-        r = step_profile(label, fn)
-        out[label] = r
-        emit(phase='step_profile', card=smi, **r)
-        if require_one and (r['launches'] < 1 or r['device_kernels_per_step'] != 1.0):
-            fail(f'step profile ({label}): {r["step_kernels"]} device kernels for '
-                 f'{r["launches"]} launches of #6')
+        for attempt in range(1 + PROFILE_REPEATS):
+            r = out[label] = step_profile(label, fn)
+            emit(phase='step_profile', card=smi, attempt=attempt, **r)
+            if not require_one:
+                return
+            seen = (f'{r["step_kernels"]} step kernels ({r["phased_kernels"]} phased) '
+                    f'for {r["launches"]} launches of #6')
+            if (r['launches'] < 1 or r['phased_kernels']
+                    or r['step_kernels'] > r['launches']):
+                fail(f'step profile ({label}): {seen}')
+            if r['step_kernels'] == r['launches']:
+                return
+        fail(f'step profile ({label}): {seen} in each of {1 + PROFILE_REPEATS} profiles')
 
     record('main', lambda: main.generate_batch(tokens, pcs))
     for label, wd, kd in (('quant_w8a8_kv8', 'int8', 'int8'), ('quant_w4a16', 'int4',
@@ -3398,11 +3421,19 @@ def phase_flash_tc_kernels(results: dict):
                      **r)
 
 
+FOLD_DESIGN = {   # how csrc/flash_attention.cu computes #2 in each dtype
+    'bfloat16': 'wgmma+tma, persistent, warp-specialised: one producer, two consumer '
+                'warpgroups taking a group\'s heads in turns',
+    'float32': 'cuda cores (#1\'s per-head body), persistent over the same item schedule'}
+
+
 def phase_fold_kernels(results: dict):
     """#2 against its plain version and against #1 on the same inputs
-    (bit-equal: the same tiles and per-row order, see csrc/flash_attention.cu)
-    at FOLD_CASES, f32 with TF32 off and bf16; times of #2, #1, SDPA and the
-    plain version, and the bound."""
+    (bit-equal: the same 64-key tiles, element ownership and per-row order,
+    see csrc/flash_attention.cu) at FOLD_CASES, f32 with TF32 off and bf16,
+    and bit for bit against itself on a second call; its design and item
+    schedule (fold_plan); times of #2, #1, SDPA and the plain version, and
+    the bound."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import flash_attention as fa
@@ -3423,28 +3454,36 @@ def phase_fold_kernels(results: dict):
                 o, lse = fa.flash_attention_folded(q, k, v, *args)
                 o1, lse1 = fa.flash_attention(q, k, v, *args, fold_heads=False)
                 o_ref, lse_ref = fa.flash_attention_plain(q, k, v, *args)
+                o2, lse2 = fa.flash_attention_folded(q, k, v, *args)
                 torch.cuda.synchronize()
                 err = max(check_close(f'folded o ({case})', o, o_ref, dtype_name),
                           check_close(f'folded lse ({case})', lse, lse_ref, 'float32'))
                 if not (torch.equal(o, o1) and torch.equal(lse, lse1)):
                     fail(f'folded ({case}, {dtype_name}): o or lse differs from #1 on the same '
                          f'inputs by {(o.float() - o1.float()).abs().max().item():.3e}')
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    fail(f'folded ({case}, {dtype_name}): a second call differs from the '
+                         'first')
+                plan = fa.fold_plan_for(q, tt, causal)
                 r = dict(max_abs_err=err,
                          ms=cuda_ms(lambda: fa.flash_attention_folded(q, k, v, *args)),
                          per_head_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, *args,
                                                                         fold_heads=False)),
                          plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, *args)),
                          library_ms=sdpa_ms(q, k, v, mask),
-                         tol=tol_str(dtype_name) + '; == #1 bit for bit')
+                         tol=tol_str(dtype_name) + '; == #1 bit for bit',
+                         design=FOLD_DESIGN[dtype_name],
+                         schedule=dict(plan._asdict(), slots=fa.fold_slots(dev, dt, hd)))
                 r['bound_ms'], r['bound_by'] = bound(4 * q.numel() * q.element_size()
                                                      + lse.numel() * 4, 2 * 2 * hd * pairs,
                                                      dtype_name)
                 results[('flash_attention_fwd_folded', case, dtype_name)] = r
                 emit(phase='kernels', path='fold', case=case, dtype=dtype_name,
-                     shape=[b, h, s, hd], causal=causal, blocks=-(-s // 64) * b,
-                     per_head_blocks=-(-s // 64) * b * h, tokens_valid_zero_row=b - 1,
-                     attended_pairs=pairs, equal_to_per_head=True, **r)
-                del q, k, v, o, lse, o1, lse1, o_ref, lse_ref
+                     shape=[b, h, s, hd], causal=causal,
+                     per_head_blocks=-(-s // 64) * b * h,
+                     tokens_valid_zero_row=b - 1, attended_pairs=pairs,
+                     equal_to_per_head=True, repeats_bit_for_bit=True, **r)
+                del q, k, v, o, lse, o1, lse1, o_ref, lse_ref, o2, lse2
 
 
 def fold_train_arms(model: str, b: int, frames: int, n: int, width: dict,
@@ -3553,20 +3592,16 @@ def fold_grads() -> list[dict]:
     return out
 
 
-def phase_fold(smi: str) -> dict:
-    """The fold's path: VALLE2_FLASH_FOLD=1 against =0 in turns, (a) the
-    serving batch_synthesize (greedy) of phase main's requests, (b) the 204M
-    AR and NAR train steps and the serving-width AR at s=1280, (c) the f32
-    grads.  Returns the fold arms' launches of (a) and (b)."""
+def fold_serve_arms(cfg, label: str, smi: str, total: dict) -> None:
+    """The serving batch_synthesize of phase main's requests at ``cfg``
+    (greedy), VALLE2_FLASH_FOLD=0 then 1 after a warm-up: every waveform
+    whole and finite, the fold arm launching #2 and no #1, greedy AR ids
+    equal with the fold on and off (#2 is bit-equal to #1 in both dtypes);
+    adds the fold arm's launches to ``total``."""
     import numpy as np
     import torch
-    from valle2_tpu_torch.config import ConfigValle
     from valle2_tpu_torch.tts import ValleTTS
 
-    total = dict.fromkeys(counters(), 0)
-    max_new = SLICE['max_new']
-    cfg = ConfigValle(max_audio_len=max_new, ignore_eos=True, dropout=0.0, dtype='bfloat16',
-                      temperature=0.0)
     tts = ValleTTS(cfg, device='cuda')
     texts, pts, pcs = make_requests()
     with fold_env('0'):
@@ -3580,25 +3615,45 @@ def phase_fold(smi: str) -> dict:
             launches = read_counters()
         for r in batch:
             n = len(r.codes)
-            if n != max_new or r.waveform.shape != (n * 320,) \
+            if n != cfg.max_audio_len or r.waveform.shape != (n * 320,) \
                     or not np.isfinite(r.waveform).all():
-                fail(f'fold (serve, {arm}): waveform of {r.waveform.shape} for gen_len {n}')
-        require_fold_arm('serve', arm, launches, ('fused_decode_step',))
+                fail(f'fold ({label}, {arm}): waveform of {r.waveform.shape} for gen_len '
+                     f'{n}')
+        require_fold_arm(label, arm, launches, ('fused_decode_step',))
         if arm == 'fold':
             for k, c in launches.items():
                 total[k] += c
         codes[arm] = [np.asarray(r.codes) for r in batch]
         t = batch[0].timings
-        emit(phase='fold', run='serve', arm=arm, requests=len(texts), max_audio_len=max_new,
+        emit(phase='fold', run=label, dtype=cfg.dtype, arm=arm, requests=len(texts),
+             max_audio_len=cfg.max_audio_len,
              stage_s={k: t[k] for k in ('prefill', 'decode', 'nar', 'codec')},
              batch_wall_s=t['batched'], rtf=batch[0].rtf,
              launches={k: c for k, c in launches.items() if c}, card=smi)
     for i, (f, o) in enumerate(zip(codes['fold'], codes['off'])):
         if not np.array_equal(f[:, 0], o[:, 0]):
-            fail(f'fold (serve): request {i} greedy AR ids differ with the fold on and off')
-    emit(phase='fold', run='serve', greedy_ar_ids_equal=True,
+            fail(f'fold ({label}): request {i} greedy AR ids differ with the fold on and '
+                 'off')
+    emit(phase='fold', run=label, dtype=cfg.dtype, greedy_ar_ids_equal=True,
          all_codes_equal=all(np.array_equal(f, o) for f, o in zip(codes['fold'], codes['off'])))
-    del tts
+
+
+def phase_fold(smi: str) -> dict:
+    """The fold's path: VALLE2_FLASH_FOLD=1 against =0 in turns, (a) the
+    serving batch_synthesize (greedy) of phase main's requests, in bf16 and
+    in f32 with TF32 off, (b) the 204M AR and NAR train steps and the
+    serving-width AR at s=1280, (c) the f32 grads.  Returns the fold arms'
+    launches of (a) and (b)."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+
+    total = dict.fromkeys(counters(), 0)
+    base = dict(max_audio_len=SLICE['max_new'], ignore_eos=True, dropout=0.0,
+                temperature=0.0)
+    fold_serve_arms(ConfigValle(dtype='bfloat16', **base), 'serve', smi, total)
+    f32 = ConfigValle(kv_cache_dtype='float32', matmul_precision='highest', **base)
+    fold_serve_arms(f32, 'serve_f32', smi, total)
+    torch.cuda.empty_cache()
 
     for model, b, frames, n in FOLD_TRAIN:
         res = None
@@ -4063,8 +4118,10 @@ def main() -> int:
         if (name, 'large', 'bfloat16') in results:
             entry['large'] = {'bf16': pick('large', 'bfloat16')}
         if name == 'flash_attention_fwd_folded':
-            entry['per_head_ms'] = {DTYPE_LABEL[d]: {c: results[(name, c, d)]['per_head_ms']
-                                                     for c in FOLD_CASES} for d in dtypes}
+            for key in ('per_head_ms', 'schedule'):
+                entry[key] = {DTYPE_LABEL[d]: {c: results[(name, c, d)][key]
+                                               for c in FOLD_CASES} for d in dtypes}
+            entry['design'] = {DTYPE_LABEL[d]: FOLD_DESIGN[d] for d in dtypes}
         elif name.startswith('matmul_'):
             entry['design'] = GEMM_DESIGN[name]
             for key in ('peak_share', 'back_to_back_ms', 'back_to_back_peak_share',

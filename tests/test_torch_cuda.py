@@ -27,8 +27,10 @@ widths (d 1024, dff 4096: the 8-row projection tile), the 'auto' route of a
 head dim no kernel takes, RVQ encode at frame counts that are not a multiple
 of its 32-frame block, the codec's encode on the card against its CPU route
 and under a caller's TF32 scope, the head-folded flash forward (#2) against
-the plain version and bit for bit against #1 at 1 to 16 heads (and the
-fold's grads against the per-head route), the roofline probe's GEMMs (#9,
+the plain version and bit for bit against #1 and itself at 1 to 16 heads,
+with fewer and with more items than its persistent grid has slots, its
+SASS (wgmma and TMA in bf16, no mma.sync), and the fold's grads against the
+per-head route, the roofline probe's GEMMs (#9,
 #10) at every tile and K split they are built for (#10 at one slice bit for
 bit equal to #9, clusters of 5 to 8 slices, #9's persistent grid with more
 and fewer tiles than SMs, #10's memory: C alone, and the SASS of both:
@@ -1160,6 +1162,8 @@ FOLD_CASES = {
     'three_heads_no_tokens': (2, 3, 70, 20, [[0, 70], [20, 64]], True),
     'sixteen_heads_causal': (2, 16, 200, 64, [[64, 200], [40, 150]], True),
     'sixteen_heads_no_tokens_bidirectional': (1, 16, 129, 32, [[0, 129]], False),
+    # s under one 64-row tile: the TMA boxes reach past every edge of q, k, v, o
+    'shorter_than_a_tile': (2, 2, 40, 16, [[16, 40], [0, 33]], True),
 }
 
 
@@ -1167,9 +1171,11 @@ FOLD_CASES = {
 @pytest.mark.parametrize('hd', [32, 64, 128])
 @pytest.mark.parametrize('case', sorted(FOLD_CASES))
 def test_folded_flash_kernel_matches_plain_and_per_head(dev, monkeypatch, case, hd, dtype):
-    """#2 against the plain version, and bit for bit against #1 on the same
-    inputs (the same 64-key tiles and per-row order); ``fold_heads=None``
-    under VALLE2_FLASH_FOLD=1 launches #2 and not #1."""
+    """#2 (bf16: wgmma + TMA; f32: the CUDA cores, both on the persistent
+    item schedule) against the plain version, bit for bit against #1 on the
+    same inputs (the same 64-key tiles, element ownership and per-row
+    order) and against itself on a second call; ``fold_heads=None`` under
+    VALLE2_FLASH_FOLD=1 launches #2 and not #1."""
     b, h, s, tt, meta, causal = FOLD_CASES[case]
     gen = torch.Generator().manual_seed(hd + h)
     q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev, dtype) for _ in range(3))
@@ -1184,12 +1190,97 @@ def test_folded_flash_kernel_matches_plain_and_per_head(dev, monkeypatch, case, 
     o1, lse1 = fa.flash_attention(q, k, v, meta, tt, causal, fold_heads=False)
     torch.cuda.synchronize()
     assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    o_again, lse_again = fa.flash_attention_folded(q, k, v, meta, tt, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_again) and torch.equal(lse, lse_again)
     monkeypatch.setenv('VALLE2_FLASH_FOLD', '1')
     before = (fa.COUNTER.count, fa.FOLD_COUNTER.count)
     o2, _ = fa.flash_attention(q, k, v, meta, tt, causal)
     assert (fa.COUNTER.count, fa.FOLD_COUNTER.count) == (before[0], before[1] + 1)
     torch.cuda.synchronize()
     assert torch.equal(o2, o)
+
+
+FOLD_SCHEDULE_CASES = {
+    # (b, h, s, tokens_total, causal): the serving prefill leaves SMs idle
+    # (42 bf16 items), the 204M training shape has more items than SMs
+    'fewer_items_than_sms': (3, 4, 385, 128, True),
+    'more_items_than_sms': (16, 16, 640, 128, True),
+    'more_items_than_sms_bidirectional': (32, 8, 640, 128, False),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(FOLD_SCHEDULE_CASES))
+def test_folded_kernel_persistent_grid_fewer_and_more_items_than_slots(dev, case, dtype):
+    """#2's persistent grid with fewer items than SMs x blocks an SM (every
+    item a block of its own) and with more (blocks walk several items,
+    their heads' rings never drained between them): == the plain version,
+    == #1 bit for bit, and == itself on a second call."""
+    b, h, s, tt, causal = FOLD_SCHEDULE_CASES[case]
+    gen = torch.Generator().manual_seed(b * h)
+    q, k, v = (torch.randn(b, h, s, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    meta = torch.tensor([[max(tt - 7 * i, 0) if i < b - 1 else 0, s - 13 * i]
+                         for i in range(b)], dtype=torch.int32, device=dev)
+    plan = fa.fold_plan_for(q, tt, causal)
+    slots = fa.fold_slots(dev, dtype, 64)
+    assert (plan.items < slots) == case.startswith('fewer')
+    assert plan.grid == min(plan.items, slots)
+    o, lse = fa.flash_attention_folded(q, k, v, meta, tt, causal)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, meta, tt, causal)
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+    o1, lse1 = fa.flash_attention(q, k, v, meta, tt, causal, fold_heads=False)
+    o2, lse2 = fa.flash_attention_folded(q, k, v, meta, tt, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_folded_sass_runs_wgmma_and_tma_in_bf16(dev):
+    """The built flash_attention library's #2 in bf16 (flash_fold_tc_kernel,
+    one per head dim) issues HGMMA (wgmma), UTMALDG and UTMASTG (TMA loads
+    and stores), and no HMMA (the warp-level mma.sync of #1)."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from valle2_tpu_torch.kernels import _build
+    _build.load('flash_attention')
+    tool = shutil.which('cuobjdump') or str(Path(_build._nvcc()).with_name('cuobjdump'))
+    sass = subprocess.run([tool, '-sass', str(_build._lib_path('flash_attention'))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    bodies = {}
+    for part in re.split(r'\n\s*Function : ', sass)[1:]:
+        name, _, body = part.partition('\n')
+        bodies[name.strip()] = body
+    found = [b for name, b in bodies.items() if 'flash_fold_tc_kernel' in name]
+    assert len(found) == 3, list(bodies)
+    for body in found:
+        for op in ('HGMMA', 'UTMALDG', 'UTMASTG'):
+            assert re.search(rf'\b{op}\b', body), op
+        assert not re.search(r'\bHMMA\b', body)
+
+
+def test_folded_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """#2's wrapper raises, and launches nothing, on a head dim no kernel
+    takes and on bf16 inputs that are not 16-byte aligned (the TMA maps need
+    it); an f32 view at the same offset runs, off the TMA route."""
+    meta = torch.tensor([[4, 16]], dtype=torch.int32, device=dev)
+    before = fa.FOLD_COUNTER.count
+    w = torch.randn(1, 2, 16, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='head dims'):
+        fa.flash_attention_folded(w, w, w, meta, 4)
+    q = torch.randn(1 * 2 * 16 * 32 + 1, device=dev)
+    shifted = q[1:].view(1, 2, 16, 32)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        b16 = q.bfloat16()[1:].view(1, 2, 16, 32)
+        fa.flash_attention_folded(b16, b16, b16, meta, 4)
+    assert fa.FOLD_COUNTER.count == before
+    o, _ = fa.flash_attention_folded(shifted, shifted, shifted, meta, 4)
+    o_ref, _ = fa.flash_attention_plain(shifted, shifted, shifted, meta, 4)
+    assert_close(o, o_ref, torch.float32)
 
 
 @pytest.mark.parametrize('model', ['ValleAR', 'ValleNAR'])

@@ -3,10 +3,13 @@ package: the plain version against the Pallas ``_flash_fwd_folded``
 (interpret mode on the CPU, as tests/test_kernels.py runs it), the fold
 route's grads against ``jax.vjp``, the ``VALLE2_FLASH_FOLD`` rule, and a
 2-layer AR and NAR train step with the variable set against the JAX step on
-the same weights and batch.  On the CPU every wrapper takes its plain
-version; chip_smoke.py and tests/test_torch_cuda.py hold the CUDA kernel #2
-against it, and against #1, on the card.  float32; tolerances as in
-tests/test_torch_kernels.py (f32 sums in another order)."""
+the same weights and batch.  Also the CUDA kernel's host side: its item
+schedule (``fold_plan``, ``fold_items``) at chip_smoke.py's shapes and 1, 8
+and 132 SMs, and its kv-tile bound against ``prefix_lm_attend``.  On the
+CPU every wrapper takes its plain version; chip_smoke.py and
+tests/test_torch_cuda.py hold the CUDA kernel #2 against it, and against
+#1, on the card.  float32; tolerances as in tests/test_torch_kernels.py
+(f32 sums in another order)."""
 
 import functools
 
@@ -184,3 +187,96 @@ def test_train_step_with_fold_env_matches_jax(monkeypatch, model):
     want = dict(leaves(jstate.params))
     for key, val in leaves(tstate.params):
         close(val, want[key], atol=1e-5)
+
+
+def chip_smoke_fold_cases():
+    """chip_smoke.py's FOLD_CASES: (b, h, s, tokens_total, causal) of the
+    fold's card shapes."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', Path(__file__).resolve().parent.parent / 'chip_smoke.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FOLD_CASES
+
+
+CARD_FOLD_CASES = chip_smoke_fold_cases()
+
+
+@pytest.mark.parametrize('consumers', [1, 2], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('sms', [1, 8, 132])
+@pytest.mark.parametrize('case', sorted(CARD_FOLD_CASES))
+def test_fold_schedule_covers_every_head_once_heaviest_first(case, sms, consumers):
+    """#2's item schedule (``fold_plan``, ``fold_items``, the kernel's
+    ``fold_item``): the items, each with its group's heads, cover every
+    (batch row, head, q-tile) exactly once; they go out heaviest first (their
+    kv-tile count never rises along the order the kernel's counter hands
+    them out in); the grid is min(items, slots); a group holds at least one
+    head per consumer where h allows, and the makespan is no more than one
+    block walking everything."""
+    b, h, s, tt, causal = CARD_FOLD_CASES[case]
+    plan = tflash.fold_plan(b, h, s, tt, causal, sms, consumers)
+    q_tiles = -(-s // tflash.FOLD_BQ)
+    assert plan.groups * plan.group_size == h and plan.group_size >= min(consumers, h)
+    items = tflash.fold_items(b, s, plan.groups)
+    assert len(items) == plan.items == b * q_tiles * plan.groups
+    assert plan.grid == min(plan.items, sms)
+    seen = set()
+    for bb, qt, g in items:
+        for hh in range(plan.group_size):
+            key = (bb, g * plan.group_size + hh, qt)
+            assert key not in seen
+            seen.add(key)
+    assert sorted(seen) == [(bb, hh, qt) for bb in range(b) for hh in range(h)
+                            for qt in range(q_tiles)]
+    work = [tflash.kv_tile_bound(qt, s, tt, s, causal) for _, qt, _ in items]
+    assert work == sorted(work, reverse=True)
+    per_head = -(-plan.group_size // consumers)
+    assert 0 < plan.makespan <= per_head * sum(w + tflash.FOLD_HEAD_COST for w in work)
+
+
+def test_fold_plan_splits_heads_only_as_far_as_needed():
+    """At the 204M shape (b=16, h=16, s=640, causal) on 132 SMs, one bf16
+    block each, the 160 (batch row, q-tile) pairs alone leave the second
+    wave mostly idle: the plan splits the heads into 8 groups of 2, one head
+    per consumer.  On one SM there is nothing to fill, and all 16 heads stay
+    in one group; at the serving prefill (21 pairs) every group holds one
+    head per consumer; in f32 (one consumer, three blocks an SM) each head
+    is an item of its own."""
+    plan = tflash.fold_plan(16, 16, 640, 128, True, 132, 2)
+    assert (plan.groups, plan.group_size, plan.grid) == (8, 2, 132)
+    assert tflash.fold_plan(16, 16, 640, 128, True, 1, 2).groups == 1
+    serve = tflash.fold_plan(3, 4, 385, 128, True, 132, 2)
+    assert (serve.groups, serve.items, serve.grid) == (2, 42, 42)
+    assert tflash.fold_plan(16, 16, 640, 128, True, 396, 1).group_size == 1
+
+
+@pytest.mark.parametrize('case', sorted(FOLD_CASES) + sorted(CARD_FOLD_CASES))
+def test_kv_tile_bound_leaves_no_attended_key_past_it(case):
+    """The kernel's kv-tile bound, mirrored in ``kv_tile_bound`` at #2's
+    64-key tiles: no key that ``ops.masks.prefix_lm_attend`` lets a row of
+    the q-tile see lies past it, and a batch row with tokens_valid == 0
+    walks every tile (its rows average over all s keys)."""
+    from valle2_tpu_torch.ops.masks import prefix_lm_attend
+    if case in FOLD_CASES:
+        b, _, s, _, tt, meta, causal = FOLD_CASES[case]
+        meta = np.asarray(meta, np.int32)
+    else:
+        b, _, s, tt, causal = CARD_FOLD_CASES[case]
+        rs = np.random.RandomState(len(case))
+        meta = np.stack([rs.randint(1, tt + 1, b), rs.randint(tt + 1, s + 1, b)], 1)
+        meta[-1, 0] = 0
+        meta = meta.astype(np.int32)
+    attend = prefix_lm_attend(s, tt, torch.from_numpy(meta[:, 0]),
+                              torch.from_numpy(meta[:, 1]), causal)
+    attend = attend.expand(b, s, s).numpy()
+    bq, bk = tflash.FOLD_BQ, tflash.FOLD_BK
+    for bb in range(b):
+        for qt in range(-(-s // bq)):
+            tv, kv_end = (int(x) for x in meta[bb])
+            bound = tflash.kv_tile_bound(qt, s, tv, kv_end, causal)
+            rows = attend[bb, qt * bq:(qt + 1) * bq]
+            assert not rows[:, bound * bk:].any()
+            if tv == 0:
+                assert bound == -(-s // bk)

@@ -4,8 +4,10 @@ plain versions, and the ``torch.autograd.Function`` that joins them.
 Replaces the Pallas TPU kernels of ``valle2_tpu/kernels/flash_attention.py``:
 the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
 ``_flash_fwd_folded`` → ``_fwd_kernel_folded`` (#2), both in
-``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on the CUDA
-cores), on the AR prefill and in every training step;
+``csrc/flash_attention.cu`` (bf16 on the tensor cores: #1 on ``mma.sync``,
+#2 on ``wgmma`` fed by TMA over a persistent grid whose item schedule
+``fold_plan`` chooses; f32 on the CUDA cores), on the AR prefill and in
+every training step;
 and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``, bf16 on
 the tensor cores, f32 on the CUDA cores): ``_bwd_fused_kernel`` (#3) when the
 padded row fits (``FUSED_BWD_MAX_SEQ``), else ``_bwd_dq_kernel`` (#4) then
@@ -33,8 +35,11 @@ on whole (s, s) matrices.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -136,27 +141,151 @@ def _fold_default(h: int, s: int) -> bool:
     return False
 
 
-def _forward(name: str, sym: str, counter, q, k, v, meta, tokens_total, causal):
-    _check_qkv(name, q, (k, v), meta)
+def _forward(name: str, sym: str, counter, q, k, v, meta, tokens_total, causal,
+             plan=None):
+    """Launch #1, or #2 on ``plan``'s item schedule (its inputs checked by
+    the caller), with the int32 its blocks take the items from."""
+    if plan is None:
+        _check_qkv(name, q, (k, v), meta)
     b, h, s, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _fn('flash_attention', sym, [_VP] * 6 + _SCALARS)
+    stream = _stream(q)
+    extra, types = (), []
+    if plan is not None:
+        # One a call (the launcher zeroes it on the stream), so that calls
+        # from two threads on one stream never share it; held until the
+        # launch has returned.
+        taken = torch.empty(1, dtype=torch.int32, device=q.device)
+        extra, types = (plan.groups, plan.grid, taken.data_ptr()), [_CI, _CI, _VP]
+    fn = _fn('flash_attention', sym, [_VP] * 6 + _SCALARS[:-1] + types + [_VP])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), meta.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, h, s, hd, int(tokens_total), int(bool(causal)),
-                _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), _stream(q))
+                _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), *extra, stream)
     _build.check(status, name)
     counter.count += 1
     return o, lse
 
 
+# #2's tiles: an item's q-tile and a kv tile (csrc/flash_attention.cu BQ, BK).
+FOLD_BQ = FOLD_BK = 64
+# A head's fixed cost in kv tiles (its Q load and its O store): fold_plan.
+FOLD_HEAD_COST = 1
+
+
+def kv_tile_bound(q_blk: int, s: int, tokens_valid: int, kv_end: int,
+                  causal: bool) -> int:
+    """The kv tiles #2's q-tile ``q_blk`` walks (``kv_tile_bound`` of
+    ``csrc/flash_attention.cu``): up to the last key any of its rows can
+    see, or every tile when the batch row has no visible source key."""
+    all_tiles = -(-s // FOLD_BK)
+    if tokens_valid <= 0:
+        return all_tiles
+    vis_end = max(tokens_valid, min((q_blk + 1) * FOLD_BQ, kv_end)) if causal else kv_end
+    return min(all_tiles, -(-vis_end // FOLD_BK))
+
+
+class FoldPlan(NamedTuple):
+    """#2's item schedule: ``groups`` groups of ``group_size`` heads per
+    (batch row, q-tile), ``items`` work items, a persistent grid of
+    ``grid`` blocks (each takes the next item in ``fold_items``' order when
+    it is done with one), and the makespan the choice was made on, in kv
+    tiles."""
+    groups: int
+    group_size: int
+    items: int
+    grid: int
+    makespan: float
+
+
+def fold_items(b: int, s: int, groups: int) -> list[tuple[int, int, int]]:
+    """(batch row, q-tile, group) of each item, in the kernel's order
+    (``fold_item``): the last q-tiles first, so heaviest first."""
+    q_tiles = -(-s // FOLD_BQ)
+    return [(r // groups, q_tiles - 1 - i // (b * groups), r % groups)
+            for i in range(b * q_tiles * groups) for r in (i % (b * groups),)]
+
+
+@functools.lru_cache(maxsize=256)
+def fold_plan(b: int, h: int, s: int, tokens_total: int, causal: bool, slots: int,
+              consumers: int) -> FoldPlan:
+    """#2's item schedule on a card with ``slots`` = SMs x blocks an SM,
+    blocks of ``consumers`` warpgroups that take a group's heads in turns
+    (2 in bf16, 1 in f32).  An item's work is its kv-tile count at the
+    widest meta the call can have (tokens_valid = tokens_total, kv_end = s)
+    plus ``FOLD_HEAD_COST`` a head, times the heads one consumer takes; the
+    items go out in order to the block that is free first, as the kernel's
+    counter hands them out.
+
+    Group sizes are the divisors of h (at least ``consumers`` where h allows,
+    so that no consumer idles).  The plan takes, of the sizes whose items
+    fill every slot, the smallest makespan (the latest block's end), and of
+    equal ones the fewest groups: the heads are split only as far as that
+    fills the card.  Where no size fills it, the finest split."""
+    q_tiles = -(-s // FOLD_BQ)
+    work = [kv_tile_bound(qt, s, min(tokens_total, s), s, causal) + FOLD_HEAD_COST
+            for qt in range(q_tiles)]
+    sizes = [g for g in range(h, 0, -1) if h % g == 0 and g >= min(consumers, h)]
+    plans = []
+    for size in sizes:
+        groups = h // size
+        items = b * q_tiles * groups
+        grid = max(1, min(items, slots))
+        free = [0] * grid               # when each block is done (a heap)
+        per_head = -(-size // consumers)
+        for i in range(items):
+            qt = q_tiles - 1 - i // (b * groups)
+            heapq.heapreplace(free, free[0] + per_head * work[qt])
+        plans.append(FoldPlan(groups, size, items, grid, float(max(free))))
+    filling = [p for p in plans if p.items >= slots]
+    return min(filling, key=lambda p: p.makespan) if filling else plans[-1]
+
+
+_FOLD_BLOCKS: dict = {}
+
+
+def fold_slots(device, dtype, hd: int) -> int:
+    """SMs x the blocks of #2 (at ``dtype``, ``hd``) one SM holds, asked of
+    the library once per card."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, _DTYPE_CODE[dtype], hd)
+    if key not in _FOLD_BLOCKS:
+        blocks = ctypes.c_int(0)
+        fn = _fn('flash_attention', 'valle2_flash_fold_blocks_per_sm',
+                 [_CI, _CI, ctypes.POINTER(ctypes.c_int)])
+        with torch.cuda.device(index):
+            _build.check(fn(hd, key[1], ctypes.byref(blocks)), 'flash_attention_folded')
+        if blocks.value < 1:
+            raise RuntimeError(f'flash_attention_folded: no block of #2 fits an SM at hd '
+                               f'{hd}, {dtype}')
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _FOLD_BLOCKS[key] = sms * blocks.value
+    return _FOLD_BLOCKS[key]
+
+
+def fold_plan_for(q, tokens_total: int, causal: bool) -> FoldPlan:
+    """``fold_plan`` for #2 on the CUDA tensor q (b, h, s, hd)."""
+    b, h, s, hd = q.shape
+    slots = fold_slots(q.device, q.dtype, hd)
+    return fold_plan(b, h, s, int(tokens_total), bool(causal), slots,
+                     2 if q.dtype == torch.bfloat16 else 1)
+
+
 def flash_attention_folded(q, k, v, meta, tokens_total: int, causal: bool = True):
-    """Kernel #2, the head-folded forward: one block per (q-tile, batch row)
-    carrying every head.  Same arguments and result as ``flash_attention``."""
+    """Kernel #2, the head-folded forward: a persistent grid over (batch row,
+    q-tile, group of heads) items, on ``fold_plan``'s schedule.  Same
+    arguments and result as ``flash_attention``."""
     if q.device.type == 'cpu':
         return flash_attention_plain(q, k, v, meta, tokens_total, causal)
+    _check_qkv('flash_attention_folded', q, (k, v), meta)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('flash_attention_folded: bf16 q, k, v must be 16-byte aligned '
+                         '(TMA)')
     return _forward('flash_attention_folded', 'valle2_flash_attention_fwd_folded',
-                    FOLD_COUNTER, q, k, v, meta, tokens_total, causal)
+                    FOLD_COUNTER, q, k, v, meta, tokens_total, causal,
+                    fold_plan_for(q, tokens_total, causal))
 
 
 def flash_attention(q, k, v, meta, tokens_total: int, causal: bool = True,
