@@ -2693,7 +2693,8 @@ def train_meta(b: int, tokens: int, frames: int, device, seed: int = 0):
 def phase_train_kernels(results: dict):
     """Flash forward (#1, causal and bidirectional) and backward (#3; #4 + #5
     past FUSED_BWD_MAX_SEQ) at the training shapes against the plain versions;
-    in bf16 each also timed on the CUDA-core route it replaced."""
+    in bf16 each also timed on its CUDA-core route; each backward
+    kernel with its share of its bound (in f32, of the FFMA bound)."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import flash_attention as fa
@@ -2768,6 +2769,8 @@ def phase_train_kernels(results: dict):
                                         dtype_name))}
                 for name, r in kern.items():
                     r['bound_ms'], r['bound_by'] = r.pop('bound')
+                    # f32: the share of the FFMA bound (67 TFLOP/s) the kernel reaches
+                    r['bound_share'] = r['bound_ms'] / r['ms']
                     r.update(plain_ms=plain_ms, library_ms=library_ms, tol=tol_str(dtype_name))
                     results[(name, case, dtype_name)] = r
                 emit(phase='kernels', path='train', case=case, dtype=dtype_name,
@@ -4165,6 +4168,10 @@ def main() -> int:
         elif name.startswith('flash_bwd_'):
             entry['cuda_cores_ms'] = {c: results[(name, c, 'bfloat16')]['cuda_cores_ms']
                                       for c in TRAIN_CASES if (name, c, 'bfloat16') in results}
+            entry['bound_share'] = {DTYPE_LABEL[d]: {c: results[(name, c, d)]['bound_share']
+                                                     for c in TRAIN_CASES
+                                                     if (name, c, d) in results}
+                                    for d in dtypes}
         if entry['launches'] <= 0:
             fail(f'{name} was never launched on the paths that run it')
         kernels.append(entry)

@@ -42,7 +42,10 @@ device kernel a launch; the bf16 CUDA-core routes of the flash forward and
 backward, which ``chip_smoke.py`` times beside the tensor-core ones, are
 held against the plain versions too.  The backward's tensor-core route
 gives zero dq to rows that see no key; #4 and #5 repeat bit for bit from
-call to call, and #3's dk, dv equal #5's bit for bit (one device body).
+call to call, and #3's dk, dv equal #5's bit for bit (one device body), also
+at the register-tiled f32 kernels' edges (one row, a partial micro-tile,
+one key past a tile, a causal lower bound inside a q tile); the
+tensor-core route's bits are pinned by digest (``TC_BITS``).
 """
 
 import numpy as np
@@ -132,7 +135,17 @@ BWD_CASES = {
     'fused_edge_768': (1, 2, 768, 128, [[100, 700]], True),
     'split_causal_900': (2, 1, 900, 256, [[256, 900], [131, 555]], True),
     'split_bidirectional_777': (1, 2, 777, 128, [[90, 700]], False),
+    # The CUDA-core kernels' tile and micro-tile edges: one row; one partial
+    # micro-tile of rows and keys; one key past a 64-key tile, ragged; a
+    # causal lower bound that starts inside a q tile (tokens_valid 150, 77).
+    's1': (1, 2, 1, 1, [[1, 1]], True),
+    's17': (2, 2, 17, 5, [[5, 17], [3, 12]], True),
+    'ragged_65': (2, 2, 65, 20, [[20, 65], [7, 64]], False),
+    'split_causal_mid_833': (2, 2, 833, 200, [[150, 833], [77, 601]], True),
 }
+# The cases at s <= FUSED_BWD_MAX_SEQ (rounded up to 128), which the fused #3 takes.
+FUSED_BWD_CASES = ('ragged_causal', 'bidirectional', 'no_tokens', 'fused_edge_768', 's1',
+                   's17', 'ragged_65')
 
 
 def bwd_inputs(dev, case, hd, dtype):
@@ -157,7 +170,7 @@ def test_flash_bwd_kernels_match_plain(dev, case, hd, dtype):
     counts = [c.count for c in (fa.BWD_FUSED_COUNTER, fa.BWD_DQ_COUNTER, fa.BWD_DKV_COUNTER)]
     routed = fa.flash_attention_bwd(*args, tt, causal)
     fused = fa.uses_fused_bwd(args[0].shape[2])
-    assert fused == (case in ('ragged_causal', 'bidirectional', 'no_tokens', 'fused_edge_768'))
+    assert fused == (case in FUSED_BWD_CASES)
     assert [c.count for c in (fa.BWD_FUSED_COUNTER, fa.BWD_DQ_COUNTER,
                               fa.BWD_DKV_COUNTER)] == [counts[0] + fused,
                                                       counts[1] + (not fused),
@@ -191,7 +204,8 @@ def test_flash_bwd_cuda_core_route_matches_plain(dev, case, hd):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
 @pytest.mark.parametrize('hd', [32, 64, 128])
-@pytest.mark.parametrize('case', ['ragged_causal', 'split_causal_900'])
+@pytest.mark.parametrize('case', ['ragged_causal', 'split_causal_900', 's17',
+                                  'split_causal_mid_833'])
 def test_flash_bwd_split_kernels_repeat_bit_for_bit(dev, case, hd, dtype):
     """#4 and #5 sum in a fixed order (no atomics): the same inputs give the
     same bits from call to call."""
@@ -205,8 +219,7 @@ def test_flash_bwd_split_kernels_repeat_bit_for_bit(dev, case, hd, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
 @pytest.mark.parametrize('hd', [32, 64, 128])
-@pytest.mark.parametrize('case', ['ragged_causal', 'bidirectional', 'no_tokens',
-                                  'fused_edge_768'])
+@pytest.mark.parametrize('case', FUSED_BWD_CASES)
 def test_fused_bwd_dk_dv_equal_the_dkv_kernel(dev, case, hd, dtype):
     """#3 and #5 run one device body over the q tiles in one order (only #3's
     dq goes through atomics), so at s <= 768 #3's dk, dv equal #5's bit for
@@ -237,6 +250,63 @@ def test_flash_bwd_tensor_core_route_zero_grad_for_rows_that_see_nothing(dev, hd
         torch.cuda.synchronize()
         assert float(dq[:, :, :tt].abs().max()) == 0.0
         assert float(dq[:, :, tt:].abs().max()) > 0.0
+
+
+# The bf16 tensor-core backward on fixed inputs (numpy, seed 7 + hd, rounded
+# to bf16; lse and delta computed in float64 on the CPU and passed in, so
+# that no PyTorch reduction on the card enters): sha256 of the output bytes
+# of #3's dk, dv, #4's dq and #5's dk, dv, as the parent of the f32
+# CUDA-core redesign built them (#3's dq sums through atomics in a varying
+# order and is left out).
+TC_BITS_CASE = (2, 2, 200, 40, [[40, 200], [25, 150]], True)
+TC_BITS = {
+    32: {'dk3': '0b18c785d401c91e', 'dv3': '62ef18b73e2e245f',
+         'dq4': '7f178d2c4d34bdb4', 'dk5': '0b18c785d401c91e',
+         'dv5': '62ef18b73e2e245f'},
+    64: {'dk3': 'f0bdaa21a76dae01', 'dv3': 'ebe8ed812d19c98a',
+         'dq4': '87ef38405edcfe2e', 'dk5': 'f0bdaa21a76dae01',
+         'dv5': 'ebe8ed812d19c98a'},
+    128: {'dk3': 'ee7f35fdc5c677c2', 'dv3': '0485439c7ecc9650',
+          'dq4': 'da35656f7980f5cd', 'dk5': 'ee7f35fdc5c677c2',
+          'dv5': '0485439c7ecc9650'},
+}
+
+
+def tc_route_bits(dev, hd) -> dict:
+    """{output: sha256 prefix} of the bf16 tensor-core backward on
+    TC_BITS_CASE at head dim hd."""
+    import hashlib
+    import math
+
+    from valle2_tpu_torch.ops.masks import prefix_lm_attend
+    b, h, s, tt, meta, causal = TC_BITS_CASE
+    rs = np.random.RandomState(7 + hd)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((b, h, s, hd)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    meta = torch.tensor(meta, dtype=torch.int32)
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    scores = torch.matmul(qd, kd.transpose(-1, -2)) / math.sqrt(hd)
+    attend = prefix_lm_attend(s, tt, meta[:, 0], meta[:, 1], causal)[:, None]
+    scores = torch.where(attend, scores, -1e30)
+    lse = torch.logsumexp(scores, -1)
+    o = torch.matmul(torch.softmax(scores, -1), vd)
+    delta = (dod * o).sum(-1)
+    args = [t.to(dev) for t in (q, k, v, meta, o.to(torch.bfloat16), lse.float())] + [do.to(dev)]
+    kw = dict(delta=delta.float().to(dev))
+    _, dk3, dv3 = fa.flash_bwd_fused(*args, tt, causal, **kw)
+    dq4 = fa.flash_bwd_dq(*args, tt, causal, **kw)
+    dk5, dv5 = fa.flash_bwd_dkv(*args, tt, causal, **kw)
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+            for name, t in (('dk3', dk3), ('dv3', dv3), ('dq4', dq4), ('dk5', dk5),
+                            ('dv5', dv5))}
+
+
+@pytest.mark.parametrize('hd', [32, 64, 128])
+def test_flash_bwd_tensor_core_route_bits_unchanged(dev, hd):
+    """The bf16 tensor-core route gives the bits its build gave before the
+    f32 CUDA-core kernels were redesigned beside it (TC_BITS)."""
+    assert tc_route_bits(dev, hd) == TC_BITS[hd]
 
 
 def test_flash_function_grads_match_plain_route(dev):

@@ -86,6 +86,24 @@ def test_flash_fully_masked_rows_are_uniform_not_nan():
 # JAX backward routes: default (whole-row) blocks run the fused #3 kernel at
 # these s; explicit 64-blocks run #4 (dq) then #5 (dk, dv).
 BWD_ROUTES = {'fused': (None, None), 'split': (64, 64)}
+# The edge shapes of the card tests' backward cases (tests/test_torch_cuda.py
+# BWD_CASES: one row; a partial micro-tile; one key past a 64-key tile,
+# ragged; a causal lower bound inside a q tile, past the fused bound), at hd
+# 32: the plain backward that the CUDA kernels are held to there is held to
+# JAX at the same shapes.
+BWD_EDGE_CASES = {
+    's1': (1, 2, 1, 32, 1, [[1, 1]], True),
+    's17': (2, 2, 17, 32, 5, [[5, 17], [3, 12]], True),
+    'ragged_65': (2, 2, 65, 32, 20, [[20, 65], [7, 64]], False),
+    'split_causal_mid_833': (2, 2, 833, 32, 200, [[150, 833], [77, 601]], True),
+}
+BWD_CASES = {**FLASH_CASES, **BWD_EDGE_CASES}
+
+
+def case_seed(case: str) -> int:
+    if case in FLASH_CASES:
+        return sorted(FLASH_CASES).index(case)
+    return 100 + sorted(BWD_EDGE_CASES).index(case)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,9 +111,9 @@ def jax_flash_vjp(case, route, dtype='float32'):
     """(inputs, dO, (dq, dk, dv)) of jax.vjp of the JAX flash_attention
     (Pallas interpret mode) on the case's inputs, cast to ``dtype`` first;
     inputs and grads come back as float32 numpy arrays."""
-    b, h, s, hd, tt, meta, causal = FLASH_CASES[case]
-    q, k, v = qkv(sorted(FLASH_CASES).index(case), b, h, s, hd)
-    do = np.random.RandomState(50 + sorted(FLASH_CASES).index(case)).standard_normal(
+    b, h, s, hd, tt, meta, causal = BWD_CASES[case]
+    q, k, v = qkv(case_seed(case), b, h, s, hd)
+    do = np.random.RandomState(50 + case_seed(case)).standard_normal(
         (b, h, s, hd)).astype(np.float32)
     meta = np.asarray(meta, np.int32)
     bq, bk = BWD_ROUTES[route]
@@ -108,12 +126,12 @@ def jax_flash_vjp(case, route, dtype='float32'):
 
 
 @pytest.mark.parametrize('route', sorted(BWD_ROUTES))
-@pytest.mark.parametrize('case', sorted(FLASH_CASES))
+@pytest.mark.parametrize('case', sorted(FLASH_CASES) + sorted(BWD_EDGE_CASES))
 def test_flash_bwd_plain_matches_jax_vjp(case, route):
     """flash_attention_bwd_plain on the plain forward's (o, lse) == jax.vjp of
     the Pallas kernels, on both JAX routes (fused #3; dq #4 + dkv #5)."""
     (q, k, v, meta), do, want = jax_flash_vjp(case, route)
-    _, _, _, _, tt, _, causal = FLASH_CASES[case]
+    _, _, _, _, tt, _, causal = BWD_CASES[case]
     t = [torch.from_numpy(a) for a in (q, k, v, meta, do)]
     o, lse = tflash.flash_attention_plain(*t[:4], tt, causal)
     counts = [c.count for c in (tflash.BWD_FUSED_COUNTER, tflash.BWD_DQ_COUNTER,

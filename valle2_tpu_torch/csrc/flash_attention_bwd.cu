@@ -82,21 +82,63 @@
 // atomics.  wgmma (a warpgroup on a 64-row tile, operands from shared memory)
 // fed by TMA loads and a warp-specialised producer is the next step.
 //
-// f32, on the CUDA cores (the first design, kept as the f32 route, and for
-// bf16 as the route that flash_attention_bwd_cuda_cores times beside the
-// tensor cores').  Tiles of 64 q rows by 64 keys; 256 threads; every operand
-// of a tile pair is staged in shared memory as f32 (row stride HD + 1 so the
-// threads of a warp hit distinct banks).  Per tile pair one phase computes p
-// and ds (each q row owned by 4 threads, 16 keys each, scores and dp in
-// registers) into shared tiles, and a second phase accumulates the products
-// that need them; dkv keeps dk, dv in registers (each key owned by 4
-// threads), dq keeps dq in registers, and fused adds ds k into the f32 dq
-// scratch with atomicAdd.  The tensor cores have no full-f32 product (TF32
-// keeps 10 mantissa bits), and f32 with TF32 off is the parity setting.
+// f32, on the CUDA cores (FFMA in full f32: the tensor cores have no full-f32
+// product, TF32 keeps 10 mantissa bits, and f32 with TF32 off is the parity
+// setting), and the bf16 route that flash_attention_bwd_cuda_cores times:
+// the same kernels with T = bf16, whose staging converts to f32 through
+// registers.  Register-tiled: a block is two groups of threads, and every
+// product is a micro-tile a thread holds in registers, fed by float4 shared
+// reads from f32 tiles of row stride HD + 4 (16-byte rows whose stride is 4
+// mod 32 banks, so the 8 rows a quarter warp reads fall in distinct banks and
+// one row broadcasts).  Up to hd 64 a block is 128 threads (two groups of two
+// warps) and two blocks share an SM; at hd 128, 256 threads (two groups of
+// four warps), one block an SM.  Per tile pair (64 keys x 64 q rows):
+//
+// - Phase A: group 0 computes S^T = K Q^T (#5, #3) or S = Q K^T (#4), group
+//   1 dP^T = V dO^T or dP = dO V^T, 8 x 8 of each a thread (4 x 8 at hd
+//   128): 16 float4 reads per 256 FFMAs.  Group 0 writes p = 2^(S scale
+//   log2e - lse log2e), selected against 0 by the mask (no branch an
+//   element), unrounded into a [q][key] tile; a thread whose rows all see
+//   all its keys skips the mask.  After a barrier group 1 writes ds =
+//   round_T(p (dP - delta)) beside it (and rounds p in place to T for dV's
+//   product).
+// - Phase B (#5, #3): group 0 dV += round_T(p)^T dO, group 1 dK += ds^T Q,
+//   outer products over the tile's 64 q rows, 8 x 8 a thread (4 x 8 at hd
+//   32); dK and dV stay in registers across the streamed q tiles.  #4 (and
+//   #3's dq) computes dQ += ds K over the tile's 64 keys on the whole block,
+//   4 x 8 a thread (4 x 4 at hd 32): #4 keeps dQ in registers across the kv
+//   tiles; #3 adds each tile pair's to the f32 scratch with one 16-byte
+//   atomicAdd per 4 values (red.global.add.v4.f32), and flash_bwd_dq_finish
+//   scales and casts it.
+// - Staging: f32 operands go straight to shared memory by cp.async, 16 bytes
+//   a thread, zero-filled past s, with lse and delta.  Shared memory a block:
+//   hd 32 91,136 B, two stages (the next Q, dO or K, V tile loads while the
+//   current one is multiplied); hd 64 104,960 B and hd 128 170,496 B, one
+//   stage (a second would pass the 113 KB of two blocks an SM at hd 64, and
+//   the 227 KB of one at hd 128, where K and V alone take 67,584 B): there
+//   the SM's other block, or its other warps, compute while a tile loads.
+// - #3 and #5 are one templated body, so #3's dk, dv equal #5's bit for
+//   bit; #4 and #5 use no atomics and repeat bit for bit.  #4 starts its
+//   heaviest q tiles first; the kv body keeps the Pallas causal lower bound
+//   and #4 its last visible kv tile.
+//
+// What bounds it on this card: FFMA at 67 TFLOP/s (#3's products at b=32,
+// h=4, s=640, hd 64 bidirectional take 0.44 ms at that rate, its bytes a
+// tenth of that).  A thread's 8 x 8 tiles read one float of shared memory
+// per 4 FFMAs, which is as fast as the SM's 128 bytes a cycle feeds its
+// 128 FFMA lanes, so the shared-memory pipe and the FFMA pipe are about
+// equally busy, with little slack at 255 registers a thread and 8 warps an
+// SM to hide their latencies.  Measured on an H100 at 700 W at the training
+// shapes (probes/train_ab.py, probes/bwd_ablate.py): 29-46% of the FFMA
+// bound, 2.2-2.5x the speed of the design before it, and faster than
+// scaled_dot_product_attention's f32 backward at every shape; phase A and
+// phase B take time in proportion to their FFMAs, the mask 4-12% of it and
+// the single stage's tile loads 4-11%.
 
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -106,224 +148,535 @@ using namespace valle2;
 
 constexpr int BQ = 64;         // q rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr int TPR = 4;         // threads per row (phase A) or per key (dk, dv)
-constexpr int NT = BQ * TPR;   // 256 threads
-constexpr int KPT = BK / TPR;  // keys per thread in phase A
-constexpr int PS = BK + 1;     // row stride of the p / ds tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---- f32 route (and the timing-only bf16 one), on the CUDA cores ----
+
+constexpr int PS = BK + 4;     // row stride of the p / ds tiles ([q][key], f32)
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  // Ks, Vs [BK][HD+1]; Qs, dOs [BQ][HD+1]; Ps, dSs [BQ][PS]; lse, delta [BQ]
-  return sizeof(float) * (2 * BK * (HD + 1) + 2 * BQ * (HD + 1) + 2 * BQ * PS + 2 * BQ);
-}
-
-__device__ __forceinline__ bool attends(int qi, int key, int tokens_valid, int tokens_total,
-                                        int kv_end, int causal) {
-  return (key < tokens_valid || (key >= tokens_total && (!causal || key <= qi))) &&
-         key < kv_end;
-}
-
-// 64 rows of an (s, HD) matrix from row0 into dst [64][HD+1] as f32; rows past s are 0.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
-                                          int s) {
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
-    const int rr = i / HD, dd = i % HD, row = row0 + rr;
-    dst[rr * (HD + 1) + dd] = row < s ? to_f<T>(src[(size_t)row * HD + dd]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const float* __restrict__ lse,
-                                               const float* __restrict__ delta, int row0,
-                                               int s) {
-  for (int i = threadIdx.x; i < BQ; i += NT) {
-    const int row = row0 + i;
-    lse_s[i] = row < s ? lse[row] : 0.f;
-    delta_s[i] = row < s ? delta[row] : 0.f;
-  }
-}
-
-struct Mask {
-  int s, tokens_valid, tokens_total, kv_end, causal;
+struct Cc {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head dim 32, 64 or 128");
+  // Up to hd 64 a block is 128 threads, two groups of two warps, and two
+  // blocks share an SM (MINB), each thread holding 8 x 8 of S (or dP) beside
+  // its dK (or dV) tile.  At hd 128 those would not fit its registers: 256
+  // threads, two groups of four warps, 4 x 8 of S, one block an SM.
+  static constexpr int NT = HD <= 64 ? 128 : 256, NG = NT / 2;
+  static constexpr int MINB = HD <= 64 ? 2 : 1;
+  // Row stride of an f32 operand tile: rows of 16-byte multiples, and
+  // RS % 32 == 4, so that 8 consecutive rows read as float4 fill the 32 banks.
+  static constexpr int RS = HD + 4;
+  // Micro-tiles of a thread: S / dP (64 x 64 a group), TMA x 8; dK / dV
+  // (64 x HD a group), TMB x TNB; dQ (64 x HD a block), TMQ x TNQ.
+  static constexpr int TMA = 64 * 64 / NG / 8;
+  static constexpr int TMB = 64 * HD / NG >= 64 ? 8 : 4, TNB = 64 * HD / NG / TMB;
+  static constexpr int TMQ = 64 * HD / NT >= 16 ? 4 : 2, TNQ = 64 * HD / NT / TMQ;
+  // Stages of the streamed tiles (Q, dO in the kv body; K, V in #4): two
+  // where they fit beside the rest of the shared memory of MINB blocks
+  // (hd 32), else one.
+  static constexpr int NST = HD == 32 ? 2 : 1;
 };
 
-// Phase A of one tile pair: Ps = round_T(p), dSs = round_T(p * (dp - delta)).
+template <int HD>
+constexpr size_t cc_smem() {
+  // two fixed [64][RS] tiles, NST stages of two streamed [64][RS] tiles,
+  // p and ds [BQ][PS], NST stages of lse and delta [BQ]
+  using C = Cc<HD>;
+  return sizeof(float) *
+         (2 * 64 * C::RS + C::NST * 2 * 64 * C::RS + 2 * BQ * PS + C::NST * 2 * BQ);
+}
+
+// Position (tm, tn) of thread t in a grid of MT x (threads / MT) (MT a
+// multiple of 8): the 8 lanes of a quarter warp take 8 consecutive tm and one
+// tn, so that their reads of 8 consecutive rows fall in distinct banks and
+// their reads of one row broadcast.
+template <int MT>
+__device__ __forceinline__ void grid_pos(int t, int& tm, int& tn) {
+  constexpr int WM = MT / 8;   // warps along m
+  tm = (t & 7) + 8 * ((t >> 5) % WM);
+  tn = ((t >> 3) & 3) + 4 * ((t >> 5) / WM);
+}
+
+__device__ __forceinline__ void put4(float* d, float4 v) {
+  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 64 rows of an (s, HD) matrix from row0 into a shared f32 tile of row stride
+// RS, over the block's threads; rows past s are zero.  f32 by cp.async, 16
+// bytes a thread (zero-filled past s); bf16 8 values a thread, converted to
+// f32 through registers.
 template <typename T, int HD>
-__device__ __forceinline__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
-                                          const float* Vs, const float* lse_s,
-                                          const float* delta_s, float* Ps, float* dSs, int q0,
-                                          int k0, const Mask& m, float scale) {
-  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR;
-  float sc[KPT], dp[KPT];
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) sc[j] = dp[j] = 0.f;
-  for (int dd = 0; dd < HD; ++dd) {
-    const float qv = Qs[r * (HD + 1) + dd], gv = dOs[r * (HD + 1) + dd];
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int c = sub + TPR * j;
-      sc[j] = fmaf(qv, Ks[c * (HD + 1) + dd], sc[j]);
-      dp[j] = fmaf(gv, Vs[c * (HD + 1) + dd], dp[j]);
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int row0,
+                                           int s) {
+  constexpr int RS = Cc<HD>::RS, NT = Cc<HD>::NT;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int CH = HD / 4;
+    for (int c = threadIdx.x; c < 64 * CH; c += NT) {
+      const int r = c / CH, col = c % CH * 4, row = row0 + r;
+      const bool in = row < s;
+      cp_async16_zfill(dst + r * RS + col, src + (size_t)(in ? row : 0) * HD + col, in);
+    }
+  } else {
+    constexpr int CH = HD / 8;
+    for (int c = threadIdx.x; c < 64 * CH; c += NT) {
+      const int r = c / CH, col = c % CH * 8, row = row0 + r;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (row < s) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * HD + col);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
+        const float2 c2 = __bfloat1622float2(h2[2]), d = __bfloat1622float2(h2[3]);
+        lo = make_float4(a.x, a.y, b.x, b.y);
+        hi = make_float4(c2.x, c2.y, d.x, d.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * RS + col) = lo;
+      *reinterpret_cast<float4*>(dst + r * RS + col + 4) = hi;
     }
   }
-  const int qi = q0 + r;
-  const float l = lse_s[r], dl = delta_s[r];
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int c = sub + TPR * j, key = k0 + c;
-    const bool on = qi < m.s && key < m.s &&
-                    attends(qi, key, m.tokens_valid, m.tokens_total, m.kv_end, m.causal);
-    const float p = on ? expf(sc[j] * scale - l) : 0.f;
-    Ps[r * PS + c] = round_to<T>(p);
-    dSs[r * PS + c] = round_to<T>(p * (dp[j] - dl));
+}
+
+// lse and delta of 64 rows from row0 (rows past s read as 0), by cp.async
+// (every block has at least 2 * BQ threads).
+__device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s, const float* lse_row,
+                                            const float* delta_row, int row0, int s) {
+  if (threadIdx.x < 2 * BQ) {
+    const int i = threadIdx.x % BQ, row = row0 + i;
+    const bool in = row < s;
+    if (threadIdx.x < BQ)
+      cp_async4_zfill(lse_s + i, lse_row + (in ? row : 0), in);
+    else
+      cp_async4_zfill(delta_s + i, delta_row + (in ? row : 0), in);
   }
+}
+
+// acc[i][j] += sum_d A[tm + (64 / TMA) i][d] B[tn + 8 j][d] over d < HD,
+// for row-major [row][HD] tiles of stride RS (S^T = K Q^T, dP^T = V dO^T in
+// the kv body; S = Q K^T, dP = dO V^T in #4).  Per 4 d a thread reads
+// TMA + 8 float4 and does 32 TMA FMAs; each sum runs over d in order.
+template <int HD>
+__device__ __forceinline__ void rows_dot(const float* A, const float* B, int tm, int tn,
+                                         float (&acc)[Cc<HD>::TMA][8]) {
+  constexpr int RS = Cc<HD>::RS, TMA = Cc<HD>::TMA, MS = 64 / TMA;
+  const float* a = A + tm * RS;
+  const float* b = B + tn * RS;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 av[TMA];
+#pragma unroll
+    for (int i = 0; i < TMA; ++i) av[i] = ld4(a + MS * i * RS + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = ld4(b + 8 * j * RS + d);
+#pragma unroll
+      for (int i = 0; i < TMA; ++i) {
+        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][j] += sum_r P[r][key_i] X[r][dim_j] over the tile's BQ rows r in
+// order (dV += P^T dO, dK += dS^T Q): keys 4 tm + 32 (i / 4) + i % 4, dims
+// 4 tn + (HD / 2)(j / 4) + j % 4; P of stride PS, X of stride RS.
+template <int HD>
+__device__ __forceinline__ void cols_outer(const float* P, const float* X, int tm, int tn,
+                                           float (&acc)[Cc<HD>::TMB][Cc<HD>::TNB]) {
+  using C = Cc<HD>;
+  constexpr int RS = C::RS, TMB = C::TMB, TNB = C::TNB;
+#pragma unroll 4
+  for (int r = 0; r < BQ; ++r) {
+    float pv[TMB], xv[TNB];
+#pragma unroll
+    for (int ib = 0; ib < TMB / 4; ++ib) put4(pv + 4 * ib, ld4(P + r * PS + 4 * tm + 32 * ib));
+#pragma unroll
+    for (int jb = 0; jb < TNB / 4; ++jb)
+      put4(xv + 4 * jb, ld4(X + r * RS + 4 * tn + (HD / 2) * jb));
+#pragma unroll
+    for (int i = 0; i < TMB; ++i)
+#pragma unroll
+      for (int j = 0; j < TNB; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c dS[q_i][c] K[c][dim_j] over the tile's BK keys c in
+// order (dQ += dS K): rows q_i = tm + (BQ / TMQ) i, dims 4 tn + (HD / 2)(j /
+// 4) + j % 4; dS of stride PS, K of stride RS.
+template <int HD>
+__device__ __forceinline__ void ds_k(const float* dS, const float* K, int tm, int tn,
+                                     float (&acc)[Cc<HD>::TMQ][Cc<HD>::TNQ]) {
+  using C = Cc<HD>;
+  constexpr int RS = C::RS, TMQ = C::TMQ, TNQ = C::TNQ, QS = BQ / TMQ;
+#pragma unroll 2
+  for (int c = 0; c < BK; c += 4) {
+    float a[TMQ][4];
+#pragma unroll
+    for (int i = 0; i < TMQ; ++i) put4(a[i], ld4(dS + (tm + QS * i) * PS + c));
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float kv[TNQ];
+#pragma unroll
+      for (int jb = 0; jb < TNQ / 4; ++jb)
+        put4(kv + 4 * jb, ld4(K + (c + cc) * RS + 4 * tn + (HD / 2) * jb));
+#pragma unroll
+      for (int i = 0; i < TMQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TNQ; ++j) acc[i][j] = fmaf(a[i][cc], kv[j], acc[i][j]);
+    }
+  }
+}
+
+// Four values of a row to global memory as T (16 bytes f32, 8 bytes bf16).
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d);
+template <>
+__device__ __forceinline__ void store4<float>(float* dst, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, float a, float b,
+                                                      float c, float d) {
+  uint2 v;
+  v.x = pack_bf16(a, b);
+  v.y = pack_bf16(c, d);
+  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 // dk, dv per 64-key tile (#5); with FUSED also dq into the f32 scratch (#3).
 template <typename T, int HD, bool FUSED>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cc<HD>::NT, Cc<HD>::MINB)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ meta,
                     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int h,
                     int s, int tokens_total, int causal, float scale) {
-  constexpr int DPT = HD / TPR;
-  constexpr int RS = HD + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * RS;
-  float* Qs = Vs + BK * RS;
-  float* dOs = Qs + BQ * RS;
-  float* Ps = dOs + BQ * RS;
-  float* dSs = Ps + BQ * PS;
-  float* lse_s = dSs + BQ * PS;
-  float* delta_s = lse_s + BQ;
+  using C = Cc<HD>;
+  constexpr int RS = C::RS, NST = C::NST, NG = C::NG, TMA = C::TMA, MS = 64 / TMA;
+  constexpr int TMB = C::TMB, TNB = C::TNB, TMQ = C::TMQ, TNQ = C::TNQ;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                    // [BK][RS]
+  float* Vs = Ks + BK * RS;            // [BK][RS]
+  float* Qs = Vs + BK * RS;            // [NST][BQ][RS]
+  float* dOs = Qs + NST * BQ * RS;     // [NST][BQ][RS]
+  float* Ps = dOs + NST * BQ * RS;     // [BQ][PS]: p of the tile pair, [q][key]
+  float* dSs = Ps + BQ * PS;           // [BQ][PS]: round_T(ds)
+  float* lse_s = dSs + BQ * PS;        // [NST][BQ]
+  float* delta_s = lse_s + NST * BQ;   // [NST][BQ]
 
-  const int tid = threadIdx.x, own = tid / TPR, sub = tid % TPR;
+  const int grp = threadIdx.x / NG, gt = threadIdx.x % NG;
   const int k_blk = blockIdx.x, bh = blockIdx.y, b = bh / h;
   const size_t base = (size_t)bh * s * HD;
-  const Mask m{s, meta[2 * b], tokens_total, meta[2 * b + 1], causal};
+  const float* lse_bh = lse + (size_t)bh * s;
+  const float* delta_bh = delta + (size_t)bh * s;
+  const int tokens_valid = meta[2 * b], kv_end = meta[2 * b + 1];
   const int k0 = k_blk * BK;
-
-  load_rows<T, HD>(Ks, k + base, k0, s);
-  load_rows<T, HD>(Vs, v + base, k0, s);
-
   const int n_q = (s + BQ - 1) / BQ;
-  int lower = (causal && k0 >= m.tokens_valid) ? k0 / BQ : 0;
-  if (k0 >= m.kv_end) lower = n_q;
+  int lower = (causal && k0 >= tokens_valid) ? k0 / BQ : 0;
+  if (k0 >= kv_end) lower = n_q;
+  const float scale_log2 = scale * LOG2E;   // exp(x scale - l) = 2^(x scale_log2 - l log2e)
 
-  float dk_acc[DPT], dv_acc[DPT];
+  // Products S^T, dP^T: keys k0 + tm + MS i, q rows q0 + tn + 8 j.  Each key
+  // is seen by every row (a source key), by the rows at or past it when
+  // causal (an audio key), or by none.
+  int tm, tn;
+  grid_pos<MS>(gt, tm, tn);
+  const int src_end = min(tokens_valid, kv_end);
+  bool src[TMA], aud[TMA];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < TMA; ++i) {
+    const int key = k0 + tm + MS * i;
+    src[i] = (key < s) & (key < src_end);
+    aud[i] = (key < s) & (key >= tokens_total) & (key < kv_end);
+  }
+  // dV (group 0) or dK (group 1): keys 4 bm + 32 (i / 4) + i % 4, dims
+  // 4 bn + (HD / 2)(j / 4) + j % 4.
+  int bm, bn;
+  grid_pos<BK / TMB>(gt, bm, bn);
+  float acc_b[TMB][TNB];
+#pragma unroll
+  for (int i = 0; i < TMB; ++i)
+#pragma unroll
+    for (int j = 0; j < TNB; ++j) acc_b[i][j] = 0.f;
+
+  auto stage_q_tile = [&](int st, int qb) {
+    stage_rows<T, HD>(Qs + st * BQ * RS, q + base, qb * BQ, s);
+    stage_rows<T, HD>(dOs + st * BQ * RS, dout + base, qb * BQ, s);
+    stage_stats(lse_s + st * BQ, delta_s + st * BQ, lse_bh, delta_bh, qb * BQ, s);
+  };
+  stage_rows<T, HD>(Ks, k + base, k0, s);
+  stage_rows<T, HD>(Vs, v + base, k0, s);
+  if (lower < n_q) stage_q_tile(NST == 2 ? lower & 1 : 0, lower);
+  cp_async_commit();
 
   for (int qb = lower; qb < n_q; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();   // the previous tile's Qs/dOs/Ps/dSs are no longer read
-    load_rows<T, HD>(Qs, q + base, q0, s);
-    load_rows<T, HD>(dOs, dout + base, q0, s);
-    load_row_stats(lse_s, delta_s, lse + (size_t)bh * s, delta + (size_t)bh * s, q0, s);
-    __syncthreads();
-    tile_p_ds<T, HD>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, m, scale);
-    __syncthreads();
-    // dv += p^T dO, dk += ds^T Q for the key this thread owns.
-    for (int rr = 0; rr < BQ; ++rr) {
-      const float p = Ps[rr * PS + own], ds = dSs[rr * PS + own];
+    const int st = NST == 2 ? qb & 1 : 0, q0 = qb * BQ;
+    cp_async_wait<0>();
+    __syncthreads();   // tile qb (and K, V) landed; tile qb - 1, p and ds are no longer read
+    if constexpr (NST == 2) {
+      if (qb + 1 < n_q) stage_q_tile(st ^ 1, qb + 1);
+      cp_async_commit();
+    }
+    const float* qs = Qs + st * BQ * RS;
+    const float* dos = dOs + st * BQ * RS;
+    {
+      float acc[TMA][8];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dv_acc[i] = fmaf(p, dOs[rr * RS + sub + TPR * i], dv_acc[i]);
-        dk_acc[i] = fmaf(ds, Qs[rr * RS + sub + TPR * i], dk_acc[i]);
+      for (int i = 0; i < TMA; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      // Group 0: S^T = K Q^T; group 1: dP^T = V dO^T.
+      rows_dot<HD>(grp == 0 ? Ks : Vs, grp == 0 ? qs : dos, tm, tn, acc);
+      if (grp == 0) {
+        // p = attend ? 2^(S^T scale_log2 - lse log2e) : 0, unrounded, into
+        // Ps[q][key].  Where every key of the thread is seen by all its rows,
+        // no mask.
+        const float* ls = lse_s + st * BQ;
+        const int qmin = q0 + tn;
+        bool whole = qmin + 8 * 7 < s;
+#pragma unroll
+        for (int i = 0; i < TMA; ++i)
+          whole &= src[i] | (aud[i] & (!causal | (k0 + tm + MS * i <= qmin)));
+        if (whole) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float l2 = ls[tn + 8 * j] * LOG2E;
+#pragma unroll
+            for (int i = 0; i < TMA; ++i)
+              Ps[(tn + 8 * j) * PS + tm + MS * i] = exp2f(fmaf(acc[i][j], scale_log2, -l2));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int qi = q0 + tn + 8 * j;
+            const float l2 = ls[tn + 8 * j] * LOG2E;
+#pragma unroll
+            for (int i = 0; i < TMA; ++i) {
+              const bool on =
+                  (qi < s) & (src[i] | (aud[i] & (!causal | (k0 + tm + MS * i <= qi))));
+              const float e = exp2f(fmaf(acc[i][j], scale_log2, -l2));
+              Ps[(tn + 8 * j) * PS + tm + MS * i] = on ? e : 0.f;
+            }
+          }
+        }
+      }
+      __syncthreads();   // p is in Ps
+      if (grp == 1) {
+        // ds = round_T(p (dP - delta)); p itself rounds to T in place (the
+        // same thread position of group 0 wrote it) for dV's product.
+        const float* dls = delta_s + st * BQ;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dl = dls[tn + 8 * j];
+#pragma unroll
+          for (int i = 0; i < TMA; ++i) {
+            const int at = (tn + 8 * j) * PS + tm + MS * i;
+            const float p = Ps[at];
+            dSs[at] = round_to<T>(p * (acc[i][j] - dl));
+            if constexpr (!std::is_same<T, float>::value) Ps[at] = round_to<T>(p);
+          }
+        }
       }
     }
-    if (FUSED) {
-      // dq[q0 + own] += ds K for the row this thread owns.
-      float acc[DPT];
+    __syncthreads();   // ds is in dSs, p rounded
+    // Group 0: dV += P^T dO; group 1: dK += dS^T Q.
+    cols_outer<HD>(grp == 0 ? Ps : dSs, grp == 0 ? dos : qs, bm, bn, acc_b);
+    if constexpr (FUSED) {
+      // dQ of the tile's q rows += dS K over its keys, added to the f32
+      // scratch once per tile pair by 16-byte atomics.
+      int qm, qn;
+      grid_pos<BQ / TMQ>(threadIdx.x, qm, qn);
+      float acc_q[TMQ][TNQ];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-      for (int c = 0; c < BK; ++c) {
-        const float ds = dSs[own * PS + c];
+      for (int i = 0; i < TMQ; ++i)
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] = fmaf(ds, Ks[c * RS + sub + TPR * i], acc[i]);
+        for (int j = 0; j < TNQ; ++j) acc_q[i][j] = 0.f;
+      ds_k<HD>(dSs, Ks, qm, qn, acc_q);
+#pragma unroll
+      for (int i = 0; i < TMQ; ++i) {
+        const int qi = q0 + qm + (BQ / TMQ) * i;
+        if (qi < s) {
+          float* row = dq_acc + base + (size_t)qi * HD + 4 * qn;
+#pragma unroll
+          for (int jb = 0; jb < TNQ / 4; ++jb)
+            atomicAdd(reinterpret_cast<float4*>(row + (HD / 2) * jb),
+                      make_float4(acc_q[i][4 * jb], acc_q[i][4 * jb + 1], acc_q[i][4 * jb + 2],
+                                  acc_q[i][4 * jb + 3]));
+        }
       }
-      const int qi = q0 + own;
-      if (qi < s) {
-        float* row = dq_acc + base + (size_t)qi * HD;
-#pragma unroll
-        for (int i = 0; i < DPT; ++i) atomicAdd(row + sub + TPR * i, acc[i]);
-      }
+    }
+    if constexpr (NST == 1) {
+      __syncthreads();   // the stage is no longer read
+      if (qb + 1 < n_q) stage_q_tile(0, qb + 1);
+      cp_async_commit();
     }
   }
+  cp_async_wait<0>();
 
-  const int key = k0 + own;
-  if (key < s) {
-    const size_t off = base + (size_t)key * HD;
+  // Group 0 writes dv, group 1 dk * scale.
+  T* out = grp == 0 ? dv : dk;
+  const float mul = grp == 0 ? 1.f : scale;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      dk[off + sub + TPR * i] = from_f<T>(dk_acc[i] * scale);
-      dv[off + sub + TPR * i] = from_f<T>(dv_acc[i]);
+  for (int i = 0; i < TMB; ++i) {
+    const int key = k0 + 4 * bm + 32 * (i / 4) + i % 4;
+    if (key < s) {
+#pragma unroll
+      for (int jb = 0; jb < TNB / 4; ++jb)
+        store4<T>(out + base + (size_t)key * HD + 4 * bn + (HD / 2) * jb,
+                  acc_b[i][4 * jb] * mul, acc_b[i][4 * jb + 1] * mul,
+                  acc_b[i][4 * jb + 2] * mul, acc_b[i][4 * jb + 3] * mul);
     }
   }
 }
 
 // dq per 64-row q tile (#4), over kv tiles up to _kv_block_bound.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cc<HD>::NT, Cc<HD>::MINB)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ meta,
                     T* __restrict__ dq, int h, int s, int tokens_total, int causal,
                     float scale) {
-  constexpr int DPT = HD / TPR;
-  constexpr int RS = HD + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * RS;
-  float* Qs = Vs + BK * RS;
-  float* dOs = Qs + BQ * RS;
-  float* Ps = dOs + BQ * RS;
-  float* dSs = Ps + BQ * PS;
-  float* lse_s = dSs + BQ * PS;
-  float* delta_s = lse_s + BQ;
+  using C = Cc<HD>;
+  constexpr int RS = C::RS, NST = C::NST, NG = C::NG, TMA = C::TMA, MS = 64 / TMA;
+  constexpr int TMQ = C::TMQ, TNQ = C::TNQ;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                    // [BQ][RS]
+  float* dOs = Qs + BQ * RS;           // [BQ][RS]
+  float* Ks = dOs + BQ * RS;           // [NST][BK][RS]
+  float* Vs = Ks + NST * BK * RS;      // [NST][BK][RS]
+  float* Ps = Vs + NST * BK * RS;      // [BQ][PS]: p of the tile pair, [q][key]
+  float* dSs = Ps + BQ * PS;           // [BQ][PS]: round_T(ds)
 
-  const int tid = threadIdx.x, own = tid / TPR, sub = tid % TPR;
-  const int q_blk = blockIdx.x, bh = blockIdx.y, b = bh / h;
+  const int grp = threadIdx.x / NG, gt = threadIdx.x % NG;
+  // The last q tiles see the most keys when causal: they start first.
+  const int q_blk = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y, b = bh / h;
   const size_t base = (size_t)bh * s * HD;
-  const Mask m{s, meta[2 * b], tokens_total, meta[2 * b + 1], causal};
+  const int tokens_valid = meta[2 * b], kv_end = meta[2 * b + 1];
   const int q0 = q_blk * BQ;
+  const float scale_log2 = scale * LOG2E;
 
-  load_rows<T, HD>(Qs, q + base, q0, s);
-  load_rows<T, HD>(dOs, dout + base, q0, s);
-  load_row_stats(lse_s, delta_s, lse + (size_t)bh * s, delta + (size_t)bh * s, q0, s);
+  // Products S, dP: q rows q0 + tm + MS i, keys k0 + tn + 8 j.  Row i sees
+  // the keys [0, src_end) and [tokens_total, aud_hi[i]); group 0 holds its
+  // lse (in log2 units), group 1 its delta.
+  int tm, tn;
+  grid_pos<MS>(gt, tm, tn);
+  const int src_end = min(tokens_valid, kv_end);
+  bool qin[TMA];
+  int aud_hi[TMA];
+  float stat[TMA];
+#pragma unroll
+  for (int i = 0; i < TMA; ++i) {
+    const int qi = q0 + tm + MS * i;
+    qin[i] = qi < s;
+    aud_hi[i] = causal ? min(kv_end, qi + 1) : kv_end;
+    stat[i] = !qin[i] ? 0.f
+              : grp == 0 ? lse[(size_t)bh * s + qi] * LOG2E
+                         : delta[(size_t)bh * s + qi];
+  }
+  const bool rows_in = qin[TMA - 1];   // the thread's last row, so all of them
 
   const int all_tiles = (s + BK - 1) / BK;
-  const int vis_end =
-      causal ? max(m.tokens_valid, min(q0 + BQ, m.kv_end)) : m.kv_end;
+  const int vis_end = causal ? max(tokens_valid, min(q0 + BQ, kv_end)) : kv_end;
   const int n_tiles = min(all_tiles, (vis_end + BK - 1) / BK);
 
-  float dq_acc[DPT];
+  // dQ: rows q0 + qm + (BQ / TMQ) i, dims 4 qn + (HD / 2)(j / 4) + j % 4.
+  int qm, qn;
+  grid_pos<BQ / TMQ>(threadIdx.x, qm, qn);
+  float acc_q[TMQ][TNQ];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < TMQ; ++i)
+#pragma unroll
+    for (int j = 0; j < TNQ; ++j) acc_q[i][j] = 0.f;
+
+  auto stage_kv_tile = [&](int st, int kb) {
+    stage_rows<T, HD>(Ks + st * BK * RS, k + base, kb * BK, s);
+    stage_rows<T, HD>(Vs + st * BK * RS, v + base, kb * BK, s);
+  };
+  stage_rows<T, HD>(Qs, q + base, q0, s);
+  stage_rows<T, HD>(dOs, dout + base, q0, s);
+  if (n_tiles > 0) stage_kv_tile(0, 0);
+  cp_async_commit();
 
   for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();   // the previous tile's Ks/Vs/dSs are no longer read
-    load_rows<T, HD>(Ks, k + base, k0, s);
-    load_rows<T, HD>(Vs, v + base, k0, s);
-    __syncthreads();
-    tile_p_ds<T, HD>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, m, scale);
-    __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      const float ds = dSs[own * PS + c];
+    const int st = NST == 2 ? kb & 1 : 0, k0 = kb * BK;
+    cp_async_wait<0>();
+    __syncthreads();   // tile kb (and Q, dO) landed; tile kb - 1, p and ds are no longer read
+    if constexpr (NST == 2) {
+      if (kb + 1 < n_tiles) stage_kv_tile(st ^ 1, kb + 1);
+      cp_async_commit();
+    }
+    const float* ks = Ks + st * BK * RS;
+    const float* vs = Vs + st * BK * RS;
+    {
+      float acc[TMA][8];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) dq_acc[i] = fmaf(ds, Ks[c * RS + sub + TPR * i], dq_acc[i]);
+      for (int i = 0; i < TMA; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      // Group 0: S = Q K^T; group 1: dP = dO V^T.
+      rows_dot<HD>(grp == 0 ? Qs : dOs, grp == 0 ? ks : vs, tm, tn, acc);
+      if (grp == 0) {
+        // p = attend ? 2^(S scale_log2 - lse log2e) : 0 into Ps[q][key];
+        // where all the thread's rows see all its keys, no mask.
+        const int kmin = k0 + tn, kmax = kmin + 8 * 7;
+        const bool whole = rows_in & (kmax < s) &
+                           ((kmax < src_end) | ((kmin >= tokens_total) & (kmax < aud_hi[0])));
+        if (whole) {
+#pragma unroll
+          for (int i = 0; i < TMA; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              Ps[(tm + MS * i) * PS + tn + 8 * j] = exp2f(fmaf(acc[i][j], scale_log2, -stat[i]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < TMA; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int key = k0 + tn + 8 * j;
+              const bool on = qin[i] & (key < s) &
+                              ((key < src_end) | ((key >= tokens_total) & (key < aud_hi[i])));
+              const float e = exp2f(fmaf(acc[i][j], scale_log2, -stat[i]));
+              Ps[(tm + MS * i) * PS + tn + 8 * j] = on ? e : 0.f;
+            }
+        }
+      }
+      __syncthreads();   // p is in Ps
+      if (grp == 1) {
+#pragma unroll
+        for (int i = 0; i < TMA; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int at = (tm + MS * i) * PS + tn + 8 * j;
+            dSs[at] = round_to<T>(Ps[at] * (acc[i][j] - stat[i]));
+          }
+      }
+    }
+    __syncthreads();   // ds is in dSs
+    ds_k<HD>(dSs, ks, qm, qn, acc_q);
+    if constexpr (NST == 1) {
+      __syncthreads();   // the stage is no longer read
+      if (kb + 1 < n_tiles) stage_kv_tile(0, kb + 1);
+      cp_async_commit();
     }
   }
+  cp_async_wait<0>();
 
-  const int qi = q0 + own;
-  if (qi < s) {
-    const size_t off = base + (size_t)qi * HD;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) dq[off + sub + TPR * i] = from_f<T>(dq_acc[i] * scale);
+  for (int i = 0; i < TMQ; ++i) {
+    const int qi = q0 + qm + (BQ / TMQ) * i;
+    if (qi < s) {
+#pragma unroll
+      for (int jb = 0; jb < TNQ / 4; ++jb)
+        store4<T>(dq + base + (size_t)qi * HD + 4 * qn + (HD / 2) * jb,
+                  acc_q[i][4 * jb] * scale, acc_q[i][4 * jb + 1] * scale,
+                  acc_q[i][4 * jb + 2] * scale, acc_q[i][4 * jb + 3] * scale);
+    }
   }
 }
 
@@ -342,7 +695,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int NT_TC = 128;              // 4 warps
 constexpr int DS_RS = BQ + TILE_PAD;    // row stride of the fused kernel's dS^T tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Tc {
@@ -826,7 +1178,7 @@ int finish_dq(const Args& a, int hd) {
 // which: 0 = fused, 1 = dq, 2 = dkv.  CUDA-core route.
 template <typename T, int HD>
 int launch(int which, const Args& a) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = cc_smem<HD>();
   static unsigned configured = 0;   // one bit per card
   cudaError_t err = once_per_device(configured, [&] {
     cudaError_t e = allow_smem(flash_bwd_kv_kernel<T, HD, true>, smem);
@@ -839,18 +1191,17 @@ int launch(int which, const Args& a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  const dim3 kv_grid((a.s + BK - 1) / BK, a.b * a.h);
+  const dim3 grid((a.s + 63) / 64, a.b * a.h);
   if (which == 1) {
-    const dim3 q_grid((a.s + BQ - 1) / BQ, a.b * a.h);
-    flash_bwd_dq_kernel<T, HD><<<q_grid, NT, smem, a.stream>>>(
+    flash_bwd_dq_kernel<T, HD><<<grid, Cc<HD>::NT, smem, a.stream>>>(
         q, k, v, dout, a.lse, a.delta, a.meta, static_cast<T*>(a.dq), a.h, a.s,
         a.tokens_total, a.causal, a.scale);
   } else if (which == 2) {
-    flash_bwd_kv_kernel<T, HD, false><<<kv_grid, NT, smem, a.stream>>>(
+    flash_bwd_kv_kernel<T, HD, false><<<grid, Cc<HD>::NT, smem, a.stream>>>(
         q, k, v, dout, a.lse, a.delta, a.meta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
         nullptr, a.h, a.s, a.tokens_total, a.causal, a.scale);
   } else {
-    flash_bwd_kv_kernel<T, HD, true><<<kv_grid, NT, smem, a.stream>>>(
+    flash_bwd_kv_kernel<T, HD, true><<<grid, Cc<HD>::NT, smem, a.stream>>>(
         q, k, v, dout, a.lse, a.delta, a.meta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
         a.dq_acc, a.h, a.s, a.tokens_total, a.causal, a.scale);
     cudaError_t e = cudaGetLastError();
@@ -915,7 +1266,7 @@ int dispatch_hd(int which, int hd, const Args& a) {
 }
 
 // f32 on the CUDA cores; bf16 on the tensor cores, or with `cuda_cores` on
-// the CUDA cores (the first design's route, which only timing calls take).
+// the CUDA cores (the f32 route's kernels, which only timing calls take).
 int dispatch(int which, int dtype, int hd, int cuda_cores, const Args& a) {
   if (dtype == 0) return dispatch_hd<float, false>(which, hd, a);
   if (dtype == 1 && cuda_cores) return dispatch_hd<bf16, false>(which, hd, a);

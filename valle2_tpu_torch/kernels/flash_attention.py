@@ -9,12 +9,14 @@ the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
 ``fold_plan`` chooses; f32 on the CUDA cores), on the AR prefill and in
 every training step;
 and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``, bf16 on
-the tensor cores, f32 on the CUDA cores): ``_bwd_fused_kernel`` (#3) when the
+the tensor cores, f32 on the CUDA cores as register-tiled FFMA kernels fed
+by cp.async): ``_bwd_fused_kernel`` (#3) when the
 padded row fits (``FUSED_BWD_MAX_SEQ``), else ``_bwd_dq_kernel`` (#4) then
 ``_bwd_dkv_kernel`` (#5), the JAX package's routing rule.  See each source's
 header for its design.  ``flash_attention_cuda_cores`` and
-``flash_attention_bwd_cuda_cores`` run bf16 on the CUDA-core routes that the
-tensor-core ones replaced, for timing only.
+``flash_attention_bwd_cuda_cores`` run bf16 on the CUDA-core routes (the
+forward's that the tensor-core one replaced; the backward's f32 kernels with
+bf16 operands), for timing only.
 
 Which forward runs is the JAX package's rule: ``fold_heads=None`` applies
 ``_fold_default``, which reads ``VALLE2_FLASH_FOLD`` (unset: #1).  The port
@@ -325,6 +327,9 @@ def _bwd_inputs(name: str, q, k, v, meta, o, lse, do, delta=None):
     PyTorch op, as in the JAX wrapper, which computes it outside the kernels),
     or the caller's ``delta`` once checked."""
     _check_qkv(name, q, (k, v, o, do), meta)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError(f'{name}: q, k, v and dO must be 16-byte aligned (the kernels '
+                         'stage them 16 bytes a thread)')
     for label, t in (('lse', lse), ('delta', delta)):
         if t is not None and (t.shape != q.shape[:3] or t.dtype != torch.float32
                               or t.device != q.device or not t.is_contiguous()):
@@ -436,10 +441,10 @@ def flash_attention_bwd(q, k, v, meta, o, lse, do, tokens_total: int, causal: bo
 def flash_attention_bwd_cuda_cores(q, k, v, meta, o, lse, do, tokens_total: int,
                                    causal: bool = True):
     """``flash_attention_bwd`` with bf16 products on the CUDA cores in f32 FMAs
-    (the first design's route of ``csrc/flash_attention_bwd.cu``; f32 runs
-    there in either case), through the same router, kept to time the
-    tensor-core route beside the design it replaced.  No path of the port
-    calls it; CUDA tensors only (counted by ``BWD_CUDA_CORES_COUNTER``)."""
+    (the f32 route's register-tiled kernels of ``csrc/flash_attention_bwd.cu``
+    with bf16 operands), through the same router, kept to time the
+    tensor-core route beside the CUDA cores.  No path of the port calls it;
+    CUDA tensors only (counted by ``BWD_CUDA_CORES_COUNTER``)."""
     if q.device.type != 'cuda':
         raise ValueError(f'flash_attention_bwd_cuda_cores runs on CUDA tensors, got {q.device}')
     return _routed_bwd(q, k, v, meta, o, lse, do, tokens_total, causal, True)

@@ -4,18 +4,23 @@ unpacked by ``git archive`` into a git-ignored directory) can be held side
 by side on one card, in turns (change, parent, parent, change):
 
     python3 valle2_tpu_torch/probes/train_ab.py --tree PATH --label NAME \\
-        [--kernels | --first | --gemm]
+        [--kernels | --first | --gemm] [--dtype bfloat16 | float32]
 
 Run it as a script, not with ``-m``: the checkout at ``--tree`` must be the
 first on ``sys.path`` when its package is imported.  ``--kernels`` times the
-bf16 flash backward (#3; #4 and #5) at chip_smoke's ``TRAIN_CASES``, each
-route held against the plain version; otherwise phases ``train`` and
-``profile`` (AR and NAR) and the 204M AR / NAR steps of phase ``fold``, with
-``--first`` also phases ``kernels (train)`` and ``grads``; ``--gemm`` runs
-that checkout's GEMM roofline probe (``probes.gemm_roofline.run``: #9 and #10
-at the 204M step's shapes and 4096^3, beside ``torch.matmul``).  Prints one
-JSON line per phase (the probe one per shape and arm, then a summary of its
-ms).  Needs a CUDA card.
+flash backward (#3; #4 and #5) in ``--dtype`` (f32 with TF32 off) at
+chip_smoke's ``TRAIN_CASES``, each route held against the plain version,
+beside SDPA's backward on the same inputs and mask and each kernel's bound
+and share of it; otherwise, in bf16, phases ``train`` and ``profile`` (AR
+and NAR) and the 204M AR / NAR steps of phase ``fold``, with ``--first``
+also phases ``kernels (train)`` and ``grads``, and in f32 the bench train
+steps of ``TRAIN_RUNS`` at the default ``ConfigValle`` (f32, TF32 as the
+default leaves it) through this script's own ``train_steps``, which needs
+of the checkout only its package, ``TRAIN_RUNS`` and ``bench_data``;
+``--gemm`` runs that checkout's GEMM roofline probe
+(``probes.gemm_roofline.run``: #9 and #10 at the 204M step's shapes and
+4096^3, beside ``torch.matmul``).  Prints one JSON line per phase (the probe
+one per shape and arm, then a summary of its ms).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,18 +31,25 @@ import sys
 from pathlib import Path
 
 
-def kernels(cs, fa) -> dict:
-    """bf16 backward ms at the training shapes, through the router and per kernel."""
+def kernels(cs, fa, dtype_name: str = 'bfloat16') -> dict:
+    """Backward ms at the training shapes in ``dtype_name`` (TF32 off),
+    through the router and per kernel, beside SDPA's backward on the same
+    inputs and mask; each kernel's bound (``cs.bound``: bytes, or its
+    products at the dtype's peak, 67 TFLOP/s of FFMA in f32) and its share."""
     import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
     dev = torch.device('cuda')
+    dt = getattr(torch, dtype_name)
     h, hd = cs.SLICE['h'], cs.SLICE['hd']
     gen = torch.Generator().manual_seed(1)
     out = {}
-    with torch.no_grad():
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.no_grad():
         for case, (b, tt, frames, causal) in cs.TRAIN_CASES.items():
             s = tt + frames
             meta = cs.train_meta(b, tt, frames, dev)
-            q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(dev, torch.bfloat16)
+            mask = cs.attend_mask(meta, s, tt, causal)
+            pairs = int(mask.sum()) * h
+            q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(dev, dt)
                            for _ in range(4))
             o, lse = fa.flash_attention(q, k, v, meta, tt, causal)
             args = (q, k, v, meta, o, lse, do, tt, causal)
@@ -46,14 +58,67 @@ def kernels(cs, fa) -> dict:
             torch.cuda.synchronize()
             r = {'max_abs_err': max(float((g.float() - w.float()).abs().max())
                                     for g, w in zip(got, want)),
-                 'routed_ms': cs.cuda_ms(lambda: fa.flash_attention_bwd(*args))}
+                 'routed_ms': cs.cuda_ms(lambda: fa.flash_attention_bwd(*args)),
+                 'sdpa_ms': cs.sdpa_ms(q, k, v, mask, do)}
+            n, elt = q.numel(), q.element_size()
+            in_bytes = 5 * n * elt + lse.numel() * 4
             if fa.uses_fused_bwd(s):
-                r['fused_ms'] = cs.cuda_ms(lambda: fa.flash_bwd_fused(*args))
+                timed = {'fused': (lambda: fa.flash_bwd_fused(*args), 3, 5)}
             else:
-                r['dq_ms'] = cs.cuda_ms(lambda: fa.flash_bwd_dq(*args))
-                r['dkv_ms'] = cs.cuda_ms(lambda: fa.flash_bwd_dkv(*args))
+                timed = {'dq': (lambda: fa.flash_bwd_dq(*args), 1, 3),
+                         'dkv': (lambda: fa.flash_bwd_dkv(*args), 2, 4)}
+            for name, (fn, outs, products) in timed.items():
+                ms = r[f'{name}_ms'] = cs.cuda_ms(fn)
+                bound_ms, _ = cs.bound(in_bytes + outs * n * elt, products * 2 * hd * pairs,
+                                       dtype_name)
+                r[f'{name}_bound_ms'], r[f'{name}_bound_share'] = bound_ms, bound_ms / ms
             out[case] = r
+            del q, k, v, do, o, lse, args, want, got
     return out
+
+
+def train_steps(cs, label: str, dtype_name: str) -> None:
+    """The bench train steps (``cs.TRAIN_RUNS``) at the default ConfigValle
+    but ``dtype_name``: host ms a step over the timed steps (after two warm
+    steps), then device ms a step by torch.profiler over 3 steps, in all and
+    in the flash backward's kernels."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.train import init_state, make_train_step
+    dev = torch.device('cuda')
+    for model, b, frames, n in cs.TRAIN_RUNS:
+        cfg = ConfigValle(dropout=0.1, batch_size=b, dtype=dtype_name)
+        state = init_state(cfg, model, device=dev)
+        step = make_train_step(cfg, model)
+        data = cs.bench_data(model, b, frames, dev)
+        for _ in range(2):
+            state, _m = step(state, data, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, data, 1)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, m = step(state, data, 1)
+            torch.cuda.synchronize()
+        dev_ms = {'all': 0.0, 'flash_bwd': 0.0}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                ms = e.self_device_time_total / 1e3 / 3
+                dev_ms['all'] += ms
+                if 'flash_bwd' in e.key:
+                    dev_ms['flash_bwd'] += ms
+        cs.emit(phase='train_steps', tree=label, model=model, batch=b, frames=frames,
+                dtype=dtype_name, step_ms=step_ms, device_ms_per_step=dev_ms,
+                loss=float(m['loss']))
+        del state, data, step
+        torch.cuda.empty_cache()
 
 
 def gemm() -> dict:
@@ -97,6 +162,7 @@ def main() -> int:
     mode.add_argument('--kernels', action='store_true')
     mode.add_argument('--first', action='store_true')
     mode.add_argument('--gemm', action='store_true')
+    ap.add_argument('--dtype', choices=('bfloat16', 'float32'), default='bfloat16')
     args = ap.parse_args()
     root = Path(args.tree).resolve()
     sys.path.insert(0, str(root))
@@ -107,9 +173,12 @@ def main() -> int:
         raise SystemExit(f'valle2_tpu_torch came from {valle2_tpu_torch.__file__}, not {root}')
     print(json.dumps({'tree': args.label}), flush=True)
     if args.kernels:
-        print(json.dumps({'tree': args.label, **kernels(cs, fa)}), flush=True)
+        print(json.dumps({'tree': args.label, 'dtype': args.dtype,
+                          **kernels(cs, fa, args.dtype)}), flush=True)
     elif args.gemm:
         print(json.dumps({'tree': args.label, 'gemm_ms': gemm()}), flush=True)
+    elif args.dtype == 'float32':
+        train_steps(cs, args.label, args.dtype)
     else:
         training(cs, args.label, args.first)
     return 0
