@@ -30,7 +30,8 @@ Phases, each printing JSON lines:
                 plain versions in float32 (TF32 off) and bfloat16, with
                 CUDA-event times, the time of PyTorch's
                 scaled_dot_product_attention on the same inputs and mask as a
-                yardstick (the port never calls it), and each kernel's bound.
+                yardstick (the port never calls it), and each kernel's bound
+                and its share of it (f32: of the FFMA bound, 67 TFLOP/s).
 7. grads     -- full width, float32, TF32 off, a synthetic batch of 4: AR and
                 NAR (stage 3) loss and every parameter's grad through the
                 kernels equal those through the plain bias route.
@@ -169,7 +170,8 @@ Phases, each printing JSON lines:
                 serving-width train shapes (b=32, h=4, s=640, causal and
                 bidirectional) and the 204M train shape (b=16, h=16, s=640),
                 ragged meta with one row of tokens_valid 0: times of #2, #1,
-                SDPA on the same inputs and mask, the plain version; the bound.
+                SDPA on the same inputs and mask, the plain version; the bound
+                and #2's share of it.
 28. fold     -- the fold's path, VALLE2_FLASH_FOLD=1 against =0 in one call
                 (the variable restored after): phase main's batch_synthesize
                 greedy (temperature 0), in bf16 and in f32 with TF32 off, AR
@@ -227,10 +229,11 @@ Phases, each printing JSON lines:
 33. kernels  -- #1's tensor-core route (bf16) at head dims 32, 64 and 128
    (flash tc)   (FLASH_TC_CASES: s=385, causal and bidirectional, a row with
                 tokens_valid 0) against its plain version and #2 bit for
-                bit; times of the tensor-core route, the CUDA-core route it
-                replaced (flash_attention_cuda_cores), SDPA and the plain
-                version.  Phases 3 and 6 time the CUDA-core route beside #1
-                at the serving prefill and the training shapes too.
+                bit; times of the tensor-core route, the CUDA-core route
+                (flash_attention_cuda_cores: the f32 route's body with bf16
+                operands), SDPA and the plain version.  Phases 3 and 6 time
+                the CUDA-core route beside #1 at the serving prefill and the
+                training shapes too.
 34. step     -- phase_step_profile: torch.profiler over the token loop of
    profile      each single-card path (main, quant W8A8 + int8 cache and
                 W4A16, stream, cb, clone, hub, large): device kernels of the fused step
@@ -2693,8 +2696,8 @@ def train_meta(b: int, tokens: int, frames: int, device, seed: int = 0):
 def phase_train_kernels(results: dict):
     """Flash forward (#1, causal and bidirectional) and backward (#3; #4 + #5
     past FUSED_BWD_MAX_SEQ) at the training shapes against the plain versions;
-    in bf16 each also timed on its CUDA-core route; each backward
-    kernel with its share of its bound (in f32, of the FFMA bound)."""
+    in bf16 each also timed on its CUDA-core route; each kernel with its
+    share of its bound (in f32, of the FFMA bound)."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import flash_attention as fa
@@ -2727,12 +2730,14 @@ def phase_train_kernels(results: dict):
                         q, k, v, meta, tt, causal)) if dtype_name == 'bfloat16' else None))
                 fwd['bound_ms'], fwd['bound_by'] = bound(4 * n * elt + lse.numel() * 4,
                                                          2 * 2 * hd * pairs, dtype_name)
+                # f32: the share of the FFMA bound (67 TFLOP/s) the kernel reaches
+                fwd['bound_share'] = fwd['bound_ms'] / fwd['ms']
                 results[('flash_attention_fwd', case, dtype_name)] = fwd
 
                 args = (q, k, v, meta, o, lse, do, tt, causal)
 
                 def cc_ms(wrapper):
-                    # bf16: the CUDA-core route it replaced, in the same call
+                    # bf16: the CUDA-core route (the f32 kernels), in the same call
                     if dtype_name != 'bfloat16':
                         return None
                     return cuda_ms(lambda: wrapper(*args, cuda_cores=True))
@@ -3383,8 +3388,8 @@ def phase_flash_tc_kernels(results: dict):
     """#1's tensor-core route (bf16) against its plain version at every head
     dim it takes (FLASH_TC_CASES: a ragged s, causal and bidirectional, the
     last batch row with tokens_valid == 0), #2 bit for bit against it; times
-    of the tensor-core route, the CUDA-core route it replaced, SDPA and the
-    plain version, and the bound."""
+    of the tensor-core route, the CUDA-core route (the f32 body with bf16
+    operands), SDPA and the plain version, and the bound."""
     import torch
     from valle2_tpu_torch.kernels import flash_attention as fa
 
@@ -3427,7 +3432,8 @@ def phase_flash_tc_kernels(results: dict):
 FOLD_DESIGN = {   # how csrc/flash_attention.cu computes #2 in each dtype
     'bfloat16': 'wgmma+tma, persistent, warp-specialised: one producer, two consumer '
                 'warpgroups taking a group\'s heads in turns',
-    'float32': 'cuda cores (#1\'s per-head body), persistent over the same item schedule'}
+    'float32': 'cuda cores: #1\'s register-tiled FFMA body fed by cp.async, persistent '
+               'over the same item schedule'}
 
 
 def phase_fold_kernels(results: dict):
@@ -3480,6 +3486,7 @@ def phase_fold_kernels(results: dict):
                 r['bound_ms'], r['bound_by'] = bound(4 * q.numel() * q.element_size()
                                                      + lse.numel() * 4, 2 * 2 * hd * pairs,
                                                      dtype_name)
+                r['bound_share'] = r['bound_ms'] / r['ms']
                 results[('flash_attention_fwd_folded', case, dtype_name)] = r
                 emit(phase='kernels', path='fold', case=case, dtype=dtype_name,
                      shape=[b, h, s, hd], causal=causal,
@@ -4168,8 +4175,11 @@ def main() -> int:
         elif name.startswith('flash_bwd_'):
             entry['cuda_cores_ms'] = {c: results[(name, c, 'bfloat16')]['cuda_cores_ms']
                                       for c in TRAIN_CASES if (name, c, 'bfloat16') in results}
+        if name.startswith('flash_'):
+            # each case's share of its bound (f32: of the FFMA bound)
+            cases = FOLD_CASES if name == 'flash_attention_fwd_folded' else TRAIN_CASES
             entry['bound_share'] = {DTYPE_LABEL[d]: {c: results[(name, c, d)]['bound_share']
-                                                     for c in TRAIN_CASES
+                                                     for c in cases
                                                      if (name, c, d) in results}
                                     for d in dtypes}
         if entry['launches'] <= 0:

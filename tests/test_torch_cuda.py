@@ -48,6 +48,8 @@ one key past a tile, a causal lower bound inside a q tile); the
 tensor-core route's bits are pinned by digest (``TC_BITS``).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -124,6 +126,140 @@ def test_flash_kernel_matches_plain(dev, case, hd, dtype):
     o_cc, lse_cc = fa.flash_attention_cuda_cores(q, k, v, meta, tt, causal)
     assert_close(o_cc, o_ref, dtype)
     assert_close(lse_cc, lse_ref, torch.float32)
+
+
+# The f32 forward's edges (its register-tiled route, q tiles of 128 rows):
+# one row, a partial micro-tile, one key past a 64-key tile, and a q tile
+# cut inside a causal range; each with a batch row of tokens_valid 0.
+F32_EDGE_CASES = {
+    's1': (2, 2, 1, 1, [[1, 1], [0, 1]], True),
+    's17': (2, 2, 17, 5, [[5, 17], [0, 12]], True),
+    'ragged_65': (2, 2, 65, 20, [[20, 65], [0, 64]], False),
+    'mid_833': (2, 2, 833, 200, [[150, 833], [0, 601]], True),
+}
+
+
+def f32_train_inputs(dev, case):
+    """chip_smoke.py's training shape ``case`` (probes.fwd_ablate.SHAPES,
+    held equal to TRAIN_CASES on the CPU), f32, with its ragged meta."""
+    from valle2_tpu_torch.probes import fwd_ablate
+    b, tt, frames, causal = fwd_ablate.SHAPES[case]
+    gen = torch.Generator().manual_seed(b + frames)
+    q, k, v = (torch.randn(b, fwd_ablate.H, tt + frames, fwd_ablate.HD, generator=gen)
+               .to(dev) for _ in range(3))
+    return (q, k, v, fwd_ablate.train_meta(b, tt, frames, dev), tt, causal)
+
+
+@pytest.mark.parametrize('case', ['ar', 'nar', 'ar_long'])
+def test_flash_f32_kernel_at_the_training_shapes(dev, case):
+    """The f32 forward (#1 on the CUDA cores) at chip_smoke.py's training
+    shapes against the plain version, o and lse; a second call gives the
+    same bits (no atomics, a fixed order per row)."""
+    args = f32_train_inputs(dev, case)
+    o, lse = fa.flash_attention(*args, fold_heads=False)
+    o_ref, lse_ref = fa.flash_attention_plain(*args)
+    assert_close(o, o_ref, torch.float32)
+    assert_close(lse, lse_ref, torch.float32)
+    o2, lse2 = fa.flash_attention(*args, fold_heads=False)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize('hd', [32, 64, 128])
+@pytest.mark.parametrize('case', sorted(F32_EDGE_CASES))
+def test_flash_f32_kernel_at_ragged_lengths(dev, case, hd):
+    """The f32 forward at ragged s (F32_EDGE_CASES) against the plain
+    version, repeated bit for bit, and #2 bit-equal to it; the bf16
+    CUDA-core route (the same body with bf16 operands) within bf16's
+    tolerance."""
+    b, h, s, tt, meta, causal = F32_EDGE_CASES[case]
+    gen = torch.Generator().manual_seed(hd + s)
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev) for _ in range(3))
+    meta = torch.tensor(meta, dtype=torch.int32, device=dev)
+    args = (q, k, v, meta, tt, causal)
+    o, lse = fa.flash_attention(*args, fold_heads=False)
+    o_ref, lse_ref = fa.flash_attention_plain(*args)
+    assert_close(o, o_ref, torch.float32)
+    assert_close(lse, lse_ref, torch.float32)
+    o2, lse2 = fa.flash_attention(*args, fold_heads=False)
+    o_fold, lse_fold = fa.flash_attention_folded(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o_fold) and torch.equal(lse, lse_fold)
+    b16 = [t.bfloat16() for t in (q, k, v)]
+    o_cc, _ = fa.flash_attention_cuda_cores(*b16, meta, tt, causal)
+    assert_close(o_cc, fa.flash_attention_plain(*b16, meta, tt, causal)[0], torch.bfloat16)
+
+
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'bidirectional'])
+@pytest.mark.parametrize('hd', [32, 64, 128])
+def test_flash_f32_rows_that_see_nothing_are_the_uniform_average(dev, hd, causal):
+    """A batch row with tokens_valid == 0 whose rows see no key (causal: the
+    token rows, before tokens_total; bidirectional with kv_end before
+    tokens_total: every row) comes out, as in the plain version, as the
+    average of v over all s keys, with lse the -1e30 sentinel plus log s."""
+    b, h, s, tt = 2, 2, 300, 100
+    gen = torch.Generator().manual_seed(hd)
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen).to(dev) for _ in range(3))
+    meta = torch.tensor([[60, s], [0, s if causal else tt - 20]], dtype=torch.int32,
+                        device=dev)
+    o, lse = fa.flash_attention(q, k, v, meta, tt, causal, fold_heads=False)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, meta, tt, causal)
+    assert_close(o, o_ref, torch.float32)
+    assert_close(lse, lse_ref, torch.float32)
+    rows = tt if causal else s
+    assert_close(o[1, :, :rows], v[1].mean(dim=1, keepdim=True).expand(h, rows, hd),
+                 torch.float32)
+    assert torch.equal(lse[1, :, :rows],
+                       torch.full_like(lse[1, :, :rows], -1e30 + math.log(s)))
+
+
+def test_flash_wrappers_refuse_unaligned_inputs(dev):
+    """#1 (both routes) and #2 stage q, k and v 16 bytes a thread: an f32 or
+    bf16 view that does not start on a 16-byte boundary is refused with a
+    ValueError, and nothing is launched."""
+    meta = torch.tensor([[4, 16]], dtype=torch.int32, device=dev)
+    counts = (fa.COUNTER.count, fa.FOLD_COUNTER.count, fa.CUDA_CORES_COUNTER.count)
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.randn(2 * 16 * 32 + 8, device=dev).to(dtype)
+        aligned = flat[:2 * 16 * 32].view(1, 2, 16, 32)
+        shifted = flat[1:2 * 16 * 32 + 1].view(1, 2, 16, 32)
+        for args in ((shifted, aligned, aligned), (aligned, shifted, aligned),
+                     (aligned, aligned, shifted)):
+            for wrapper in (fa.flash_attention, fa.flash_attention_folded,
+                            fa.flash_attention_cuda_cores):
+                if wrapper is fa.flash_attention_cuda_cores and dtype == torch.float32:
+                    continue
+                with pytest.raises(ValueError, match='16-byte aligned'):
+                    wrapper(*args, meta, 4)
+    assert (fa.COUNTER.count, fa.FOLD_COUNTER.count, fa.CUDA_CORES_COUNTER.count) == counts
+
+
+def test_flash_f32_sass_runs_cp_async_and_128_bit_shared_loads(dev):
+    """The built flash_attention library's f32 forward kernels (#1's
+    flash_fwd_cc_kernel<float, HD> and #2's flash_fold_cc_kernel<HD>, one
+    per head dim) stage their tiles by cp.async (LDGSTS) and read them as
+    float4 (LDS.128)."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from valle2_tpu_torch.kernels import _build
+    _build.load('flash_attention')
+    tool = shutil.which('cuobjdump') or str(Path(_build._nvcc()).with_name('cuobjdump'))
+    sass = subprocess.run([tool, '-sass', str(_build._lib_path('flash_attention'))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    bodies = {}
+    for part in re.split(r'\n\s*Function : ', sass)[1:]:
+        name, _, body = part.partition('\n')
+        bodies[name.strip()] = body
+    found = [b for name, b in bodies.items()
+             if 'flash_fwd_cc_kernelIf' in name or 'flash_fold_cc_kernel' in name]
+    assert len(found) == 6, list(bodies)
+    for body in found:
+        assert re.search(r'\bLDGSTS\b', body)
+        assert re.search(r'\bLDS\.128\b', body)
 
 
 BWD_CASES = {
@@ -1335,8 +1471,9 @@ def test_folded_sass_runs_wgmma_and_tma_in_bf16(dev):
 
 def test_folded_wrapper_refuses_what_the_kernel_does_not_take(dev):
     """#2's wrapper raises, and launches nothing, on a head dim no kernel
-    takes and on bf16 inputs that are not 16-byte aligned (the TMA maps need
-    it); an f32 view at the same offset runs, off the TMA route."""
+    takes and on inputs that are not 16-byte aligned: bf16 (the TMA maps
+    need it) and f32 (cp.async stages 16 bytes a thread); the same f32
+    values at an aligned address run."""
     meta = torch.tensor([[4, 16]], dtype=torch.int32, device=dev)
     before = fa.FOLD_COUNTER.count
     w = torch.randn(1, 2, 16, 48, device=dev, dtype=torch.bfloat16)
@@ -1347,9 +1484,12 @@ def test_folded_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match='16-byte aligned'):
         b16 = q.bfloat16()[1:].view(1, 2, 16, 32)
         fa.flash_attention_folded(b16, b16, b16, meta, 4)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        fa.flash_attention_folded(shifted, shifted, shifted, meta, 4)
     assert fa.FOLD_COUNTER.count == before
-    o, _ = fa.flash_attention_folded(shifted, shifted, shifted, meta, 4)
-    o_ref, _ = fa.flash_attention_plain(shifted, shifted, shifted, meta, 4)
+    copy = shifted.clone()
+    o, _ = fa.flash_attention_folded(copy, copy, copy, meta, 4)
+    o_ref, _ = fa.flash_attention_plain(copy, copy, copy, meta, 4)
     assert_close(o, o_ref, torch.float32)
 
 

@@ -14,14 +14,12 @@
 // which, for one query row, is the union of two key ranges, [0, min(tokens_valid,
 // kv_end)) and [tokens_total, causal ? min(kv_end, q + 1) : kv_end) (RowRanges).
 //
-// #1: one block per (q-tile of 64 rows, batch*head).  The f32 route: K/V
-// tiles of 64 keys stream through shared memory (K stored transposed so the score loop reads
-// it without bank conflicts); each q row is owned by 4 threads, which hold 16
-// scores and 16 output dims each, and the online softmax (running max, running
-// sum, rescaled accumulator) stays in f32 registers.  Masked scores take the
-// finite -1e30 sentinel and l is clamped at 1e-30, as in the Pallas kernel;
-// keys past s (the ragged edge, which the TPU wrapper pads instead) contribute
-// exactly zero.  kv tiles past the last key a q-tile can see are skipped (the
+// #1: one block per (q-tile of 64 rows, batch*head); K/V tiles of 64 keys
+// stream through shared memory, and the online softmax (running max,
+// running sum, rescaled accumulator) stays in f32 registers.  Masked scores
+// take the finite -1e30 sentinel and l is clamped at 1e-30, as in the
+// Pallas kernel; keys past s (the ragged edge, which the TPU wrapper pads
+// instead) contribute exactly zero.  kv tiles past the last key a q-tile can see are skipped (the
 // Pallas _kv_block_bound), which is exact; a batch row with tokens_valid == 0
 // walks every tile so that its fully masked query rows come out as the plain
 // version's uniform average.
@@ -96,8 +94,9 @@
 // serving-width training shape (b=32, h=4, s=640) the kernel does about 40
 // products per byte it must move, so the bound is bytes; but each block walks
 // its kv tiles in turn, and with the products on the CUDA cores (the first
-// design, kept as the f32 route) the f32 FMAs were the time (0.706 ms against
-// SDPA's 0.137 at b=32, s=640 on an H100 80GB HBM3 at 700 W, chip_smoke.py).
+// design, since redesigned as the f32 route) the f32 FMAs were the time
+// (0.706 ms against SDPA's 0.137 at b=32, s=640 on an H100 80GB HBM3 at
+// 700 W, chip_smoke.py).
 // So: 4 warps a block, each owning 16 query rows of the 64-row q-tile.
 // S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32 (common.cuh, the
 // helpers #9 / #10 use), their operands loaded by ldmatrix
@@ -117,15 +116,46 @@
 // tile, operands from shared memory) fed by TMA loads and a warp-specialised
 // producer is the next step.
 //
-// f32, on the CUDA cores, as the first design above: products in f32 FMAs with
-// f32 accumulation, p rounded to the input dtype (a no-op in f32).  The tensor
-// cores have no full-f32 product (TF32 keeps 10 mantissa bits), and f32 with
-// TF32 off is the parity setting.
+// f32, on the CUDA cores (attend_head_cc; bf16 takes it too, for timing
+// only): products in f32 FFMAs with f32 accumulation, p rounded to the input
+// dtype before P V (a no-op in f32).  The tensor cores have no full-f32
+// product (TF32 keeps 10 mantissa bits), and f32 with TF32 off is the parity
+// setting.  The products are register micro-tiles fed by float4 shared reads
+// (csrc/cc_tiles.cuh, shared with the f32 backward): a block of 4 warps
+// (8 at hd 128) takes a q-tile of 64 rows; a thread holds 4 x 8 of S = Q K^T
+// and 4 x HD / 8 of O (2 x 8 and 2 x 16 at hd 128), so an FFMA of S or of
+// P V costs 0.375 floats read from shared memory, where the first design
+// read one a FFMA and ran at the shared-memory pipe's rate.  Q, K and V are
+// f32 tiles of row stride HD + 4, staged by cp.async 16 bytes a thread and
+// zero-filled past s (the wrapper refuses inputs that are not 16-byte
+// aligned).  One buffer each of K and V: V of tile kb loads while S and the
+// softmax run, K of tile kb + 1 while P V does, two barriers a tile; at hd
+// 64 a block takes 70 KB and three share an SM (two stages of both would
+// take 104 KB, two blocks).  A row's 64 keys are 8 lanes of one warp: its
+// max and sum are shuffles, and its p row ([64][68] f32 tile) is written
+// and read by that warp alone.  The softmax runs in the log2 domain (x = S
+// scale log2e, p = exp2f(x - m): one MUFU.EX2 where expf adds a range
+// reduction), the mask is selected, not branched, and skipped where every
+// row of a thread sees every key of its 8; the last q-tiles start first.
+// What bounds it on this card: FFMA at 67 TFLOP/s (at b=32, h=4, s=640, hd
+// 64 bidirectional its products take 0.177 ms at that rate, the bytes it
+// must move 0.025 ms).  Measured on an H100 80GB HBM3 at 700 W
+// (probes/train_ab.py, in turns with the first design in one call): at
+// b=32, h=4, s=640 0.248-0.257 ms causal and 0.396-0.415 bidirectional, at
+// b=8, s=1280 causal 0.244-0.248, 38-45% of the FFMA bound, 2.3-3.4x the
+// first design and 1.45-2.54x faster than scaled_dot_product_attention's
+// f32 forward (0.58-0.62 ms); #2 at b=16, h=16, s=640 0.526-0.536 ms
+// against 1.28-1.31.  On the device (probes/fwd_ablate.py) P V takes
+// 28-33% of the time, the softmax 4-6%, the loads of the next tiles 1-6%,
+// the mask 0-1%; q-tiles of 128 rows (8 x 8 a thread, two blocks an SM) were 3-23%
+// slower: fewer, larger blocks leave the last wave of a causal grid part
+// empty.
 //
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "cc_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -133,33 +163,43 @@ namespace {
 using namespace valle2;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;         // q rows per block
+constexpr int BQ = 64;         // q rows per block (bf16 routes)
 constexpr int BK = 64;         // keys per kv tile
-// f32 route (CUDA cores)
-constexpr int TPR = 4;         // threads per q row
-constexpr int NT = BQ * TPR;   // 256 threads
-constexpr int KPT = BK / TPR;  // scores per thread
-// Padded row strides (floats) of the shared tiles, chosen so that the 8 rows
-// a warp touches fall in distinct banks.
-constexpr int PS = BK + 4;
-constexpr int KTS = BK + 1;
 // bf16 route (tensor cores)
 constexpr int TC_WARPS = BQ / 16;      // one warp per 16 query rows
 constexpr int NT_TC = 32 * TC_WARPS;   // 128 threads
 
-// TCR: the tensor-core route (bf16); else the CUDA-core one.
-template <bool TCR>
-constexpr int block_threads() {
-  return TCR ? NT_TC : NT;
+template <int HD>
+constexpr size_t tc_smem_bytes() {   // Q, and two stages each of K and V
+  return sizeof(bf16) * (BQ + 4 * BK) * (HD + TILE_PAD);
 }
 
-template <int HD, bool TCR>
-constexpr size_t smem_bytes() {
-  if constexpr (TCR)   // Q, and two stages each of K and V
-    return sizeof(bf16) * (BQ + 4 * BK) * (HD + TILE_PAD);
-  else
-    return sizeof(float) * (BQ * (HD + 4) + HD * KTS + BK * HD + BQ * PS);
-}
+// f32 route (CUDA cores): q rows per tile, at every head dim (#2's f32 item
+// schedule takes the same tile: kernels/flash_attention.py FOLD_BQ).
+constexpr int BQ_CC = 64;
+
+// The CUDA-core route's block at head dim HD.  Thread t of warp w holds the
+// q rows tm + MS i (tm = 4 w + lane % 4, i < TM) and, of a 64-key tile, the
+// keys tn + 8 j (tn = lane / 4, j < 8): a row's 64 keys are the 8 lanes of
+// one warp that share lane % 4, so its max and sum are three shuffles, and
+// its p row is written and read by that warp alone.  Its outputs are the
+// same rows at dims 4 tn + 32 jb + (0..3).  Up to hd 64: 4 warps, 4 x 8 of S
+// and 4 x HD / 8 of O a thread, three blocks an SM; at hd 128: 8 warps, 2 x 8
+// and 2 x 16, one block an SM.
+template <int HD>
+struct CcFwd {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head dim 32, 64 or 128");
+  static constexpr int W = HD <= 64 ? 4 : 8;
+  static constexpr int NT = 32 * W;
+  static constexpr int MINB = HD <= 64 ? 3 : 1;
+  static constexpr int RS = HD + 4;        // row stride of Q, K, V (cc_tiles.cuh)
+  static constexpr int MS = 4 * W;         // row step of a thread's rows
+  static constexpr int TM = BQ_CC / MS;    // q rows a thread holds
+  static constexpr int TN = HD / 8;        // output dims a thread holds
+  // Q [BQ_CC][RS], K and V [64][RS] (one buffer each), p [BQ_CC][PS]
+  static constexpr size_t SMEM = sizeof(float) * ((BQ_CC + 2 * CC_KEYS) * RS + BQ_CC * PS);
+  static_assert(SMEM * MINB + 1024 * MINB <= 233472, "MINB blocks must fit an SM");
+};
 
 // The keys one query row sees: [0, src_end) and [aud_lo, aud_hi).
 struct RowRanges {
@@ -175,147 +215,191 @@ __device__ __forceinline__ bool sees(const RowRanges& r, int key) {
   return key < r.src_end || (key >= r.aud_lo && key < r.aud_hi);
 }
 
-// kv tiles a q-tile walks: up to the last key any of its rows can see, or
-// every tile when the batch row has no visible source key.
+// kv tiles a q-tile of TQ rows walks: up to the last key any of its rows can
+// see, or every tile when the batch row has no visible source key.
+template <int TQ = BQ>
 __device__ __forceinline__ int kv_tile_bound(int q_blk, int s, int tokens_valid, int kv_end,
                                              int causal) {
   const int all_tiles = (s + BK - 1) / BK;
   if (tokens_valid <= 0) return all_tiles;
-  const int vis_end = causal ? max(tokens_valid, min((q_blk + 1) * BQ, kv_end)) : kv_end;
+  const int vis_end = causal ? max(tokens_valid, min((q_blk + 1) * TQ, kv_end)) : kv_end;
   return min(all_tiles, (vis_end + BK - 1) / BK);
 }
 
-// The key ranges of the query rows whose values a thread holds: one row in the
-// CUDA-core route (threadIdx / TPR), two in the tensor-core route (rows gid
-// and gid + 8 of the warp's 16).
-template <bool TCR>
+// The key ranges of the query rows whose values a thread of the tensor-core
+// route holds: rows gid and gid + 8 of the warp's 16.
 struct ThreadRows {
-  RowRanges r[TCR ? 2 : 1];
+  RowRanges r[2];
 };
 
-template <bool TCR>
-__device__ __forceinline__ ThreadRows<TCR> thread_rows(int q_blk, int tokens_valid, int kv_end,
-                                                       int tokens_total, int causal) {
-  ThreadRows<TCR> tr;
-  if constexpr (!TCR) {
-    tr.r[0] = row_ranges(q_blk * BQ + threadIdx.x / TPR, tokens_valid, kv_end, tokens_total,
-                         causal);
-  } else {
-    const int row = q_blk * BQ + threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4;
-    tr.r[0] = row_ranges(row, tokens_valid, kv_end, tokens_total, causal);
-    tr.r[1] = row_ranges(row + 8, tokens_valid, kv_end, tokens_total, causal);
-  }
+__device__ __forceinline__ ThreadRows thread_rows(int q_blk, int tokens_valid, int kv_end,
+                                                  int tokens_total, int causal) {
+  ThreadRows tr;
+  const int row = q_blk * BQ + threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4;
+  tr.r[0] = row_ranges(row, tokens_valid, kv_end, tokens_total, causal);
+  tr.r[1] = row_ranges(row + 8, tokens_valid, kv_end, tokens_total, causal);
   return tr;
 }
 
-// CUDA-core route: one head of one q-tile, the online softmax over n_tiles kv
-// tiles.  bh is the (batch*head) index of q, k, v, o and lse.
-template <typename T, int HD>
-__device__ __forceinline__ void attend_head_cc(const T* __restrict__ q, const T* __restrict__ k,
-                                            const T* __restrict__ v, T* __restrict__ o,
-                                            float* __restrict__ lse, int bh, int s,
-                                            int q_blk, int n_tiles, const RowRanges& rr,
-                                            float sm_scale, float* smem) {
-  static_assert(HD % TPR == 0, "head dim must split over the row's threads");
-  constexpr int DPT = HD / TPR;        // output dims per thread
-  constexpr int QST = HD + 4;
-  float* Qs = smem;                    // [BQ][QST]
-  float* Kt = Qs + BQ * QST;           // [HD][KTS]  (transposed K tile)
-  float* Vs = Kt + HD * KTS;           // [BK][HD]
-  float* Ps = Vs + BK * HD;            // [BQ][PS]
+// What the CUDA-core route's mask needs of a batch row: a row qi sees the
+// keys [0, src_end) and [aud_lo, causal ? min(kv_end, qi + 1) : kv_end).
+struct CcMask {
+  int src_end, aud_lo, kv_end, causal;
+};
 
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, sub = tid % TPR;
-  const size_t base = (size_t)bh * s * HD;
-  const int qi = q_blk * BQ + r;
+__device__ __forceinline__ CcMask cc_mask(int tokens_valid, int kv_end, int tokens_total,
+                                          int causal) {
+  return {min(tokens_valid, kv_end), tokens_total, kv_end, causal};
+}
 
-  __syncthreads();   // a previous head's last tile no longer reads Qs
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int rr_ = i / HD, dd = i % HD, row = q_blk * BQ + rr_;
-    Qs[rr_ * QST + dd] = row < s ? to_f<T>(q[base + (size_t)row * HD + dd]) : 0.f;
+// The online softmax of one 64-key S tile in the log2 domain.  sc[i][j]
+// (row q0 + tm + MS i, key k0 + tn + 8 j) becomes x = S scale log2e where the
+// row sees the key, the -1e30 sentinel where it does not and -inf past s
+// (selected, no branch an element; no mask at all where every row of the
+// thread sees every key of its 8); each row's m and l are updated over the 8
+// lanes that hold it, alpha = 2^(m_old - m_new) is the rescale of O, and p =
+// 2^(x - m_new), summed unrounded into l and rounded to T, goes to
+// P[row][key].  Every product here and in attend_head_cc is __fmul_rn or
+// fmaf: #1 and #2 inline the body in other kernels, and no multiply-add may
+// be contracted in one and not in the other.
+template <typename T, int TM, int MS>
+__device__ __forceinline__ void cc_softmax(float (&sc)[TM][8], float (&m)[TM], float (&l)[TM],
+                                           float (&alpha)[TM], float* P, int tm, int tn, int q0,
+                                           int k0, int s, const CcMask& mk, float scale_log2) {
+  const int kmin = k0 + tn, kmax = kmin + 56, row0 = q0 + tm;
+  const int hi0 = mk.causal ? min(mk.kv_end, row0 + 1) : mk.kv_end;   // rows rise with i
+  const bool whole =
+      (kmax < s) & ((kmax < mk.src_end) | ((kmin >= mk.aud_lo) & (kmax < hi0)));
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = __fmul_rn(sc[i][j], scale_log2);
+  } else {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qi = row0 + MS * i;
+      const int hi = mk.causal ? min(mk.kv_end, qi + 1) : mk.kv_end;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = kmin + 8 * j;
+        const bool seen = (key < mk.src_end) | ((key >= mk.aud_lo) & (key < hi));
+        const float x = __fmul_rn(sc[i][j], scale_log2);
+        sc[i][j] = key >= s ? -INFINITY : (seen ? x : NEG_INF);
+      }
+    }
   }
-
-  float m = NEG_INF, l = 0.f;
-  float acc[DPT];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  for (int kb = 0; kb < n_tiles; ++kb) {
-    __syncthreads();   // the previous tile's Kt/Vs/Ps are no longer read
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int c = i / HD, dd = i % HD, key = kb * BK + c;
-      const bool in = key < s;
-      Kt[dd * KTS + c] = in ? to_f<T>(k[base + (size_t)key * HD + dd]) : 0.f;
-      Vs[c * HD + dd] = in ? to_f<T>(v[base + (size_t)key * HD + dd]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[KPT];
+  for (int i = 0; i < TM; ++i) {
+    float mloc = sc[i][0];
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) sc[j] = 0.f;
-    for (int dd = 0; dd < HD; ++dd) {
-      const float qv = Qs[r * QST + dd];
+    for (int j = 1; j < 8; ++j) mloc = fmaxf(mloc, sc[i][j]);
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) sc[j] = fmaf(qv, Kt[dd * KTS + sub + TPR * j], sc[j]);
-    }
-    float mloc = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int key = kb * BK + sub + TPR * j;
-      sc[j] = key >= s ? -INFINITY : (sees(rr, key) ? sc[j] * sm_scale : NEG_INF);
-      mloc = fmaxf(mloc, sc[j]);
-    }
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-    const float m_new = fmaxf(m, mloc);
-    const float alpha = expf(m - m_new);
+    for (int off = 4; off < 32; off <<= 1)
+      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, off));
+    const float m_new = fmaxf(m[i], mloc);
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const float p = expf(sc[j] - m_new);
+    for (int j = 0; j < 8; ++j) {
+      const float p = exp2f(sc[i][j] - m_new);
       psum += p;
-      Ps[r * PS + sub + TPR * j] = round_to<T>(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    // The two multiply-adds of the running sum and the accumulator are
-    // explicit FMAs (what the compiler made of #1's l * alpha + psum): #1
-    // and #2's f32 kernel inline this function in other contexts, and the
-    // contraction must not depend on how either is scheduled.
-    l = fmaf(l, alpha, psum);
-    m = m_new;
-    __syncthreads();
-
-    float pv[DPT];
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) pv[i] = 0.f;
-    for (int c = 0; c < BK; ++c) {
-      const float p = Ps[r * PS + c];
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) pv[i] = fmaf(p, Vs[c * HD + sub + TPR * i], pv[i]);
+      P[(tm + MS * i) * PS + tn + 8 * j] = round_to<T>(p);
     }
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] = fmaf(acc[i], alpha, pv[i]);
+    for (int off = 4; off < 32; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l[i] = fmaf(l[i], alpha[i], psum);
   }
+}
 
-  if (qi < s) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    const size_t orow = base + (size_t)qi * HD;
+// CUDA-core route: one head of one q-tile of BQ_CC rows, the online softmax
+// over n_tiles kv tiles (the design is in the header).  bh is the
+// (batch*head) index of q, k, v, o and lse.  #1 and #2 both run it.
+template <typename T, int HD>
+__device__ __forceinline__ void attend_head_cc(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v, T* __restrict__ o,
+                                               float* __restrict__ lse, int bh, int s,
+                                               int q_blk, int n_tiles, const CcMask& mk,
+                                               float scale_log2, float* smem) {
+  using C = CcFwd<HD>;
+  constexpr int RS = C::RS, NT = C::NT, TM = C::TM, MS = C::MS, TN = C::TN;
+  float* Qs = smem;                  // [BQ_CC][RS]
+  float* Ks = Qs + BQ_CC * RS;       // [64][RS]
+  float* Vs = Ks + CC_KEYS * RS;     // [64][RS]
+  float* Ps = Vs + CC_KEYS * RS;     // [BQ_CC][PS]: p of the tile, [q][key]
+  const int lane = threadIdx.x % 32;
+  const int tm = (lane & 3) + 4 * (threadIdx.x / 32), tn = lane >> 2;
+  const size_t base = (size_t)bh * s * HD;
+  const int q0 = q_blk * BQ_CC;
+
+  __syncthreads();   // a previous head's last tile is no longer read
+  stage_rows<T, HD, BQ_CC, NT>(Qs, q + base, q0, s);
+  if (n_tiles > 0) stage_rows<T, HD, CC_KEYS, NT>(Ks, k + base, 0, s);
+  cp_async_commit();
+
+  float m[TM], l[TM], acc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) o[orow + sub + TPR * i] = from_f<T>(acc[i] / l_safe);
-    if (sub == 0) lse[(size_t)bh * s + qi] = m + logf(l_safe);
+  for (int i = 0; i < TM; ++i) {
+    m[i] = NEG_INF, l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+  // One buffer each of K and V: V of tile kb loads while S = Q K^T and the
+  // softmax run, K of tile kb + 1 while O += P V does.
+  for (int kb = 0; kb < n_tiles; ++kb) {
+    const int k0 = kb * CC_KEYS;
+    cp_async_wait<0>();
+    __syncthreads();   // K of tile kb (and Q) landed; V of tile kb - 1 is no longer read
+    stage_rows<T, HD, CC_KEYS, NT>(Vs, v + base, k0, s);
+    cp_async_commit();
+    float sc[TM][8];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+    rows_dot<HD, TM, MS>(Qs, Ks, tm, tn, sc);
+    float alpha[TM];
+    cc_softmax<T, TM, MS>(sc, m, l, alpha, Ps, tm, tn, q0, k0, s, mk, scale_log2);
+    cp_async_wait<0>();
+    __syncthreads();   // V of tile kb landed and p written; K of tile kb is no longer read
+    if (kb + 1 < n_tiles) stage_rows<T, HD, CC_KEYS, NT>(Ks, k + base, k0 + CC_KEYS, s);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha[i]);
+    rows_times<HD, TM, TN, MS, 32>(Ps, Vs, tm, tn, acc);
+  }
+  cp_async_wait<0>();
+
+  // o = acc / l, 16 bytes a thread (f32; 8 in bf16); lse in natural units
+  // (a row that sees no key keeps the -1e30 sentinel as its max).
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qi = q0 + tm + MS * i;
+    if (qi >= s) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    T* orow = o + base + (size_t)qi * HD + 4 * tn;
+#pragma unroll
+    for (int jb = 0; jb < TN / 4; ++jb)
+      store4<T>(orow + 32 * jb, acc[i][4 * jb] / l_safe, acc[i][4 * jb + 1] / l_safe,
+                acc[i][4 * jb + 2] / l_safe, acc[i][4 * jb + 3] / l_safe);
+    if (tn == 0)
+      lse[(size_t)bh * s + qi] =
+          m[i] == NEG_INF ? NEG_INF + logf(l_safe) : fmaf(m[i], LN2, logf(l_safe));
   }
 }
 
 // bf16 route: one head of one q-tile on the tensor cores (the design is in
-// the header).  Same arguments as attend_head_cc.
+// the header).
 template <int HD>
 __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
                                                const bf16* __restrict__ k,
                                                const bf16* __restrict__ v, bf16* __restrict__ o,
                                                float* __restrict__ lse, int bh, int s,
                                                int q_blk, int n_tiles,
-                                               const ThreadRows<true>& rr, float sm_scale,
+                                               const ThreadRows& rr, float sm_scale,
                                                bf16* smem) {
   constexpr int RS = HD + TILE_PAD;
   constexpr int KD = HD / 16;    // k-steps of Q K^T
@@ -459,32 +543,36 @@ __device__ __forceinline__ void attend_head_tc(const bf16* __restrict__ q,
   }
 }
 
-// One head of one q-tile on route TCR: #1 and #2 both run this.
-template <typename T, int HD, bool TCR>
-__device__ __forceinline__ void attend_head(const T* q, const T* k, const T* v, T* o,
-                                            float* lse, int bh, int s, int q_blk, int n_tiles,
-                                            const ThreadRows<TCR>& rr, float sm_scale,
-                                            unsigned char* smem) {
-  if constexpr (!TCR)
-    attend_head_cc<T, HD>(q, k, v, o, lse, bh, s, q_blk, n_tiles, rr.r[0], sm_scale,
-                          reinterpret_cast<float*>(smem));
-  else
-    attend_head_tc<HD>(q, k, v, o, lse, bh, s, q_blk, n_tiles, rr, sm_scale,
-                       reinterpret_cast<bf16*>(smem));
-}
-
-// #1: grid (q-tiles, b*h).
-template <typename T, int HD, bool TCR>
-__global__ void __launch_bounds__(block_threads<TCR>())
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ meta, T* __restrict__ o, float* __restrict__ lse,
-                 int h, int s, int tokens_total, int causal, float sm_scale) {
+// #1 on the tensor cores (bf16): grid (q-tiles, b*h).
+template <int HD>
+__global__ void __launch_bounds__(NT_TC)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ meta, bf16* __restrict__ o,
+                 float* __restrict__ lse, int h, int s, int tokens_total, int causal,
+                 float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q_blk = blockIdx.x, bh = blockIdx.y, b = bh / h;
   const int tokens_valid = meta[2 * b], kv_end = meta[2 * b + 1];
   const int n_tiles = kv_tile_bound(q_blk, s, tokens_valid, kv_end, causal);
-  const ThreadRows<TCR> rr = thread_rows<TCR>(q_blk, tokens_valid, kv_end, tokens_total, causal);
-  attend_head<T, HD, TCR>(q, k, v, o, lse, bh, s, q_blk, n_tiles, rr, sm_scale, smem);
+  const ThreadRows rr = thread_rows(q_blk, tokens_valid, kv_end, tokens_total, causal);
+  attend_head_tc<HD>(q, k, v, o, lse, bh, s, q_blk, n_tiles, rr, sm_scale,
+                     reinterpret_cast<bf16*>(smem));
+}
+
+// #1 on the CUDA cores: grid (b*h, q-tiles), the last q-tiles (when causal
+// the heaviest) first.
+template <typename T, int HD>
+__global__ void __launch_bounds__(CcFwd<HD>::NT, CcFwd<HD>::MINB)
+flash_fwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ meta, T* __restrict__ o, float* __restrict__ lse,
+                    int h, int s, int tokens_total, int causal, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q_blk = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x, b = bh / h;
+  const int tokens_valid = meta[2 * b], kv_end = meta[2 * b + 1];
+  const int n_tiles = kv_tile_bound<BQ_CC>(q_blk, s, tokens_valid, kv_end, causal);
+  attend_head_cc<T, HD>(q, k, v, o, lse, bh, s, q_blk, n_tiles,
+                        cc_mask(tokens_valid, kv_end, tokens_total, causal), sm_scale * LOG2E,
+                        reinterpret_cast<float*>(smem));
 }
 
 // ---- #2 ----
@@ -499,10 +587,11 @@ __device__ __forceinline__ FoldItem fold_item(int i, int b, int groups, int q_ti
   return {r / groups, q_tiles - 1 - i / per_tile, r % groups};
 }
 
-// #2 in f32: a persistent grid over the items, taken in order from
-// `counter` (zero at launch), each head through attend_head_cc.
+// #2 in f32: a persistent grid over the items (q-tiles of BQ_CC rows),
+// taken in order from `counter` (zero at launch), each head through
+// attend_head_cc.
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(CcFwd<HD>::NT, CcFwd<HD>::MINB)
 flash_fold_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ meta,
                      float* __restrict__ o, float* __restrict__ lse, int b, int h, int s,
@@ -510,7 +599,7 @@ flash_fold_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int* __restrict__ counter) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int next;
-  const int q_tiles = (s + BQ - 1) / BQ, gsize = h / groups;
+  const int q_tiles = (s + BQ_CC - 1) / BQ_CC, gsize = h / groups;
   for (;;) {
     if (threadIdx.x == 0) next = atomicAdd(counter, 1);
     __syncthreads();
@@ -520,12 +609,11 @@ flash_fold_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const FoldItem it = fold_item(i, b, groups, q_tiles);
     // Once per item, for every head of its group.
     const int tokens_valid = meta[2 * it.b], kv_end = meta[2 * it.b + 1];
-    const int n_tiles = kv_tile_bound(it.q_blk, s, tokens_valid, kv_end, causal);
-    const ThreadRows<false> rr =
-        thread_rows<false>(it.q_blk, tokens_valid, kv_end, tokens_total, causal);
+    const int n_tiles = kv_tile_bound<BQ_CC>(it.q_blk, s, tokens_valid, kv_end, causal);
+    const CcMask mk = cc_mask(tokens_valid, kv_end, tokens_total, causal);
     for (int hh = 0; hh < gsize; ++hh)
       attend_head_cc<float, HD>(q, k, v, o, lse, it.b * h + it.g * gsize + hh, s, it.q_blk,
-                                n_tiles, rr.r[0], sm_scale, reinterpret_cast<float*>(smem));
+                                n_tiles, mk, sm_scale * LOG2E, reinterpret_cast<float*>(smem));
   }
 }
 
@@ -924,7 +1012,7 @@ cudaError_t fold_map(CUtensorMap* map, const void* ptr, int bh, int s) {
 // #2's kernel at dtype (0 f32, 1 bf16) and HD, its shared memory bytes.
 template <int HD>
 size_t fold_smem(int dtype) {
-  return dtype == 0 ? smem_bytes<HD, false>() : fold::Cfg<HD>::SMEM;
+  return dtype == 0 ? CcFwd<HD>::SMEM : fold::Cfg<HD>::SMEM;
 }
 
 template <int HD>
@@ -945,7 +1033,7 @@ int fold_blocks_per_sm(int dtype, int* blocks) {
   cudaError_t err = fold_configure<HD>(dtype);
   if (err != cudaSuccess) return (int)err;
   return dtype == 0 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, flash_fold_cc_kernel<HD>, NT, fold_smem<HD>(0))
+                          blocks, flash_fold_cc_kernel<HD>, CcFwd<HD>::NT, fold_smem<HD>(0))
                     : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                           blocks, flash_fold_tc_kernel<HD>, fold::THREADS, fold_smem<HD>(1));
 }
@@ -955,12 +1043,13 @@ int launch_fold(const void* q, const void* k, const void* v, const int* meta, vo
                 float* lse, int b, int h, int s, int tokens_total, int causal, int dtype,
                 float sm_scale, int groups, int grid, int* counter, cudaStream_t stream) {
   if (groups < 1 || h % groups != 0 || grid < 1) return (int)cudaErrorInvalidValue;
-  const int n_items = b * ((s + BQ - 1) / BQ) * groups;
+  const int tile_q = dtype == 0 ? BQ_CC : BQ;   // the q rows of an item
+  const int n_items = b * ((s + tile_q - 1) / tile_q) * groups;
   cudaError_t err = fold_configure<HD>(dtype);
   if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0) {
-    flash_fold_cc_kernel<HD><<<grid, NT, fold_smem<HD>(0), stream>>>(
+    flash_fold_cc_kernel<HD><<<grid, CcFwd<HD>::NT, fold_smem<HD>(0), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), meta, static_cast<float*>(o), lse, b, h, s,
         tokens_total, causal, sm_scale, groups, n_items, counter);
@@ -982,17 +1071,30 @@ template <typename T, int HD, bool TCR>
 int launch(const void* q, const void* k, const void* v, const int* meta, void* o, float* lse,
            int b, int h, int s, int tokens_total, int causal, float sm_scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, TCR>();
   static unsigned configured = 0;   // one bit per card
-  cudaError_t err = once_per_device(configured, [&] {
-    return cudaFuncSetAttribute(flash_fwd_kernel<T, HD, TCR>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  });
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((s + BQ - 1) / BQ, b * h);
-  flash_fwd_kernel<T, HD, TCR><<<grid, block_threads<TCR>(), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), meta,
-      static_cast<T*>(o), lse, h, s, tokens_total, causal, sm_scale);
+  if constexpr (TCR) {
+    constexpr size_t smem = tc_smem_bytes<HD>();
+    cudaError_t err = once_per_device(configured, [&] {
+      return cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    });
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((s + BQ - 1) / BQ, b * h);
+    flash_fwd_kernel<HD><<<grid, NT_TC, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        meta, static_cast<bf16*>(o), lse, h, s, tokens_total, causal, sm_scale);
+  } else {
+    constexpr size_t smem = CcFwd<HD>::SMEM;
+    cudaError_t err = once_per_device(configured, [&] {
+      return cudaFuncSetAttribute(flash_fwd_cc_kernel<T, HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    });
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(b * h, (s + BQ_CC - 1) / BQ_CC);
+    flash_fwd_cc_kernel<T, HD><<<grid, CcFwd<HD>::NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), meta,
+        static_cast<T*>(o), lse, h, s, tokens_total, causal, sm_scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1009,8 +1111,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* 
 }
 
 // #1: f32 on the CUDA cores; bf16 on the tensor cores, or with `cuda_cores`
-// on the CUDA cores (the first design's route, which only chip_smoke.py's
-// timing calls).
+// on the CUDA cores (the f32 route's kernel with bf16 operands, which only
+// timing calls take).
 int dispatch(bool cuda_cores, const void* q, const void* k, const void* v, const int* meta,
              void* o, float* lse, int b, int h, int s, int hd, int tokens_total, int causal,
              int dtype, float sm_scale, void* stream) {
@@ -1040,8 +1142,8 @@ extern "C" int valle2_flash_attention_fwd(const void* q, const void* k, const vo
                   sm_scale, stream);
 }
 
-// #1 with bf16 on the CUDA cores (the first design's route), for timing beside the
-// tensor-core route; no path of the port calls it.
+// #1 with bf16 on the CUDA cores (the f32 route's kernel with bf16 operands), for
+// timing beside the tensor-core route; no path of the port calls it.
 extern "C" int valle2_flash_attention_fwd_cuda_cores(const void* q, const void* k,
                                                      const void* v, const int* meta, void* o,
                                                      float* lse, int b, int h, int s, int hd,

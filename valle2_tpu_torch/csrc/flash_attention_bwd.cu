@@ -86,11 +86,13 @@
 // product, TF32 keeps 10 mantissa bits, and f32 with TF32 off is the parity
 // setting), and the bf16 route that flash_attention_bwd_cuda_cores times:
 // the same kernels with T = bf16, whose staging converts to f32 through
-// registers.  Register-tiled: a block is two groups of threads, and every
-// product is a micro-tile a thread holds in registers, fed by float4 shared
-// reads from f32 tiles of row stride HD + 4 (16-byte rows whose stride is 4
-// mod 32 banks, so the 8 rows a quarter warp reads fall in distinct banks and
-// one row broadcasts).  Up to hd 64 a block is 128 threads (two groups of two
+// registers.  Register-tiled (the staging, the S-type and the dQ-type
+// products in cc_tiles.cuh, which the forward's CUDA-core route shares): a
+// block is two groups of threads, and every product is a micro-tile a
+// thread holds in registers, fed by float4 shared reads from f32 tiles of
+// row stride HD + 4 (16-byte rows whose stride is 4 mod 32 banks, so the 8
+// rows a quarter warp reads fall in distinct banks and one row
+// broadcasts).  Up to hd 64 a block is 128 threads (two groups of two
 // warps) and two blocks share an SM; at hd 128, 256 threads (two groups of
 // four warps), one block an SM.  Per tile pair (64 keys x 64 q rows):
 //
@@ -140,7 +142,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "cc_tiles.cuh"
 
 namespace {
 
@@ -148,11 +150,8 @@ using namespace valle2;
 
 constexpr int BQ = 64;         // q rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 // ---- f32 route (and the timing-only bf16 one), on the CUDA cores ----
-
-constexpr int PS = BK + 4;     // row stride of the p / ds tiles ([q][key], f32)
 
 template <int HD>
 struct Cc {
@@ -197,48 +196,6 @@ __device__ __forceinline__ void grid_pos(int t, int& tm, int& tn) {
   tn = ((t >> 3) & 3) + 4 * ((t >> 5) / WM);
 }
 
-__device__ __forceinline__ void put4(float* d, float4 v) {
-  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// 64 rows of an (s, HD) matrix from row0 into a shared f32 tile of row stride
-// RS, over the block's threads; rows past s are zero.  f32 by cp.async, 16
-// bytes a thread (zero-filled past s); bf16 8 values a thread, converted to
-// f32 through registers.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int row0,
-                                           int s) {
-  constexpr int RS = Cc<HD>::RS, NT = Cc<HD>::NT;
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int CH = HD / 4;
-    for (int c = threadIdx.x; c < 64 * CH; c += NT) {
-      const int r = c / CH, col = c % CH * 4, row = row0 + r;
-      const bool in = row < s;
-      cp_async16_zfill(dst + r * RS + col, src + (size_t)(in ? row : 0) * HD + col, in);
-    }
-  } else {
-    constexpr int CH = HD / 8;
-    for (int c = threadIdx.x; c < 64 * CH; c += NT) {
-      const int r = c / CH, col = c % CH * 8, row = row0 + r;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (row < s) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * HD + col);
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
-        const float2 c2 = __bfloat1622float2(h2[2]), d = __bfloat1622float2(h2[3]);
-        lo = make_float4(a.x, a.y, b.x, b.y);
-        hi = make_float4(c2.x, c2.y, d.x, d.y);
-      }
-      *reinterpret_cast<float4*>(dst + r * RS + col) = lo;
-      *reinterpret_cast<float4*>(dst + r * RS + col + 4) = hi;
-    }
-  }
-}
-
 // lse and delta of 64 rows from row0 (rows past s read as 0), by cp.async
 // (every block has at least 2 * BQ threads).
 __device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s, const float* lse_row,
@@ -250,35 +207,6 @@ __device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s, const 
       cp_async4_zfill(lse_s + i, lse_row + (in ? row : 0), in);
     else
       cp_async4_zfill(delta_s + i, delta_row + (in ? row : 0), in);
-  }
-}
-
-// acc[i][j] += sum_d A[tm + (64 / TMA) i][d] B[tn + 8 j][d] over d < HD,
-// for row-major [row][HD] tiles of stride RS (S^T = K Q^T, dP^T = V dO^T in
-// the kv body; S = Q K^T, dP = dO V^T in #4).  Per 4 d a thread reads
-// TMA + 8 float4 and does 32 TMA FMAs; each sum runs over d in order.
-template <int HD>
-__device__ __forceinline__ void rows_dot(const float* A, const float* B, int tm, int tn,
-                                         float (&acc)[Cc<HD>::TMA][8]) {
-  constexpr int RS = Cc<HD>::RS, TMA = Cc<HD>::TMA, MS = 64 / TMA;
-  const float* a = A + tm * RS;
-  const float* b = B + tn * RS;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 av[TMA];
-#pragma unroll
-    for (int i = 0; i < TMA; ++i) av[i] = ld4(a + MS * i * RS + d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 bv = ld4(b + 8 * j * RS + d);
-#pragma unroll
-      for (int i = 0; i < TMA; ++i) {
-        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
-      }
-    }
   }
 }
 
@@ -303,49 +231,6 @@ __device__ __forceinline__ void cols_outer(const float* P, const float* X, int t
 #pragma unroll
       for (int j = 0; j < TNB; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
   }
-}
-
-// acc[i][j] += sum_c dS[q_i][c] K[c][dim_j] over the tile's BK keys c in
-// order (dQ += dS K): rows q_i = tm + (BQ / TMQ) i, dims 4 tn + (HD / 2)(j /
-// 4) + j % 4; dS of stride PS, K of stride RS.
-template <int HD>
-__device__ __forceinline__ void ds_k(const float* dS, const float* K, int tm, int tn,
-                                     float (&acc)[Cc<HD>::TMQ][Cc<HD>::TNQ]) {
-  using C = Cc<HD>;
-  constexpr int RS = C::RS, TMQ = C::TMQ, TNQ = C::TNQ, QS = BQ / TMQ;
-#pragma unroll 2
-  for (int c = 0; c < BK; c += 4) {
-    float a[TMQ][4];
-#pragma unroll
-    for (int i = 0; i < TMQ; ++i) put4(a[i], ld4(dS + (tm + QS * i) * PS + c));
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float kv[TNQ];
-#pragma unroll
-      for (int jb = 0; jb < TNQ / 4; ++jb)
-        put4(kv + 4 * jb, ld4(K + (c + cc) * RS + 4 * tn + (HD / 2) * jb));
-#pragma unroll
-      for (int i = 0; i < TMQ; ++i)
-#pragma unroll
-        for (int j = 0; j < TNQ; ++j) acc[i][j] = fmaf(a[i][cc], kv[j], acc[i][j]);
-    }
-  }
-}
-
-// Four values of a row to global memory as T (16 bytes f32, 8 bytes bf16).
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d);
-template <>
-__device__ __forceinline__ void store4<float>(float* dst, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, float a, float b,
-                                                      float c, float d) {
-  uint2 v;
-  v.x = pack_bf16(a, b);
-  v.y = pack_bf16(c, d);
-  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 // dk, dv per 64-key tile (#5); with FUSED also dq into the f32 scratch (#3).
@@ -405,12 +290,12 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < TNB; ++j) acc_b[i][j] = 0.f;
 
   auto stage_q_tile = [&](int st, int qb) {
-    stage_rows<T, HD>(Qs + st * BQ * RS, q + base, qb * BQ, s);
-    stage_rows<T, HD>(dOs + st * BQ * RS, dout + base, qb * BQ, s);
+    stage_rows<T, HD, 64, C::NT>(Qs + st * BQ * RS, q + base, qb * BQ, s);
+    stage_rows<T, HD, 64, C::NT>(dOs + st * BQ * RS, dout + base, qb * BQ, s);
     stage_stats(lse_s + st * BQ, delta_s + st * BQ, lse_bh, delta_bh, qb * BQ, s);
   };
-  stage_rows<T, HD>(Ks, k + base, k0, s);
-  stage_rows<T, HD>(Vs, v + base, k0, s);
+  stage_rows<T, HD, 64, C::NT>(Ks, k + base, k0, s);
+  stage_rows<T, HD, 64, C::NT>(Vs, v + base, k0, s);
   if (lower < n_q) stage_q_tile(NST == 2 ? lower & 1 : 0, lower);
   cp_async_commit();
 
@@ -431,7 +316,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       // Group 0: S^T = K Q^T; group 1: dP^T = V dO^T.
-      rows_dot<HD>(grp == 0 ? Ks : Vs, grp == 0 ? qs : dos, tm, tn, acc);
+      rows_dot<HD, TMA, MS>(grp == 0 ? Ks : Vs, grp == 0 ? qs : dos, tm, tn, acc);
       if (grp == 0) {
         // p = attend ? 2^(S^T scale_log2 - lse log2e) : 0, unrounded, into
         // Ps[q][key].  Where every key of the thread is seen by all its rows,
@@ -496,7 +381,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int i = 0; i < TMQ; ++i)
 #pragma unroll
         for (int j = 0; j < TNQ; ++j) acc_q[i][j] = 0.f;
-      ds_k<HD>(dSs, Ks, qm, qn, acc_q);
+      rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, Ks, qm, qn, acc_q);
 #pragma unroll
       for (int i = 0; i < TMQ; ++i) {
         const int qi = q0 + qm + (BQ / TMQ) * i;
@@ -595,11 +480,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < TNQ; ++j) acc_q[i][j] = 0.f;
 
   auto stage_kv_tile = [&](int st, int kb) {
-    stage_rows<T, HD>(Ks + st * BK * RS, k + base, kb * BK, s);
-    stage_rows<T, HD>(Vs + st * BK * RS, v + base, kb * BK, s);
+    stage_rows<T, HD, 64, C::NT>(Ks + st * BK * RS, k + base, kb * BK, s);
+    stage_rows<T, HD, 64, C::NT>(Vs + st * BK * RS, v + base, kb * BK, s);
   };
-  stage_rows<T, HD>(Qs, q + base, q0, s);
-  stage_rows<T, HD>(dOs, dout + base, q0, s);
+  stage_rows<T, HD, 64, C::NT>(Qs, q + base, q0, s);
+  stage_rows<T, HD, 64, C::NT>(dOs, dout + base, q0, s);
   if (n_tiles > 0) stage_kv_tile(0, 0);
   cp_async_commit();
 
@@ -620,7 +505,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       // Group 0: S = Q K^T; group 1: dP = dO V^T.
-      rows_dot<HD>(grp == 0 ? Qs : dOs, grp == 0 ? ks : vs, tm, tn, acc);
+      rows_dot<HD, TMA, MS>(grp == 0 ? Qs : dOs, grp == 0 ? ks : vs, tm, tn, acc);
       if (grp == 0) {
         // p = attend ? 2^(S scale_log2 - lse log2e) : 0 into Ps[q][key];
         // where all the thread's rows see all its keys, no mask.
@@ -658,7 +543,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
     __syncthreads();   // ds is in dSs
-    ds_k<HD>(dSs, ks, qm, qn, acc_q);
+    rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, ks, qm, qn, acc_q);
     if constexpr (NST == 1) {
       __syncthreads();   // the stage is no longer read
       if (kb + 1 < n_tiles) stage_kv_tile(0, kb + 1);

@@ -6,8 +6,16 @@ the forward ``_flash_fwd`` → ``_fwd_kernel`` (#1) and its head-folded form
 ``_flash_fwd_folded`` → ``_fwd_kernel_folded`` (#2), both in
 ``csrc/flash_attention.cu`` (bf16 on the tensor cores: #1 on ``mma.sync``,
 #2 on ``wgmma`` fed by TMA over a persistent grid whose item schedule
-``fold_plan`` chooses; f32 on the CUDA cores), on the AR prefill and in
-every training step;
+``fold_plan`` chooses; f32 on the CUDA cores, #1 and #2 through one
+register-tiled FFMA body fed by cp.async, its micro-tile products shared
+with the f32 backward in ``csrc/cc_tiles.cuh``), on the AR prefill and in
+every training step.  The f32 forward is bound by FFMA (67 TFLOP/s): on an
+H100 80GB HBM3 at 700 W it reaches 38-45% of that bound at the training
+shapes (b=32, h=4, s=640 causal 0.248-0.257 ms, bidirectional
+0.396-0.415; b=8, s=1280 causal 0.244-0.248), 1.45-2.54x faster than
+``scaled_dot_product_attention``'s f32 forward on the same inputs and mask
+(``probes/train_ab.py``).  Every forward wrapper refuses q, k, v that are
+not 16-byte aligned (the kernels stage them 16 bytes a thread);
 and the backward ``_flash_bwd`` (``csrc/flash_attention_bwd.cu``, bf16 on
 the tensor cores, f32 on the CUDA cores as register-tiled FFMA kernels fed
 by cp.async): ``_bwd_fused_kernel`` (#3) when the
@@ -15,8 +23,7 @@ padded row fits (``FUSED_BWD_MAX_SEQ``), else ``_bwd_dq_kernel`` (#4) then
 ``_bwd_dkv_kernel`` (#5), the JAX package's routing rule.  See each source's
 header for its design.  ``flash_attention_cuda_cores`` and
 ``flash_attention_bwd_cuda_cores`` run bf16 on the CUDA-core routes (the
-forward's that the tensor-core one replaced; the backward's f32 kernels with
-bf16 operands), for timing only.
+f32 kernels with bf16 operands), for timing only.
 
 Which forward runs is the JAX package's rule: ``fold_heads=None`` applies
 ``_fold_default``, which reads ``VALLE2_FLASH_FOLD`` (unset: #1).  The port
@@ -143,12 +150,22 @@ def _fold_default(h: int, s: int) -> bool:
     return False
 
 
+def _check_aligned(name: str, q, k, v) -> None:
+    """Every forward kernel stages q, k and v 16 bytes a thread (cp.async in
+    f32 and on #1's tensor cores, TMA on #2's): refuse a tensor that does not
+    start on a 16-byte boundary rather than fault on the card."""
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f'{name}: q, k and v must be 16-byte aligned (the kernels stage '
+                         'them 16 bytes a thread)')
+
+
 def _forward(name: str, sym: str, counter, q, k, v, meta, tokens_total, causal,
              plan=None):
     """Launch #1, or #2 on ``plan``'s item schedule (its inputs checked by
     the caller), with the int32 its blocks take the items from."""
     if plan is None:
         _check_qkv(name, q, (k, v), meta)
+        _check_aligned(name, q, k, v)
     b, h, s, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -169,7 +186,8 @@ def _forward(name: str, sym: str, counter, q, k, v, meta, tokens_total, causal,
     return o, lse
 
 
-# #2's tiles: an item's q-tile and a kv tile (csrc/flash_attention.cu BQ, BK).
+# #2's tiles: an item's q-tile and a kv tile (csrc/flash_attention.cu BQ and
+# BQ_CC, BK).
 FOLD_BQ = FOLD_BK = 64
 # A head's fixed cost in kv tiles (its Q load and its O store): fold_plan.
 FOLD_HEAD_COST = 1
@@ -282,9 +300,7 @@ def flash_attention_folded(q, k, v, meta, tokens_total: int, causal: bool = True
     if q.device.type == 'cpu':
         return flash_attention_plain(q, k, v, meta, tokens_total, causal)
     _check_qkv('flash_attention_folded', q, (k, v), meta)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError('flash_attention_folded: bf16 q, k, v must be 16-byte aligned '
-                         '(TMA)')
+    _check_aligned('flash_attention_folded', q, k, v)
     return _forward('flash_attention_folded', 'valle2_flash_attention_fwd_folded',
                     FOLD_COUNTER, q, k, v, meta, tokens_total, causal,
                     fold_plan_for(q, tokens_total, causal))
@@ -310,10 +326,14 @@ CUDA_CORES_COUNTER = _build.LaunchCounter()
 
 
 def flash_attention_cuda_cores(q, k, v, meta, tokens_total: int, causal: bool = True):
-    """#1 with bf16 products on the CUDA cores in f32 FMAs (the first design's
-    route of ``csrc/flash_attention.cu``; f32 runs there in either case), kept to time
-    the tensor-core route beside the design it replaced.  No path of the port
-    calls it; CUDA tensors only."""
+    """#1 with bf16 operands on the CUDA cores in f32 FFMAs: the f32 route's
+    register-tiled body of ``csrc/flash_attention.cu`` (q-tiles of 64 rows, a
+    thread 4 x 8 of S and of O fed by float4 shared reads, cp.async stages
+    of f32 tiles; bf16 converts to f32 through registers as it is staged),
+    kept to time the tensor-core route beside the CUDA cores.  What bounds it
+    is the f32 route's: FFMA at 67 TFLOP/s (an H100 80GB HBM3 at 700 W
+    reaches 38-45% of it in f32 at the training shapes).  No path of the
+    port calls it; CUDA tensors only."""
     return _forward('flash_attention_cuda_cores', 'valle2_flash_attention_fwd_cuda_cores',
                     CUDA_CORES_COUNTER, q, k, v, meta, tokens_total, causal)
 

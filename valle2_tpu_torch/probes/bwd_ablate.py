@@ -49,18 +49,21 @@ H, HD = 4, 64
 FFMA_FLOPS = 67e12          # H100 SXM, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
-# (edit name) -> [(anchor, replacement, times the anchor occurs)]
+# (edit name) -> [(anchor, replacement, times the anchor occurs)], applied to
+# the source with cc_tiles.cuh inlined (``inline_header``).
 _EDITS = {
     'no_next_tile': [('if (qb + 1 < n_q) stage_q_tile(', 'if (false) stage_q_tile(', 2),
                      ('if (kb + 1 < n_tiles) stage_kv_tile(', 'if (false) stage_kv_tile(',
                       2)],
     'no_mask': [('        if (whole) {\n', '        if (true) {\n', 2)],
-    'no_phase_a': [('      rows_dot<HD>(grp == 0 ?', '      if (false) rows_dot<HD>(grp == 0 ?',
-                    2)],
+    'no_phase_a': [('      rows_dot<HD, TMA, MS>(grp == 0 ?',
+                    '      if (false) rows_dot<HD, TMA, MS>(grp == 0 ?', 2)],
     'no_phase_b': [('    cols_outer<HD>(grp == 0 ?', '    if (false) cols_outer<HD>(grp == 0 ?',
                     1),
-                   ('      ds_k<HD>(dSs, Ks,', '      if (false) ds_k<HD>(dSs, Ks,', 1),
-                   ('    ds_k<HD>(dSs, ks,', '    if (false) ds_k<HD>(dSs, ks,', 1)],
+                   ('      rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, Ks,',
+                    '      if (false) rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, Ks,', 1),
+                   ('    rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, ks,',
+                    '    if (false) rows_times<HD, TMQ, TNQ, BQ / TMQ, HD / 2>(dSs, ks,', 1)],
     'unroll_more': [('#pragma unroll 2\n  for (int d = 0;', '#pragma unroll 4\n  for (int d = 0;',
                      1),
                     ('#pragma unroll 4\n  for (int r = 0;', '#pragma unroll 8\n  for (int r = 0;',
@@ -73,9 +76,20 @@ VARIANTS = ('kernel', *_EDITS)
 EXACT = ('kernel', 'unroll_more')
 
 
+def inline_header(src: str) -> str:
+    """``src`` with its ``#include "cc_tiles.cuh"`` replaced by the header's
+    text, so that an edit reaches the products the header defines."""
+    text = (_build.CSRC_DIR / 'cc_tiles.cuh').read_text().replace('#pragma once\n', '')
+    return src.replace('#include "cc_tiles.cuh"\n', text)
+
+
 def variant(src: str, name: str) -> str:
-    """``flash_attention_bwd.cu``'s source with the part ``name`` names changed."""
-    for old, new, count in _EDITS.get(name, ()):
+    """``flash_attention_bwd.cu``'s source with the part ``name`` names
+    changed (cc_tiles.cuh inlined)."""
+    edits = _EDITS.get(name, ())
+    if edits:
+        src = inline_header(src)
+    for old, new, count in edits:
         if src.count(old) != count:
             raise RuntimeError(f'bwd_ablate: anchor found {src.count(old)} times, not '
                                f'{count}: {old!r}')

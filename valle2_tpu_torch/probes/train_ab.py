@@ -8,15 +8,20 @@ by side on one card, in turns (change, parent, parent, change):
 
 Run it as a script, not with ``-m``: the checkout at ``--tree`` must be the
 first on ``sys.path`` when its package is imported.  ``--kernels`` times the
-flash backward (#3; #4 and #5) in ``--dtype`` (f32 with TF32 off) at
-chip_smoke's ``TRAIN_CASES``, each route held against the plain version,
-beside SDPA's backward on the same inputs and mask and each kernel's bound
-and share of it; otherwise, in bf16, phases ``train`` and ``profile`` (AR
-and NAR) and the 204M AR / NAR steps of phase ``fold``, with ``--first``
-also phases ``kernels (train)`` and ``grads``, and in f32 the bench train
-steps of ``TRAIN_RUNS`` at the default ``ConfigValle`` (f32, TF32 as the
-default leaves it) through this script's own ``train_steps``, which needs
-of the checkout only its package, ``TRAIN_RUNS`` and ``bench_data``;
+flash forward (#1 at chip_smoke's ``TRAIN_CASES``; #2 and #1 at its
+``FOLD_CASES`` '204m' and 'serve') and backward (#3; #4 and #5 at
+``TRAIN_CASES``) in ``--dtype`` (f32 with TF32 off), each held against the
+plain version, beside SDPA's forward or backward on the same inputs and
+mask and each kernel's bound and share of it, then prints the digests of
+``bits`` (the outputs of the f32 backward and of the bf16 tensor-core
+routes on fixed inputs), which two trees' builds must share where their
+sources compute alike; otherwise, in bf16, phases ``train`` and
+``profile`` (AR and NAR) and the 204M AR / NAR steps of phase ``fold``,
+with ``--first`` also phases ``kernels (train)`` and ``grads``, and in f32
+the bench train steps of ``TRAIN_RUNS`` at the default ``ConfigValle``
+(f32, TF32 as the default leaves it) through this script's own
+``train_steps``, which needs of the checkout only its package,
+``TRAIN_RUNS`` and ``bench_data``;
 ``--gemm`` runs that checkout's GEMM roofline probe
 (``probes.gemm_roofline.run``: #9 and #10 at the 204M step's shapes and
 4096^3, beside ``torch.matmul``).  Prints one JSON line per phase (the probe
@@ -31,11 +36,37 @@ import sys
 from pathlib import Path
 
 
+def forward(cs, fa, q, k, v, meta, tt, causal, mask, dtype_name, fold=False) -> dict:
+    """#1 (or #2 with ``fold``) on one input against the plain version: its
+    ms, SDPA's forward ms on the same inputs and mask, the bound and its
+    share (f32: of the FFMA bound)."""
+    import torch
+    if fold:
+        def call():
+            return fa.flash_attention_folded(q, k, v, meta, tt, causal)
+    else:
+        def call():
+            return fa.flash_attention(q, k, v, meta, tt, causal, fold_heads=False)
+    o, lse = call()
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, meta, tt, causal)
+    torch.cuda.synchronize()
+    r = {'max_abs_err': max(float((o.float() - o_ref.float()).abs().max()),
+                            float((lse - lse_ref).abs().max())),
+         'ms': cs.cuda_ms(call), 'sdpa_ms': cs.sdpa_ms(q, k, v, mask)}
+    pairs = int(mask.sum()) * q.shape[1]
+    r['bound_ms'], _ = cs.bound(4 * q.numel() * q.element_size() + lse.numel() * 4,
+                                2 * 2 * q.shape[-1] * pairs, dtype_name)
+    r['bound_share'] = r['bound_ms'] / r['ms']
+    return r
+
+
 def kernels(cs, fa, dtype_name: str = 'bfloat16') -> dict:
-    """Backward ms at the training shapes in ``dtype_name`` (TF32 off),
-    through the router and per kernel, beside SDPA's backward on the same
-    inputs and mask; each kernel's bound (``cs.bound``: bytes, or its
-    products at the dtype's peak, 67 TFLOP/s of FFMA in f32) and its share."""
+    """Forward and backward ms at the training shapes in ``dtype_name``
+    (TF32 off): #1 and the backward through the router and per kernel,
+    beside SDPA's on the same inputs and mask; #2 and #1 at the 204M and
+    serving shapes of ``cs.FOLD_CASES``; each kernel's bound (``cs.bound``:
+    bytes, or its products at the dtype's peak, 67 TFLOP/s of FFMA in f32)
+    and its share."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     dev = torch.device('cuda')
@@ -51,12 +82,14 @@ def kernels(cs, fa, dtype_name: str = 'bfloat16') -> dict:
             pairs = int(mask.sum()) * h
             q, k, v, do = (torch.randn(b, h, s, hd, generator=gen).to(dev, dt)
                            for _ in range(4))
+            fwd = forward(cs, fa, q, k, v, meta, tt, causal, mask, dtype_name)
             o, lse = fa.flash_attention(q, k, v, meta, tt, causal)
             args = (q, k, v, meta, o, lse, do, tt, causal)
             want = fa.flash_attention_bwd_plain(*args)
             got = fa.flash_attention_bwd(*args)
             torch.cuda.synchronize()
-            r = {'max_abs_err': max(float((g.float() - w.float()).abs().max())
+            r = {'fwd': fwd,
+                 'max_abs_err': max(float((g.float() - w.float()).abs().max())
                                     for g, w in zip(got, want)),
                  'routed_ms': cs.cuda_ms(lambda: fa.flash_attention_bwd(*args)),
                  'sdpa_ms': cs.sdpa_ms(q, k, v, mask, do)}
@@ -74,6 +107,67 @@ def kernels(cs, fa, dtype_name: str = 'bfloat16') -> dict:
                 r[f'{name}_bound_ms'], r[f'{name}_bound_share'] = bound_ms, bound_ms / ms
             out[case] = r
             del q, k, v, do, o, lse, args, want, got
+        for case in ('204m', 'serve'):
+            b, h2, s, tt, causal = cs.FOLD_CASES[case]
+            meta = cs.train_meta(b, tt, s - tt, dev, seed=4)
+            meta[-1, 0] = 0
+            mask = cs.attend_mask(meta, s, tt, causal)
+            q, k, v = (torch.randn(b, h2, s, hd, generator=gen).to(dev, dt)
+                       for _ in range(3))
+            out[f'fold_{case}'] = {
+                'folded': forward(cs, fa, q, k, v, meta, tt, causal, mask, dtype_name,
+                                  fold=True),
+                'per_head': forward(cs, fa, q, k, v, meta, tt, causal, mask, dtype_name)}
+            del q, k, v
+    return out
+
+
+def digest(t) -> str:
+    """sha256 prefix of a tensor's bytes."""
+    import hashlib
+
+    import torch
+    as_int = t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
+    return hashlib.sha256(as_int.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def bits(fa) -> dict:
+    """{hd: {output: sha256 prefix}} on fixed inputs (numpy, seed 7 + hd;
+    b=2, h=2, s=200, ragged meta, causal; lse and delta computed in float64
+    on the CPU and passed in, so that no reduction on the card enters): the
+    f32 backward's #3 dk, dv, #4 dq and #5 dk, dv, and the bf16 tensor-core
+    routes' #1 and #2 o and lse (#3's dq, summed through atomics, is left
+    out)."""
+    import math
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.ops.masks import prefix_lm_attend
+    b, h, s, tt, causal = 2, 2, 200, 40, True
+    meta = torch.tensor([[40, 200], [25, 150]], dtype=torch.int32)
+    out = {}
+    for hd in (32, 64, 128):
+        rs = np.random.RandomState(7 + hd)
+        q, k, v, do = (torch.from_numpy(rs.standard_normal((b, h, s, hd)).astype('f4'))
+                       for _ in range(4))
+        scores = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(hd)
+        attend = prefix_lm_attend(s, tt, meta[:, 0], meta[:, 1], causal)[:, None]
+        scores = torch.where(attend, scores, -1e30)
+        lse = torch.logsumexp(scores, -1)
+        o = torch.matmul(torch.softmax(scores, -1), v.double())
+        delta = (do.double() * o).sum(-1).float().cuda()
+        args = [t.cuda() for t in (q, k, v, meta, o.float(), lse.float(), do)]
+        _, dk3, dv3 = fa.flash_bwd_fused(*args, tt, causal, delta=delta)
+        dq4 = fa.flash_bwd_dq(*args, tt, causal, delta=delta)
+        dk5, dv5 = fa.flash_bwd_dkv(*args, tt, causal, delta=delta)
+        b16 = [t.cuda().bfloat16() for t in (q, k, v)]
+        o1, lse1 = fa.flash_attention(*b16, args[3], tt, causal, fold_heads=False)
+        o2, lse2 = fa.flash_attention_folded(*b16, args[3], tt, causal)
+        torch.cuda.synchronize()
+        out[hd] = {name: digest(t) for name, t in (
+            ('f32_dk3', dk3), ('f32_dv3', dv3), ('f32_dq4', dq4), ('f32_dk5', dk5),
+            ('f32_dv5', dv5), ('bf16_o1', o1), ('bf16_lse1', lse1), ('bf16_o2', o2),
+            ('bf16_lse2', lse2))}
     return out
 
 
@@ -81,7 +175,7 @@ def train_steps(cs, label: str, dtype_name: str) -> None:
     """The bench train steps (``cs.TRAIN_RUNS``) at the default ConfigValle
     but ``dtype_name``: host ms a step over the timed steps (after two warm
     steps), then device ms a step by torch.profiler over 3 steps, in all and
-    in the flash backward's kernels."""
+    in the flash forward's and backward's kernels."""
     import time
 
     import torch
@@ -107,13 +201,14 @@ def train_steps(cs, label: str, dtype_name: str) -> None:
             for _ in range(3):
                 state, m = step(state, data, 1)
             torch.cuda.synchronize()
-        dev_ms = {'all': 0.0, 'flash_bwd': 0.0}
+        dev_ms = {'all': 0.0, 'flash_fwd': 0.0, 'flash_bwd': 0.0}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 ms = e.self_device_time_total / 1e3 / 3
                 dev_ms['all'] += ms
-                if 'flash_bwd' in e.key:
-                    dev_ms['flash_bwd'] += ms
+                for part in ('flash_fwd', 'flash_bwd'):
+                    if part in e.key:
+                        dev_ms[part] += ms
         cs.emit(phase='train_steps', tree=label, model=model, batch=b, frames=frames,
                 dtype=dtype_name, step_ms=step_ms, device_ms_per_step=dev_ms,
                 loss=float(m['loss']))
@@ -175,6 +270,7 @@ def main() -> int:
     if args.kernels:
         print(json.dumps({'tree': args.label, 'dtype': args.dtype,
                           **kernels(cs, fa, args.dtype)}), flush=True)
+        print(json.dumps({'tree': args.label, 'bits': bits(fa)}), flush=True)
     elif args.gemm:
         print(json.dumps({'tree': args.label, 'gemm_ms': gemm()}), flush=True)
     elif args.dtype == 'float32':
