@@ -90,14 +90,18 @@ Phases, each printing JSON lines:
                 serving cell (L=8, 3 rows x K=4 tokens, S=901, per-row start
                 slots ttm+pm+{100, 137, 203}), f32 with TF32 off and bf16:
                 y within the variant's tolerance, the cache as in phase 16,
-                CUDA-event times (median of 30), the plain version's time and
-                the bound; no one PyTorch call computes the step.
+                CUDA-event times (median of 30) of #7 (one persistent launch)
+                and of its phased twin (fused_verify_step_phased, one kernel
+                per phase), the plain version's time and the bound; no one
+                PyTorch call computes the step.
 19. spec     -- n-gram speculative decode: phase 5's 3 requests through
                 batch_synthesize with one beam (bf16, max_audio_len=512,
                 ignore_eos), the plain loop (#6) and speculative_k=4,
                 speculative_ngram=3 (#7) on the same weights in turns (plain,
                 spec, spec, plain), then spec under each quantized
-                configuration of phase 17.  Counts zeroed before, read after
+                configuration of phase 17 (PROFILE_STEPS = 128 frames), and
+                each loop's decode profile (128 steps).  Counts zeroed
+                before, read after
                 each: #1 and the run's step kernel must have launched, no
                 other step kernel.  Turns, mean accepted tokens per turn, ms
                 per turn, decode ms per token, RTF and peak memory.  Then the
@@ -125,7 +129,8 @@ Phases, each printing JSON lines:
                 chunk 512; counts zeroed before, read after: #6 and its
                 chunked branch on every step, no plain version.  Time to
                 first audio, chunk walls, decode ms per step beside one-beam
-                decodes whole-S and chunked, RTF.  Then in f32 (TF32 off,
+                decodes whole-S and chunked (their profiles at 512 steps),
+                RTF.  Then in f32 (TF32 off,
                 greedy): streamed tokens == one advance == the plain route;
                 full lookahead == synthesize_fused; synthesize_longform over
                 three sentences, carry 'prompt' == each sentence streamed,
@@ -215,16 +220,20 @@ Phases, each printing JSON lines:
                 ``phase_tp_large(devices)`` (the four-card call only): the
                 204M stack at mp 4, one generate_batch at 4 beams, greedy ids
                 mesh == solo.
-32. kernels  -- the persistent #6 (one cooperative launch a step) against the
-   (persistent) phased route on the same inputs (fused_verify_step with a block
-                of one token and the same start slots): y and the whole cache
-                bit for bit in every case of PERSISTENT_CASES (every weight x
-                cache variant at the serving shape, 4 rows whole-S, the
-                per-row index whole and chunked; one row at the stream's S;
-                the 204M widths at one row and at 4 rows chunked), f32 (TF32
-                off) and bf16; times of both (median of 30), their host
-                enqueue, the bound, the launcher's grid against the host plan
-                (persistent_plan), and the phase trace (step_phases: each
+32. kernels  -- the persistent #6 and #7 (one cooperative launch a step each)
+   (persistent) against the phased twin on the same inputs
+                (fused_verify_step_phased; for #6 a block of one token at the
+                same start slots): y and the whole cache bit for bit in every
+                case of PERSISTENT_CASES (#6: every weight x cache variant at
+                the serving shape, 4 rows whole-S, the per-row index whole
+                and chunked; one row at the stream's S; the 204M widths at
+                one row and at 4 rows chunked) and PERSISTENT_VERIFY (#7: the
+                spec cell, 3 rows x K=4, S 901, in every variant; its chunked
+                run, S 1024, chunk 512; the 204M block, 1 x 4, S 900, dense
+                and W8A8), f32 (TF32 off) and bf16; times of both (median of
+                30), their host enqueue, the bound, the launcher's grid
+                against the host plan (persistent_plan, with K and the int8
+                cache's extra phase), and the phase trace (step_phases: each
                 phase's slowest block and barrier, from %globaltimer).
 33. kernels  -- #1's tensor-core route (bf16) at head dims 32, 64 and 128
    (flash tc)   (FLASH_TC_CASES: s=385, causal and bidirectional, a row with
@@ -236,12 +245,14 @@ Phases, each printing JSON lines:
                 training shapes too.
 34. step     -- phase_step_profile: torch.profiler over the token loop of
    profile      each single-card path (main, quant W8A8 + int8 cache and
-                W4A16, stream, cb, clone, hub, large): device kernels of the fused step
-                per launch (1), its device ms, span and gaps a step, the
-                device's busy share.  A phased step kernel, or more step
-                kernels than launches, fails at once; fewer means lost
-                profiler records, and the path is profiled again (up to
-                PROFILE_REPEATS times) until one profile shows one a launch.
+                W4A16, stream, cb, clone, hub, large) and the speculative
+                loops through #7 (spec, large_spec, cb_spec): device kernels
+                of the fused step per launch of #6 or #7 (1), its device ms,
+                span and gaps a step, the device's busy share.  A phased step
+                kernel, or more step kernels than launches, fails at once;
+                fewer means lost profiler records, and the path is profiled
+                again (up to PROFILE_REPEATS times) until one profile shows
+                one a launch.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -402,13 +413,18 @@ CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
 # kernel, f32 sums in another order) over bf16 hidden states, whose rounding
 # (2^-8 relative) moves logits of |x| <= 8 by up to ~3e-2.
 GREEDY_BF16_GAP = 5e-2
-# The persistent #6 (one cooperative launch a step) against the phased
-# route on the same inputs: fused_verify_step with a block of one token and
-# the same start slots runs the phased kernels, whose device code each item
-# of the persistent step runs, so the two agree bit for bit.  Per case: rows,
-# S (None: the main path's, serving_len), the forced chunk, the per-row
-# index (PER_ROW's depths and lengths) or a scalar one, the widths (None:
-# the serving model's; 'large': LARGE) and the variants and dtypes it runs.
+# The persistent #6 and #7 (one cooperative launch a step) against the
+# phased twin on the same inputs: fused_verify_step_phased (for #6 with a
+# block of one token and the same start slots) runs the phased kernels,
+# whose device code each item of the persistent step runs, so the two agree
+# bit for bit.  Per case: rows, S (None: the main path's, serving_len), the
+# forced chunk, the per-row index (PER_ROW's depths and lengths) or a scalar
+# one, the widths (None: the serving model's; 'large': LARGE) and the
+# variants and dtypes it runs; #7's cases (PERSISTENT_VERIFY) add K, the
+# geometry's (ttm, pm) and the rows' start offsets past ttm + pm: the spec
+# phase's cell (phase spec kernels), its chunked run (phase chunked: row
+# 1's block straddles slot 512) and the 204M spec block (phase large
+# kernels).
 ALL_STEP_VARIANTS = ('dense', *QUANT_VARIANTS)
 PERSISTENT_CASES = {
     'serve': dict(rows=12, S=None, chunk=None, per_row=False, large=False,
@@ -426,6 +442,19 @@ PERSISTENT_CASES = {
     '204m_beams': dict(rows=4, S=1024, chunk=512, per_row=False, large=True,
                        variants=('dense',), dtypes=('bfloat16',)),
 }
+PERSISTENT_VERIFY = {
+    'spec': dict(rows=SPEC['rows'], K=SPEC['K'], S=901, chunk=None, large=False,
+                 geometry=(SLICE['ttm'], SLICE['pm']), offsets=SPEC['offsets'],
+                 variants=ALL_STEP_VARIANTS, dtypes=('bfloat16', 'float32')),
+    'spec_chunked': dict(rows=SPEC['rows'], K=SPEC['K'], S=1024, chunk=STREAM['chunk'],
+                         large=False, geometry=(SLICE['ttm'], SLICE['pm']),
+                         offsets=(100, STREAM['chunk'] - 2 - SLICE['ttm'] - SLICE['pm'], 203),
+                         variants=('dense',), dtypes=('bfloat16', 'float32')),
+    '204m_spec': dict(rows=1, K=SPEC['K'], S=900, chunk=None, large=True,
+                      geometry=(STREAM['ttm'], STREAM['pm']), offsets=(256,),
+                      variants=('dense', 'w8a8'), dtypes=('bfloat16',)),
+}
+ALL_PERSISTENT = {**PERSISTENT_CASES, **PERSISTENT_VERIFY}
 # The kernels-line entries whose rows show the persistent step beside the
 # phased one: entry name -> (case, variant) pairs.
 PERSISTENT_ROWS = {
@@ -435,18 +464,26 @@ PERSISTENT_ROWS = {
     'fused_decode_step_chunked': (('stream', 'dense'), ('204m_beams', 'dense')),
     'fused_decode_step_per_row': (('per_row', 'dense'),),
     'fused_decode_step_per_row_chunked': (('per_row_chunked', 'dense'),),
+    'fused_verify_step': (('spec', 'dense'), ('204m_spec', 'dense')),
+    **{f'fused_verify_step_{v}': (('spec', v),) for v in QUANT_VARIANTS},
+    'fused_verify_step_chunked': (('spec_chunked', 'dense'),),
 }
 # The flash forward's tensor-core route (bf16) across the head dims: (b, h,
 # s, tokens_total) at a ragged s (not a multiple of the 64-row tile), causal
 # and bidirectional, the last row with tokens_valid == 0.
 FLASH_TC_CASES = {f'hd{hd}': (3, 4, 385, 128, hd) for hd in (32, 64, 128)}
-# The device kernels of the fused decode step (#6), persistent or phased.
+# The device kernels of the fused steps (#6, #7), persistent or phased.
 STEP_KERNELS = ('step_persistent_kernel', 'proj_kernel', 'attend_kernel', 'merge_kernel',
                 'kv_quant_kernel')
 # Profiles of a path taken again where torch.profiler saw fewer step kernels
 # than #6 launched (lost records: once 981 for 1024 launches, while every
 # repeat of that profile matched).
 PROFILE_REPEATS = 3
+# Decode steps of a profiled token loop (phase step profile, the decode
+# profiles of phases spec and stream) and of the speculative runs under the
+# quantized configs: enough for a step's kernels and busy share, few enough
+# that the profiler's records of every path fit the script's time budget.
+PROFILE_STEPS = 128
 # The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
 # case -- the serving prefill of phase main, the serving-width train shapes
 # (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
@@ -494,6 +531,19 @@ def variant_tol(variant: str, dtype_name: str) -> dict:
 
 def emit(**obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+PHASE_SECONDS: dict = {}   # wall seconds of each phase function main ran
+
+
+def timed(fn, *args):
+    """fn(*args), its wall time added to PHASE_SECONDS[fn.__name__]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) + (
+            time.perf_counter() - t0)
 
 
 def fail(msg: str) -> None:
@@ -980,12 +1030,12 @@ def phase_quant(smi: str) -> dict:
 
 def phase_spec_kernels(results: dict):
     """Every variant of the verify step (#7) against its plain version at the
-    serving cell's block, on the same codes, in f32 (TF32 off) and bf16."""
+    serving cell's block, on the same codes, in f32 (TF32 off) and bf16,
+    timed beside its phased twin."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.ops.transformer import KVCache
-    from valle2_tpu_torch.train import tree_leaves
 
     dev = torch.device('cuda')
     s = SLICE
@@ -1045,24 +1095,14 @@ def phase_spec_kernels(results: dict):
                                 for a, b in zip(dequantized(c_k, s['h']),
                                                 dequantized(c_p, s['h'])))
                 ms = cuda_ms(lambda: fd.fused_verify_step(p, x, s['h'], c_k, index, *args))
+                # the phased twin (the route #7 took before it was one launch)
+                phased_ms = cuda_ms(lambda: fd.fused_verify_step_phased(p, x, s['h'], c_k,
+                                                                        index, *args))
                 plain_ms = cuda_ms(lambda: fd.fused_verify_step_plain(p, x, s['h'], c_p, index,
                                                                       *args))
-                # Bound: every weight byte, each row's valid slots (k/v and
-                # int8 scales) once, x and y; products at the int8 (W8A8) or
-                # compute peak, the attention at the compute peak.
-                w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
-                slot_bytes = 2 * s['d'] * cache.k.element_size() + (
-                    2 * s['h'] * 2 if cache.k_scale is not None else 0)
-                nbytes = (w_bytes + s['L'] * read_slots * slot_bytes
-                          + 2 * rows * K * s['d'] * x.element_size())
-                proj_ops = rows * K * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
-                attn_ops = s['L'] * 2 * 2 * pairs * s['d']
-                t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8')
-                                                else dtype_name]
-                         + attn_ops / PEAK_FLOPS[dtype_name])
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), \
-                    'bytes' if t_bytes >= t_ops else 'operations'
+                nbytes, bound_ms, bound_by = verify_bound(p, variant, dtype_name, cache, s['h'],
+                                                          rows * K, read_slots, pairs,
+                                                          x.element_size())
                 results[(name, dtype_name)] = dict(
                     max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -1071,8 +1111,8 @@ def phase_spec_kernels(results: dict):
                      dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
                      shape=dict(L=s['L'], rows=rows, K=K, S=S, d=s['d'], h=s['h'],
                                 dff=s['dff'], index=index.tolist()),
-                     err_y=err_y, err_cache=err_c, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     err_y=err_y, err_cache=err_c, ms=ms, phased_ms=phased_ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                      tol=tol_str(dtype_name, tol), **extra)
                 del p, cache, c_k, c_p
 
@@ -1087,8 +1127,12 @@ def step_launches(launches: dict) -> dict:
 
 def phase_spec(smi: str) -> dict:
     """Speculative decode at the serving config with one beam, beside the
-    plain loop on the same weights, then under each quantized config; then
-    the full-width greedy check.  Returns the launch counts of the spec runs."""
+    plain loop on the same weights, then under each quantized config
+    (PROFILE_STEPS frames); the decode profiles of both loops (PROFILE_STEPS
+    steps); then the full-width greedy check.  Returns the launch counts of
+    the spec runs."""
+    import dataclasses
+
     import numpy as np
     import torch
     from valle2_tpu_torch.config import ConfigValle
@@ -1105,6 +1149,7 @@ def phase_spec(smi: str) -> dict:
     plain_ms = []
 
     def run(label: str, cfg, kernel: str, counted: bool):
+        max_new = cfg.max_audio_len
         tts = ValleTTS(cfg, ar=ValleAR(cfg, params=base.ar.params, device='cuda'),
                        nar=base.nar, codec=base.codec, device='cuda')
         tts.batch_synthesize(texts, pts, pcs)           # warm-up: quantizes, allocator
@@ -1156,7 +1201,8 @@ def phase_spec(smi: str) -> dict:
         run(label, cfg, 'fused_decode_step' if label == 'plain' else 'fused_verify_step',
             label == 'spec')
     for variant, (weight_dtype, cache_dtype, _) in QUANT_VARIANTS.items():
-        run(f'spec_{variant}', ConfigValle(**base_kw, **spec_kw, weight_dtype=weight_dtype,
+        run(f'spec_{variant}', ConfigValle(**{**base_kw, 'max_audio_len': PROFILE_STEPS},
+                                           **spec_kw, weight_dtype=weight_dtype,
                                            kv_cache_dtype=cache_dtype),
             step_name('fused_verify_step', variant), True)
     # decode_chunk 512: the cache padded from 901 to 1024 slots, every verify
@@ -1164,8 +1210,10 @@ def phase_spec(smi: str) -> dict:
     run('spec_chunked', ConfigValle(**base_kw, **spec_kw, decode_chunk=STREAM['chunk']),
         'fused_verify_step', True)
     for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg)):
-        emit(phase='spec', run=label, decode_profile=profile_decode(
-            ValleAR(cfg, params=base.ar.params, device='cuda'), texts, pts, pcs), card=smi)
+        cfg = dataclasses.replace(cfg, max_audio_len=PROFILE_STEPS)
+        emit(phase='spec', run=label, max_audio_len=PROFILE_STEPS,
+             decode_profile=profile_decode(ValleAR(cfg, params=base.ar.params, device='cuda'),
+                                           texts, pts, pcs), card=smi)
     greedy_spec_check('serving', {}, smi)
     return total
 
@@ -1192,8 +1240,8 @@ def profile_decode(model, texts, pts, pcs) -> dict:
         model.generate_batch(tokens, pcs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {'fused step (#6, #7)': ('proj_kernel', 'attend_kernel', 'merge_kernel',
-                                      'kv_quant'),
+    groups = {'fused step (#6, #7)': ('step_persistent_kernel', 'proj_kernel',
+                                      'attend_kernel', 'merge_kernel', 'kv_quant'),
               'flash prefill (#1)': ('flash_fwd',),
               'gemm (cuBLAS, logits)': ('gemm', 'gemv', 'nvjet', 'cutlass'),
               'sampling, drafts and bookkeeping': ('elementwise', 'reduce', 'topk', 'sort',
@@ -1671,10 +1719,12 @@ def phase_stream(smi: str) -> dict:
         model.generate_batch(tokens[:1], pcs[:1], clock=clock)
         decode_ms.setdefault('chunked' if c else 'whole_s', []).append(
             1e3 * clock.times['decode'] / n)
+    # the profiles at 512 steps: a cache of 896 slots whole, or 1024 in chunks
     profiles = {label: profile_decode(
-        ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c), params=tts.ar.params,
-                device='cuda'), texts, pts, pcs) for label, c in (('whole_s', 0),
-                                                                  ('chunked', STREAM['chunk']))}
+        ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c,
+                                    max_audio_len=STREAM['chunk']),
+                params=tts.ar.params, device='cuda'), texts, pts, pcs)
+        for label, c in (('whole_s', 0), ('chunked', STREAM['chunk']))}
     audio_s = n * 320 / 24000
     emit(phase='stream', requests=len(texts), max_audio_len=n, forced_chunk=STREAM['chunk'],
          chunk_frames=kw['chunk_frames'], lookahead_frames=kw['lookahead_frames'],
@@ -1873,20 +1923,68 @@ def persistent_case_inputs(case: str, variant: str, dt, gen, dev):
     return p, cache, x, index, (tl, cl, ttm, pm), w['h'], read
 
 
-PHASES = ('qkv', 'attention', 'out', 'ffn1', 'ffn2')
+def verify_case_inputs(case: str, variant: str, dt, gen, dev):
+    """(p, cache, x, index, (tokens_lens, codes_lens, ttm, pm), heads, read
+    slots, (query, slot) pairs) of a PERSISTENT_VERIFY case in ``variant``'s
+    formats: a (rows, K, d) block at per-row start slots ttm + pm + offset
+    (a (rows,) int32 tensor), the lengths of phase main's requests."""
+    import torch
+    c = PERSISTENT_VERIFY[case]
+    widths = (dict(L=LARGE['num_layers'], d=LARGE['d_model'], h=LARGE['n_heads'],
+                   dff=LARGE['dim_feedforward']) if c['large'] else {})
+    w = {**SLICE, **widths}
+    rows, K = c['rows'], c['K']
+    ttm, pm = c['geometry']
+    tl, cl = (t[:rows].contiguous() for t in slice_lengths(dev))
+    index = torch.tensor([ttm + pm + o for o in c['offsets']], dtype=torch.int32, device=dev)
+    p, cache = quant_step_inputs(variant, dt, gen, dev, rows=rows, S=c['S'], widths=widths)
+    x = torch.randn(rows, K, w['d'], generator=gen).to(dev, dt)
+    # Query i of row r attends tl + pl + (index - ttm - pm + 1 + i) slots; a
+    # row's slots are read once (the last query's range, the block's own
+    # slots included: written, then read).
+    prompt = int((tl + cl).sum())
+    gen_slots = [o + 1 for o in c['offsets']]
+    read = prompt + sum(g + K - 1 for g in gen_slots)
+    pairs = K * prompt + sum(K * g + K * (K - 1) // 2 for g in gen_slots)
+    return p, cache, x, index, (tl, cl, ttm, pm), w['h'], read, pairs
 
 
-def step_phases(fn, L: int, blocks: int) -> dict:
-    """One persistent #6 launch (fn) with its phase trace on
-    (fd.set_step_trace): per phase, summed over the L layers, in ms: work,
-    the slowest block's time from its own exit of the previous barrier to
-    the end of its share of the phase; mean_block, the mean block's; wake,
-    the spread of the blocks' exits from the previous barrier; barrier, from
-    the last block's end of the phase to the first block's exit; and the
-    whole launch."""
+def verify_bound(p, variant: str, dtype_name: str, cache, h: int, query_rows: int,
+                 read_slots: int, pairs: int, x_elt: int) -> tuple[int, float, str]:
+    """(bytes, ms, 'bytes' | 'operations') of one verify pass (#7) of
+    ``variant``: every weight byte, each row's valid slots (k/v and int8
+    scales; the block's own, written then read) once, x and y; products at
+    the int8 (W8A8) or compute peak, the (query, slot) pairs' attention at
+    the compute peak."""
+    from valle2_tpu_torch.train import tree_leaves
+    L, _, _, d = cache.k.shape
+    dff = p['ffn']['lin1'][next(k for k in ('w', 'q', 'q4') if k in p['ffn']['lin1'])].shape[-1]
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+    slot_bytes = 2 * d * cache.k.element_size() + (2 * h * 2 if cache.k_scale is not None
+                                                   else 0)
+    nbytes = w_bytes + L * read_slots * slot_bytes + 2 * query_rows * d * x_elt
+    proj_ops = query_rows * L * 2 * (4 * d ** 2 + 2 * d * dff)
+    attn_ops = L * 2 * 2 * pairs * d
+    t_ops = (proj_ops / PEAK_FLOPS['int8' if variant.startswith('w8a8') else dtype_name]
+             + attn_ops / PEAK_FLOPS[dtype_name])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return nbytes, 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def step_phases(fn, L: int, blocks: int, phases=None) -> dict:
+    """One persistent launch (#6 or #7: fn) with its phase trace on
+    (fd.set_step_trace), ``phases`` its phases a layer (the plan's: five,
+    or six for #7 over an int8 cache): per phase, summed over the L layers,
+    in ms: work, the slowest block's time from its own exit of the previous
+    barrier to the end of its share of the phase; mean_block, the mean
+    block's; wake, the spread of the blocks' exits from the previous
+    barrier; barrier, from the last block's end of the phase to the first
+    block's exit; and the whole launch."""
     import torch
     from valle2_tpu_torch.kernels import fused_decode as fd
-    n = 5 * L
+    phases = phases or fd.STEP_PHASES
+    npl = len(phases)
+    n = npl * L
     buf = torch.zeros(1 + 2 * n * blocks, dtype=torch.int64, device='cuda')
     torch.cuda.synchronize()
     fd.set_step_trace(buf)
@@ -1904,8 +2002,8 @@ def step_phases(fn, L: int, blocks: int) -> dict:
     prev = torch.cat([torch.full((1, blocks), float(start), dtype=t.dtype), exits[:-1]])
     own = ends - prev
     out = {}
-    for i, name in enumerate(PHASES):
-        k = slice(i, n, 5)
+    for i, name in enumerate(phases):
+        k = slice(i, n, npl)
         out[name] = dict(
             work_ms=float(own[k].max(dim=1).values.sum()) / 1e6,
             mean_block_ms=float(own[k].mean(dim=1).sum()) / 1e6,
@@ -1920,15 +2018,18 @@ def step_phases(fn, L: int, blocks: int) -> dict:
 
 
 def phase_persistent_kernels(results: dict):
-    """The persistent #6 (one cooperative launch a step) against the phased
-    route on the same inputs (fused_verify_step, a block of one token, the
-    same start slots): y and the whole cache bit for bit, in every case of
-    PERSISTENT_CASES (every weight x cache variant, whole-S and chunked, the
-    scalar and the per-row index, the serving, stream and 204M widths), f32
-    with TF32 off and bf16.  CUDA-event times of both (median of 30), their
-    host enqueue and the wrapper's host checks, the bound, the launcher's
-    grid against the host plan, and the phase trace (dense and W8A8 + int8
-    cache).  phase_step_profile shows one device kernel a step on every path."""
+    """The persistent #6 and #7 (one cooperative launch a step each) against
+    the phased twin on the same inputs (fused_verify_step_phased; for #6 a
+    block of one token at the same start slots): y and the whole cache bit
+    for bit, in every case of PERSISTENT_CASES (#6: every weight x cache
+    variant, whole-S and chunked, the scalar and the per-row index, the
+    serving, stream and 204M widths) and PERSISTENT_VERIFY (#7: the spec
+    cell in every variant, its chunked run, the 204M spec block), f32 with
+    TF32 off and bf16.  CUDA-event times of both (median of 30), their host
+    enqueue and the wrapper's host checks, the bound, the launcher's grid
+    against the host plan, and the phase trace (#6 dense and W8A8 + int8
+    cache; #7 dense, int8 cache and W8A8 + int8 cache).  phase_step_profile
+    shows one device kernel a step on every path."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import fused_decode as fd
@@ -1936,64 +2037,83 @@ def phase_persistent_kernels(results: dict):
 
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(31)
+    cases = [(case, c, 1) for case, c in PERSISTENT_CASES.items()]
+    cases += [(case, c, c['K']) for case, c in PERSISTENT_VERIFY.items()]
     with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
-        for case, c in PERSISTENT_CASES.items():
+        for case, c, K in cases:
             for dtype_name in c['dtypes']:
                 dt = getattr(torch, dtype_name)
                 for variant in c['variants']:
-                    p, cache, x, index, args, h, read = persistent_case_inputs(
-                        case, variant, dt, gen, dev)
+                    if K > 1:
+                        p, cache, x, index, args, h, read, pairs = verify_case_inputs(
+                            case, variant, dt, gen, dev)
+                        slots, step, name = index, fd.fused_verify_step, 'fused_verify_step'
+                    else:
+                        p, cache, x, index, args, h, read = persistent_case_inputs(
+                            case, variant, dt, gen, dev)
+                        slots = (index if torch.is_tensor(index) else
+                                 torch.full((x.shape[0],), index, dtype=torch.int32,
+                                            device=dev))
+                        step, name = fd.fused_decode_step, 'fused_decode_step'
                     rows = x.shape[0]
-                    slots = (index if torch.is_tensor(index) else
-                             torch.full((rows,), index, dtype=torch.int32, device=dev))
                     kw = dict(chunk_override=c['chunk'])
                     c_a, c_b = (KVCache(*(t.clone() for t in cache if t is not None))
                                 for _ in range(2))
 
-                    def persistent(c_a=c_a, p=p, x=x, h=h, index=index, args=args, kw=kw):
-                        return fd.fused_decode_step(p, x, h, c_a, index, *args, **kw)
+                    def persistent(c_a=c_a, p=p, x=x, h=h, index=index, args=args, kw=kw,
+                                   step=step):
+                        return step(p, x, h, c_a, index, *args, **kw)
 
                     def phased(c_b=c_b, p=p, x=x, h=h, slots=slots, args=args, kw=kw):
-                        return fd.fused_verify_step(p, x, h, c_b, slots, *args, **kw)
+                        return fd.fused_verify_step_phased(p, x, h, c_b, slots, *args, **kw)
 
                     chunk = fd.cache_chunk(cache, h, c['chunk'])
                     fmt = fd.weight_format(p)
                     L, d, dff = cache.k.shape[0], x.shape[-1], p['ffn']['lin1'][fmt].shape[-1]
-                    plan = fd.persistent_plan(L, rows, d, dff, h, cache.k.shape[2], chunk, fmt)
+                    plan = fd.persistent_plan(L, rows, d, dff, h, cache.k.shape[2], chunk, fmt,
+                                              q_len=K, kv8=cache.k_scale is not None)
                     grid = fd.step_grid(dt, cache.k.dtype, fmt, d // h, d, dff)
+                    label = f"persistent #{7 if K > 1 else 6} ({case}, {variant}"
                     if grid[0] < 1 or grid[1] != plan['smem_bytes']:
-                        fail(f'persistent #6 ({case}, {variant}): the launcher sizes {grid} '
-                             f"(blocks, shared bytes), the plan {plan['smem_bytes']} bytes")
+                        fail(f'{label}): the launcher sizes {grid} (blocks, shared bytes), '
+                             f"the plan {plan['smem_bytes']} bytes")
                     y_a, _ = persistent()
                     y_b, _ = phased()
                     torch.cuda.synchronize()
                     same = torch.equal(y_a, y_b) and all(
                         torch.equal(a, b) for a, b in zip(c_a, c_b) if a is not None)
                     if not same:
-                        fail(f'persistent #6 ({case}, {variant}, {dtype_name}): differs from '
-                             f'the phased route by '
+                        fail(f'{label}, {dtype_name}): differs from the phased twin by '
                              f'{(y_a.float() - y_b.float()).abs().max().item():.3e} in y')
                     ms, phased_ms = cuda_ms(persistent), cuda_ms(phased)
-                    phases = (step_phases(persistent, cache.k.shape[0], grid[0])
-                              if variant in ('dense', 'w8a8_kv8') else None)
+                    traced = ('dense', 'w8a8_kv8') + (('kv8',) if K > 1 else ())
+                    phases = (step_phases(persistent, L, grid[0], plan['phases'])
+                              if variant in traced else None)
                     enq, enq_phased = enqueue_ms(persistent), enqueue_ms(phased)
                     # the wrapper's host checks and allocations alone, no launch
                     checks_ms = enqueue_ms(lambda: fd._checked_launch_args(
-                        'fused_decode_step', p, x, h, c_a, 1, args[0], args[1], c['chunk']))
-                    nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache,
-                                                               rows, read, x.element_size())
+                        name, p, x, h, c_a, K, args[0], args[1], c['chunk']))
+                    if K > 1:
+                        nbytes, bound_ms, bound_by = verify_bound(
+                            p, variant, dtype_name, cache, h, rows * K, read, pairs,
+                            x.element_size())
+                    else:
+                        nbytes, bound_ms, bound_by = variant_bound(
+                            p, variant, dtype_name, cache, rows, read, x.element_size())
                     r = dict(ms=ms, phased_ms=phased_ms, enqueue_ms=enq,
                              phased_enqueue_ms=enq_phased, host_checks_ms=checks_ms,
                              bound_ms=bound_ms,
                              bound_by=bound_by, bit_equal=True, phases=phases)
                     results[('persistent', case, variant, dtype_name)] = r
-                    emit(phase='kernels', path='persistent', case=case, variant=variant,
-                         dtype=dtype_name, cache=str(cache.k.dtype).replace('torch.', ''),
-                         shape=dict(L=L, rows=rows, S=cache.k.shape[2], chunk=chunk, d=d, h=h,
-                                    dff=dff, index=index.tolist() if torch.is_tensor(index)
+                    emit(phase='kernels', path='persistent', kernel=name, case=case,
+                         variant=variant, dtype=dtype_name,
+                         cache=str(cache.k.dtype).replace('torch.', ''),
+                         shape=dict(L=L, rows=rows, K=K, S=cache.k.shape[2], chunk=chunk, d=d,
+                                    h=h, dff=dff, index=index.tolist() if torch.is_tensor(index)
                                     else index),
                          grid=dict(blocks=grid[0], smem_bytes=grid[1]),
                          plan=plan, bytes=nbytes, **r)
+                    del p, cache, c_a, c_b
 
 
 def kernel_label(name: str) -> str:
@@ -2006,8 +2126,9 @@ def kernel_label(name: str) -> str:
 
 def step_profile(label: str, fn) -> dict:
     """torch.profiler over fn() (a decode through the fused step, warmed up
-    first): per launch of #6 (its counters), the device kernels of the step
-    (STEP_KERNELS: 1 for the persistent step), its device time, its span on
+    first): per launch of #6 or #7 (their counters), the device kernels of
+    the step (STEP_KERNELS: 1 for the persistent step), its device time, its
+    span on
     the device (first start to last end of each run of step kernels, one run
     a step) and the gaps inside the span; the device's busy share of the
     wall (the union of every kernel's interval) and the step's kernels by
@@ -2018,7 +2139,7 @@ def step_profile(label: str, fn) -> dict:
     from valle2_tpu_torch.kernels import fused_decode as fd
 
     def launches():
-        return sum(c.count for c in fd.COUNTERS.values())
+        return sum(c.count for c in (*fd.COUNTERS.values(), *fd.VERIFY_COUNTERS.values()))
     fn()
     torch.cuda.synchronize()
     n0 = launches()
@@ -2072,13 +2193,18 @@ def step_profile(label: str, fn) -> dict:
 
 def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     """The token-loop profile of every single-card path's step (step_profile):
-    main (the serving config: bf16, 4 beams, 512 steps, 3 requests), quant
-    (W8A8 with the int8 cache, and W4A16; 128 steps), stream (one row, the
-    streaming model's forced chunk 512 of 1024), cb (a ContinuousDecoder of 4
+    main (the serving config: bf16, 4 beams, PROFILE_STEPS steps, 3
+    requests), quant (W8A8 with the int8 cache, and W4A16; 128 steps),
+    stream (one row, the streaming model's chunk 512, 512 steps in a cache
+    of 1024), cb (a ContinuousDecoder of 4
     sessions: the per-row index), clone (ValleTTS.__call__ on a 3 s prompt
     recording, one beam, 128 steps), hub (a StreamHub of two sessions from
-    their own threads), large (the 204M stack, one row, 64 steps).
-    ``require_one``: fail unless every path ran one device kernel a step
+    their own threads), large (the 204M stack, one row, 64 steps); and the
+    speculative loops through #7: spec (the serving config at one beam, K =
+    4, ngram 3, PROFILE_STEPS steps), large_spec (the 204M stack, one row,
+    K = 4, 64 steps), cb_spec (the ContinuousDecoder's speculative joint
+    loop, 4 sessions).  ``require_one``: fail unless every path ran one device kernel
+    a step (or verify pass)
     (``record``: a phased step kernel, or more step kernels than launches,
     fails at once; fewer means the profiler lost records, and the profile
     is taken again, up to ``PROFILE_REPEATS`` times, until one shows exactly
@@ -2096,7 +2222,7 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     tok = PhonemeTokenizer()
     tokens = [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
     base = dict(ignore_eos=True, dropout=0.0, dtype='bfloat16')
-    main = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], **base), device='cuda')
+    main = ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, **base), device='cuda')
     out = {}
 
     def record(label, fn):
@@ -2106,7 +2232,7 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
             if not require_one:
                 return
             seen = (f'{r["step_kernels"]} step kernels ({r["phased_kernels"]} phased) '
-                    f'for {r["launches"]} launches of #6')
+                    f'for {r["launches"]} launches of #6 / #7')
             if (r['launches'] < 1 or r['phased_kernels']
                     or r['step_kernels'] > r['launches']):
                 fail(f'step profile ({label}): {seen}')
@@ -2115,12 +2241,16 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
         fail(f'step profile ({label}): {seen} in each of {1 + PROFILE_REPEATS} profiles')
 
     record('main', lambda: main.generate_batch(tokens, pcs))
+    spec_kw = dict(num_beams=1, speculative_k=SPEC['K'], speculative_ngram=SPEC['ngram'])
+    spec = ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, **spec_kw, **base),
+                   params=main.params, device='cuda')
+    record('spec', lambda: spec.generate_batch(tokens, pcs))
     for label, wd, kd in (('quant_w8a8_kv8', 'int8', 'int8'), ('quant_w4a16', 'int4',
                                                                   'bfloat16')):
         m = ValleAR(ConfigValle(max_audio_len=128, weight_dtype=wd, kv_cache_dtype=kd, **base),
                     params=main.params, device='cuda')
         record(label, lambda m=m: m.generate_batch(tokens, pcs))
-    stream = ValleAR(ConfigValle(max_audio_len=STREAM['max_new'], num_beams=1,
+    stream = ValleAR(ConfigValle(max_audio_len=STREAM['chunk'], num_beams=1,
                                  decode_chunk=STREAM['chunk'], **base),
                      params=main.params, device='cuda')
     record('stream', lambda: stream.generate_batch(tokens[:1], pcs[:1]))
@@ -2135,6 +2265,17 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
         for _ in range(4):
             cb.advance(CB['chunk_frames'])
     record('cb', cb_run)
+    one_spec = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], **spec_kw, **base),
+                       params=main.params, device='cuda')
+
+    def cb_spec_run():
+        cb = ContinuousDecoder(one_spec, n_slots=4, ttm=CB['ttm'], pm=CB['pm'],
+                               speculative=True)
+        for t, pc in zip(cb_tokens, cb_pcs):
+            cb.join(t, pc)
+        for _ in range(4):
+            cb.advance(CB['chunk_frames'])
+    record('cb_spec', cb_spec_run)
     # Cloning (ValleTTS.__call__: a prompt recording through the codec, then
     # the decode) and the stream hub (two sessions from their own threads).
     tts = ValleTTS(ConfigValle(max_audio_len=128, num_beams=1, **base),
@@ -2153,7 +2294,10 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     large = ValleAR(ConfigValle(max_audio_len=64, num_beams=1, **LARGE, **base),
                     device='cuda')
     record('large', lambda: large.generate_batch(tokens[:1], pcs[:1]))
-    del main, stream, one, large, tts
+    large_spec = ValleAR(ConfigValle(max_audio_len=64, **LARGE, **spec_kw, **base),
+                         params=large.params, device='cuda')
+    record('large_spec', lambda: large_spec.generate_batch(tokens[:1], pcs[:1]))
+    del main, spec, stream, one, one_spec, large, large_spec, tts
     torch.cuda.empty_cache()
     return out
 
@@ -4033,41 +4177,42 @@ def main() -> int:
              f'the checkout that holds this script')
 
     smi = phase_device()
-    phase_build()
+    timed(phase_build)
     results: dict = {}
-    phase_kernels(results)
-    phase_quant_kernels(results)
-    phase_spec_kernels(results)
-    phase_chunk_kernels(results)
-    phase_per_row_kernels(results)
-    phase_persistent_kernels(results)
-    phase_flash_tc_kernels(results)
-    phase_tp_kernels(results)
-    phase_rvq_kernel(results)
-    phase_greedy()
-    paths = {'serve': phase_main()}
-    phase_step_profile(smi)
-    paths['quant'] = phase_quant(smi)
-    paths['spec'] = phase_spec(smi)
-    paths['stream'] = phase_stream(smi)
-    paths['cb'] = phase_cb(smi)
-    paths['hub'] = phase_hub(smi)
-    paths['tp'] = phase_tp(['cuda:0'] * 2, smi)
-    phase_codec()
-    paths['clone'] = phase_clone()
-    paths['asr'] = phase_asr()
-    phase_train_kernels(results)
-    phase_grads()
-    paths['train'] = phase_train(smi)
-    paths['data'] = phase_data()
-    phase_fit()
-    phase_profile(smi)
-    phase_profile(smi, 'ValleNAR')
-    phase_large_kernels(results)
-    paths['large'] = phase_large(smi)
-    phase_fold_kernels(results)
-    paths['fold'] = phase_fold(smi)
-    paths['gemm'] = phase_gemm(results, smi)
+    timed(phase_kernels, results)
+    timed(phase_quant_kernels, results)
+    timed(phase_spec_kernels, results)
+    timed(phase_chunk_kernels, results)
+    timed(phase_per_row_kernels, results)
+    timed(phase_persistent_kernels, results)
+    timed(phase_flash_tc_kernels, results)
+    timed(phase_tp_kernels, results)
+    timed(phase_rvq_kernel, results)
+    timed(phase_greedy)
+    paths = {'serve': timed(phase_main)}
+    timed(phase_step_profile, smi)
+    paths['quant'] = timed(phase_quant, smi)
+    paths['spec'] = timed(phase_spec, smi)
+    paths['stream'] = timed(phase_stream, smi)
+    paths['cb'] = timed(phase_cb, smi)
+    paths['hub'] = timed(phase_hub, smi)
+    paths['tp'] = timed(phase_tp, ['cuda:0'] * 2, smi)
+    timed(phase_codec)
+    paths['clone'] = timed(phase_clone)
+    paths['asr'] = timed(phase_asr)
+    timed(phase_train_kernels, results)
+    timed(phase_grads)
+    paths['train'] = timed(phase_train, smi)
+    paths['data'] = timed(phase_data)
+    timed(phase_fit)
+    timed(phase_profile, smi)
+    timed(phase_profile, smi, 'ValleNAR')
+    timed(phase_large_kernels, results)
+    paths['large'] = timed(phase_large, smi)
+    timed(phase_fold_kernels, results)
+    paths['fold'] = timed(phase_fold, smi)
+    paths['gemm'] = timed(phase_gemm, results, smi)
+    emit(phase_seconds=PHASE_SECONDS)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
     for name, src, replaces, shape_key, extra, dtypes, on_paths in (
@@ -4090,7 +4235,7 @@ def main() -> int:
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
             ('fused_decode_step_chunked', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'quant', 'stream', 'large')),
-            ('fused_verify_step_chunked', 'fused_decode.cu', 'fused_decode.py:1017', None, {},
+            ('fused_verify_step_chunked', 'fused_step.cu', 'fused_decode.py:1017', None, {},
              ('bfloat16', 'float32'), ('spec',)),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
@@ -4098,7 +4243,7 @@ def main() -> int:
             *((f'fused_decode_step_{v}', 'fused_step.cu', 'fused_decode.py:706', None, {},
                ('bfloat16', 'float32'), ('quant', 'large') if v == 'w8a8' else ('quant',))
               for v in QUANT_VARIANTS),
-            *((step_name('fused_verify_step', v), 'fused_decode.cu', 'fused_decode.py:1017',
+            *((step_name('fused_verify_step', v), 'fused_step.cu', 'fused_decode.py:1017',
                None, {}, ('bfloat16', 'float32'), ('spec', 'large') if v in ('dense', 'w8a8')
                else ('spec',)) for v in VERIFY_VARIANTS),
             ('fused_decode_step_per_row', 'fused_step.cu', 'fused_decode.py:706', None, {},
@@ -4162,7 +4307,7 @@ def main() -> int:
                 f'{case}_{v}': {DTYPE_LABEL[d]: {k: results[('persistent', case, v, d)][k]
                                                  for k in ('ms', 'phased_ms', 'enqueue_ms',
                                                            'phased_enqueue_ms')}
-                                for d in PERSISTENT_CASES[case]['dtypes']}
+                                for d in ALL_PERSISTENT[case]['dtypes']}
                 for case, v in PERSISTENT_ROWS[name]}
         if name == 'flash_attention_fwd':
             entry['cuda_cores_ms'] = {

@@ -34,11 +34,16 @@ per-head route, the roofline probe's GEMMs (#9,
 #10) at every tile and K split they are built for (#10 at one slice bit for
 bit equal to #9, clusters of 5 to 8 slices, #9's persistent grid with more
 and fewer tiles than SMs, #10's memory: C alone, and the SASS of both:
-wgmma and TMA, no mma.sync), and the wrappers' refusals.  The persistent #6 (one cooperative launch a step) is held bit for
-bit against the phased route (``fused_verify_step`` with a block of one
-token) in every weight x cache variant, whole-S and chunked, with a scalar
-and a per-row index, at the serving and 204M widths, and shown to be one
-device kernel a launch; the bf16 CUDA-core routes of the flash forward and
+wgmma and TMA, no mma.sync), and the wrappers' refusals.  The persistent
+#6 and #7 (each one cooperative launch a step) are held bit for bit against
+the phased twin (``fused_verify_step_phased``; #6 as a block of one token)
+in every weight x cache variant, whole-S and chunked, at the serving and
+204M widths: #6 with a scalar and a per-row index, #7 with blocks of 2, 4
+and 8 tokens (one straddling a chunk boundary, one ending at S - 1, one
+whose last slots reach S and are skipped), and an int8 cache whose block
+queries read the slots their block's earlier queries wrote; each is one
+device kernel a launch and computes every row as that row alone; the bf16
+CUDA-core routes of the flash forward and
 backward, which ``chip_smoke.py`` times beside the tensor-core ones, are
 held against the plain versions too.  The backward's tensor-core route
 gives zero dq to rows that see no key; #4 and #5 repeat bit for bit from
@@ -49,6 +54,7 @@ tensor-core route's bits are pinned by digest (``TC_BITS``).
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1060,16 +1066,19 @@ def test_wide_stack_steps_match_plain(dev, variant):
         torch.testing.assert_close(c_k.v, c_p.v, **tol)
 
 
-# The persistent #6 (one cooperative launch a step) against the phased route
-# on the same inputs: fused_verify_step with a block of one token and the
-# same start slots runs the phased kernels, whose device code every item of
-# the persistent step runs, so the two agree bit for bit.  Widths (h, hd):
-# the serving model's (d 256) and the 204M stack's (d 1024, dff 4096: FFN2
-# takes the 8-row tile), 8 rows in a cache of S = 128, whole or chunked (64).
+# The persistent #6 and #7 (one cooperative launch a step) against the
+# phased twin on the same inputs: fused_verify_step_phased (for #6 with a
+# block of one token and the same start slots) runs the phased kernels, whose
+# device code every item of the persistent step runs, so the two agree bit
+# for bit.  Widths (h, hd): the serving model's (d 256) and the 204M stack's
+# (d 1024, dff 4096: FFN2 takes the 8-row tile), in a cache of S = 128,
+# whole or chunked (64).
 PERSISTENT_WIDTHS = {'serving': (4, 64), 'w204m': (16, 64)}
 
 
-def persistent_inputs(dev, variant, dtype, widths, rows=8, L=2, ttm=24, pm=16, S=128):
+def persistent_inputs(dev, variant, dtype, widths, rows=8, L=2, ttm=24, pm=16, S=128, K=1):
+    """A stack and fused cache of ``variant``, a (rows, K, d) block and
+    per-row lengths (row 0 with no source tokens)."""
     h, hd = PERSISTENT_WIDTHS[widths]
     d = h * hd
     gen = torch.Generator().manual_seed(d + rows)
@@ -1084,7 +1093,7 @@ def persistent_inputs(dev, variant, dtype, widths, rows=8, L=2, ttm=24, pm=16, S
         cache = KVCache(*(t.to(dev) for t in (kq, vq, ks, vs)))
     else:
         cache = KVCache(ck.to(dev, dtype), cv.to(dev, dtype))
-    x = torch.randn(rows, 1, d, generator=gen).to(dev, dtype)
+    x = torch.randn(rows, K, d, generator=gen).to(dev, dtype)
     rs = np.random.RandomState(rows)
     tl = rs.randint(0, ttm + 1, rows)
     tl[0] = 0
@@ -1118,7 +1127,8 @@ def test_persistent_step_equals_the_phased_route(dev, variant, widths, chunk, in
     before = fd.COUNTERS[variant].count
     y_a, _ = fd.fused_decode_step(p, x, h, c_a, index, tl, cl, ttm, pm, chunk_override=chunk)
     assert fd.COUNTERS[variant].count == before + 1
-    y_b, _ = fd.fused_verify_step(p, x, h, c_b, slots, tl, cl, ttm, pm, chunk_override=chunk)
+    y_b, _ = fd.fused_verify_step_phased(p, x, h, c_b, slots, tl, cl, ttm, pm,
+                                         chunk_override=chunk)
     torch.cuda.synchronize()
     assert torch.isfinite(y_a.float()).all()
     assert torch.equal(y_a, y_b)
@@ -1182,6 +1192,45 @@ def test_persistent_step_is_one_device_kernel(dev, variant):
     assert len(names) == 3 and all('step_persistent_kernel' in n for n in names), names
 
 
+@pytest.mark.parametrize('variant', ['dense', 'w8a8_kv8'])
+def test_persistent_verify_is_one_device_kernel(dev, variant):
+    """torch.profiler: three #7 launches (chunked, K = 4, the int8 cache's
+    write phase included) run three device kernels, each the persistent
+    step; the phased kernels do not run.  A profile that saw fewer than three
+    lost records (chip_smoke.py's step profile meets the same; late in a long
+    process the profiler has kept one kernel of three, where a fresh
+    process saw all three): it is taken again, up to three times, with 50 ms
+    of host time at each end of its window, and one must see exactly three;
+    a phased kernel, or more than three, fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    K = 4
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, torch.bfloat16,
+                                                          'serving', rows=4, K=K)
+    index = verify_twin_slots(ttm, pm, cache.k.shape[2], K, dev)
+    fd.fused_verify_step(p, x, h, cache, index, tl, cl, ttm, pm, chunk_override=64)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        before = fd.VERIFY_COUNTERS[variant].count
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(10000)   # the profiler may miss its window's first kernel
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for _ in range(3):
+                fd.fused_verify_step(p, x, h, cache, index, tl, cl, ttm, pm, chunk_override=64)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        assert fd.VERIFY_COUNTERS[variant].count == before + 3
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not any(w in e.name.lower() for w in ('sleep', 'spin'))]
+        assert len(names) <= 3 and all('step_persistent_kernel' in n for n in names), names
+        seen.append(len(names))
+        if len(names) == 3:
+            break
+    assert seen[-1] == 3, seen
+
+
 @pytest.mark.parametrize('layout', ['w', 'q', 'q4'])
 @pytest.mark.parametrize('dims', [(256, 4, 1024), (1024, 16, 4096), (3072, 24, 3072),
                                   (6144, 48, 6144)], ids=['serving', 'w204m', 'k3072',
@@ -1214,25 +1263,146 @@ def test_persistent_step_refuses_what_it_does_not_take(dev):
         fd.step_grid(torch.bfloat16, torch.float32, 'w', 64, 256, 1024)
 
 
+# The persistent #7 against its phased twin: blocks of K tokens on 4 rows at
+# their own start slots in a cache of S = 128 -- the first generated slot,
+# slot 63 (the block straddles the chunk boundary at 64), S - K (the block
+# ends at S - 1) and S - 1 (the block's slots past S - 1 are skipped).
+def verify_twin_slots(ttm, pm, S, K, dev):
+    return torch.tensor([ttm + pm, 63, S - K, S - 1], dtype=torch.int32, device=dev)
+
+
+def hold_to_the_twin(p, x, h, cache, index, tl, cl, ttm, pm, chunk):
+    """Run #7 and its phased twin on clones of ``cache``: y and the whole
+    cache (codes and scales too) bit for bit; #7 counted once in its
+    variant (and, below S, the chunked counter), the twin once in its own.
+    Returns (y, the cache #7 left)."""
+    var = fd.variant(p, cache)
+    c_a, c_b = (KVCache(*(t.clone() for t in cache if t is not None)) for _ in range(2))
+    counters = (fd.VERIFY_COUNTERS[var], fd.CHUNKED_COUNTERS['fused_verify_step'],
+                fd.PHASED_COUNTER)
+    before = [n.count for n in counters]
+    y_a, _ = fd.fused_verify_step(p, x, h, c_a, index, tl, cl, ttm, pm, chunk_override=chunk)
+    y_b, _ = fd.fused_verify_step_phased(p, x, h, c_b, index, tl, cl, ttm, pm,
+                                         chunk_override=chunk)
+    torch.cuda.synchronize()
+    chunked = fd.cache_chunk(cache, h, chunk) < cache.k.shape[2]
+    assert [n.count - b for n, b in zip(counters, before)] == [1, int(chunked), 1]
+    assert torch.isfinite(y_a.float()).all()
+    assert torch.equal(y_a, y_b), float((y_a.float() - y_b.float()).abs().max())
+    for a, b in zip(c_a, c_b):
+        if a is not None:
+            assert torch.equal(a, b)
+    return y_a, c_a
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('K', [2, 4, 8])
+@pytest.mark.parametrize('chunk', [None, 64], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('widths', sorted(PERSISTENT_WIDTHS))
+@pytest.mark.parametrize('variant', VERIFY_VARIANTS)
+def test_persistent_verify_equals_the_phased_twin(dev, variant, widths, chunk, K, dtype):
+    """#7 as one cooperative launch, bit for bit against the phased twin, in
+    every weight x cache variant, whole-S and chunked, at the serving and
+    204M widths; every block written where the twin writes it, a block's
+    slots at S and past skipped (that row's cache past S - K + 1 unchanged
+    but for the slots the block wrote)."""
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, dtype, widths, rows=4,
+                                                          K=K)
+    S = cache.k.shape[2]
+    assert fd.cache_chunk(cache, h, chunk) == (chunk or S)
+    index = verify_twin_slots(ttm, pm, S, K, dev)
+    _, out = hold_to_the_twin(p, x, h, cache, index, tl, cl, ttm, pm, chunk)
+    written = written_slots(index, K, S)
+    for got, orig in zip(out, cache):
+        if got is not None:
+            assert torch.equal(got[:, ~written], orig[:, ~written])
+            assert not torch.equal(got[:, 3, S - 1], orig[:, 3, S - 1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('chunk', [None, 64], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('variant', ['kv8', 'w8a8_kv8', 'w4a16_kv8'])
+def test_persistent_verify_int8_queries_read_their_blocks_slots(dev, variant, chunk, dtype):
+    """The hazard of an int8 cache at K > 1: query i reads the slots of
+    queries 0 .. i-1 of its block, which other blocks of the grid quantize.
+    12 rows x K = 8 at the 204M widths (96 query rows, every block busy) with
+    the block's slots first holding the largest codes and scales the cache
+    takes, then zeros: y and the cache are the same bits both times (no
+    query read a slot before its write landed) and the phased twin's, in
+    five repeats."""
+    K = 8
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, dtype, 'w204m', rows=12,
+                                                          K=K)
+    S = cache.k.shape[2]
+    index = torch.tensor([ttm + pm + (7 * r) % 60 for r in range(11)] + [S - K],
+                         dtype=torch.int32, device=dev)
+    written = written_slots(index, K, S)
+    results = []
+    for fill in (127, 0):
+        stale = KVCache(*(t.clone() for t in cache))
+        for t in stale:
+            t[:, written] = fill if t.dtype == torch.int8 else float(fill + 1)
+        for _ in range(5):
+            results.append(hold_to_the_twin(p, x, h, stale, index, tl, cl, ttm, pm, chunk))
+    y0, c0 = results[0]
+    for y, c in results[1:]:
+        assert torch.equal(y, y0) and all(torch.equal(a, b) for a, b in zip(c, c0))
+
+
+@pytest.mark.parametrize('chunk', [None, 64], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('variant', ['dense', 'w8a8_kv8'])
+def test_persistent_verify_rows_do_not_depend_on_each_other(dev, variant, chunk):
+    """Each row of a 4-row verify pass (K = 4, bf16) equals that row's block
+    verified alone, y and cache bit for bit, and three repeats of the 4-row
+    pass from the same cache are identical."""
+    K = 4
+    p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, variant, torch.bfloat16,
+                                                          'serving', rows=4, K=K)
+    index = verify_twin_slots(ttm, pm, cache.k.shape[2], K, dev)
+    runs = []
+    for _ in range(3):
+        c = KVCache(*(t.clone() for t in cache if t is not None))
+        y, _ = fd.fused_verify_step(p, x, h, c, index, tl, cl, ttm, pm, chunk_override=chunk)
+        runs.append((y, c))
+    y, full = runs[0]
+    for y2, c2 in runs[1:]:
+        assert torch.equal(y2, y) and all(torch.equal(a, b) for a, b in zip(c2, full)
+                                          if a is not None)
+    for r in range(x.shape[0]):
+        one = KVCache(*(t[:, r:r + 1].clone() for t in cache if t is not None))
+        y1, _ = fd.fused_verify_step(p, x[r:r + 1].contiguous(), h, one,
+                                     index[r:r + 1].contiguous(), tl[r:r + 1].contiguous(),
+                                     cl[r:r + 1].contiguous(), ttm, pm, chunk_override=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(y1[0], y[r])
+        assert all(torch.equal(a[:, r:r + 1], b) for a, b in zip(full, one) if a is not None)
+
+
 def test_verify_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """The persistent #7 and its phased twin refuse the same inputs, before
+    any launch (no count moves)."""
     p, x, cache, (tl, cl), ttm, pm, index = verify_inputs(dev, 'dense', torch.float32, 32, 3, 4)
     c = KVCache(*cache)
-    with pytest.raises(ValueError, match='start slots'):
-        fd.fused_verify_step(p, x, 2, c, index.long(), tl, cl, ttm, pm)
-    with pytest.raises(ValueError, match='start slots'):
-        fd.fused_verify_step(p, x, 2, c, index[:2].contiguous(), tl, cl, ttm, pm)
-    with pytest.raises(ValueError, match='start slots'):
-        fd.fused_verify_step(p, x, 2, c, index.cpu(), tl, cl, ttm, pm)
-    with pytest.raises(ValueError, match='start slots'):
-        fd.fused_verify_step(p, x, 2, c, ttm + pm, tl, cl, ttm, pm)
-    with pytest.raises(ValueError, match='block'):
-        fd.fused_verify_step(p, x[:, 0], 2, c, index, tl, cl, ttm, pm)
-    with pytest.raises(ValueError, match='contiguous'):
-        fd.fused_verify_step(p, x.transpose(0, 1).contiguous().transpose(0, 1), 2, c, index,
-                             tl, cl, ttm, pm)
-    with pytest.raises(TypeError, match='bfloat16 cache'):
-        fd.fused_verify_step(map_tree(lambda a: a.bfloat16(), p), x.bfloat16(), 2, c, index,
-                             tl, cl, ttm, pm)
+    counters = (fd.PHASED_COUNTER, *fd.VERIFY_COUNTERS.values())
+    before = [n.count for n in counters]
+    for step in (fd.fused_verify_step, fd.fused_verify_step_phased):
+        with pytest.raises(ValueError, match='start slots'):
+            step(p, x, 2, c, index.long(), tl, cl, ttm, pm)
+        with pytest.raises(ValueError, match='start slots'):
+            step(p, x, 2, c, index[:2].contiguous(), tl, cl, ttm, pm)
+        with pytest.raises(ValueError, match='start slots'):
+            step(p, x, 2, c, index.cpu(), tl, cl, ttm, pm)
+        with pytest.raises(ValueError, match='start slots'):
+            step(p, x, 2, c, ttm + pm, tl, cl, ttm, pm)
+        with pytest.raises(ValueError, match='block'):
+            step(p, x[:, 0], 2, c, index, tl, cl, ttm, pm)
+        with pytest.raises(ValueError, match='contiguous'):
+            step(p, x.transpose(0, 1).contiguous().transpose(0, 1), 2, c, index, tl, cl, ttm,
+                 pm)
+        with pytest.raises(TypeError, match='bfloat16 cache'):
+            step(map_tree(lambda a: a.bfloat16(), p), x.bfloat16(), 2, c, index, tl, cl, ttm,
+                 pm)
+    assert [n.count for n in counters] == before
     odd = torch.randn(1, 2, 4, 96, device=dev)           # hd 48: no kernel takes it
     pw = transformer_init(torch.Generator().manual_seed(0), 1, 96, 2, 192, adaptive_norm=False)
     pw = map_tree(lambda a: a.to(dev).contiguous(), pw)
@@ -1240,6 +1410,8 @@ def test_verify_wrapper_refuses_what_the_kernel_does_not_take(dev):
     one = torch.ones(1, dtype=torch.int32, device=dev)
     for call in (lambda: fd.fused_verify_step(pw, odd[:, :1].reshape(1, 4, 96)
                                               .contiguous(), 2, ow, 40, one, one, 8, 8),
+                 lambda: fd.fused_verify_step_phased(pw, odd[:, :1].reshape(1, 4, 96)
+                                                     .contiguous(), 2, ow, one, one, one, 8, 8),
                  lambda: fd.fused_decode_step(pw, odd[0, :1, :1].contiguous(), 2, ow, 40, one,
                                               one, 8, 8)):
         with pytest.raises(ValueError, match='head dims'):

@@ -30,10 +30,11 @@
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order.  The step is five phases per
 // layer (six with an int8 cache, one more with a chunked cache), each one
-// grid of blocks.  The phased route (#7, and each rank of the TP step)
-// launches each phase as its own kernel, in turn on one stream, from one
-// host call; #6 on one card runs them all in ONE cooperative launch, the
-// persistent step (below).  The phases:
+// grid of blocks.  The phased route (each rank of the TP step, and the
+// phased twin valle2_fused_verify_step_phased, the bit-exact reference of
+// the persistent steps) launches each phase as its own kernel, in turn on
+// one stream, from one host call; #6 and #7 on one card run them all in ONE
+// cooperative launch, the persistent step (below).  The phases:
 //
 //   1. proj<QKV>:  LN1 -> fused QKV.  q (pre-scaled by 1/sqrt(hd), f32) goes to
 //                  scratch; k_new / v_new are rounded to the cache dtype and
@@ -160,28 +161,41 @@
 // tile of 8 rows, up to 6144 (5120): more than 8 query rows then read each
 // weight once per 8-row tile.
 //
-// The persistent step (#6 on one card, step_persistent_kernel, launched by
-// csrc/fused_step.cu; the device code of both routes is fused_decode.cuh): one
-// cooperative launch a step, its grid the card's co-resident capacity (SM
+// The persistent step (#6 and #7 on one card, step_persistent_kernel,
+// launched by csrc/fused_step.cu; the device code of both routes is
+// fused_decode.cuh): one cooperative launch a step, its grid the card's
+// co-resident capacity (SM
 // count x blocks per SM at the step's shared memory; a card that takes no
 // cooperative launch, or no block, is refused), every block of PNT = 512
 // threads.  The blocks walk the layers together; in each layer every phase
 // spreads its items over all the blocks, in turn (block b takes items b, b +
 // grid, ...), and a grid-wide barrier (cooperative_groups' grid sync)
 // separates the phases: QKV; the attention; OUT; FFN1; FFN2 -- 5 barriers a
-// layer, 5 L - 1 a step, at any weight or cache format.  Two of the phased
-// route's kernels fold into their consumers: the int8 cache write into the
-// attention item that holds the query's own slot (its warps 0 and 1 quantize
-// the head's k and v, a named barrier, then the walk reads them back), and
-// the chunks' merge into the OUT tile's operand prologue (merge_chunks).  An
-// item is the phased route's block on the same device code (proj_block,
-// attend_item, kv_quant_warp, merge_chunks): a projection tile of up to 16
-// rows x 32 columns summing the same 16 K slices in slice order in shared
-// memory, the same LayerNorm prologue, the same rounding points.  So every
-// output element is computed alike and the persistent step is bit-equal to
-// the phased route (fused_verify_step with a block of one token runs it).
-// An attention item (query row, head[, chunk]) takes ANW = 16 warps, the
-// whole block, synchronised by a named barrier.
+// layer, 5 L - 1 a step, at any weight or cache format but one.  Two of the
+// phased route's kernels fold into their consumers: #6's int8 cache write
+// into the attention item that holds the query's own slot (its warps 0 and
+// 1 quantize the head's k and v, a named barrier, then the walk reads them
+// back), and the chunks' merge into the OUT tile's operand prologue
+// (merge_chunks).  #7 (qblk = K > 1 query rows a cache row, from per-row
+// start slots) runs the same phases over rows * K query rows: QKV writes a
+// float cache's K new slots in place before the barrier, so every query
+// reads its block's earlier slots after it.  Its int8 cache write cannot
+// fold: query i also reads the slots of queries 0 .. i-1, quantized by
+// other items, on other blocks, in the same phase.  So with an int8 cache
+// #7 runs the write as a phase of its own between QKV and the attention
+// (run_kv_quant: kv_quant_kernel's warps, one per (query row, head, k|v),
+// 16 a block), 6 barriers a layer, 6 L - 1 a step; the codes are those of
+// the phased kv_quant_kernel.  An item is the phased route's block on the
+// same device code (proj_block, attend_item, kv_quant_warp, merge_chunks):
+// a projection tile of up to 16 rows x 32 columns summing the same 16 K
+// slices in slice order in shared memory, the same LayerNorm prologue, the
+// same rounding points.  So every output element is computed alike and the
+// persistent step is bit-equal to the phased twin
+// (valle2_fused_verify_step_phased; with a block of one token it runs #6's
+// phases).  An attention item (query row, head[, chunk]) takes ANW = 16
+// warps, the whole block, synchronised by a named barrier.  The block length
+// is a runtime argument: #7 adds no instantiation to the build, and its
+// grid and shared memory are #6's.
 // While a layer's attention runs, every thread issues L2 prefetches of that
 // layer's OUT / FFN1 / FFN2 weights and the next layer's QKV weights, so the
 // projections that follow read L2 rather than device memory (at 204M a layer
@@ -194,15 +208,14 @@
 // a tile's K slices over blocks, with the partials summed in slice order by
 // the consuming phase, would spread them further at the same arithmetic; a
 // CUDA graph of the token loop, the tensor cores at larger row counts, and
-// the persistent form of #7 and of the TP step (cross-card barriers) are
-// later work.
+// the persistent form of the TP step (cross-card barriers) are later work.
 
 #include "fused_decode.cuh"
 
 namespace {
 
-// The phased step: 5-7 launches a layer on one stream (#7; one rank of the
-// TP step is attn_phase / ffn_phase with 5c between them).
+// The phased step: 5-7 launches a layer on one stream (the phased twin; one
+// rank of the TP step is attn_phase / ffn_phase with 5c between them).
 int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_args(s)) return (int)cudaErrorInvalidValue;
@@ -370,13 +383,17 @@ int step_tp(Ranks& k, const StepArgs* s, cudaStream_t const* caller) {
 // f32 (int8 cache only), and with chunk < S (S a multiple of chunk) part
 // (., h, S / chunk, hd + 2) f32, the chunks' partial softmaxes; chunk == S
 // takes the one-block-per-(query row, head) attention.  Returns the first
-// non-zero cudaGetLastError() of the launches.  #6, the decode step, is
-// csrc/fused_step.cu's valle2_fused_decode_step (one persistent launch).
+// non-zero cudaGetLastError() of the launches.  #6 and #7 are
+// csrc/fused_step.cu's valle2_fused_decode_step and valle2_fused_verify_step
+// (one persistent launch each, the same arguments).
 
-// #7: qblk tokens per row, x and y (rows, qblk, d); row r's block is written
-// at slots idx[r] .. idx[r] + qblk - 1 (a device pointer, never read by the
-// host), each slot >= S skipped.
-extern "C" int valle2_fused_verify_step(
+// The phased twin of #7 (and, with qblk 1, of #6): qblk tokens per row, x
+// and y (rows, qblk, d); row r's block is written at slots idx[r] .. idx[r]
+// + qblk - 1 (a device pointer, never read by the host), each slot >= S
+// skipped.  One kernel per phase, 5-7 a layer: the bit-exact reference the
+// persistent steps are held to (tests, chip_smoke.py); no serving path
+// launches it.
+extern "C" int valle2_fused_verify_step_phased(
     int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
     const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
     const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,

@@ -1,7 +1,7 @@
 // The fused decode step's device code and launchers, shared by the phased
-// kernels (csrc/fused_decode.cu: #7, the TP step, 5c) and the persistent #6
-// (csrc/fused_step.cu, built once per weight format).  The design is in
-// fused_decode.cu's header.
+// kernels (csrc/fused_decode.cu: the phased twin, the TP step, 5c) and the
+// persistent #6 and #7 (csrc/fused_step.cu, built once per weight format).
+// The design is in fused_decode.cu's header.
 #pragma once
 
 #include <math.h>
@@ -27,6 +27,11 @@ constexpr int ANW = 16;      // warps per attention item
 constexpr int UNR = 8;       // slots per warp iteration in the attention loop
 constexpr int KVQ_WARPS = 4; // warps per block of the int8 cache write
 constexpr float LN_EPS = 1e-5f;
+// Phases a layer of the persistent step: QKV, attention, OUT, FFN1, FFN2;
+// with an int8 cache and a block of more than one token a row (#7) the cache
+// write is a phase of its own between QKV and the attention.
+constexpr int STEP_PHASES = 5;
+constexpr int STEP_PHASES_KVQ = 6;
 
 enum Mode { QKV = 0, OUT = 1, FFN1 = 2, FFN2 = 3 };
 enum WFmt { DENSE = 0, W8 = 1, W4 = 2 };
@@ -342,7 +347,8 @@ __global__ void __launch_bounds__(PNT) proj_kernel(ProjArgs<T> a) {
 // int8 cache write of a new token (quantize_kv_rowmajor) by one warp: the
 // (query row, head, k|v) slice of the (rows, 2d) f32 scratch, into the query
 // row's slot (query_slot).  The phased kv_quant_kernel runs one warp per
-// slice; the persistent step, the attention item of that (query row, head).
+// slice; the persistent #6, the attention item of that (query row, head);
+// the persistent #7 (K > 1), a phase of its own (run_kv_quant).
 template <int HD>
 __device__ __forceinline__ void kv_quant_warp(const float* kvnew, int8_t* ck, int8_t* cv,
                                               __nv_bfloat16* ks, __nv_bfloat16* vs,
@@ -390,8 +396,11 @@ kv_quant_kernel(const float* __restrict__ kvnew, int8_t* __restrict__ ck,
 // acc) to `part`, and merge_chunks combines a query's chunks.  A chunk with no
 // valid slot (past the query's own slot, or in the padding between the
 // ranges) writes the empty partial (NEG_INF, 0, 0).  With `kvnew` (the
-// persistent step, int8 cache) the item that holds the query's own slot first
-// quantizes its head's new k and v into it (kv_quant_warp, warps 0 and 1).
+// persistent #6, int8 cache) the item that holds the query's own slot first
+// quantizes its head's new k and v into it (kv_quant_warp, warps 0 and 1):
+// a block of one token reads no other new slot.  Query i of a K-token block
+// also reads the slots of queries 0 .. i-1, which other items write, so #7
+// passes no `kvnew` and writes them in a phase before (run_kv_quant).
 // The phased attend_kernel runs one item a block, and so does the persistent
 // step.
 template <typename TC, int HD, bool SPLIT>
@@ -745,8 +754,8 @@ int ffn_phase(const StepArgs& s, int l, float* partial, cudaStream_t stream) {
   return launch_proj<T, T, FFN2, WF>(ffn2_args<T, WF>(s, l, partial), stream);
 }
 
-// The phased step: 5-6 kernels a layer on one stream (#7, and the ranks of
-// the TP step).
+// The phased step: 5-7 kernels a layer on one stream (the phased twin of #6
+// and #7, and the ranks of the TP step).
 template <typename T, typename TC, int HD, int WF>
 int step(const StepArgs& s, cudaStream_t stream) {
   int err;
@@ -757,7 +766,7 @@ int step(const StepArgs& s, cudaStream_t stream) {
   return 0;
 }
 
-// ---- #6 as one persistent launch per step (launched by fused_step.cu) ----
+// ---- #6 and #7 as one persistent launch a step (launched by fused_step.cu) ----
 
 // A projection's tiles walked by the persistent blocks: tile v = blockIdx.x
 // + j * gridDim.x, each the phased proj_kernel's block (bx, by) = (v % nx, v /
@@ -788,6 +797,8 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 
 // The attention items of layer l (query rows * h * n_chunks), one at a time
 // a block (ANW warps are the whole block): item blockIdx.x + j * gridDim.x.
+// With an int8 cache a block of one token (#6) folds its cache write into
+// the items; #7's was written by run_kv_quant.
 static_assert(ANW * 32 == PNT, "an attention item takes the persistent block");
 
 template <typename TC, int HD, bool SPLIT>
@@ -804,10 +815,10 @@ __device__ __forceinline__ void run_attention(const StepArgs& s, int l, int n_ch
   __nv_bfloat16* vs = QUANT ? layer_kv_scale(s, s.vs, l) : nullptr;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x)
     attend_item<TC, HD, SPLIT>(s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx,
-                               s.abuf, s.part, QUANT ? s.kvnew : nullptr, s.h, s.S, s.da,
-                               s.index, s.qblk, s.ttm, s.pm, SPLIT ? s.chunk : s.S,
-                               it / n_chunks, it % n_chunks, n_chunks, threadIdx.x, 1, m_w,
-                               l_w, acc_w);
+                               s.abuf, s.part, QUANT && s.qblk == 1 ? s.kvnew : nullptr,
+                               s.h, s.S, s.da, s.index, s.qblk, s.ttm, s.pm,
+                               SPLIT ? s.chunk : s.S, it / n_chunks, it % n_chunks, n_chunks,
+                               threadIdx.x, 1, m_w, l_w, acc_w);
 }
 
 // run_attention at the stack's head dim (the launcher takes 32, 64, 96, 128).
@@ -822,57 +833,96 @@ __device__ __forceinline__ void run_attention_hd(const StepArgs& s, int l, int n
   }
 }
 
-// #6 in one cooperative launch: every block walks the layers, and each phase
-// of a layer spreads its items over every block, with a grid-wide barrier
-// between phases: QKV; the attention (folding in the int8 cache write, and
-// with a chunked cache writing the chunks' partials); OUT (folding in the
-// chunks' merge); FFN1; FFN2.  5 barriers a layer, 5 L - 1 a step.  Every
-// item runs the phased route's device code on the same arguments, so each
-// output element is computed alike: the persistent step is bit-equal to the
-// phased one.  While a layer's attention runs, its OUT / FFN1 / FFN2 weights
-// and the next layer's QKV weights are prefetched into L2.
+// The int8 cache write of layer l as a phase (#7 with an int8 cache): one
+// warp per (query row, head, k|v), kv_quant_kernel's warps, PNT / 32 of them
+// a block, warp w + j * (grid warps).
+template <int HD>
+__device__ __forceinline__ void run_kv_quant(const StepArgs& s, int l) {
+  constexpr int WARPS = PNT / 32;
+  int8_t* ck = layer_cache<int8_t>(s, s.ck, l);
+  int8_t* cv = layer_cache<int8_t>(s, s.cv, l);
+  __nv_bfloat16* ks = layer_kv_scale(s, s.ks, l);
+  __nv_bfloat16* vs = layer_kv_scale(s, s.vs, l);
+  const int n = s.rows * s.qblk * 2 * s.h;
+  for (int w = blockIdx.x * WARPS + threadIdx.x / 32; w < n; w += gridDim.x * WARPS)
+    kv_quant_warp<HD>(s.kvnew, ck, cv, ks, vs, s.idx, w / (2 * s.h), w / s.h % 2, w % s.h,
+                      s.h, s.S, s.da, s.index, s.qblk, threadIdx.x % 32);
+}
+
+__device__ __forceinline__ void run_kv_quant_hd(const StepArgs& s, int l) {
+  switch (s.da / s.h) {
+    case 32: run_kv_quant<32>(s, l); break;
+    case 64: run_kv_quant<64>(s, l); break;
+    case 96: run_kv_quant<96>(s, l); break;
+    default: run_kv_quant<128>(s, l); break;
+  }
+}
+
+// #6 and #7 in one cooperative launch: every block walks the layers, and
+// each phase of a layer spreads its items over every block, with a grid-wide
+// barrier between phases: QKV; the attention (#6: folding in the int8 cache
+// write; with a chunked cache writing the chunks' partials); OUT (folding in
+// the chunks' merge); FFN1; FFN2.  5 barriers a layer, 5 L - 1 a step.  #7
+// with an int8 cache (qblk > 1) writes the cache in a phase of its own
+// between QKV and the attention (run_kv_quant): 6 a layer, 6 L - 1 a step.
+// Every item runs the phased route's device code on the same arguments, so
+// each output element is computed alike: the persistent step is bit-equal to
+// the phased one.  While a layer's attention runs, its OUT / FFN1 / FFN2
+// weights and the next layer's QKV weights are prefetched into L2.
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// The barrier after phase k of the persistent step.  With a trace buffer (1 +
-// 2 x 5 L x grid u64), each block b records when all its threads finished
-// the phase (trace[1 + k * grid + b]) and when the barrier let it go
-// (trace[1 + (5 L + k) * grid + b]); trace[0] is block 0's start.
+// The barrier after phase k of the persistent step, of np phases a layer.
+// With a trace buffer (1 + 2 x np L x grid u64), each block b records when all
+// its threads finished the phase (trace[1 + k * grid + b]) and when the
+// barrier let it go (trace[1 + (np L + k) * grid + b]); trace[0] is block 0's
+// start.
 __device__ __forceinline__ void phase_barrier(const StepArgs& s,
-                                              cooperative_groups::grid_group& grid, int k) {
+                                              cooperative_groups::grid_group& grid, int k,
+                                              int np) {
   if (s.trace) {
     __syncthreads();
     if (threadIdx.x == 0) s.trace[1 + (size_t)k * gridDim.x + blockIdx.x] = globaltimer();
   }
   grid.sync();
   if (s.trace && threadIdx.x == 0)
-    s.trace[1 + (size_t)(5 * s.L + k) * gridDim.x + blockIdx.x] = globaltimer();
+    s.trace[1 + (size_t)(np * s.L + k) * gridDim.x + blockIdx.x] = globaltimer();
 }
 
 template <typename T, typename TC, int WF>
 __global__ void __launch_bounds__(PNT, 1) step_persistent_kernel(StepArgs s) {
   extern __shared__ __align__(16) float sm[];
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const bool split = s.chunk < s.S;
   const int n_chunks = split ? s.S / s.chunk : 1;
+  const bool kvq = QUANT && s.qblk > 1;   // the int8 cache write as a phase
+  const int np = kvq ? STEP_PHASES_KVQ : STEP_PHASES;
   if (s.trace && threadIdx.x == 0 && blockIdx.x == 0) s.trace[0] = globaltimer();
   for (int l = 0; l < s.L; ++l) {
+    int k = np * l;
     run_proj<T, TC, QKV, WF>(qkv_args<T, TC, WF>(s, l), sm);
-    phase_barrier(s, grid, 5 * l);
+    phase_barrier(s, grid, k++, np);
     prefetch_l2(layer_weight<T, WF>(s.wout, l, s.da, s.d), weight_bytes<T, WF>(s.da, s.d));
     prefetch_l2(layer_weight<T, WF>(s.w1, l, s.d, s.dff), weight_bytes<T, WF>(s.d, s.dff));
     prefetch_l2(layer_weight<T, WF>(s.w2, l, s.dff, s.d), weight_bytes<T, WF>(s.dff, s.d));
     if (l + 1 < s.L)
       prefetch_l2(layer_weight<T, WF>(s.wqkv, l + 1, s.d, 3 * s.da),
                   weight_bytes<T, WF>(s.d, 3 * s.da));
+    if constexpr (QUANT) {
+      if (kvq) {
+        run_kv_quant_hd(s, l);
+        phase_barrier(s, grid, k++, np);
+      }
+    }
     if (split)
       run_attention_hd<TC, true>(s, l, n_chunks, sm);
     else
       run_attention_hd<TC, false>(s, l, 1, sm);
-    phase_barrier(s, grid, 5 * l + 1);
+    phase_barrier(s, grid, k++, np);
     ProjArgs<T> a = out_args<T, WF>(s, l, nullptr);
     if (split) {
       a.apart = s.part;
@@ -880,11 +930,11 @@ __global__ void __launch_bounds__(PNT, 1) step_persistent_kernel(StepArgs s) {
       a.hd = s.da / s.h;
     }
     run_proj<T, T, OUT, WF>(a, sm);
-    phase_barrier(s, grid, 5 * l + 2);
+    phase_barrier(s, grid, k++, np);
     run_proj<T, T, FFN1, WF>(ffn1_args<T, WF>(s, l), sm);
-    phase_barrier(s, grid, 5 * l + 3);
+    phase_barrier(s, grid, k++, np);
     run_proj<T, T, FFN2, WF>(ffn2_args<T, WF>(s, l, nullptr), sm);
-    if (l + 1 < s.L || s.trace) phase_barrier(s, grid, 5 * l + 4);
+    if (l + 1 < s.L || s.trace) phase_barrier(s, grid, k, np);
   }
 }
 

@@ -1,9 +1,11 @@
-// #6, the fused decode step, as ONE cooperative launch a step on one card
-// (step_persistent_kernel in fused_decode.cuh; the design is in
-// fused_decode.cu's header).  Built once per weight format, VALLE2_STEP_WF =
-// 0 dense, 1 int8 W8A8, 2 int4 W4A16 (kernels/_build.py), so that the three
-// compile in parallel; each build instantiates the step for every compute
-// and cache dtype, the head dim chosen in the kernel.
+// #6, the fused decode step, and #7, the speculative verify step, each as
+// ONE cooperative launch a step on one card (step_persistent_kernel in
+// fused_decode.cuh; the design is in fused_decode.cu's header).  Built once
+// per weight format, VALLE2_STEP_WF = 0 dense, 1 int8 W8A8, 2 int4 W4A16
+// (kernels/_build.py), so that the three compile in parallel; each build
+// instantiates the step for every compute and cache dtype, the head dim
+// chosen in the kernel and the block length (qblk: 1 for #6, K for #7) a
+// runtime argument, so #7 adds no instantiation.
 
 #include "fused_decode.cuh"
 
@@ -16,12 +18,14 @@ namespace {
 constexpr int STEP_WF = VALLE2_STEP_WF;
 constexpr int MAX_GRID_CARDS = 32;       // cards whose grid size is cached
 unsigned long long* g_trace = nullptr;   // valle2_fused_step_trace: the next launch's
+                                         // (#6 or #7)
 std::mutex g_trace_mutex;
 
 bool hd_taken(int hd) { return hd == 32 || hd == 64 || hd == 96 || hd == 128; }
 
 // The persistent step's dynamic shared memory: the largest of its four
-// projections' tiles and the attention's items.
+// projections' tiles and the attention's items (the int8 cache write takes
+// none).  It does not depend on the block length.
 size_t persistent_smem(const StepArgs& s, int hd) {
   auto proj = [](int K) {
     return K <= max_k16(STEP_WF) ? proj_smem(K, STEP_WF, 16) : proj_smem(K, STEP_WF, 8);
@@ -102,11 +106,20 @@ int with_types(int dtype, int cache_dtype, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The widths the persistent step takes: one token per row on one card (qblk
-// 1, da == d), a head dim it instantiates, inputs up to max_k8.
+// The widths the persistent step takes: any block length on one card (da ==
+// d), a head dim it instantiates, inputs up to max_k8.
 bool persistent_fits(const StepArgs& s) {
-  return !bad_args(s) && s.qblk == 1 && s.da == s.d && hd_taken(s.da / s.h) &&
-         s.d <= max_k8(STEP_WF) && s.dff <= max_k8(STEP_WF);
+  return !bad_args(s) && s.da == s.d && hd_taken(s.da / s.h) && s.d <= max_k8(STEP_WF) &&
+         s.dff <= max_k8(STEP_WF);
+}
+
+// One persistent launch of the step s (#6 or #7) on `stream`.
+int launch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stream) {
+  if (wfmt != STEP_WF || !persistent_fits(s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_types(dtype, cache_dtype, [&](auto t, auto tc) {
+    return step_persistent<typename decltype(t)::type, typename decltype(tc)::type>(s, st);
+  });
 }
 
 }  // namespace
@@ -114,8 +127,7 @@ bool persistent_fits(const StepArgs& s) {
 // dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32, 1 = bfloat16,
 // 2 = int8 (bf16 compute needs a bf16 or int8 cache); wfmt must be this
 // build's weight format (else cudaErrorInvalidValue).  The arguments are
-// valle2_fused_verify_step's (fused_decode.cu) with a scalar `index` in
-// place of the block length.
+// those of the phased twin (fused_decode.cu, which says what each holds).
 //
 // #6: one token per row, x and y (rows, d).  Row r's token sits at slot
 // idx[r] (a device pointer, never read by the host: the per-row index of
@@ -137,16 +149,36 @@ extern "C" int valle2_fused_decode_step(
              sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
              hmid, kvnew, part, nullptr, nullptr, L, rows, S, d, d, h, dff, index, 1, ttm,
              pm, groups_d, groups_d, groups_ff, chunk, scale};
-  if (wfmt != STEP_WF || !persistent_fits(s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_types(dtype, cache_dtype, [&](auto t, auto tc) {
-    return step_persistent<typename decltype(t)::type, typename decltype(tc)::type>(s, st);
-  });
+  return launch(dtype, cache_dtype, wfmt, s, stream);
 }
 
-// The launch of #6's persistent step on the current card for a stack of
-// these formats and widths: its grid (*blocks: SM count x the blocks an SM
-// holds at once) and its dynamic shared memory (*smem bytes a block).
+// #7: qblk tokens per row, x and y (rows, qblk, d); row r's block is written
+// at slots idx[r] .. idx[r] + qblk - 1 (a device pointer, never read by the
+// host; required), each slot >= S skipped, and query i of the block attends
+// up to slot idx[r] + i.  The same launch as #6 with rows * qblk query rows
+// through the projections and the attention; with an int8 cache its write is
+// a phase of its own (6 barriers a layer).
+extern "C" int valle2_fused_verify_step(
+    int dtype, int cache_dtype, int wfmt, const void* x, void* y, const void* n1s,
+    const void* n1b, const void* wqkv, const void* wout, const void* bout, const void* n2s,
+    const void* n2b, const void* w1, const void* b1, const void* w2, const void* b2,
+    void* ck, void* cv, const void* sqkv, const void* sout, const void* s1, const void* s2,
+    void* ks, void* vs, const int* tokens_lens, const int* codes_lens, const int* idx,
+    float* qbuf, float* abuf, float* xmid, float* hmid, float* kvnew, float* part, int L,
+    int rows, int S, int d, int h, int dff, int qblk, int ttm, int pm, int groups_d,
+    int groups_ff, int chunk, float scale, void* stream) {
+  if (idx == nullptr) return (int)cudaErrorInvalidValue;
+  StepArgs s{x, n1s, n1b, wqkv, wout, bout, n2s, n2b, w1, b1, w2, b2, y, ck, cv, sqkv,
+             sout, s1, s2, ks, vs, tokens_lens, codes_lens, idx, qbuf, abuf, xmid,
+             hmid, kvnew, part, nullptr, nullptr, L, rows, S, d, d, h, dff, 0, qblk, ttm,
+             pm, groups_d, groups_d, groups_ff, chunk, scale};
+  return launch(dtype, cache_dtype, wfmt, s, stream);
+}
+
+// The launch of the persistent step (#6 or #7, any block length) on the
+// current card for a stack of these formats and widths: its grid (*blocks:
+// SM count x the blocks an SM holds at once) and its dynamic shared memory
+// (*smem bytes a block).
 // Returns the error the launch would give (no cooperative launch, no block
 // fits, widths it does not take), else 0.
 extern "C" int valle2_fused_step_grid(int dtype, int cache_dtype, int wfmt, int hd, int d,
@@ -166,9 +198,10 @@ extern "C" int valle2_fused_step_grid(int dtype, int cache_dtype, int wfmt, int 
   });
 }
 
-// The next persistent #6 launch (of any thread) records its phase timestamps
-// (%globaltimer, ns) into `buf`, 1 + 2 * 5 L * grid u64 (phase_barrier);
-// a measurement hook, off (null) by default and again after that launch.
+// The next persistent launch of this build (#6 or #7, of any thread) records
+// its phase timestamps (%globaltimer, ns) into `buf`, 1 + 2 * np L * grid u64
+// with np its phases a layer, 5 or 6 (phase_barrier); a measurement hook, off
+// (null) by default and again after that launch.
 extern "C" void valle2_fused_step_trace(void* buf) {
   std::lock_guard<std::mutex> lock(g_trace_mutex);
   g_trace = static_cast<unsigned long long*>(buf);

@@ -13,15 +13,17 @@ path uses: dense weights (#6), int8 W8A8 and int4 W4A16 weights (the ``'q'``
 argument, ``fused_step_tp``: each rank's local heads, the two row-parallel
 partials of every layer summed by the all-reduce 5c of
 ``kernels.tp_allreduce``; dense and int4 weights, as in JAX).  The kernels
-are ``csrc/fused_decode.cu`` (see its header for the design and the TP
-ordering protocol) and ``csrc/fused_step.cu`` (the persistent #6, one build
-per weight format), on the device code of ``csrc/fused_decode.cuh``.  One
-card's #6 is ONE cooperative launch a step (the persistent step: every block
-walks the layers, a grid-wide barrier between the phases;
-``persistent_plan`` says what it does); #7 and the TP steps launch their
-phases' kernels in turn, with one host call for all of them.  The persistent
-#6 runs the phased route's device code on every item, so it is bit-equal to
-``fused_verify_step`` with a block of one token.
+are ``csrc/fused_step.cu`` (the persistent #6 and #7, one build per weight
+format) and ``csrc/fused_decode.cu`` (the phased route; see its header for
+the design and the TP ordering protocol), on the device code of
+``csrc/fused_decode.cuh``.  On one card #6 and #7 are each ONE cooperative
+launch a step (the persistent step: every block walks the layers, a
+grid-wide barrier between the phases; ``persistent_plan`` says what it
+does).  The TP steps launch their phases' kernels in turn, with one host
+call for all of them.  ``fused_verify_step_phased``, the phased twin, runs
+those kernels on one card: the persistent steps run its device code on
+every item, so each is bit-equal to it (#6 at a block of one token).  It
+is the reference of tests and ``chip_smoke.py``; no serving path calls it.
 
 Both versions take the cache in the fused head-major layout (L, rows, S, d)
 (``fused_cache_layout``), an int8 cache with its per-(slot, head) bfloat16
@@ -62,6 +64,8 @@ VARIANTS = ('dense', 'w8a8', 'w4a16', 'kv8', 'w8a8_kv8', 'w4a16_kv8')
 COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}
 COUNTER = COUNTERS['dense']    # the base variant (#6): dense weights, float cache
 VERIFY_COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}    # #7
+# Launches of the phased twin (fused_verify_step_phased, every variant).
+PHASED_COUNTER = _build.LaunchCounter()
 # Launches that split the attention over the cache's chunks (every variant),
 # and calls of the plain versions (any device).
 CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
@@ -84,10 +88,14 @@ HEAD_DIMS = (32, 64, 96, 128)
 _MAX_K = {0: 6144, 1: 5120, 2: 6144}
 
 
-# The persistent #6: one block shape for every phase, and its projections'
-# tiles (csrc/fused_decode.cu PNT, NCOL, KSPLIT, ANW, max_k16).
+# The persistent #6 and #7: one block shape for every phase, its
+# projections' tiles and its phases a layer (csrc/fused_decode.cuh PNT, NCOL,
+# KSPLIT, ANW, max_k16, STEP_PHASES, STEP_PHASES_KVQ).
 PERSISTENT_THREADS = 512
 _NCOL, _KSPLIT, _ANW = 32, 16, 16
+STEP_PHASES = ('qkv', 'attention', 'out', 'ffn1', 'ffn2')
+# #7 with an int8 cache: the cache write as a phase of its own
+STEP_PHASES_KVQ = ('qkv', 'kv_quant', 'attention', 'out', 'ffn1', 'ffn2')
 _MAX_K16 = {0: 3072, 1: 2048, 2: 3072}
 SMEM_OPT_IN = 232448     # the shared memory an H100 block can opt into
 
@@ -108,40 +116,52 @@ def proj_smem_bytes(K: int, layout: str) -> int:
 
 
 def persistent_plan(L: int, rows: int, d: int, dff: int, n_heads: int, S: int, chunk: int,
-                    layout: str = 'w') -> dict:
-    """What one launch of the persistent #6 does (``step_persistent_kernel``):
-    per layer, the tiles of each projection ((row tile, 32-column tile), 16
-    K slices each; ``proj_tile_rows``) and the attention items (query row,
-    head and, below S, chunk); the grid-wide barriers of the step (5 a layer
-    less the last); its dynamic shared memory a block, the largest of the
-    projections' tiles and the attention's two half-blocks (the launcher
-    sizes the grid by it: SM count x the blocks an SM holds).  An
-    ``attention`` item takes a block's 16 warps."""
+                    layout: str = 'w', q_len: int = 1, kv8: bool = False) -> dict:
+    """What one launch of the persistent step does (``step_persistent_kernel``):
+    #6 (``q_len`` 1) or #7 (a block of ``q_len`` tokens a row, rows * q_len
+    query rows), over an int8 cache with ``kv8``.  Per layer, the tiles of
+    each projection ((row tile, 32-column tile) of the query rows, 16 K
+    slices each; ``proj_tile_rows``), the attention items (query row, head
+    and, below S, chunk) and, for #7 over an int8 cache, the cache write's
+    warps (query row, head, k|v; 16 a block); the phases of a layer
+    (``STEP_PHASES``, or ``STEP_PHASES_KVQ`` for #7 over an int8 cache) and
+    the grid-wide barriers of the step (one after each phase, less the
+    last: 5 L - 1, or 6 L - 1); its dynamic shared memory a block, the
+    largest of the projections' tiles and the attention's item, whatever
+    ``q_len`` (the launcher sizes the grid by it: SM count x the blocks an
+    SM holds).  An ``attention`` item takes a block's 16 warps."""
     if d % n_heads:
         raise ValueError(f'd={d} does not split over {n_heads} heads')
+    if q_len < 1:
+        raise ValueError(f'a block of {q_len} tokens')
     hd = d // n_heads
     n_chunks = S // chunk if chunk < S else 1
+    query_rows = rows * q_len
+    phases = STEP_PHASES_KVQ if kv8 and q_len > 1 else STEP_PHASES
 
     def tiles(K, N):
         mr = proj_tile_rows(K, layout)
-        return -(-N // _NCOL) * -(-rows // mr)
+        return -(-N // _NCOL) * -(-query_rows // mr)
 
     smem = max(proj_smem_bytes(d, layout), proj_smem_bytes(dff, layout),
                4 * (2 * _ANW + _ANW * hd))
     if smem > SMEM_OPT_IN:
         raise ValueError(f'the persistent step needs {smem} bytes of shared memory a block, '
                          f'over the {SMEM_OPT_IN} a block can take')
-    return dict(items={'qkv': tiles(d, 3 * d), 'attention': rows * n_heads * n_chunks,
-                       'out': tiles(d, d), 'ffn1': tiles(d, dff), 'ffn2': tiles(dff, d)},
-                barriers=5 * L - 1, smem_bytes=smem, threads=PERSISTENT_THREADS,
-                launches=1)
+    items = {'qkv': tiles(d, 3 * d), 'attention': query_rows * n_heads * n_chunks,
+             'out': tiles(d, d), 'ffn1': tiles(d, dff), 'ffn2': tiles(dff, d)}
+    if 'kv_quant' in phases:
+        items['kv_quant'] = query_rows * 2 * n_heads
+    return dict(items=items, phases=phases, barriers=len(phases) * L - 1, smem_bytes=smem,
+                threads=PERSISTENT_THREADS, launches=1)
 
 
 def step_grid(dtype, cache_dtype, layout: str, hd: int, d: int, dff: int) -> tuple[int, int]:
-    """(blocks, shared bytes a block) of the persistent #6 launch on the
-    current card for a stack of these formats and widths (the launcher's own
-    sizing, ``valle2_fused_step_grid``); raises where the launch would fail:
-    a card with no cooperative launch, or no block that fits."""
+    """(blocks, shared bytes a block) of the persistent launch (#6, or #7 at
+    any block length) on the current card for a stack of these formats and
+    widths (the launcher's own sizing, ``valle2_fused_step_grid``); raises
+    where the launch would fail: a card with no cooperative launch, or no
+    block that fits."""
     fn = _build.load(_step_build(layout)).valle2_fused_step_grid
     if fn.argtypes is None:
         ci = ctypes.c_int
@@ -155,12 +175,13 @@ def step_grid(dtype, cache_dtype, layout: str, hd: int, d: int, dff: int) -> tup
 
 
 def set_step_trace(buf) -> None:
-    """The next persistent #6 launch records its phase timestamps into
-    ``buf``, a CUDA int64 tensor of 1 + 2 * 5 L * blocks elements
-    (``%globaltimer`` ns: [0] the start, then each block's end of each of the
-    5 L phases, then each block's exit from each phase's barrier); None
-    turns the hook off.  A measurement hook: no path of the port sets it.
-    Set in the build of every weight format."""
+    """The next persistent launch (#6 or #7) records its phase timestamps
+    into ``buf``, a CUDA int64 tensor of 1 + 2 * P L * blocks elements, P its
+    phases a layer (``persistent_plan``'s ``phases``: 5, or 6 for #7 over an
+    int8 cache) (``%globaltimer`` ns: [0] the start, then each block's end
+    of each of the P L phases, then each block's exit from each phase's
+    barrier); None turns the hook off.  A measurement hook: no path of the
+    port sets it.  Set in the build of every weight format."""
     for layout in _WEIGHT_FORMATS:
         fn = _build.load(_step_build(layout)).valle2_fused_step_trace
         if fn.argtypes is None:
@@ -379,16 +400,23 @@ def variant(p, cache: KVCache) -> str:
 
 
 def _step_build(layout: str) -> str:
-    """The build of the persistent #6 for a weight layout (csrc/fused_step.cu,
-    one build per format)."""
+    """The build of the persistent #6 and #7 for a weight layout
+    (csrc/fused_step.cu, one build per format)."""
     return f'fused_step_{_WEIGHT_FORMATS[layout][1]}'
 
 
-def _lib(verify: bool, layout: str = 'w'):
-    """#7 (the phased kernels, csrc/fused_decode.cu) or #6 (the persistent
-    step of ``layout``'s build)."""
-    lib = _build.load('fused_decode' if verify else _step_build(layout))
-    fn = lib.valle2_fused_verify_step if verify else lib.valle2_fused_decode_step
+# launcher name -> its symbol; the phased twin is in csrc/fused_decode.cu's
+# build, the persistent steps in each weight format's csrc/fused_step.cu
+_LAUNCHERS = {'fused_decode_step': 'valle2_fused_decode_step',
+              'fused_verify_step': 'valle2_fused_verify_step',
+              'fused_verify_step_phased': 'valle2_fused_verify_step_phased'}
+
+
+def _lib(name: str, layout: str = 'w'):
+    """The launcher of #6 or #7 (the persistent step of ``layout``'s build)
+    or of the phased twin ('fused_verify_step_phased')."""
+    build = 'fused_decode' if name == 'fused_verify_step_phased' else _step_build(layout)
+    fn = getattr(_build.load(build), _LAUNCHERS[name])
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # formats; x, y, 11 weights, cache k/v, 4 weight scales, 2 cache scales,
@@ -579,9 +607,9 @@ def fused_decode_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
     else:
         slots = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(False, weight_format(p))(*lead, slots, *map(_ptr, scratch), L, rows, S, d,
-                                            n_heads, dff, int(index), int(ttm), int(pm),
-                                            *tail, 1.0 / math.sqrt(d // n_heads), stream)
+    status = _lib(name, weight_format(p))(*lead, slots, *map(_ptr, scratch), L, rows, S, d,
+                                           n_heads, dff, int(index), int(ttm), int(pm),
+                                           *tail, 1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, name)
     _count(name, var, sizes, tail, per_row)
     return y, cache
@@ -602,16 +630,43 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     K, d), cache) with every row's K slots written in place; query i of row r
     attends up to slot index[r] + i.  chunk_override as in
     ``fused_decode_step``: a block may straddle a chunk boundary.  ``tp`` as
-    in ``fused_decode_step``."""
+    in ``fused_decode_step``.  On one card the kernel is one cooperative
+    launch (the persistent step, rows * K query rows; over an int8 cache
+    with its cache write as a phase of its own), which raises where the
+    card takes none."""
     if tp is not None:
         return fused_step_tp('fused_verify_step_tp', *tp, x, n_heads, index, tokens_lens,
                              codes_lens, ttm, pm, chunk_override)
     if x.device.type == 'cpu':
         return fused_verify_step_plain(p, x, n_heads, cache, index, tokens_lens,
                                        codes_lens, ttm, pm, chunk_override)
+    return _verify_launch('fused_verify_step', p, x, n_heads, cache, index, tokens_lens,
+                          codes_lens, ttm, pm, chunk_override)
+
+
+def fused_verify_step_phased(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
+                             codes_lens, ttm: int, pm: int,
+                             chunk_override: int | None = None):
+    """The phased twin of ``fused_verify_step`` (and, with K = 1, of the
+    per-row ``fused_decode_step``): the same arguments and results, launched
+    as one kernel per phase (csrc/fused_decode.cu, 5-7 a layer) on the
+    device code every item of the persistent steps runs, so the persistent
+    #6 and #7 are bit-equal to it.  The bit-exact reference of the card
+    tests and ``chip_smoke.py``; no serving path calls it.  Counted in
+    ``PHASED_COUNTER``."""
+    if x.device.type == 'cpu':
+        return fused_verify_step_plain(p, x, n_heads, cache, index, tokens_lens,
+                                       codes_lens, ttm, pm, chunk_override)
+    return _verify_launch('fused_verify_step_phased', p, x, n_heads, cache, index,
+                          tokens_lens, codes_lens, ttm, pm, chunk_override)
+
+
+def _verify_launch(name: str, p, x, n_heads: int, cache: KVCache, index, tokens_lens,
+                   codes_lens, ttm: int, pm: int, chunk_override: int | None):
+    """The checks and launch of #7 (``name`` 'fused_verify_step') or its
+    phased twin on CUDA tensors."""
     if x.dim() != 3 or x.shape[1] < 1:
         raise ValueError(f'x must be a (rows, K, d) block with K >= 1, got {tuple(x.shape)}')
-    name = 'fused_verify_step'
     q_len = x.shape[1]
     lead, scratch, sizes, tail, y, var = _checked_launch_args(
         name, p, x, n_heads, cache, q_len, tokens_lens, codes_lens, chunk_override)
@@ -619,11 +674,14 @@ def fused_verify_step(p, x, n_heads: int, cache: KVCache, index, tokens_lens, co
     tail = [tail[0], *tail[2:]]            # d_att == d: its int4 groups are d's
     _check_slots(index, rows, x, name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _lib(True)(*lead, index.data_ptr(), *map(_ptr, scratch), L, rows, S, d,
-                        n_heads, dff, q_len, int(ttm), int(pm), *tail,
-                        1.0 / math.sqrt(d // n_heads), stream)
+    status = _lib(name, weight_format(p))(*lead, index.data_ptr(), *map(_ptr, scratch), L,
+                                           rows, S, d, n_heads, dff, q_len, int(ttm), int(pm),
+                                           *tail, 1.0 / math.sqrt(d // n_heads), stream)
     _build.check(status, name)
-    _count(name, var, sizes, tail)
+    if name == 'fused_verify_step':
+        _count(name, var, sizes, tail)
+    else:
+        PHASED_COUNTER.count += 1
     return y, cache
 
 
