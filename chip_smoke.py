@@ -198,28 +198,40 @@ Phases, each printing JSON lines:
                 plus the f32 summation-order error), with the plain version's
                 time, the bound, each arm's share of the bf16 peak, and its
                 back-to-back time (20 calls in a row, the device's pace).
-30. kernels  -- tensor parallelism with virtual ranks on one card (mp 2 and 4,
-   (tp)         one stream per rank): the TP all-reduce 5c alone, and the TP
-                fused decode step (#6 with 5c between its layers) and verify
-                step (#7) against their plain versions on the same inputs
-                (each rank's local heads, the rank-ordered f32 sum), f32
-                (TF32 off) and bf16: the serving shape (12 rows, S 1280,
-                index 485), its chunked cache (chunk 256), the per-row index
-                with the int8 cache (8 rows, S 512), int4 W4A16 (the ranked
-                packing) and #7 at 3 rows x K=4 (S 1024).  Every rank's y
-                bit-equal; times (median of 30), the plain version's, the
-                bound (bytes: every rank's weights and cache, and 5c's reads
-                of mp partials and its writes).
+30. kernels  -- tensor parallelism with virtual ranks on one card (mp 2 and 4):
+   (tp)         the TP all-reduce 5c alone (beside torch.add of two partials,
+                its library call at mp 2), and the persistent TP fused decode
+                step (#6, one cooperative launch holding every rank, 5c's
+                element in its two reduce phases a layer) and verify step (#7)
+                bit for bit against their phased twin
+                (fused_step_tp_phased: a kernel per phase on each rank's own
+                stream, 5c between the layers) and within tolerance of their
+                plain versions on the same inputs (each rank's local heads,
+                the rank-ordered f32 sum), f32 (TF32 off) and bf16: the
+                serving shape (12 rows, S 1280, index 485), its chunked cache
+                (chunk 256), the per-row index with the int8 cache (8 rows, S
+                512), int4 W4A16 (the ranked packing) and #7 at 3 rows x K=4
+                (S 1024).  Every rank's y and cache bit-equal to the twin's;
+                times (median of 30) of both and of the plain version, their
+                host enqueue, the bound (bytes: every rank's weights and
+                cache, and 5c's reads of mp partials and its writes), the
+                launcher's grid against tp_persistent_plan, and the phase
+                trace (step_phases) of the serving, verify and chunked cases.
 31. tp       -- phase_tp(devices): the serving batch_synthesize of phase 5's
                 requests (f32, TF32 off, 128 steps) on a ('model',) mesh of
                 the devices (here ['cuda:0'] * 2) and on the solo model: codes
                 equal; then a speculative ValleAR (K=4) on the mesh against
                 solo.  Counts zeroed before the mesh runs, read after: the TP
-                steps and 5c launched, no plain fused call, no one-rank
-                step.  Wall, decode ms per step and RTF of mesh and solo.
-                ``phase_tp_large(devices)`` (the four-card call only): the
-                204M stack at mp 4, one generate_batch at 4 beams, greedy ids
-                mesh == solo.
+                steps and 5c launched, one TP step launch per token step of
+                the decode loops and no 5c launch inside them
+                (decode_loop_counts), no plain fused call, no phased TP step,
+                no one-rank step.  Wall, decode ms per step and RTF of mesh
+                and solo.  ``phase_tp_large(devices)`` (the four-card call
+                only): the 204M stack at mp 4, one generate_batch at 4
+                beams, greedy ids mesh == solo; ``phase_tp_cards(devices)``
+                (the four-card call only): the persistent TP step over the
+                cards bit for bit against its twin and the virtual ranks,
+                timed, with each card's phase trace.
 32. kernels  -- the persistent #6 and #7 (one cooperative launch a step each)
    (persistent) against the phased twin on the same inputs
                 (fused_verify_step_phased; for #6 a block of one token at the
@@ -246,9 +258,11 @@ Phases, each printing JSON lines:
 34. step     -- phase_step_profile: torch.profiler over the token loop of
    profile      each single-card path (main, quant W8A8 + int8 cache and
                 W4A16, stream, cb, clone, hub, large) and the speculative
-                loops through #7 (spec, large_spec, cb_spec): device kernels
-                of the fused step per launch of #6 or #7 (1), its device ms,
-                span and gaps a step, the device's busy share.  A phased step
+                loops through #7 (spec, large_spec, cb_spec), and the TP
+                step on one card (tp: two virtual ranks, one launch of both a
+                step, no 5c kernel past the prefill's): device kernels of the
+                fused step per launch of #6, #7 or the TP step (1), its device
+                ms, span and gaps a step, the device's busy share.  A phased step
                 kernel, or more step kernels than launches, fails at once;
                 fewer means lost profiler records, and the path is profiled
                 again (up to PROFILE_REPEATS times) until one profile shows
@@ -259,8 +273,9 @@ batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
 ``python3 chip_smoke.py --mesh-cards 4`` on a four-card host runs phases 1,
-2 and 31 over the four cards and ``phase_tp_large`` (after checking peer
-access between every pair of cards); with no argument it needs one card.
+2, ``phase_tp_cards`` and 31 over the four cards and ``phase_tp_large``
+(after checking peer access between every pair of cards); with no argument
+it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
 34, 17, 19, 22, 25, 26, 31, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
@@ -400,6 +415,7 @@ TP_CASES = {
 }
 TP_MPS = (2, 4)
 TP_STEPS = 128
+TP_PROFILE_MP = 2      # the virtual ranks of phase step profile's tp path
 TP_PORTS = {
     'tp_allreduce': 'valle2_tpu/kernels/fused_decode.py:252-295 _ring_allreduce',
     'fused_decode_step_tp': ('valle2_tpu/kernels/fused_decode.py:706 with tp: :480-490 the '
@@ -472,9 +488,11 @@ PERSISTENT_ROWS = {
 # s, tokens_total) at a ragged s (not a multiple of the 64-row tile), causal
 # and bidirectional, the last row with tokens_valid == 0.
 FLASH_TC_CASES = {f'hd{hd}': (3, 4, 385, 128, hd) for hd in (32, 64, 128)}
-# The device kernels of the fused steps (#6, #7), persistent or phased.
-STEP_KERNELS = ('step_persistent_kernel', 'proj_kernel', 'attend_kernel', 'merge_kernel',
-                'kv_quant_kernel')
+# The device kernels of the fused steps (#6, #7, and both under TP): the
+# persistent ones, then the phased route's.
+STEP_KERNELS = ('step_persistent_kernel', 'step_tp_persistent_kernel', 'proj_kernel',
+                'attend_kernel', 'merge_kernel', 'kv_quant_kernel')
+PHASED_KERNELS = STEP_KERNELS[2:]
 # Profiles of a path taken again where torch.profiler saw fewer step kernels
 # than #6 launched (lost records: once 981 for 1024 launches, while every
 # repeat of that profile matched).
@@ -1971,28 +1989,40 @@ def verify_bound(p, variant: str, dtype_name: str, cache, h: int, query_rows: in
     return nbytes, 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def step_phases(fn, L: int, blocks: int, phases=None) -> dict:
+def step_phases(fn, L: int, blocks: int, phases=None, tp_devices=None):
     """One persistent launch (#6 or #7: fn) with its phase trace on
     (fd.set_step_trace), ``phases`` its phases a layer (the plan's: five,
-    or six for #7 over an int8 cache): per phase, summed over the L layers,
-    in ms: work, the slowest block's time from its own exit of the previous
-    barrier to the end of its share of the phase; mean_block, the mean
-    block's; wake, the spread of the blocks' exits from the previous
-    barrier; barrier, from the last block's end of the phase to the first
-    block's exit; and the whole launch."""
+    or six for #7 over an int8 cache; seven or eight for the TP step): per
+    phase, summed over the L layers, in ms: work, the slowest block's time
+    from its own exit of the previous barrier to the end of its share of the
+    phase; mean_block, the mean block's; wake, the spread of the blocks'
+    exits from the previous barrier; barrier, from the last block's end of
+    the phase to the first block's exit; and the whole launch.  With
+    ``tp_devices`` (one device per card group) fn is a TP step: a list of
+    one such breakdown per card, each from that card's own %globaltimer."""
     import torch
     from valle2_tpu_torch.kernels import fused_decode as fd
     phases = phases or fd.STEP_PHASES
-    npl = len(phases)
-    n = npl * L
-    buf = torch.zeros(1 + 2 * n * blocks, dtype=torch.int64, device='cuda')
+    n = len(phases) * L
+    devs = tp_devices or ['cuda']
+    bufs = [torch.zeros(1 + 2 * n * blocks, dtype=torch.int64, device=d) for d in devs]
     torch.cuda.synchronize()
-    fd.set_step_trace(buf)
+    fd.set_step_trace(bufs if tp_devices else bufs[0], tp=bool(tp_devices))
     try:
         fn()
-        torch.cuda.synchronize()
+        for d in devs:
+            torch.cuda.synchronize(d)
     finally:
-        fd.set_step_trace(None)
+        fd.set_step_trace(None, tp=bool(tp_devices))
+    out = [phase_breakdown(b, phases, L, blocks) for b in bufs]
+    return out if tp_devices else out[0]
+
+
+def phase_breakdown(buf, phases, L: int, blocks: int) -> dict:
+    """step_phases' breakdown of one launch's trace buffer."""
+    import torch
+    npl = len(phases)
+    n = npl * L
     t = buf.cpu().double()
     start = t[0]
     ends = t[1:1 + n * blocks].view(n, blocks)
@@ -2124,21 +2154,23 @@ def kernel_label(name: str) -> str:
     return (m.group(1) + (m.group(2) or '')) if m else name[:80]
 
 
-def step_profile(label: str, fn) -> dict:
+def step_profile(label: str, fn, tp: bool = False) -> dict:
     """torch.profiler over fn() (a decode through the fused step, warmed up
-    first): per launch of #6 or #7 (their counters), the device kernels of
-    the step (STEP_KERNELS: 1 for the persistent step), its device time, its
-    span on
+    first): per launch of #6 or #7 (their counters; ``tp``: the TP steps'),
+    the device kernels of the step (STEP_KERNELS: 1 for the persistent
+    step), its device time, its span on
     the device (first start to last end of each run of step kernels, one run
     a step) and the gaps inside the span; the device's busy share of the
-    wall (the union of every kernel's interval) and the step's kernels by
-    name."""
+    wall (the union of every kernel's interval), the step's kernels by
+    name, and the all-reduce 5c's kernels in the whole profile."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from valle2_tpu_torch.kernels import fused_decode as fd
 
     def launches():
+        if tp:
+            return sum(c.count for c in fd.TP_COUNTERS.values())
         return sum(c.count for c in (*fd.COUNTERS.values(), *fd.VERIFY_COUNTERS.values()))
     fn()
     torch.cuda.synchronize()
@@ -2162,7 +2194,8 @@ def step_profile(label: str, fn) -> dict:
         runs.append(cur)
     step_kernels = sum(len(r) for r in runs)
     phased = sum(1 for r in runs for e in r
-                 if any(k in e.name for k in STEP_KERNELS[1:]))
+                 if any(k in e.name for k in PHASED_KERNELS))
+    allreduce = sum(1 for e in ev if 'tp_allreduce_kernel' in e.name)
     step_dev = sum(e.time_range.elapsed_us() for r in runs for e in r) / 1e3
     spans = [(r[-1].time_range.end - r[0].time_range.start) / 1e3 for r in runs]
     busy, end = 0.0, None
@@ -2187,7 +2220,7 @@ def step_profile(label: str, fn) -> dict:
                 step_span_ms=sum(spans) / max(len(spans), 1),
                 step_gap_ms=(sum(spans) - step_dev) / max(len(spans), 1),
                 wall_ms=wall_ms, device_busy_ms=busy / 1e3,
-                device_busy_share=busy / 1e3 / wall_ms,
+                device_busy_share=busy / 1e3 / wall_ms, allreduce_kernels=allreduce,
                 step_kernels_by_name={k: {'calls': cnt, 'ms': ms} for k, (cnt, ms) in top})
 
 
@@ -2203,7 +2236,9 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     speculative loops through #7: spec (the serving config at one beam, K =
     4, ngram 3, PROFILE_STEPS steps), large_spec (the 204M stack, one row,
     K = 4, 64 steps), cb_spec (the ContinuousDecoder's speculative joint
-    loop, 4 sessions).  ``require_one``: fail unless every path ran one device kernel
+    loop, 4 sessions); and tp (the main config on a mesh of two virtual
+    ranks: one TP step launch a step, no 5c kernel past the prefill's 2 a
+    layer).  ``require_one``: fail unless every path ran one device kernel
     a step (or verify pass)
     (``record``: a phased step kernel, or more step kernels than launches,
     fails at once; fewer means the profiler lost records, and the profile
@@ -2215,6 +2250,7 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     from valle2_tpu_torch.data.frontend import PhonemeTokenizer
     from valle2_tpu_torch.models.ar import ValleAR
     from valle2_tpu_torch.models.continuous import ContinuousDecoder
+    from valle2_tpu_torch.parallel import make_model_mesh
     from valle2_tpu_torch.stream_hub import StreamHub
     from valle2_tpu_torch.tts import ValleTTS
 
@@ -2225,16 +2261,20 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     main = ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, **base), device='cuda')
     out = {}
 
-    def record(label, fn):
+    def record(label, fn, tp=False):
         for attempt in range(1 + PROFILE_REPEATS):
-            r = out[label] = step_profile(label, fn)
+            r = out[label] = step_profile(label, fn, tp)
             emit(phase='step_profile', card=smi, attempt=attempt, **r)
             if not require_one:
                 return
             seen = (f'{r["step_kernels"]} step kernels ({r["phased_kernels"]} phased) '
-                    f'for {r["launches"]} launches of #6 / #7')
+                    f'for {r["launches"]} launches of #6 / #7'
+                    + (f' (TP), {r["allreduce_kernels"]} 5c kernels' if tp else ''))
+            # TP: 5c runs in the prefill alone (2 calls a layer, a kernel a rank
+            # each), none in the token loop
             if (r['launches'] < 1 or r['phased_kernels']
-                    or r['step_kernels'] > r['launches']):
+                    or r['step_kernels'] > r['launches']
+                    or (tp and r['allreduce_kernels'] > 2 * SLICE['L'] * TP_PROFILE_MP)):
                 fail(f'step profile ({label}): {seen}')
             if r['step_kernels'] == r['launches']:
                 return
@@ -2297,7 +2337,11 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     large_spec = ValleAR(ConfigValle(max_audio_len=64, **LARGE, **spec_kw, **base),
                          params=large.params, device='cuda')
     record('large_spec', lambda: large_spec.generate_batch(tokens[:1], pcs[:1]))
-    del main, spec, stream, one, one_spec, large, large_spec, tts
+    # The TP step on one card: two virtual ranks, one launch of both a step.
+    tp = ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, **base), params=main.params,
+                 mesh=make_model_mesh(TP_PROFILE_MP, ['cuda:0'] * TP_PROFILE_MP))
+    record('tp', lambda: tp.generate_batch(tokens, pcs), tp=True)
+    del main, spec, stream, one, one_spec, large, large_spec, tts, tp
     torch.cuda.empty_cache()
     return out
 
@@ -3946,9 +3990,27 @@ def tp_step_bound(trees, caches, rows: int, q_len: int, read_slots: int, mp: int
     return nbytes, 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def tp_twin(label: str, ys, ys_t, c_k, c_t) -> None:
+    """Fail unless the persistent TP step's ys and caches equal its phased
+    twin's bit for bit, every rank."""
+    import torch
+    for r, (y, y_t) in enumerate(zip(ys, ys_t)):
+        if not torch.equal(y, y_t):
+            fail(f'{label}: rank {r}\'s y differs from the phased twin by '
+                 f'{(y.float() - y_t.float()).abs().max().item():.3e}')
+    for r, (a, b) in enumerate(zip(c_k, c_t)):
+        if not all(torch.equal(u, v) for u, v in zip(a, b) if u is not None):
+            fail(f'{label}: rank {r}\'s cache differs from the phased twin\'s')
+
+
 def phase_tp_kernels(results: dict):
-    """Phase 30: 5c and the TP fused steps against their plain versions with
-    virtual ranks on cuda:0, one stream per rank (the mesh's)."""
+    """Phase 30: 5c alone, and the persistent TP fused steps (one
+    cooperative launch holding the virtual ranks, 5c's element in its reduce
+    phases) bit for bit against their phased twin (fd.fused_step_tp_phased:
+    a kernel per phase on each rank's stream, 5c between) and within
+    tolerance of their plain versions, with virtual ranks on cuda:0; times of
+    the persistent step, its twin and the plain version, their host
+    enqueue, the launcher's grid against the plan, and the phase trace."""
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import fused_decode as fd
@@ -3961,7 +4023,8 @@ def phase_tp_kernels(results: dict):
                                         weights='compute', cache=None, K=SPEC['K'])}
     with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
         for mp in TP_MPS:
-            # 5c alone at the serving step's partial, (12 rows, d) f32 per rank.
+            # 5c alone at the serving step's partial, (12 rows, d) f32 per rank;
+            # its library call: torch.add of the two partials (mp 2).
             parts = [torch.randn(12, SLICE['d'], generator=gen).to(dev) for _ in range(mp)]
             got = ta.tp_allreduce(parts)
             want = ta.tp_allreduce_plain(parts)
@@ -3972,11 +4035,12 @@ def phase_tp_kernels(results: dict):
             res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ta.tp_allreduce(parts)),
                        plain_ms=cuda_ms(lambda: ta.tp_allreduce_plain(parts)),
                        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by='bytes',
-                       library_ms=None, tol='bit-equal')
+                       library_ms=(cuda_ms(lambda: torch.add(parts[0], parts[1]))
+                                   if mp == 2 else None), tol='bit-equal')
             results[('tp_allreduce', 'float32') if mp == 2 else
                     ('tp_allreduce', f'mp{mp}', 'float32')] = res
             emit(phase='kernels', path='tp', kernel='tp_allreduce', mp=mp, rows=12,
-                 d=SLICE['d'], bytes=nbytes, **res)
+                 d=SLICE['d'], bytes=nbytes, library='torch.add (mp 2)', **res)
             for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
                 for label, case in cases.items():
                     verify = 'K' in case
@@ -3989,13 +4053,24 @@ def phase_tp_kernels(results: dict):
                     h_loc = SLICE['h'] // mp
                     step = fd.fused_verify_step if verify else fd.fused_decode_step
                     args = (index, tl, cl, ttm, pm)
-                    c_k = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
-                    c_p = [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
-                    ys, _ = step(None, x, h_loc, None, *args, chunk_override=case['chunk'],
-                                 tp=(mesh, trees, c_k))
+                    c_k, c_t, c_p = ([KVCache(*(t.clone() for t in c if t is not None))
+                                      for c in caches] for _ in range(3))
+
+                    def persistent(c_k=c_k, x=x, h_loc=h_loc, args=args, step=step,
+                                   mesh=mesh, trees=trees, case=case):
+                        return step(None, x, h_loc, None, *args, chunk_override=case['chunk'],
+                                    tp=(mesh, trees, c_k))
+
+                    def phased(c_t=c_t, x=x, h_loc=h_loc, args=args, name=name, mesh=mesh,
+                               trees=trees, case=case):
+                        return fd.fused_step_tp_phased(name, mesh, trees, c_t, x, h_loc, *args,
+                                                       chunk_override=case['chunk'])
+                    ys, _ = persistent()
+                    ys_t, _ = phased()
                     ys_ref, _ = fd._step_plain_tp(name, trees, [x] * mp, h_loc, c_p, *args,
                                                   case['chunk'])
                     torch.cuda.synchronize()
+                    tp_twin(f'{name} ({label}, mp {mp}, {dtype_name})', ys, ys_t, c_k, c_t)
                     if not all(torch.equal(ys[0], y) for y in ys[1:]):
                         fail(f'{name} ({label}, mp {mp}, {dtype_name}): y differs across ranks')
                     variant = 'kv8' if case['cache'] == 'int8' else 'dense'
@@ -4013,12 +4088,27 @@ def phase_tp_kernels(results: dict):
                                                              dtype_name, tol)
                                                  for u, v in zip(dequantized(a, h_loc),
                                                                  dequantized(b, h_loc))))
-                    ms = cuda_ms(lambda: step(None, x, h_loc, None, *args,
-                                              chunk_override=case['chunk'],
-                                              tp=(mesh, trees, c_k)))
+                    ms, phased_ms = cuda_ms(persistent), cuda_ms(phased)
+                    enq, enq_phased = enqueue_ms(persistent), enqueue_ms(phased)
                     plain_ms = cuda_ms(lambda: fd._step_plain_tp(
                         name, trees, [x] * mp, h_loc, c_p, *args, case['chunk']))
                     q_len = case.get('K', 1)
+                    fmt = fd.weight_format(trees[0])
+                    S, d, dff = case['S'], SLICE['d'], SLICE['dff']
+                    chunk = fd.cache_chunk(caches[0], h_loc, case['chunk'])
+                    plan = fd.tp_persistent_plan(SLICE['L'], case['rows'], d, dff, SLICE['h'],
+                                                 S, chunk, fmt, q_len=q_len,
+                                                 kv8=case['cache'] == 'int8',
+                                                 devices=mesh.devices)
+                    grid = fd.step_grid(dt, caches[0].k.dtype, fmt, d // SLICE['h'], d,
+                                        dff // mp, da=d // mp)
+                    if grid[0] < 1 or grid[1] != plan['smem_bytes'] or plan['launches'] != 1:
+                        fail(f'{name} ({label}, mp {mp}): the launcher sizes {grid} (blocks, '
+                             f"shared bytes), the plan {plan['smem_bytes']} bytes, "
+                             f"{plan['launches']} launches")
+                    phases = (step_phases(persistent, SLICE['L'], grid[0], plan['phases'],
+                                          tp_devices=[dev])[0]
+                              if label in ('serve', 'verify', 'chunked') else None)
                     if torch.is_tensor(index):
                         read = int((tl + cl).sum()) + sum(
                             min(int(i) + q_len - 1, case['S'] - 1) - ttm - pm + 1
@@ -4033,15 +4123,19 @@ def phase_tp_kernels(results: dict):
                               else f'{label}_mp{mp}', dtype_name)
                     res = dict(max_abs_err=max(err_y, err_c), ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                               tol=tol_str(dtype_name, tol))
+                               tol=tol_str(dtype_name, tol), phased_ms=phased_ms,
+                               enqueue_ms=enq, phased_enqueue_ms=enq_phased,
+                               bit_equal_to_phased=True)
                     results[key] = res
                     emit(phase='kernels', path='tp', kernel=name, case=label, mp=mp,
                          dtype=dtype_name, shape=dict(L=SLICE['L'], rows=case['rows'],
                                                       S=case['S'], K=q_len,
                                                       chunk=case['chunk'], d=SLICE['d'],
                                                       h=SLICE['h'], dff=SLICE['dff']),
-                         err_y=err_y, err_cache=err_c, bytes=nbytes, **res)
-                    del trees, caches, c_k, c_p
+                         err_y=err_y, err_cache=err_c, bytes=nbytes,
+                         grid=dict(blocks=grid[0], smem_bytes=grid[1]), plan=plan,
+                         phases=phases, **res)
+                    del trees, caches, c_k, c_t, c_p
 
 
 def tp_requests():
@@ -4051,6 +4145,40 @@ def tp_requests():
     texts, pts, pcs = make_requests()
     tok = PhonemeTokenizer()
     return texts, pts, pcs, [np.concatenate([pt, tok(t)]) for t, pt in zip(texts, pts)]
+
+
+@contextlib.contextmanager
+def decode_loop_counts():
+    """Counts, while open, the token steps of the AR decode loops
+    (models.ar._stack_step calls) and the 5c launches made inside those
+    loops (_decode_advance, _decode_advance_spec), the module functions
+    wrapped and restored."""
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    from valle2_tpu_torch.models import ar as ar_mod
+    names = ('_decode_advance', '_decode_advance_spec', '_stack_step')
+    orig = {n: getattr(ar_mod, n) for n in names}
+    loop = dict(steps=0, allreduce=0)
+
+    def in_loop(fn):
+        def run(*args, **kw):
+            before = ta.COUNTER.count
+            try:
+                return fn(*args, **kw)
+            finally:
+                loop['allreduce'] += ta.COUNTER.count - before
+        return run
+
+    def stepping(*args, **kw):
+        loop['steps'] += 1
+        return orig['_stack_step'](*args, **kw)
+    ar_mod._decode_advance = in_loop(orig['_decode_advance'])
+    ar_mod._decode_advance_spec = in_loop(orig['_decode_advance_spec'])
+    ar_mod._stack_step = stepping
+    try:
+        yield loop
+    finally:
+        for n, fn in orig.items():
+            setattr(ar_mod, n, fn)
 
 
 def phase_tp(devices, smi: str = '') -> dict:
@@ -4066,6 +4194,7 @@ def phase_tp(devices, smi: str = '') -> dict:
     import numpy as np
     import torch
     from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.kernels import fused_decode as fd
     from valle2_tpu_torch.models.ar import ValleAR
     from valle2_tpu_torch.parallel import make_model_mesh
     from valle2_tpu_torch.tts import StageClock, ValleTTS
@@ -4094,9 +4223,11 @@ def phase_tp(devices, smi: str = '') -> dict:
     spec_tp.generate_batch(tokens, pcs)                 # warm-up
     torch.cuda.synchronize()
     reset_counters()
-    got = tp.batch_synthesize(texts, pts, pcs)
-    clock = StageClock(devices[0])
-    got_spec = spec_tp.generate_batch(tokens, pcs, clock=clock)
+    fd.TP_PHASED_COUNTER.reset()
+    with decode_loop_counts() as loop:
+        got = tp.batch_synthesize(texts, pts, pcs)
+        clock = StageClock(devices[0])
+        got_spec = spec_tp.generate_batch(tokens, pcs, clock=clock)
     launches = read_counters()
     plain = plain_calls()
     want = runs['solo'][-1][1]
@@ -4111,8 +4242,13 @@ def phase_tp(devices, smi: str = '') -> dict:
     require_launches(f'tp (mp {mp})', launches, ('fused_decode_step_tp',
                                                  'fused_verify_step_tp', 'tp_allreduce'))
     solo_steps = step_launches({k: v for k, v in launches.items() if not k.endswith('_tp')})
-    if plain or solo_steps:
-        fail(f'tp (mp {mp}): plain fused calls {plain}, one-rank step kernels {solo_steps}')
+    if plain or solo_steps or fd.TP_PHASED_COUNTER.count:
+        fail(f'tp (mp {mp}): plain fused calls {plain}, one-rank step kernels {solo_steps}, '
+             f'phased TP steps {fd.TP_PHASED_COUNTER.count}')
+    tp_steps = launches['fused_decode_step_tp'] + launches['fused_verify_step_tp']
+    if loop['allreduce'] or tp_steps != loop['steps']:
+        fail(f"tp (mp {mp}): {loop['allreduce']} 5c launches inside the decode loops, "
+             f"{tp_steps} TP step launches for {loop['steps']} token steps")
     from valle2_tpu_torch.kernels import tp_allreduce as ta
     parts = [torch.randn(12, SLICE['d'], device=d) for d in mesh.devices]
     allreduce_ms = cuda_ms(lambda: ta.tp_allreduce(parts))
@@ -4125,10 +4261,103 @@ def phase_tp(devices, smi: str = '') -> dict:
                     rtf=runs[label][-1][1][0].rtf)
     emit(phase='tp', mp=mp, devices=[str(d) for d in mesh.devices], steps=TP_STEPS,
          requests=len(texts), dtype='float32', codes_equal=True, spec_ids_equal=True,
+         decode_loop=dict(token_steps=loop['steps'], tp_step_launches=tp_steps,
+                          allreduce_launches=loop['allreduce']),
+         plan=fd.tp_persistent_plan(SLICE['L'], 12, SLICE['d'], SLICE['dff'], SLICE['h'],
+                                    1280, 1280, devices=mesh.devices),
          mesh=summary('mesh'), solo=summary('solo'),
          spec_turns=clock.counts.get('ar_turns'), tp_allreduce_ms=allreduce_ms,
          launches={k: v for k, v in launches.items() if v}, card=smi)
     return launches
+
+
+def phase_tp_cards(devices, smi: str = '') -> None:
+    """``--mesh-cards N``: the persistent TP step over N cards (one
+    cooperative launch a card, barriers across cards through flags in peer
+    memory) at the serving step (12 rows, S 1280) and the spec cell's verify
+    block (3 rows x K = 4), f32 with TF32 off and bf16: every rank's y and
+    cache bit for bit against the phased twin on the same cards, and y
+    against the persistent step of N virtual ranks on cuda:0; CUDA-event
+    times of the three (the cards' launches end on cuda:0's stream, which
+    waits for every card), their host enqueue, and each card's phase trace
+    (step_phases: the barriers across cards are in the OUT and FFN2
+    phases' barrier time)."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, precision_scope
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, map_tree
+    from valle2_tpu_torch.parallel import make_model_mesh
+
+    mp = len(devices)
+    gen = torch.Generator().manual_seed(37)
+    home = torch.device('cuda', 0)
+    cases = {'serve': TP_CASES['serve'],
+             'verify': dict(rows=SPEC['rows'], S=1024, index=None, chunk=None,
+                            weights='compute', cache=None, K=SPEC['K'])}
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+    with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
+        for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
+            for label, case in cases.items():
+                verify = 'K' in case
+                name = 'fused_verify_step_tp' if verify else 'fused_decode_step_tp'
+                v_mesh, v_trees, v_caches, x, index, tl, cl, ttm, pm = tp_inputs(
+                    case, mp, dt, gen, home)
+                if verify:
+                    index = torch.tensor([ttm + pm + o for o in SPEC['offsets']],
+                                         dtype=torch.int32, device=home)
+                mesh = make_model_mesh(mp, devices)
+                trees = [map_tree(lambda a, c=c: a.to(c), t)
+                         for t, c in zip(v_trees, mesh.devices)]
+                caches = [KVCache(*(t.to(c) for t in cc if t is not None))
+                          for cc, c in zip(v_caches, mesh.devices)]
+                c_k, c_t = ([KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+                            for _ in range(2))
+                c_v = [KVCache(*(t.clone() for t in c if t is not None)) for c in v_caches]
+                h_loc = SLICE['h'] // mp
+                args = (index, tl, cl, ttm, pm)
+
+                def persistent(c_k=c_k, trees=trees, mesh=mesh, args=args, name=name):
+                    return fd.fused_step_tp(name, mesh, trees, c_k, x, h_loc, *args)
+
+                def phased(c_t=c_t, trees=trees, mesh=mesh, args=args, name=name):
+                    return fd.fused_step_tp_phased(name, mesh, trees, c_t, x, h_loc, *args)
+
+                def virtual(c_v=c_v, trees=v_trees, mesh=v_mesh, args=args, name=name):
+                    return fd.fused_step_tp(name, mesh, trees, c_v, x, h_loc, *args)
+                ys, _ = persistent()
+                ys_t, _ = phased()
+                ys_v, _ = virtual()
+                sync()
+                label_ = f'{name} ({label}, {mp} cards, {dtype_name})'
+                tp_twin(label_, ys, ys_t, c_k, c_t)
+                if not all(torch.equal(y.to(home), ys_v[0]) for y in ys):
+                    fail(f'{label_}: differs from {mp} virtual ranks on one card')
+                ms, phased_ms, virtual_ms = (cuda_ms(f) for f in (persistent, phased, virtual))
+                enq, enq_phased = enqueue_ms(persistent), enqueue_ms(phased)
+                sync()
+                q_len = case.get('K', 1)
+                d, dff = SLICE['d'], SLICE['dff']
+                plan = fd.tp_persistent_plan(SLICE['L'], case['rows'], d, dff, SLICE['h'],
+                                             case['S'], case['S'], q_len=q_len,
+                                             devices=mesh.devices)
+                grid = fd.step_grid(dt, caches[0].k.dtype, 'w', d // SLICE['h'], d, dff // mp,
+                                    da=d // mp)
+                if plan['launches'] != mp or grid[1] != plan['smem_bytes']:
+                    fail(f'{label_}: the plan {plan["launches"]} launches, '
+                         f'{plan["smem_bytes"]} bytes; the launcher {grid}')
+                phases = step_phases(persistent, SLICE['L'], grid[0], plan['phases'],
+                                     tp_devices=list(mesh.devices))
+                sync()
+                emit(phase='tp_cards', kernel=name, case=label, mp=mp, dtype=dtype_name,
+                     devices=[str(c) for c in mesh.devices], bit_equal_to_phased=True,
+                     equal_to_virtual_ranks=True, ms=ms, phased_ms=phased_ms,
+                     virtual_ranks_ms=virtual_ms, enqueue_ms=enq, phased_enqueue_ms=enq_phased,
+                     grid=dict(blocks=grid[0], smem_bytes=grid[1]), plan=plan,
+                     phases_by_card=phases, card=smi)
+                del trees, caches, c_k, c_t, c_v, v_trees, v_caches
 
 
 def phase_tp_large(devices, smi: str = '') -> dict:
@@ -4252,10 +4481,10 @@ def main() -> int:
              None, {}, ('bfloat16', 'float32'), ('hub',)),
             ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', None, {'mp4': 'mp4'},
              ('float32',), ('tp',)),
-            ('fused_decode_step_tp', 'fused_decode.cu', 'fused_decode.py:706', None,
+            ('fused_decode_step_tp', 'fused_step.cu', 'fused_decode.py:706', None,
              {'mp4': 'mp4', **{f'{c}_mp{m}': f'{c}_mp{m}' for c in TP_CASES if c != 'serve'
                                for m in TP_MPS}}, ('bfloat16', 'float32'), ('tp',)),
-            ('fused_verify_step_tp', 'fused_decode.cu', 'fused_decode.py:1017', None,
+            ('fused_verify_step_tp', 'fused_step.cu', 'fused_decode.py:1017', None,
              {'mp4': 'mp4'}, ('bfloat16', 'float32'), ('tp',))):
         def pick(key, dtype_name):
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
@@ -4287,6 +4516,14 @@ def main() -> int:
         if name in TP_PORTS:
             entry['ports'] = TP_PORTS[name]
             entry['case'] = 'tp_virtual_ranks_mp2'
+            if name != 'tp_allreduce':
+                # the persistent TP step beside its phased twin, every case
+                entry['persistent_vs_phased'] = {
+                    key or 'mp2': {DTYPE_LABEL[d]: {k: results[(name, key, d) if key else (name, d)][k]
+                                           for k in ('ms', 'phased_ms', 'enqueue_ms',
+                                                     'phased_enqueue_ms')}
+                          for d in dtypes}
+                    for key in (None, *extra.values())}
         elif name in PER_ROW_PORTS:
             entry['scalar_index_ms'] = {DTYPE_LABEL[d]: results[(name, d)]['scalar_index_ms']
                                         for d in dtypes}
@@ -4339,8 +4576,10 @@ def main() -> int:
 
 def main_mesh(n: int) -> int:
     """``python3 chip_smoke.py --mesh-cards N``, on a host of N cards: the
-    cards' peer access (every pair must have it), the build, phase tp over
-    cuda:0..N-1 and the 204M stack at mp N (``phase_tp_large``)."""
+    cards' peer access (every pair must have it), the build, the persistent
+    TP step over the N cards against its phased twin (``phase_tp_cards``),
+    phase tp over cuda:0..N-1 and the 204M stack at mp N
+    (``phase_tp_large``)."""
     sys.path.insert(0, str(ROOT))
     import torch
     smi = phase_device()
@@ -4351,10 +4590,12 @@ def main_mesh(n: int) -> int:
     emit(phase='peers', cards=n, peer_access=peers)
     if not all(peers.values()):
         fail(f'tensor parallelism needs peer access between every pair of cards: {peers}')
-    phase_build()
+    timed(phase_build)
     devices = [f'cuda:{i}' for i in range(n)]
-    phase_tp(devices, smi)
-    phase_tp_large(devices, smi)
+    timed(phase_tp_cards, devices, smi)
+    timed(phase_tp, devices, smi)
+    timed(phase_tp_large, devices, smi)
+    emit(phase_seconds=PHASE_SECONDS)
     print(smi, flush=True)
     emit(ok=True, device={'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                           'count': torch.cuda.device_count()})

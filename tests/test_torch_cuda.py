@@ -50,7 +50,15 @@ gives zero dq to rows that see no key; #4 and #5 repeat bit for bit from
 call to call, and #3's dk, dv equal #5's bit for bit (one device body), also
 at the register-tiled f32 kernels' edges (one row, a partial micro-tile,
 one key past a tile, a causal lower bound inside a q tile); the
-tensor-core route's bits are pinned by digest (``TC_BITS``).
+tensor-core route's bits are pinned by digest (``TC_BITS``).  The persistent
+TP step (one cooperative launch per card a step, 5c's element in its reduce
+phases) is held bit for bit against its phased twin
+(``fused_step_tp_phased``) in every weight x cache x chunk x index case, #7
+at K 2, 4 and 8, mp 2 and 4 virtual ranks, f32 and bf16, and over two real
+cards (two launches of one rank, and two of two) where the host has them;
+it is one device kernel a step, its grid is the plan's, W8A8 is refused,
+and a wait across cards for a peer that never launches ends in an error
+after about 10 s, in a process of its own.
 """
 
 import math
@@ -2009,3 +2017,231 @@ def test_tp_over_two_real_cards_equals_virtual_ranks(dev):
     assert all(torch.equal(y.to(cards[0]), ys_v[0]) for y in ys_r)
     for a, b in zip(r_caches, caches):
         assert torch.equal(a.k.to(cards[0]), b.k)
+
+
+# --- The persistent TP step: one cooperative launch per card a step, 5c inside ---
+
+def tp_twin_case(dev, mp, fmt, step, dtype, hd, devices=None):
+    """A TP case's inputs (``tp_inputs``, 5 rows; verify blocks of K =
+    int(step[-1]) tokens) on a mesh of ``devices`` (default: mp virtual ranks
+    on ``dev``), with its index and the step's name, wrapper and kwargs."""
+    K = int(step.removeprefix('verify')) if step.startswith('verify') else 1
+    mesh, trees, caches, x, (tl, cl), ttm, pm, index = tp_inputs(dev, mp, fmt, dtype, hd, 5, K)
+    if devices is not None:
+        mesh = make_model_mesh(mp, devices)
+        trees = [map_tree(lambda a, c=c: a.to(c), t) for t, c in zip(trees, mesh.devices)]
+        caches = [KVCache(*(t.to(c) for t in cache if t is not None))
+                  for cache, c in zip(caches, mesh.devices)]
+    if step == 'decode':
+        index = ttm + pm + 7
+    name = 'fused_verify_step_tp' if K > 1 else 'fused_decode_step_tp'
+    return mesh, trees, caches, x, index, (tl, cl, ttm, pm), name
+
+
+def twin_caches(caches):
+    return [KVCache(*(t.clone() for t in c if t is not None)) for c in caches]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('hd', [32, 128])
+@pytest.mark.parametrize('chunk', [None, 32], ids=['whole_s', 'chunked'])
+@pytest.mark.parametrize('step', ['decode', 'decode_per_row', 'verify2', 'verify4', 'verify8'])
+@pytest.mark.parametrize('fmt', sorted(TP_FORMATS))
+@pytest.mark.parametrize('mp', [2, 4])
+def test_tp_persistent_step_equals_the_phased_twin(dev, mp, fmt, step, chunk, hd, dtype):
+    """The persistent TP step (one cooperative launch holding the mp virtual
+    ranks, 5c's element in its reduce phases) against its phased twin
+    (``fused_step_tp_phased``: a kernel per phase, 5c between) on the same
+    inputs: every rank's y and every rank's whole cache bit for bit, in every
+    weight x cache format, whole-S and chunked, with the scalar and the
+    per-row index and verify blocks of 2, 4 and 8 tokens; each launch counted
+    once on its own counter."""
+    mesh, trees, caches, x, index, args, name = tp_twin_case(dev, mp, fmt, step, dtype, hd)
+    c_p, c_t = twin_caches(caches), twin_caches(caches)
+    before, phased = fd.TP_COUNTERS[name].count, fd.TP_PHASED_COUNTER.count
+    ys, out = fd.fused_step_tp(name, mesh, trees, c_p, x, 4 // mp, index, *args,
+                               chunk_override=chunk)
+    ys_t, _ = fd.fused_step_tp_phased(name, mesh, trees, c_t, x, 4 // mp, index, *args,
+                                      chunk_override=chunk)
+    torch.cuda.synchronize()
+    assert out is c_p
+    assert fd.TP_COUNTERS[name].count == before + 1
+    assert fd.TP_PHASED_COUNTER.count == phased + 1
+    for y, y_t in zip(ys, ys_t):
+        assert torch.equal(y, y_t), (y.float() - y_t.float()).abs().max()
+    for a, b in zip(c_p, c_t):
+        assert all(torch.equal(u, v) for u, v in zip(a, b) if u is not None)
+
+
+def test_tp_persistent_step_repeats_bit_for_bit(dev):
+    """Two persistent TP steps on the same inputs give the same bits, and a
+    third on the outputs of the first continues as the phased twin does:
+    the partial planes are re-read every layer, never stale."""
+    mesh, trees, caches, x, index, args, name = tp_twin_case(dev, 2, 'dense', 'verify4',
+                                                            torch.float32, 64)
+    c_a, c_b, c_t = twin_caches(caches), twin_caches(caches), twin_caches(caches)
+    ys_a, _ = fd.fused_step_tp(name, mesh, trees, c_a, x, 2, index, *args)
+    ys_b, _ = fd.fused_step_tp(name, mesh, trees, c_b, x, 2, index, *args)
+    ys_t, _ = fd.fused_step_tp_phased(name, mesh, trees, c_t, x, 2, index, *args)
+    nxt = (ys_a[0] * 0.5).contiguous()
+    ys_a2, _ = fd.fused_step_tp(name, mesh, trees, c_a, nxt, 2, index + 4, *args)
+    ys_t2, _ = fd.fused_step_tp_phased(name, mesh, trees, c_t, nxt, 2, index + 4, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ys_a, ys_b))
+    assert all(torch.equal(a, t) for a, t in zip(ys_a, ys_t))
+    assert all(torch.equal(a, t) for a, t in zip(ys_a2, ys_t2))
+
+
+TP_PROFILE = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from valle2_tpu_torch.kernels import fused_decode as fd
+dev = torch.device('cuda')
+mesh, trees, caches, x, index, args, name = t.tp_twin_case(dev, 2, 'kv8', sys.argv[2],
+                                                          torch.bfloat16, 64)
+run = lambda: fd.fused_step_tp(name, mesh, trees, caches, x, 2, index, *args, chunk_override=32)
+run()
+torch.cuda.synchronize()
+seen = []
+for _ in range(3):
+    before = fd.TP_COUNTERS[name].count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not any(w in e.name.lower() for w in ('sleep', 'spin'))]
+    seen.append(dict(launches=fd.TP_COUNTERS[name].count - before, names=names))
+    if len(names) == 3:
+        break
+print('PROFILE ' + json.dumps(seen), flush=True)
+"""
+
+
+@pytest.mark.parametrize('step', ['decode', 'verify4'])
+def test_tp_persistent_step_is_one_device_kernel(dev, step):
+    """torch.profiler: three TP steps of two virtual ranks on one card (int8
+    cache, chunked) run three device kernels, each the persistent TP step:
+    no phased step kernel and no 5c launch.  Profiled in a process of its
+    own: late in a long pytest process torch.profiler has kept one device
+    kernel of several back-to-back launches, where a fresh process sees them
+    all.  A profile that saw fewer (lost records) is taken again, up to
+    three times, and one must see exactly three; a kernel of another name,
+    or more than three, fails."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, '-c', TP_PROFILE, str(here), step],
+                         capture_output=True, text=True, timeout=300, cwd=here.parent)
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith('PROFILE ')), None)
+    assert line is not None, out.stderr[-3000:]
+    seen = json.loads(line.removeprefix('PROFILE '))
+    for attempt in seen:
+        assert attempt['launches'] == 3
+        names = attempt['names']
+        assert len(names) <= 3 and all('step_tp_persistent_kernel' in n for n in names), names
+    assert len(seen[-1]['names']) == 3, seen
+
+
+@pytest.mark.parametrize('mp', [2, 4])
+@pytest.mark.parametrize('dims', [(256, 4, 1024), (1024, 16, 4096)], ids=['serving', 'w204m'])
+@pytest.mark.parametrize('layout', ['w', 'q4'])
+def test_tp_persistent_grid_matches_the_plan(dev, layout, dims, mp):
+    """The TP launcher's grid fills the card (SM count x blocks per SM) and
+    its shared memory is the plan's (``tp_persistent_plan``)."""
+    d, h, dff = dims
+    blocks, smem = fd.step_grid(torch.bfloat16, torch.bfloat16, layout, d // h, d, dff // mp,
+                                da=d // mp)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks >= sms and blocks % sms == 0
+    plan = fd.tp_persistent_plan(2, 8, d, dff, h, 128, 128, layout, devices=[dev] * mp)
+    assert smem == plan['smem_bytes'] and plan['launches'] == 1
+
+
+def test_tp_persistent_step_refuses_w8a8(dev):
+    """int8 W8A8 weights are refused by both TP routes (a global activation
+    amax would be needed inside the step), and W8A8 has no TP build: its
+    sizing raises."""
+    mesh, trees, caches, x, index, args, name = tp_twin_case(dev, 2, 'dense', 'decode',
+                                                            torch.float32, 32)
+    q8 = [tq.quantize_transformer(t, bits=8) for t in trees]
+    for fn in (fd.fused_step_tp, fd.fused_step_tp_phased):
+        with pytest.raises(ValueError, match='int8 W8A8'):
+            fn(name, mesh, q8, caches, x, 2, index, *args)
+    with pytest.raises(ValueError, match='W8A8'):
+        fd.step_grid(torch.float32, torch.float32, 'q', 32, 128, 256, da=64)
+
+
+@pytest.mark.parametrize('layout', ['two_cards', 'mixed'])
+def test_tp_persistent_step_across_cards_equals_the_phased_twin(dev, layout):
+    """Where the host has two or more cards: the persistent TP step with its
+    barriers across cards (flags in peer memory), rank r on cuda:r
+    ('two_cards', mp 2: two launches of one rank) or ranks 0, 1 on cuda:0
+    and 2, 3 on cuda:1 ('mixed', mp 4: two launches of two ranks), against
+    its phased twin and the virtual ranks of one card bit for bit, three
+    steps in a row."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards')
+    cards = ['cuda:0', 'cuda:1'] if layout == 'two_cards' else ['cuda:0'] * 2 + ['cuda:1'] * 2
+    mp = len(cards)
+    mesh, trees, caches, x, index, args, name = tp_twin_case(dev, mp, 'dense', 'verify4',
+                                                            torch.float32, 64, devices=cards)
+    v_mesh, v_trees, v_caches, *_ = tp_twin_case(dev, mp, 'dense', 'verify4', torch.float32,
+                                                 64)
+    plan = fd.tp_persistent_plan(2, 5, 256, 1024, 4, 96, 96, q_len=4, devices=cards)
+    assert plan['launches'] == 2 and plan['grid_syncs'] == plan['barriers'] + 4
+    c_p, c_t, c_v = twin_caches(caches), twin_caches(caches), twin_caches(v_caches)
+    for step in range(3):
+        at = index + 4 * step
+        ys, _ = fd.fused_step_tp(name, mesh, trees, c_p, x, 4 // mp, at, *args)
+        ys_t, _ = fd.fused_step_tp_phased(name, mesh, trees, c_t, x, 4 // mp, at, *args)
+        ys_v, _ = fd.fused_step_tp(name, v_mesh, v_trees, c_v, x, 4 // mp, at, *args)
+        torch.cuda.synchronize()
+        for y, y_t in zip(ys, ys_t):
+            assert torch.equal(y, y_t)
+        assert all(torch.equal(y.to(dev), ys_v[0]) for y in ys)
+    for a, b, v in zip(c_p, c_t, c_v):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+        assert torch.equal(a.k.to(dev), v.k)
+
+
+def test_tp_wait_across_cards_is_bounded(dev):
+    """A barrier across cards whose peer never launches ends in an error,
+    not a hang: in a process of its own (the trap loses its CUDA context),
+    ``valle2_tp_wait_probe`` waits for a second card that never comes; after
+    about 10 s the waiting thread sets the host-mapped error word and traps,
+    and the process's next synchronize raises."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = (
+        'import ctypes, time, torch\n'
+        'from valle2_tpu_torch.kernels import _build\n'
+        "lib = _build.load('fused_step_tp_dense')\n"
+        'lib.valle2_tp_wait_probe.argtypes = [ctypes.c_void_p]\n'
+        't0 = time.perf_counter()\n'
+        'status = lib.valle2_tp_wait_probe(torch.cuda.current_stream().cuda_stream)\n'
+        "err = 'none'\n"
+        'try:\n'
+        '    torch.cuda.synchronize()\n'
+        'except RuntimeError as e:\n'
+        "    err = 'raised'\n"
+        "print('PROBE', status, err, lib.valle2_tp_timed_out(), "
+        'round(time.perf_counter() - t0, 1), flush=True)\n')
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                         timeout=180, cwd=root)
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith('PROBE'))
+    _, status, err, timed_out, secs = line.split()
+    assert (status, err, timed_out) == ('0', 'raised', '1'), out.stderr[-2000:]
+    assert 9.5 <= float(secs) < 60

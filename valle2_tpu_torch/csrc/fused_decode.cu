@@ -30,11 +30,12 @@
 // The TPU kernel carries the hidden state across a sequential (layer, chunk)
 // grid; blocks of a GPU grid run in no order.  The step is five phases per
 // layer (six with an int8 cache, one more with a chunked cache), each one
-// grid of blocks.  The phased route (each rank of the TP step, and the
-// phased twin valle2_fused_verify_step_phased, the bit-exact reference of
-// the persistent steps) launches each phase as its own kernel, in turn on
-// one stream, from one host call; #6 and #7 on one card run them all in ONE
-// cooperative launch, the persistent step (below).  The phases:
+// grid of blocks.  The phased route (the phased twins
+// valle2_fused_verify_step_phased and valle2_fused_step_tp_phased, the
+// bit-exact references of the persistent steps) launches each phase as its
+// own kernel, in turn on one stream, from one host call; #6 and #7 run them
+// all in ONE cooperative launch, the persistent step (below), on one card,
+// and under TP in one cooperative launch per card.  The phases:
 //
 //   1. proj<QKV>:  LN1 -> fused QKV.  q (pre-scaled by 1/sqrt(hd), f32) goes to
 //                  scratch; k_new / v_new are rounded to the cache dtype and
@@ -95,44 +96,71 @@
 //                accumulate exactly in int32 (__dp4a), and y = acc * sx *
 //                scale[col] in f32.
 //
-// Tensor parallelism (valle2_fused_step_tp; 5c replaces _ring_allreduce,
-// fused_decode.py:252-295, and the reduce sites of _kernel :480-490 and
-// _verify_kernel :786-792).  Rank r holds the Megatron split of the stack
-// (its h local heads, a (L, rows, S, da) cache with da = d / mp, its share of
-// dff; the hidden state stays d wide), and the OUT and FFN2 projections write
-// raw f32 partial sums instead of their epilogues.  5c, tp_allreduce_kernel,
-// then gives every rank the sum over ranks s = 0..mp-1 in rank order,
-// ((0 + p_0) + p_1) + ..., so every rank holds the same bits, with the bias
-// added once after the sum and then the residual (the one-rank epilogues,
-// moved after the sum).  Each rank's 5c reads the mp partials directly: its
-// own locally, its peers' over NVLink through peer pointers (the launcher
-// enables peer access; a pair without it is refused, never worked around).
-// On an NVSwitch H100 host every peer is one hop away, so no ring is needed;
-// the ring was the TPU torus's answer.  This departs from the usual mapping
-// of in-kernel remote copies to NCCL collectives outside the kernel, for
-// three reasons: NCCL refuses two ranks on one GPU (virtual ranks, how one
-// card checks the protocol); one process keeps ValleTTS(mesh=) a single
-// object, as under JAX's single controller; and a peer read needs no staging.
+// Tensor parallelism (5c replaces _ring_allreduce, fused_decode.py:252-295,
+// and the reduce sites of _kernel :480-490 and _verify_kernel :786-792).
+// Rank r holds the Megatron split of the stack (its h local heads, a (L,
+// rows, S, da) cache with da = d / mp, its share of dff; the hidden state
+// stays d wide), and the OUT and FFN2 projections write raw f32 partial sums
+// instead of their epilogues.  5c's element (reduce_element in
+// fused_decode.cuh) then gives every rank the sum over ranks s = 0..mp-1 in
+// rank order, ((0 + p_0) + p_1) + ..., so every rank holds the same bits,
+// with the bias added once after the sum and then the residual (the one-rank
+// epilogues, moved after the sum).  Each rank reads the mp partials
+// directly: its own locally, its peers' over NVLink through peer pointers
+// (the caller enables peer access; a pair without it is refused, never
+// worked around).  On an NVSwitch H100 host every peer is one hop away, so
+// no ring is needed; the ring was the TPU torus's answer.  This departs from
+// the usual mapping of in-kernel remote copies to NCCL collectives outside
+// the kernel, for three reasons: NCCL refuses two ranks on one GPU (virtual
+// ranks, how one card checks the protocol); one process keeps
+// ValleTTS(mesh=) a single object, as under JAX's single controller; and a
+// peer read needs no staging.
 //
-// The ordering protocol (one host thread, CUDA events; rank r's kernels run
-// on its own stream, virtual ranks on one card included): the TP step first
-// makes every rank's stream wait for every caller stream's queued work; then
-// per layer, each rank queues its attention phase, ending in its OUT partial
-// into its plane part_out; a barrier (each rank records its event, each rank's
-// stream waits for every rank's event); each rank's 5c over the mp part_out
-// planes into its f32 mid state, and its FFN phase, ending in its FFN2
-// partial into its plane part_ffn; a barrier; each rank's 5c over the part_ffn
-// planes into its hidden state.  Two planes suffice: rank r writes part_out
+// The TP step the serving path runs is the persistent one (csrc/fused_step.cu
+// valle2_fused_step_tp, step_tp_persistent_kernel in fused_decode.cuh): ONE
+// cooperative launch per card a step, holding that card's ranks (all mp with
+// virtual ranks on one card), each phase's items its ranks' items
+// concatenated rank-major.  Its phases a layer: QKV; (#7 over an int8 cache:
+// the cache write); the attention; OUT into the rank's plane part_out; a
+// barrier across ranks; reduce-OUT (5c's element over every rank's part_out
+// into the rank's f32 mid state); FFN1; FFN2 into part_ffn; a barrier across
+// ranks; reduce-FFN2 (into the hidden state) -- 7 (8) phases, a grid barrier
+// after each but the last.  On one card a barrier across ranks is a grid
+// barrier.  Across cards it is a grid barrier, then one thread of block 0
+// stores the barrier's epoch into this card's slot of every other card's
+// flag array (a system-scope release) and spins with system-scope acquires
+// on its own array until every other card's slot holds the epoch, then a
+// second grid barrier; the epoch is a host counter under a lock, never
+// reset, so no flag is; a wait that sees nothing for 10 s traps (a missing
+// peer ends the run with an error, never hangs it), and the launcher
+// reports it on its next call.  The partials are read through L2 (ld.cg):
+// the same planes are re-read every layer, and a line of a peer's plane
+// that L1 kept would be stale.  Two planes suffice: rank r writes part_out
 // again only in the next layer, after the FFN barrier, which every rank
-// reaches only after its 5c has read the part_out planes (and part_ffn after
-// the next layer's OUT barrier, likewise).  At the end every caller stream
-// waits for every rank's last event, so no partial is freed, or reused by
-// PyTorch's allocator, while a peer still reads it.  A TP launch holds one
-// lock (the event pool: one event per (card, rank)).  5c alone
-// (valle2_tp_allreduce) serves the prefill's and the NAR's row-parallel
-// sums on the callers' streams, between the same two barriers.  What bounds
-// 5c: each rank reads mp partials of rows * d f32 and writes one, a few KB at
-// the serving shape, so its time is launch and synchronisation latency.
+// reaches only after its reduce has read the part_out planes (and part_ffn
+// after the next layer's OUT barrier, likewise).  Across cards the
+// launches' streams first wait for each other's queued work, and at the end
+// for each other's launch, so no partial is freed, or reused by PyTorch's
+// allocator, while a peer still reads it.
+//
+// The phased TP step (valle2_fused_step_tp_phased, step_tp below) is the
+// bit-exact reference of the persistent one, for tests and chip_smoke.py:
+// one host thread, CUDA events, rank r's kernels on its own stream, virtual
+// ranks on one card included.  It first makes every rank's stream wait for
+// every caller stream's queued work; then per layer, each rank queues its
+// attention phase, ending in its OUT partial into part_out; a barrier (each
+// rank records its event, each rank's stream waits for every rank's event);
+// each rank's 5c (tp_allreduce_kernel) over the part_out planes into its
+// mid state, and its FFN phase, ending in its FFN2 partial into part_ffn; a
+// barrier; each rank's 5c over the part_ffn planes into its hidden state;
+// at the end every caller stream waits for every rank's last event.  A TP
+// launch holds one lock (the event pool: one event per (card, rank)).  5c
+// alone (valle2_tp_allreduce) serves the prefill's and the NAR's
+// row-parallel sums on the callers' streams, between the same two barriers.
+// What bounds 5c: each rank reads mp partials of rows * d f32 and writes
+// one, a few KB at the serving shape, so its time is launch and
+// synchronisation latency -- which the persistent TP step's reduce phases
+// (about 1.4 us a layer each at the serving width) do not pay.
 //
 // What bounds it on this card: at 12 query rows a step streams the weights
 // (about 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and
@@ -207,8 +235,8 @@
 // runs on that many blocks while the others wait at the barrier.  Splitting
 // a tile's K slices over blocks, with the partials summed in slice order by
 // the consuming phase, would spread them further at the same arithmetic; a
-// CUDA graph of the token loop, the tensor cores at larger row counts, and
-// the persistent form of the TP step (cross-card barriers) are later work.
+// CUDA graph of the token loop and the tensor cores at larger row counts are
+// later work.
 
 #include "fused_decode.cuh"
 
@@ -226,41 +254,21 @@ int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stre
   });
 }
 
-// ---- Tensor parallelism: 5c and the TP step ----
+// ---- Tensor parallelism: 5c alone and the phased TP step ----
 
-constexpr int MAX_MP = 8;      // ranks of one launch
 constexpr int MAX_CARDS = 32;  // cards of the event pool
 constexpr int RED_THREADS = 256;
-constexpr int TP_PTRS = 32;    // device pointers per rank of valle2_fused_step_tp
 
-enum Epilogue { EPI_SUM = 0, EPI_OUT = 1, EPI_FFN2 = 2 };
-
-struct Partials {
-  const float* p[MAX_MP];      // rank r's partial: local, or a peer's over NVLink
-};
-
-// 5c: out[i] = sum over ranks in rank order of partial_r[i], f32, the same
-// bits on every rank.  EPI_SUM writes the sum (f32); EPI_OUT the f32 mid
-// state x + (sum + bias) (x the layer's input, compute dtype); EPI_FFN2 the
-// hidden state res32 + (sum + bias) in the compute dtype (the one-rank OUT and
-// FFN2 epilogues, after the sum).
+// 5c (reduce_element over every element): out[i] = the rank-ordered f32 sum
+// of the mp partials, with epilogue EPI.
 template <typename T, int EPI>
 __global__ void __launch_bounds__(RED_THREADS)
 tp_allreduce_kernel(Partials src, int mp, long n, int d, const T* __restrict__ bias,
                     const T* __restrict__ x, const float* __restrict__ res32,
                     float* __restrict__ out32, T* __restrict__ y) {
   for (long i = blockIdx.x * (long)RED_THREADS + threadIdx.x; i < n;
-       i += (long)gridDim.x * RED_THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < mp; ++r) s += src.p[r][i];
-    if constexpr (EPI == EPI_SUM) {
-      out32[i] = s;
-    } else if constexpr (EPI == EPI_OUT) {
-      out32[i] = to_f<T>(x[i]) + (s + to_f<T>(bias[i % d]));
-    } else {
-      y[i] = from_f<T>(res32[i] + (s + to_f<T>(bias[i % d])));
-    }
-  }
+       i += (long)gridDim.x * RED_THREADS)
+    reduce_element<T, EPI>(src, mp, i, d, bias, x, res32, out32, y);
 }
 
 template <typename T, int EPI>
@@ -276,12 +284,6 @@ int launch_reduce(const Partials& src, int mp, long n, int d, const T* bias, con
 // first use, per card), under one lock: a TP launch at a time.
 std::mutex tp_mutex;
 cudaEvent_t tp_events[MAX_CARDS][MAX_MP];
-
-struct DeviceRestore {        // puts the caller's current card back
-  int dev = 0;
-  DeviceRestore() { cudaGetDevice(&dev); }
-  ~DeviceRestore() { cudaSetDevice(dev); }
-};
 
 struct Ranks {
   int mp;
@@ -324,7 +326,7 @@ struct Ranks {
   }
 };
 
-// The TP step: layer by layer, every rank's attention phase (its partial of
+// The phased TP step: layer by layer, every rank's attention phase (its partial of
 // the out-projection into its plane part_out), a barrier, every rank's 5c over
 // the mp part_out planes into its mid state, every rank's FFN phase (its FFN2
 // partial into part_ffn), a barrier, every rank's 5c into its hidden state.
@@ -410,58 +412,37 @@ extern "C" int valle2_fused_verify_step_phased(
   return dispatch(dtype, cache_dtype, wfmt, s, stream);
 }
 
-// Tensor parallelism over mp ranks (one host call for all of them).  ptrs:
-// TP_PTRS device pointers per rank, rank-major: those of the launchers above
-// in their order (x, y, the 11 weights, ck, cv, the 4 weight scales, ks, vs,
-// tokens_lens, codes_lens, idx, qbuf, abuf, xmid, hmid, kvnew, part), then the
-// rank's two (rows * qblk, d) f32 partial planes.  A rank's stack is its
-// Megatron split: qkv (L, d, 3 da), out (L, da, d), lin1 (L, d, dff), lin2
-// (L, dff, d), with da = d / mp and dff the rank's share; its cache (L,
-// rows, S, da) holds its h local heads; qbuf/abuf (., da), kvnew (., 2 da),
-// xmid (., d), hmid (., dff).  groups_att: the int4 groups of out's da-wide
-// input (the ranked packing).  cards[r]: rank r's card; streams[r]: the
-// stream its kernels run on; callers[r]: the caller's stream on that card,
-// which the step waits for first and which waits for the step at the end.
-// verify = 1: the verify step, index_or_qblk = qblk (idx required); else the
-// decode step with index_or_qblk the scalar index (idx null) or 0.  W8A8
-// weights are refused (cudaErrorInvalidValue).
-extern "C" int valle2_fused_step_tp(int verify, int dtype, int cache_dtype, int wfmt, int mp,
-                                    void* const* ptrs, const int* cards, void* const* streams,
-                                    void* const* callers, int L, int rows, int S, int d,
-                                    int da, int h, int dff, int index_or_qblk, int ttm, int pm,
-                                    int groups_d, int groups_att, int groups_ff, int chunk,
-                                    float scale) {
+// The phased TP step, the bit-exact reference of the persistent one
+// (csrc/fused_step.cu valle2_fused_step_tp, which takes the same arguments
+// but `streams`; see tp_rank_args for `ptrs`): mp ranks from one host call,
+// one kernel per phase on each rank's own stream, 5c between the layers.  A
+// rank's stack is its Megatron split: qkv (L, d, 3 da), out (L, da, d), lin1
+// (L, d, dff), lin2 (L, dff, d), with da = d / mp and dff the rank's share;
+// its cache (L, rows, S, da) holds its h local heads; qbuf/abuf (., da),
+// kvnew (., 2 da), xmid (., d), hmid (., dff).  groups_att: the int4 groups
+// of out's da-wide input (the ranked packing).  cards[r]: rank r's card;
+// streams[r]: the stream its kernels run on; callers[r]: the caller's stream
+// on that card, which the step waits for first and which waits for the step
+// at the end.  W8A8 weights are refused (cudaErrorInvalidValue).  For tests
+// and chip_smoke.py; no serving path launches it.
+extern "C" int valle2_fused_step_tp_phased(int verify, int dtype, int cache_dtype, int wfmt,
+                                           int mp, void* const* ptrs, const int* cards,
+                                           void* const* streams, void* const* callers, int L,
+                                           int rows, int S, int d, int da, int h, int dff,
+                                           int index_or_qblk, int ttm, int pm, int groups_d,
+                                           int groups_att, int groups_ff, int chunk,
+                                           float scale) {
   if (wfmt == W8 || mp < 1 || mp > MAX_MP) return (int)cudaErrorInvalidValue;
   StepArgs s[MAX_MP];
+  int err = tp_rank_args(verify, mp, ptrs, L, rows, S, d, da, h, dff, index_or_qblk, ttm, pm,
+                         groups_d, groups_att, groups_ff, chunk, scale, s);
+  if (err) return err;
   cudaStream_t caller[MAX_MP];
-  for (int r = 0; r < mp; ++r) {
-    void* const* P = ptrs + (size_t)r * TP_PTRS;
-    StepArgs& a = s[r];
-    a.x = P[0], a.y = P[1], a.n1s = P[2], a.n1b = P[3], a.wqkv = P[4], a.wout = P[5];
-    a.bout = P[6], a.n2s = P[7], a.n2b = P[8], a.w1 = P[9], a.b1 = P[10], a.w2 = P[11];
-    a.b2 = P[12], a.ck = P[13], a.cv = P[14], a.sqkv = P[15], a.sout = P[16], a.s1 = P[17];
-    a.s2 = P[18], a.ks = P[19], a.vs = P[20];
-    a.tokens_lens = static_cast<const int*>(P[21]);
-    a.codes_lens = static_cast<const int*>(P[22]);
-    a.idx = static_cast<const int*>(P[23]);
-    a.qbuf = static_cast<float*>(P[24]), a.abuf = static_cast<float*>(P[25]);
-    a.xmid = static_cast<float*>(P[26]), a.hmid = static_cast<float*>(P[27]);
-    a.kvnew = static_cast<float*>(P[28]), a.part = static_cast<float*>(P[29]);
-    a.part_out = static_cast<float*>(P[30]), a.part_ffn = static_cast<float*>(P[31]);
-    a.L = L, a.rows = rows, a.S = S, a.d = d, a.da = da, a.h = h, a.dff = dff;
-    a.index = verify ? 0 : index_or_qblk, a.qblk = verify ? index_or_qblk : 1;
-    a.ttm = ttm, a.pm = pm, a.groups_d = groups_d, a.groups_att = groups_att;
-    a.groups_ff = groups_ff, a.chunk = chunk, a.scale = scale;
-    if (bad_args(a) || a.part_out == nullptr || a.part_ffn == nullptr ||
-        (verify && a.idx == nullptr))
-      return (int)cudaErrorInvalidValue;
-    caller[r] = static_cast<cudaStream_t>(callers[r]);
-  }
+  for (int r = 0; r < mp; ++r) caller[r] = static_cast<cudaStream_t>(callers[r]);
   std::lock_guard<std::mutex> lock(tp_mutex);
   DeviceRestore restore;
   Ranks k;
-  int err = k.init(mp, cards, streams);
-  if (err) return err;
+  if ((err = k.init(mp, cards, streams))) return err;
   return with_formats(dtype, cache_dtype, wfmt, da / h, [&](auto t, auto tc, auto hd, auto wf) {
     return step_tp<typename decltype(t)::type, typename decltype(tc)::type,
                    decltype(hd)::value, decltype(wf)::value>(k, s, caller);

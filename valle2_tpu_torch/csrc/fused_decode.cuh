@@ -1,7 +1,7 @@
 // The fused decode step's device code and launchers, shared by the phased
-// kernels (csrc/fused_decode.cu: the phased twin, the TP step, 5c) and the
-// persistent #6 and #7 (csrc/fused_step.cu, built once per weight format).
-// The design is in fused_decode.cu's header.
+// kernels (csrc/fused_decode.cu: the phased twin, the phased TP step, 5c
+// alone) and the persistent #6, #7 and TP step (csrc/fused_step.cu, built
+// once per weight format).  The design is in fused_decode.cu's header.
 #pragma once
 
 #include <math.h>
@@ -768,20 +768,28 @@ int step(const StepArgs& s, cudaStream_t stream) {
 
 // ---- #6 and #7 as one persistent launch a step (launched by fused_step.cu) ----
 
-// A projection's tiles walked by the persistent blocks: tile v = blockIdx.x
-// + j * gridDim.x, each the phased proj_kernel's block (bx, by) = (v % nx, v /
-// nx), the 16- or 8-row tile that launch_proj would pick.
-template <typename T, typename TC, int MODE, int WF>
-__device__ __forceinline__ void run_proj(const ProjArgs<T>& a, float* sm) {
-  const int nx = (a.N + NCOL - 1) / NCOL;
-  if (a.K <= max_k16(WF)) {
-    const int n = nx * ((a.rows + 15) / 16);
-    for (int v = blockIdx.x; v < n; v += gridDim.x)
-      proj_block<T, TC, MODE, WF, 16>(a, v % nx, v / nx, sm);
+// A projection's tiles walked by the persistent blocks, over n_ranks stacks
+// (the TP step's ranks on this card; one otherwise): args(r) is rank r's
+// ProjArgs, and the tiles of the ranks are concatenated rank-major, tile v =
+// blockIdx.x + j * gridDim.x being rank v / n's tile v % n, the phased
+// proj_kernel's block (bx, by) = (v % nx, v / nx): the 16- or 8-row tile
+// that launch_proj would pick.
+template <typename T, typename TC, int MODE, int WF, typename A>
+__device__ __forceinline__ void run_proj(A&& args, int n_ranks, float* sm) {
+  const ProjArgs<T> a0 = args(0);
+  const int nx = (a0.N + NCOL - 1) / NCOL;
+  if (a0.K <= max_k16(WF)) {
+    const int n = nx * ((a0.rows + 15) / 16);
+    for (int g = blockIdx.x; g < n_ranks * n; g += gridDim.x) {
+      const int v = g % n;
+      proj_block<T, TC, MODE, WF, 16>(args(g / n), v % nx, v / nx, sm);
+    }
   } else {
-    const int n = nx * ((a.rows + 7) / 8);
-    for (int v = blockIdx.x; v < n; v += gridDim.x)
-      proj_block<T, TC, MODE, WF, 8>(a, v % nx, v / nx, sm);
+    const int n = nx * ((a0.rows + 7) / 8);
+    for (int g = blockIdx.x; g < n_ranks * n; g += gridDim.x) {
+      const int v = g % n;
+      proj_block<T, TC, MODE, WF, 8>(args(g / n), v % nx, v / nx, sm);
+    }
   }
 }
 
@@ -801,61 +809,81 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 // the items; #7's was written by run_kv_quant.
 static_assert(ANW * 32 == PNT, "an attention item takes the persistent block");
 
-template <typename TC, int HD, bool SPLIT>
-__device__ __forceinline__ void run_attention(const StepArgs& s, int l, int n_chunks,
+template <typename TC, int HD, bool SPLIT, typename R>
+__device__ __forceinline__ void run_attention(R&& rank, int n_ranks, int l, int n_chunks,
                                               float* sm) {
   constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   float* m_w = sm;
   float* l_w = m_w + ANW;
   float* acc_w = l_w + ANW;
-  const int n_items = s.rows * s.qblk * s.h * n_chunks;
-  TC* ck = layer_cache<TC>(s, s.ck, l);
-  TC* cv = layer_cache<TC>(s, s.cv, l);
-  __nv_bfloat16* ks = QUANT ? layer_kv_scale(s, s.ks, l) : nullptr;
-  __nv_bfloat16* vs = QUANT ? layer_kv_scale(s, s.vs, l) : nullptr;
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x)
+  const StepArgs& s0 = rank(0);
+  const int n_items = s0.rows * s0.qblk * s0.h * n_chunks;
+  for (int g = blockIdx.x; g < n_ranks * n_items; g += gridDim.x) {
+    const StepArgs& s = rank(g / n_items);
+    const int it = g % n_items;
+    TC* ck = layer_cache<TC>(s, s.ck, l);
+    TC* cv = layer_cache<TC>(s, s.cv, l);
+    __nv_bfloat16* ks = QUANT ? layer_kv_scale(s, s.ks, l) : nullptr;
+    __nv_bfloat16* vs = QUANT ? layer_kv_scale(s, s.vs, l) : nullptr;
     attend_item<TC, HD, SPLIT>(s.qbuf, ck, cv, ks, vs, s.tokens_lens, s.codes_lens, s.idx,
                                s.abuf, s.part, QUANT && s.qblk == 1 ? s.kvnew : nullptr,
                                s.h, s.S, s.da, s.index, s.qblk, s.ttm, s.pm,
                                SPLIT ? s.chunk : s.S, it / n_chunks, it % n_chunks, n_chunks,
                                threadIdx.x, 1, m_w, l_w, acc_w);
+  }
 }
 
 // run_attention at the stack's head dim (the launcher takes 32, 64, 96, 128).
-template <typename TC, bool SPLIT>
-__device__ __forceinline__ void run_attention_hd(const StepArgs& s, int l, int n_chunks,
+template <typename TC, bool SPLIT, typename R>
+__device__ __forceinline__ void run_attention_hd(R&& rank, int n_ranks, int l, int n_chunks,
                                                  float* sm) {
-  switch (s.da / s.h) {
-    case 32: run_attention<TC, 32, SPLIT>(s, l, n_chunks, sm); break;
-    case 64: run_attention<TC, 64, SPLIT>(s, l, n_chunks, sm); break;
-    case 96: run_attention<TC, 96, SPLIT>(s, l, n_chunks, sm); break;
-    default: run_attention<TC, 128, SPLIT>(s, l, n_chunks, sm); break;
+  switch (rank(0).da / rank(0).h) {
+    case 32: run_attention<TC, 32, SPLIT>(rank, n_ranks, l, n_chunks, sm); break;
+    case 64: run_attention<TC, 64, SPLIT>(rank, n_ranks, l, n_chunks, sm); break;
+    case 96: run_attention<TC, 96, SPLIT>(rank, n_ranks, l, n_chunks, sm); break;
+    default: run_attention<TC, 128, SPLIT>(rank, n_ranks, l, n_chunks, sm); break;
   }
 }
 
 // The int8 cache write of layer l as a phase (#7 with an int8 cache): one
 // warp per (query row, head, k|v), kv_quant_kernel's warps, PNT / 32 of them
-// a block, warp w + j * (grid warps).
-template <int HD>
-__device__ __forceinline__ void run_kv_quant(const StepArgs& s, int l) {
+// a block, warp w + j * (grid warps), the ranks' warps concatenated rank-major.
+template <int HD, typename R>
+__device__ __forceinline__ void run_kv_quant(R&& rank, int n_ranks, int l) {
   constexpr int WARPS = PNT / 32;
-  int8_t* ck = layer_cache<int8_t>(s, s.ck, l);
-  int8_t* cv = layer_cache<int8_t>(s, s.cv, l);
-  __nv_bfloat16* ks = layer_kv_scale(s, s.ks, l);
-  __nv_bfloat16* vs = layer_kv_scale(s, s.vs, l);
-  const int n = s.rows * s.qblk * 2 * s.h;
-  for (int w = blockIdx.x * WARPS + threadIdx.x / 32; w < n; w += gridDim.x * WARPS)
-    kv_quant_warp<HD>(s.kvnew, ck, cv, ks, vs, s.idx, w / (2 * s.h), w / s.h % 2, w % s.h,
-                      s.h, s.S, s.da, s.index, s.qblk, threadIdx.x % 32);
+  const StepArgs& s0 = rank(0);
+  const int n = s0.rows * s0.qblk * 2 * s0.h;
+  for (int g = blockIdx.x * WARPS + threadIdx.x / 32; g < n_ranks * n;
+       g += gridDim.x * WARPS) {
+    const StepArgs& s = rank(g / n);
+    const int w = g % n;
+    kv_quant_warp<HD>(s.kvnew, layer_cache<int8_t>(s, s.ck, l), layer_cache<int8_t>(s, s.cv, l),
+                      layer_kv_scale(s, s.ks, l), layer_kv_scale(s, s.vs, l), s.idx,
+                      w / (2 * s.h), w / s.h % 2, w % s.h, s.h, s.S, s.da, s.index, s.qblk,
+                      threadIdx.x % 32);
+  }
 }
 
-__device__ __forceinline__ void run_kv_quant_hd(const StepArgs& s, int l) {
-  switch (s.da / s.h) {
-    case 32: run_kv_quant<32>(s, l); break;
-    case 64: run_kv_quant<64>(s, l); break;
-    case 96: run_kv_quant<96>(s, l); break;
-    default: run_kv_quant<128>(s, l); break;
+template <typename R>
+__device__ __forceinline__ void run_kv_quant_hd(R&& rank, int n_ranks, int l) {
+  switch (rank(0).da / rank(0).h) {
+    case 32: run_kv_quant<32>(rank, n_ranks, l); break;
+    case 64: run_kv_quant<64>(rank, n_ranks, l); break;
+    case 96: run_kv_quant<96>(rank, n_ranks, l); break;
+    default: run_kv_quant<128>(rank, n_ranks, l); break;
   }
+}
+
+// The L2 prefetches of a layer, issued while its attention runs: its OUT,
+// FFN1 and FFN2 weights and the next layer's QKV weights.
+template <typename T, int WF>
+__device__ __forceinline__ void prefetch_layer(const StepArgs& s, int l) {
+  prefetch_l2(layer_weight<T, WF>(s.wout, l, s.da, s.d), weight_bytes<T, WF>(s.da, s.d));
+  prefetch_l2(layer_weight<T, WF>(s.w1, l, s.d, s.dff), weight_bytes<T, WF>(s.d, s.dff));
+  prefetch_l2(layer_weight<T, WF>(s.w2, l, s.dff, s.d), weight_bytes<T, WF>(s.dff, s.d));
+  if (l + 1 < s.L)
+    prefetch_l2(layer_weight<T, WF>(s.wqkv, l + 1, s.d, 3 * s.da),
+                weight_bytes<T, WF>(s.d, 3 * s.da));
 }
 
 // #6 and #7 in one cooperative launch: every block walks the layers, and
@@ -875,21 +903,37 @@ __device__ __forceinline__ unsigned long long globaltimer() {
   return t;
 }
 
-// The barrier after phase k of the persistent step, of np phases a layer.
-// With a trace buffer (1 + 2 x np L x grid u64), each block b records when all
-// its threads finished the phase (trace[1 + k * grid + b]) and when the
-// barrier let it go (trace[1 + (np L + k) * grid + b]); trace[0] is block 0's
-// start.
-__device__ __forceinline__ void phase_barrier(const StepArgs& s,
-                                              cooperative_groups::grid_group& grid, int k,
-                                              int np) {
-  if (s.trace) {
+// The barrier after phase k of a persistent step of np phases a layer and
+// L layers: sync() (a grid barrier, and under TP the wait for the other
+// cards).  With a trace buffer (1 + 2 x np L x grid u64), each block b
+// records when all its threads finished the phase (trace[1 + k * grid + b])
+// and when the barrier let it go (trace[1 + (np L + k) * grid + b]); trace[0]
+// is block 0's start.
+template <typename Sync>
+__device__ __forceinline__ void traced_barrier(unsigned long long* trace, int L, int k, int np,
+                                               Sync&& sync) {
+  if (trace) {
     __syncthreads();
-    if (threadIdx.x == 0) s.trace[1 + (size_t)k * gridDim.x + blockIdx.x] = globaltimer();
+    if (threadIdx.x == 0) trace[1 + (size_t)k * gridDim.x + blockIdx.x] = globaltimer();
   }
-  grid.sync();
-  if (s.trace && threadIdx.x == 0)
-    s.trace[1 + (size_t)(np * s.L + k) * gridDim.x + blockIdx.x] = globaltimer();
+  sync();
+  if (trace && threadIdx.x == 0)
+    trace[1 + (size_t)(np * L + k) * gridDim.x + blockIdx.x] = globaltimer();
+}
+
+// OUT's arguments in the persistent steps: with a chunked cache its operand
+// prologue merges the chunks' partial softmaxes (merge_chunks); `partial`
+// as in out_args.
+template <typename T, int WF>
+__device__ __forceinline__ ProjArgs<T> out_args_merged(const StepArgs& s, int l, int n_chunks,
+                                                       float* partial) {
+  ProjArgs<T> a = out_args<T, WF>(s, l, partial);
+  if (s.chunk < s.S) {
+    a.apart = s.part;
+    a.n_chunks = n_chunks;
+    a.hd = s.da / s.h;
+  }
+  return a;
 }
 
 template <typename T, typename TC, int WF>
@@ -901,40 +945,213 @@ __global__ void __launch_bounds__(PNT, 1) step_persistent_kernel(StepArgs s) {
   const int n_chunks = split ? s.S / s.chunk : 1;
   const bool kvq = QUANT && s.qblk > 1;   // the int8 cache write as a phase
   const int np = kvq ? STEP_PHASES_KVQ : STEP_PHASES;
+  auto rank = [&](int) -> const StepArgs& { return s; };
+  auto barrier = [&](int k) { traced_barrier(s.trace, s.L, k, np, [&] { grid.sync(); }); };
   if (s.trace && threadIdx.x == 0 && blockIdx.x == 0) s.trace[0] = globaltimer();
   for (int l = 0; l < s.L; ++l) {
     int k = np * l;
-    run_proj<T, TC, QKV, WF>(qkv_args<T, TC, WF>(s, l), sm);
-    phase_barrier(s, grid, k++, np);
-    prefetch_l2(layer_weight<T, WF>(s.wout, l, s.da, s.d), weight_bytes<T, WF>(s.da, s.d));
-    prefetch_l2(layer_weight<T, WF>(s.w1, l, s.d, s.dff), weight_bytes<T, WF>(s.d, s.dff));
-    prefetch_l2(layer_weight<T, WF>(s.w2, l, s.dff, s.d), weight_bytes<T, WF>(s.dff, s.d));
-    if (l + 1 < s.L)
-      prefetch_l2(layer_weight<T, WF>(s.wqkv, l + 1, s.d, 3 * s.da),
-                  weight_bytes<T, WF>(s.d, 3 * s.da));
+    run_proj<T, TC, QKV, WF>([&](int) { return qkv_args<T, TC, WF>(s, l); }, 1, sm);
+    barrier(k++);
+    prefetch_layer<T, WF>(s, l);
     if constexpr (QUANT) {
       if (kvq) {
-        run_kv_quant_hd(s, l);
-        phase_barrier(s, grid, k++, np);
+        run_kv_quant_hd(rank, 1, l);
+        barrier(k++);
       }
     }
     if (split)
-      run_attention_hd<TC, true>(s, l, n_chunks, sm);
+      run_attention_hd<TC, true>(rank, 1, l, n_chunks, sm);
     else
-      run_attention_hd<TC, false>(s, l, 1, sm);
-    phase_barrier(s, grid, k++, np);
-    ProjArgs<T> a = out_args<T, WF>(s, l, nullptr);
-    if (split) {
-      a.apart = s.part;
-      a.n_chunks = n_chunks;
-      a.hd = s.da / s.h;
+      run_attention_hd<TC, false>(rank, 1, l, 1, sm);
+    barrier(k++);
+    run_proj<T, T, OUT, WF>([&](int) { return out_args_merged<T, WF>(s, l, n_chunks, nullptr); },
+                            1, sm);
+    barrier(k++);
+    run_proj<T, T, FFN1, WF>([&](int) { return ffn1_args<T, WF>(s, l); }, 1, sm);
+    barrier(k++);
+    run_proj<T, T, FFN2, WF>([&](int) { return ffn2_args<T, WF>(s, l, nullptr); }, 1, sm);
+    if (l + 1 < s.L || s.trace) barrier(k);
+  }
+}
+
+// ---- Tensor parallelism: the all-reduce 5c and the persistent TP step ----
+
+constexpr int MAX_MP = 8;      // ranks of one TP step
+constexpr int TP_PTRS = 32;    // device pointers per rank of the TP launchers
+// 5c's epilogues: the sum alone (f32), the OUT one (the f32 mid state) and
+// the FFN2 one (the hidden state in the compute dtype).
+enum Epilogue { EPI_SUM = 0, EPI_OUT = 1, EPI_FFN2 = 2 };
+
+struct Partials {
+  const float* p[MAX_MP];      // rank r's partial: local, or a peer's over NVLink
+};
+
+// 5c's element i, one definition for tp_allreduce_kernel and the persistent
+// TP step's reduce phases (so the two are bit-equal by construction): the sum
+// over ranks in rank order, ((0 + p_0) + p_1) + ..., in f32, the same bits on
+// every rank; then EPI_SUM writes it (f32), EPI_OUT the f32 mid state x +
+// (sum + bias) (x the layer's input, compute dtype), EPI_FFN2 the hidden
+// state res32 + (sum + bias) in the compute dtype (the one-rank OUT and FFN2
+// epilogues, after the sum).  The partials are read through L2 (ld.cg): a
+// line of a peer's plane that L1 kept from the previous layer is stale.
+template <typename T, int EPI>
+__device__ __forceinline__ void reduce_element(const Partials& src, int mp, long i, int d,
+                                               const T* bias, const T* x, const float* res32,
+                                               float* out32, T* y) {
+  float s = 0.f;
+  for (int r = 0; r < mp; ++r) s += __ldcg(src.p[r] + i);
+  if constexpr (EPI == EPI_SUM) {
+    out32[i] = s;
+  } else if constexpr (EPI == EPI_OUT) {
+    out32[i] = to_f<T>(x[i]) + (s + to_f<T>(bias[i % d]));
+  } else {
+    y[i] = from_f<T>(res32[i] + (s + to_f<T>(bias[i % d])));
+  }
+}
+
+// The persistent TP step (#6 and #7 under tensor parallelism): one
+// cooperative launch per card a step, holding that card's ranks (all mp of
+// them with virtual ranks on one card, one each on mp cards).  Its phases a
+// layer: QKV; (#7 over an int8 cache: the cache write); the attention; OUT
+// into the rank's raw f32 partial plane part_out; a barrier across ranks;
+// reduce-OUT (5c's element with EPI_OUT, over every rank's part_out, into
+// the rank's mid state); FFN1; FFN2 into part_ffn; a barrier across ranks;
+// reduce-FFN2 (EPI_FFN2, into the hidden state).  7 phases a layer (8), a
+// grid barrier after each but the last, 2 of them a layer across ranks.
+// Every phase's items are its ranks' items concatenated rank-major, so at mp
+// 2 on one card each phase spreads two ranks' tiles over the grid.
+constexpr int STEP_PHASES_TP = 7;
+constexpr int STEP_PHASES_TP_KVQ = 8;
+// A wait for the other cards that sees no arrival for this long traps: a
+// missing peer ends the run with an error, never hangs it.
+constexpr unsigned long long CARD_WAIT_NS = 10000000000ull;
+
+struct TpStepArgs {
+  StepArgs s[MAX_MP];          // this launch's ranks (its card's), in rank order
+  Partials out, ffn;           // every rank's part_out / part_ffn plane, in rank order
+  // The step's card groups: each one's flag array (MAX_CARDS u64 on its card,
+  // written by the other cards over peer pointers) and its slot in every
+  // array (its card's index); a step on one card uses none.
+  unsigned long long* flags[MAX_MP];
+  int slot[MAX_MP];
+  unsigned long long epoch;    // the value the step's first barrier across cards waits for
+  unsigned long long* trace;   // phase timestamps (traced_barrier), or null
+  int* error;                  // host-mapped: 1 where a wait across cards timed out
+  int n_local, mp, n_cards, me;   // me: this launch's card group
+};
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The wait across cards of the TP step's barrier across ranks number kc
+// (after the grid barrier that ends the card's phase): one thread stores the
+// barrier's epoch into this card's slot of every other card's flag array
+// (a system-scope release, after the grid barrier: every block's partial is
+// written), then spins with system-scope acquires on its own array until
+// every other card's slot reaches the epoch, or traps after CARD_WAIT_NS.
+// A grid barrier after it lets the other blocks read the peers' planes.
+__device__ __forceinline__ void wait_cards(const TpStepArgs& p, int kc) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const unsigned long long want = p.epoch + kc;
+    __threadfence_system();
+    for (int c = 0; c < p.n_cards; ++c)
+      if (c != p.me) st_release_sys(p.flags[c] + p.slot[p.me], want);
+    const unsigned long long t0 = globaltimer();
+    for (int c = 0; c < p.n_cards; ++c) {
+      if (c == p.me) continue;
+      while (ld_acquire_sys(p.flags[p.me] + p.slot[c]) < want) {
+        if (globaltimer() - t0 > CARD_WAIT_NS) {
+          atomicExch_system(p.error, 1);
+          __threadfence_system();
+          __trap();
+        }
+      }
     }
-    run_proj<T, T, OUT, WF>(a, sm);
-    phase_barrier(s, grid, k++, np);
-    run_proj<T, T, FFN1, WF>(ffn1_args<T, WF>(s, l), sm);
-    phase_barrier(s, grid, k++, np);
-    run_proj<T, T, FFN2, WF>(ffn2_args<T, WF>(s, l, nullptr), sm);
-    if (l + 1 < s.L || s.trace) phase_barrier(s, grid, k, np);
+  }
+}
+
+// A reduce phase over the launch's ranks: element i of rank r's (rows *
+// qblk, d) plane for every (r, i), spread over every thread of the grid.
+template <typename T, int EPI>
+__device__ __forceinline__ void run_reduce(const TpStepArgs& p, const Partials& src, int l) {
+  const StepArgs& s0 = p.s[0];
+  const long n = (long)s0.rows * s0.qblk * s0.d;
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long t = (long)blockIdx.x * blockDim.x + threadIdx.x; t < p.n_local * n; t += stride) {
+    const StepArgs& s = p.s[t / n];
+    const long i = t % n;
+    const int d = s.d;
+    if constexpr (EPI == EPI_OUT)
+      reduce_element<T, EPI_OUT>(src, p.mp, i, d, static_cast<const T*>(s.bout) + (size_t)l * d,
+                                 static_cast<const T*>(l == 0 ? s.x : s.y), nullptr, s.xmid,
+                                 nullptr);
+    else
+      reduce_element<T, EPI_FFN2>(src, p.mp, i, d, static_cast<const T*>(s.b2) + (size_t)l * d,
+                                  nullptr, s.xmid, nullptr, static_cast<T*>(s.y));
+  }
+}
+
+template <typename T, typename TC, int WF>
+__global__ void __launch_bounds__(PNT, 1) step_tp_persistent_kernel(TpStepArgs p) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const StepArgs& s0 = p.s[0];
+  const int nr = p.n_local, L = s0.L;
+  const bool split = s0.chunk < s0.S;
+  const int n_chunks = split ? s0.S / s0.chunk : 1;
+  const bool kvq = QUANT && s0.qblk > 1;
+  const int np = kvq ? STEP_PHASES_TP_KVQ : STEP_PHASES_TP;
+  auto rank = [&](int r) -> const StepArgs& { return p.s[r]; };
+  auto barrier = [&](int k) { traced_barrier(p.trace, L, k, np, [&] { grid.sync(); }); };
+  int kc = 0;   // barriers across ranks passed
+  auto rank_barrier = [&](int k) {
+    traced_barrier(p.trace, L, k, np, [&] {
+      grid.sync();
+      if (p.n_cards > 1) {
+        wait_cards(p, kc);
+        grid.sync();
+      }
+    });
+    ++kc;
+  };
+  if (p.trace && threadIdx.x == 0 && blockIdx.x == 0) p.trace[0] = globaltimer();
+  for (int l = 0; l < L; ++l) {
+    int k = np * l;
+    run_proj<T, TC, QKV, WF>([&](int r) { return qkv_args<T, TC, WF>(p.s[r], l); }, nr, sm);
+    barrier(k++);
+    for (int r = 0; r < nr; ++r) prefetch_layer<T, WF>(p.s[r], l);
+    if constexpr (QUANT) {
+      if (kvq) {
+        run_kv_quant_hd(rank, nr, l);
+        barrier(k++);
+      }
+    }
+    if (split)
+      run_attention_hd<TC, true>(rank, nr, l, n_chunks, sm);
+    else
+      run_attention_hd<TC, false>(rank, nr, l, 1, sm);
+    barrier(k++);
+    run_proj<T, T, OUT, WF>(
+        [&](int r) { return out_args_merged<T, WF>(p.s[r], l, n_chunks, p.s[r].part_out); }, nr,
+        sm);
+    rank_barrier(k++);
+    run_reduce<T, EPI_OUT>(p, p.out, l);
+    barrier(k++);
+    run_proj<T, T, FFN1, WF>([&](int r) { return ffn1_args<T, WF>(p.s[r], l); }, nr, sm);
+    barrier(k++);
+    run_proj<T, T, FFN2, WF>([&](int r) { return ffn2_args<T, WF>(p.s[r], l, p.s[r].part_ffn); },
+                             nr, sm);
+    rank_barrier(k++);
+    run_reduce<T, EPI_FFN2>(p, p.ffn, l);
+    if (l + 1 < L || p.trace) barrier(k);
   }
 }
 
@@ -978,6 +1195,49 @@ bool bad_args(const StepArgs& s) {
   return s.groups_d < 1 || s.groups_att < 1 || s.groups_ff < 1 || s.qblk < 1 ||
          s.chunk < 1 || s.S % s.chunk || (s.chunk < s.S && s.part == nullptr) || s.h < 1 ||
          s.da % s.h;
+}
+
+struct DeviceRestore {        // puts the caller's current card back
+  int dev = 0;
+  DeviceRestore() { cudaGetDevice(&dev); }
+  ~DeviceRestore() { cudaSetDevice(dev); }
+};
+
+// The TP launchers' rank arguments (one definition for the phased and the
+// persistent step): ptrs holds TP_PTRS device pointers per rank, rank-major
+// (x, y, the 11 weights, ck, cv, the 4 weight scales, ks, vs, tokens_lens,
+// codes_lens, idx, qbuf, abuf, xmid, hmid, kvnew, part, then the rank's
+// part_out and part_ffn planes).  verify = 1: index_or_qblk is qblk (idx
+// required); else the scalar index (idx null) or 0.  Returns
+// cudaErrorInvalidValue for arguments no TP step takes, else 0.
+int tp_rank_args(int verify, int mp, void* const* ptrs, int L, int rows, int S, int d, int da,
+                 int h, int dff, int index_or_qblk, int ttm, int pm, int groups_d,
+                 int groups_att, int groups_ff, int chunk, float scale, StepArgs* s) {
+  if (mp < 1 || mp > MAX_MP) return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < mp; ++r) {
+    void* const* P = ptrs + (size_t)r * TP_PTRS;
+    StepArgs& a = s[r];
+    a = StepArgs{};
+    a.x = P[0], a.y = P[1], a.n1s = P[2], a.n1b = P[3], a.wqkv = P[4], a.wout = P[5];
+    a.bout = P[6], a.n2s = P[7], a.n2b = P[8], a.w1 = P[9], a.b1 = P[10], a.w2 = P[11];
+    a.b2 = P[12], a.ck = P[13], a.cv = P[14], a.sqkv = P[15], a.sout = P[16], a.s1 = P[17];
+    a.s2 = P[18], a.ks = P[19], a.vs = P[20];
+    a.tokens_lens = static_cast<const int*>(P[21]);
+    a.codes_lens = static_cast<const int*>(P[22]);
+    a.idx = static_cast<const int*>(P[23]);
+    a.qbuf = static_cast<float*>(P[24]), a.abuf = static_cast<float*>(P[25]);
+    a.xmid = static_cast<float*>(P[26]), a.hmid = static_cast<float*>(P[27]);
+    a.kvnew = static_cast<float*>(P[28]), a.part = static_cast<float*>(P[29]);
+    a.part_out = static_cast<float*>(P[30]), a.part_ffn = static_cast<float*>(P[31]);
+    a.L = L, a.rows = rows, a.S = S, a.d = d, a.da = da, a.h = h, a.dff = dff;
+    a.index = verify ? 0 : index_or_qblk, a.qblk = verify ? index_or_qblk : 1;
+    a.ttm = ttm, a.pm = pm, a.groups_d = groups_d, a.groups_att = groups_att;
+    a.groups_ff = groups_ff, a.chunk = chunk, a.scale = scale;
+    if (bad_args(a) || a.part_out == nullptr || a.part_ffn == nullptr ||
+        (verify && a.idx == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -30,14 +30,18 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 # same device code from other call sites, round alike.
 _FUSED = ('--fmad=false',)
 # build name -> (source stem in csrc/, its own nvcc flags).  The persistent
-# #6 (fused_step.cu) is built once per weight format, so the three compile in
-# parallel beside the others.
+# #6 and #7 (fused_step.cu) are built once per weight format, and the
+# persistent TP step once per format it takes (dense, int4), so that the five
+# compile in parallel beside the others.
 BUILDS = {
     'flash_attention': ('flash_attention', ()),
     'flash_attention_bwd': ('flash_attention_bwd', ()),
     'fused_decode': ('fused_decode', _FUSED),
     **{f'fused_step_{fmt}': ('fused_step', (*_FUSED, f'-DVALLE2_STEP_WF={i}'))
        for i, fmt in enumerate(('dense', 'w8a8', 'w4a16'))},
+    **{f'fused_step_tp_{fmt}': ('fused_step', (*_FUSED, f'-DVALLE2_STEP_WF={i}',
+                                               '-DVALLE2_STEP_TP=1'))
+       for i, fmt in ((0, 'dense'), (2, 'w4a16'))},
     'gemm': ('gemm', ()),
     'rvq': ('rvq', ()),
 }

@@ -13,17 +13,19 @@ path uses: dense weights (#6), int8 W8A8 and int4 W4A16 weights (the ``'q'``
 argument, ``fused_step_tp``: each rank's local heads, the two row-parallel
 partials of every layer summed by the all-reduce 5c of
 ``kernels.tp_allreduce``; dense and int4 weights, as in JAX).  The kernels
-are ``csrc/fused_step.cu`` (the persistent #6 and #7, one build per weight
-format) and ``csrc/fused_decode.cu`` (the phased route; see its header for
-the design and the TP ordering protocol), on the device code of
+are ``csrc/fused_step.cu`` (the persistent #6, #7 and TP step, one build per
+weight format) and ``csrc/fused_decode.cu`` (the phased route; see its
+header for the design and the TP protocol), on the device code of
 ``csrc/fused_decode.cuh``.  On one card #6 and #7 are each ONE cooperative
 launch a step (the persistent step: every block walks the layers, a
 grid-wide barrier between the phases; ``persistent_plan`` says what it
-does).  The TP steps launch their phases' kernels in turn, with one host
-call for all of them.  ``fused_verify_step_phased``, the phased twin, runs
-those kernels on one card: the persistent steps run its device code on
-every item, so each is bit-equal to it (#6 at a block of one token).  It
-is the reference of tests and ``chip_smoke.py``; no serving path calls it.
+does).  Under TP each card runs ONE cooperative launch a step holding its
+ranks, 5c folded in as two reduce phases a layer (``tp_persistent_plan``).
+``fused_verify_step_phased`` and ``fused_step_tp_phased``, the phased twins,
+launch one kernel per phase: the persistent steps run their device code on
+every item, so each is bit-equal to its twin (#6 at a block of one token).
+They are the references of tests and ``chip_smoke.py``; no serving path
+calls them.
 
 Both versions take the cache in the fused head-major layout (L, rows, S, d)
 (``fused_cache_layout``), an int8 cache with its per-(slot, head) bfloat16
@@ -52,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import threading
 
 import torch
 
@@ -75,9 +78,15 @@ CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
 PER_ROW_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_per_row',
                                                          'fused_decode_step_per_row_chunked')}
 PLAIN_CALLS = _build.LaunchCounter()
-# Launches of the tensor-parallel steps (one host call for every rank).
+# Launches of the tensor-parallel steps (one host call for every rank: one
+# cooperative launch a card), and of their phased twin (fused_step_tp_phased).
 TP_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_tp',
                                                     'fused_verify_step_tp')}
+TP_PHASED_COUNTER = _build.LaunchCounter()
+# One TP launch at a time in the process, whichever build or route: each
+# card's launches then queue in one order on every card, so no card's step
+# waits at a barrier across cards for a peer's launch queued behind another.
+_TP_LOCK = threading.Lock()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _WEIGHT_FORMATS = {'w': (0, 'dense'), 'q': (1, 'w8a8'), 'q4': (2, 'w4a16')}
 # config.weight_dtype -> the layout quantize.py gives the stack
@@ -96,6 +105,12 @@ _NCOL, _KSPLIT, _ANW = 32, 16, 16
 STEP_PHASES = ('qkv', 'attention', 'out', 'ffn1', 'ffn2')
 # #7 with an int8 cache: the cache write as a phase of its own
 STEP_PHASES_KVQ = ('qkv', 'kv_quant', 'attention', 'out', 'ffn1', 'ffn2')
+# The TP step (csrc/fused_decode.cuh STEP_PHASES_TP, _KVQ): OUT and FFN2
+# write raw partials, each followed by a barrier across ranks and a reduce
+# phase (5c's element) that adds every rank's partial in rank order.
+STEP_PHASES_TP = ('qkv', 'attention', 'out', 'reduce_out', 'ffn1', 'ffn2', 'reduce_ffn2')
+STEP_PHASES_TP_KVQ = ('qkv', 'kv_quant', 'attention', 'out', 'reduce_out', 'ffn1', 'ffn2',
+                      'reduce_ffn2')
 _MAX_K16 = {0: 3072, 1: 2048, 2: 3072}
 SMEM_OPT_IN = 232448     # the shared memory an H100 block can opt into
 
@@ -156,32 +171,116 @@ def persistent_plan(L: int, rows: int, d: int, dff: int, n_heads: int, S: int, c
                 threads=PERSISTENT_THREADS, launches=1)
 
 
-def step_grid(dtype, cache_dtype, layout: str, hd: int, d: int, dff: int) -> tuple[int, int]:
+def tp_card_groups(devices) -> list[list[int]]:
+    """The ranks of each TP launch: the mesh's ranks grouped by device in
+    the order each device first appears, each group in rank order
+    (``Groups`` in csrc/fused_step.cu): ['cuda:0'] * mp is one group of all
+    mp ranks, four cards four groups of one rank, ['cuda:0', 'cuda:0',
+    'cuda:1', 'cuda:1'] [[0, 1], [2, 3]]."""
+    groups: dict = {}
+    for r, dev in enumerate(devices):
+        dev = torch.device(dev)
+        groups.setdefault((dev.type, dev.index), []).append(r)
+    return list(groups.values())
+
+
+def tp_persistent_plan(L: int, rows: int, d: int, dff: int, n_heads: int, S: int, chunk: int,
+                       layout: str = 'w', q_len: int = 1, kv8: bool = False,
+                       devices=('cuda:0',) * 2) -> dict:
+    """What one TP step does (``step_tp_persistent_kernel``) for a stack of
+    model widths d, n_heads, dff split over the ranks of ``devices`` (mp =
+    len(devices); rank r on devices[r]): one cooperative launch per card
+    group (``tp_card_groups``), each walking its ranks' items rank-major;
+    per layer the phases ``STEP_PHASES_TP`` (``STEP_PHASES_TP_KVQ`` for #7,
+    q_len > 1, over an int8 cache), a grid barrier after each but the last
+    (``barriers``), of which 2 a layer are barriers across ranks
+    (``rank_barriers``: on one card a grid barrier, across cards also a wait
+    for every other card's flag and a second grid barrier, ``grid_syncs``).
+    ``launches``: one a card group; ``per_launch``: per group its device,
+    its ranks and its items a layer (the projections' tiles, the attention
+    items, the int8 cache write's warps, the reduce phases' elements);
+    ``smem_bytes`` of a block, the largest of the rank's projections
+    (inputs d, d / mp, dff / mp) and its attention item."""
+    mp = len(devices)
+    if n_heads % mp or dff % mp:
+        raise ValueError(f'{n_heads} heads and dff {dff} must split over {mp} ranks')
+    da, h, dff_r = d // mp, n_heads // mp, dff // mp
+    if d % n_heads:
+        raise ValueError(f'd={d} does not split over {n_heads} heads')
+    if q_len < 1:
+        raise ValueError(f'a block of {q_len} tokens')
+    hd = d // n_heads
+    n_chunks = S // chunk if chunk < S else 1
+    query_rows = rows * q_len
+    phases = STEP_PHASES_TP_KVQ if kv8 and q_len > 1 else STEP_PHASES_TP
+
+    def tiles(K, N):
+        return -(-N // _NCOL) * -(-query_rows // proj_tile_rows(K, layout))
+
+    smem = max(proj_smem_bytes(d, layout), proj_smem_bytes(da, layout),
+               proj_smem_bytes(dff_r, layout), 4 * (2 * _ANW + _ANW * hd))
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f'the persistent TP step needs {smem} bytes of shared memory a '
+                         f'block, over the {SMEM_OPT_IN} a block can take')
+    rank = {'qkv': tiles(d, 3 * da), 'attention': query_rows * h * n_chunks,
+            'out': tiles(da, d), 'reduce_out': query_rows * d, 'ffn1': tiles(d, dff_r),
+            'ffn2': tiles(dff_r, d), 'reduce_ffn2': query_rows * d}
+    if 'kv_quant' in phases:
+        rank['kv_quant'] = query_rows * 2 * h
+    groups = tp_card_groups(devices)
+    launches = [dict(device=str(torch.device(devices[g[0]])), ranks=g,
+                     items={k: len(g) * n for k, n in rank.items()}) for g in groups]
+    barriers = len(phases) * L - 1
+    return dict(phases=phases, barriers=barriers, rank_barriers=2 * L,
+                grid_syncs=barriers + (2 * L if len(groups) > 1 else 0), groups=groups,
+                launches=len(groups), per_launch=launches, smem_bytes=smem,
+                threads=PERSISTENT_THREADS)
+
+
+def step_grid(dtype, cache_dtype, layout: str, hd: int, d: int, dff: int,
+              da: int | None = None) -> tuple[int, int]:
     """(blocks, shared bytes a block) of the persistent launch (#6, or #7 at
     any block length) on the current card for a stack of these formats and
-    widths (the launcher's own sizing, ``valle2_fused_step_grid``); raises
-    where the launch would fail: a card with no cooperative launch, or no
-    block that fits."""
-    fn = _build.load(_step_build(layout)).valle2_fused_step_grid
+    widths (the launcher's own sizing, ``valle2_fused_step_grid``), or with
+    ``da`` (d / mp) that of the TP step for a rank of attention width da and
+    FFN width dff (``valle2_fused_step_tp_grid``); raises where the launch
+    would fail: a card with no cooperative launch, or no block that fits."""
+    ci = ctypes.c_int
+    out = [ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_long)]
+    if da is None:
+        fn, widths = _build.load(_step_build(layout)).valle2_fused_step_grid, (d, dff)
+    else:
+        fn, widths = _build.load(_tp_build(layout)).valle2_fused_step_tp_grid, (d, da, dff)
     if fn.argtypes is None:
-        ci = ctypes.c_int
-        fn.argtypes = [ci] * 6 + [ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_long)]
+        fn.argtypes = [ci] * (4 + len(widths)) + out
         fn.restype = ci
     blocks, smem = ctypes.c_int(0), ctypes.c_long(0)
     status = fn(_DTYPE_CODE[dtype], _DTYPE_CODE[cache_dtype], _WEIGHT_FORMATS[layout][0], hd,
-                d, dff, ctypes.byref(blocks), ctypes.byref(smem))
+                *widths, ctypes.byref(blocks), ctypes.byref(smem))
     _build.check(status, 'fused_decode_step (persistent grid)')
     return blocks.value, smem.value
 
 
-def set_step_trace(buf) -> None:
+def set_step_trace(buf, tp: bool = False) -> None:
     """The next persistent launch (#6 or #7) records its phase timestamps
     into ``buf``, a CUDA int64 tensor of 1 + 2 * P L * blocks elements, P its
     phases a layer (``persistent_plan``'s ``phases``: 5, or 6 for #7 over an
     int8 cache) (``%globaltimer`` ns: [0] the start, then each block's end
     of each of the P L phases, then each block's exit from each phase's
-    barrier); None turns the hook off.  A measurement hook: no path of the
-    port sets it.  Set in the build of every weight format."""
+    barrier); None turns the hook off.  ``tp``: the next TP launch instead
+    (P 7 or 8, ``tp_persistent_plan``), ``buf`` a tensor or a list of one per
+    card group (``tp_card_groups``), each on its group's card.  A
+    measurement hook: no path of the port sets it.  Set in the build of
+    every weight format."""
+    if tp:
+        bufs = [] if buf is None else [buf] if torch.is_tensor(buf) else list(buf)
+        for layout in TP_LAYOUTS:
+            fn = _build.load(_tp_build(layout)).valle2_fused_step_tp_trace
+            if fn.argtypes is None:
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                fn.restype = None
+            fn((ctypes.c_void_p * max(len(bufs), 1))(*(b.data_ptr() for b in bufs)), len(bufs))
+        return
     for layout in _WEIGHT_FORMATS:
         fn = _build.load(_step_build(layout)).valle2_fused_step_trace
         if fn.argtypes is None:
@@ -403,6 +502,19 @@ def _step_build(layout: str) -> str:
     """The build of the persistent #6 and #7 for a weight layout
     (csrc/fused_step.cu, one build per format)."""
     return f'fused_step_{_WEIGHT_FORMATS[layout][1]}'
+
+
+# The weight layouts of the persistent TP step's builds (csrc/fused_step.cu
+# with VALLE2_STEP_TP): W8A8 has none.
+TP_LAYOUTS = ('w', 'q4')
+
+
+def _tp_build(layout: str) -> str:
+    """The build of the persistent TP step for a weight layout."""
+    if layout not in TP_LAYOUTS:
+        raise ValueError(f'the tensor-parallel fused steps take dense or int4 weights; '
+                         f'{layout!r} (int8 W8A8) has no TP build')
+    return f'fused_step_tp_{_WEIGHT_FORMATS[layout][1]}'
 
 
 # launcher name -> its symbol; the phased twin is in csrc/fused_decode.cu's
@@ -685,17 +797,25 @@ def _verify_launch(name: str, p, x, n_heads: int, cache: KVCache, index, tokens_
     return y, cache
 
 
-def _tp_lib():
-    lib = _build.load('fused_decode')
-    fn = lib.valle2_fused_step_tp
+def _tp_lib(phased: bool, layout: str):
+    """The TP launcher: the persistent step of ``layout``'s build, or the
+    phased twin (csrc/fused_decode.cu's build), which also takes the ranks'
+    own streams."""
+    if phased:
+        fn = _build.load('fused_decode').valle2_fused_step_tp_phased
+    else:
+        fn = _build.load(_tp_build(layout)).valle2_fused_step_tp
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # verify, formats, mp; per rank: 32 pointers (those of the one-rank
-        # launchers, then the two partial planes), its card, its stream and
-        # its caller's stream; 14 sizes; the q scale
-        fn.argtypes = [ci] * 5 + [vp] * 4 + [ci] * 14 + [ctypes.c_float]
+        # launchers, then the two partial planes), its card, (phased: its
+        # stream) and its caller's stream; 14 sizes; the q scale
+        fn.argtypes = [ci] * 5 + [vp] * (4 if phased else 3) + [ci] * 14 + [ctypes.c_float]
         fn.restype = ctypes.c_int
     return fn
+
+
+CUDA_ERROR_TIMEOUT = 909   # cudaErrorTimeout: a wait across cards gave up
 
 
 def fused_step_tp(name: str, mesh, trees, caches, x, n_heads: int, index, tokens_lens,
@@ -708,13 +828,39 @@ def fused_step_tp(name: str, mesh, trees, caches, x, n_heads: int, index, tokens
     the ranked packing) and ``caches[r]``, the fused (L, rows, S, d / mp)
     cache of its ``n_heads`` local heads, updated in place.  x, the lengths
     and a per-row index go to every rank's device.  On CUDA tensors one host
-    call launches every rank's kernels, layer by layer, on the ranks' own
-    streams, with the two row-parallel partials of each layer summed by 5c
-    (``kernels.tp_allreduce``) and the bias and residual added after the sum.
-    int8 W8A8 weights raise (``fit_error``): their activation scale would
-    need a global amax inside the step (the models take the plain
-    tensor-parallel path).
-    Returns (the ranks' y, equal on every rank, each on its device; caches)."""
+    call launches the persistent TP step: ONE cooperative launch per card
+    (the ranks grouped by card, ``tp_card_groups``), on the card's current
+    stream, each rank's two row-parallel partials a layer summed in rank
+    order by the reduce phases inside it (5c's element, ``kernels.tp_allreduce``)
+    with the bias and residual added after the sum; across cards the launches
+    wait for each other at the barriers across ranks through flags in peer
+    memory.  It raises where the build, the cooperative launch or peer
+    access between the cards is missing; nothing falls back.  int8 W8A8
+    weights raise (``fit_error``): their activation scale would need a
+    global amax inside the step (the models take the plain tensor-parallel
+    path).  Returns (the ranks' y, equal on every rank, each on its device;
+    caches)."""
+    return _tp_step(name, False, mesh, trees, caches, x, n_heads, index, tokens_lens,
+                    codes_lens, ttm, pm, chunk_override)
+
+
+def fused_step_tp_phased(name: str, mesh, trees, caches, x, n_heads: int, index, tokens_lens,
+                         codes_lens, ttm: int, pm: int, chunk_override: int | None = None):
+    """The phased twin of ``fused_step_tp`` (same arguments and results): one
+    kernel per phase on each rank's own stream (``Mesh.streams``), every
+    rank's kernels queued layer by layer from one host call, 5c launched
+    between the layers and CUDA events across the ranks (csrc/fused_decode.cu
+    ``step_tp``).  Every item of the persistent TP step runs its device code,
+    and the reduce phases 5c's element, so the two are bit-equal.  The
+    bit-exact reference of the card tests and ``chip_smoke.py``; no serving
+    path calls it.  Counted in ``TP_PHASED_COUNTER``."""
+    return _tp_step(name, True, mesh, trees, caches, x, n_heads, index, tokens_lens,
+                    codes_lens, ttm, pm, chunk_override)
+
+
+def _tp_step(name: str, phased: bool, mesh, trees, caches, x, n_heads: int, index,
+             tokens_lens, codes_lens, ttm: int, pm: int, chunk_override: int | None):
+    """The checks and launch of ``fused_step_tp`` or its phased twin."""
     devices = mesh.devices
     mp = len(devices)
     if len(trees) != mp or len(caches) != mp:
@@ -756,13 +902,22 @@ def fused_step_tp(name: str, mesh, trees, caches, x, n_heads: int, index, tokens
         raise ValueError(f'index {index} outside [ttm + pm, S) = [{ttm + pm}, {S})')
     cards = (ctypes.c_int * mp)(*(dev.index if dev.index is not None
                                   else torch.cuda.current_device() for dev in devices))
-    streams = [s.cuda_stream for s in mesh.streams()]
     callers = [torch.cuda.current_stream(dev).cuda_stream for dev in devices]
-    status = _tp_lib()(int(verify), *lead[:3], mp, (ctypes.c_void_p * len(ptrs))(*ptrs),
-                       cards, (ctypes.c_void_p * mp)(*streams),
-                       (ctypes.c_void_p * mp)(*callers), L, rows, S, d, da, n_heads, dff,
-                       q_len if verify else (0 if per_row else int(index)), int(ttm),
-                       int(pm), *tail, 1.0 / math.sqrt(da // n_heads))
+    streams = [(ctypes.c_void_p * mp)(*(s.cuda_stream for s in mesh.streams()))] if phased \
+        else []
+    with _TP_LOCK:
+        status = _tp_lib(phased, weight_format(trees[0]))(
+            int(verify), *lead[:3], mp, (ctypes.c_void_p * len(ptrs))(*ptrs), cards, *streams,
+            (ctypes.c_void_p * mp)(*callers), L, rows, S, d, da, n_heads, dff,
+            q_len if verify else (0 if per_row else int(index)), int(ttm), int(pm), *tail,
+            1.0 / math.sqrt(da // n_heads))
+    if status == CUDA_ERROR_TIMEOUT:
+        raise RuntimeError(f'{name}: a card waited more than 10 s at a barrier across cards '
+                           'for a peer\'s launch, and trapped (the CUDA context of that card '
+                           'is lost)')
     _build.check(status, name)
-    TP_COUNTERS[name].count += 1
+    if phased:
+        TP_PHASED_COUNTER.count += 1
+    else:
+        TP_COUNTERS[name].count += 1
     return ys, caches

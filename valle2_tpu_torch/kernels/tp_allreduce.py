@@ -9,10 +9,14 @@ same bits.  On Hopper every rank's kernel reads the mp partials directly (its
 own locally, its peers' over NVLink through peer pointers): an H100 host's
 NVSwitch puts every peer one hop away, where the TPU torus needed a ring.
 The kernel is ``tp_allreduce_kernel`` of ``csrc/fused_decode.cu`` (see the
-header there for the ordering protocol); the fused TP steps launch it
-between their layers with the bias and the residual fused in, and
-``tp_allreduce`` here launches it alone, for the prefill's and the NAR's
-row-parallel sums.  It takes the plain version only for tensors on the CPU.
+header there for the ordering protocol), on the element function
+``reduce_element`` of ``csrc/fused_decode.cuh``; ``tp_allreduce`` here
+launches it alone, for the prefill's and the NAR's row-parallel sums.  The
+fused TP steps do not launch it: the persistent TP step (``fused_step_tp``)
+runs the same element function, with the bias and the residual fused in, in
+two reduce phases a layer inside its one launch per card, and only its
+phased twin (``fused_step_tp_phased``) launches this kernel between its
+layers.  It takes the plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations

@@ -31,7 +31,9 @@ ITEM14 = 'ROADMAP.md queue 1 item 14'
 
 class Mesh:
     """The devices of a ('model',) mesh, rank r on ``devices[r]``, with one
-    CUDA stream per rank (made at first use) for the fused TP steps."""
+    CUDA stream per rank (made at first use) for the phased twin of the
+    fused TP steps (the persistent TP step runs one launch per card on that
+    card's current stream, and uses none)."""
 
     axis_names = ('model',)
 
@@ -49,7 +51,8 @@ class Mesh:
     def streams(self) -> list:
         """One ``torch.cuda.Stream`` per rank, on the rank's card (virtual
         ranks on one card get a stream each, so the ranks' work runs under
-        the cross-rank ordering of the fused TP steps, not in issue order)."""
+        the cross-rank ordering of the phased TP step,
+        ``kernels.fused_decode.fused_step_tp_phased``, not in issue order)."""
         if self._streams is None:
             self._streams = [torch.cuda.Stream(device=d) for d in self.devices]
         return self._streams
