@@ -415,6 +415,10 @@ TP_CASES = {
 }
 TP_MPS = (2, 4)
 TP_STEPS = 128
+# 5c alone at the partials the TP prefill and NAR of phase tp sum (b, ttm +
+# pm, d) and (b, ttm + pm + TP_STEPS, d), f32: the serving batch's buckets.
+TP_SUM_SHAPES = {'prefill': (SLICE['b'], SLICE['ttm'] + SLICE['pm'], SLICE['d']),
+                 'nar': (SLICE['b'], SLICE['ttm'] + SLICE['pm'] - 1 + TP_STEPS, SLICE['d'])}
 TP_PROFILE_MP = 2      # the virtual ranks of phase step profile's tp path
 TP_PORTS = {
     'tp_allreduce': 'valle2_tpu/kernels/fused_decode.py:252-295 _ring_allreduce',
@@ -2195,7 +2199,7 @@ def step_profile(label: str, fn, tp: bool = False) -> dict:
     step_kernels = sum(len(r) for r in runs)
     phased = sum(1 for r in runs for e in r
                  if any(k in e.name for k in PHASED_KERNELS))
-    allreduce = sum(1 for e in ev if 'tp_allreduce_kernel' in e.name)
+    allreduce = sum(1 for e in ev if 'tp_row_reduce_kernel' in e.name)
     step_dev = sum(e.time_range.elapsed_us() for r in runs for e in r) / 1e3
     spans = [(r[-1].time_range.end - r[0].time_range.start) / 1e3 for r in runs]
     busy, end = 0.0, None
@@ -2270,11 +2274,11 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
             seen = (f'{r["step_kernels"]} step kernels ({r["phased_kernels"]} phased) '
                     f'for {r["launches"]} launches of #6 / #7'
                     + (f' (TP), {r["allreduce_kernels"]} 5c kernels' if tp else ''))
-            # TP: 5c runs in the prefill alone (2 calls a layer, a kernel a rank
-            # each), none in the token loop
+            # TP: 5c runs in the prefill alone (2 sums a layer, one kernel a
+            # card a sum: the virtual ranks share one), none in the token loop
             if (r['launches'] < 1 or r['phased_kernels']
                     or r['step_kernels'] > r['launches']
-                    or (tp and r['allreduce_kernels'] > 2 * SLICE['L'] * TP_PROFILE_MP)):
+                    or (tp and r['allreduce_kernels'] > 2 * SLICE['L'])):
                 fail(f'step profile ({label}): {seen}')
             if r['step_kernels'] == r['launches']:
                 return
@@ -3264,12 +3268,18 @@ def check_ties(name: str, codebooks, latents, got, want) -> dict:
 
 
 def phase_rvq_kernel(results: dict):
-    """RVQ encode #8 against its plain version at the codec path's shapes."""
+    """RVQ encode #8 against its plain version at the codec path's shapes
+    (tie rule), with its plan (tile, cluster, CTAs against the SM count),
+    device time and share of the FFMA bound; and exactly equal on codebooks
+    with each stage's codeword duplicated into another slice (an exact tie
+    across CTAs goes to the lower index), under the plan and under clusters
+    of 4 CTAs of 256 codewords."""
     import torch
     from valle2_tpu_torch.config import tf32_scope
     from valle2_tpu_torch.kernels import rvq as krvq
 
     dev = torch.device('cuda')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(8)
     cb = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1).to(dev)
     with tf32_scope(False), torch.inference_mode():
@@ -3280,6 +3290,7 @@ def phase_rvq_kernel(results: dict):
             torch.cuda.synchronize()
             ties = check_ties(f'rvq_encode ({case})', cb, lat, got, want)
             rows, v, d = b * t, cb.shape[1], cb.shape[2]
+            plan = krvq.rvq_plan(rows, v, n_q, sms)
             r = dict(max_abs_err=ties['worst_gap'],
                      ms=cuda_ms(lambda: krvq.rvq_encode_fused(cb, lat, n_q)),
                      plain_ms=cuda_ms(lambda: krvq.rvq_encode_plain(cb, lat, n_q)),
@@ -3287,11 +3298,34 @@ def phase_rvq_kernel(results: dict):
                      tol=f'codes equal but for ties: gap <= {krvq.TIE_RTOL:g}*max(1,|best|)')
             r['bound_ms'], r['bound_by'] = bound(4 * (rows * d + n_q * v * d + rows * n_q),
                                                  2 * rows * n_q * v * d, 'float32')
+            r['device_ms'] = device_ms(lambda: krvq.rvq_encode_fused(cb, lat, n_q),
+                                       'rvq_cluster_kernel')
             results[('rvq_encode', case, 'float32')] = r
             emit(phase='kernels', path='codec', kernel='rvq_encode', case=case,
                  shape=dict(B=b, T=t, n_q=n_q, V=v, D=d), **ties,
-                 **{k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
-                 achieved_tflops=2 * rows * n_q * v * d / r['ms'] / 1e9)
+                 **{k: r[k] for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by')},
+                 plan=plan, sms=sms, ctas_per_sm=plan['ctas'] / sms,
+                 bound_share=r['bound_ms'] / r['device_ms'],
+                 achieved_tflops=2 * rows * n_q * v * d / r['device_ms'] / 1e9)
+        # the constructed cross-slice ties: every stage's codeword a[q] copied
+        # to b[q] in another slice, frames near the duplicated sum
+        a = torch.tensor([5 + 3 * q for q in range(8)])
+        b_ = torch.tensor([600 + 41 * q for q in range(8)])
+        tied = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1) \
+            * 0.5 ** torch.arange(8.0)[:, None, None]
+        tied[torch.arange(8), b_] = tied[torch.arange(8), a]
+        lat = tied[torch.arange(8), a].sum(0) + 1e-4 * torch.randn(1, 150, 128, generator=gen)
+        tied, lat = tied.to(dev), lat.to(dev)
+        want = krvq.rvq_encode_plain(tied, lat)
+        for plan in (None, dict(tile=krvq.TILES.index((32, 256, 8, 4, 1)), cluster=4)):
+            got = krvq.rvq_encode_fused(tied, lat, plan=plan)
+            torch.cuda.synchronize()
+            at_a = bool((want.cpu() == a.int()[None, :, None]).all())
+            if not torch.equal(got, want) or not at_a:
+                fail(f'rvq_encode: the exact ties across CTAs (plan {plan}) did not go to the '
+                     'lower index as the plain version\'s')
+        emit(phase='kernels', path='codec', kernel='rvq_encode', case='cross_slice_ties',
+             codes_equal=True)
 
 
 def speech_like(rs, seconds: float, sr: int):
@@ -3419,7 +3453,7 @@ def profile_prepare_prompt(tts, req) -> dict:
         tts.prepare_prompt(audio, sr, prompt_text)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {'rvq_encode (#8)': ('rvq_encode_kernel', 'code_sq_norm'),
+    groups = {'rvq_encode (#8)': ('rvq_cluster_kernel',),
               'convolutions (cuDNN)': ('conv', 'cudnn', 'implicit', 'xmma', 'winograd', 'fft'),
               'gemm and gemv (cuBLAS, LSTM)': ('gemm', 'gemv', 'nvjet', 'cutlass'),
               'elementwise and reductions': ('elementwise', 'reduce_kernel')}
@@ -4003,6 +4037,67 @@ def tp_twin(label: str, ys, ys_t, c_k, c_t) -> None:
             fail(f'{label}: rank {r}\'s cache differs from the phased twin\'s')
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one ``fn()`` in ms: torch.profiler's time of the
+    kernels whose name holds ``kernel`` over ``reps`` calls, per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / 1e3 / max(len(us), 1)
+
+
+def tp_sum_case(mp: int, shape, gen, dev) -> dict:
+    """5c alone on mp virtual ranks of one card at one partial shape: the
+    bare sum (the kernels-line numbers, beside torch.add at mp 2) and the
+    path's epilogue (bias and residual, f32), each bit-equal to its plain
+    version, one launch and no ordering call a sum; times by CUDA events
+    and the device's own (torch.profiler), bounds from the bytes."""
+    import torch
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    parts = [torch.randn(*shape, generator=gen).to(dev) for _ in range(mp)]
+    bias = [torch.randn(shape[-1], generator=gen).to(dev)] * mp
+    x = torch.randn(*shape, generator=gen).to(dev)
+    res = [x.clone() for _ in range(mp)]
+    n0, calls = ta.COUNTER.count, ta.ordering_calls()
+    got, got_e = ta.tp_allreduce(parts), ta.tp_row_reduce(parts, bias, res)
+    want, want_e = ta.tp_allreduce_plain(parts), ta.tp_row_reduce_plain(parts, bias, res)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got + got_e, want + want_e)):
+        fail(f'tp_allreduce (mp {mp}, {shape}): not the rank-ordered f32 sum and its '
+             'epilogue bit for bit')
+    if ta.COUNTER.count - n0 != 2 or ta.ordering_calls() != calls:
+        fail(f'tp_allreduce (mp {mp}): {ta.COUNTER.count - n0} launches for 2 sums, '
+             f'{ta.ordering_calls() - calls} ordering calls on one card')
+    n = parts[0].numel() * 4
+    nbytes = (2 * mp) * n                       # mp partials read, mp outputs written
+    nbytes_e = (3 * mp) * n + mp * shape[-1] * 4   # and mp residuals, mp biases read
+    res_d = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ta.tp_allreduce(parts)),
+                 plain_ms=cuda_ms(lambda: ta.tp_allreduce_plain(parts)),
+                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by='bytes',
+                 library_ms=(cuda_ms(lambda: torch.add(parts[0], parts[1]))
+                             if mp == 2 else None), tol='bit-equal',
+                 device_ms=device_ms(lambda: ta.tp_allreduce(parts), 'tp_row_reduce_kernel'),
+                 library_device_ms=(device_ms(lambda: torch.add(parts[0], parts[1]), 'add')
+                                    if mp == 2 else None),
+                 epilogue_ms=cuda_ms(lambda: ta.tp_row_reduce(parts, bias, res)),
+                 epilogue_device_ms=device_ms(lambda: ta.tp_row_reduce(parts, bias, res),
+                                              'tp_row_reduce_kernel'),
+                 epilogue_plain_ms=cuda_ms(lambda: ta.tp_row_reduce_plain(parts, bias, res)),
+                 epilogue_bound_ms=1e3 * nbytes_e / HBM_BYTES_PER_S,
+                 enqueue_ms=enqueue_ms(lambda: ta.tp_allreduce(parts)))
+    emit(phase='kernels', path='tp', kernel='tp_allreduce', mp=mp, shape=list(shape),
+         bytes=nbytes, library='torch.add (mp 2)', **res_d)
+    return res_d
+
+
 def phase_tp_kernels(results: dict):
     """Phase 30: 5c alone, and the persistent TP fused steps (one
     cooperative launch holding the virtual ranks, 5c's element in its reduce
@@ -4023,24 +4118,15 @@ def phase_tp_kernels(results: dict):
                                         weights='compute', cache=None, K=SPEC['K'])}
     with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
         for mp in TP_MPS:
-            # 5c alone at the serving step's partial, (12 rows, d) f32 per rank;
-            # its library call: torch.add of the two partials (mp 2).
-            parts = [torch.randn(12, SLICE['d'], generator=gen).to(dev) for _ in range(mp)]
-            got = ta.tp_allreduce(parts)
-            want = ta.tp_allreduce_plain(parts)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                fail(f'tp_allreduce (mp {mp}): not the rank-ordered f32 sum bit for bit')
-            nbytes = mp * (mp + 1) * parts[0].numel() * 4
-            res = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ta.tp_allreduce(parts)),
-                       plain_ms=cuda_ms(lambda: ta.tp_allreduce_plain(parts)),
-                       bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by='bytes',
-                       library_ms=(cuda_ms(lambda: torch.add(parts[0], parts[1]))
-                                   if mp == 2 else None), tol='bit-equal')
-            results[('tp_allreduce', 'float32') if mp == 2 else
-                    ('tp_allreduce', f'mp{mp}', 'float32')] = res
-            emit(phase='kernels', path='tp', kernel='tp_allreduce', mp=mp, rows=12,
-                 d=SLICE['d'], bytes=nbytes, library='torch.add (mp 2)', **res)
+            # 5c alone at the serving step's partial, (12 rows, d) f32 per rank,
+            # and (mp 2) at the shapes the TP prefill and NAR launch it; its
+            # library call: torch.add of the two partials (mp 2).
+            shapes = {None: (12, SLICE['d']), **(TP_SUM_SHAPES if mp == 2 else {})}
+            for label, shape in shapes.items():
+                label = label or (f'mp{mp}' if mp != 2 else None)
+                key = ('tp_allreduce', 'float32') if label is None else \
+                    ('tp_allreduce', label, 'float32')
+                results[key] = tp_sum_case(mp, shape, gen, dev)
             for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
                 for label, case in cases.items():
                     verify = 'K' in case
@@ -4181,6 +4267,29 @@ def decode_loop_counts():
             setattr(ar_mod, n, fn)
 
 
+@contextlib.contextmanager
+def row_reduce_sums():
+    """Counts, while open, the row-parallel sums handed to 5c
+    (kernels.tp_allreduce.tp_row_reduce calls), the partials' shapes, and
+    5c's ordering calls (kernels.tp_allreduce.ordering_calls), the module
+    function wrapped and restored."""
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    orig = ta.tp_row_reduce
+    seen = dict(sums=0, shapes={}, ordering_calls=ta.ordering_calls())
+
+    def counting(partials, *args, **kw):
+        seen['sums'] += 1
+        key = 'x'.join(map(str, partials[0].shape))
+        seen['shapes'][key] = seen['shapes'].get(key, 0) + 1
+        return orig(partials, *args, **kw)
+    ta.tp_row_reduce = counting
+    try:
+        yield seen
+    finally:
+        ta.tp_row_reduce = orig
+        seen['ordering_calls'] = ta.ordering_calls() - seen['ordering_calls']
+
+
 def phase_tp(devices, smi: str = '') -> dict:
     """Phase 31: tensor-parallel serving over a ('model',) mesh of
     ``devices`` (['cuda:0'] * 2 in the one-card run: virtual ranks; the four
@@ -4224,11 +4333,17 @@ def phase_tp(devices, smi: str = '') -> dict:
     torch.cuda.synchronize()
     reset_counters()
     fd.TP_PHASED_COUNTER.reset()
-    with decode_loop_counts() as loop:
+    with decode_loop_counts() as loop, row_reduce_sums() as sums:
         got = tp.batch_synthesize(texts, pts, pcs)
         clock = StageClock(devices[0])
         got_spec = spec_tp.generate_batch(tokens, pcs, clock=clock)
     launches = read_counters()
+    cards = len({torch.device(d) for d in mesh.devices})
+    if launches['tp_allreduce'] != sums['sums'] * cards or not sums['sums']:
+        fail(f"tp (mp {mp}): {launches['tp_allreduce']} 5c launches for {sums['sums']} "
+             f'row-parallel sums on {cards} cards (one a card a sum)')
+    if cards == 1 and sums['ordering_calls']:
+        fail(f"tp (mp {mp}): 5c made {sums['ordering_calls']} ordering calls on one card")
     plain = plain_calls()
     want = runs['solo'][-1][1]
     for g, w in zip(got, want):
@@ -4263,6 +4378,7 @@ def phase_tp(devices, smi: str = '') -> dict:
          requests=len(texts), dtype='float32', codes_equal=True, spec_ids_equal=True,
          decode_loop=dict(token_steps=loop['steps'], tp_step_launches=tp_steps,
                           allreduce_launches=loop['allreduce']),
+         row_parallel_sums=sums,
          plan=fd.tp_persistent_plan(SLICE['L'], 12, SLICE['d'], SLICE['dff'], SLICE['h'],
                                     1280, 1280, devices=mesh.devices),
          mesh=summary('mesh'), solo=summary('solo'),
@@ -4479,8 +4595,8 @@ def main() -> int:
              ('bfloat16', 'float32'), ('cb', 'hub')),
             ('fused_decode_step_per_row_chunked', 'fused_step.cu', 'fused_decode.py:706',
              None, {}, ('bfloat16', 'float32'), ('hub',)),
-            ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', None, {'mp4': 'mp4'},
-             ('float32',), ('tp',)),
+            ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', 'prefill',
+             {'nar': 'nar', 'step_rows12': None, 'mp4': 'mp4'}, ('float32',), ('tp',)),
             ('fused_decode_step_tp', 'fused_step.cu', 'fused_decode.py:706', None,
              {'mp4': 'mp4', **{f'{c}_mp{m}': f'{c}_mp{m}' for c in TP_CASES if c != 'serve'
                                for m in TP_MPS}}, ('bfloat16', 'float32'), ('tp',)),

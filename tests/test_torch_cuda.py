@@ -1507,6 +1507,144 @@ def test_rvq_wrapper_refuses_what_the_kernel_does_not_take(dev):
         krvq.rvq_encode_fused(cb, lat, 9)
 
 
+def test_rvq_wrapper_refuses_a_plan_the_kernel_does_not_build(dev):
+    cb = torch.rand(8, 1024, 128, device=dev)
+    lat = torch.randn(1, 10, 128, device=dev)
+    wide = krvq.TILES.index((32, 128, 8, 4, 1))
+    for plan in (dict(tile=len(krvq.TILES), cluster=1), dict(tile=wide, cluster=3),
+                 dict(tile=wide, cluster=16)):        # 1024 / 16 < the tile's 128 codewords
+        with pytest.raises(ValueError, match='no tile'):
+            krvq.rvq_encode_fused(cb, lat, plan=plan)
+
+
+def test_rvq_tiles_are_the_kernels_table(dev):
+    """kernels.rvq.TILES and tile_smem mirror csrc/rvq.cu's TILE_DIMS and
+    Tile::SMEM, in its order (the plan passes an index into it)."""
+    import ctypes
+    from valle2_tpu_torch.kernels import _build
+    fn = _build.load('rvq').valle2_rvq_tile
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_long
+    for tile, dims in enumerate(krvq.TILES):
+        assert tuple(fn(tile, w) for w in range(5)) == dims
+        assert fn(tile, 5) == krvq.tile_smem(tile)
+    assert fn(len(krvq.TILES), 0) == 0
+
+
+def rvq_plans(v: int):
+    """Every (tile, cluster) the kernel builds that divides V."""
+    return [dict(tile=i, cluster=k) for i, (_, c, *_) in enumerate(krvq.TILES)
+            for k in krvq.CLUSTERS if v % (k * c) == 0]
+
+
+@pytest.mark.parametrize('case', ['prompt_1x150', 'ragged_3x77', 'tail_1x33'])
+def test_rvq_kernel_every_plan_matches_plain(dev, case):
+    """Every tile and cluster size (16: a non-portable cluster) under the
+    tie rule, each one launch."""
+    b, t, n_q = RVQ_CASES[case]
+    gen = torch.Generator().manual_seed(b + t)
+    cb = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1).to(dev)
+    lat = torch.randn(b, t, 128, generator=gen).to(dev)
+    want = krvq.rvq_encode_plain(cb, lat, n_q)
+    for plan in rvq_plans(1024):
+        before = krvq.COUNTER.count
+        got = krvq.rvq_encode_fused(cb, lat, n_q, plan=plan)
+        assert krvq.COUNTER.count == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (b, n_q, t), plan
+        assert_codes_within_ties(cb, lat, got, want)
+
+
+@pytest.mark.parametrize('v', [128, 2048])
+def test_rvq_kernel_every_plan_at_other_codebook_sizes(dev, v):
+    """V = 128: one slice, a cluster of 1; V = 2048: clusters up to 16 (the
+    non-portable size) of 128-codeword slices.  The plan's choice and each
+    plan under the tie rule."""
+    gen = torch.Generator().manual_seed(v)
+    cb = (torch.rand(8, v, 128, generator=gen) * 2 - 1).to(dev)
+    lat = torch.randn(2, 150, 128, generator=gen).to(dev)
+    want = krvq.rvq_encode_plain(cb, lat)
+    plans = rvq_plans(v)
+    assert any(p['cluster'] == (16 if v == 2048 else 1) for p in plans)
+    for plan in (None, *plans):
+        got = krvq.rvq_encode_fused(cb, lat, plan=plan)
+        torch.cuda.synchronize()
+        assert_codes_within_ties(cb, lat, got, want)
+
+
+def test_rvq_kernel_resolves_exact_ties_across_ctas_to_the_lower_index(dev):
+    """A codeword of every stage duplicated into another slice and frames
+    near the duplicated sum: each stage's two copies score bit-equal on
+    whichever CTAs hold them, and every plan must give the plain codes
+    exactly -- the lower index."""
+    a = torch.tensor([5 + 3 * q for q in range(8)])
+    b = torch.tensor([600 + 41 * q for q in range(8)])
+    gen = torch.Generator().manual_seed(3)
+    cb = (torch.rand(8, 1024, 128, generator=gen) * 2 - 1) * 0.5 ** torch.arange(8.0)[:, None, None]
+    cb[torch.arange(8), b] = cb[torch.arange(8), a]
+    lat = cb[torch.arange(8), a].sum(0) + 1e-4 * torch.randn(1, 150, 128, generator=gen)
+    cb, lat = cb.to(dev), lat.to(dev)
+    want = krvq.rvq_encode_plain(cb, lat)
+    assert bool((want.cpu() == a.int()[None, :, None]).all())
+    for plan in (None, *rvq_plans(1024)):
+        got = krvq.rvq_encode_fused(cb, lat, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+
+
+RVQ_PROFILE = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from valle2_tpu_torch.kernels import rvq as krvq
+cb = torch.rand(8, 1024, 128, device='cuda')
+lat = torch.randn(1, 150, 128, device='cuda')
+krvq.rvq_encode_fused(cb, lat)
+torch.cuda.synchronize()
+seen = []
+for _ in range(3):
+    before = krvq.COUNTER.count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(3):
+            krvq.rvq_encode_fused(cb, lat)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not any(w in e.name.lower() for w in ('sleep', 'spin'))]
+    seen.append(dict(launches=krvq.COUNTER.count - before, names=names))
+    if len(names) == 3:
+        break
+print('PROFILE ' + json.dumps(seen), flush=True)
+"""
+
+
+def test_rvq_kernel_is_one_device_kernel_a_call(dev):
+    """torch.profiler: three encodes at the prompt's shape run three device
+    kernels, each the cluster kernel (|c|^2 folded in, nothing cached).
+    Profiled in a process of its own (late in a long pytest process
+    torch.profiler has kept one device kernel of several); a profile that
+    saw fewer is taken again, up to three times, and one must see three."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, '-c', RVQ_PROFILE, str(here.parent)],
+                         capture_output=True, text=True, timeout=300, cwd=here.parent)
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith('PROFILE ')), None)
+    assert line is not None, out.stderr[-3000:]
+    seen = json.loads(line.removeprefix('PROFILE '))
+    for attempt in seen:
+        assert attempt['launches'] == 3
+        names = attempt['names']
+        assert len(names) <= 3 and all('rvq_cluster_kernel' in n for n in names), names
+    assert len(seen[-1]['names']) == 3, seen
+
+
 @pytest.fixture
 def codecs(dev):
     from valle2_tpu_torch.codec import Encodec
@@ -1882,6 +2020,133 @@ def test_tp_allreduce_kernel_is_the_rank_ordered_sum(dev, mp):
     torch.cuda.synchronize()
     assert ta.COUNTER.count == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+RR_SHAPES = {'prefill': (3, 385, 256), 'odd': (5, 97)}   # odd: the scalar path (d % 4)
+
+
+@pytest.mark.parametrize('epi', ['sum', 'bias', 'residual', 'bias_residual'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', sorted(RR_SHAPES))
+@pytest.mark.parametrize('mp', [1, 2, 3, 4, 8])
+def test_tp_row_reduce_kernel_equals_plain_bit_for_bit(dev, mp, shape, dtype, epi):
+    """5c with the row-parallel epilogue, virtual ranks on one card: every
+    rank's output bit-equal to ``tp_row_reduce_plain``; one launch, and no
+    ordering call (the ranks share a card and a stream)."""
+    gen = torch.Generator().manual_seed(mp * 7 + len(shape))
+    shp = RR_SHAPES[shape]
+    parts = [(torch.randn(*shp, generator=gen) * 10 ** (r % 3 - 1)).to(dev) for r in range(mp)]
+    bias = torch.randn(shp[-1], generator=gen).to(dev, dtype) if 'bias' in epi else None
+    biases = None if bias is None else [bias.clone() for _ in range(mp)]
+    x = torch.randn(*shp, generator=gen).to(dev, dtype)
+    res = [x.clone() for _ in range(mp)] if 'residual' in epi else None
+    out_dtype = torch.float32 if epi == 'sum' else dtype
+    before, calls = ta.COUNTER.count, ta.ordering_calls()
+    got = ta.tp_row_reduce(parts, biases, res, out_dtype)
+    want = ta.tp_row_reduce_plain(parts, biases, res, out_dtype)
+    torch.cuda.synchronize()
+    assert ta.COUNTER.count == before + 1 and ta.ordering_calls() == calls
+    for g, w in zip(got, want):
+        assert g.dtype == out_dtype and g.device == parts[0].device
+        assert torch.equal(g, w)
+
+
+RR_PROFILE = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from valle2_tpu_torch.kernels import tp_allreduce as ta
+dev = torch.device('cuda')
+parts = [torch.randn(3, 385, 256, device=dev) for _ in range(2)]
+bias = torch.randn(256, device=dev)
+res = [torch.randn(3, 385, 256, device=dev) for _ in range(2)]
+run = lambda: ta.tp_row_reduce(parts, [bias, bias], res, torch.float32)
+run()
+torch.cuda.synchronize()
+seen = []
+for _ in range(3):
+    before, calls = ta.COUNTER.count, ta.ordering_calls()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not any(w in e.name.lower() for w in ('sleep', 'spin'))]
+    seen.append(dict(launches=ta.COUNTER.count - before,
+                     ordering_calls=ta.ordering_calls() - calls, names=names))
+    if len(names) == 3:
+        break
+print('PROFILE ' + json.dumps(seen), flush=True)
+"""
+
+
+def test_tp_row_reduce_is_one_device_kernel_a_sum(dev):
+    """torch.profiler: three sums of two virtual ranks at the prefill's
+    shape run three device kernels, each ``tp_row_reduce_kernel``, and no
+    event or device call.  Profiled in a process of its own (late in a long
+    pytest process torch.profiler has kept fewer device kernels than ran); a
+    profile that saw fewer is taken again, up to three times."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, '-c', RR_PROFILE, str(here.parent)],
+                         capture_output=True, text=True, timeout=300, cwd=here.parent)
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith('PROFILE ')), None)
+    assert line is not None, out.stderr[-3000:]
+    seen = json.loads(line.removeprefix('PROFILE '))
+    for attempt in seen:
+        assert attempt['launches'] == 3 and attempt['ordering_calls'] == 0
+        names = attempt['names']
+        assert len(names) <= 3 and all('tp_row_reduce_kernel' in n for n in names), names
+    assert len(seen[-1]['names']) == 3, seen
+
+
+def test_tp_row_reduce_refuses_what_it_does_not_take(dev):
+    parts = [torch.randn(4, 8, device=dev) for _ in range(2)]
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        ta.tp_row_reduce(parts, dtype=torch.float16)
+    with pytest.raises(ValueError, match='bias'):
+        ta.tp_row_reduce(parts, [torch.ones(7, device=dev)] * 2)
+    with pytest.raises(ValueError, match='residual'):
+        ta.tp_row_reduce(parts, None, [torch.ones(4, 8, device=dev)] * 2, torch.bfloat16)
+    with pytest.raises(ValueError, match='residual for 2 ranks'):
+        ta.tp_row_reduce(parts, None, [torch.ones(4, 8, device=dev)])
+
+
+def test_tp_row_reduce_over_two_cards_never_reads_a_reused_partial(dev):
+    """Where the host has two or more cards: rank r on cuda:r, each call's
+    partials freed right after the sum and their memory refilled with NaN
+    on the same streams at once (the caching allocator hands the blocks
+    back); no card may read a peer's partial before its card wrote it or
+    after it was refilled (the flags across cards), so every output stays
+    the plain sum, and a call makes no event call (one device switch a card
+    at most)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards')
+    cards = [torch.device('cuda', i) for i in range(2)]
+    ta.tp_allreduce([torch.zeros(4, device=c) for c in cards])   # the cards' flags, made once
+    gen = torch.Generator().manual_seed(5)
+    for trial in range(20):
+        host = [torch.randn(3, 385, 256, generator=gen) for _ in cards]
+        want = ta.tp_allreduce_plain(host)[0]
+        parts = [h.to(c) for h, c in zip(host, cards)]
+        calls = ta.ordering_calls()
+        outs = ta.tp_row_reduce(parts)
+        assert ta.ordering_calls() - calls <= len(cards)
+        del parts
+        junk = [torch.full((3, 385, 256), float('nan'), device=c) for c in cards]
+        for c in cards:
+            torch.cuda.synchronize(c)
+        assert all(torch.equal(o.cpu(), want) for o in outs), trial
+        del junk
 
 
 def tp_inputs(dev, mp, fmt, dtype, hd, rows, K=1, L=2, h=4, ttm=24, pm=16, S=96):

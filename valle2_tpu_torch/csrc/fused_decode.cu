@@ -154,13 +154,30 @@
 // mid state, and its FFN phase, ending in its FFN2 partial into part_ffn; a
 // barrier; each rank's 5c over the part_ffn planes into its hidden state;
 // at the end every caller stream waits for every rank's last event.  A TP
-// launch holds one lock (the event pool: one event per (card, rank)).  5c
-// alone (valle2_tp_allreduce) serves the prefill's and the NAR's
-// row-parallel sums on the callers' streams, between the same two barriers.
-// What bounds 5c: each rank reads mp partials of rows * d f32 and writes
-// one, a few KB at the serving shape, so its time is launch and
-// synchronisation latency -- which the persistent TP step's reduce phases
-// (about 1.4 us a layer each at the serving width) do not pay.
+// launch holds one lock (the event pool: one event per (card, rank)).
+//
+// 5c alone (valle2_tp_row_reduce, tp_row_reduce_kernel) serves the
+// prefill's and the NAR's row-parallel sums, with the row-parallel epilogue
+// inside: round(x + round(s + b)), the bias once after the sum, the cast to
+// the compute dtype and the caller's residual add, which were three more
+// kernels a rank.  ONE launch a card a sum, on the caller's stream there,
+// holds all of that card's ranks: it reads the mp partials once (16-byte
+// ld.global.cg loads, a peer's plane over NVLink) and writes each local
+// rank's output.  Its grid is the card's SMs x the blocks that fit one.
+// What bounds it: bytes, 3 mp planes of rows * d f32 at mp virtual ranks
+// (partials, residuals, outputs), 7 MB at the prefill's 3 x 385 x 256 and
+// mp 2: about 2 us at 3.35 TB/s, where the launches and host calls of the
+// old per-rank route took about 0.1 ms.  Ordering: virtual ranks share
+// one card and one stream, whose order is all the sum needs, so the call
+// makes no event or device call then.  Across cards a partial must not be
+// read before its card's GEMM wrote it, and no card's stream may go on (nor
+// its allocator reuse a partial) before every peer has read it: flags in
+// peer memory inside a cooperative launch a card (a ready and a done epoch
+// a call, each card's slot in every other card's array; a wait bounded at
+// CARD_WAIT_NS, then a trap), no event.  Host events (one record a card and
+// n - 1 waits on each stream, before the launches and after) were measured
+// beside them on four H100s and were slower: 0.147-0.180 ms a sum against
+// 0.098-0.128 (probes/rvq_allreduce_ab.py --cards 4).
 //
 // What bounds it on this card: at 12 query rows a step streams the weights
 // (about 1.5 MB per layer in bf16, half that in int8, a quarter in int4) and
@@ -254,13 +271,13 @@ int dispatch(int dtype, int cache_dtype, int wfmt, const StepArgs& s, void* stre
   });
 }
 
-// ---- Tensor parallelism: 5c alone and the phased TP step ----
+// ---- Tensor parallelism: the phased TP step (5c between its phases) ----
 
 constexpr int MAX_CARDS = 32;  // cards of the event pool
 constexpr int RED_THREADS = 256;
 
-// 5c (reduce_element over every element): out[i] = the rank-ordered f32 sum
-// of the mp partials, with epilogue EPI.
+// 5c of the phased TP step (reduce_element over every element): out[i] =
+// the rank-ordered f32 sum of the mp partials, with epilogue EPI.
 template <typename T, int EPI>
 __global__ void __launch_bounds__(RED_THREADS)
 tp_allreduce_kernel(Partials src, int mp, long n, int d, const T* __restrict__ bias,
@@ -369,6 +386,310 @@ int step_tp(Ranks& k, const StepArgs* s, cudaStream_t const* caller) {
   return k.barrier(k.stream, caller);                            // join
 }
 
+// ---- 5c alone: the row-parallel sum with its epilogue, one launch a card ----
+
+constexpr int RR_THREADS = 256;
+constexpr int RR_COUNTERS = 64;   // arrival counters a card, by epoch: concurrent calls part
+
+// One launch's arguments: the card's ranks (its group), every rank's partial.
+struct RowReduceArgs {
+  Partials src;                   // every rank's f32 partial, in rank order
+  void* out[MAX_MP];              // the group's outputs (T), in rank order
+  const void* bias[MAX_MP];       // their biases (B, d long), or null
+  const void* res[MAX_MP];        // their residuals (T), or null
+  long n;                         // elements of a partial
+  int d, mp, n_local;
+  int vec;                        // 1: 4 elements a thread (every pointer aligned, d % 4 == 0)
+  // across cards: each card's flag array, this card's slot in every array,
+  // the epoch (ready; done is epoch + 1), this card's arrival counters, the
+  // host-mapped error word
+  unsigned long long* flags[MAX_MP];
+  int slot[MAX_MP];
+  unsigned long long epoch;
+  unsigned* arrived;
+  int* error;
+  int n_cards, me;
+};
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The row-parallel epilogue of one element, after the rank-ordered sum s:
+// round_T(s + b), then round_T(x + that) with a residual x -- the plain
+// composition (linear_row_parallel's (y + b).to(T), then the caller's x +
+// o); a missing bias or residual is skipped, not added as 0 (0 + -0 = +0).
+template <typename T, typename B>
+__device__ __forceinline__ float row_epilogue(float s, const B* bias, const T* res, long i,
+                                              int d) {
+  float y = s;
+  if (bias != nullptr) y = y + to_f<B>(bias[i % d]);
+  if (res != nullptr) return to_f<T>(res[i]) + round_to<T>(y);
+  return y;
+}
+
+// Card `me` tells every other card that its value reached `want` and waits
+// until every other card's value in its own array has (a system-scope
+// release after a system fence; acquires; traps after CARD_WAIT_NS).
+__device__ __forceinline__ void signal_and_wait(const RowReduceArgs& a, unsigned long long want,
+                                                bool signal) {
+  if (signal) {
+    __threadfence_system();
+    for (int c = 0; c < a.n_cards; ++c)
+      if (c != a.me) st_release_sys(a.flags[c] + a.slot[a.me], want);
+  }
+  const unsigned long long t0 = globaltimer();
+  for (int c = 0; c < a.n_cards; ++c) {
+    if (c == a.me) continue;
+    while (ld_acquire_sys(a.flags[a.me] + a.slot[c]) < want) {
+      if (globaltimer() - t0 > CARD_WAIT_NS) {
+        atomicExch_system(a.error, 1);
+        __threadfence_system();
+        __trap();
+      }
+    }
+  }
+}
+
+// 5c alone: every element's rank-ordered f32 sum over the mp partials (read
+// once, 16 bytes a load through L2), then each of the card's ranks' epilogue
+// into its own output.  The grid is the card's co-resident capacity, or
+// fewer blocks where the elements need fewer.  With
+// flags across cards (FLAGS): block 0 announces this card's partial (written
+// by the work before the launch on its stream) and every block waits for
+// every card's before it reads; after its reads each block counts itself,
+// and the card's last block announces that the card has read and waits for
+// every card's, so no card's launch ends -- and no partial is freed or
+// reused -- while a peer still reads it.
+template <typename T, typename B, bool FLAGS>
+__global__ void __launch_bounds__(RR_THREADS) tp_row_reduce_kernel(RowReduceArgs a) {
+  if constexpr (FLAGS) {
+    if (threadIdx.x == 0) signal_and_wait(a, a.epoch, blockIdx.x == 0);
+    __syncthreads();
+  }
+  const long stride = (long)gridDim.x * RR_THREADS;
+  const long first = (long)blockIdx.x * RR_THREADS + threadIdx.x;
+  if (a.vec) {
+    for (long j = first; j < a.n / 4; j += stride) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < a.mp; ++r) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(a.src.p[r]) + j);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      const long i = 4 * j;
+      for (int l = 0; l < a.n_local; ++l) {
+        float4 y = s;
+        if (a.bias[l] != nullptr) {
+          const float4 b = load4(static_cast<const B*>(a.bias[l]) + i % a.d);
+          y = make_float4(y.x + b.x, y.y + b.y, y.z + b.z, y.w + b.w);
+        }
+        if (a.res[l] != nullptr) {
+          const float4 x = load4(static_cast<const T*>(a.res[l]) + i);
+          y = make_float4(x.x + round_to<T>(y.x), x.y + round_to<T>(y.y),
+                          x.z + round_to<T>(y.z), x.w + round_to<T>(y.w));
+        }
+        store4(static_cast<T*>(a.out[l]) + i, y);
+      }
+    }
+  } else {
+    for (long i = first; i < a.n; i += stride) {
+      float s = 0.f;
+      for (int r = 0; r < a.mp; ++r) s += __ldcg(a.src.p[r] + i);
+      for (int l = 0; l < a.n_local; ++l)
+        static_cast<T*>(a.out[l])[i] = from_f<T>(row_epilogue<T, B>(
+            s, static_cast<const B*>(a.bias[l]), static_cast<const T*>(a.res[l]), i, a.d));
+    }
+  }
+  if constexpr (FLAGS) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      unsigned* count = a.arrived + a.epoch % RR_COUNTERS;
+      if (atomicAdd(count, 1u) == gridDim.x - 1) {
+        *count = 0;
+        signal_and_wait(a, a.epoch + 1, true);
+      }
+    }
+  }
+}
+
+// 5c's host state, under tp_mutex: the epoch of its flags (a counter never
+// reset), each card's flag array (MAX_CARDS u64) and arrival counters, the
+// host-mapped error word, and the count of ordering calls (cudaSetDevice;
+// it makes no event call) 5c alone has made.
+unsigned long long rr_epoch = 0;
+unsigned long long* rr_flags[MAX_CARDS] = {};
+unsigned* rr_arrived[MAX_CARDS] = {};
+int* rr_error = nullptr;
+long rr_ordering_calls = 0;
+
+// The card's grid: its SMs x the blocks of one launch that fit an SM
+// (co-resident, as a cooperative launch needs).  Asked once a card.
+template <typename T, typename B, bool FLAGS>
+cudaError_t rr_grid_of(int card, int* grid) {
+  static int blocks[MAX_CARDS] = {};
+  if (blocks[card] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tp_row_reduce_kernel<T, B, FLAGS>, RR_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    blocks[card] = sms * per_sm;
+  }
+  *grid = blocks[card];
+  return cudaSuccess;
+}
+
+// Card c's 5c state across cards: flags and counters (zeroed before any
+// launch uses them), the error word; made once.
+cudaError_t rr_card_state(int c) {
+  cudaError_t err = cudaSuccess;
+  if (rr_flags[c] == nullptr) {
+    unsigned long long* f = nullptr;
+    unsigned* a = nullptr;
+    err = cudaMalloc(&f, MAX_CARDS * sizeof(unsigned long long));
+    if (err == cudaSuccess) err = cudaMalloc(&a, RR_COUNTERS * sizeof(unsigned));
+    if (err == cudaSuccess) err = cudaMemset(f, 0, MAX_CARDS * sizeof(unsigned long long));
+    if (err == cudaSuccess) err = cudaMemset(a, 0, RR_COUNTERS * sizeof(unsigned));
+    if (err == cudaSuccess) err = cudaDeviceSynchronize();
+    if (err != cudaSuccess) return err;
+    rr_flags[c] = f;
+    rr_arrived[c] = a;
+  }
+  if (rr_error == nullptr) {
+    int* e = nullptr;
+    err = cudaHostAlloc(&e, sizeof(int), cudaHostAllocMapped | cudaHostAllocPortable);
+    if (err == cudaSuccess) {
+      *e = 0;
+      rr_error = e;
+    }
+  }
+  return err;
+}
+
+template <typename T, typename B>
+int row_reduce(int mp, void* const* partials, void* const* outs, void* const* biases,
+               void* const* residuals, const int* cards, void* const* streams, long n, int d) {
+  // The card groups: ranks by card in the order each card first appears,
+  // one stream a card.
+  int n_cards = 0, card[MAX_MP], size[MAX_MP], rank[MAX_MP][MAX_MP];
+  cudaStream_t st[MAX_MP];
+  for (int r = 0; r < mp; ++r) {
+    if (cards[r] < 0 || cards[r] >= MAX_CARDS) return (int)cudaErrorInvalidDevice;
+    int g = 0;
+    while (g < n_cards && card[g] != cards[r]) ++g;
+    if (g == n_cards) {
+      card[g] = cards[r];
+      size[g] = 0;
+      st[n_cards++] = static_cast<cudaStream_t>(streams[r]);
+    } else if (st[g] != static_cast<cudaStream_t>(streams[r])) {
+      return (int)cudaErrorInvalidValue;   // one stream a card
+    }
+    rank[g][size[g]++] = r;
+  }
+  auto aligned = [](const void* p, int bytes) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  bool vec = n % 4 == 0 && d % 4 == 0;
+  for (int r = 0; r < mp; ++r)
+    vec = vec && aligned(partials[r], 16) && aligned(outs[r], 4 * sizeof(T)) &&
+          aligned(biases[r], 4 * sizeof(B)) && aligned(residuals[r], 4 * sizeof(T));
+  const bool flags = n_cards > 1;
+  static RowReduceArgs args[MAX_MP];   // under tp_mutex
+  int grid[MAX_MP];
+  // The caller's current card, put back on return where a call moved it.
+  struct Current {
+    int dev = 0, caller = 0;
+    cudaError_t to(int c) {
+      if (c == dev) return cudaSuccess;
+      ++rr_ordering_calls;
+      dev = c;
+      return cudaSetDevice(c);
+    }
+    ~Current() {
+      if (dev != caller) {
+        ++rr_ordering_calls;
+        cudaSetDevice(caller);
+      }
+    }
+  } cur;
+  cudaError_t err = cudaGetDevice(&cur.caller);
+  cur.dev = cur.caller;
+  for (int g = 0; g < n_cards && err == cudaSuccess; ++g) {
+    if (flags && (rr_flags[card[g]] == nullptr || rr_error == nullptr)) {
+      err = cur.to(card[g]);
+      if (err == cudaSuccess) err = rr_card_state(card[g]);
+    }
+    if (err == cudaSuccess)
+      err = flags ? rr_grid_of<T, B, true>(card[g], &grid[g])
+                  : rr_grid_of<T, B, false>(card[g], &grid[g]);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long items = vec ? n / 4 : n;        // no block without an element
+  for (int g = 0; g < n_cards; ++g)
+    grid[g] = (int)std::max<long>(
+        1, std::min<long>(grid[g], (items + RR_THREADS - 1) / RR_THREADS));
+  if (flags && *rr_error) return (int)cudaErrorTimeout;   // a wait timed out before
+  const unsigned long long epoch = rr_epoch + 1;
+  if (flags) rr_epoch += 2;
+  for (int g = 0; g < n_cards; ++g) {
+    RowReduceArgs& a = args[g];
+    a = RowReduceArgs{};
+    for (int r = 0; r < mp; ++r) a.src.p[r] = static_cast<const float*>(partials[r]);
+    for (int j = 0; j < size[g]; ++j) {
+      a.out[j] = outs[rank[g][j]];
+      a.bias[j] = biases[rank[g][j]];
+      a.res[j] = residuals[rank[g][j]];
+    }
+    a.n = n, a.d = d, a.mp = mp, a.n_local = size[g], a.vec = vec;
+    if (flags) {
+      for (int c = 0; c < n_cards; ++c) {
+        a.flags[c] = rr_flags[card[c]];
+        a.slot[c] = card[c];
+      }
+      a.epoch = epoch;
+      a.arrived = rr_arrived[card[g]];
+      if (cudaHostGetDevicePointer(reinterpret_cast<void**>(&a.error), rr_error, 0))
+        return (int)cudaErrorInvalidValue;
+      a.n_cards = n_cards, a.me = g;
+    }
+  }
+  for (int g = 0; g < n_cards; ++g) {
+    if ((err = cur.to(card[g]))) return (int)err;   // no call for the current card
+    if (flags) {
+      void* params[] = {&args[g]};
+      err = cudaLaunchCooperativeKernel(tp_row_reduce_kernel<T, B, true>, dim3(grid[g]),
+                                        dim3(RR_THREADS), params, 0, st[g]);
+    } else {
+      tp_row_reduce_kernel<T, B, false><<<grid[g], RR_THREADS, 0, st[g]>>>(args[g]);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return (int)err;   // launched peers trap after CARD_WAIT_NS
+  }
+  return 0;
+}
+
 }  // namespace
 
 
@@ -449,32 +770,39 @@ extern "C" int valle2_fused_step_tp_phased(int verify, int dtype, int cache_dtyp
   });
 }
 
-// 5c alone (EPI_SUM): rank r's out[r] (n f32) = the rank-ordered sum of the
-// mp partials, launched on streams[r] (the caller's current stream on card
-// cards[r]) after every rank's queued work, which then waits for every rank's
-// reads before it goes on.
-extern "C" int valle2_tp_allreduce(int mp, void* const* partials, void* const* outs,
-                                   const int* cards, void* const* streams, long n) {
-  if (mp < 1 || mp > MAX_MP || n < 0) return (int)cudaErrorInvalidValue;
-  Partials src{};
-  cudaStream_t st[MAX_MP];
-  for (int r = 0; r < mp; ++r) {
-    src.p[r] = static_cast<const float*>(partials[r]);
-    st[r] = static_cast<cudaStream_t>(streams[r]);
-  }
+// 5c alone, with the row-parallel epilogue: rank r's outs[r] (n elements
+// of dtype: 0 = float32, 1 = bfloat16) = round(x_r + round(s + b_r)), s the
+// rank-ordered f32 sum of the mp f32 partials, b_r = biases[r] (d long, of
+// bias_dtype, 0 or 1) and x_r = residuals[r] (of dtype), each null to skip
+// it (float32 with neither: the bare sum).  cards[r]: rank r's card;
+// streams[r]: the caller's current stream there (one a card).  One launch a
+// card on that stream, holding the card's ranks (one launch for every
+// virtual rank of one card, with no ordering call: its stream orders it).
+// Across cards, flags in peer memory inside a cooperative launch a card
+// (tp_row_reduce_kernel) keep every card from reading a partial before its
+// card's work has written it, and from going on before every card has read
+// its.  Returns the first non-zero cudaError_t; cudaErrorTimeout once a wait
+// across cards has timed out.
+extern "C" int valle2_tp_row_reduce(int dtype, int bias_dtype, int mp, void* const* partials,
+                                    void* const* outs, void* const* biases,
+                                    void* const* residuals, const int* cards,
+                                    void* const* streams, long n, int d) {
+  if (mp < 1 || mp > MAX_MP || n < 0 || d < 1) return (int)cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(tp_mutex);
-  DeviceRestore restore;
-  Ranks k;
-  int err = k.init(mp, cards, streams);
-  if (err || (err = k.barrier(st, st))) return err;
-  for (int r = 0; r < mp; ++r) {
-    cudaSetDevice(cards[r]);
-    if ((err = launch_reduce<float, EPI_SUM>(src, mp, n, 1, nullptr, nullptr, nullptr,
-                                             static_cast<float*>(outs[r]), nullptr, st[r])))
-      return err;
-  }
-  return k.barrier(st, st);
+  auto go = [&](auto t, auto b) {
+    return row_reduce<typename decltype(t)::type, typename decltype(b)::type>(
+        mp, partials, outs, biases, residuals, cards, streams, n, d);
+  };
+  if (dtype == 0 && bias_dtype == 0) return go(Tag<float>{}, Tag<float>{});
+  if (dtype == 0 && bias_dtype == 1) return go(Tag<float>{}, Tag<__nv_bfloat16>{});
+  if (dtype == 1 && bias_dtype == 0) return go(Tag<__nv_bfloat16>{}, Tag<float>{});
+  if (dtype == 1 && bias_dtype == 1) return go(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  return (int)cudaErrorInvalidValue;
 }
+
+// The ordering calls (cudaSetDevice) 5c alone has made since the library
+// was loaded.
+extern "C" long valle2_tp_row_reduce_ordering_calls() { return rr_ordering_calls; }
 
 // Lets card `card`'s kernels read card `peer`'s memory (already enabled
 // counts as done).

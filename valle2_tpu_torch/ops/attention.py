@@ -108,13 +108,13 @@ def mha(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = No
 
 def mha_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
            bias: torch.Tensor | None = None, return_kv: bool = False,
-           flash: dict | None = None):
+           flash: dict | None = None, residual: list[torch.Tensor] | None = None):
     """``mha`` under tensor parallelism (JAX ``mha`` with ``tp_axis``): rank
     r's fused qkv holds its ``n_heads`` local heads (``tp_permute_qkv``), it
     attends over them (the flash kernel #1 on the card), and the row-split
-    output projection sums the ranks' partials (``linear_row_parallel``).
-    Returns one output per rank, or (outs, ks, vs) with each rank's local
-    k/v."""
+    output projection sums the ranks' partials (``linear_row_parallel``,
+    which adds ``residual`` where given).  Returns one output per rank, or
+    (outs, ks, vs) with each rank's local k/v."""
     from ..parallel.mesh import on_device
     merged, ks, vs = [], [], []
     for p, x in zip(ps, xs):
@@ -130,7 +130,7 @@ def mha_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
         merged.append(merge_heads(attn))
         ks.append(k)
         vs.append(v)
-    outs = linear_row_parallel([p['out'] for p in ps], merged)
+    outs = linear_row_parallel([p['out'] for p in ps], merged, residual=residual)
     if return_kv:
         return outs, ks, vs
     return outs

@@ -73,20 +73,22 @@ def decode_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y.float()
 
 
-def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None
-                        ) -> list[torch.Tensor]:
+def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None,
+                        residual: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
     """Row-parallel linear under tensor parallelism (JAX
     ``linear_row_parallel``): rank r's weight ``ps[r]`` holds a slice of the
     input features and ``xs[r]`` the matching slice of the input, so its
     product is a partial sum; the bias is added once, after the sum.  One
-    output per rank, on its device, equal across ranks.  int8 W8A8: the
-    activation scale takes the amax over every rank's slice (the solo row's
-    scale) and the ranks' int32 products sum exactly; dense and int4 W4A16
-    (the ranked packing) sum their float32 partials through
-    ``kernels.tp_allreduce`` (the rank-ordered sum; the CUDA kernel 5c on the
-    card), or ``reduce`` (``tp_allreduce_plain``: the plain version's sum)."""
-    from ..kernels.tp_allreduce import tp_allreduce
-    reduce = reduce or tp_allreduce
+    output per rank, on its device, equal across ranks; with ``residual``
+    (one tensor per rank), ``residual[r] + out`` instead, the caller's
+    residual add.  int8 W8A8: the activation scale takes the amax over every
+    rank's slice (the solo row's scale) and the ranks' int32 products sum
+    exactly; dense and int4 W4A16 (the ranked packing) sum their float32
+    partials through ``kernels.tp_allreduce.tp_row_reduce`` (the
+    rank-ordered sum with the bias, the cast and the residual add in one
+    epilogue: on the card 5c, one launch a card), or ``reduce``
+    (``tp_allreduce_plain``: the plain version's sum, the epilogue in torch
+    ops)."""
     if 'q' in ps[0]:
         x32s = [x.float() for x in xs]
         dev0 = xs[0].device
@@ -99,21 +101,30 @@ def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None
             acc = part.to(dev0) if acc is None else acc + part.to(dev0)
         ys = [(acc.to(x.device).float() * sx.to(x.device) * p['scale']).to(x.dtype)
               for p, x in zip(ps, xs)]
-    else:
-        parts = []
-        for p, x in zip(ps, xs):
-            if 'q4' in p:
-                parts.append(int4_matmul(x, p['q4'], p['scale4']).float())
-            else:
-                w = p['w']
-                wide = torch.promote_types(x.dtype, w.dtype)
-                parts.append((x.to(wide) @ w.to(wide)).float())
-        ys = reduce(parts)
+        return _row_parallel_epilogue(ps, xs, ys, residual)
+    parts = []
+    for p, x in zip(ps, xs):
+        if 'q4' in p:
+            parts.append(int4_matmul(x, p['q4'], p['scale4']).float())
+        else:
+            w = p['w']
+            wide = torch.promote_types(x.dtype, w.dtype)
+            parts.append((x.to(wide) @ w.to(wide)).float())
+    biases = [p.get('b') for p in ps]
+    if reduce is None:
+        from ..kernels.tp_allreduce import tp_row_reduce
+        return tp_row_reduce(parts, biases, residual, xs[0].dtype)
+    return _row_parallel_epilogue(ps, xs, reduce(parts), residual)
+
+
+def _row_parallel_epilogue(ps, xs, ys, residual):
+    """The bias after the sum, the cast to the input's dtype, the residual."""
     out = []
-    for p, x, y in zip(ps, xs, ys):
+    for r, (p, x, y) in enumerate(zip(ps, xs, ys)):
         if 'b' in p:
             y = y + p['b']
-        out.append(y.to(x.dtype))
+        y = y.to(x.dtype)
+        out.append(y if residual is None else residual[r] + y)
     return out
 
 
@@ -189,12 +200,13 @@ def ffn(p: Params, x: torch.Tensor, dropout_rate: float = 0.0,
     return linear(p['lin2'], h)
 
 
-def ffn_tp(ps: list[Params], xs: list[torch.Tensor], reduce=None) -> list[torch.Tensor]:
+def ffn_tp(ps: list[Params], xs: list[torch.Tensor], reduce=None,
+           residual: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
     """``ffn`` under tensor parallelism: lin1 column-split (rank r's slice of
     the hidden width, its bias slice), lin2 row-split (``linear_row_parallel``
-    with ``reduce``).  Inference only (no dropout)."""
+    with ``reduce`` and ``residual``).  Inference only (no dropout)."""
     hs = [F.gelu(linear(p['lin1'], x)) for p, x in zip(ps, xs)]
-    return linear_row_parallel([p['lin2'] for p in ps], hs, reduce)
+    return linear_row_parallel([p['lin2'] for p in ps], hs, reduce, residual)
 
 
 def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,

@@ -270,13 +270,14 @@ def encoder_layer_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
                      bias: torch.Tensor | None, cond: torch.Tensor | None,
                      return_kv: bool = False, flash: dict | None = None):
     """``encoder_layer`` (inference) over the ranks; ``n_heads`` per rank.
-    Returns the ranks' outputs, or (outs, ks, vs) with their local k/v."""
+    Both residual adds ride in the row-parallel sums' epilogue.  Returns the
+    ranks' outputs, or (outs, ks, vs) with their local k/v."""
     hs = [_norm(p['norm1'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
-    res = mha_tp([p['attn'] for p in ps], hs, n_heads, bias, return_kv=return_kv, flash=flash)
-    attn = res[0] if return_kv else res
-    xs = [x + a for x, a in zip(xs, attn)]
+    res = mha_tp([p['attn'] for p in ps], hs, n_heads, bias, return_kv=return_kv, flash=flash,
+                 residual=xs)
+    xs = res[0] if return_kv else res
     hs = [_norm(p['norm2'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
-    xs = [x + f for x, f in zip(xs, ffn_tp([p['ffn'] for p in ps], hs))]
+    xs = ffn_tp([p['ffn'] for p in ps], hs, residual=xs)
     return (xs, *res[1:]) if return_kv else xs
 
 
@@ -321,8 +322,7 @@ def transformer_decode_step_tp(trees: list[Params], xs: list[torch.Tensor], n_he
         lps = [layer_slice(t, li) for t in trees]
         merged = [att(lp['attn'], _norm(lp['norm1'], x, _on(cond, x.device)), n_heads, li)
                   for att, lp, x in zip(attends, lps, xs)]
-        outs = linear_row_parallel([lp['attn']['out'] for lp in lps], merged, reduce)
-        xs = [x + o for x, o in zip(xs, outs)]
+        xs = linear_row_parallel([lp['attn']['out'] for lp in lps], merged, reduce, xs)
         hs = [_norm(lp['norm2'], x, _on(cond, x.device)) for lp, x in zip(lps, xs)]
-        xs = [x + f for x, f in zip(xs, ffn_tp([lp['ffn'] for lp in lps], hs, reduce))]
+        xs = ffn_tp([lp['ffn'] for lp in lps], hs, reduce, xs)
     return xs, caches
