@@ -267,6 +267,27 @@ Phases, each printing JSON lines:
                 fewer means lost profiler records, and the path is profiled
                 again (up to PROFILE_REPEATS times) until one profile shows
                 one a launch.
+35. server   -- phase_server: the serving layer (valle2_tpu_torch/serve.py)
+                through ``serve_http(block=False)`` on 127.0.0.1, port 0, at
+                the serving width (SERVER): (a) f32, TF32 off, 4 beams,
+                greedy: 8 requests from 8 client threads over HTTP and the
+                same 8 through ``submit``, every response's PCM16 (within one
+                step) and every result's codes against its solo
+                synthesize_fused, or parted at a near-tie (GREEDY_F32_GAP);
+                (b) bf16, 16 requests from 16 threads, max_batch 8,
+                max_wait_ms 10: requests/s, audio s/s, RTF, p50 / p95 latency
+                and mean batch size from /stats, busy seconds and the worker
+                thread's CPU seconds a batch; /metrics parses; (c) /stream
+                through the hub (cb_streams 4, one beam) from 4 threads: time
+                to first audio, per-row #6 launches; (d) one /transcribe of 3
+                s (#8, #6); (e) a LoRA voice (rank 8, seeded nonzero B)
+                through save_adapters and load_voice, in a mixed f32 batch:
+                each row against its own weights' solo run; (f) 3 LoRA
+                fine-tune steps (rank 8, b=8 x 640, bf16) through the flash
+                forward and backward kernels, the base bit-equal after and
+                every adapter B moved.  Counts zeroed before each served run
+                and read after it (no plain call): (a)-(e) are the path
+                'server', (f) the path 'lora'.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -277,7 +298,7 @@ step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 (after checking peer access between every pair of cards); with no argument
 it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
-34, 17, 19, 22, 25, 26, 31, 12-14, 6-8, 15, 9, 10, 23, 20, 27-29.
+34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -433,6 +454,20 @@ CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
 # kernel, f32 sums in another order) over bf16 hidden states, whose rounding
 # (2^-8 relative) moves logits of |x| <= 8 by up to ~3e-2.
 GREEDY_BF16_GAP = 5e-2
+# Phase server (the serving layer over HTTP, valle2_tpu_torch/serve.py) at the
+# serving width: (a) exactness in f32 (TF32 off, 4 beams, greedy, 128 frames)
+# of 8 requests from 8 client threads; (b) load in bf16 at the serving config
+# (512 frames, ignore_eos) of 16 requests from 16 threads, max_batch 8,
+# max_wait_ms 10; (c) 4 streams through the hub (cb_streams 4, one beam, 256
+# frames); (d) one /transcribe of 3 s; (e) a LoRA voice of rank 8 in a mixed
+# f32 batch; (f) 3 LoRA fine-tune steps, b=8 x (128 + 512), bf16.
+SERVER = dict(exact_max_new=128, exact_requests=8, max_batch=8, max_wait_ms=10.0,
+              load_requests=16, load_max_new=512, streams=4, stream_max_new=256,
+              lora_rank=8, lora_seed=35, ft_batch=8, ft_frames=512, ft_steps=3)
+# An f32 (TF32 off) served row may part from its solo run only at a near-tie:
+# the prefill's and the NAR's cuBLAS GEMMs run at another row count, whose
+# f32 sums in another order move logits of |x| <= 8 by ~1e-5.
+GREEDY_F32_GAP = 1e-3
 # The persistent #6 and #7 (one cooperative launch a step) against the
 # phased twin on the same inputs: fused_verify_step_phased (for #6 with a
 # block of one token and the same start slots) runs the phased kernels,
@@ -3504,6 +3539,419 @@ def phase_asr():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase server: the serving layer (valle2_tpu_torch.serve) over HTTP
+# ---------------------------------------------------------------------------
+
+def http_post(base: str, path: str, payload, timeout: float = 600.0):
+    import urllib.request
+    data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+    return urllib.request.urlopen(urllib.request.Request(f'{base}{path}', data=data),
+                                  timeout=timeout)
+
+
+def http_get(base: str, path: str) -> bytes:
+    import urllib.request
+    return urllib.request.urlopen(f'{base}{path}', timeout=60).read()
+
+
+def request_body(text, pt, pc, **kw) -> dict:
+    return dict(text=text, prompt_tokens=[int(x) for x in pt],
+                prompt_codes=[[int(x) for x in row] for row in pc], **kw)
+
+
+def wav_pcm(data: bytes):
+    import io
+    import wave
+
+    import numpy as np
+    with wave.open(io.BytesIO(data), 'rb') as w:
+        if w.getframerate() != 24000 or w.getsampwidth() != 2:   # on a client thread
+            raise ValueError(f'a WAV of {w.getframerate()} Hz, {w.getsampwidth()} bytes a '
+                             'sample')
+        return np.frombuffer(w.readframes(w.getnframes()), '<i2').astype(np.int32)
+
+
+def on_threads(fns, label: str, timeout: float = 600.0) -> list:
+    """Run each fn on its own thread, all started together; their results."""
+    import threading
+    res, errs = [None] * len(fns), []
+    start = threading.Barrier(len(fns))
+
+    def run(i):
+        try:
+            start.wait()
+            res[i] = fns[i]()
+        except Exception as e:      # noqa: BLE001 -- reported below
+            errs.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    if errs or any(th.is_alive() for th in threads):
+        fail(f'server ({label}): client threads failed or hung: {errs!r}')
+    return res
+
+
+def server_divergence(model, cfg, tokens, pcodes, got, want) -> dict | None:
+    """None when the codes equal; else where a row's codes part from its
+    solo run's: the first frame whose AR token differs, with the plain
+    route's logit gap of the two picks there (teacher-forced on the solo
+    run's prefix; ``GREEDY_F32_GAP`` bounds it); a NAR-only difference fails."""
+    import numpy as np
+    import torch
+    if got.shape == want.shape and np.array_equal(got, want):
+        return None
+    g, w = got[:, 0], want[:, 0]
+    n = min(len(g), len(w))
+    diff = np.nonzero(g[:n] != w[:n])[0]
+    if not len(diff) and len(g) == len(w):
+        frame, q = (int(x[0]) for x in np.nonzero(got != want))
+        fail(f'server: the AR tokens equal but the NAR codes part at frame {frame}, '
+             f'codebook {q}')
+    k = int(diff[0]) if len(diff) else n
+    eos = cfg.eos_token
+    pair = (int(g[k]) if k < len(g) else eos, int(w[k]) if k < len(w) else eos)
+    gap = teacher_forced_gap(model, cfg, tokens, pcodes, torch.as_tensor(w[:k]), pair)
+    return dict(frame=k, pair=list(pair), logit_gap=gap)
+
+
+def hold_to_solo(label: str, model, cfg, tokens, pcodes, got, want, pcm=None) -> dict:
+    """A served row against its solo run: codes equal or parted at a
+    near-tie; the response's PCM16 within one step of the solo waveform's
+    (the codec decodes at another batch size) where the codes equal."""
+    import numpy as np
+    from valle2_tpu_torch.utils import pcm16
+    div = server_divergence(model, cfg, tokens, pcodes, got.codes, want.codes)
+    if div is not None and div['logit_gap'] > GREEDY_F32_GAP:
+        fail(f'server ({label}): served codes part from solo away from a near-tie: {div}')
+    out = dict(codes_equal=div is None, divergence=div)
+    if pcm is not None and div is None:
+        ref = pcm16(want.waveform).astype(np.int32)
+        if pcm.shape != ref.shape or int(np.abs(pcm - ref).max(initial=0)) > 1:
+            fail(f'server ({label}): PCM16 of {pcm.shape} differs from solo {ref.shape} by '
+                 f'{int(np.abs(pcm - ref).max(initial=0)) if pcm.shape == ref.shape else "-"}')
+        out['pcm_max_steps'] = int(np.abs(pcm - ref).max(initial=0))
+    return out
+
+
+@contextlib.contextmanager
+def http_front(server):
+    """serve_http(server, 127.0.0.1, port 0, block=False) for a with-block."""
+    from valle2_tpu_torch.serve import serve_http
+    httpd = serve_http(server, host='127.0.0.1', port=0, block=False)
+    try:
+        yield f'http://127.0.0.1:{httpd.server_address[1]}'
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def server_exact(smi: str) -> dict:
+    """(a) f32, TF32 off, 4 beams, greedy: 8 requests from 8 client threads
+    over HTTP, then the same 8 through submit; every response's PCM16 and
+    every result's codes against the request's solo synthesize_fused.
+    (e) on the same server: a LoRA voice from an adapter file in a mixed
+    batch, each row against its own weights' solo run.  Returns the served
+    runs' launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch import lora
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.serve import TTSServer
+    from valle2_tpu_torch.tts import ValleTTS
+
+    cfg = ConfigValle(max_audio_len=SERVER['exact_max_new'], dropout=0.0, temperature=0.0,
+                      kv_cache_dtype='float32', matmul_precision='highest')
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs, tokens = cb_requests(SERVER['exact_requests'], seed=31)
+    server = TTSServer(tts, max_batch=SERVER['max_batch'], max_wait_ms=50.0)
+    warm_s = server.warmup()
+    total = {}
+    with server, http_front(server) as base:
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        pcms = on_threads([lambda i=i: wav_pcm(http_post(base, '/synthesize', request_body(
+            texts[i], pts[i], pcs[i])).read()) for i in range(len(texts))], 'exact')
+        http_s = time.perf_counter() - t0
+        futs = [server.submit(t, pt, pc) for t, pt, pc in zip(texts, pts, pcs)]
+        results = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        launches, plain = read_counters(), plain_calls()
+        stats = server.stats()
+    add_counts(total, launches)
+    if plain:
+        fail(f'server (exact): {plain} plain calls of the fused steps')
+    held = [hold_to_solo(f'exact {i}', tts.ar, cfg, tokens[i], pcs[i], results[i],
+                         tts.synthesize_fused(texts[i], pts[i], pcs[i]), pcms[i])
+            for i in range(len(texts))]
+    emit(phase='server', part='exact', dtype='float32', tf32=False, beams=cfg.num_beams,
+         max_audio_len=cfg.max_audio_len, requests=len(texts), http_threads=len(texts),
+         http_wall_s=http_s, warmup_s=warm_s, batches=stats['batches'],
+         mean_batch_size=stats['mean_batch_size'], rows=held,
+         codes_equal=sum(h['codes_equal'] for h in held),
+         launches={k: v for k, v in launches.items() if v}, plain_calls=plain, card=smi)
+
+    # (e) a LoRA voice: seeded adapters with a nonzero B, through a file.
+    gen = torch.Generator().manual_seed(SERVER['lora_seed'])
+    adapters = lora.lora_init(gen, tts.ar.params, SERVER['lora_rank'])
+    for tree in _lora_pairs(adapters):
+        tree['lora_b'] = (0.02 * torch.randn(tree['lora_b'].shape, generator=gen)).to(
+            tree['lora_b'])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / 'voice.npz'
+        lora.save_adapters(path, {'ar': adapters}, scale=2.0)
+        server = TTSServer(tts, max_batch=SERVER['max_batch'], max_wait_ms=50.0)
+        server.load_voice('v', path)
+    voice_model = server._voices['v'][2]
+    voices = [None, 'v', None, 'v']
+    torch.cuda.synchronize()
+    reset_counters()
+    futs = [server.submit(texts[i], pts[i], pcs[i], voice=v) for i, v in enumerate(voices)]
+    with server:
+        results = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    launches, plain = read_counters(), plain_calls()
+    add_counts(total, launches)
+    if plain or server.stats()['batches'] != 2:
+        fail(f'server (voice): {plain} plain calls, {server.stats()["batches"]} batches')
+    held, differs = [], 0
+    for i, v in enumerate(voices):
+        if v is None:
+            held.append(hold_to_solo(f'voice row {i}', tts.ar, cfg, tokens[i], pcs[i],
+                                     results[i], tts.synthesize_fused(texts[i], pts[i],
+                                                                      pcs[i])))
+            continue
+        solo = tts.batch_synthesize([texts[i]], [pts[i]], [pcs[i]],
+                                    override_params=(voice_model.decode_params, None))[0]
+        held.append(hold_to_solo(f'voice row {i}', voice_model, cfg, tokens[i], pcs[i],
+                                 results[i], solo))
+        differs += not np.array_equal(results[i].codes,
+                                      tts.synthesize_fused(texts[i], pts[i], pcs[i]).codes)
+    if not differs:
+        fail('server (voice): the voice rows equal the base weights\' codes')
+    emit(phase='server', part='lora_voice', dtype='float32', rank=SERVER['lora_rank'],
+         adapters=lora.adapter_count(adapters), rows=held, voice_rows_unlike_base=differs,
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    return total
+
+
+def _lora_pairs(tree):
+    """The {'lora_a', 'lora_b'} nodes of an adapter tree."""
+    if 'lora_a' in tree:
+        yield tree
+        return
+    for sub in tree.values():
+        yield from _lora_pairs(sub)
+
+
+def add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def worker_cpu_s(server) -> float:
+    """CPU seconds the server's batching worker thread has used."""
+    return time.clock_gettime(time.pthread_getcpuclockid(server._thread.ident))
+
+
+def server_load(smi: str) -> dict:
+    """(b) bf16 at the serving config: 16 requests from 16 client threads over
+    HTTP, max_batch 8, max_wait_ms 10; then (d) one /transcribe of a 3 s WAV
+    on the same server.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.serve import TTSServer
+    from valle2_tpu_torch.tts import ValleASRPipeline, ValleTTS
+    from valle2_tpu_torch.utils import wav_pcm16_bytes
+
+    n = SERVER['load_max_new']
+    cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16')
+    tts = ValleTTS(cfg, device='cuda')
+    asr_cfg = ConfigValle(direction='asr', max_audio_len=256, dropout=0.0, temperature=0.0,
+                          dtype='bfloat16')
+    asr = ValleASRPipeline(asr_cfg, device='cuda')
+    texts, pts, pcs, _ = cb_requests(SERVER['load_requests'], seed=32)
+    server = TTSServer(tts, max_batch=SERVER['max_batch'], max_wait_ms=SERVER['max_wait_ms'],
+                       asr=asr)
+    warm_s = server.warmup()
+    rs = np.random.RandomState(33)
+    wav = speech_like(rs, 3.0, 24000)
+    asr.transcribe(wav, 24000)                           # warm-up
+    total = {}
+    with server, http_front(server) as base:
+        torch.cuda.synchronize()
+        cpu0 = worker_cpu_s(server)
+        reset_counters()
+        t0 = time.perf_counter()
+        pcms = on_threads([lambda i=i: wav_pcm(http_post(base, '/synthesize', request_body(
+            texts[i], pts[i], pcs[i])).read()) for i in range(len(texts))], 'load')
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters(), plain_calls()
+        cpu = worker_cpu_s(server) - cpu0
+        stats = server.stats()
+        metrics = http_get(base, '/metrics').decode()
+        add_counts(total, launches)
+        if plain:
+            fail(f'server (load): {plain} plain calls')
+        require_launches('server (load)', launches, ('flash_attention_fwd', 'fused_decode_step'))
+        for pcm in pcms:
+            if pcm.shape != (n * 320,):
+                fail(f'server (load): {pcm.shape} samples for {n} frames')
+        for line in metrics.splitlines():
+            if not line.startswith('#'):
+                name, value = line.split(' ')
+                float(value)
+        if 'valle2_requests_total 16' not in metrics.splitlines():
+            fail('server (load): /metrics does not count the 16 requests')
+        audio_s = len(texts) * n * 320 / 24000
+        emit(phase='server', part='load', dtype='bfloat16', beams=cfg.num_beams,
+             max_audio_len=n, requests=len(texts), client_threads=len(texts),
+             max_batch=server.max_batch, max_wait_ms=server.max_wait_ms, warmup_s=warm_s,
+             wall_s=wall, requests_per_s=len(texts) / wall, audio_s_per_s=audio_s / wall,
+             rtf=wall / audio_s, latency_ms_p50=stats['latency_ms_p50'],
+             latency_ms_p95=stats['latency_ms_p95'], batches=stats['batches'],
+             mean_batch_size=stats['mean_batch_size'],
+             busy_s_per_batch=stats['busy_seconds'] / stats['batches'],
+             worker_cpu_s_per_batch=cpu / stats['batches'], metric_lines=len(
+                 metrics.splitlines()), launches={k: v for k, v in launches.items() if v},
+             plain_calls=plain, card=smi)
+
+        # (d) ASR over HTTP.
+        reset_counters()
+        t0 = time.perf_counter()
+        out = json.loads(http_post(base, '/transcribe', wav_pcm16_bytes(wav, 24000)).read())
+        asr_s = time.perf_counter() - t0
+        launches = read_counters()
+        add_counts(total, launches)
+        require_launches('server (asr)', launches, ('rvq_encode', 'fused_decode_step'))
+        if not isinstance(out.get('text'), str) or server.stats()['asr_requests'] != 1:
+            fail(f'server (asr): {out!r}, stats {server.stats()}')
+        emit(phase='server', part='asr', seconds=3.0, wall_s=asr_s, rtf=asr_s / 3.0,
+             chars=len(out['text']), launches={k: v for k, v in launches.items() if v},
+             card=smi)
+    return total
+
+
+def server_streams(smi: str) -> dict:
+    """(c) /stream with cb_streams=4 at one beam (bf16, ignore_eos): 4
+    streams from 4 client threads over HTTP through the hub; time to first
+    audio (to the response's headers, which follow the first chunk, and to
+    its first bytes).  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.serve import TTSServer
+    from valle2_tpu_torch.tts import ValleTTS
+
+    n = SERVER['stream_max_new']
+    cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16',
+                      num_beams=1)
+    tts = ValleTTS(cfg, device='cuda')
+    texts, pts, pcs, _ = cb_requests(SERVER['streams'], seed=34)
+    server = TTSServer(tts, max_batch=2, cb_streams=SERVER['streams'])
+    warm_s = server.warmup(streams=True)
+
+    def stream(i, base):
+        t0 = time.perf_counter()
+        resp = http_post(base, '/stream', request_body(texts[i], pts[i], pcs[i]))
+        t_head = time.perf_counter() - t0
+        first = resp.read(2)
+        t_first = time.perf_counter() - t0
+        data = first + resp.read()
+        return dict(headers_s=t_head, first_audio_s=t_first, wall_s=time.perf_counter() - t0,
+                    samples=len(data) // 2, pcm=np.frombuffer(data, '>i2'))
+    with server, http_front(server) as base:
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        runs = on_threads([lambda i=i: stream(i, base) for i in range(len(texts))], 'streams')
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters(), plain_calls()
+        stats = server.stats()
+    for r in runs:
+        if r['samples'] != n * 320:
+            fail(f'server (streams): {r["samples"]} samples for {n} frames')
+    if plain or launches['fused_decode_step_per_row'] <= 0:
+        fail(f'server (streams): {plain} plain calls, launches {launches}')
+    audio_s = len(runs) * n * 320 / 24000
+    emit(phase='server', part='streams', dtype='bfloat16', cb_streams=SERVER['streams'],
+         chunk_frames=server._hub.chunk_frames, max_audio_len=n, warmup_s=warm_s,
+         headers_s=[r['headers_s'] for r in runs],
+         first_audio_s=[r['first_audio_s'] for r in runs],
+         session_wall_s=[r['wall_s'] for r in runs], wall_s=wall, rtf=wall / audio_s,
+         stream_requests=stats['stream_requests'],
+         launches={k: v for k, v in launches.items() if v}, plain_calls=plain, card=smi)
+    return launches
+
+
+def server_finetune(smi: str) -> dict:
+    """(f) LoRA fine-tuning at the serving width: rank SERVER['lora_rank'],
+    3 AR steps of b=8 x (128 + 512) in bf16 through the flash forward and
+    backward kernels; the base bit-equal after, the adapters moved.
+    Returns the steps' launch counts."""
+    import math
+
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.train import init_state, make_train_step, tree_leaves
+
+    dev = torch.device('cuda')
+    b, frames = SERVER['ft_batch'], SERVER['ft_frames']
+    cfg = ConfigValle(dropout=0.1, batch_size=b, dtype='bfloat16', lr=1e-3,
+                      lora_rank=SERVER['lora_rank'])
+    state = init_state(cfg, 'ValleAR', device=dev)
+    step = make_train_step(cfg, 'ValleAR')
+    data = bench_data('ValleAR', b, frames, dev)
+    base0 = [p.clone() for p in tree_leaves(state.params['base'])]
+    b0 = [t['lora_b'].detach().clone() for t in _lora_pairs(state.params['lora'])]
+    state, _ = step(state, data, 1)                     # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(SERVER['ft_steps']):
+        state, m = step(state, data, 1)
+        losses.append(m['loss'])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / SERVER['ft_steps']
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f'server (lora fine-tune): non-finite loss {losses}')
+    if launches['flash_attention_fwd'] <= 0 or (
+            launches['flash_bwd_fused'] <= 0 and launches['flash_bwd_dq'] <= 0):
+        fail(f'server (lora fine-tune): the flash kernels did not launch: {launches}')
+    if not all(torch.equal(p, q) for p, q in zip(tree_leaves(state.params['base']), base0)):
+        fail('server (lora fine-tune): the base weights moved')
+    moved = sum(not torch.equal(t['lora_b'], q)
+                for t, q in zip(_lora_pairs(state.params['lora']), b0))
+    if moved != len(b0):
+        fail(f'server (lora fine-tune): {moved} of {len(b0)} adapter B matrices moved')
+    emit(phase='server', part='lora_finetune', dtype='bfloat16', rank=cfg.lora_rank,
+         batch=b, frames=frames, steps=SERVER['ft_steps'], step_ms=step_ms,
+         trained=len(state.opt_state.leaves), losses=losses, base_equal=True,
+         adapters_moved=moved, launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+def phase_server(smi: str) -> tuple[dict, dict]:
+    """The serving layer over HTTP at the serving width (parts a-e), then a
+    LoRA fine-tune (f).  Returns (the served runs' launch counts, the
+    fine-tune's)."""
+    total = server_exact(smi)
+    add_counts(total, server_load(smi))
+    add_counts(total, server_streams(smi))
+    require_launches('server', total, ('flash_attention_fwd', 'fused_decode_step',
+                                       'fused_decode_step_per_row', 'rvq_encode'))
+    return total, server_finetune(smi)
+
+
 def dataset_items(n: int = 32, seed: int = 15):
     """n in-memory HF-style items, 1-4 s at 16 / 22.05 / 24 kHz."""
     import numpy as np
@@ -4545,6 +4993,7 @@ def main() -> int:
     timed(phase_codec)
     paths['clone'] = timed(phase_clone)
     paths['asr'] = timed(phase_asr)
+    paths['server'], paths['lora'] = timed(phase_server, smi)
     timed(phase_train_kernels, results)
     timed(phase_grads)
     paths['train'] = timed(phase_train, smi)
@@ -4563,7 +5012,7 @@ def main() -> int:
     for name, src, replaces, shape_key, extra, dtypes, on_paths in (
             ('flash_attention_fwd', 'flash_attention.cu', 'flash_attention.py:290', 'ar',
              {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}, ('bfloat16', 'float32'),
-             ('serve', 'clone', 'asr', 'train', 'spec', 'large')),
+             ('serve', 'clone', 'asr', 'train', 'spec', 'large', 'server')),
             ('flash_attention_fwd_folded', 'flash_attention.cu', 'flash_attention.py:243',
              '204m', {c: c for c in FOLD_CASES if c != '204m'}, ('bfloat16', 'float32'),
              ('fold',)),
@@ -4577,14 +5026,14 @@ def main() -> int:
                {'square4096': 'square4096', 'out_204m': 'out_204m'}, ('bfloat16',), ('gemm',))
               for name, line in (('matmul_fullk', 46), ('matmul_ksplit', 84))),
             ('fused_decode_step', 'fused_step.cu', 'fused_decode.py:706', None, {},
-             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large')),
+             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large', 'server')),
             ('fused_decode_step_chunked', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'quant', 'stream', 'large')),
             ('fused_verify_step_chunked', 'fused_step.cu', 'fused_decode.py:1017', None, {},
              ('bfloat16', 'float32'), ('spec',)),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
-             ('clone', 'asr', 'data')),
+             ('clone', 'asr', 'data', 'server')),
             *((f'fused_decode_step_{v}', 'fused_step.cu', 'fused_decode.py:706', None, {},
                ('bfloat16', 'float32'), ('quant', 'large') if v == 'w8a8' else ('quant',))
               for v in QUANT_VARIANTS),
@@ -4592,7 +5041,7 @@ def main() -> int:
                None, {}, ('bfloat16', 'float32'), ('spec', 'large') if v in ('dense', 'w8a8')
                else ('spec',)) for v in VERIFY_VARIANTS),
             ('fused_decode_step_per_row', 'fused_step.cu', 'fused_decode.py:706', None, {},
-             ('bfloat16', 'float32'), ('cb', 'hub')),
+             ('bfloat16', 'float32'), ('cb', 'hub', 'server')),
             ('fused_decode_step_per_row_chunked', 'fused_step.cu', 'fused_decode.py:706',
              None, {}, ('bfloat16', 'float32'), ('hub',)),
             ('tp_allreduce', 'fused_decode.cu', 'fused_decode.py:252', 'prefill',
@@ -4606,6 +5055,9 @@ def main() -> int:
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
+        for p in ('server', 'lora'):      # the chunked steps, the fine-tune's kernels
+            if p not in by_path and paths[p][name] > 0:
+                by_path[p] = paths[p][name]
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
                      replaces=replaces if replaces.startswith('probes/')
                      else f'valle2_tpu/kernels/{replaces}',

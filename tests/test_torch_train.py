@@ -245,12 +245,13 @@ def test_corrupt_conditioning_touches_only_suffix_codebook0():
 
 
 def test_training_features_not_ported_raise_naming_the_roadmap():
-    for field, value in (('lora_rank', 4), ('zero1', True), ('sequence_parallel', True),
+    for field, value in (('zero1', True), ('sequence_parallel', True),
                          ('remat', True), ('pp_microbatches', 2), ('pp_schedule', '1f1b')):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             ConfigValle(**{field: value})
     # JAX compilation choices: accepted, with no counterpart in the port
     ConfigValle(train_rng_impl='threefry2x32', train_scan_unroll=4)
+    ConfigValle(lora_rank=4)      # ported: LoRA fine-tuning (tests/test_torch_lora.py)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         get_dataloaders('ValleAR', ConfigValle(**TRAIN))
     with pytest.raises(NotImplementedError, match='grammar'):

@@ -111,8 +111,10 @@ def test_port_imports_no_jax():
             'valle2_tpu_torch.models.convert, valle2_tpu_torch.utils, '
             'valle2_tpu_torch.codec.convert, valle2_tpu_torch.kernels.rvq, '
             'valle2_tpu_torch.data.dataset, valle2_tpu_torch.models.ar, '
-            'valle2_tpu_torch.models.continuous, valle2_tpu_torch.stream_hub\n'
+            'valle2_tpu_torch.models.continuous, valle2_tpu_torch.stream_hub, '
+            'valle2_tpu_torch.serve, valle2_tpu_torch.lora\n'
             'assert valle2_tpu_torch.StreamHub.__module__ == "valle2_tpu_torch.stream_hub"\n'
+            'assert valle2_tpu_torch.TTSServer.__module__ == "valle2_tpu_torch.serve"\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", '
             '"valle2_tpu"))\n'
             'assert not bad, bad')

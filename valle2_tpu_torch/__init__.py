@@ -10,9 +10,10 @@ the AR token step (``kernels.fused_decode``) and the codec's RVQ encode
 stream hub that serves concurrent streams through it (``stream_hub``);
 audio datasets tokenized through the codec (``data.ValleDataset``); and
 training on one device (``train``) through the flash forward and backward
-kernels; tensor-parallel serving over a ('model',) mesh of cards
-(``parallel``, the all-reduce ``kernels.tp_allreduce``); see ROADMAP.md for
-what remains.
+kernels, with LoRA fine-tuning (``lora``); tensor-parallel serving over a
+('model',) mesh of cards (``parallel``, the all-reduce
+``kernels.tp_allreduce``); and the dynamic-batching HTTP server with
+multi-voice serving (``serve``); see ROADMAP.md for what remains.
 """
 
 from .config import ConfigValle, bucket_len
@@ -21,6 +22,7 @@ from .config import ConfigValle, bucket_len
 # config imports without the models.
 _LAZY = {
     'ValleTTS': '.tts', 'ValleASRPipeline': '.tts', 'StreamHub': '.stream_hub',
+    'TTSServer': '.serve', 'serve_http': '.serve',
     'ValleAR': '.models', 'ValleNAR': '.models', 'Trainer': '.train',
 }
 

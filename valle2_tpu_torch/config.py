@@ -6,9 +6,11 @@ port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
 datasets and trains the AR, NAR and ASR models on one device so far, and
 serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
 W4A16, ``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and
-n-gram speculative decode (``speculative_k`` >= 2 with one beam), and streams
+n-gram speculative decode (``speculative_k`` >= 2 with one beam), streams
 (``DecodeStream``, ``synthesize_streaming``, ``synthesize_longform``) with
-``decode_unroll`` and a chunked cache (``decode_chunk``, ``VALLE2_FUSED_CHUNK``)
+``decode_unroll`` and a chunked cache (``decode_chunk``, ``VALLE2_FUSED_CHUNK``),
+and fine-tunes LoRA adapters (``lora_rank`` > 0, ``lora.py``; on one device:
+the data and pipeline meshes it excludes in the JAX package are not ported)
 (ROADMAP.md): a non-default value of a feature outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it, instead
 of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
@@ -50,7 +52,6 @@ import torch
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
     ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
-    ('lora_rank', 0, 'queue 1 item 13 (lora.py)'),
     ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
     ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
     ('sequence_parallel', False, 'queue 1 item 14 (parallelism, sequence parallel)'),

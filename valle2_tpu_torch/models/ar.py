@@ -688,9 +688,10 @@ class ValleAR:
         save_params(path, self.params)
 
     def load(self, path) -> None:
-        """Load params from a params file or a trainer step dir."""
+        """Load params from a params file or a trainer step dir (LoRA
+        fine-tune states merge through this model's lora_* config)."""
         from .checkpoint import load_params
-        self.params = load_params(path, self.params)
+        self.params = load_params(path, self.params, config=self.config)
 
     def generate(self, prompt_tokens, prompt_codes, target_tokens=None,
                  generator: torch.Generator | None = None, bucket: bool = True):

@@ -4,8 +4,9 @@ Counterpart of ``valle2_tpu/models/checkpoint.py``.  A params checkpoint is
 one file holding the params tree with CPU tensors; a trainer step dir
 (``train.Trainer.save_checkpoint``) holds ``state.pt`` with
 {'params', 'opt_state', 'step'}.  ``load_params`` takes either, as the JAX
-loader does.  The JAX package's orbax checkpoints are directories of another
-format and are not read here (ROADMAP.md queue 1 item 13).
+loader does, and merges a LoRA fine-tune's {'base', 'lora'} params through
+the caller's config.  The JAX package's orbax checkpoints are directories of
+another format and are not read here (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -58,13 +59,26 @@ def _match(template, loaded, where: str = ''):
     return loaded.to(device=template.device, dtype=template.dtype)
 
 
-def load_params(path, template: Params) -> Params:
+def load_params(path, template: Params, config=None) -> Params:
     """Restore a params tree shaped like ``template`` (keeping its dtypes and
-    devices) from a params file or a trainer step dir."""
+    devices) from a params file or a trainer step dir.
+
+    ``config``: when the params are a LoRA fine-tune state (``{'base',
+    'lora'}``, trained with ``config.lora_rank > 0``), a config carrying the
+    lora_* hyperparameters merges the adapters into dense weights, so the
+    model serves the fine-tuned weights directly."""
     path = Path(path)
     if path.is_dir():
         path = path / STATE_FILE
     loaded = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(loaded, dict) and set(loaded) >= {'params', 'opt_state', 'step'}:
         loaded = loaded['params']
+    if isinstance(loaded, dict) and set(loaded) == {'base', 'lora'}:
+        if config is None or int(getattr(config, 'lora_rank', 0)) <= 0:
+            raise ValueError(
+                f'{path} holds a LoRA fine-tune state; load it through a model '
+                'whose config sets lora_rank/lora_alpha (or merge explicitly '
+                'via valle2_tpu_torch.lora.merge_lora)')
+        from ..lora import lora_scale, merge_lora
+        loaded = merge_lora(loaded['base'], loaded['lora'], lora_scale(config))
     return _match(template, loaded)

@@ -6,7 +6,11 @@ and AdamW; ``grad_accum`` > 1 averages micro-batch grads and updates once per
 ``grad_accum`` micro-steps, as ``optax.MultiSteps`` does.  Checkpoints are
 ``torch.save`` files in ``<ckpt_path>/<model>/step_<N>/``; resume replays the
 exact batch and dropout stream of an uninterrupted run.  Metrics go to
-TensorBoard through tensorboardX where that package imports.
+TensorBoard through tensorboardX where that package imports.  With
+``config.lora_rank`` > 0 the run fine-tunes LoRA adapters (``lora.py``): the
+params are ``{'base', 'lora'}``, the optimizer holds the adapters only, the
+base stays bit-identical, and the step merges ``w + scale * A @ B`` inside its
+forward, so autograd reaches A and B alone.
 
     python -m valle2_tpu_torch.train -c cfg.json -m ValleAR --synthetic [--resume]
                                      [--device cuda|cpu]
@@ -31,12 +35,13 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from . import lora as lora_mod
 from .config import ConfigValle, precision_scope, resolve_device
 from .data.dataset import get_dataloaders
 from .data.prefetch import DevicePrefetcher, to_device
 from .models import ar as ar_mod
 from .models import nar as nar_mod
-from .models.checkpoint import STATE_FILE, atomic_save, to_cpu
+from .models.checkpoint import STATE_FILE, atomic_save, load_params, to_cpu
 from .ops.transformer import map_tree
 
 Params = dict[str, Any]
@@ -147,7 +152,7 @@ class Optimizer:
 
 
 class TrainState(NamedTuple):
-    params: Params          # leaves require grad; the optimizer updates them in place
+    params: Params          # trained leaves require grad; the optimizer updates them in place
     opt_state: Optimizer
     step: int               # micro-steps taken (the dropout generator's step)
 
@@ -156,11 +161,26 @@ def init_state(config: ConfigValle, model_name: str, seed: int | None = None,
                base_params: Params | None = None, device=None) -> TrainState:
     """Fresh training state on ``device`` (the CUDA card by default): params
     from ``INIT_FNS`` with a generator seeded from ``seed`` (default
-    ``config.seed``), or a copy of ``base_params``."""
+    ``config.seed``), or a copy of ``base_params``.
+
+    ``config.lora_rank`` > 0: the params become ``{'base', 'lora'}`` (the
+    base frozen, adapters from a generator derived from the seed) and the
+    optimizer holds only the adapters; ``config.lora_base`` loads the weights
+    being adapted (a params file or a trainer step dir) when ``base_params``
+    is None."""
     device = resolve_device(device)
+    seed = config.seed if seed is None else seed
     if base_params is None:
-        gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
-        base_params = INIT_FNS[model_name](gen, config)
+        base_params = INIT_FNS[model_name](torch.Generator().manual_seed(seed), config)
+        if config.lora_rank > 0 and config.lora_base:
+            base_params = load_params(config.lora_base, base_params)
+    if config.lora_rank > 0:
+        base = map_tree(lambda a: a.detach().to(device).clone(), base_params)
+        gen = torch.Generator().manual_seed(
+            int(np.random.SeedSequence([seed, 1]).generate_state(1, np.uint64)[0]))
+        params = lora_mod.attach(base, config, gen)
+        params['lora'] = map_tree(lambda a: a.requires_grad_(), params['lora'])
+        return TrainState(params, Optimizer(params['lora'], config), 0)
     params = map_tree(lambda a: a.detach().to(device).clone().requires_grad_(), base_params)
     return TrainState(params, Optimizer(params, config), 0)
 
@@ -175,14 +195,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_train_step(config: ConfigValle, model_name: str):
     """Build ``step(state, batch, seed) -> (state, metrics)``: forward,
     backward, clip and AdamW.  metrics are device tensors (read them only
-    when logging, so the host does not wait on every step)."""
+    when logging, so the host does not wait on every step).  A LoRA state
+    merges its adapters inside the forward."""
     loss_fn = LOSS_FNS[model_name]
+    lora_mode = config.lora_rank > 0
 
     def step_fn(state: TrainState, batch: dict, seed: int):
         leaves = state.opt_state.leaves
         gen = step_generator(seed, state.step, leaves[0].device)
         with precision_scope(config):
-            loss, metrics = loss_fn(state.params, config, batch, gen)
+            params = lora_mod.merged(state.params, config) if lora_mode else state.params
+            loss, metrics = loss_fn(params, config, batch, gen)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         metrics = dict(metrics, grad_norm=global_norm(grads))
@@ -194,12 +217,14 @@ def make_train_step(config: ConfigValle, model_name: str):
 def make_eval_step(config: ConfigValle, model_name: str):
     """``eval(params, batch, generator) -> metrics`` without dropout: the AR
     loss takes no generator; the NAR loss draws its stage from ``generator``
-    with ``train=False``."""
+    with ``train=False``.  A LoRA state evaluates its merged weights."""
     loss_fn = LOSS_FNS[model_name]
     is_nar = model_name == 'ValleNAR'
 
     @torch.no_grad()
     def eval_fn(params: Params, batch: dict, generator: torch.Generator):
+        if config.lora_rank > 0:
+            params = lora_mod.merged(params, config)
         with precision_scope(config):
             if is_nar:
                 _, metrics = loss_fn(params, config, batch, generator, train=False)

@@ -14,10 +14,10 @@ by sentence; ``stream_hub.StreamHub`` serves concurrent streams through one
 continuous-batching decode loop (``models.continuous``) and refines their
 emissions in one batched ``_nar_wav``.  ASR (``ValleASRPipeline``): audio →
 codec encode → the direction-swapped AR decode over the phoneme vocabulary,
-batched.  ``main`` is the command line of both.  On a ('model',) mesh
-(``parallel.make_model_mesh``) the AR and the NAR of ``batch_synthesize`` run
-tensor-parallel.  Not ported yet (ROADMAP.md): the HTTP server (queue 1 item
-12), the data axis and the GSPMD fallback (item 14).
+batched.  ``main`` is the command line of both; ``serve.py`` serves them
+over HTTP.  On a ('model',) mesh (``parallel.make_model_mesh``) the AR and the
+NAR of ``batch_synthesize`` run tensor-parallel.  Not ported yet
+(ROADMAP.md): the data axis and the GSPMD fallback (queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -185,7 +185,7 @@ class ValleTTS:
                 raise ValueError('the AR model must be on the pipeline\'s mesh')
             device = mesh.devices[0] if device is None else device
         self.device = resolve_device(device)
-        self._nar_tp = None
+        self._mesh_cache: dict[int, tuple] = {}
         self.ar = ar if ar is not None else ValleAR(config, device=self.device, mesh=mesh)
         self.nar = nar if nar is not None else ValleNAR(config, device=self.device)
         self.codec = codec if codec is not None else Encodec(decode_dtype=config.dtype,
@@ -194,17 +194,26 @@ class ValleTTS:
         self._stream_lock = threading.Lock()
         self._stream_ar: ValleAR | None = None
 
-    def _mesh_trees(self):
-        """(mesh, the AR's rank trees, the NAR's), the NAR's split once per
-        params rebind (JAX ``_mesh_params``), or None without a mesh."""
+    def _mesh_trees(self, ar_view=None, nar_params=None):
+        """(mesh, the AR's rank trees, the NAR's), or None without a mesh:
+        the default model's, or those of ``batch_synthesize``'s override
+        trees (JAX ``_mesh_params``)."""
         if self.mesh is None:
             return None
-        p = self.nar.params
-        if self._nar_tp is None or self._nar_tp[0] is not p \
-                or self._nar_tp[1] is not p['transformer']:
-            self._nar_tp = (p, p['transformer'],
-                            shard_stack(p['transformer'], self.mesh, self.config.torch_dtype))
-        return self.mesh, self.ar._decode_tparams()[1], self._nar_tp[2]
+        ar_trees = self.ar._decode_tparams()[1] if ar_view is None \
+            else self._split_stack(ar_view['transformer'])
+        return self.mesh, ar_trees, self._split_stack(
+            (self.nar.params if nar_params is None else nar_params)['transformer'])
+
+    def _split_stack(self, stack):
+        """``stack``'s rank trees, split once per stack: the cache is keyed
+        by identity and holds the source, so its id stays live, and a server
+        alternating a handful of voices splits each only once."""
+        hit = self._mesh_cache.get(id(stack))
+        if hit is None:
+            hit = self._mesh_cache[id(stack)] = (
+                stack, shard_stack(stack, self.mesh, self.config.torch_dtype))
+        return hit[1]
 
     def prepare_prompt(self, prompt_audio, prompt_sr: int, prompt_text: str
                        ) -> tuple[np.ndarray, np.ndarray]:
@@ -217,12 +226,26 @@ class ValleTTS:
 
     def batch_synthesize(self, texts: list, prompt_tokens_list: list,
                          prompt_codes_list: list, generator: torch.Generator | None = None,
-                         bucket: bool = True) -> list[TTSResult]:
+                         bucket: bool = True,
+                         override_params: tuple | None = None) -> list[TTSResult]:
         """B utterances through the whole pipeline together; per-length masks
         keep each item's greedy output equal to its solo synthesis.  Every
-        result carries the batch's aggregate RTF and its per-stage times."""
+        result carries the batch's aggregate RTF and its per-stage times.
+
+        ``override_params``: optional ``(ar_params, nar_params)`` to run this
+        batch with other weights (multi-voice serving: LoRA fine-tunes merged
+        per voice); a ``None`` entry keeps the default model's.  Pass the AR
+        as a ``ValleAR(...).decode_params`` view under ``weight_dtype``
+        'int8' / 'int4'.  On a mesh the override's stacks are split over the
+        ranks once per tree; int4 there packs per rank from the default
+        model's float stack, so an override raises."""
         if not texts:
             return []
+        if override_params is not None and self.mesh is not None \
+                and self.config.weight_dtype == 'int4':
+            raise NotImplementedError(
+                'override_params with int4 weights under manual TP is not '
+                'supported — register the voice on its own ValleTTS/mesh')
         cfg, dev = self.config, self.device
         t0 = time.perf_counter()
         tokens_list = [np.concatenate([np.asarray(pt, np.int64), self.tokenizer(text)])
@@ -242,13 +265,15 @@ class ValleTTS:
         if generator is None:
             generator = ar_mod.default_generator(cfg, dev)
         clock = StageClock(dev)
+        o_ar, o_nar = override_params if override_params is not None else (None, None)
         with torch.inference_mode(), precision_scope(cfg):
             # The AR decodes from its (possibly quantized) decode params; the
             # NAR and the codec stay in full precision, as in the JAX package.
             wavs, gen_lens, out_codes = _fused_tts_fn(
-                self.ar.decode_params, self.nar.params, self.codec.dec_params,
+                self.ar.decode_params if o_ar is None else o_ar,
+                self.nar.params if o_nar is None else o_nar, self.codec.dec_params,
                 to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens,
-                cfg, generator, clock, self._mesh_trees())
+                cfg, generator, clock, self._mesh_trees(o_ar, o_nar))
         wavs, gen_lens, out_codes = wavs.cpu().numpy(), gen_lens.cpu().numpy(), \
             out_codes.cpu().numpy()
         wall = time.perf_counter() - t0
