@@ -97,10 +97,10 @@ Phases, each printing JSON lines:
 19. spec     -- n-gram speculative decode: phase 5's 3 requests through
                 batch_synthesize with one beam (bf16, max_audio_len=512,
                 ignore_eos), the plain loop (#6) and speculative_k=4,
-                speculative_ngram=3 (#7) on the same weights in turns (plain,
-                spec, spec, plain), then spec under each quantized
-                configuration of phase 17 (PROFILE_STEPS = 128 frames), and
-                each loop's decode profile (128 steps).  Counts zeroed
+                speculative_ngram=3 (#7) on the same weights (plain, then
+                spec), then spec under each quantized configuration of
+                phase 17 (PROFILE_STEPS = 64 frames), and each loop's decode
+                profile (PROFILE_STEPS).  Counts zeroed
                 before, read after
                 each: #1 and the run's step kernel must have launched, no
                 other step kernel.  Turns, mean accepted tokens per turn, ms
@@ -110,7 +110,7 @@ Phases, each printing JSON lines:
                 route (use_fused_decode=False).
 20. large    -- the 204M geometry (GRAMMAR_V3_TPU_204M.json: d 1024, 16
                 heads, dff 4096, 16 layers), dense and weight_dtype='int8':
-                one utterance of 512 steps in bf16 through the plain loop and
+                one utterance of 256 steps in bf16 through the plain loop and
                 the speculative loop (#6 / #7 must launch; the 4096-wide FFN2
                 input takes the 8-row projection tile), then greedy IDs in
                 f32, TF32 off: kernels == the plain route, plain loop and
@@ -124,17 +124,18 @@ Phases, each printing JSON lines:
                 chunk 512, mid-stream; #7 at 3 rows x K=4, S=1024, chunk 512,
                 one block straddling slot 512.  Times of all three, the bound.
 22. stream   -- streaming at the serving model's default max_audio_len (1024,
-                bf16): 3 requests through synthesize_streaming (chunk_frames
+                bf16): one request through synthesize_streaming (chunk_frames
                 75, lookahead 38, ignore_eos); the streaming model forces
                 chunk 512; counts zeroed before, read after: #6 and its
                 chunked branch on every step, no plain version.  Time to
                 first audio, chunk walls, decode ms per step beside one-beam
-                decodes whole-S and chunked (their profiles at 512 steps),
+                decodes whole-S and chunked (their profiles at 256 steps),
                 RTF.  Then in f32 (TF32 off,
                 greedy): streamed tokens == one advance == the plain route;
-                full lookahead == synthesize_fused; synthesize_longform over
-                three sentences, carry 'prompt' == each sentence streamed,
-                carry 'chain' == prompt mode in its first sentence.
+                full lookahead == synthesize_fused; at max_audio_len 256,
+                synthesize_longform over three sentences, carry 'prompt' ==
+                each sentence streamed, carry 'chain' == prompt mode in its
+                first sentence.
 23. kernels  -- #6 (at 4 rows, chunked 512 of 1024, and at one row, whole)
    (large)      and #7 (1 row x K=4) at the 204M widths in bf16 against their
                 plain versions, with times and the bound.
@@ -148,7 +149,7 @@ Phases, each printing JSON lines:
 25. cb       -- continuous batching at the serving model with one beam (bf16,
                 max_audio_len 512, ignore_eos; hub geometry ttm = pm = 128,
                 advance chunk 25): N = 4 and 8 sessions as round-robin solo
-                DecodeStreams against one ContinuousDecoder (in turns),
+                DecodeStreams against one ContinuousDecoder (solo, joint),
                 aggregate tokens/s and ms per joint step; greedy ids joint ==
                 solo or parted only at a near-tie (GREEDY_BF16_GAP); sampled at
                 N = 4; one W8A8 + int8-cache run.  Counts per arm: every joint
@@ -157,9 +158,9 @@ Phases, each printing JSON lines:
                 joins and reused rows == their solo decodes, greedy and
                 sampled (per-row CUDA generators) bit for bit; the
                 speculative joint loop (K = 4, #7) == the plain joint loop.
-26. hub      -- StreamHub(n_slots=4, chunk_frames=25) at the streaming model
-                (bf16, max_audio_len 1024, forced chunk 512): 4 sessions from
-                4 threads at once, then the same 4 through solo
+26. hub      -- StreamHub(n_slots=4, chunk_frames=25) at the serving model
+                (bf16, one beam, max_audio_len 512, decode_chunk 256): 4
+                sessions from 4 threads at once, then 2 of them through solo
                 synthesize_streaming in turn; time to first audio, chunk
                 walls, aggregate RTF; counts: the per-row #6's chunked branch
                 on every joint step, no plain call, no driver failure.  Then
@@ -183,7 +184,7 @@ Phases, each printing JSON lines:
                 ids equal with the fold on and off (#2 is bit-equal to #1);
                 the 204M AR and NAR train steps (bench.py:441/457: b=16 x 512
                 frames, NAR falling back to b=8 only if 16 does not fit) in arm
-                runs off, fold, fold, off (step ms, frames/s, MFU against 989
+                runs off, then fold (step ms, frames/s, MFU against 989
                 TFLOP/s, peak GB, finite losses, the AR's descending) and the
                 serving-width AR at b=8 x 1024 (s=1280: #4 + #5); then f32
                 grads with and without the fold at the 204M widths cut to
@@ -256,7 +257,8 @@ Phases, each printing JSON lines:
                 the CUDA-core route beside #1 at the serving prefill and the
                 training shapes too.
 34. step     -- phase_step_profile: torch.profiler over the token loop of
-   profile      each single-card path (main, quant W8A8 + int8 cache and
+   profile      each single-card path (PROFILE_STEPS and PROFILE_PATHS'
+                steps; main, quant W8A8 + int8 cache and
                 W4A16, stream, cb, clone, hub, large) and the speculative
                 loops through #7 (spec, large_spec, cb_spec), and the TP
                 step on one card (tp: two virtual ranks, one launch of both a
@@ -288,6 +290,27 @@ Phases, each printing JSON lines:
                 every adapter B moved.  Counts zeroed before each served run
                 and read after it (no plain call): (a)-(e) are the path
                 'server', (f) the path 'lora'.
+36. checkpoint -- phase_checkpoint, weights in and cold start at the serving
+                width of phase 5 (CKPT): (a) seeded AR and NAR params through
+                models.convert.save_torch_checkpoint (the Lightning layout
+                with the 'model.' prefix) and load_torch_checkpoint into a
+                fresh ValleTTS on the card, params bit-equal, 3 greedy
+                requests (f32, TF32 off, 128 frames) with the in-memory
+                model's codes through #1 and #6, no plain call; (b) a 3 s 48
+                kHz stereo WAV and its left channel (native.audio.wav_write)
+                read by native.audio.load_audio at 24 kHz against
+                utils.load_audio within AUDIO_ATOL away from the edges, then
+                prepare_prompt through #8; (c) profiling.trace around one
+                synthesize (bf16, one beam, 64 frames): trace.json's device
+                records name #1 and #6, the stages' annotate ranges are in it,
+                its records of the port's kernels beside the launches
+                counted, memory_stats 0 < peak <= limit; (d) the train CLI
+                (train.main) for 2 synthetic AR steps at batch 8 with
+                --profile and --debug-nans: the trace written, #1 and #3
+                launched; (e) coldstart_bench compile and warmup, each a
+                fresh process over the build directory phase 2 filled: 0
+                builds, >= 1 library loaded from disk, seconds to the first
+                request.  (a)-(d) are the path 'checkpoint'.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -298,7 +321,7 @@ step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 (after checking peer access between every pair of cards); with no argument
 it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
-34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 10, 23, 20, 27-29.
+36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -351,7 +374,8 @@ RVQ_CASES = {'prompt_1x150': (1, 150, 8), 'batch_16x300': (16, 300, 8),
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and dense peaks by input type
 # (f32 inputs with TF32 off run on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'int8': 1979e12}
+# bf16: profiling.H100_PEAK_BF16_FLOPS, set by main once the package imports
+PEAK_FLOPS = {'float32': 67e12, 'int8': 1979e12}
 # The quantized fused step (#6a), against its plain version on the same codes.
 # W8A8 in f32: the kernel and the plain version compute the LayerNorm in other
 # orders, so an activation x / sx within rounding of a .5 boundary rounds to
@@ -399,11 +423,13 @@ VERIFY_VARIANTS = ('dense', *QUANT_VARIANTS)
 # The 204M geometry (GRAMMAR_V3_TPU_204M.json, examples/train_ar_dp_pp_tp.json:3).
 LARGE = dict(d_model=1024, n_heads=16, dim_feedforward=4096, num_layers=16)
 GREEDY_STEPS = 64     # greedy-ID checks of the spec and large phases
+LARGE_STEPS = 256     # phase large's plain and speculative loops at 204M
 # The stream phase: the serving model at the default max_audio_len, whose
 # streaming model forces the 512-slot chunk; the prompt buckets of phase
 # main's requests (48 phonemes + text in 128, 150 frames + BOS in 256); the
 # JAX package's default chunk and lookahead frames.
-STREAM = dict(max_new=1024, chunk=512, ttm=128, pm=256, chunk_frames=75, lookahead=38)
+STREAM = dict(max_new=1024, chunk=512, ttm=128, pm=256, chunk_frames=75, lookahead=38,
+              requests=1, longform_max_new=256, profile_steps=256)
 # #6 with a per-row index (continuous batching): 8 rows of the serving widths
 # at their own depths past ttm + pm -- the first generated slot, the last slot
 # of a chunk and the first of the next (chunk 128), S - 1 and one row frozen
@@ -449,6 +475,10 @@ TP_PORTS = {
     'fused_verify_step_tp': 'valle2_tpu/kernels/fused_decode.py:1017 with tp: :786-792',
 }
 CB = dict(ttm=128, pm=128, chunk_frames=25, sessions=(4, 8), prompt_frames=100)
+# Phase hub: 4 sessions of 512 frames with a forced chunk of 256 slots (the
+# per-row step's chunked branch on every joint step), and 2 of them again as
+# solo streams.
+HUB = dict(max_new=512, chunk=256, sessions=4, solo=2)
 # A bf16 greedy pick of the joint loop may part from the solo loop's only at
 # a near-tie: the logits head runs at another row count (another cuBLAS
 # kernel, f32 sums in another order) over bf16 hidden states, whose rounding
@@ -540,7 +570,11 @@ PROFILE_REPEATS = 3
 # profiles of phases spec and stream) and of the speculative runs under the
 # quantized configs: enough for a step's kernels and busy share, few enough
 # that the profiler's records of every path fit the script's time budget.
-PROFILE_STEPS = 128
+PROFILE_STEPS = 64
+# Phase step profile's other paths: the stream path's one row (a forced
+# chunk of 128 slots, 128 steps), the 204M stack's steps, and the joint
+# advances of the cb paths (CB['chunk_frames'] steps each).
+PROFILE_PATHS = dict(stream_steps=128, stream_chunk=128, large_steps=32, cb_advances=2)
 # The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
 # case -- the serving prefill of phase main, the serving-width train shapes
 # (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
@@ -635,6 +669,11 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 30) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+# The plain versions of the fused steps take 5-35 ms a call: their medians
+# come from 10 calls after 2 (the kernels' from 30 after 5).
+PLAIN_TIMING = dict(warmup=2, reps=10)
 
 
 def enqueue_ms(fn, reps: int = 8) -> float:
@@ -738,8 +777,9 @@ def phase_device():
 def phase_build():
     from valle2_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
-    emit(phase='build', seconds=time.perf_counter() - t0, builds=list(_build.BUILDS),
+    per_build = _build.build_all()
+    emit(phase='build', seconds=time.perf_counter() - t0, per_build_s=per_build,
+         builds=list(_build.BUILDS),
          sources=sorted({f'valle2_tpu_torch/csrc/{stem}.cu'
                          for stem, _ in _build.BUILDS.values()}))
 
@@ -818,7 +858,7 @@ def phase_kernels(results: dict):
             err_v = check_close('fused cache v', c_k.v, c_p.v, dtype_name)
             ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
             plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p, index,
-                                                                  *args))
+                                                                  *args), **PLAIN_TIMING)
             # Bound: every weight, the valid cache slots of every row (source,
             # prompt, the steps so far and this one) read once; the new slot's
             # k, v and y written; the projections and attention as products.
@@ -853,6 +893,16 @@ def serving_len(rows: int, cache_dtype, total: int | None = None) -> int:
     return fd.padded_cache_len(total, rows, s['d'], s['h'], cache_dtype)
 
 
+def card_randn(shape, gen, dev):
+    """A standard normal tensor drawn on the card from a generator seeded by
+    ``gen`` (the CPU generator of the caller's case): the caches of the
+    kernel cases are tens of millions of values, slow to draw on the host."""
+    import torch
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    return torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
 def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
                       S: int | None = None, widths: dict | None = None):
     """The serving step's stack and cache in ``variant``'s formats ('dense' or
@@ -875,11 +925,11 @@ def quant_step_inputs(variant: str, dt, gen, dev, rows: int = SLICE['b'] * 4,
         p = quantize_transformer(p, bits=8 if weight_dtype == 'int8' else 4)
     p = map_tree(lambda a: (a.to(dt) if a.is_floating_point() else a).to(dev).contiguous(),
                  p)
-    ck, cv = (torch.randn(s['L'], rows, S, s['d'], generator=gen) for _ in range(2))
+    ck, cv = (card_randn((s['L'], rows, S, s['d']), gen, dev) for _ in range(2))
     if cache_dtype == 'int8':
         (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, s['h']) for c in (ck, cv))
-        return p, KVCache(*(t.to(dev) for t in (kq, vq, ks, vs)))
-    return p, KVCache(ck.to(dev, dt), cv.to(dev, dt))
+        return p, KVCache(kq, vq, ks, vs)
+    return p, KVCache(ck.to(dt), cv.to(dt))
 
 
 @contextlib.contextmanager
@@ -1017,7 +1067,8 @@ def phase_quant_kernels(results: dict):
                                  / max(flips['max_activation_step'], 1e-30))
                 ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
                 plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p,
-                                                                      index, *args))
+                                                                      index, *args),
+                                   **PLAIN_TIMING)
                 nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache, rows,
                                                            slots, x.element_size())
                 results[(name, dtype_name)] = dict(
@@ -1156,7 +1207,8 @@ def phase_spec_kernels(results: dict):
                 phased_ms = cuda_ms(lambda: fd.fused_verify_step_phased(p, x, s['h'], c_k,
                                                                         index, *args))
                 plain_ms = cuda_ms(lambda: fd.fused_verify_step_plain(p, x, s['h'], c_p, index,
-                                                                      *args))
+                                                                      *args),
+                                   **PLAIN_TIMING)
                 nbytes, bound_ms, bound_by = verify_bound(p, variant, dtype_name, cache, s['h'],
                                                           rows * K, read_slots, pairs,
                                                           x.element_size())
@@ -1253,8 +1305,7 @@ def phase_spec(smi: str) -> dict:
         emit(**out)
 
     plain_cfg, spec_cfg = ConfigValle(**base_kw), ConfigValle(**base_kw, **spec_kw)
-    for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg), ('spec', spec_cfg),
-                       ('plain', plain_cfg)):
+    for label, cfg in (('plain', plain_cfg), ('spec', spec_cfg)):
         run(label, cfg, 'fused_decode_step' if label == 'plain' else 'fused_verify_step',
             label == 'spec')
     for variant, (weight_dtype, cache_dtype, _) in QUANT_VARIANTS.items():
@@ -1410,9 +1461,10 @@ def teacher_forced_gap(model, cfg, tokens, prompt_codes, prefix, pair) -> float:
 
 
 def phase_large(smi: str) -> dict:
-    """The 204M geometry, dense and int8 W8A8: one utterance of 512 steps in
-    bf16 through the plain loop and the speculative loop, then the greedy
-    check.  Returns the launch counts of the timed runs."""
+    """The 204M geometry, dense and int8 W8A8: one utterance of LARGE_STEPS
+    steps in bf16 through the plain loop and the speculative loop, then the
+    greedy check and ``large_beams``.  Returns the launch counts of the timed
+    runs."""
     import time
 
     import numpy as np
@@ -1422,7 +1474,7 @@ def phase_large(smi: str) -> dict:
     from valle2_tpu_torch.models.ar import ValleAR
     from valle2_tpu_torch.tts import StageClock
 
-    max_new = SLICE['max_new']
+    max_new = LARGE_STEPS
     texts, pts, pcs = make_requests()
     tokens = [np.concatenate([pts[0], PhonemeTokenizer()(texts[0])])]
     total = dict.fromkeys(read_counters(), 0)
@@ -1590,7 +1642,7 @@ def phase_large_kernels(results: dict):
             x = x.bfloat16()
             c_k = KVCache(*(a.bfloat16() for a in cache))
             ms = cuda_ms(lambda: kernel(p, x, h, c_k, index, *lens))
-            plain_ms = cuda_ms(lambda: plain(p, x, h, c_k, index, *lens), warmup=2, reps=10)
+            plain_ms = cuda_ms(lambda: plain(p, x, h, c_k, index, *lens), **PLAIN_TIMING)
             prompt_slots = rows * int(tl[0] + cl[0])
             g = start - ttm - pm + 1
             nbytes, bound_ms, bound_by = step_bound(
@@ -1687,7 +1739,7 @@ def phase_chunk_kernels(results: dict):
                                                             chunk_override=co))
                            for label, cc, co in (('chunked', c_k, chunk), ('whole', c_w, None))}
                 plain_ms = cuda_ms(lambda: plain(p, x, s['h'], c_p, index, *args,
-                                                 chunk_override=chunk))
+                                                 chunk_override=chunk), **PLAIN_TIMING)
                 prompt_slots = int((tl[:rows] + cl[:rows]).sum())
                 gen_slots = [i - ttm - pm + 1 for i in starts]
                 read = prompt_slots + sum(g + K - 1 for g in gen_slots)
@@ -1721,13 +1773,13 @@ def stream_requests():
 
 def phase_stream(smi: str) -> dict:
     """Streaming synthesis at the serving model's default max_audio_len
-    (1024, bf16): 3 requests through synthesize_streaming (chunk_frames 75,
-    lookahead 38, ignore_eos).  The streaming model forces the 512-slot chunk;
-    counts zeroed before, read after: the fused step and its chunked branch
-    on every step, no plain version.  Time to first audio, the chunks'
-    walls, decode ms per step beside one-beam decodes unchunked and chunked
-    in the same call (in turns), RTF.  Then ``stream_parity``.  Returns the
-    launch counts of the 3 streams."""
+    (1024, bf16): STREAM['requests'] requests through synthesize_streaming
+    (chunk_frames 75, lookahead 38, ignore_eos).  The streaming model forces
+    the 512-slot chunk; counts zeroed before, read after: the fused step and
+    its chunked branch on every step, no plain version.  Time to first
+    audio, the chunks' walls, decode ms per step beside one-beam decodes
+    unchunked and chunked in the same call, RTF.  Then ``stream_parity``.
+    Returns the launch counts of the streams."""
     import dataclasses
     import time
 
@@ -1741,8 +1793,9 @@ def phase_stream(smi: str) -> dict:
     cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16')
     tts = ValleTTS(cfg, device='cuda')
     texts, pts, pcs, tokens = stream_requests()
+    texts, pts, pcs = (x[:STREAM['requests']] for x in (texts, pts, pcs))
     kw = dict(chunk_frames=STREAM['chunk_frames'], lookahead_frames=STREAM['lookahead'])
-    list(tts.synthesize_streaming(texts[0], pts[0], pcs[0], **kw))     # warm-up
+    next(tts.synthesize_streaming(texts[0], pts[0], pcs[0], **kw))     # warm-up: a chunk
     if tts._stream_ar.config.decode_chunk != STREAM['chunk']:
         fail(f'stream: the streaming model took decode_chunk '
              f'{tts._stream_ar.config.decode_chunk}, not {STREAM["chunk"]}')
@@ -1766,9 +1819,9 @@ def phase_stream(smi: str) -> dict:
             or launches['fused_decode_step_chunked'] != steps:
         fail(f'stream: {plain} plain calls, step launches {step_launches(launches)}, '
              f'{launches["fused_decode_step_chunked"]} chunked, for {steps} steps')
-    # One-beam decodes of request 0, whole-S and chunked, in turns.
+    # One-beam decodes of request 0, whole-S and chunked.
     decode_ms = {}
-    for c in (0, STREAM['chunk'], STREAM['chunk'], 0):
+    for c in (0, STREAM['chunk']):
         model = ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c),
                         params=tts.ar.params, device='cuda')
         model.generate_batch(tokens[:1], pcs[:1])
@@ -1776,10 +1829,10 @@ def phase_stream(smi: str) -> dict:
         model.generate_batch(tokens[:1], pcs[:1], clock=clock)
         decode_ms.setdefault('chunked' if c else 'whole_s', []).append(
             1e3 * clock.times['decode'] / n)
-    # the profiles at 512 steps: a cache of 896 slots whole, or 1024 in chunks
+    # the profiles at 256 steps: a cache of 640 slots whole, or 1024 in chunks
     profiles = {label: profile_decode(
         ValleAR(dataclasses.replace(cfg, num_beams=1, decode_chunk=c,
-                                    max_audio_len=STREAM['chunk']),
+                                    max_audio_len=STREAM['profile_steps']),
                 params=tts.ar.params, device='cuda'), texts, pts, pcs)
         for label, c in (('whole_s', 0), ('chunked', STREAM['chunk']))}
     audio_s = n * 320 / 24000
@@ -1806,10 +1859,12 @@ def stream_parity(smi: str):
     segments of 75 == one advance of 300 == the plain route
     (use_fused_decode=False); (2) lookahead >= max_audio_len gives one
     emission, synthesize_fused's waveform within TOL's f32 tolerance, and
-    the fused codes' first codebook starts with (1)'s tokens; (3)
-    synthesize_longform over three sentences with carry 'prompt' == each
-    sentence streamed alone, and with carry 'chain' its first sentence's
-    chunks == prompt mode's, every chunk finite."""
+    the fused codes' first codebook starts with (1)'s tokens; (3) at
+    max_audio_len STREAM['longform_max_new'] (the chained prompt then stays
+    under max_chain_frames, so carry 'chain' conditions on the sentence
+    before): synthesize_longform over three sentences with carry 'prompt' ==
+    each sentence streamed alone, and with carry 'chain' its first
+    sentence's chunks == prompt mode's, every chunk finite."""
     import dataclasses
 
     import numpy as np
@@ -1855,7 +1910,9 @@ def stream_parity(smi: str):
                            torch.from_numpy(fused.waveform), 'float32')
     text3 = ' '.join(texts)
     sentences = split_sentences(text3)
-    kw = dict(chunk_frames=256, lookahead_frames=STREAM['lookahead'])
+    kw = dict(chunk_frames=64, lookahead_frames=STREAM['lookahead'])
+    tts = ValleTTS(dataclasses.replace(cfg, max_audio_len=STREAM['longform_max_new']),
+                   ar=tts.ar, nar=tts.nar, codec=tts.codec, device='cuda')
     streamed = [list(tts.synthesize_streaming(sent, pts[0], pcs[0], **kw))
                 for sent in sentences]
     per_sentence = [c for chunks in streamed for c in chunks]
@@ -1929,7 +1986,8 @@ def phase_per_row_kernels(results: dict):
                     scalar_ms = cuda_ms(lambda: fd.fused_decode_step(
                         p, x, s['h'], c_s, scalar, *args, chunk_override=chunk))
                     plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(
-                        p, x, s['h'], c_p, index, *args, chunk_override=chunk))
+                        p, x, s['h'], c_p, index, *args, chunk_override=chunk),
+                                       **PLAIN_TIMING)
                     nbytes, bound_ms, bound_by = variant_bound(p, variant, dtype_name, cache,
                                                                rows, read, x.element_size())
                     tol = variant_tol(variant, dtype_name)
@@ -2266,16 +2324,16 @@ def step_profile(label: str, fn, tp: bool = False) -> dict:
 def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     """The token-loop profile of every single-card path's step (step_profile):
     main (the serving config: bf16, 4 beams, PROFILE_STEPS steps, 3
-    requests), quant (W8A8 with the int8 cache, and W4A16; 128 steps),
-    stream (one row, the streaming model's chunk 512, 512 steps in a cache
-    of 1024), cb (a ContinuousDecoder of 4
-    sessions: the per-row index), clone (ValleTTS.__call__ on a 3 s prompt
-    recording, one beam, 128 steps), hub (a StreamHub of two sessions from
-    their own threads), large (the 204M stack, one row, 64 steps); and the
-    speculative loops through #7: spec (the serving config at one beam, K =
-    4, ngram 3, PROFILE_STEPS steps), large_spec (the 204M stack, one row,
-    K = 4, 64 steps), cb_spec (the ContinuousDecoder's speculative joint
-    loop, 4 sessions); and tp (the main config on a mesh of two virtual
+    requests), quant (W8A8 with the int8 cache, and W4A16; PROFILE_STEPS),
+    stream (one row through the chunked branch: PROFILE_PATHS' steps and
+    forced chunk), cb (a ContinuousDecoder of 4 sessions: the per-row index,
+    PROFILE_PATHS' joint advances), clone (ValleTTS.__call__ on a 3 s prompt
+    recording, one beam, PROFILE_STEPS), hub (a StreamHub of two sessions
+    from their own threads), large (the 204M stack, one row, PROFILE_PATHS'
+    steps); and the speculative loops through #7: spec (the serving config
+    at one beam, K = 4, ngram 3, PROFILE_STEPS steps), large_spec (the 204M
+    stack, one row, K = 4), cb_spec (the ContinuousDecoder's speculative
+    joint loop, 4 sessions); and tp (the main config on a mesh of two virtual
     ranks: one TP step launch a step, no 5c kernel past the prefill's 2 a
     layer).  ``require_one``: fail unless every path ran one device kernel
     a step (or verify pass)
@@ -2302,8 +2360,10 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
 
     def record(label, fn, tp=False):
         for attempt in range(1 + PROFILE_REPEATS):
+            t0 = time.perf_counter()
             r = out[label] = step_profile(label, fn, tp)
-            emit(phase='step_profile', card=smi, attempt=attempt, **r)
+            emit(phase='step_profile', card=smi, attempt=attempt,
+                 seconds=time.perf_counter() - t0, **r)
             if not require_one:
                 return
             seen = (f'{r["step_kernels"]} step kernels ({r["phased_kernels"]} phased) '
@@ -2326,11 +2386,12 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
     record('spec', lambda: spec.generate_batch(tokens, pcs))
     for label, wd, kd in (('quant_w8a8_kv8', 'int8', 'int8'), ('quant_w4a16', 'int4',
                                                                   'bfloat16')):
-        m = ValleAR(ConfigValle(max_audio_len=128, weight_dtype=wd, kv_cache_dtype=kd, **base),
+        m = ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, weight_dtype=wd,
+                                kv_cache_dtype=kd, **base),
                     params=main.params, device='cuda')
         record(label, lambda m=m: m.generate_batch(tokens, pcs))
-    stream = ValleAR(ConfigValle(max_audio_len=STREAM['chunk'], num_beams=1,
-                                 decode_chunk=STREAM['chunk'], **base),
+    stream = ValleAR(ConfigValle(max_audio_len=PROFILE_PATHS['stream_steps'], num_beams=1,
+                                 decode_chunk=PROFILE_PATHS['stream_chunk'], **base),
                      params=main.params, device='cuda')
     record('stream', lambda: stream.generate_batch(tokens[:1], pcs[:1]))
     one = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], num_beams=1, **base),
@@ -2341,7 +2402,7 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
         cb = ContinuousDecoder(one, n_slots=4, ttm=CB['ttm'], pm=CB['pm'])
         for t, pc in zip(cb_tokens, cb_pcs):
             cb.join(t, pc)
-        for _ in range(4):
+        for _ in range(PROFILE_PATHS['cb_advances']):
             cb.advance(CB['chunk_frames'])
     record('cb', cb_run)
     one_spec = ValleAR(ConfigValle(max_audio_len=SLICE['max_new'], **spec_kw, **base),
@@ -2352,13 +2413,13 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
                                speculative=True)
         for t, pc in zip(cb_tokens, cb_pcs):
             cb.join(t, pc)
-        for _ in range(4):
+        for _ in range(PROFILE_PATHS['cb_advances']):
             cb.advance(CB['chunk_frames'])
     record('cb_spec', cb_spec_run)
     # Cloning (ValleTTS.__call__: a prompt recording through the codec, then
     # the decode) and the stream hub (two sessions from their own threads).
-    tts = ValleTTS(ConfigValle(max_audio_len=128, num_beams=1, **base),
-                   ar=ValleAR(ConfigValle(max_audio_len=128, num_beams=1, **base),
+    tts = ValleTTS(ConfigValle(max_audio_len=PROFILE_STEPS, num_beams=1, **base),
+                   ar=ValleAR(ConfigValle(max_audio_len=PROFILE_STEPS, num_beams=1, **base),
                               params=main.params, device='cuda'), device='cuda')
     req = clone_requests()[0]
     record('clone', lambda: tts(*req))
@@ -2370,10 +2431,11 @@ def phase_step_profile(smi: str, require_one: bool = True) -> dict:
         finally:
             hub.stop(drain=True)
     record('hub', hub_run)
-    large = ValleAR(ConfigValle(max_audio_len=64, num_beams=1, **LARGE, **base),
-                    device='cuda')
+    large = ValleAR(ConfigValle(max_audio_len=PROFILE_PATHS['large_steps'], num_beams=1,
+                                **LARGE, **base), device='cuda')
     record('large', lambda: large.generate_batch(tokens[:1], pcs[:1]))
-    large_spec = ValleAR(ConfigValle(max_audio_len=64, **LARGE, **spec_kw, **base),
+    large_spec = ValleAR(ConfigValle(max_audio_len=PROFILE_PATHS['large_steps'], **LARGE,
+                                     **spec_kw, **base),
                          params=large.params, device='cuda')
     record('large_spec', lambda: large_spec.generate_batch(tokens[:1], pcs[:1]))
     # The TP step on one card: two virtual ranks, one launch of both a step.
@@ -2486,7 +2548,7 @@ def phase_cb(smi: str) -> dict:
     """Continuous batching at the serving model with one beam (bf16,
     max_audio_len 512, ignore_eos) on the hub geometry: for N = 4 and 8
     sessions, round-robin solo DecodeStreams against one ContinuousDecoder
-    (in turns: solo, joint, joint, solo), aggregate tokens/s and ms per
+    (solo, then joint), aggregate tokens/s and ms per
     joint step; greedy ids joint == solo (or parted at a near-tie); sampled
     at N = 4 (per-row generators); one W8A8 + int8-cache joint run.  Counts
     zeroed before, read after: every joint step launched the per-row #6, no
@@ -2507,7 +2569,7 @@ def phase_cb(smi: str) -> dict:
     arms, divergence = {}, {}
     for n in CB['sessions']:
         runs = {'solo': [], 'joint': []}
-        for label in ('solo', 'joint', 'joint', 'solo'):
+        for label in ('solo', 'joint'):
             arm = (solo_arm if label == 'solo' else cb_arm)(model, tokens[:n], pcs[:n])
             if label == 'joint':
                 require_per_row(f'cb N={n}', arm, max_new)
@@ -2675,12 +2737,12 @@ def hub_sessions(hub, texts, pts, pcs) -> list[dict]:
 
 
 def phase_hub(smi: str) -> dict:
-    """StreamHub(n_slots=4, chunk_frames=25) at the streaming model (bf16,
-    max_audio_len 1024, the forced chunk 512, ignore_eos): 4 sessions
-    opened from 4 threads at once, then the same 4 requests through solo
+    """StreamHub(n_slots=4, chunk_frames=25) at the serving model (bf16, one
+    beam, ignore_eos, HUB: max_audio_len 512, decode_chunk 256): 4 sessions
+    opened from 4 threads at once, then the first 2 requests through solo
     synthesize_streaming in turn.  Counts zeroed before, read after the hub
     run: every joint step launched the per-row #6 through its chunked
-    branch, no plain call; every waveform finite and 1024 * 320 long.  Each
+    branch, no plain call; every waveform finite and 512 * 320 long.  Each
     session's time to first audio and chunk walls, the aggregate RTF of
     both.  Then ``hub_parity``.  Returns the hub run's launch counts."""
     import numpy as np
@@ -2689,11 +2751,11 @@ def phase_hub(smi: str) -> dict:
     from valle2_tpu_torch.stream_hub import StreamHub
     from valle2_tpu_torch.tts import ValleTTS
 
-    n = STREAM['max_new']
+    n = HUB['max_new']
     cfg = ConfigValle(max_audio_len=n, ignore_eos=True, dropout=0.0, dtype='bfloat16',
-                      num_beams=1)
+                      num_beams=1, decode_chunk=HUB['chunk'])
     tts = ValleTTS(cfg, device='cuda')
-    texts, pts, pcs, _ = cb_requests(4, seed=13)
+    texts, pts, pcs, _ = cb_requests(HUB['sessions'], seed=13)
     hub = StreamHub(tts, n_slots=4, chunk_frames=CB['chunk_frames'])
     try:
         warm = hub.open(texts[0], pts[0], pcs[0])                   # warm-up: 3 chunks
@@ -2716,7 +2778,7 @@ def phase_hub(smi: str) -> dict:
             or launches['fused_decode_step'] != steps:
         fail(f"hub: {plain} plain calls and launches {launches} for {n} steps")
     solo = []
-    for text, pt, pc in zip(texts, pts, pcs):
+    for text, pt, pc in list(zip(texts, pts, pcs))[:HUB['solo']]:
         t1 = time.perf_counter()
         stream = tts.synthesize_streaming(text, pt, pc, chunk_frames=CB['chunk_frames'])
         total = np.concatenate(list(stream))
@@ -3800,17 +3862,27 @@ def server_load(smi: str) -> dict:
         if plain:
             fail(f'server (load): {plain} plain calls')
         require_launches('server (load)', launches, ('flash_attention_fwd', 'fused_decode_step'))
+        # Sampled decode (temperature 1): under ignore_eos a random model can
+        # still sample EOS, and the pipeline ends the waveform there, as the
+        # JAX package's does (tts.py _fused_tts_fn); which rows sample it
+        # depends on how the burst fell into batches.  Each response is whole
+        # codec frames, and the clients got every sample the server counted.
+        got = sum(len(pcm) for pcm in pcms)
         for pcm in pcms:
-            if pcm.shape != (n * 320,):
-                fail(f'server (load): {pcm.shape} samples for {n} frames')
+            if len(pcm) % 320 or not 0 < len(pcm) <= n * 320:
+                fail(f'server (load): {pcm.shape} samples for at most {n} frames')
+        if abs(got - stats['audio_seconds'] * 24000) > 0.5:
+            fail(f'server (load): the clients got {got} samples, the server counted '
+                 f"{stats['audio_seconds'] * 24000}")
         for line in metrics.splitlines():
             if not line.startswith('#'):
                 name, value = line.split(' ')
                 float(value)
         if 'valle2_requests_total 16' not in metrics.splitlines():
             fail('server (load): /metrics does not count the 16 requests')
-        audio_s = len(texts) * n * 320 / 24000
+        audio_s = got / 24000
         emit(phase='server', part='load', dtype='bfloat16', beams=cfg.num_beams,
+             full_length_responses=sum(len(pcm) == n * 320 for pcm in pcms),
              max_audio_len=n, requests=len(texts), client_threads=len(texts),
              max_batch=server.max_batch, max_wait_ms=server.max_wait_ms, warmup_s=warm_s,
              wall_s=wall, requests_per_s=len(texts) / wall, audio_s_per_s=audio_s / wall,
@@ -3950,6 +4022,240 @@ def phase_server(smi: str) -> tuple[dict, dict]:
     require_launches('server', total, ('flash_attention_fwd', 'fused_decode_step',
                                        'fused_decode_step_per_row', 'rvq_encode'))
     return total, server_finetune(smi)
+
+
+# Phase checkpoint: weights in and cold start at the serving width of phase
+# main (the default ConfigValle: d 256, 4 heads, 8 layers, FFN 1024).
+# (a) 3 greedy requests of 128 frames in f32 with TF32 off; (b) a 3 s 48 kHz
+# stereo recording into a prompt, the native reader's samples against
+# utils.load_audio's away from the resamplers' edges (both Hann-sinc
+# designs of one width: their outputs differ by the filters' tails and
+# f32 sums, AUDIO_ATOL of a peak-1 signal); (c) one traced synthesize of
+# 64 frames; (d) two synthetic AR train steps of the train CLI at batch 8;
+# (e) two fresh coldstart_bench processes over the build directory.
+CKPT = dict(max_new=128, trace_max_new=64, train_steps=2, train_batch=8, audio_s=3.0,
+            audio_sr=48000, audio_edge=256, cold_modes=('compile', 'warmup'))
+AUDIO_ATOL = 5e-3
+
+
+def ckpt_roundtrip(tmp, texts, pts, pcs) -> dict:
+    """(a): seeded AR and NAR params through save_torch_checkpoint (the
+    Lightning layout, 'model.' key prefix) and load_torch_checkpoint into a
+    fresh ValleTTS on the card; params bit-equal, and 3 greedy requests
+    (f32, TF32 off) give the in-memory model's codes through #1 and #6 with
+    no plain call."""
+    import numpy as np
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.models import ValleAR, ValleNAR
+    from valle2_tpu_torch.models.convert import load_torch_checkpoint, save_torch_checkpoint
+    from valle2_tpu_torch.ops.transformer import map_tree
+    from valle2_tpu_torch.tts import ValleTTS
+
+    cfg = ConfigValle(max_audio_len=CKPT['max_new'], ignore_eos=True, dropout=0.0,
+                      temperature=0.0, kv_cache_dtype='float32', matmul_precision='highest')
+    mem = ValleTTS(cfg, ar=ValleAR(cfg, seed=11, device='cuda'),
+                   nar=ValleNAR(cfg, seed=12, device='cuda'), device='cuda')
+    files = {}
+    for model, params in (('ValleAR', mem.ar.params), ('ValleNAR', mem.nar.params)):
+        path = tmp / f'{model}.ckpt'
+        save_torch_checkpoint(path, params, model)
+        sd = torch.load(path, weights_only=True)['state_dict']
+        torch.save({'state_dict': {f'model.{k}': v for k, v in sd.items()}}, path)
+        files[model] = path
+    t0 = time.perf_counter()
+    loaded = {m: load_torch_checkpoint(f, m, num_layers=cfg.num_layers, device='cuda')
+              for m, f in files.items()}
+    load_s = time.perf_counter() - t0
+    for m, own in (('ValleAR', mem.ar.params), ('ValleNAR', mem.nar.params)):
+        same = []
+        map_tree(lambda a: same.append(a), own)
+        got = []
+        map_tree(lambda a: got.append(a), loaded[m])
+        if len(got) != len(same) or not all(torch.equal(a, b) for a, b in zip(got, same)):
+            fail(f'checkpoint: {m} params differ after the round trip')
+    disk = ValleTTS(cfg, ar=ValleAR(cfg, params=loaded['ValleAR'], device='cuda'),
+                    nar=ValleNAR(cfg, params=loaded['ValleNAR'], device='cuda'),
+                    codec=mem.codec, device='cuda')
+    want = mem.batch_synthesize(texts, pts, pcs)
+    torch.cuda.synchronize()
+    reset_counters()
+    got = disk.batch_synthesize(texts, pts, pcs)
+    launches, plain = read_counters(), plain_calls()
+    require_launches('checkpoint', launches, ('flash_attention_fwd', 'fused_decode_step'))
+    if plain:
+        fail(f'checkpoint: {plain} plain calls of the fused step')
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g.codes, w.codes):
+            fail(f'checkpoint: request {i} codes differ between the loaded and the '
+                 'in-memory model')
+    return dict(files_mb={m: f.stat().st_size / 1e6 for m, f in files.items()},
+                load_s=load_s, requests=len(texts), frames=CKPT['max_new'],
+                codes_equal=True, launches={k: v for k, v in launches.items() if v})
+
+
+def ckpt_native_audio(tmp, tts) -> dict:
+    """(b): a 3 s 48 kHz stereo WAV (stdlib writer: the native one writes
+    mono) and its left channel through native.audio.wav_write; both read by
+    native.audio.load_audio at 24 kHz against utils.load_audio, then
+    prepare_prompt through #8."""
+    import wave
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch import utils
+    from valle2_tpu_torch.native import audio as native
+
+    if not native.available():
+        fail('checkpoint: native/libvalle_audio.so did not build')
+    rs = np.random.RandomState(21)
+    sr, n = CKPT['audio_sr'], int(CKPT['audio_s'] * CKPT['audio_sr'])
+    stereo = np.stack([speech_like(rs, CKPT['audio_s'], sr),
+                       speech_like(rs, CKPT['audio_s'], sr)], axis=1)
+    with wave.open(str(tmp / 'stereo.wav'), 'wb') as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(np.round(stereo * 32767).astype('<i2').tobytes())
+    native.wav_write(tmp / 'mono.wav', stereo[:, 0], sr)
+    edge, errs, dev = CKPT['audio_edge'], {}, torch.device('cuda')
+    for name in ('stereo', 'mono'):
+        got = native.load_audio(tmp / f'{name}.wav', 24000, device=dev)
+        want = utils.load_audio(tmp / f'{name}.wav', 24000, device=dev)
+        if got.device.type != 'cuda' or abs(len(got) - len(want)) > 2 \
+                or not torch.isfinite(got).all():
+            fail(f'checkpoint: native {name} audio of {tuple(got.shape)} on {got.device}')
+        m = min(len(got), len(want))
+        errs[name] = check_close(f'native load_audio ({name})', got[edge:m - edge],
+                                 want[edge:m - edge], 'float32',
+                                 dict(atol=AUDIO_ATOL, rtol=0.0))
+    reset_counters()
+    tokens, codes = tts.prepare_prompt(native.load_audio(tmp / 'stereo.wav', 24000,
+                                                         device=dev), 24000,
+                                       'we heard the bells ring out at noon.')
+    launches = read_counters()
+    require_launches('checkpoint', launches, ('rvq_encode',))
+    if codes.shape != (int(CKPT['audio_s'] * 75), 8):
+        fail(f'checkpoint: prompt codes of {codes.shape}')
+    return dict(samples=n, max_abs_err=errs, tolerance=AUDIO_ATOL, edge_samples=edge,
+                prompt_frames=len(codes), prompt_tokens=len(tokens),
+                launches={k: v for k, v in launches.items() if v})
+
+
+def ckpt_trace(tmp, tts, texts, pts, pcs) -> tuple[dict, dict]:
+    """(c): profiling.trace around one synthesize: trace.json's device kernel
+    records name #1 and #6, the stages' annotate ranges are in it, its
+    records of the port's kernels beside the launches counted, and
+    memory_stats 0 < peak <= limit."""
+    import torch
+    from valle2_tpu_torch import profiling
+
+    tts.synthesize(texts[0], pts[0], pcs[0])               # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    with profiling.trace(tmp / 'trace') as stats:
+        tts.synthesize(texts[0], pts[0], pcs[0])
+    launches = read_counters()
+    with open(stats.path) as f:
+        events = json.load(f)['traceEvents']
+    names = {e.get('name', '') for e in events}
+    kernels = {profiling._kernel_of(e.get('name', '')) for e in events
+               if e.get('cat') == 'kernel'}
+    for k in ('flash_fwd_kernel', 'step_persistent_kernel'):
+        if k not in kernels:
+            fail(f'checkpoint: trace.json holds no record of {k} ({sorted(filter(None, kernels))})')
+    stages = ('frontend', 'ar_decode', 'nar_refine', 'codec_decode')
+    if not set(stages) <= names:
+        fail(f'checkpoint: the annotate ranges {set(stages) - names} are not in trace.json')
+    mem = profiling.memory_stats()
+    if not 0 < mem['peak_bytes_in_use'] <= mem['bytes_limit']:
+        fail(f'checkpoint: memory_stats {mem}')
+    return dict(trace_mb=stats.path.stat().st_size / 1e6, launches_counted=stats.launches,
+                kernel_records=stats.kernel_records, device_records=stats.device_records,
+                records_by_kernel=stats.by_kernel, annotate_ranges=list(stages),
+                memory_stats=mem), launches
+
+
+def ckpt_train_cli(tmp) -> tuple[dict, dict]:
+    """(d): ``python -m valle2_tpu_torch.train`` (its main, in this process)
+    for two synthetic AR steps with --profile and --debug-nans: the trace is
+    written and #1 and #3 launched."""
+    from valle2_tpu_torch import profiling
+    from valle2_tpu_torch import train as ttrain
+
+    cfg = dict(max_steps=CKPT['train_steps'], batch_size=CKPT['train_batch'],
+               valid_batch_size=CKPT['train_batch'], log_every_n_steps=1,
+               ckpt_every_n_steps=0, dtype='bfloat16', ckpt_path=str(tmp / 'ckpt'),
+               log_path=str(tmp / 'logs'))
+    (tmp / 'train.json').write_text(json.dumps(cfg))
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        ttrain.main(['-c', str(tmp / 'train.json'), '-m', 'ValleAR', '--synthetic',
+                     '--profile', str(tmp / 'train_trace'), '--debug-nans'])
+    finally:
+        profiling.enable_nan_checks(False)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    require_launches('checkpoint (train CLI)', launches,
+                     ('flash_attention_fwd', 'flash_bwd_fused'))
+    trace = tmp / 'train_trace' / 'trace.json'
+    if not trace.exists() or not (tmp / 'ckpt' / 'ValleAR' / f'step_{CKPT["train_steps"]}'
+                                  / 'state.pt').exists():
+        fail('checkpoint: the train CLI wrote no trace or no checkpoint')
+    return dict(steps=CKPT['train_steps'], batch=CKPT['train_batch'], wall_s=wall,
+                trace_mb=trace.stat().st_size / 1e6,
+                launches={k: v for k, v in launches.items() if v}), launches
+
+
+def ckpt_cold_start() -> dict:
+    """(e): coldstart_bench in fresh processes over the build directory that
+    phase build filled: every library loads from disk, none is built."""
+    import os
+    out = {}
+    for mode in CKPT['cold_modes']:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, '-m', 'valle2_tpu_torch.tools.coldstart_bench',
+                            mode], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                           env={**os.environ, 'PYTHONPATH': str(ROOT)})
+        if r.returncode != 0:
+            fail(f'checkpoint: coldstart_bench {mode} exited {r.returncode}:\n'
+                 f'{r.stderr[-3000:]}')
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        if line['aot_compiles'] != 0 or line['aot_disk_loads'] < 1 or line['aot_fallbacks']:
+            fail(f'checkpoint: coldstart_bench {mode} built or failed to load: {line}')
+        out[mode] = dict(line, process_s=time.perf_counter() - t0)
+    return out
+
+
+def phase_checkpoint(smi: str) -> dict:
+    """Weights in and cold start (parts a-e above).  Returns the launches of
+    (a), (b), (c) and (d): the kernels line's path 'checkpoint'."""
+    import tempfile
+    from pathlib import Path
+
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.tts import ValleTTS
+
+    texts, pts, pcs = make_requests()
+    total = dict.fromkeys(read_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        a = ckpt_roundtrip(tmp, texts, pts, pcs)
+        add_counts(total, a['launches'])
+        tts = ValleTTS(ConfigValle(max_audio_len=CKPT['trace_max_new'], ignore_eos=True,
+                                   dropout=0.0, num_beams=1, dtype='bfloat16'),
+                       device='cuda')
+        b = ckpt_native_audio(tmp, tts)
+        add_counts(total, b['launches'])
+        c, launches = ckpt_trace(tmp, tts, texts, pts, pcs)
+        add_counts(total, launches)
+        d, launches = ckpt_train_cli(tmp)
+        add_counts(total, launches)
+    e = ckpt_cold_start()
+    emit(phase='checkpoint', card=smi, roundtrip=a, native_audio=b, trace=c, train_cli=d,
+         cold_start=e, first_request_s={m: e[m]['first_request_s'] for m in e})
+    return total
 
 
 def dataset_items(n: int = 32, seed: int = 15):
@@ -4169,7 +4475,7 @@ def phase_fold_kernels(results: dict):
 def fold_train_arms(model: str, b: int, frames: int, n: int, width: dict,
                     total: dict) -> dict:
     """One training configuration through make_train_step in arm runs off,
-    fold, fold, off (``n`` timed steps each after one untimed); adds the fold
+    then fold (``n`` timed steps each after one untimed); adds the fold
     runs' launches to ``total``.  Raises torch.cuda.OutOfMemoryError where
     the card cannot hold the batch."""
     import math
@@ -4190,7 +4496,7 @@ def fold_train_arms(model: str, b: int, frames: int, n: int, width: dict,
     with fold_env('0'):
         state, m = step(state, data, 1)                  # warm-up: allocator, cuBLAS
         losses.append(m['loss'])
-    for arm in ('off', 'fold', 'fold', 'off'):
+    for arm in ('off', 'fold'):
         with fold_env(dict(FOLD_ARMS)[arm]):
             reset_counters()
             state, m = step(state, data, 1)
@@ -4430,12 +4736,12 @@ def tp_inputs(case: dict, mp: int, dt, gen, dev):
     trees = shard_stack(p, mesh, dt, case['weights'] == 'int4')
     caches = []
     for _ in range(mp):
-        ck, cv = (torch.randn(s['L'], rows, S, da, generator=gen) for _ in range(2))
+        ck, cv = (card_randn((s['L'], rows, S, da), gen, dev) for _ in range(2))
         if case['cache'] == 'int8':
             (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h_loc) for c in (ck, cv))
-            caches.append(KVCache(*(t.to(dev) for t in (kq, vq, ks, vs))))
+            caches.append(KVCache(kq, vq, ks, vs))
         else:
-            caches.append(KVCache(ck.to(dev, dt), cv.to(dev, dt)))
+            caches.append(KVCache(ck.to(dt), cv.to(dt)))
     if case['index'] is None and 'K' not in case:
         pr = PER_ROW
         lens = (pr['tokens_lens'], pr['codes_lens'])
@@ -4625,7 +4931,8 @@ def phase_tp_kernels(results: dict):
                     ms, phased_ms = cuda_ms(persistent), cuda_ms(phased)
                     enq, enq_phased = enqueue_ms(persistent), enqueue_ms(phased)
                     plain_ms = cuda_ms(lambda: fd._step_plain_tp(
-                        name, trees, [x] * mp, h_loc, c_p, *args, case['chunk']))
+                        name, trees, [x] * mp, h_loc, c_p, *args, case['chunk']),
+                                       **PLAIN_TIMING)
                     q_len = case.get('K', 1)
                     fmt = fd.weight_format(trees[0])
                     S, d, dff = case['S'], SLICE['d'], SLICE['dff']
@@ -4969,6 +5276,8 @@ def main() -> int:
         fail(f'valle2_tpu_torch was imported from {valle2_tpu_torch.__file__}, not from '
              f'the checkout that holds this script')
 
+    from valle2_tpu_torch.profiling import H100_PEAK_BF16_FLOPS
+    PEAK_FLOPS['bfloat16'] = H100_PEAK_BF16_FLOPS
     smi = phase_device()
     timed(phase_build)
     results: dict = {}
@@ -4983,6 +5292,7 @@ def main() -> int:
     timed(phase_rvq_kernel, results)
     timed(phase_greedy)
     paths = {'serve': timed(phase_main)}
+    paths['checkpoint'] = timed(phase_checkpoint, smi)
     timed(phase_step_profile, smi)
     paths['quant'] = timed(phase_quant, smi)
     paths['spec'] = timed(phase_spec, smi)
@@ -5012,12 +5322,12 @@ def main() -> int:
     for name, src, replaces, shape_key, extra, dtypes, on_paths in (
             ('flash_attention_fwd', 'flash_attention.cu', 'flash_attention.py:290', 'ar',
              {'serve': None, 'nar': 'nar', 'ar_long': 'ar_long'}, ('bfloat16', 'float32'),
-             ('serve', 'clone', 'asr', 'train', 'spec', 'large', 'server')),
+             ('serve', 'clone', 'asr', 'train', 'spec', 'large', 'server', 'checkpoint')),
             ('flash_attention_fwd_folded', 'flash_attention.cu', 'flash_attention.py:243',
              '204m', {c: c for c in FOLD_CASES if c != '204m'}, ('bfloat16', 'float32'),
              ('fold',)),
             ('flash_bwd_fused', 'flash_attention_bwd.cu', 'flash_attention.py:560', 'ar',
-             {'nar': 'nar'}, ('bfloat16', 'float32'), ('train', 'fold')),
+             {'nar': 'nar'}, ('bfloat16', 'float32'), ('train', 'fold', 'checkpoint')),
             ('flash_bwd_dq', 'flash_attention_bwd.cu', 'flash_attention.py:582', 'ar_long', {},
              ('bfloat16', 'float32'), ('train', 'fold')),
             ('flash_bwd_dkv', 'flash_attention_bwd.cu', 'flash_attention.py:602', 'ar_long',
@@ -5026,14 +5336,15 @@ def main() -> int:
                {'square4096': 'square4096', 'out_204m': 'out_204m'}, ('bfloat16',), ('gemm',))
               for name, line in (('matmul_fullk', 46), ('matmul_ksplit', 84))),
             ('fused_decode_step', 'fused_step.cu', 'fused_decode.py:706', None, {},
-             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large', 'server')),
+             ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'large', 'server',
+                                       'checkpoint')),
             ('fused_decode_step_chunked', 'fused_step.cu', 'fused_decode.py:706', None, {},
              ('bfloat16', 'float32'), ('serve', 'clone', 'asr', 'quant', 'stream', 'large')),
             ('fused_verify_step_chunked', 'fused_step.cu', 'fused_decode.py:1017', None, {},
              ('bfloat16', 'float32'), ('spec',)),
             ('rvq_encode', 'rvq.cu', 'rvq.py:77', 'batch_16x300',
              {'prompt': 'prompt_1x150', 'ragged': 'ragged_3x77'}, ('float32',),
-             ('clone', 'asr', 'data', 'server')),
+             ('clone', 'asr', 'data', 'server', 'checkpoint')),
             *((f'fused_decode_step_{v}', 'fused_step.cu', 'fused_decode.py:706', None, {},
                ('bfloat16', 'float32'), ('quant', 'large') if v == 'w8a8' else ('quant',))
               for v in QUANT_VARIANTS),
@@ -5055,7 +5366,7 @@ def main() -> int:
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
-        for p in ('server', 'lora'):      # the chunked steps, the fine-tune's kernels
+        for p in ('server', 'lora', 'checkpoint'):   # the chunked steps, a fine-tune's kernels
             if p not in by_path and paths[p][name] > 0:
                 by_path[p] = paths[p][name]
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
@@ -5150,6 +5461,8 @@ def main_mesh(n: int) -> int:
     (``phase_tp_large``)."""
     sys.path.insert(0, str(ROOT))
     import torch
+    from valle2_tpu_torch.profiling import H100_PEAK_BF16_FLOPS
+    PEAK_FLOPS['bfloat16'] = H100_PEAK_BF16_FLOPS
     smi = phase_device()
     if torch.cuda.device_count() < n:
         fail(f'--mesh-cards {n} needs {n} cards, found {torch.cuda.device_count()}')

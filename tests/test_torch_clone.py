@@ -119,7 +119,7 @@ def test_asr_batch_transcribe_matches_jax_and_solo(asr_pipelines):
         tasr.batch_transcribe(audios, srs, output='ids')
 
 
-def test_cli_synthesizes_and_transcribes(tmp_path, capsys):
+def test_cli_synthesizes_and_transcribes(tmp_path, capsys, monkeypatch):
     cfg_path = tmp_path / 'cfg.json'
     cfg_path.write_text(json.dumps(dict(GEN, max_audio_len=3)))
     save_wav(tmp_path / 'prompt.wav', wave(6, 3200), 16000)
@@ -133,6 +133,12 @@ def test_cli_synthesizes_and_transcribes(tmp_path, capsys):
     ttts.main(['-c', str(cfg_path), '--transcribe', str(tmp_path / 'prompt.wav'),
                '--device', 'cpu'])
     assert capsys.readouterr().out.endswith('\n')
-    with pytest.raises(NotImplementedError, match='item 13'):
-        ttts.main(['--transcribe', str(out), '--aot-cache', str(tmp_path), '--device', 'cpu'])
+    # The cache flags point the kernel-build caches (they refused before
+    # compile_cache.py and aot.py were ported).
+    from valle2_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, '_state', dict(_build._state))     # restored after
+    ttts.main(['-c', str(cfg_path), '--transcribe', str(out), '--aot-cache',
+               str(tmp_path / 'aot'), '--compile-cache', str(tmp_path / 'cc'),
+               '--device', 'cpu'])
+    assert _build.aot_dir() == tmp_path / 'aot' and _build.build_dir() == tmp_path / 'cc'
     assert torch.get_default_dtype() == torch.float32

@@ -2510,3 +2510,76 @@ def test_tp_wait_across_cards_is_bounded(dev):
     _, status, err, timed_out, secs = line.split()
     assert (status, err, timed_out) == ('0', 'raised', '1'), out.stderr[-2000:]
     assert 9.5 <= float(secs) < 60
+
+
+def test_reference_checkpoint_round_trip_greedy_equals_in_memory(dev, tmp_path):
+    """A reference-format checkpoint (Lightning layout, 'model.' prefix)
+    written by save_torch_checkpoint and read by load_torch_checkpoint onto
+    the card: params bit-equal, and greedy codes through #1 and #6 equal the
+    in-memory model's."""
+    from valle2_tpu_torch.models import ValleAR, ValleNAR
+    from valle2_tpu_torch.models.convert import load_torch_checkpoint, save_torch_checkpoint
+    from valle2_tpu_torch.tts import ValleTTS
+    cfg = ConfigValle(d_model=128, n_heads=4, dim_feedforward=256, num_layers=2,
+                      max_audio_len=24, temperature=0.0, ignore_eos=True,
+                      matmul_precision='highest', kv_cache_dtype='float32')
+    mem = ValleTTS(cfg, ar=ValleAR(cfg, seed=3, device=dev), nar=ValleNAR(cfg, seed=4, device=dev),
+                   device=dev)
+    loaded = {}
+    for model, params in (('ValleAR', mem.ar.params), ('ValleNAR', mem.nar.params)):
+        save_torch_checkpoint(tmp_path / 'x.ckpt', params, model)
+        sd = torch.load(tmp_path / 'x.ckpt', weights_only=True)['state_dict']
+        torch.save({'state_dict': {f'model.{k}': v for k, v in sd.items()}}, tmp_path / 'x.ckpt')
+        loaded[model] = load_torch_checkpoint(tmp_path / 'x.ckpt', model, num_layers=2,
+                                              device=dev)
+        got, want = [], []
+        map_tree(got.append, loaded[model])
+        map_tree(want.append, params)
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    disk = ValleTTS(cfg, ar=ValleAR(cfg, params=loaded['ValleAR'], device=dev),
+                    nar=ValleNAR(cfg, params=loaded['ValleNAR'], device=dev), codec=mem.codec,
+                    device=dev)
+    rs = np.random.RandomState(8)
+    reqs = [(f'request {i}.', rs.randint(0, 70, (5,)), rs.randint(0, 1024, (6, 8)))
+            for i in range(3)]
+    want = mem.batch_synthesize(*map(list, zip(*reqs)))
+    before = (fa.COUNTER.count, fd.COUNTER.count, fd.PLAIN_CALLS.count)
+    got = disk.batch_synthesize(*map(list, zip(*reqs)))
+    assert fa.COUNTER.count > before[0] and fd.COUNTER.count > before[1]
+    assert fd.PLAIN_CALLS.count == before[2]
+    assert all(np.array_equal(g.codes, w.codes) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize('mode', ['compile', 'aot'])
+def test_cold_start_loads_every_library_from_disk(dev, tmp_path, mode):
+    """A fresh coldstart_bench process over built libraries (the build
+    directory, or an AOT directory filled from it) builds nothing and loads
+    each library its first request launches from disk."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from valle2_tpu_torch.kernels import _build
+    _build.build_all()
+    root = Path(__file__).resolve().parents[1]
+    cfg = tmp_path / 'cfg.json'
+    cfg.write_text(json.dumps(dict(d_model=128, n_heads=4, dim_feedforward=256, num_layers=2,
+                                   max_audio_len=16, dtype='bfloat16')))
+    extra = []
+    if mode == 'aot':
+        aot = tmp_path / 'aot'
+        aot.mkdir()
+        for n in _build.BUILDS:
+            shutil.copy(_build._lib_path(n), aot)
+        extra = ['--aot-cache', str(aot)]
+    r = subprocess.run([sys.executable, '-m', 'valle2_tpu_torch.tools.coldstart_bench', mode,
+                        '-c', str(cfg), *extra], cwd=root, capture_output=True, text=True,
+                       timeout=600, env={**os.environ, 'PYTHONPATH': str(root)})
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line['aot_compiles'] == 0 and line['aot_fallbacks'] == 0
+    assert line['aot_disk_loads'] >= 2             # #1 and the persistent #6
+    assert line['first_request_s'] > 0

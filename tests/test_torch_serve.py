@@ -527,17 +527,24 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path):
             proc.wait()
 
 
-def test_cli_asks_for_the_card_and_refuses_the_xla_caches(tmp_path):
-    from valle2_tpu_torch.serve import main
+def test_cli_asks_for_the_card_and_refuses_the_xla_caches(tmp_path, monkeypatch):
+    """Without --device a card is needed; the cache flags, which refused
+    before the port had its kernel-build caches, now point them
+    (compile_cache.py, aot.py) before anything else runs."""
+    from valle2_tpu_torch import serve
+    from valle2_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, '_state', dict(_build._state))     # restored after
+    monkeypatch.setattr(serve, 'ValleTTS', lambda *a, **k: (_ for _ in ()).throw(
+        RuntimeError('stop after the caches')))
     p = tmp_path / 'cfg.json'
     p.write_text(json.dumps(dict(d_model=32, n_heads=2, dim_feedforward=64, num_layers=2)))
-    with pytest.raises(NotImplementedError, match='item 13'):
-        main(['-c', str(p), '--device', 'cpu', '--aot-cache', str(tmp_path)])
-    with pytest.raises(NotImplementedError, match='item 13'):
-        main(['-c', str(p), '--device', 'cpu', '--compile-cache', str(tmp_path)])
+    with pytest.raises(RuntimeError, match='stop after the caches'):
+        serve.main(['-c', str(p), '--device', 'cpu', '--aot-cache', str(tmp_path / 'aot'),
+                    '--compile-cache', str(tmp_path / 'cc')])
+    assert _build.aot_dir() == tmp_path / 'aot' and _build.build_dir() == tmp_path / 'cc'
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA card'):
-            main(['-c', str(p)])
+            serve.main(['-c', str(p)])
 
 
 def test_sigterm_returns_from_a_blocking_serve_and_drains(tts, solo):

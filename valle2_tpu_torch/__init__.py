@@ -13,7 +13,10 @@ training on one device (``train``) through the flash forward and backward
 kernels, with LoRA fine-tuning (``lora``); tensor-parallel serving over a
 ('model',) mesh of cards (``parallel``, the all-reduce
 ``kernels.tp_allreduce``); and the dynamic-batching HTTP server with
-multi-voice serving (``serve``); see ROADMAP.md for what remains.
+multi-voice serving (``serve``); checkpoints of the reference stack
+(``models.convert``), native audio I/O (``native.audio``), traces and NaN
+checks (``profiling``) and the kernel-build caches (``compile_cache``,
+``aot``); see ROADMAP.md for what remains.
 """
 
 from .config import ConfigValle, bucket_len
@@ -24,6 +27,7 @@ _LAZY = {
     'ValleTTS': '.tts', 'ValleASRPipeline': '.tts', 'StreamHub': '.stream_hub',
     'TTSServer': '.serve', 'serve_http': '.serve',
     'ValleAR': '.models', 'ValleNAR': '.models', 'Trainer': '.train',
+    'enable_aot_cache': '.aot', 'enable_compilation_cache': '.compile_cache',
 }
 
 __all__ = ['ConfigValle', 'bucket_len', *sorted(_LAZY)]

@@ -71,13 +71,13 @@ VERIFY_COUNTERS = {v: _build.LaunchCounter() for v in VARIANTS}    # #7
 PHASED_COUNTER = _build.LaunchCounter()
 # Launches that split the attention over the cache's chunks (every variant),
 # and calls of the plain versions (any device).
-CHUNKED_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step',
-                                                         'fused_verify_step')}
+CHUNKED_COUNTERS = {k: _build.LaunchCounter(launches=False)
+                    for k in ('fused_decode_step', 'fused_verify_step')}
 # #6 launches with a per-row index (every variant), and those of them that
 # split the attention over the cache's chunks.
-PER_ROW_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_per_row',
-                                                         'fused_decode_step_per_row_chunked')}
-PLAIN_CALLS = _build.LaunchCounter()
+PER_ROW_COUNTERS = {k: _build.LaunchCounter(launches=False)
+                    for k in ('fused_decode_step_per_row', 'fused_decode_step_per_row_chunked')}
+PLAIN_CALLS = _build.LaunchCounter(launches=False)
 # Launches of the tensor-parallel steps (one host call for every rank: one
 # cooperative launch a card), and of their phased twin (fused_step_tp_phased).
 TP_COUNTERS = {k: _build.LaunchCounter() for k in ('fused_decode_step_tp',

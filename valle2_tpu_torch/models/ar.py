@@ -99,6 +99,15 @@ def init_params(gen: torch.Generator, config: ConfigValle) -> Params:
     }
 
 
+def param_count(params: Params) -> int:
+    """Elements over every tensor of a params tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
+
+
 def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: torch.Tensor,
             tokens_lens: torch.Tensor | None, codes_lens: torch.Tensor | None,
             generator: torch.Generator | None = None) -> torch.Tensor:

@@ -6,7 +6,9 @@ one file holding the params tree with CPU tensors; a trainer step dir
 {'params', 'opt_state', 'step'}.  ``load_params`` takes either, as the JAX
 loader does, and merges a LoRA fine-tune's {'base', 'lora'} params through
 the caller's config.  The JAX package's orbax checkpoints are directories of
-another format and are not read here (ROADMAP.md queue 1 item 13).
+another format, read by JAX's orbax: ``scripts/orbax_to_torch.py`` converts
+them into these layouts (a params file, or a step dir with its optimizer
+state) where JAX is installed.
 """
 
 from __future__ import annotations

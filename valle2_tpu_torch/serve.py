@@ -539,9 +539,13 @@ class TTSServer:
         out['queue_oldest_age_s'] = (now - min(pending)) if pending else 0.0
         out['max_queue'] = self.max_queue
         out['voices'] = len(self._voices)  # registered weight overrides
-        # The JAX package's AOT executable-cache counters: the port has no
-        # AOT cache yet (ROADMAP.md queue 1 item 13), so they read 0.
-        out['aot_compiles'] = out['aot_disk_loads'] = out['aot_fallbacks'] = 0
+        # The fused pipeline's kernel libraries through the caches (aot.py):
+        # nvcc builds, loads from disk, entries rebuilt.  The /metrics help
+        # texts keep the JAX package's words, so both servers' exports match.
+        fused = getattr(self.tts, '_fused_jit', None)
+        out['aot_compiles'] = fused.n_compiles if fused is not None else 0
+        out['aot_disk_loads'] = fused.n_disk_loads if fused is not None else 0
+        out['aot_fallbacks'] = fused.n_fallbacks if fused is not None else 0
         if self._hub is not None:
             out['stream_hub_slots'] = self._hub.cb.n_slots
             out['stream_hub_live'] = self._hub.live_sessions()
@@ -986,7 +990,8 @@ def main(argv=None):
 
     python -m valle2_tpu_torch.serve -c cfg.json --port 8089 \\
         [--ar-ckpt PATH --nar-ckpt PATH --codec-ckpt FILE] \\
-        [--max-batch 8 --max-wait-ms 10] [--device cuda|cpu] [--seed N]
+        [--max-batch 8 --max-wait-ms 10] [--device cuda|cpu] [--seed N] \\
+        [--compile-cache DIR] [--aot-cache DIR]
     """
     import argparse
     from pathlib import Path
@@ -1057,17 +1062,22 @@ def main(argv=None):
                              'select it with "voice": NAME; the base weights '
                              'stay the default voice')
     parser.add_argument('--compile-cache', type=Path, default=None,
-                        help='XLA compilation cache of the JAX package: not ported')
+                        help='Kernel-build cache dir: the CUDA libraries are built and found '
+                             'there, so a restarted server skips nvcc (also '
+                             '$VALLE2_COMPILE_CACHE / config.compile_cache_dir; default '
+                             'valle2_tpu_torch/_build)')
     parser.add_argument('--aot-cache', type=Path, default=None,
-                        help='AOT executable cache of the JAX package: not ported')
+                        help='AOT library dir, searched before the kernel-build cache and '
+                             'filled after a build: ship it with a deployment (also '
+                             '$VALLE2_AOT_CACHE / config.aot_cache_dir).  /stats reports '
+                             'the aot_* counters')
     args = parser.parse_args(argv)
 
-    for flag in ('compile_cache', 'aot_cache'):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f'--{flag.replace("_", "-")} is an XLA cache with no PyTorch counterpart yet '
-                '(ROADMAP.md queue 1 item 13, aot.py and compile_cache.py)')
     config = ConfigValle.from_json(args.config) if args.config else ConfigValle()
+    from .aot import enable_aot_cache
+    from .compile_cache import enable_compilation_cache
+    enable_compilation_cache(args.compile_cache, fallback=config.compile_cache_dir)
+    enable_aot_cache(args.aot_cache, fallback=config.aot_cache_dir)
     if args.seed is not None:
         config.seed = args.seed
     device = torch.device(args.device)

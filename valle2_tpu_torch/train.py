@@ -13,7 +13,8 @@ base stays bit-identical, and the step merges ``w + scale * A @ B`` inside its
 forward, so autograd reaches A and B alone.
 
     python -m valle2_tpu_torch.train -c cfg.json -m ValleAR --synthetic [--resume]
-                                     [--device cuda|cpu]
+                                     [--device cuda|cpu] [--profile DIR] [--debug-nans]
+                                     [--compile-cache DIR] [--aot-cache DIR]
 
 Parameters are updated in place (the JAX step returns new arrays): the
 optimizer holds the leaf tensors, and ``TrainState`` carries them along.
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from . import lora as lora_mod
+from .aot import cached_jit, config_key
 from .config import ConfigValle, precision_scope, resolve_device
 from .data.dataset import get_dataloaders
 from .data.prefetch import DevicePrefetcher, to_device
@@ -43,6 +45,7 @@ from .models import ar as ar_mod
 from .models import nar as nar_mod
 from .models.checkpoint import STATE_FILE, atomic_save, load_params, to_cpu
 from .ops.transformer import map_tree
+from .profiling import annotate, nan_checks_enabled
 
 Params = dict[str, Any]
 log = logging.getLogger('valle2_tpu_torch.train')
@@ -192,26 +195,49 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((seed * 1_000_003 + step) % 2**63)
 
 
+def _check_finite_grads(step: int, grads: list[torch.Tensor]) -> None:
+    """``profiling.enable_nan_checks``: raise on a non-finite grad."""
+    for i, g in enumerate(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise FloatingPointError(f'train step {step}: the grad of trained leaf {i} '
+                                     f'{tuple(g.shape)} is not finite')
+
+
 def make_train_step(config: ConfigValle, model_name: str):
     """Build ``step(state, batch, seed) -> (state, metrics)``: forward,
     backward, clip and AdamW.  metrics are device tensors (read them only
     when logging, so the host does not wait on every step).  A LoRA state
-    merges its adapters inside the forward."""
+    merges its adapters inside the forward.  Under
+    ``profiling.enable_nan_checks`` a non-finite loss or grad raises
+    ``FloatingPointError`` before the update.  The step is a
+    ``aot.CachedJit``: its first call of each signature counts the kernel
+    libraries it built or loaded."""
     loss_fn = LOSS_FNS[model_name]
     lora_mode = config.lora_rank > 0
 
     def step_fn(state: TrainState, batch: dict, seed: int):
         leaves = state.opt_state.leaves
         gen = step_generator(seed, state.step, leaves[0].device)
-        with precision_scope(config):
+        checks = nan_checks_enabled()
+        with annotate('train_step'), precision_scope(config):
             params = lora_mod.merged(state.params, config) if lora_mode else state.params
             loss, metrics = loss_fn(params, config, batch, gen)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            if checks and not bool(torch.isfinite(loss)):
+                raise FloatingPointError(
+                    f'train step {state.step}: the loss is {float(loss.detach())}')
+            try:
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            except RuntimeError as exc:
+                if checks and 'nan' in str(exc).lower():   # anomaly detection's report
+                    raise FloatingPointError(f'train step {state.step}: {exc}') from exc
+                raise
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if checks:
+            _check_finite_grads(state.step, grads)
         metrics = dict(metrics, grad_norm=global_norm(grads))
         state.opt_state.update(grads)
         return TrainState(state.params, state.opt_state, state.step + 1), metrics
-    return step_fn
+    return cached_jit(step_fn, tag=f'train_step_{model_name}', extra_key=config_key(config))
 
 
 def make_eval_step(config: ConfigValle, model_name: str):
@@ -480,10 +506,16 @@ class Trainer:
 
 
 def train(hparams_fp: Path | str, model_name: str, synthetic: bool = False,
-          resume: bool = False, device=None) -> TrainState:
+          resume: bool = False, device=None, compile_cache: Path | None = None,
+          aot_cache: Path | None = None) -> TrainState:
     """End-to-end training from a JSON config on ``device`` (the CUDA card
-    by default)."""
+    by default).  The kernel-build cache and the AOT directory resolve from
+    the arguments, the environment, then the config's fields."""
     config = ConfigValle.from_json(hparams_fp)
+    from .aot import enable_aot_cache
+    from .compile_cache import enable_compilation_cache
+    enable_compilation_cache(compile_cache, fallback=config.compile_cache_dir)
+    enable_aot_cache(aot_cache, fallback=config.aot_cache_dir)
     device = resolve_device(device)
     log.info('Training %s on %s with %s', model_name, device, config)
     state = init_state(config, model_name, device=device)
@@ -503,16 +535,33 @@ def main(argv=None):
     parser.add_argument('--device', type=str, default='cuda', choices=['cuda', 'cpu'],
                         help='Where the model trains (default: the CUDA card)')
     parser.add_argument('--profile', type=Path, default=None,
-                        help='Not ported yet (ROADMAP.md queue 1 item 13, profiling.py)')
+                        help='Write a torch.profiler trace of the run (host and card) '
+                             'to DIR/trace.json')
     parser.add_argument('--debug-nans', action='store_true',
-                        help='Not ported yet (ROADMAP.md queue 1 item 13, profiling.py)')
+                        help='Anomaly detection, and FloatingPointError on the first '
+                             'non-finite loss or grad')
+    parser.add_argument('--compile-cache', type=Path, default=None,
+                        help='Kernel-build cache dir: where the CUDA libraries are built '
+                             'and found (also $VALLE2_COMPILE_CACHE / '
+                             'config.compile_cache_dir; default valle2_tpu_torch/_build)')
+    parser.add_argument('--aot-cache', type=Path, default=None,
+                        help='AOT library dir, searched before the kernel-build cache and '
+                             'filled after a build (also $VALLE2_AOT_CACHE / '
+                             'config.aot_cache_dir)')
     args = parser.parse_args(argv)
-    if args.profile is not None or args.debug_nans:
-        raise NotImplementedError('--profile and --debug-nans wait for the port of '
-                                  'profiling.py (ROADMAP.md queue 1 item 13)')
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(message)s')
-    train(args.config, args.model, synthetic=args.synthetic, resume=args.resume,
-          device=args.device)
+    if args.debug_nans:
+        from .profiling import enable_nan_checks
+        enable_nan_checks()
+    run = lambda: train(args.config, args.model, synthetic=args.synthetic,  # noqa: E731
+                        resume=args.resume, device=args.device,
+                        compile_cache=args.compile_cache, aot_cache=args.aot_cache)
+    if args.profile is not None:
+        from .profiling import trace
+        with trace(args.profile):
+            run()
+    else:
+        run()
 
 
 if __name__ == '__main__':

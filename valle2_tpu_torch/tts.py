@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .aot import cached_jit, config_key
 from .codec import Encodec
 from .codec import encodec as codec_mod
 from .config import ConfigValle, bucket_len, precision_scope, resolve_device
@@ -38,6 +39,7 @@ from .models import ValleAR, ValleNAR
 from .models import ar as ar_mod
 from .models import nar as nar_mod
 from .parallel import shard_stack
+from .profiling import annotate
 from .utils import normalize_audio
 
 
@@ -92,8 +94,9 @@ def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
     # AR first-codebook decode (BOS-prefixed prompts; valid length p_len + 1).
     codes0 = torch.cat([torch.full((b, 1), bos, dtype=torch.long, device=dev),
                         prompt_codes[:, :, 0]], dim=1)
-    codes_buf, _, best = ar_mod._decode_fn(ar_params, tokens, tokens_lens, codes0,
-                                           p_lens + 1, config, generator, clock, ar_tp)
+    with annotate('ar_decode'):
+        codes_buf, _, best = ar_mod._decode_fn(ar_params, tokens, tokens_lens, codes0,
+                                               p_lens + 1, config, generator, clock, ar_tp)
     rows = codes_buf[torch.arange(b, device=dev), best]             # (B, Pm+1+max_new)
     gen_region = rows[:, pm + 1:]
     is_eos = gen_region == eos
@@ -101,15 +104,27 @@ def _fused_tts_fn(ar_params, nar_params, codec_dec_params, tokens, tokens_lens,
                            torch.full_like(best, max_new))
     first_layer = torch.where(is_eos, 0, gen_region)                # in-vocab past EOS
 
-    codes = nar_mod._generate_fn(nar_params, tokens, tokens_lens, prompt_codes, p_lens,
-                                 first_layer, gen_lens, config, generator, nar_tp)
+    with annotate('nar_refine'):
+        codes = nar_mod._generate_fn(nar_params, tokens, tokens_lens, prompt_codes, p_lens,
+                                     first_layer, gen_lens, config, generator, nar_tp)
     if clock is not None:
         clock.mark('nar')
     # The codec is causal: frames past gen_len cannot change earlier samples.
-    wavs = codec_mod.decode(codec_dec_params, codes.transpose(1, 2)).float()
+    with annotate('codec_decode'):
+        wavs = codec_mod.decode(codec_dec_params, codes.transpose(1, 2)).float()
     if clock is not None:
         clock.mark('codec')
     return wavs, gen_lens, codes
+
+
+def _nar_wav_fn(nar_params, codec_dec_params, tokens, tokens_lens, pcodes, p_lens,
+                first_layer, gen_lens, config: ConfigValle, generator: torch.Generator):
+    """A stream emission's refinement (JAX ``_nar_wav``): the NAR stages over
+    the first-codebook buffers, then the codec decode.  Returns (waveforms
+    (rows, width * HOP), codes (rows, width, nq)) on the device."""
+    codes = nar_mod._generate_fn(nar_params, tokens, tokens_lens, pcodes, p_lens,
+                                 first_layer, gen_lens, config, generator)
+    return codec_mod.decode(codec_dec_params, codes.transpose(1, 2)).float(), codes
 
 
 @dataclass
@@ -193,6 +208,13 @@ class ValleTTS:
         self.tokenizer = tokenizer if tokenizer is not None else PhonemeTokenizer()
         self._stream_lock = threading.Lock()
         self._stream_ar: ValleAR | None = None
+        # The fused pipeline and a stream's emission as aot.CachedJit call
+        # sites: their first call of each signature counts the kernel
+        # libraries built or loaded (TTSServer.stats()'s aot_* counters).
+        self._fused_jit = cached_jit(_fused_tts_fn, tag='tts_fused',
+                                     extra_key=config_key(config))
+        self._nar_wav_jit = cached_jit(_nar_wav_fn, tag='tts_stream_narwav',
+                                       extra_key=config_key(config))
 
     def _mesh_trees(self, ar_view=None, nar_params=None):
         """(mesh, the AR's rank trees, the NAR's), or None without a mesh:
@@ -219,9 +241,10 @@ class ValleTTS:
                        ) -> tuple[np.ndarray, np.ndarray]:
         """Cloning prompt → (prompt_tokens, prompt_codes (T, nq)): the audio
         (on the model's device) resampled to 24 kHz and encoded."""
-        audio = torch.as_tensor(prompt_audio, dtype=torch.float32, device=self.device)
-        wav = normalize_audio(audio, prompt_sr, self.codec.sampling_rate)
-        codes = self.codec.encode(wav).cpu().numpy().T
+        with annotate('prompt_encode'):
+            audio = torch.as_tensor(prompt_audio, dtype=torch.float32, device=self.device)
+            wav = normalize_audio(audio, prompt_sr, self.codec.sampling_rate)
+            codes = self.codec.encode(wav).cpu().numpy().T
         return self.tokenizer(prompt_text), codes
 
     def batch_synthesize(self, texts: list, prompt_tokens_list: list,
@@ -269,7 +292,7 @@ class ValleTTS:
         with torch.inference_mode(), precision_scope(cfg):
             # The AR decodes from its (possibly quantized) decode params; the
             # NAR and the codec stay in full precision, as in the JAX package.
-            wavs, gen_lens, out_codes = _fused_tts_fn(
+            wavs, gen_lens, out_codes = self._fused_jit(
                 self.ar.decode_params if o_ar is None else o_ar,
                 self.nar.params if o_nar is None else o_nar, self.codec.dec_params,
                 to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens,
@@ -419,9 +442,9 @@ class ValleTTS:
         first = torch.as_tensor(first_layer, dtype=torch.long).to(dev)
         gen = torch.as_tensor(np.asarray(gen_lens), dtype=torch.int32).to(dev)
         with torch.inference_mode(), precision_scope(self.config):
-            codes = nar_mod._generate_fn(self.nar.params, tokens, tokens_lens, pcodes, p_lens,
-                                         first, gen, self.config, self._generator(seed))
-            wav = codec_mod.decode(self.codec.dec_params, codes.transpose(1, 2)).float()
+            wav, codes = self._nar_wav_jit(self.nar.params, self.codec.dec_params, tokens,
+                                           tokens_lens, pcodes, p_lens, first, gen,
+                                           self.config, self._generator(seed))
         return wav.cpu().numpy(), codes.cpu().numpy()
 
     def synthesize(self, text: str, prompt_tokens, prompt_codes,
@@ -432,15 +455,19 @@ class ValleTTS:
         if generator is None:
             generator = ar_mod.default_generator(self.config, self.device)
         clock = StageClock(self.device)
-        target_tokens = self.tokenizer(text)
+        with annotate('frontend'):
+            target_tokens = self.tokenizer(text)
         clock.mark('frontend')
-        first_layer = self.ar.generate(prompt_tokens, prompt_codes, target_tokens,
-                                       generator=generator)
+        with annotate('ar_decode'):
+            first_layer = self.ar.generate(prompt_tokens, prompt_codes, target_tokens,
+                                           generator=generator)
         clock.mark('ar_decode')
-        codes = self.nar.generate(prompt_tokens, prompt_codes, target_tokens, first_layer,
-                                  generator=generator).numpy()
+        with annotate('nar_refine'):
+            codes = self.nar.generate(prompt_tokens, prompt_codes, target_tokens, first_layer,
+                                      generator=generator).numpy()
         clock.mark('nar_refine')
-        wav = self.codec.decode(codes.T).cpu().numpy()
+        with annotate('codec_decode'):
+            wav = self.codec.decode(codes.T).cpu().numpy()
         clock.mark('codec_decode')
         rtf = sum(clock.times.values()) / max(len(wav) / self.codec.sampling_rate, 1e-9)
         return TTSResult(wav, codes, rtf, clock.times)
@@ -590,7 +617,8 @@ def main(argv=None):
 
     TTS:  python -m valle2_tpu_torch.tts -c cfg.json --text "..." \\
             --prompt-wav p.wav --prompt-text "..." -o out.wav \\
-            [--ar-ckpt PATH --nar-ckpt PATH --codec-ckpt FILE] [--device cuda|cpu]
+            [--ar-ckpt PATH --nar-ckpt PATH --codec-ckpt FILE] [--device cuda|cpu] \\
+            [--compile-cache DIR] [--aot-cache DIR]
     ASR:  python -m valle2_tpu_torch.tts -c cfg.json --transcribe in.wav
     """
     import argparse
@@ -617,17 +645,20 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=None)
     parser.add_argument('--device', type=str, default='cuda', help="'cuda' or 'cpu'")
     parser.add_argument('--compile-cache', type=Path, default=None,
-                        help='XLA compilation cache of the JAX package: not ported')
+                        help='Kernel-build cache dir: the CUDA libraries are built and found '
+                             'there, so a re-run skips nvcc (also $VALLE2_COMPILE_CACHE / '
+                             'config.compile_cache_dir; default valle2_tpu_torch/_build)')
     parser.add_argument('--aot-cache', type=Path, default=None,
-                        help='AOT executable cache of the JAX package: not ported')
+                        help='AOT library dir, searched before the kernel-build cache and '
+                             'filled after a build (also $VALLE2_AOT_CACHE / '
+                             'config.aot_cache_dir)')
     args = parser.parse_args(argv)
 
-    for flag in ('compile_cache', 'aot_cache'):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f'--{flag.replace("_", "-")} is an XLA cache with no PyTorch counterpart yet '
-                '(ROADMAP.md queue 1 item 13, aot.py and compile_cache.py)')
     config = ConfigValle.from_json(args.config) if args.config else ConfigValle()
+    from .aot import enable_aot_cache
+    from .compile_cache import enable_compilation_cache
+    enable_compilation_cache(args.compile_cache, fallback=config.compile_cache_dir)
+    enable_aot_cache(args.aot_cache, fallback=config.aot_cache_dir)
     if args.seed is not None:
         config.seed = args.seed
     device = torch.device(args.device)
