@@ -110,7 +110,7 @@ Phases, each printing JSON lines:
                 route (use_fused_decode=False).
 20. large    -- the 204M geometry (GRAMMAR_V3_TPU_204M.json: d 1024, 16
                 heads, dff 4096, 16 layers), dense and weight_dtype='int8':
-                one utterance of 256 steps in bf16 through the plain loop and
+                one utterance of 128 steps in bf16 through the plain loop and
                 the speculative loop (#6 / #7 must launch; the 4096-wide FFN2
                 input takes the 8-row projection tile), then greedy IDs in
                 f32, TF32 off: kernels == the plain route, plain loop and
@@ -311,6 +311,34 @@ Phases, each printing JSON lines:
                 fresh process over the build directory phase 2 filled: 0
                 builds, >= 1 library loaded from disk, seconds to the first
                 request.  (a)-(d) are the path 'checkpoint'.
+37. grammar  -- phase_grammar, the rest of training and the grammar tools
+                (GRAMMAR): (a) remat at the 204M grammar widths (d 1024, 16
+                heads, dff 4096, 16 layers; bf16, dropout 0.1): one AR loss
+                and its grads with remat off, on, and off again at b=16 x
+                (128 + 512) and b=8 x (256 + 1024), after a warm-up: the
+                loss bit-equal, the grads bit-equal where the plain step
+                repeats bit for bit (else within REMAT_GRAD_RTOL), #1 (or
+                #2) launched twice a layer with remat and once without, #3
+                (or #4 and #5) once a layer either way; step ms and peak
+                memory of each; at s=640 a negative control, the recompute
+                replaying dropout from the caller's generator (its state
+                after the whole forward) in place of the layer's start
+                state: its grads must part by more than REMAT_GRAD_RTOL;
+                (b) the reference-width grammar
+                (grammar://speakers=4,pairs=64, d 256, 8 layers, bf16): AR,
+                NAR and ASR trained one epoch (37 steps) each through
+                train_grammar_model, their run dir written, then
+                grammar_production.evaluate's v1 and v3 suites on 4 held-out
+                sentences (best-of-N at 1 and 4 beams among them), every
+                ValleAR.generate_batch through #1 and a fused step with no
+                plain call (checked_decodes), and the greedy evaluations
+                equal on a second run; (c) tools.quant_quality over (b)'s
+                run dir (a bf16 model; its float32-cache cells over an f32
+                cache), --limit 4: all 18 cells score, each fused cell
+                launched its own #6 / #6a variant and each unfused cell
+                none, and the reference cell's (compute, f32 cache) greedy
+                codes == the in-memory model's.  (a)-(c) are the path
+                'grammar'.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
@@ -321,7 +349,7 @@ step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 (after checking peer access between every pair of cards); with no argument
 it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
-36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 10, 23, 20, 27-29.
+36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 37, 10, 23, 20, 27-29.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -423,7 +451,7 @@ VERIFY_VARIANTS = ('dense', *QUANT_VARIANTS)
 # The 204M geometry (GRAMMAR_V3_TPU_204M.json, examples/train_ar_dp_pp_tp.json:3).
 LARGE = dict(d_model=1024, n_heads=16, dim_feedforward=4096, num_layers=16)
 GREEDY_STEPS = 64     # greedy-ID checks of the spec and large phases
-LARGE_STEPS = 256     # phase large's plain and speculative loops at 204M
+LARGE_STEPS = 128     # phase large's plain and speculative loops at 204M
 # The stream phase: the serving model at the default max_audio_len, whose
 # streaming model forces the 512-slot chunk; the prompt buckets of phase
 # main's requests (48 phonemes + text in 128, 150 frames + BOS in 256); the
@@ -572,9 +600,9 @@ PROFILE_REPEATS = 3
 # that the profiler's records of every path fit the script's time budget.
 PROFILE_STEPS = 64
 # Phase step profile's other paths: the stream path's one row (a forced
-# chunk of 128 slots, 128 steps), the 204M stack's steps, and the joint
+# chunk of 128 slots, 64 steps), the 204M stack's steps, and the joint
 # advances of the cb paths (CB['chunk_frames'] steps each).
-PROFILE_PATHS = dict(stream_steps=128, stream_chunk=128, large_steps=32, cb_advances=2)
+PROFILE_PATHS = dict(stream_steps=64, stream_chunk=128, large_steps=16, cb_advances=2)
 # The head-folded flash forward (#2): (b, h, s, tokens_total, causal) per
 # case -- the serving prefill of phase main, the serving-width train shapes
 # (AR causal, NAR bidirectional) and the 204M train shape (bench.py:441);
@@ -797,9 +825,6 @@ def phase_kernels(results: dict):
     import torch
     from valle2_tpu_torch.config import ConfigValle, precision_scope
     from valle2_tpu_torch.kernels import flash_attention as fa
-    from valle2_tpu_torch.kernels import fused_decode as fd
-    from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
-    from valle2_tpu_torch.train import tree_leaves
 
     dev = torch.device('cuda')
     s = SLICE
@@ -810,7 +835,6 @@ def phase_kernels(results: dict):
     index = s['ttm'] + s['pm'] + 100
     with precision_scope(ConfigValle(matmul_precision='highest')), torch.inference_mode():
         for dtype_name, dt in (('float32', torch.float32), ('bfloat16', torch.bfloat16)):
-            S = serving_len(rows, dt)
             # Flash prefill: (b, h, s, hd) with s = ttm + pm.
             s_pre = s['ttm'] + s['pm']
             q, k, v = (torch.randn(s['b'], s['h'], s_pre, s['hd'], generator=gen)
@@ -841,45 +865,70 @@ def phase_kernels(results: dict):
                  ms=ms, cuda_cores_ms=cc_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms, tol=tol_str(dtype_name))
 
-            # Fused decode step: cache (L, rows, S, d), 8 layers.
-            p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
-            p = map_tree(lambda a: a.to(dev, dt).contiguous(), p)
-            ck = torch.randn(s['L'], rows, S, s['d'], generator=gen).to(dev, dt)
-            cv = torch.randn(s['L'], rows, S, s['d'], generator=gen).to(dev, dt)
-            x = torch.randn(rows, 1, s['d'], generator=gen).to(dev, dt)
-            tl_f, pl_f = tl.repeat_interleave(beams), cl.repeat_interleave(beams)
-            args = (tl_f, pl_f, s['ttm'], s['pm'])
-            c_k, c_p = KVCache(ck.clone(), cv.clone()), KVCache(ck.clone(), cv.clone())
-            y, _ = fd.fused_decode_step(p, x, s['h'], c_k, index, *args)
-            y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args)
-            torch.cuda.synchronize()
-            err_y = check_close('fused y', y, y_ref, dtype_name)
-            err_k = check_close('fused cache k', c_k.k, c_p.k, dtype_name)
-            err_v = check_close('fused cache v', c_k.v, c_p.v, dtype_name)
-            ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
-            plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p, index,
-                                                                  *args), **PLAIN_TIMING)
-            # Bound: every weight, the valid cache slots of every row (source,
-            # prompt, the steps so far and this one) read once; the new slot's
-            # k, v and y written; the projections and attention as products.
-            elt = x.element_size()
-            w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
-            slots = int((tl_f + pl_f).sum()) + rows * (index - s['ttm'] - s['pm'] + 1)
-            c_elt = ck.element_size()
-            nbytes = (w_bytes + 2 * s['L'] * (slots + rows) * s['d'] * c_elt
-                      + 2 * rows * s['d'] * elt)
-            flops = (rows * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
-                     + s['L'] * 2 * 2 * slots * s['d'])
-            bound_ms, bound_by = bound(nbytes, flops, dtype_name)
-            results[('fused_decode_step', dtype_name)] = dict(
-                max_abs_err=max(err_y, err_k, err_v), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                tol=tol_str(dtype_name))
-            emit(phase='kernels', kernel='fused_decode_step', dtype=dtype_name,
-                 shape=dict(L=s['L'], rows=rows, S=S, d=s['d'], h=s['h'], dff=s['dff'],
-                            index=index, chunk=fd.cache_chunk(c_k, s['h'], None)),
-                 err_y=err_y, err_k=err_k, err_v=err_v, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, tol=tol_str(dtype_name))
+            # Fused decode step: cache (L, rows, S, d), 8 layers; under a
+            # bf16 model also over an f32 cache (the pair grammar_production's
+            # bf16 runs serve in quant_quality's float32-cache cells).
+            for cache_dt in (dt,) if dt == torch.float32 else (dt, torch.float32):
+                fused_step_case(results, gen, dev, dtype_name, dt, cache_dt, rows, index,
+                                tl.repeat_interleave(beams), cl.repeat_interleave(beams))
+
+
+def fused_step_case(results: dict, gen, dev, dtype_name: str, dt, cache_dt, rows: int,
+                    index: int, tl_f, pl_f):
+    """#6 against its plain version at the serving cell's shapes, a model of
+    ``dt`` over a cache of ``cache_dt``: y and the written cache within the
+    model dtype's tolerance, times and bound into ``results``."""
+    import torch
+    from valle2_tpu_torch.kernels import fused_decode as fd
+    from valle2_tpu_torch.ops.transformer import KVCache, map_tree, transformer_init
+    from valle2_tpu_torch.train import tree_leaves
+
+    s = SLICE
+    S = serving_len(rows, cache_dt)
+    p = transformer_init(gen, s['L'], s['d'], s['h'], s['dff'], adaptive_norm=False)
+    p = map_tree(lambda a: a.to(dev, dt).contiguous(), p)
+    ck = torch.randn(s['L'], rows, S, s['d'], generator=gen).to(dev, cache_dt)
+    cv = torch.randn(s['L'], rows, S, s['d'], generator=gen).to(dev, cache_dt)
+    x = torch.randn(rows, 1, s['d'], generator=gen).to(dev, dt)
+    args = (tl_f, pl_f, s['ttm'], s['pm'])
+    c_k, c_p = KVCache(ck.clone(), cv.clone()), KVCache(ck.clone(), cv.clone())
+    y, _ = fd.fused_decode_step(p, x, s['h'], c_k, index, *args)
+    y_ref, _ = fd.fused_decode_step_plain(p, x, s['h'], c_p, index, *args)
+    torch.cuda.synchronize()
+    mixed = cache_dt != dt
+    label = ' (f32 cache)' if mixed else ''
+    if y.dtype != dt or y_ref.dtype != dt or c_k.k.dtype != cache_dt:
+        fail(f'fused step{label}: y {y.dtype}, plain y {y_ref.dtype}, cache {c_k.k.dtype}')
+    err_y = check_close(f'fused y{label}', y, y_ref, dtype_name)
+    err_k = check_close(f'fused cache k{label}', c_k.k, c_p.k, dtype_name)
+    err_v = check_close(f'fused cache v{label}', c_k.v, c_p.v, dtype_name)
+    ms = cuda_ms(lambda: fd.fused_decode_step(p, x, s['h'], c_k, index, *args))
+    plain_ms = cuda_ms(lambda: fd.fused_decode_step_plain(p, x, s['h'], c_p, index,
+                                                          *args), **PLAIN_TIMING)
+    # Bound: every weight, the valid cache slots of every row (source,
+    # prompt, the steps so far and this one) read once; the new slot's
+    # k, v and y written; the projections and attention as products.
+    elt = x.element_size()
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(p))
+    slots = int((tl_f + pl_f).sum()) + rows * (index - s['ttm'] - s['pm'] + 1)
+    c_elt = ck.element_size()
+    nbytes = (w_bytes + 2 * s['L'] * (slots + rows) * s['d'] * c_elt
+              + 2 * rows * s['d'] * elt)
+    flops = (rows * s['L'] * 2 * (4 * s['d'] ** 2 + 2 * s['d'] * s['dff'])
+             + s['L'] * 2 * 2 * slots * s['d'])
+    bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+    key = ('fused_decode_step', 'f32_cache', dtype_name) if mixed \
+        else ('fused_decode_step', dtype_name)
+    results[key] = dict(
+        max_abs_err=max(err_y, err_k, err_v), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        tol=tol_str(dtype_name))
+    emit(phase='kernels', kernel='fused_decode_step', dtype=dtype_name,
+         cache_dtype=str(cache_dt).removeprefix('torch.'),
+         shape=dict(L=s['L'], rows=rows, S=S, d=s['d'], h=s['h'], dff=s['dff'],
+                    index=index, chunk=fd.cache_chunk(c_k, s['h'], None)),
+         err_y=err_y, err_k=err_k, err_v=err_v, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, tol=tol_str(dtype_name))
 
 
 def serving_len(rows: int, cache_dtype, total: int | None = None) -> int:
@@ -4258,6 +4307,406 @@ def phase_checkpoint(smi: str) -> dict:
     return total
 
 
+# Phase grammar: (a) remat at the 204M grammar widths (tools.grammar_production
+# --scale 204m), one bf16 AR step of dropout 0.1 at (batch, frames) with s =
+# frames * 5 / 4: s=640 (#3) and s=1280 (#4 + #5); (b) the reference-width
+# grammar (--scale ref) on `dataset` (fewer sentence pairs than the tool's
+# 540: 37 steps an epoch): AR, NAR and ASR trained train_epochs epochs on the
+# card, then both evaluation suites on `held` held-out sentences; (c)
+# quant_quality's grid over (b)'s weights, --limit held.
+GRAMMAR = dict(remat_runs=((16, 512), (8, 1024)), remat_seed=5, train_epochs=1, held=4,
+               dataset='grammar://speakers=4,pairs=64')
+# Remat against the plain stack: the forward is the same launches on the same
+# inputs, so the loss is bit-equal, and so are the grads wherever the plain
+# step repeats bit for bit (the split backward #4 + #5).  #3 sums dq through
+# atomics in an order that changes from run to run (TOL's reason): where a
+# second plain step already differs from the first, a leaf may part by at
+# most 16 bf16 ulps (2^-8 each) of its largest |grad| -- flipped roundings of
+# dq carried through the bf16 backward of the layers below; two plain steps
+# at the 204M shape parted by 1.7e-2 (4.4 ulps).  The negative control
+# (wrong_replay) measures what a wrong dropout mask in the recompute gives
+# and fails the run unless it lies beyond this limit.
+REMAT_GRAD_RTOL = 16 * 2.0 ** -8
+
+
+@contextlib.contextmanager
+def wrong_replay():
+    """The remat recompute drawing its dropout masks from the caller's
+    generator as it stands at the backward (after the whole forward's
+    draws) instead of a copy set to the layer's start state: the fault the
+    replay guards against, for grammar_remat's negative control."""
+    import importlib
+
+    from torch.utils.checkpoint import checkpoint
+    # the module (the package re-exports a function of the same name)
+    tr = importlib.import_module('valle2_tpu_torch.ops.transformer')
+    inner = tr._remat_layer
+
+    def faulty(p, x, n_heads, bias, cond, flash=None, dropout_rate=0.0, generator=None):
+        def run(x):
+            return tr.encoder_layer(p, x, n_heads, bias, cond, flash=flash,
+                                    dropout_rate=dropout_rate, generator=generator)
+        return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    tr._remat_layer = faulty
+    try:
+        yield
+    finally:
+        tr._remat_layer = inner
+
+
+def grammar_batch(b: int, frames: int, device, vocab: int, audio: int):
+    """An AR batch of the grammar's vocabularies: tokens frames // 4 long,
+    every row full."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(GRAMMAR['remat_seed'])
+    tt = frames // 4
+    data = {'tokens': rs.randint(0, vocab, (b, tt)), 'tokens_lens': np.full(b, tt),
+            'codes': rs.randint(0, audio + 2, (b, frames)),
+            'target': rs.randint(0, audio + 1, (b, frames)), 'codes_lens': np.full(b, frames)}
+    return {k: torch.tensor(v, dtype=torch.int32, device=device) for k, v in data.items()}
+
+
+def remat_arm(params, leaves, cfg, batch, remat: bool) -> dict:
+    """One AR loss and its grads with ``remat`` (the generator of step 0 of
+    seed 1): loss, grads, ms, the step's peak memory above what was allocated
+    before it, and the launches."""
+    import dataclasses
+
+    import torch
+    from valle2_tpu_torch.config import precision_scope
+    from valle2_tpu_torch.models import ar as ar_mod
+    from valle2_tpu_torch.train import step_generator
+
+    c = dataclasses.replace(cfg, remat=remat)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with precision_scope(c):
+        loss, _ = ar_mod.loss_fn(params, c, batch, step_generator(1, 0, batch['codes'].device))
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return dict(loss=loss.detach(), grads=grads, ms=1e3 * (time.perf_counter() - t0),
+                step_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=read_counters())
+
+
+def grads_apart(a, b) -> tuple[bool, float]:
+    """(bit-equal, the largest per-leaf max |a - b| over the leaf's max |b|)."""
+    worst, equal = 0.0, True
+    for x, y in zip(a, b):
+        equal = equal and bool((x == y).all())
+        scale = float(y.abs().max())
+        if scale > 0:
+            worst = max(worst, float((x - y).abs().max()) / scale)
+    return equal, worst
+
+
+def grammar_remat(smi: str) -> tuple[dict, dict]:
+    """(a): remat off, on, and off again at each of GRAMMAR['remat_runs'], a
+    warm-up step first: the loss bit-equal, the grads bit-equal (or within
+    REMAT_GRAD_RTOL where the plain step does not repeat bit for bit), #1 (or
+    #2) launched twice a layer with remat and once without, the backward
+    kernels once a layer either way; step ms and peak memory of each; at
+    s=640 the negative control (wrong_replay) beyond REMAT_GRAD_RTOL."""
+    from pathlib import Path
+
+    import torch
+    from valle2_tpu_torch.config import ConfigValle, resolve_device
+    from valle2_tpu_torch.tools.grammar_production import base_config
+    from valle2_tpu_torch.train import init_state, tree_leaves
+
+    dev = resolve_device()
+    cfg = ConfigValle.from_dict(dict(base_config(Path('.'), scale='204m'), dropout=0.1))
+    params = init_state(cfg, 'ValleAR', device=dev).params
+    leaves = tree_leaves(params)
+    total = dict.fromkeys(read_counters(), 0)
+    out = {}
+    for b, frames in GRAMMAR['remat_runs']:
+        batch = grammar_batch(b, frames, dev, cfg.vocab_size, cfg.num_audio_tokens)
+        s = frames // 4 + frames
+        remat_arm(params, leaves, cfg, batch, False)          # warm-up
+        plain = remat_arm(params, leaves, cfg, batch, False)
+        remat = remat_arm(params, leaves, cfg, batch, True)
+        again = remat_arm(params, leaves, cfg, batch, False)
+        control = None
+        if s == 640:
+            with wrong_replay():
+                control = grads_apart(remat_arm(params, leaves, cfg, batch, True)['grads'],
+                                      plain['grads'])[1]
+            if not control > REMAT_GRAD_RTOL:
+                fail(f'grammar (remat, b={b}, s={s}): a recompute from the wrong generator '
+                     f'state parts the grads by only {control:.3e}, within the limit '
+                     f'{REMAT_GRAD_RTOL:g}')
+        add_counts(total, remat['launches'])
+        add_counts(total, plain['launches'])
+        label = f'grammar (remat, b={b}, s={s})'
+        if not torch.equal(plain['loss'], remat['loss']) or not torch.isfinite(plain['loss']):
+            fail(f'{label}: loss {float(remat["loss"])} with remat, {float(plain["loss"])} '
+                 'without')
+        bits, worst = grads_apart(remat['grads'], plain['grads'])
+        repeat_bits, repeat_worst = grads_apart(again['grads'], plain['grads'])
+        if not all(bool(torch.isfinite(g).all()) for g in remat['grads']):
+            fail(f'{label}: a non-finite grad with remat')
+        if (repeat_bits and not bits) or worst > REMAT_GRAD_RTOL:
+            fail(f'{label}: grads part by {worst:.3e} of a leaf\'s max |grad| (bit-equal '
+                 f'{bits}); the plain step repeats bit-equal {repeat_bits}, '
+                 f'{repeat_worst:.3e} apart')
+        fwd = {k: a['launches']['flash_attention_fwd'] + a['launches']['flash_attention_fwd_folded']
+               for k, a in (('plain', plain), ('remat', remat))}
+        bwd_names = ('flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv')
+        bwd = {k: {n: a['launches'][n] for n in bwd_names} for k, a in (('plain', plain),
+                                                                         ('remat', remat))}
+        if fwd['plain'] != cfg.num_layers or fwd['remat'] != 2 * cfg.num_layers \
+                or bwd['plain'] != bwd['remat'] or max(bwd['plain'].values()) != cfg.num_layers:
+            fail(f'{label}: forward launches {fwd}, backward {bwd} over {cfg.num_layers} layers')
+        out[f's{s}'] = dict(
+            batch=b, frames=frames, s=s, loss=float(plain['loss']), grads_bit_equal=bits,
+            worst_leaf_rel_diff=worst, plain_repeat_bit_equal=repeat_bits,
+            plain_repeat_worst=repeat_worst, wrong_replay_worst=control,
+            flash_fwd_launches=fwd, bwd_launches=bwd,
+            step_ms={'plain': plain['ms'], 'remat': remat['ms']},
+            step_peak_gb={'plain': plain['step_peak_gb'], 'remat': remat['step_peak_gb']},
+            peak_gb={'plain': plain['peak_gb'], 'remat': remat['peak_gb']},
+            tol=f'loss bit-equal; grads bit-equal where the plain step repeats bit for bit, '
+                f'else per leaf max|dg| <= {REMAT_GRAD_RTOL:g}*max|g|', card=smi)
+        del plain, remat, again, batch
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out, total
+
+
+@contextlib.contextmanager
+def checked_decodes(label: str, seen: dict):
+    """Every ValleAR.generate_batch inside must launch #1 (or #2) and a
+    fused decode step and no plain fused call; each call's launches are
+    added to ``seen``, and under the key (weight_dtype, kv_cache_dtype,
+    use_fused_decode) of its config."""
+    from valle2_tpu_torch.models.ar import ValleAR
+    inner = ValleAR.generate_batch
+
+    def wrapped(self, *args, **kw):
+        before, plain0 = read_counters(), plain_calls()
+        result = inner(self, *args, **kw)
+        delta = {k: v - before[k] for k, v in read_counters().items()}
+        fused = sum(v for k, v in delta.items() if k.startswith('fused_decode_step'))
+        flash = delta['flash_attention_fwd'] + delta['flash_attention_fwd_folded']
+        c = self.config
+        if flash <= 0 or plain_calls() != plain0 \
+                or (fused <= 0) == (c.use_fused_decode is not False):
+            fail(f'{label}: a decode launched #1 {flash} times, the fused steps {fused} '
+                 f'times, {plain_calls() - plain0} plain fused calls '
+                 f'(use_fused_decode={c.use_fused_decode})')
+        add_counts(seen.setdefault('all', {}), delta)
+        add_counts(seen.setdefault((c.weight_dtype, c.kv_cache_dtype, c.use_fused_decode), {}),
+                   delta)
+        return result
+    ValleAR.generate_batch = wrapped
+    try:
+        yield seen
+    finally:
+        ValleAR.generate_batch = inner
+
+
+def grammar_train_eval(tmp, smi: str) -> tuple[dict, dict, dict]:
+    """(b): the reference-width grammar trained on the card through
+    train_grammar_model, its run dir written (params files and report.json in
+    grammar_production's layout), then grammar_production.evaluate's v1 and
+    v3 suites (smoke: 4 held-out sentences) under checked_decodes, and the
+    greedy evaluations run again to equal the first run.  Returns (record,
+    launches, (cfg, report, trained AR params))."""
+    import dataclasses
+
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data import grammar as gm
+    from valle2_tpu_torch.models.checkpoint import save_params
+    from valle2_tpu_torch.tools import grammar_production as gp
+
+    cfg = dict(gp.base_config(tmp, scale='ref'), dataset=GRAMMAR['dataset'])
+    conf = ConfigValle.from_dict(cfg)
+    train_ds, valid_ds, _ = gm.build_grammar_datasets(conf)
+    reset_counters()
+    runs, curves, trained = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, over in (('ValleAR', {}), ('ValleNAR', {'norm': 'AdaptiveLayerNorm'}),
+                       ('ValleASR', {'direction': 'asr'})):
+        params, curve = gm.train_grammar_model(
+            name, dataclasses.replace(conf, **over), train_ds, valid_ds,
+            max_epochs=GRAMMAR['train_epochs'], loss_target=0.0, device='cuda')
+        save_params(tmp / f'{name}.pt', params)
+        runs[name] = {'final_ckpt': str(tmp / f'{name}.pt')}
+        runs[f'{name}_config'] = over
+        curves[name] = curve
+        trained[name] = params
+        if not all(torch.isfinite(torch.tensor(curve['train_loss'] + curve['valid_loss']))):
+            fail(f'grammar (train): {name} losses {curve}')
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counters()
+    require_launches('grammar (train)', launches, ('flash_attention_fwd', 'flash_bwd_fused'))
+    steps = len(train_ds) // conf.batch_size * GRAMMAR['train_epochs']
+    report = {'config': cfg, 'runs': runs}
+    (tmp / 'report.json').write_text(json.dumps(report))
+
+    seen: dict = {}
+    t0 = time.perf_counter()
+    v3_cfg = dict(cfg, dataset=GRAMMAR['dataset'] + ',variants=3,real=0')
+    with checked_decodes('grammar (eval)', seen):
+        evals = {'v1': gp.evaluate(cfg, report, tmp, smoke=True, device='cuda'),
+                 'v3': gp.evaluate(v3_cfg, report, tmp, smoke=True, v3=True, device='cuda')}
+        eval_s = time.perf_counter() - t0
+        ar, nar, asr = gp.load_models(cfg, report, 'cuda')
+        tok = gm.PhonemeTokenizer(use_g2p=False)
+        train_sents, held = gm.split_sentences()
+        held = held[:GRAMMAR['held']]
+        v2_spec = gm.build_grammar_datasets(conf)[2]
+        v3_spec = gm.build_grammar_datasets(ConfigValle.from_dict(v3_cfg))[2]
+        again = {
+            'closed_loop': {k: v for k, v in gm.evaluate_closed_loop(
+                ar, nar, asr, held, v2_spec, tok, prompt_text=train_sents[0],
+                speaker=0).items() if k != 'texts'},
+            'prompt_conditioning': gm.evaluate_prompt_conditioning(
+                ar, held, v2_spec, tok, prompt_text=train_sents[0]),
+            'prompt_conditioning_v3': gm.evaluate_prompt_conditioning_v3(
+                ar, held, v3_spec, tok, prompt_text=train_sents[0])}
+    again['nar_refinement'] = gm.evaluate_nar_refinement(
+        nar, held, v3_spec, tok, prompt_text=train_sents[0], corrupt=(0.0, 0.2))
+    first = {'closed_loop': evals['v1']['closed_loop'][0],
+             'prompt_conditioning': evals['v1']['prompt_conditioning'],
+             'prompt_conditioning_v3': evals['v3']['prompt_conditioning_v3'],
+             'nar_refinement': evals['v3']['nar_refinement']}
+    for k, v in first.items():
+        if again[k] != v:
+            fail(f'grammar (eval): the greedy {k} differs on a second run: {v} then {again[k]}')
+    add_counts(launches, seen.get('all', {}))
+    record = dict(
+        steps_per_model=steps, batch=conf.batch_size, train_s=train_s,
+        train_loss={k: c['train_loss'] for k, c in curves.items()},
+        valid_loss={k: c['valid_loss'] for k, c in curves.items()},
+        eval_s=eval_s, greedy_repeat_equal=True, decodes_checked=True,
+        v1={'closed_loop_speaker0': evals['v1']['closed_loop'][0],
+            'prompt_match_exact': evals['v1']['prompt_conditioning']['match_exact'],
+            'best_of_n': evals['v1']['best_of_n']},
+        v3={'tts_validity_speaker0': evals['v3']['closed_loop_v3'][0]['tts_validity'],
+            'nll': evals['v3']['nll'],
+            'temperature_curve': [{k: r[k] for k in ('temperature', 'validity', 'tv_distance')}
+                                  for r in evals['v3']['temperature_curve']],
+            'best_of_n_validity': evals['v3']['best_of_n_validity'],
+            'nar_refinement': evals['v3']['nar_refinement']['by_eps']},
+        card=smi)
+    return record, launches, (cfg, report, trained['ValleAR'])
+
+
+def quant_variant(weight_dtype: str, kv_cache_dtype: str) -> str:
+    """The fused step counter a (weight, cache) serving config launches."""
+    v = {'compute': '', 'int8': 'w8a8', 'int4': 'w4a16'}[weight_dtype]
+    if kv_cache_dtype == 'int8':
+        v = f'{v}_kv8' if v else 'kv8'
+    return step_name('fused_decode_step', v or 'dense')
+
+
+def grammar_quant(tmp, trained, smi: str) -> tuple[dict, dict]:
+    """(c): tools.quant_quality over (b)'s run dir as grammar_production
+    writes it (a bf16 model: the float32-cache cells serve it over an f32
+    cache), --limit GRAMMAR['held'], under checked_decodes: every cell
+    scores; each fused cell launched its #6 / #6a variant, whole or chunked,
+    and no other step; an unfused cell launched none; the reference cell's
+    (compute weights, f32 cache, per-layer step) greedy codes == the
+    in-memory trained model's under the same config."""
+    import dataclasses
+
+    import numpy as np
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data import grammar as gm
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.tools import quant_quality as qq
+
+    cfg, report, ar_params = trained
+    qdir = tmp / 'quant'
+    qdir.mkdir()
+    qcfg = cfg
+    if qcfg['dtype'] != 'bfloat16':
+        fail(f"grammar (quant): the run dir's model is {qcfg['dtype']}, not bfloat16")
+    (qdir / 'report.json').write_text(json.dumps(dict(report, config=qcfg)))
+    seen: dict = {}
+    t0 = time.perf_counter()
+    with checked_decodes('grammar (quant)', seen):
+        qq.main(['--run-dir', str(qdir), '--limit', str(GRAMMAR['held']), '--device', 'cuda',
+                 '--out', str(qdir / 'quant_quality.json')])
+    wall = time.perf_counter() - t0
+    rep = json.loads((qdir / 'quant_quality.json').read_text())
+    errors = {n: c['error'] for n, c in rep['grid'].items() if 'error' in c}
+    if errors or len(rep['grid']) != 18:
+        fail(f'grammar (quant): cells failed: {errors}')
+    steps = {}
+    for w, k, fused in qq.cells():
+        d = seen.get((w, k, fused), {})
+        launched = {n: v for n, v in d.items() if n.startswith('fused_decode_step') and v}
+        want = quant_variant(w, k)
+        if fused and (not launched or set(launched) - {want, f'{want}_chunked'}):
+            fail(f'grammar (quant): cell {qq.cell_name(w, k, fused)} launched {launched}, '
+                 f'not {want}')
+        if not fused and launched:
+            fail(f'grammar (quant): unfused cell {qq.cell_name(w, k, fused)} launched '
+                 f'{launched}')
+        steps[qq.cell_name(w, k, fused)] = sum(launched.values())
+
+    conf = ConfigValle.from_dict(qcfg)
+    ref_cfg = dataclasses.replace(conf, temperature=0.0, num_beams=1, weight_dtype='compute',
+                                  kv_cache_dtype='float32', use_fused_decode=False)
+    ref = ValleAR(ref_cfg, device='cuda')
+    ref.load(report['runs']['ValleAR']['final_ckpt'])
+    mem = ValleAR(ref_cfg, params=ar_params, device='cuda')
+    tok = gm.PhonemeTokenizer(use_g2p=False)
+    train_sents, held = gm.split_sentences()
+    spec = gm.build_grammar_datasets(conf)[2]
+    with checked_decodes('grammar (quant reference)', seen):
+        got, _ = qq.decode_cell(ref, held[:GRAMMAR['held']], spec, tok, train_sents[0], 0,
+                                False)
+        p_toks = tok(train_sents[0] + ' ')
+        want = mem.generate_batch([np.concatenate([p_toks, tok(s)])
+                                   for s in held[:GRAMMAR['held']]],
+                                  [gm.synthesize_codes(p_toks, spec, 0).T] * len(got))
+    if not all(np.array_equal(g, w.numpy()) for g, w in zip(got, want)):
+        fail('grammar (quant): the reference cell\'s greedy codes differ from the in-memory '
+             'model\'s')
+    return dict(wall_s=wall, cells=len(rep['grid']), recommended=rep['recommended'],
+                reference_quality=rep['reference_quality'], step_launches=steps,
+                grid={n: {k: c[k] for k in ('quality', 'token_acc', 'nll_per_token',
+                                            'decode_wall_s', 'tokens_per_s')}
+                      for n, c in rep['grid'].items()},
+                reference_codes_equal=True, frames=[len(g) for g in got],
+                card=smi), seen.get('all', {})
+
+
+def phase_grammar(smi: str) -> dict:
+    """Phase grammar (a)-(c) above; returns the launches of all three: the
+    kernels line's path 'grammar'."""
+    import tempfile
+    from pathlib import Path
+
+    total = dict.fromkeys(read_counters(), 0)
+    t0 = time.perf_counter()
+    remat, launches = grammar_remat(smi)
+    add_counts(total, launches)
+    remat_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train, launches, trained = grammar_train_eval(tmp, smi)
+        add_counts(total, launches)
+        quant, launches = grammar_quant(tmp, trained, smi)
+        add_counts(total, launches)
+    require_launches('grammar', total, (
+        'flash_attention_fwd', 'flash_bwd_fused', 'flash_bwd_dq', 'flash_bwd_dkv',
+        'fused_decode_step', *(f'fused_decode_step_{v}' for v in QUANT_VARIANTS)))
+    emit(phase='grammar', card=smi, remat=remat, remat_s=remat_s, train_eval=train,
+         quant=quant, launches={k: v for k, v in total.items() if v})
+    return total
+
+
 def dataset_items(n: int = 32, seed: int = 15):
     """n in-memory HF-style items, 1-4 s at 16 / 22.05 / 24 kHz."""
     import numpy as np
@@ -5309,6 +5758,7 @@ def main() -> int:
     paths['train'] = timed(phase_train, smi)
     paths['data'] = timed(phase_data)
     timed(phase_fit)
+    paths['grammar'] = timed(phase_grammar, smi)
     timed(phase_profile, smi)
     timed(phase_profile, smi, 'ValleNAR')
     timed(phase_large_kernels, results)
@@ -5366,7 +5816,7 @@ def main() -> int:
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
-        for p in ('server', 'lora', 'checkpoint'):   # the chunked steps, a fine-tune's kernels
+        for p in ('server', 'lora', 'checkpoint', 'grammar'):   # the chunked steps, a fine-tune's kernels
             if p not in by_path and paths[p][name] > 0:
                 by_path[p] = paths[p][name]
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
@@ -5380,6 +5830,8 @@ def main() -> int:
             entry[label] = {DTYPE_LABEL[d]: pick(key, d) for d in dtypes}
         if (name, 'large', 'bfloat16') in results:
             entry['large'] = {'bf16': pick('large', 'bfloat16')}
+        if (name, 'f32_cache', 'bfloat16') in results:   # a bf16 model over an f32 cache
+            entry['bf16_f32_cache'] = pick('f32_cache', 'bfloat16')
         if name == 'flash_attention_fwd_folded':
             for key in ('per_head_ms', 'schedule'):
                 entry[key] = {DTYPE_LABEL[d]: {c: results[(name, c, d)][key]

@@ -10,7 +10,8 @@ use.)  ``chip_smoke.py`` holds the kernels at the main path's shapes; these
 cover the rest of what the wrappers accept: every head dim, ragged and fully
 masked rows, the bidirectional mask, both backward routes on both sides of
 ``FUSED_BWD_MAX_SEQ``, more rows than one projection block holds, the last
-cache slot, a bfloat16 cache under a float32 model, the quantized variants of
+cache slot, a bfloat16 cache under a float32 model and a float32 cache under
+a bfloat16 one (dense, int8 W8A8 and int4 W4A16), the quantized variants of
 the fused step (int8 W8A8, int4 W4A16 with more than two scale groups, an
 int8 cache, alone and combined) at every head dim, the speculative verify
 step (#7) in all six variants with blocks of 1 to 9 tokens at distinct
@@ -537,8 +538,9 @@ def fused_inputs(dev, dtype, cache_dtype, hd, rows, L=2, h=2, ttm=24, pm=16, max
 
 @pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
                                     (torch.float32, torch.bfloat16),
-                                    (torch.bfloat16, torch.bfloat16)],
-                         ids=['f32', 'f32_bf16cache', 'bf16'])
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=['f32', 'f32_bf16cache', 'bf16', 'bf16_f32cache'])
 @pytest.mark.parametrize('hd', [32, 64, 96, 128])
 @pytest.mark.parametrize('rows', [5, 20], ids=['first_slot', 'last_slot_two_row_blocks'])
 def test_fused_step_kernel_matches_plain(dev, rows, hd, dtypes):
@@ -590,8 +592,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError, match='meta'):
             wrapper(q, q, q, meta.long(), o, lse, q, 4)
     p, x, ck, cv, (tl, cl), ttm, pm = fused_inputs(dev, torch.bfloat16, torch.float32, 32, 3)
-    with pytest.raises(TypeError, match='bfloat16 cache'):
-        fd.fused_decode_step(p, x, 2, KVCache(ck, cv), ttm + pm, tl, cl, ttm, pm)
     with pytest.raises(ValueError, match='outside'):
         fd.fused_decode_step(p, x, 2, KVCache(ck.bfloat16(), cv.bfloat16()), ttm + pm - 1,
                              tl, cl, ttm, pm)
@@ -667,6 +667,31 @@ def test_fused_step_quant_kernel_matches_plain(dev, variant, rows, hd, dtype):
     else:   # bf16, or a W8A8 row that flipped: the new slot's k/v differ as y does
         for got, want in zip(dequant(c_k), dequant(c_p)):
             torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize('hd', [32, 64, 96, 128])
+@pytest.mark.parametrize('variant', ['w8a8', 'w4a16'])
+def test_fused_step_quant_weights_take_an_f32_cache_under_a_bf16_model(dev, variant, hd):
+    """#6a under a bfloat16 model with a float32 cache (the JAX kernel reads
+    its cache in float32 whatever the model's dtype) against the plain
+    version: y and the written slot within the bfloat16 tolerance, the
+    other slots untouched, the variant's launch counted once."""
+    p, x, cache, (tl, cl), ttm, pm = quant_inputs(dev, variant, torch.bfloat16, hd, 20)
+    cache = [c.float() for c in cache]
+    S = cache[0].shape[2]
+    index = S - 1
+    c_k, c_p = KVCache(*(c.clone() for c in cache)), KVCache(*(c.clone() for c in cache))
+    counter = fd.COUNTERS[variant]
+    before = counter.count
+    y, out = fd.fused_decode_step(p, x, 2, c_k, index, tl, cl, ttm, pm)
+    assert counter.count == before + 1 and out.k is c_k.k and out.k.dtype == torch.float32
+    y_ref, _ = fd.fused_decode_step_plain(p, x, 2, c_p, index, tl, cl, ttm, pm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL[torch.bfloat16])
+    for got, want, orig in zip(c_k, c_p, cache):
+        assert torch.equal(got[:, :, :index], orig[:, :, :index])
+        torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
 
 
 def dequant(cache):
@@ -782,8 +807,10 @@ def test_fused_verify_kernel_matches_plain(dev, variant, K, rows, hd, dtype):
 
 # The chunked cache: (model dtype, cache dtype) of each cache format.
 CHUNK_CACHES = {'f32': (torch.float32, torch.float32), 'bf16': (torch.bfloat16, torch.bfloat16),
-                'int8': (torch.float32, torch.int8)}
-CHUNK_TOL = {'f32': TOL[torch.float32], 'bf16': TOL[torch.bfloat16], 'int8': TOL_KV8}
+                'int8': (torch.float32, torch.int8),
+                'bf16_f32cache': (torch.bfloat16, torch.float32)}
+CHUNK_TOL = {'f32': TOL[torch.float32], 'bf16': TOL[torch.bfloat16], 'int8': TOL_KV8,
+             'bf16_f32cache': TOL[torch.bfloat16]}
 
 
 def chunked_inputs(dev, cache_name, hd, rows, S, K, L=2, h=2, ttm=24, pm=16):
@@ -799,7 +826,7 @@ def chunked_inputs(dev, cache_name, hd, rows, S, K, L=2, h=2, ttm=24, pm=16):
         (kq, ks), (vq, vs) = (fd.quantize_kv_rowmajor(c, h) for c in (ck, cv))
         cache = [t.to(dev) for t in (kq, vq, ks, vs)]
     else:
-        cache = [c.to(dev, dtype) for c in (ck, cv)]
+        cache = [c.to(dev, cache_dtype) for c in (ck, cv)]
     x = torch.randn(rows, K, d, generator=gen).to(dev, dtype)
     rs = np.random.RandomState(rows + hd)
     tl = rs.randint(0, ttm + 1, rows)
@@ -1258,7 +1285,8 @@ def test_persistent_grid_fills_the_card(dev, layout, dims):
 def test_persistent_step_refuses_what_it_does_not_take(dev):
     """A block of more than one token a row is the verify step's (#7), and
     the launcher's sizing refuses head dims and widths the kernel does not
-    take, and a bfloat16 model over a float32 cache, with a CUDA error."""
+    take with a CUDA error; a bfloat16 model over a float32 cache it sizes
+    as the float32 pair (the shared memory does not depend on the cache)."""
     p, x, cache, (tl, cl), ttm, pm, h = persistent_inputs(dev, 'dense', torch.float32,
                                                           'serving')
     block = torch.randn(x.shape[0], 4, x.shape[2], device=dev)
@@ -1267,8 +1295,9 @@ def test_persistent_step_refuses_what_it_does_not_take(dev):
     for hd, d, dff in ((48, 192, 768), (64, 256, 8192)):
         with pytest.raises(RuntimeError, match='CUDA error'):
             fd.step_grid(torch.float32, torch.float32, 'w', hd, d, dff)
-    with pytest.raises(RuntimeError, match='CUDA error'):
-        fd.step_grid(torch.bfloat16, torch.float32, 'w', 64, 256, 1024)
+    mixed = fd.step_grid(torch.bfloat16, torch.float32, 'w', 64, 256, 1024)
+    assert mixed[0] > 0 and mixed[1] == fd.step_grid(torch.float32, torch.float32, 'w', 64,
+                                                     256, 1024)[1]
 
 
 # The persistent #7 against its phased twin: blocks of K tokens on 4 rows at
@@ -1406,9 +1435,6 @@ def test_verify_wrapper_refuses_what_the_kernel_does_not_take(dev):
             step(p, x[:, 0], 2, c, index, tl, cl, ttm, pm)
         with pytest.raises(ValueError, match='contiguous'):
             step(p, x.transpose(0, 1).contiguous().transpose(0, 1), 2, c, index, tl, cl, ttm,
-                 pm)
-        with pytest.raises(TypeError, match='bfloat16 cache'):
-            step(map_tree(lambda a: a.bfloat16(), p), x.bfloat16(), 2, c, index, tl, cl, ttm,
                  pm)
     assert [n.count for n in counters] == before
     odd = torch.randn(1, 2, 4, 96, device=dev)           # hd 48: no kernel takes it
@@ -2583,3 +2609,52 @@ def test_cold_start_loads_every_library_from_disk(dev, tmp_path, mode):
     assert line['aot_compiles'] == 0 and line['aot_fallbacks'] == 0
     assert line['aot_disk_loads'] >= 2             # #1 and the persistent #6
     assert line['first_request_s'] > 0
+
+
+@pytest.mark.parametrize('frames', [64, 640], ids=['fused_bwd_s80', 'split_bwd_s800'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_remat_grads_through_the_kernels_equal_without(dev, dtype, frames):
+    """An AR loss with dropout 0.1 through #1 and #3 (s=80) or #4 + #5
+    (s=800 > FUSED_BWD_MAX_SEQ) with remat: the loss bit-equal to the plain
+    stack's, every grad bit-equal where a second plain run repeats bit for
+    bit (else within 1e-4 in f32 / 16 bf16 ulps in bf16 of the leaf's
+    largest |grad|: #3's dq sums through atomics), #1 launched twice a layer and the
+    backward kernels once a layer, as without remat."""
+    import dataclasses
+
+    from valle2_tpu_torch.models import ar as ar_mod
+    from valle2_tpu_torch.train import init_state, step_generator, tree_leaves
+    cfg = ConfigValle(d_model=128, n_heads=2, dim_feedforward=256, num_layers=2, dropout=0.1,
+                      dtype=dtype, matmul_precision='highest', use_flash_attention=True)
+    rs = np.random.RandomState(frames)
+    b, tt = 2, frames // 4
+    batch = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in {
+        'tokens': rs.randint(0, 256, (b, tt)), 'tokens_lens': [tt, tt - 3],
+        'codes': rs.randint(0, 1026, (b, frames)), 'target': rs.randint(0, 1025, (b, frames)),
+        'codes_lens': [frames, frames - 7]}.items()}
+    counters = (fa.COUNTER, fa.BWD_FUSED_COUNTER, fa.BWD_DQ_COUNTER, fa.BWD_DKV_COUNTER)
+    with torch.inference_mode(False), torch.enable_grad():
+        params = init_state(cfg, 'ValleAR', device=dev).params
+        leaves = tree_leaves(params)
+
+        def run(remat):
+            before = [c.count for c in counters]
+            c = dataclasses.replace(cfg, remat=remat)
+            with precision_scope(c):
+                loss, _ = ar_mod.loss_fn(params, c, batch, step_generator(2, 0, dev))
+                grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            return loss.detach(), grads, [c.count - n for c, n in zip(counters, before)]
+        plain, remat, again = run(False), run(True), run(False)
+    assert torch.equal(plain[0], remat[0]) and torch.isfinite(plain[0])
+    tol = 1e-4 if dtype == 'float32' else 16 * 2.0 ** -8
+    repeats = all(torch.equal(a, w) for a, w in zip(again[1], plain[1]))
+    for g, w in zip(remat[1], plain[1]):
+        if repeats:
+            assert torch.equal(g, w)
+        else:
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+    L = cfg.num_layers
+    split = frames + tt > fa.FUSED_BWD_MAX_SEQ
+    assert plain[2] == [L, 0, L, L] if split else plain[2] == [L, L, 0, 0]
+    assert remat[2] == [2 * L, *plain[2][1:]]

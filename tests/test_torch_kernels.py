@@ -237,6 +237,31 @@ def test_fused_step_plain_matches_pallas_kernel(step):
     close(c_t.v, c_j.v, atol=1e-5)
 
 
+def test_fused_step_plain_matches_pallas_kernel_bf16_model_f32_cache():
+    """A bfloat16 model over a float32 cache, the pair the Pallas step takes
+    by reading its cache in float32 (and the CUDA kernel now takes too): the
+    plain version's y and updated cache within the bfloat16 tolerance of
+    the Pallas step's (interpret mode); the cache stays float32."""
+    h, ttm, pm = 2, 6, 8
+    p, ck, cv, x = fused_setup(h=h)
+    tl = np.asarray([6, 4, 5], np.int32)
+    plen = np.asarray([8, 6, 3], np.int32)
+    index = ttm + pm + 3
+    p_bf16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), p)
+    jcache = j_fused_cache_layout(JKVCache(jnp.asarray(ck), jnp.asarray(cv)))
+    y_j, c_j = j_fused_decode_step(p_bf16, jnp.asarray(x, jnp.bfloat16), h, jcache,
+                                   jnp.int32(index), jnp.asarray(tl), jnp.asarray(plen), ttm, pm)
+    tcache = tfused.fused_cache_layout(KVCache(torch.from_numpy(ck), torch.from_numpy(cv)))
+    y_t, c_t = tfused.fused_decode_step(to_torch(p, torch.bfloat16),
+                                        torch.from_numpy(x).bfloat16(), h, tcache, index,
+                                        torch.from_numpy(tl), torch.from_numpy(plen), ttm, pm)
+    assert y_t.dtype == torch.bfloat16 and c_t.k.dtype == torch.float32
+    assert y_j.dtype == jnp.bfloat16 and c_j.k.dtype == jnp.float32
+    close(y_t.float(), np.asarray(y_j, np.float32), atol=5e-2, rtol=2e-2)
+    close(c_t.k, c_j.k, atol=5e-2, rtol=2e-2)
+    close(c_t.v, c_j.v, atol=5e-2, rtol=2e-2)
+
+
 def test_per_head_view_inverts_the_fused_layout():
     _, ck, cv, _ = fused_setup()
     fused = tfused.fused_cache_layout(KVCache(torch.from_numpy(ck), torch.from_numpy(cv)))

@@ -165,12 +165,12 @@ def test_example_configs_load_alike(example):
 
 
 def test_unported_features_raise_naming_the_roadmap_item():
-    for field, value in (('decode_attn_buckets', 2), ('zero1', True), ('remat', True),
-                         ('mesh_model', 2)):
+    for field, value in (('decode_attn_buckets', 2), ('zero1', True), ('mesh_model', 2)):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             ConfigValle(**{field: value})
     ConfigValle(decode_unroll=2, decode_chunk=128)     # ported with streaming
     ConfigValle(lora_rank=4, lora_alpha=8.0)           # ported with lora.py
+    ConfigValle(remat=True)                            # ported: activation checkpointing
     cfg = dataclasses.asdict(ConfigValle())
     jfields = {f.name for f in dataclasses.fields(JConfig)}
     assert set(cfg) == jfields

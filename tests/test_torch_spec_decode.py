@@ -492,6 +492,17 @@ class TestKernelGates:
         if d // h == 16:
             assert 'head dims' in reason
 
+    def test_auto_takes_the_kernels_for_every_model_and_cache_dtype(self):
+        """The fused steps take every (model, cache) dtype pair, a float32
+        cache under a bfloat16 model included (as the JAX kernel does, which
+        reads the cache in float32): 'auto' turns them on for each on the
+        card, and on the CPU for none."""
+        for dtype in ('float32', 'bfloat16'):
+            for kv in ('float32', 'bfloat16', 'int8'):
+                cfg = ConfigValle(dtype=dtype, kv_cache_dtype=kv)
+                assert cfg.fused_decode_enabled('cuda'), (dtype, kv)
+                assert not cfg.fused_decode_enabled('cpu'), (dtype, kv)
+
     def test_hd16_decodes_on_the_plain_route(self, weights):
         """An hd-16 model under 'auto' on the CPU runs its plain versions;
         the same entry point with the kernels forced takes their plain

@@ -246,16 +246,20 @@ def test_corrupt_conditioning_touches_only_suffix_codebook0():
 
 def test_training_features_not_ported_raise_naming_the_roadmap():
     for field, value in (('zero1', True), ('sequence_parallel', True),
-                         ('remat', True), ('pp_microbatches', 2), ('pp_schedule', '1f1b')):
+                         ('pp_microbatches', 2), ('pp_schedule', '1f1b')):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             ConfigValle(**{field: value})
     # JAX compilation choices: accepted, with no counterpart in the port
     ConfigValle(train_rng_impl='threefry2x32', train_scan_unroll=4)
     ConfigValle(lora_rank=4)      # ported: LoRA fine-tuning (tests/test_torch_lora.py)
+    ConfigValle(remat=True)       # ported: activation checkpointing (test_torch_remat.py)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         get_dataloaders('ValleAR', ConfigValle(**TRAIN))
-    with pytest.raises(NotImplementedError, match='grammar'):
-        get_dataloaders('ValleAR', ConfigValle(**dict(TRAIN, dataset='grammar://v3')))
+    # ported: the grammar dataset (data/grammar.py, tests/test_torch_grammar.py)
+    train, valid = get_dataloaders('ValleAR', ConfigValle(**dict(
+        TRAIN, dataset='grammar://variants=3', vocab_size=128, num_audio_tokens=256)))
+    batch = next(iter(train))
+    assert batch['codes'].shape[0] == TRAIN['batch_size'] and len(valid) > 0
 
 
 def tiny(tmp_path, **kw):

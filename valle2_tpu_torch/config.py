@@ -3,7 +3,9 @@
 Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
 so every JSON config written for the JAX package loads here unchanged.  The
 port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
-datasets and trains the AR, NAR and ASR models on one device so far, and
+datasets and trains the AR, NAR and ASR models on one device so far (on
+the synthetic or the ``grammar://`` dataset, ``remat`` checkpointing each
+layer), and
 serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
 W4A16, ``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and
 n-gram speculative decode (``speculative_k`` >= 2 with one beam), streams
@@ -52,7 +54,6 @@ import torch
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
     ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
-    ('remat', False, 'queue 1 item 9 (training, still to port: remat)'),
     ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
     ('sequence_parallel', False, 'queue 1 item 14 (parallelism, sequence parallel)'),
     ('mesh_data', 1, 'queue 1 item 14 (parallelism)'),

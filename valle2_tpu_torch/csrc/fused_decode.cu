@@ -694,7 +694,7 @@ int row_reduce(int mp, void* const* partials, void* const* outs, void* const* bi
 
 
 // dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (bf16 compute needs a bf16 or int8 cache); wfmt: 0 = dense, 1 =
+// 2 = int8 (every pair of the two); wfmt: 0 = dense, 1 =
 // int8 W8A8, 2 = int4 W4A16.  Weights are the stacked (L, ...) tensors of the
 // JAX layout: qkv (L, d, 3d), out (L, d, d), lin1 (L, d, dff), lin2 (L, dff,
 // d), int8 in formats 1 and 2 (packed (L, K/2, N) in 2); norms and biases (L,

@@ -1186,6 +1186,7 @@ int with_formats(int dtype, int cache_dtype, int wfmt, int hd, F&& f) {
   if (dtype == 0 && cache_dtype == 0) return with_wf<float, float>(wfmt, hd, f);
   if (dtype == 0 && cache_dtype == 1) return with_wf<float, __nv_bfloat16>(wfmt, hd, f);
   if (dtype == 0 && cache_dtype == 2) return with_wf<float, int8_t>(wfmt, hd, f);
+  if (dtype == 1 && cache_dtype == 0) return with_wf<__nv_bfloat16, float>(wfmt, hd, f);
   if (dtype == 1 && cache_dtype == 1) return with_wf<__nv_bfloat16, __nv_bfloat16>(wfmt, hd, f);
   if (dtype == 1 && cache_dtype == 2) return with_wf<__nv_bfloat16, int8_t>(wfmt, hd, f);
   return (int)cudaErrorInvalidValue;

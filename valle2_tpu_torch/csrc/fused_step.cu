@@ -124,6 +124,7 @@ int with_types(int dtype, int cache_dtype, F&& f) {
   if (dtype == 0 && cache_dtype == 0) return f(Tag<float>{}, Tag<float>{});
   if (dtype == 0 && cache_dtype == 1) return f(Tag<float>{}, Tag<__nv_bfloat16>{});
   if (dtype == 0 && cache_dtype == 2) return f(Tag<float>{}, Tag<int8_t>{});
+  if (dtype == 1 && cache_dtype == 0) return f(Tag<__nv_bfloat16>{}, Tag<float>{});
   if (dtype == 1 && cache_dtype == 1) return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
   if (dtype == 1 && cache_dtype == 2) return f(Tag<__nv_bfloat16>{}, Tag<int8_t>{});
   return (int)cudaErrorInvalidValue;
@@ -294,7 +295,7 @@ __global__ void wait_probe_kernel(TpStepArgs p) { wait_cards(p, 0); }
 
 #if !VALLE2_STEP_TP
 // dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (bf16 compute needs a bf16 or int8 cache); wfmt must be this
+// 2 = int8 (every pair of the two); wfmt must be this
 // build's weight format (else cudaErrorInvalidValue).  The arguments are
 // those of the phased twin (fused_decode.cu, which says what each holds).
 //

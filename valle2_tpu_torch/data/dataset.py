@@ -10,9 +10,10 @@ file format and key, so either package reads the other's cache.
 with the same item streams and resume semantics: an item is a pure function
 of (seed, index), and the shuffle order of (seed, epoch), so a resumed run
 that pins its epoch and skips the batches it already took replays the exact
-stream of an uninterrupted one.  ``get_dataloaders`` raises for a HF dataset
-name (``datasets.load_dataset`` needs a download) and for ``grammar://``
-(``data/grammar.py`` is not ported yet).
+stream of an uninterrupted one.  ``get_dataloaders`` builds the synthetic
+and the grammar (``grammar`` / ``grammar://...``, ``data/grammar.py``)
+datasets, and raises for a HF dataset name (``datasets.load_dataset`` needs
+a download).
 """
 
 from __future__ import annotations
@@ -284,20 +285,23 @@ class DataLoader:
 
 def get_dataloaders(model_name: str, config: ConfigValle,
                     synthetic: bool = False) -> tuple[DataLoader, DataLoader]:
-    """Train/valid loaders over the synthetic dataset (the HF and grammar
-    datasets raise; ``ValleDataset`` serves in-memory audio items)."""
-    if not synthetic:
-        if str(config.dataset) == 'grammar' or str(config.dataset).startswith('grammar://'):
-            raise NotImplementedError(
-                'the grammar dataset is not ported to PyTorch yet (ROADMAP.md queue 1 '
-                'item 9, data/grammar.py)')
+    """Train/valid loaders over the synthetic dataset, or the grammar for a
+    ``config.dataset`` of ``grammar`` / ``grammar://...`` (the JAX package's
+    rule); a HF dataset name raises (``ValleDataset`` serves in-memory audio
+    items)."""
+    collate = get_collate(model_name)(config)
+    if synthetic:
+        train_ds = SyntheticValleDataset(config, size=max(8 * config.batch_size, 64))
+        valid_ds = SyntheticValleDataset(config, size=max(2 * config.valid_batch_size, 8),
+                                         seed=1)
+    elif str(config.dataset) == 'grammar' or str(config.dataset).startswith('grammar://'):
+        from .grammar import build_grammar_datasets
+        train_ds, valid_ds, _ = build_grammar_datasets(config)
+    else:
         raise NotImplementedError(
             f'the HF dataset {config.dataset!r} needs datasets.load_dataset, which '
             'downloads it (ROADMAP.md queue 1 item 9); build a ValleDataset over the '
             'items in memory, or pass synthetic=True')
-    collate = get_collate(model_name)(config)
-    train_ds = SyntheticValleDataset(config, size=max(8 * config.batch_size, 64))
-    valid_ds = SyntheticValleDataset(config, size=max(2 * config.valid_batch_size, 8), seed=1)
     train = DataLoader(train_ds, config.batch_size, collate, shuffle=True, seed=config.seed)
     # Validation keeps the trailing partial batch (torch DataLoader default).
     valid = DataLoader(valid_ds, config.valid_batch_size, collate, shuffle=False,

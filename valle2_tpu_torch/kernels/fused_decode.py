@@ -440,7 +440,9 @@ def _step_plain(name: str, p, x, n_heads: int, cache: KVCache, index, tokens_len
         visit = (chunk, min(deepest + q_len - 1, seq - 1) // chunk + 1)
     y, _ = transformer_decode_step(p, x, n_heads, per_head_view(cache, n_heads), index,
                                    attend_mask=attend, chunks=visit)
-    return y, cache
+    # A float32 cache under a bfloat16 model promotes the layers' sums to
+    # float32; the kernels (and the Pallas step) return y in x's dtype.
+    return y.to(x.dtype), cache
 
 
 def fused_decode_step_plain(p, x, n_heads: int, cache: KVCache, index, tokens_lens,
@@ -476,7 +478,7 @@ def _step_plain_tp(name: str, trees, xs, n_heads: int, caches, index, tokens_len
                                        [per_head_view(c, n_heads) for c in caches], index,
                                        attend_mask=attend, chunks=visit,
                                        reduce=tp_allreduce_plain)
-    return ys, caches
+    return [y.to(x.dtype) for y, x in zip(ys, xs)], caches
 
 
 def weight_format(p) -> str:
@@ -619,8 +621,6 @@ def _checked_launch_args(name: str, p, x, n_heads: int, cache: KVCache, q_len: i
         raise ValueError('cache scales belong to an int8 cache only')
     else:
         scales = [None, None]
-    if x.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
-        raise TypeError(f'{name} kernel: a bfloat16 model needs a bfloat16 cache')
     reason = fit_error(d, n_heads * mp, dff * mp, fmt, mp)
     if reason is not None:
         raise ValueError(f'{name}: {reason}')

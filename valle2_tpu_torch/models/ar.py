@@ -140,7 +140,7 @@ def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: to
         bias = prefix_lm_bias(tt + tc, tt, tv, ce)
     x = torch.cat([x_tok, x_aud], dim=1).to(config.torch_dtype)
     y = transformer(params['transformer'], x, config.n_heads, bias, flash=flash,
-                    dropout_rate=drop, generator=generator)
+                    dropout_rate=drop, generator=generator, remat=config.remat)
     return linear(params['proj'], y[:, tt:]).float()
 
 

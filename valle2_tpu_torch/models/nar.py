@@ -109,7 +109,7 @@ def forward_stage(params: Params, config: ConfigValle, x_tok: torch.Tensor,
     x = torch.cat([x_tok, codes_emb], dim=1).to(config.torch_dtype)
     cond = params['stage_embs'].index_select(0, stage - 1)                 # (1, d)
     y = transformer(params['transformer'], x, config.n_heads, bias, cond, flash=flash,
-                    dropout_rate=drop, generator=generator)
+                    dropout_rate=drop, generator=generator, remat=config.remat)
     head = params['proj_layers'].index_select(0, stage - 1)[0]             # (d, V)
     return (y[:, x_tok.shape[1]:] @ head).float()
 

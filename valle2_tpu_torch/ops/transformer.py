@@ -119,14 +119,45 @@ def encoder_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor |
 
 def transformer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = None,
                 cond: torch.Tensor | None = None, flash: dict | None = None,
-                dropout_rate: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                dropout_rate: float = 0.0, generator: torch.Generator | None = None,
+                remat: bool = False) -> torch.Tensor:
     """Full-sequence forward over the stacked layers; dropout masks come from
-    one generator in layer order."""
+    one generator in layer order.  ``remat`` (JAX ``jax.checkpoint`` of the
+    scanned layer): while autograd records, each layer keeps only its input
+    for the backward, which runs the layer's forward again (``_remat_layer``);
+    outputs and grads are those of the plain stack."""
+    layer = _remat_layer if remat and torch.is_grad_enabled() else encoder_layer
     for i in range(num_layers_of(p)):
-        x = encoder_layer(layer_slice(p, i), x, n_heads, bias, cond, flash=flash,
-                          dropout_rate=dropout_rate, generator=generator)
+        x = layer(layer_slice(p, i), x, n_heads, bias, cond, flash=flash,
+                  dropout_rate=dropout_rate, generator=generator)
     return x
+
+
+def _remat_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None,
+                 cond: torch.Tensor | None, flash: dict | None = None,
+                 dropout_rate: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """``encoder_layer`` under the non-reentrant ``torch.utils.checkpoint``
+    (the reentrant one needs inputs that require grad; the params reach the
+    layer as dict leaves).  The forward draws its dropout masks from
+    ``generator``, which then stands where the plain layer leaves it; the
+    recompute draws from a copy set to the state the layer started from, so
+    it replays the same masks (``preserve_rng_state`` restores only the
+    default generators, not one passed in)."""
+    from torch.utils.checkpoint import checkpoint
+    draws = generator is not None and dropout_rate > 0.0
+    start = generator.get_state() if draws else None
+    runs = []
+
+    def run(x):
+        gen = generator
+        if runs and draws:        # the backward's recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        runs.append(None)
+        return encoder_layer(p, x, n_heads, bias, cond, flash=flash,
+                             dropout_rate=dropout_rate, generator=gen)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,

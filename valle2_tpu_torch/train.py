@@ -12,6 +12,10 @@ params are ``{'base', 'lora'}``, the optimizer holds the adapters only, the
 base stays bit-identical, and the step merges ``w + scale * A @ B`` inside its
 forward, so autograd reaches A and B alone.
 
+``config.dataset`` may name the grammar (``grammar://speakers=4,...``,
+``data/grammar.py``) instead of ``--synthetic``; ``config.remat`` runs
+each layer again in the backward instead of keeping its activations.
+
     python -m valle2_tpu_torch.train -c cfg.json -m ValleAR --synthetic [--resume]
                                      [--device cuda|cpu] [--profile DIR] [--debug-nans]
                                      [--compile-cache DIR] [--aot-cache DIR]
