@@ -339,17 +339,39 @@ Phases, each printing JSON lines:
                 none, and the reference cell's (compute, f32 cache) greedy
                 codes == the in-memory model's.  (a)-(c) are the path
                 'grammar'.
+38. mesh     -- phase_mesh, the data axis on one card (virtual ranks
+                ['cuda:0'] * n, the serving width, f32 with TF32 off): (a)
+                the AR and the NAR loss, every leaf's grad and the params
+                after one AdamW step at data=2 and at 2 x 2 with zero1 and
+                sequence_parallel (b=4 x (64 + 256), dropout 0.1) against the
+                solo step (MESH_GRAD_RTOL, MESH_PARAM_LR); (b) greedy
+                batch_synthesize of 4 requests (64 frames) at data=2 and 2 x
+                2, codes equal to solo row for row; (c) a 2-step
+                Trainer.fit from a config with mesh_data=2.  Counts zeroed
+                after the solo references, read after (c): #1 or #2, #3 or
+                #4 + #5, 5c, #6 and the TP step launched, no plain fused
+                call (the path 'mesh').  Then the negative control (a
+                ZeRO-1 gather that skips a data block must leave the params
+                beyond MESH_PARAM_LR), the flash kernels at (a)'s 2 x 2
+                shard shape and 5c under autograd against their plain
+                versions, and the bf16 step ms and the
+                card's peak memory of data=2 (zero1 off and on) against
+                solo at b=16 x (128 + 512).  ``phase_mesh_cards`` (the
+                four-card call only): the 204M AR step (b=16 x 640, bf16)
+                solo, at data=4 (zero1 off and on), 2 x 2 and model=4 over
+                the cards: ms a step and each card's peak memory.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
 ``python3 chip_smoke.py --mesh-cards 4`` on a four-card host runs phases 1,
-2, ``phase_tp_cards`` and 31 over the four cards and ``phase_tp_large``
-(after checking peer access between every pair of cards); with no argument
-it needs one card.
+2, ``phase_tp_cards`` and 31 over the four cards, ``phase_tp_large`` and
+``phase_mesh_cards`` (after checking peer access between every pair of
+cards); with no argument it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
-36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 37, 10, 23, 20, 27-29.
+36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 37, 10, 23, 20, 27-29,
+38.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -5716,6 +5738,372 @@ def phase_tp_large(devices, smi: str = '') -> dict:
     return launches
 
 
+# Phase mesh: the training batch of (a) (2 rows a data rank, s = 64 + 256:
+# #1 and #3), the grids it runs on, the serving requests of (b), the timed
+# steps of data=2 against solo (bf16, bench_data at b=16 x 512, steps per arm).
+MESH_TRAIN = dict(b=4, frames=256)
+MESH_GRIDS = {'data2': (2, 1), '2x2_zero1_sp': (2, 2)}
+MESH_SERVE_STEPS = 64
+MESH_TIMED = ('ValleAR', 16, 512, 5)
+# Mesh step against the solo step, f32 with TF32 off: each leaf's grad within
+# this share of the leaf's largest (sums over the ranks and rows in another
+# order); the params after one AdamW step (fused on the card, ZeRO-1's block
+# update and gather at 2 x 2) within MESH_PARAM_LR of the learning rate.
+# AdamW's first step moves an element by lr * g / (|g| + eps), about lr: an
+# element left unchanged reads about 1 lr, a flipped update 2 lr; the sound
+# runs read 0.024-0.035 lr (the grads' last bits where |g| is near eps).  The
+# negative control (skipped_zero1_block) must read beyond the limit.
+MESH_GRAD_RTOL = 1e-5
+MESH_PARAM_LR = 0.25
+# The four-card arm (--mesh-cards 4): the 204M geometry, bench_data at
+# b=16 x 512 (s = 640), bf16, dropout 0.1, steps timed per arm.
+MESH_CARDS_STEPS = (2, 4)     # warm-up, timed
+
+
+@contextlib.contextmanager
+def skipped_zero1_block():
+    """ZeRO-1's gather leaving the last data block of every cut leaf out of
+    data rank 0's ranks (they keep their old values there): the fault phase
+    mesh's negative control must see in the params after a step."""
+    from valle2_tpu_torch import train as tt
+    inner = tt.MeshOptimizer._gather_blocks
+
+    def faulty(self):
+        last = self.mesh.data - 1
+        kept = [(leaf, z) for r in range(self.mesh.model)
+                for leaf, z in zip(self.ranks[r], self.zspecs) if 'data' in z]
+        old = [self._block(leaf, z, last).clone() for leaf, z in kept]
+        inner(self)
+        for (leaf, z), o in zip(kept, old):
+            self._block(leaf, z, last).copy_(o)
+    tt.MeshOptimizer._gather_blocks = faulty
+    try:
+        yield
+    finally:
+        tt.MeshOptimizer._gather_blocks = inner
+
+
+def mesh_batch(model: str, dev):
+    return bench_data(model, MESH_TRAIN['b'], MESH_TRAIN['frames'], dev)
+
+
+def mesh_grads(model: str, cfg, batch, on, dev):
+    """(loss, the step's grads as whole CPU tensors, the params after one
+    AdamW step as whole CPU tensors) from fresh seeded params, solo
+    (``on`` None) or on the mesh ``on``; the step generator's seed 1."""
+    import torch
+    from valle2_tpu_torch import train as tt
+    state = tt.init_state(cfg, model, device=dev)
+    if on is not None:
+        state = tt.shard_state(on, state, cfg)
+    kw = {} if on is None else {'mesh': on}
+    loss, _m = tt.LOSS_FNS[model](state.params, cfg, batch, tt.step_generator(1, 0, dev),
+                                  **kw)
+    leaves = state.opt_state.leaves
+    grads = [torch.zeros_like(p) if g is None else g for p, g in
+             zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    whole = ([g.cpu() for g in grads] if on is None
+             else state.opt_state.whole_grads(grads))
+    state.opt_state.update(grads)
+    return float(loss.detach()), whole, [p.detach().cpu() for p in
+                                tt.tree_leaves(tt.gather_state(state))]
+
+
+def mesh_step_ms(cfg, model: str, b: int, frames: int, n: int, on, dev) -> dict:
+    """Wall ms a train step (after two warm-up steps) and each card's peak
+    memory, solo (``on`` None) or on ``on``."""
+    import time
+
+    import torch
+    from valle2_tpu_torch import train as tt
+    cards = sorted({torch.device(d) for d in (on.devices if on else [dev])},
+                   key=lambda d: d.index or 0)
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(d)
+    state = tt.init_state(cfg, model, device=dev)
+    if on is not None:
+        state = tt.shard_state(on, state, cfg)
+    step = tt.make_train_step(cfg, model, on)
+    data = bench_data(model, b, frames, dev)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, data, 1)
+        losses.append(m['loss'])
+    for d in cards:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, data, 1)
+        losses.append(m['loss'])
+    for d in cards:
+        torch.cuda.synchronize(d)
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    losses = [float(x) for x in losses]
+    if not all(abs(x) < 1e9 for x in losses):
+        fail(f'mesh: non-finite loss {losses} on {on}')
+    out = dict(step_ms=ms, first_loss=losses[0], last_loss=losses[-1],
+               peak_mem_gb={str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards})
+    del state, data
+    return out
+
+
+def mesh_step_split(cfg, model: str, b: int, frames: int, on, dev) -> dict:
+    """One train step (after two warm-up steps), solo (``on`` None) or on
+    ``on``, split on the host clock into enqueuing the forward (the loss
+    returned), the backward (``torch.autograd.grad`` returned), the
+    optimizer's update and the wait for the cards; with each card's busy
+    share of the step from torch.profiler (the union of its kernels'
+    intervals over the step's wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from valle2_tpu_torch import train as tt
+    cards = sorted({torch.device(d) for d in (on.devices if on else [dev])},
+                   key=lambda d: d.index or 0)
+    state = tt.init_state(cfg, model, device=dev)
+    if on is not None:
+        state = tt.shard_state(on, state, cfg)
+    data = bench_data(model, b, frames, dev)
+    step = tt.make_train_step(cfg, model, on)
+    for _ in range(2):
+        state, _m = step(state, data, 1)
+    kw = {} if on is None else {'mesh': on}
+    opt = state.opt_state
+    for d in cards:
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _m = tt.LOSS_FNS[model](state.params, cfg, data,
+                                      tt.step_generator(1, state.step, dev), **kw)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, opt.leaves, allow_unused=True)
+        t2 = time.perf_counter()
+        opt.update([torch.zeros_like(p) if g is None else g for p, g in zip(opt.leaves, grads)])
+        t3 = time.perf_counter()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t4 = time.perf_counter()
+    wall = t4 - t0
+    busy = {}
+    for d in cards:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and e.device_index == d.index)
+        total, end = 0.0, None
+        for a, z in spans:
+            if end is None or a > end:
+                total += z - a
+                end = z
+            elif z > end:
+                total += z - end
+                end = z
+        busy[str(d)] = total / 1e6 / wall          # profiler times are in microseconds
+    return dict(wall_ms=1e3 * wall, forward_enqueue_ms=1e3 * (t1 - t0),
+                backward_ms=1e3 * (t2 - t1), update_enqueue_ms=1e3 * (t3 - t2),
+                wait_ms=1e3 * (t4 - t3), busy_share=busy)
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 38: the data axis on one card, virtual ranks ['cuda:0'] * n,
+    the full default width, f32 with TF32 off: (a) the AR and the NAR loss,
+    every leaf's grad and the params after one AdamW step at data=2 and at
+    2 x 2 with zero1 and sequence_parallel (dropout 0.1) against the solo
+    step (MESH_GRAD_RTOL, MESH_PARAM_LR); (b) greedy batch_synthesize of 4
+    requests (MESH_SERVE_STEPS frames) at data=2 and 2 x 2 against solo, row
+    for row; (c) a 2-step Trainer.fit from a config with mesh_data=2.
+    Counts zeroed after the solo references, read after (c): #1 or #2, #3 or
+    #4 + #5, 5c, #6 and the TP step launched, no plain fused call.  Then the
+    negative control (skipped_zero1_block beyond MESH_PARAM_LR), the flash
+    kernels at (a)'s 2 x 2 shard shape and 5c under autograd against their
+    plain versions, and the bf16 step time of data=2 against solo (MESH_TIMED)
+    with the card's peak memory, zero1 off and on.  Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from valle2_tpu_torch import train as tt
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data import get_dataloaders
+    from valle2_tpu_torch.kernels import flash_attention as fa
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    from valle2_tpu_torch.models.ar import ValleAR
+    from valle2_tpu_torch.ops import nn as tnn
+    from valle2_tpu_torch.parallel import make_mesh, training_mesh
+    from valle2_tpu_torch.tts import ValleTTS
+
+    dev = torch.device('cuda:0')
+
+    def grid(args):
+        return make_mesh(*args, ['cuda:0'] * (args[0] * args[1]))
+
+    def train_cfg(label: str):
+        on = label != 'data2'
+        return ConfigValle(dropout=0.1, batch_size=MESH_TRAIN['b'], matmul_precision='highest',
+                           zero1=on, sequence_parallel=on)
+    # the solo references (not counted)
+    refs = {m: mesh_grads(m, train_cfg('data2'), mesh_batch(m, dev), None, dev)
+            for m in ('ValleAR', 'ValleNAR')}
+    cfg = ConfigValle(max_audio_len=MESH_SERVE_STEPS, ignore_eos=True, dropout=0.0,
+                      temperature=0.0, kv_cache_dtype='float32', matmul_precision='highest')
+    texts, pts, pcs = make_requests()
+    texts, pts, pcs = texts + texts[:1], pts + pts[:1], pcs + pcs[::-1][:1]
+    solo = ValleTTS(cfg, device=dev)
+    want = solo.batch_synthesize(texts, pts, pcs)
+    ttss = {}
+    for label, args in MESH_GRIDS.items():
+        on = grid(args)
+        ttss[label] = ValleTTS(cfg, ar=ValleAR(cfg, params=solo.ar.params, mesh=on),
+                               nar=solo.nar, codec=solo.codec, mesh=on)
+    torch.cuda.synchronize()
+
+    reset_counters()
+    t0 = time.perf_counter()
+    train = {}
+    for model in ('ValleAR', 'ValleNAR'):
+        r_loss, r_grads, r_params = refs[model]
+        for label, args in MESH_GRIDS.items():
+            c = train_cfg(label)
+            loss, grads, params = mesh_grads(model, c, mesh_batch(model, dev), grid(args), dev)
+            worst = max(float((g - w).abs().max()) / max(1e-30, float(w.abs().max()))
+                        for g, w in zip(grads, r_grads))
+            moved = max(float((p - w).abs().max()) for p, w in zip(params, r_params))
+            if abs(loss - r_loss) > 1e-5 * max(1.0, abs(r_loss)) or worst > MESH_GRAD_RTOL \
+                    or moved > MESH_PARAM_LR * c.lr:
+                fail(f'mesh ({model}, {label}): loss {loss} against solo {r_loss}, worst '
+                     f'grad share {worst:.3e}, params apart {moved:.3e}')
+            train[f'{model}_{label}'] = dict(loss=loss, solo_loss=r_loss,
+                                             worst_grad_share=worst, params_apart=moved)
+    train_s = time.perf_counter() - t0
+    serve = {}
+    for label, tts in ttss.items():
+        t1 = time.perf_counter()
+        got = tts.batch_synthesize(texts, pts, pcs)
+        torch.cuda.synchronize()
+        serve[label] = time.perf_counter() - t1
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not np.array_equal(g.codes, w.codes) or not np.isfinite(g.waveform).all():
+                fail(f'mesh ({label}): request {i}\'s codes differ from solo')
+    with tempfile.TemporaryDirectory() as tmp:
+        fcfg = ConfigValle(mesh_data=2, max_steps=2, batch_size=8, log_every_n_steps=1,
+                           ckpt_every_n_steps=0, prefetch_batches=0, dtype='bfloat16',
+                           ckpt_path=Path(tmp) / 'ckpt', log_path=Path(tmp) / 'logs')
+        on = training_mesh(fcfg, ['cuda:0'] * 2)
+        loader, _valid = get_dataloaders('ValleAR', fcfg, synthetic=True)
+        fitted = tt.Trainer(fcfg, 'ValleAR', mesh=on, use_tensorboard=False).fit(
+            tt.init_state(fcfg, 'ValleAR', device=dev), loader)
+        if fitted.step != 2 or not (Path(tmp) / 'ckpt' / 'ValleAR' / 'step_2').exists():
+            fail(f'mesh: Trainer.fit at mesh_data=2 ended at step {fitted.step}')
+    torch.cuda.synchronize()
+    launches = read_counters()
+    plain = plain_calls()
+    if not launches['flash_attention_fwd'] + launches['flash_attention_fwd_folded']:
+        fail('mesh: no flash forward (#1 or #2) launched')
+    if not (launches['flash_bwd_fused']
+            or (launches['flash_bwd_dq'] and launches['flash_bwd_dkv'])):
+        fail('mesh: no flash backward (#3, or #4 and #5) launched')
+    require_launches('mesh', launches, ('tp_allreduce', 'fused_decode_step_tp'))
+    if not launches['fused_decode_step'] + launches['fused_decode_step_chunked']:
+        fail('mesh: the data ranks\' decode never launched #6')
+    if plain:
+        fail(f'mesh: {plain} plain fused-step calls')
+
+    # the negative control: ZeRO-1's gather missing a data block must fail (a)
+    c = train_cfg('2x2_zero1_sp')
+    with skipped_zero1_block():
+        _l, _g, faulty = mesh_grads('ValleAR', c, mesh_batch('ValleAR', dev),
+                                    grid(MESH_GRIDS['2x2_zero1_sp']), dev)
+    control = max(float((p - w).abs().max()) for p, w in zip(faulty, refs['ValleAR'][2]))
+    if control <= MESH_PARAM_LR * c.lr:
+        fail(f'mesh: a skipped ZeRO-1 block left the params {control:.3e} apart, within '
+             f'the limit {MESH_PARAM_LR * c.lr:.3e}')
+    train['control_skipped_zero1_block'] = dict(params_apart=control,
+                                                limit=MESH_PARAM_LR * c.lr)
+
+    # the per-shard kernels at (a)'s 2 x 2 shard shape (a data rank's rows,
+    # a model rank's heads, as mha_tp hands them) against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, s, tt_ = MESH_TRAIN['b'] // 2, 2, MESH_TRAIN['frames'] + MESH_TRAIN['frames'] // 4, 64
+    q, k, v = (torch.randn(b, h, s, 64, generator=gen, device=dev).requires_grad_()
+               for _ in range(3))
+    meta = torch.tensor([[tt_, s]] * b, dtype=torch.int32, device=dev)
+    do = torch.randn(b, h, s, 64, generator=gen, device=dev)
+    o = fa.FlashAttention.apply(q, k, v, meta, tt_, True)
+    dq, dk, dv = torch.autograd.grad(o, [q, k, v], do)
+    with torch.no_grad():
+        po, plse = fa.flash_attention_plain(q, k, v, meta, tt_, True)
+        pdq, pdk, pdv = fa.flash_attention_bwd_plain(q, k, v, meta, po, plse, do, tt_, True)
+    errs = {'flash_fwd_per_shard': check_close('mesh flash per shard', o, po, 'float32'),
+            'flash_bwd_per_shard': max(check_close('mesh flash dq', dq, pdq, 'float32'),
+                                       check_close('mesh flash dk', dk, pdk, 'float32'),
+                                       check_close('mesh flash dv', dv, pdv, 'float32'))}
+    parts = [torch.randn(2, s, 256, generator=gen, device=dev).requires_grad_()
+             for _ in range(2)]
+    bias = [torch.randn(256, generator=gen, device=dev) for _ in range(2)]
+    res = [torch.randn(2, s, 256, generator=gen, device=dev) for _ in range(2)]
+    outs = tnn.psum_replicated_grad(parts, bias, res, torch.float32)
+    plain_outs = ta.tp_row_reduce_plain([p.detach() for p in parts], bias, res)
+    if not all(torch.equal(x, y) for x, y in zip(outs, plain_outs)):
+        fail('mesh: 5c under autograd differs from its plain version')
+    ct = [torch.randn_like(x) for x in outs]
+    if not all(torch.equal(g, c) for g, c in zip(torch.autograd.grad(outs, parts, ct), ct)):
+        fail('mesh: 5c\'s backward is not the identity')
+    errs['tp_row_reduce_autograd'] = 0.0
+
+    # data=2 against solo: bf16 step time, the card's peak memory, zero1 off / on
+    model, b_t, frames, n = MESH_TIMED
+    tcfg = ConfigValle(dropout=0.1, batch_size=b_t, dtype='bfloat16')
+    timed_arms = {'solo': mesh_step_ms(tcfg, model, b_t, frames, n, None, dev),
+                  'data2': mesh_step_ms(tcfg, model, b_t, frames, n, grid((2, 1)), dev),
+                  'data2_zero1': mesh_step_ms(ConfigValle(dropout=0.1, batch_size=b_t,
+                                                          dtype='bfloat16', zero1=True),
+                                              model, b_t, frames, n, grid((2, 1)), dev),
+                  'solo_again': mesh_step_ms(tcfg, model, b_t, frames, n, None, dev)}
+    emit(phase='mesh', grids={k: list(v) for k, v in MESH_GRIDS.items()}, dtype='float32',
+         train=train, train_s=train_s, serve_s=serve, requests=len(texts),
+         serve_frames=MESH_SERVE_STEPS, codes_equal=True, fit_steps=2, kernel_err=errs,
+         timed=dict(model=model, batch=b_t, frames=frames, s=frames // 4 + frames,
+                    dtype='bfloat16', arms=timed_arms),
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+def phase_mesh_cards(devices, smi: str = '') -> None:
+    """``--mesh-cards N``: training over the N cards at the 204M geometry
+    (LARGE), bench_data at b=16 x 512 (s = 640), bf16, dropout 0.1: the
+    wall ms a step and each card's peak memory of solo (cuda:0), data=N,
+    2 x (N/2), model=N, and data=N with zero1; the first step's loss of
+    each mesh against solo's (the same seed and batch; bf16 sums in
+    another order); and a step of solo and of data=N split into its host
+    parts, with each card's busy share (``mesh_step_split``)."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.parallel import make_mesh
+
+    n = len(devices)
+    warm, steps = MESH_CARDS_STEPS
+    dev = torch.device(devices[0])
+    base = dict(LARGE, dropout=0.1, batch_size=16, dtype='bfloat16')
+    arms = {'solo': (None, {}), f'data{n}': ((n, 1), {}), f'data{n}_zero1': ((n, 1),
+                                                                          {'zero1': True}),
+            f'2x{n // 2}': ((2, n // 2), {}), f'model{n}': ((1, n), {})}
+    out = {}
+    for label, (args, extra) in arms.items():
+        on = None if args is None else make_mesh(*args, devices)
+        out[label] = mesh_step_ms(ConfigValle(**base, **extra), 'ValleAR', 16, 512, steps, on,
+                                  dev)
+    solo = out['solo']['first_loss']
+    for label, r in out.items():
+        if abs(r['first_loss'] - solo) > 2e-2 * max(1.0, abs(solo)):
+            fail(f'mesh cards: {label}\'s first loss {r["first_loss"]} against solo {solo}')
+    split = {label: mesh_step_split(ConfigValle(**base), 'ValleAR', 16, 512,
+                                    None if args is None else make_mesh(*args, devices), dev)
+             for label, args in (('solo', None), (f'data{n}', (n, 1)))}
+    emit(phase='mesh_cards', cards=n, geometry=LARGE, batch=16, frames=512, s=640,
+         dtype='bfloat16', warmup=warm, steps=steps, arms=out, split=split, card=smi)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -5766,6 +6154,7 @@ def main() -> int:
     timed(phase_fold_kernels, results)
     paths['fold'] = timed(phase_fold, smi)
     paths['gemm'] = timed(phase_gemm, results, smi)
+    paths['mesh'] = timed(phase_mesh, smi)
     emit(phase_seconds=PHASE_SECONDS)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
@@ -5816,7 +6205,8 @@ def main() -> int:
             r = results[(name, dtype_name) if key is None else (name, key, dtype_name)]
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
-        for p in ('server', 'lora', 'checkpoint', 'grammar'):   # the chunked steps, a fine-tune's kernels
+        # the chunked steps, a fine-tune's kernels, the data axis
+        for p in ('server', 'lora', 'checkpoint', 'grammar', 'mesh'):
             if p not in by_path and paths[p][name] > 0:
                 by_path[p] = paths[p][name]
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
@@ -5928,6 +6318,7 @@ def main_mesh(n: int) -> int:
     timed(phase_tp_cards, devices, smi)
     timed(phase_tp, devices, smi)
     timed(phase_tp_large, devices, smi)
+    timed(phase_mesh_cards, devices, smi)
     emit(phase_seconds=PHASE_SECONDS)
     print(smi, flush=True)
     emit(ok=True, device={'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

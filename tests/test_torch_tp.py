@@ -174,10 +174,11 @@ def test_mesh_helpers():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match='have 0'):
             make_model_mesh(1)           # the cards only: no virtual ranks by default
-    with pytest.raises(NotImplementedError, match='queue 1 item 14'):
-        make_mesh(data=2, model=2, devices=['cpu'] * 4)
-    with pytest.raises(NotImplementedError, match='queue 1 item 14'):
-        training_mesh()
+    grid = make_mesh(data=2, model=2, devices=['cpu'] * 4)     # the data axis is ported
+    assert grid.shape == {'data': 2, 'model': 2} and grid.axis_names == ('data', 'model')
+    assert training_mesh(ConfigValle(**CFG)) is None
+    with pytest.raises(ValueError, match='needs 4 devices'):
+        make_mesh(data=2, model=2, devices=['cpu'] * 3)
     assert make_mesh(model=2, devices=['cpu'] * 2).size == 2
 
 

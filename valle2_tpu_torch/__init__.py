@@ -9,9 +9,11 @@ the AR token step (``kernels.fused_decode``) and the codec's RVQ encode
 (``kernels.rvq``); continuous batching (``models.continuous``) and the
 stream hub that serves concurrent streams through it (``stream_hub``);
 audio datasets tokenized through the codec (``data.ValleDataset``); and
-training on one device (``train``) through the flash forward and backward
-kernels, with LoRA fine-tuning (``lora``); tensor-parallel serving over a
-('model',) mesh of cards (``parallel``, the all-reduce
+training (``train``) through the flash forward and backward kernels, with
+LoRA fine-tuning (``lora``), on one device or over a ('data', 'model') mesh
+(data parallel, ZeRO-1, Megatron tensor parallel, sequence parallel; over
+several processes with ``parallel.init_distributed``); serving over a
+('model',) or ('data', 'model') mesh of cards (``parallel``, the all-reduce
 ``kernels.tp_allreduce``); and the dynamic-batching HTTP server with
 multi-voice serving (``serve``); checkpoints of the reference stack
 (``models.convert``), native audio I/O (``native.audio``), traces and NaN

@@ -3,19 +3,19 @@
 Same fields, defaults, derived properties and loaders as ``valle2_tpu/config.py``,
 so every JSON config written for the JAX package loads here unchanged.  The
 port serves TTS (cloning from a prompt recording) and ASR, tokenizes audio
-datasets and trains the AR, NAR and ASR models on one device so far (on
-the synthetic or the ``grammar://`` dataset, ``remat`` checkpointing each
-layer), and
-serves with quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'``
-W4A16, ``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and
-n-gram speculative decode (``speculative_k`` >= 2 with one beam), streams
+datasets and trains the AR, NAR and ASR models (on the synthetic or the
+``grammar://`` dataset, ``remat`` checkpointing each layer), serves with
+quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'`` W4A16,
+``quantize.py``), an int8 KV cache (``kv_cache_dtype='int8'``) and n-gram
+speculative decode (``speculative_k`` >= 2 with one beam), streams
 (``DecodeStream``, ``synthesize_streaming``, ``synthesize_longform``) with
 ``decode_unroll`` and a chunked cache (``decode_chunk``, ``VALLE2_FUSED_CHUNK``),
-and fine-tunes LoRA adapters (``lora_rank`` > 0, ``lora.py``; on one device:
-the data and pipeline meshes it excludes in the JAX package are not ported)
-(ROADMAP.md): a non-default value of a feature outside those paths raises
-``NotImplementedError`` naming the ROADMAP item that will bring it, instead
-of being silently ignored.  ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
+fine-tunes LoRA adapters (``lora_rank`` > 0, ``lora.py``), and trains and
+serves over a ('data', 'model') mesh (``mesh_data`` x ``mesh_model``,
+``zero1``, ``sequence_parallel``; ``parallel/``) (ROADMAP.md): a non-default
+value of a feature outside those paths raises ``NotImplementedError`` naming
+the ROADMAP item that will bring it, instead of being silently ignored.
+``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
 in ``data.ValleDataset``, as in the JAX package.
 
 Backend switches differ from the JAX package:
@@ -28,6 +28,9 @@ Backend switches differ from the JAX package:
   speculative verify loops.  Elsewhere the kernels' plain PyTorch versions
   run.  ``True`` sends every tensor to the kernels, which raise on a shape
   they do not take.
+- ``zero1`` takes effect where the mesh's data axis is > 1 and
+  ``sequence_parallel`` where its model axis is > 1; elsewhere each is a
+  no-op, as in the JAX package (whose config raises for neither).
 - ``train_rng_impl`` and ``train_scan_unroll`` are JAX compilation choices
   (the PRNG implementation, the layer scan's unroll) with no counterpart in
   an eager PyTorch step: accepted for config compatibility and not read.
@@ -54,14 +57,10 @@ import torch
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
     ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
-    ('zero1', False, 'queue 1 item 14 (parallelism, ZeRO-1)'),
-    ('sequence_parallel', False, 'queue 1 item 14 (parallelism, sequence parallel)'),
-    ('mesh_data', 1, 'queue 1 item 14 (parallelism)'),
-    ('mesh_model', 1, 'queue 1 item 14 (parallelism)'),
-    ('mesh_pipe', 1, 'queue 1 item 14 (parallelism)'),
-    ('mesh_ctx', 1, 'queue 1 item 14 (parallelism)'),
-    ('pp_microbatches', 1, 'queue 1 item 14 (parallelism, pipeline)'),
-    ('pp_schedule', 'gpipe', 'queue 1 item 14 (parallelism, pipeline)'),
+    ('mesh_pipe', 1, 'queue 1 item 14 (parallelism, pipeline: PP)'),
+    ('mesh_ctx', 1, 'queue 1 item 14 (parallelism, context: CP)'),
+    ('pp_microbatches', 1, 'queue 1 item 14 (parallelism, pipeline: PP)'),
+    ('pp_schedule', 'gpipe', 'queue 1 item 14 (parallelism, pipeline: PP)'),
 )
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -189,6 +188,9 @@ class ConfigValle:
         if self.pp_schedule not in ('gpipe', '1f1b'):
             raise ValueError("pp_schedule must be 'gpipe' or '1f1b', got "
                              f'{self.pp_schedule!r}')
+        if self.mesh_data < 1 or self.mesh_model < 1:
+            raise ValueError(f'mesh_data and mesh_model must be >= 1, got {self.mesh_data} '
+                             f'and {self.mesh_model}')
         for name, default, item in _NOT_YET:
             if getattr(self, name) != default:
                 raise NotImplementedError(

@@ -52,7 +52,8 @@ from ..ops import (NEG_INF, KVCache, add_positional, best_beam_index, build_pad_
                    linear_init, prefix_lm_bias, sinusoidal_table, top_k_top_p_filter,
                    topk_sampling, transformer, transformer_decode_step, transformer_init,
                    transformer_prefill)
-from ..ops.transformer import map_tree, transformer_decode_step_tp, transformer_prefill_tp
+from ..ops.transformer import (map_tree, transformer_decode_step_tp, transformer_mesh,
+                               transformer_prefill_tp)
 from ..parallel import shard_stack, tp_divisible
 from ..quantize import quantize_decode_params
 
@@ -110,7 +111,7 @@ def param_count(params: Params) -> int:
 
 def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: torch.Tensor,
             tokens_lens: torch.Tensor | None, codes_lens: torch.Tensor | None,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
     """Logits over the target block: (b, codes_len, target_vocab - 1) f32.
 
     tokens: (b, Tt) source ids; codes: (b, Tc) BOS-prefixed target ids.
@@ -118,7 +119,28 @@ def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: to
     source positions, target positions, then the layers; None = no dropout.
     The flash route uses meta [tokens_lens, Tt + codes_lens], causal; the bias
     route the same mask materialized (prefix-LM pattern, target-pad and
-    source-pad keys)."""
+    source-pad keys).  ``mesh``: ``params`` is the ranks' trees
+    (``parallel.shard_params``) and each data rank runs its rows
+    (``mesh_rows``); the logits come back by rows on the mesh's first device."""
+    if mesh is not None:
+        batch = {'tokens': tokens, 'codes': codes}
+        if tokens_lens is not None:
+            batch['tokens_lens'] = tokens_lens
+        if codes_lens is not None:
+            batch['codes_lens'] = codes_lens
+        outs = mesh_rows(lambda p, rows, draws, group, flash_ok: _forward(
+            p, config, rows['tokens'], rows['codes'], rows.get('tokens_lens'),
+            rows.get('codes_lens'), draws, group, flash_ok), params, config, batch, generator,
+            mesh)
+        return torch.cat([o.to(mesh.devices[0]) for o in outs])
+    return _forward(params, config, tokens, codes, tokens_lens, codes_lens, generator)
+
+
+def _forward(params: Params, config: ConfigValle, tokens, codes, tokens_lens, codes_lens,
+             generator=None, group=None, flash_ok: bool = True) -> torch.Tensor:
+    """``forward`` on one device's rows; ``group`` (``mesh_rows``) runs the
+    stack over a data rank's model ranks, ``flash_ok`` False takes the
+    bias route (``ops.attention.flash_shard_mesh`` declined)."""
     dev = tokens.device
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
     drop = config.dropout if generator is not None else 0.0
@@ -133,50 +155,170 @@ def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: to
     tv = tokens_lens if tokens_lens is not None else torch.full((b,), tt, device=dev)
     ce = tt + codes_lens if codes_lens is not None else torch.full((b,), tt + tc, device=dev)
     bias, flash = None, None
-    if config.flash_enabled(dev):
+    if flash_ok and config.flash_enabled(dev):
         flash = {'meta': torch.stack([tv.to(torch.int32), ce.to(torch.int32)], dim=1)
                  .contiguous(), 'tokens_total': tt, 'causal': True}
     else:
         bias = prefix_lm_bias(tt + tc, tt, tv, ce)
     x = torch.cat([x_tok, x_aud], dim=1).to(config.torch_dtype)
-    y = transformer(params['transformer'], x, config.n_heads, bias, flash=flash,
-                    dropout_rate=drop, generator=generator, remat=config.remat)
+    y = run_stack(params, config, x, bias, None, flash, drop, generator, group)
     return linear(params['proj'], y[:, tt:]).float()
 
 
-def masked_ce(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor):
+def run_stack(params: Params, config: ConfigValle, x, bias, cond, flash, drop: float,
+              generator, group=None) -> torch.Tensor:
+    """The transformer stack of a forward: ``params['transformer']`` on
+    x's device, or with ``group`` = (the model ranks' trees, their devices,
+    sequence parallel) over a data rank's model ranks
+    (``ops.transformer.transformer_mesh``)."""
+    if group is None:
+        return transformer(params['transformer'], x, config.n_heads, bias, cond, flash=flash,
+                           dropout_rate=drop, generator=generator, remat=config.remat)
+    trees, devices, sp = group
+    trees = [cast_to_compute(t['transformer'], config) for t in trees]
+    return transformer_mesh(trees, x, config.n_heads // len(devices), devices, bias, cond,
+                            flash, drop, generator, sp, config.remat)
+
+
+def mesh_rows(rows_fn, params, config: ConfigValle, batch: dict, generator, mesh) -> list:
+    """``rows_fn(p, rows, draws, group, flash_ok)`` on each local data
+    rank's rows of ``batch`` (JAX's step under a ('data', 'model') mesh):
+    ``params`` is the ranks' trees (``parallel.Sharded``); ``p`` the data
+    rank's first model rank's tree, with any head cut over 'model'
+    gathered; ``rows`` its rows on its device; ``draws`` an
+    ``ops.ShardDraw`` of a fork of ``generator`` (every data rank draws
+    what the solo step draws for the whole batch, then cuts its rows), or
+    None; ``group`` the TP context (None without model ranks to split
+    over); ``flash_ok`` whether the flash route runs
+    (``ops.attention.flash_shard_mesh``, from the shapes).  Returns the
+    results in local data rank order.  A data rank with no rows returns None.
+    The rows are ``parallel.shard_batch``'s (the cut of ``parallel.data_rows``)."""
+    from ..ops.attention import flash_shard_mesh
+    from ..ops.nn import ShardDraw
+    from ..parallel.mesh import data_rows, on_device, sequence_parallel_spec, shard_batch
+    rows_total = next(iter(batch.values())).shape[0]
+    flash_ok = flash_shard_mesh(mesh, rows_total, config.n_heads)
+    tp = bool(getattr(params, 'tp', False))
+    sp = tp and sequence_parallel_spec(config, mesh) is not None
+    out = []
+    for k, (i, rows) in enumerate(zip(mesh.local_data, shard_batch(mesh, batch))):
+        devices = mesh.group(i)
+        dev = devices[0]
+        cut = data_rows(mesh, rows_total, i)
+        if cut.stop == cut.start:
+            out.append(None)
+            continue
+        trees = params[k * mesh.model:(k + 1) * mesh.model]
+        draws = None
+        if generator is not None:
+            fork = torch.Generator(device=dev)
+            fork.set_state(generator.get_state())
+            draws = ShardDraw(fork, cut.start, cut.stop, rows_total)
+        with on_device(dev):
+            out.append(rows_fn(_replica_params(trees, getattr(params, 'specs', None)), rows,
+                               draws, (trees, devices, sp) if tp else None, flash_ok))
+    return out
+
+
+def _replica_params(trees: list, specs) -> Params:
+    """Rank 0's tree of a data rank's model ranks, with every leaf outside
+    the stack that is cut over 'model' (the vocabulary of an output head)
+    put back together on rank 0's device (differentiable: each rank's block
+    takes its slice of the grad)."""
+    from ..parallel.mesh import _map_paths, _paths
+    if specs is None or len(trees) == 1:
+        return trees[0]
+    flat = dict(_paths(specs))
+    blocks = [dict(_paths(t)) for t in trees]
+
+    def leaf(path, a):
+        spec = flat.get(path, ())
+        if path.startswith('transformer/') or 'model' not in spec:
+            return a
+        return torch.cat([b[path].to(a.device) for b in blocks], spec.index('model'))
+    return _map_paths(leaf, trees[0])
+
+
+def mesh_loss(rows_loss, params, config: ConfigValle, batch: dict, generator, mesh,
+              valid: torch.Tensor, metrics: dict | None = None, n_valid=None):
+    """A loss over a mesh from ``rows_loss(p, rows, draws, valid_rows, denom,
+    group, flash_ok) -> (loss, acc)`` per data rank (``mesh_rows``): each
+    normalised by the GLOBAL count of ``valid`` (the whole batch's (b, T)
+    mask), so the per-rank losses add up to the solo loss.  Returns (this
+    process's sum of its data ranks' losses on the mesh's first device,
+    metrics {'loss', 'acc', 'n_valid'} of the whole batch, summed over the
+    data ranks in rank order, across processes too).  ``n_valid``
+    overrides the count."""
+    n_valid = valid.sum() if n_valid is None else n_valid
+    denom = n_valid.clamp(min=1)
+    dev0 = mesh.devices[0]
+    outs = mesh_rows(lambda p, rows, draws, group, flash_ok: rows_loss(
+        p, rows, draws, rows['valid'], denom.to(rows['valid'].device), group, flash_ok),
+        params, config, dict(batch, valid=valid), generator, mesh)
+    zero = torch.zeros((), device=dev0)
+    losses = [zero if o is None else o[0].to(dev0) for o in outs]
+    accs = [zero if o is None else o[1].detach().to(dev0) for o in outs]
+    loss = losses[0]
+    for x in losses[1:]:
+        loss = loss + x
+    both = mesh.gather_data([torch.stack([x.detach().float(), a.float()])
+                             for x, a in zip(losses, accs)])
+    total = both[0]
+    for x in both[1:]:
+        total = total + x
+    out = {'loss': total[0], 'acc': total[1], 'n_valid': n_valid.detach()}
+    return loss, dict(out, **(metrics or {}))
+
+
+def loss_mask(config: ConfigValle, batch: dict) -> torch.Tensor:
+    """The (b, T) positions the AR loss counts: ``config.mask_loss_pads``
+    True counts each row's true positions; False (the reference's mode)
+    every position up to the batch's longest row, so bucket columns past it
+    never count."""
+    target = batch['target']
+    codes_lens = batch.get('codes_lens')
+    if codes_lens is None:
+        return torch.ones(target.shape, dtype=torch.bool, device=target.device)
+    if config.mask_loss_pads:
+        return ~build_pad_mask(codes_lens.to(target.device), target.shape[1])
+    pos = torch.arange(target.shape[1], device=target.device)[None, :]
+    return (pos < codes_lens.max().to(target.device)).expand(target.shape)
+
+
+def masked_ce(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+              denom: torch.Tensor | None = None):
     """(loss, acc, n_valid) of the cross-entropy over the ``valid`` positions
-    (a mask that broadcasts against ``target``)."""
+    (a mask that broadcasts against ``target``), divided by ``denom``
+    (default: the count of valid positions, at least 1)."""
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
     n_valid = valid.sum()
-    denom = n_valid.clamp(min=1)
+    denom = n_valid.clamp(min=1) if denom is None else denom
     loss = (nll * valid).sum() / denom
     acc = ((logits.argmax(-1) == target) & valid).sum() / denom
     return loss, acc, n_valid
 
 
 def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-            generator: torch.Generator | None = None):
-    """Masked cross-entropy over the target stream.  Returns (loss, metrics)
-    with metrics {'loss', 'acc', 'n_valid'} detached.
-
-    ``config.mask_loss_pads``: True counts each row's true positions; False
-    (the reference's mode) counts every position up to the batch's longest
-    row, so bucket columns past it never count."""
+            generator: torch.Generator | None = None, mesh=None):
+    """Masked cross-entropy over the target stream (``loss_mask``).  Returns
+    (loss, metrics) with metrics {'loss', 'acc', 'n_valid'} detached.
+    ``mesh``: ``params`` is the ranks' trees; the loss is this process's
+    data ranks' share of the whole batch's (``mesh_loss``), the metrics the
+    whole batch's."""
+    valid = loss_mask(config, batch)
+    if mesh is not None:
+        def rows_loss(p, rows, draws, valid_rows, denom, group, flash_ok):
+            logits = _forward(p, config, rows['tokens'].long(), rows['codes'].long(),
+                              rows.get('tokens_lens'), rows.get('codes_lens'), draws, group,
+                              flash_ok)
+            loss, acc, _ = masked_ce(logits, rows['target'].long(), valid_rows,
+                                     denom.to(logits.device))
+            return loss, acc
+        return mesh_loss(rows_loss, params, config, batch, generator, mesh, valid)
     tokens, codes = batch['tokens'].long(), batch['codes'].long()
-    codes_lens = batch.get('codes_lens')
-    logits = forward(params, config, tokens, codes, batch.get('tokens_lens'), codes_lens,
-                     generator)
-    target = batch['target'].long()
-    if codes_lens is not None:
-        if config.mask_loss_pads:
-            valid = ~build_pad_mask(codes_lens, target.shape[1])
-        else:
-            pos = torch.arange(target.shape[1], device=target.device)[None, :]
-            valid = (pos < codes_lens.max()).expand(target.shape)
-    else:
-        valid = torch.ones_like(target, dtype=torch.bool)
-    loss, acc, n_valid = masked_ce(logits, target, valid)
+    logits = forward(params, config, tokens, codes, batch.get('tokens_lens'),
+                     batch.get('codes_lens'), generator)
+    loss, acc, n_valid = masked_ce(logits, batch['target'].long(), valid)
     return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'n_valid': n_valid.detach()}
 
 
@@ -599,13 +741,24 @@ class ValleAR:
 
     def __init__(self, config: ConfigValle, params: Params | None = None,
                  seed: int | None = None, device=None, mesh=None):
-        """``mesh``: a ('model',) ``parallel.Mesh``: ``generate`` /
-        ``generate_batch`` decode tensor-parallel over its ranks (the params
-        live on its first device, which ``device`` may name)."""
+        """``mesh``: a ``parallel.Mesh``: ``generate`` / ``generate_batch``
+        decode over it (the params live on its first device, which
+        ``device`` may name).  A ('model',) mesh decodes tensor-parallel over
+        its ranks; a ('data', 'model') mesh pads the rows to a multiple of
+        the data size and each data rank decodes its rows on its devices
+        (JAX ``data_shard_map`` / ``tp_shard_map``), tensor-parallel over its
+        model ranks where there are several."""
         self.config = config
         self.mesh = mesh
         if mesh is not None:
-            check_tp(config, mesh.size)
+            if mesh.model > 1:
+                check_tp(config, mesh.model)
+            if 'data' in mesh.axis_names and config.weight_dtype == 'int8':
+                raise NotImplementedError('int8 weights on a data mesh take the GSPMD path, '
+                                          'which is not ported (ROADMAP.md queue 1 item 14)')
+            if mesh.processes > 1:
+                raise NotImplementedError('serving on a mesh of several processes is not '
+                                          'ported (ROADMAP.md queue 1 item 14)')
             if device is not None and torch.device(device) != mesh.devices[0]:
                 raise ValueError(f'device {device} is not the mesh\'s first device '
                                  f'{mesh.devices[0]}')
@@ -617,6 +770,12 @@ class ValleAR:
         self.params = move_tree(params, self.device)
         self._qdecode = self._qdecode_src = None
         self._tparams = self._tparams_src = None
+        self._replicas_cache: dict = {}
+
+    @property
+    def data_mesh(self) -> bool:
+        """Whether the mesh has a data axis (rows split over data ranks)."""
+        return self.mesh is not None and 'data' in self.mesh.axis_names
 
     @property
     def decode_params(self) -> Params:
@@ -644,11 +803,36 @@ class ValleAR:
         if not (src is not None and src[0] is p and src[1] is p['transformer']):
             # Under tensor parallelism int4 packs per rank, from the float stack.
             int4 = self.config.weight_dtype == 'int4'
-            self._tparams = (compute_params(p, self.config) if self.mesh is None
+            self._tparams = (compute_params(p, self.config)
+                             if self.mesh is None or self.data_mesh
                              else shard_stack((self.params if int4 else p)['transformer'],
                                               self.mesh, self.config.torch_dtype, int4))
             self._tparams_src = (p, p['transformer'])
         return p, self._tparams
+
+    def replicas(self, params: Params | None = None):
+        """One (params, tp) per local data rank of a data mesh: the decode
+        params (or ``params``) on the data rank's first device, and under a
+        model axis its ('model',) mesh with the stack split over it (made
+        once per params tree; int4 packs per rank from the float stack)."""
+        from ..parallel import PerReplica
+        p = self.decode_params if params is None else params
+        hit = self._replicas_cache.get(id(p))
+        if hit is not None and hit[0] is p:
+            return hit[1]
+        int4 = self.config.weight_dtype == 'int4' and params is None
+        out = PerReplica()
+        for i in self.mesh.local_data:
+            sub = self.mesh.replica(i)
+            dev = sub.devices[0]
+            rp = p if dev == self.device else move_tree(p, dev)
+            tp = None
+            if sub.size > 1:
+                src = (self.params if int4 else p)['transformer']
+                tp = (sub, shard_stack(src, sub, self.config.torch_dtype, int4))
+            out.append((rp, tp))
+        self._replicas_cache[id(p)] = (p, out)
+        return out
 
     def prefill(self, tokens: torch.Tensor, tokens_lens: torch.Tensor, codes: torch.Tensor,
                 codes_lens: torch.Tensor, generator: torch.Generator):
@@ -727,6 +911,11 @@ class ValleAR:
         codes0_list = [torch.cat([torch.tensor([self.bos_token]),
                                   torch.as_tensor(c, dtype=torch.long)[:, 0]])
                        for c in prompt_codes_list]
+        bsz = len(tokens_list)
+        if self.data_mesh:     # rows padded to a multiple of the data size (row 0 again)
+            pad_rows = (-bsz) % self.mesh.data
+            tokens_list = tokens_list + [tokens_list[0]] * pad_rows
+            codes0_list = codes0_list + [codes0_list[0]] * pad_rows
         ttm = max(t.shape[0] for t in tokens_list)
         pm = max(c.shape[0] for c in codes0_list)
         if bucket:
@@ -742,17 +931,60 @@ class ValleAR:
         if generator is None:
             generator = default_generator(cfg, dev)
         with torch.inference_mode(), precision_scope(cfg):
-            params, tparams = self._decode_tparams() if self.mesh else (self.decode_params,
-                                                                        None)
-            codes_buf, _, best = _decode_fn(params, tokens, tokens_lens, codes, codes_lens, cfg,
-                                            generator, clock,
-                                            None if self.mesh is None else (self.mesh, tparams))
+            if self.data_mesh:
+                codes_buf, best = self._data_decode(tokens, tokens_lens, codes, codes_lens,
+                                                    generator, clock)
+            else:
+                params, tparams = self._decode_tparams() if self.mesh else (
+                    self.decode_params, None)
+                codes_buf, _, best = _decode_fn(
+                    params, tokens, tokens_lens, codes, codes_lens, cfg, generator, clock,
+                    None if self.mesh is None else (self.mesh, tparams))
         codes_buf, best = codes_buf.cpu(), best.cpu()
         out = []
-        for i in range(len(tokens_list)):
+        for i in range(bsz):
             row = codes_buf[i, int(best[i])][pm:]
             out.append(row[row != self.eos_token])
         return out
+
+    def _data_decode(self, tokens, tokens_lens, codes, codes_lens, generator, clock):
+        """``_decode_fn`` per data rank on its rows, each with its own
+        generator (``replica_generators``): ``parallel.data_shard_map`` on a
+        data-only mesh, ``parallel.tp_shard_map`` (tensor-parallel over the
+        data rank's model ranks) under a model axis, as JAX ``ValleAR``
+        picks.  Returns (codes_buf, best) of every row on the first device."""
+        from ..parallel import PerReplica, data_shard_map, tp_shard_map
+        cfg, mesh = self.config, self.mesh
+        reps = self.replicas()
+        rows = (tokens, tokens_lens, codes, codes_lens)
+        gens = PerReplica(replica_generators(generator, mesh))
+        if mesh.model == 1:
+            def body(rep, tokens, tokens_lens, codes, codes_lens, gen):
+                codes_buf, _, best = _decode_fn(rep[0], tokens, tokens_lens, codes,
+                                                codes_lens, cfg, gen, clock, None)
+                return codes_buf, best
+            return data_shard_map(mesh, body, 6, (1, 2, 3, 4), 2)(reps, *rows, gens)
+
+        def tp_body(sub, trees, params, tokens, tokens_lens, codes, codes_lens, gen):
+            codes_buf, _, best = _decode_fn(params, tokens, tokens_lens, codes, codes_lens,
+                                            cfg, gen, clock, (sub, trees))
+            return codes_buf, best
+        trees = [t for _, (_, group) in reps for t in group]
+        return tp_shard_map(mesh, tp_body, 7, (2, 3, 4, 5), 2)(
+            trees, PerReplica(p for p, _ in reps), *rows, gens)
+
+
+def replica_generators(generator: torch.Generator, mesh) -> list[torch.Generator]:
+    """One generator per local data rank of ``mesh``, on its first device,
+    seeded from one draw of ``generator`` and the data rank (JAX folds the
+    data index into the key): the data ranks sample apart, and greedy
+    decodes do not read them."""
+    base = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
+    out = []
+    for i in mesh.local_data:
+        seed = int(np.random.SeedSequence([base, i]).generate_state(1, np.uint64)[0]) % 2 ** 63
+        out.append(torch.Generator(device=mesh.group(i)[0]).manual_seed(seed))
+    return out
 
 
 class DecodeStream:

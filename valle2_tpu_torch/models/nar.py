@@ -26,8 +26,10 @@ from ..config import ConfigValle, bucket_len, precision_scope, resolve_device
 from ..ops import (add_positional, build_pad_mask, cast_to_compute, categorical, embedding,
                    embedding_init, linear, linear_init, mask_to_bias, sinusoidal_table,
                    transformer, transformer_init)
+from ..ops.nn import base_generator, randint, uniform
 from ..ops.transformer import map_tree, transformer_tp
-from .ar import MAX_POS, check_max_pos, default_generator, masked_ce, move_tree
+from .ar import (MAX_POS, check_max_pos, default_generator, masked_ce, mesh_loss, move_tree,
+                 run_stack)
 
 Params = dict[str, Any]
 
@@ -88,9 +90,9 @@ def corrupt_conditioning(codes: torch.Tensor, prefix_len, p: float,
     other codebooks stay as they are.  Returns a new tensor."""
     b, t, _ = codes.shape
     dev = codes.device
-    mask = torch.rand((b, t), generator=generator, device=dev) < p
+    mask = uniform((b, t), generator, dev) < p
     mask = mask & (torch.arange(t, device=dev)[None, :] >= prefix_len)
-    rand = torch.randint(0, v, (b, t), generator=generator, device=dev, dtype=codes.dtype)
+    rand = randint(0, v, (b, t), generator, dev, codes.dtype)
     out = codes.clone()
     out[:, :, 0] = torch.where(mask, rand, codes[:, :, 0])
     return out
@@ -98,18 +100,17 @@ def corrupt_conditioning(codes: torch.Tensor, prefix_len, p: float,
 
 def forward_stage(params: Params, config: ConfigValle, x_tok: torch.Tensor,
                   codes_emb: torch.Tensor, stage: torch.Tensor, bias: torch.Tensor | None,
-                  generator: torch.Generator | None = None,
-                  flash: dict | None = None) -> torch.Tensor:
+                  generator=None, flash: dict | None = None, group=None) -> torch.Tensor:
     """One stage's transformer pass → logits (b, T_codes, V) f32 for codebook
     ``stage`` (a (1,) long tensor: conditioning row and head gathered on the
-    device)."""
+    device); ``group``: the stack over a data rank's model ranks
+    (``ar.run_stack``)."""
     pe = sinusoidal_table(MAX_POS, config.d_model, device=x_tok.device)
     drop = config.dropout if generator is not None else 0.0
     codes_emb = add_positional(pe, codes_emb, dropout_rate=drop, generator=generator)
     x = torch.cat([x_tok, codes_emb], dim=1).to(config.torch_dtype)
     cond = params['stage_embs'].index_select(0, stage - 1)                 # (1, d)
-    y = transformer(params['transformer'], x, config.n_heads, bias, cond, flash=flash,
-                    dropout_rate=drop, generator=generator, remat=config.remat)
+    y = run_stack(params, config, x, bias, cond, flash, drop, generator, group)
     head = params['proj_layers'].index_select(0, stage - 1)[0]             # (d, V)
     return (y[:, x_tok.shape[1]:] @ head).float()
 
@@ -117,34 +118,67 @@ def forward_stage(params: Params, config: ConfigValle, x_tok: torch.Tensor,
 def draw_stage(config: ConfigValle, generator: torch.Generator) -> torch.Tensor:
     """The step's stage, uniform in [1, nq - 1], as a (1,) long tensor on the
     generator's device (no host sync)."""
+    generator = base_generator(generator)
     return torch.randint(1, config.num_quantizers, (1,), generator=generator,
                          device=generator.device)
 
 
 def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-            generator: torch.Generator, train: bool = True):
+            generator: torch.Generator, train: bool = True, mesh=None):
     """Stage-sampled NAR loss: draws the stage from ``generator``, then
     ``loss_at_stage``.  ``train=False`` keeps the draw and turns dropout and
-    conditioning corruption off (evaluation)."""
+    conditioning corruption off (evaluation).  ``mesh``: see
+    ``loss_at_stage``; every data rank takes the one stage."""
     stage = draw_stage(config, generator)
-    return loss_at_stage(params, config, batch, stage, generator if train else None)
+    return loss_at_stage(params, config, batch, stage, generator if train else None, mesh)
 
 
 def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-                  stage, generator: torch.Generator | None = None):
+                  stage, generator: torch.Generator | None = None, mesh=None):
     """The NAR loss body at a given ``stage`` (int or (1,) tensor);
     ``generator`` None = no dropout and no corruption.  Returns (loss,
-    metrics) with metrics {'loss', 'acc', 'stage', 'n_valid'} detached."""
-    codes, tokens = batch['codes'].long(), batch['tokens'].long()
-    codes_lens, tokens_lens = batch.get('codes_lens'), batch.get('tokens_lens')
+    metrics) with metrics {'loss', 'acc', 'stage', 'n_valid'} detached.
+    ``mesh``: ``params`` is the ranks' trees; the acoustic prefix follows the
+    WHOLE batch's longest row and the loss its count of positions
+    (``ar.mesh_loss``)."""
+    codes = batch['codes']
+    codes_lens = batch.get('codes_lens')
     dev = codes.device
-    b, t_codes, nq = codes.shape
-    t_tok = tokens.shape[1]
+    b, t_codes, _ = codes.shape
     stage = torch.as_tensor(stage, dtype=torch.long, device=dev).reshape(1)
     # The acoustic prefix follows the batch's longest TRUE length, so the
     # objective does not move with the bucket the batch was padded to.
     max_true = codes_lens.max() if codes_lens is not None else t_codes
     prefix_len = prefix_length(config, max_true)
+    pos = torch.arange(t_codes, device=dev)[None, :]
+    valid = pos >= prefix_len
+    if codes_lens is not None:
+        if config.mask_loss_pads:
+            valid = valid & (pos < codes_lens[:, None])
+        else:
+            valid = (valid & (pos < max_true)).expand(b, t_codes)
+    if mesh is not None:
+        def rows_loss(p, rows, draws, valid_rows, denom, group, flash_ok):
+            loss, acc, _ = _stage_rows(p, config, rows, stage.to(valid_rows.device), draws,
+                                       prefix_len, valid_rows, denom, group, flash_ok)
+            return loss, acc
+        return mesh_loss(rows_loss, params, config, batch, generator, mesh,
+                         valid.expand(b, t_codes), {'stage': stage[0]}, n_valid=valid.sum())
+    loss, acc, n_valid = _stage_rows(params, config, batch, stage, generator, prefix_len, valid)
+    return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'stage': stage[0],
+                  'n_valid': n_valid.detach()}
+
+
+def _stage_rows(params: Params, config: ConfigValle, batch: dict, stage, generator,
+                prefix_len, valid, denom=None, group=None, flash_ok: bool = True):
+    """(loss, acc, n_valid) of ``loss_at_stage`` on one device's rows, the
+    prefix and the counted positions given; ``group`` / ``flash_ok`` as in
+    ``ar.mesh_rows``."""
+    codes, tokens = batch['codes'].long(), batch['tokens'].long()
+    codes_lens, tokens_lens = batch.get('codes_lens'), batch.get('tokens_lens')
+    dev = codes.device
+    b, t_codes, nq = codes.shape
+    t_tok = tokens.shape[1]
     params = cast_to_compute(params, config)
     pe = sinusoidal_table(MAX_POS, config.d_model, device=dev)
     drop = config.dropout if generator is not None else 0.0
@@ -157,7 +191,7 @@ def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Te
     codes_emb = prepare_audio_embedding(params, cond_codes, stage, prefix_len)
 
     bias, flash = None, None
-    if config.flash_enabled(dev):
+    if flash_ok and config.flash_enabled(dev):
         tv = tokens_lens if tokens_lens is not None else torch.full((b,), t_tok, device=dev)
         ce = (t_tok + codes_lens if codes_lens is not None
               else torch.full((b,), t_tok + t_codes, device=dev))
@@ -171,18 +205,10 @@ def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Te
             pad[:, :t_tok] |= build_pad_mask(tokens_lens, t_tok)
         bias = mask_to_bias(pad)[:, None, None, :]
 
-    logits = forward_stage(params, config, x_tok, codes_emb, stage, bias, generator, flash)
+    logits = forward_stage(params, config, x_tok, codes_emb, stage, bias, generator, flash,
+                           group)
     target = codes.index_select(2, stage)[..., 0]
-    pos = torch.arange(t_codes, device=dev)[None, :]
-    valid = pos >= prefix_len
-    if codes_lens is not None:
-        if config.mask_loss_pads:
-            valid = valid & (pos < codes_lens[:, None])
-        else:
-            valid = (valid & (pos < max_true)).expand(target.shape)
-    loss, acc, n_valid = masked_ce(logits, target, valid)
-    return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'stage': stage[0],
-                  'n_valid': n_valid.detach()}
+    return masked_ce(logits, target, valid, denom)
 
 
 def _generate_fn(params: Params, tokens: torch.Tensor, tokens_len: torch.Tensor,

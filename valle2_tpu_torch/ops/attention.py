@@ -15,7 +15,7 @@ from typing import Any
 import torch
 
 from .masks import NEG_INF
-from .nn import linear, linear_init, linear_row_parallel
+from .nn import column_input, linear, linear_init, linear_row_parallel
 
 Params = dict[str, Any]
 
@@ -106,16 +106,33 @@ def mha(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = No
     return out
 
 
+def flash_shard_mesh(mesh, batch: int, n_heads: int) -> bool:
+    """Whether the training flash kernel runs on a mesh (JAX
+    ``flash_shard_mesh``'s answer), decided from the shapes before any
+    launch: without a mesh (or with one rank), or where the rows divide the
+    data axis and the heads the model axis (each (data, model) shard then
+    runs the kernel on its rows and its local heads, ``mha_tp``); otherwise
+    the caller takes the plain route (the bias)."""
+    if mesh is None or mesh.size == 1:
+        return True
+    return batch % mesh.data == 0 and n_heads % mesh.model == 0
+
+
 def mha_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
            bias: torch.Tensor | None = None, return_kv: bool = False,
-           flash: dict | None = None, residual: list[torch.Tensor] | None = None):
+           flash: dict | None = None, residual: list[torch.Tensor] | None = None,
+           seq: list[tuple[int, int]] | None = None):
     """``mha`` under tensor parallelism (JAX ``mha`` with ``tp_axis``): rank
     r's fused qkv holds its ``n_heads`` local heads (``tp_permute_qkv``), it
-    attends over them (the flash kernel #1 on the card), and the row-split
-    output projection sums the ranks' partials (``linear_row_parallel``,
-    which adds ``residual`` where given).  Returns one output per rank, or
-    (outs, ks, vs) with each rank's local k/v."""
+    attends over them (the flash kernels #1 / #2 forward and #3 or #4 + #5
+    backward on the card, on the rank's rows and heads, made contiguous),
+    and the row-split output projection sums the ranks' partials
+    (``linear_row_parallel``, which adds ``residual`` where given).  The
+    input enters through ``nn.column_input`` (``seq``: sequence parallelism,
+    each rank holding its slice of the positions).  Returns one output per
+    rank, or (outs, ks, vs) with each rank's local k/v."""
     from ..parallel.mesh import on_device
+    xs = column_input(xs, seq)
     merged, ks, vs = [], [], []
     for p, x in zip(ps, xs):
         with on_device(x.device):
@@ -130,7 +147,7 @@ def mha_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
         merged.append(merge_heads(attn))
         ks.append(k)
         vs.append(v)
-    outs = linear_row_parallel([p['out'] for p in ps], merged, residual=residual)
+    outs = linear_row_parallel([p['out'] for p in ps], merged, residual=residual, seq=seq)
     if return_kv:
         return outs, ks, vs
     return outs

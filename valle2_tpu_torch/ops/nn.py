@@ -74,21 +74,25 @@ def decode_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None,
-                        residual: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
+                        residual: list[torch.Tensor] | None = None,
+                        seq: list[tuple[int, int]] | None = None) -> list[torch.Tensor]:
     """Row-parallel linear under tensor parallelism (JAX
     ``linear_row_parallel``): rank r's weight ``ps[r]`` holds a slice of the
     input features and ``xs[r]`` the matching slice of the input, so its
     product is a partial sum; the bias is added once, after the sum.  One
     output per rank, on its device, equal across ranks; with ``residual``
     (one tensor per rank), ``residual[r] + out`` instead, the caller's
-    residual add.  int8 W8A8: the activation scale takes the amax over every
-    rank's slice (the solo row's scale) and the ranks' int32 products sum
-    exactly; dense and int4 W4A16 (the ranked packing) sum their float32
-    partials through ``kernels.tp_allreduce.tp_row_reduce`` (the
+    residual add.  int8 W8A8 (inference): the activation scale takes the
+    amax over every rank's slice (the solo row's scale) and the ranks' int32
+    products sum exactly; dense and int4 W4A16 (the ranked packing) sum
+    their float32 partials through ``psum_replicated_grad``: the
     rank-ordered sum with the bias, the cast and the residual add in one
-    epilogue: on the card 5c, one launch a card), or ``reduce``
-    (``tp_allreduce_plain``: the plain version's sum, the epilogue in torch
-    ops)."""
+    epilogue (``kernels.tp_allreduce.tp_row_reduce``: on the card 5c, one
+    launch a card), differentiable, or ``reduce`` (``tp_allreduce_plain``:
+    the plain version's sum, the epilogue in torch ops; not differentiated).
+    ``seq`` (sequence parallelism): rank r keeps the sequence slice
+    ``seq[r]`` of the sum (``reduce_scatter_seq``), and ``residual[r]`` is
+    that slice's."""
     if 'q' in ps[0]:
         x32s = [x.float() for x in xs]
         dev0 = xs[0].device
@@ -111,10 +115,12 @@ def linear_row_parallel(ps: list[Params], xs: list[torch.Tensor], reduce=None,
             wide = torch.promote_types(x.dtype, w.dtype)
             parts.append((x.to(wide) @ w.to(wide)).float())
     biases = [p.get('b') for p in ps]
-    if reduce is None:
-        from ..kernels.tp_allreduce import tp_row_reduce
-        return tp_row_reduce(parts, biases, residual, xs[0].dtype)
-    return _row_parallel_epilogue(ps, xs, reduce(parts), residual)
+    if reduce is not None:
+        return _row_parallel_epilogue(ps, xs, reduce(parts), residual)
+    if seq is not None:
+        outs = reduce_scatter_seq(parts, biases, xs[0].dtype, seq)
+        return outs if residual is None else [r + o for r, o in zip(residual, outs)]
+    return psum_replicated_grad(parts, biases, residual, xs[0].dtype)
 
 
 def _row_parallel_epilogue(ps, xs, ys, residual):
@@ -183,14 +189,67 @@ def cast_to_compute(params: Params, config) -> Params:
     return map_tree(lambda a: a.to(cdtype) if a.dtype == pdtype else a, params)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator``; identity when it is None
-    (deterministic / eval mode) or ``rate`` <= 0."""
+class ShardDraw:
+    """The random draws of a data rank's rows: every draw is the whole
+    batch's, as the solo step makes it from ``generator`` (``rows`` of them),
+    cut to rows [lo, hi).  Pass it where a generator goes (dropout, the
+    NAR's corruption); a scalar draw (the NAR stage) uses ``generator``
+    itself, so every data rank draws the same one."""
+
+    def __init__(self, generator: torch.Generator, lo: int, hi: int, rows: int):
+        self.generator, self.lo, self.hi, self.rows = generator, lo, hi, rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def cut(self, draw: torch.Tensor) -> torch.Tensor:
+        return draw[self.lo:self.hi]
+
+    def whole(self, shape) -> tuple:
+        return (self.rows, *tuple(shape)[1:])
+
+
+def base_generator(generator):
+    """The ``torch.Generator`` behind ``generator`` (a ``ShardDraw`` or one)."""
+    return generator.generator if isinstance(generator, ShardDraw) else generator
+
+
+def uniform(shape, generator, device=None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator`` on ``device`` (default: the
+    generator's); a ``ShardDraw`` draws the whole batch's and cuts its rows."""
+    if isinstance(generator, ShardDraw):
+        draw = torch.rand(generator.whole(shape), generator=generator.generator,
+                          device=generator.device)
+        return generator.cut(draw).to(device or generator.device)
+    return torch.rand(tuple(shape), generator=generator, device=device or generator.device)
+
+
+def randint(low: int, high: int, shape, generator, device=None, dtype=torch.long):
+    """``torch.randint`` as ``uniform`` draws (a ``ShardDraw`` cuts its rows)."""
+    if isinstance(generator, ShardDraw):
+        draw = torch.randint(low, high, generator.whole(shape), generator=generator.generator,
+                             device=generator.device, dtype=dtype)
+        return generator.cut(draw).to(device or generator.device)
+    return torch.randint(low, high, tuple(shape), generator=generator,
+                         device=device or generator.device, dtype=dtype)
+
+
+def dropout_mask(shape, rate: float, generator, device=None) -> torch.Tensor:
+    """The keep mask of an inverted dropout over ``shape``."""
+    return uniform(shape, generator, device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (or a ``ShardDraw``);
+    identity when it is None (deterministic / eval mode) or ``rate`` <= 0."""
     if generator is None or rate <= 0.0:
         return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator, x.device), rate)
 
 
 def ffn(p: Params, x: torch.Tensor, dropout_rate: float = 0.0,
@@ -201,12 +260,188 @@ def ffn(p: Params, x: torch.Tensor, dropout_rate: float = 0.0,
 
 
 def ffn_tp(ps: list[Params], xs: list[torch.Tensor], reduce=None,
-           residual: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
+           residual: list[torch.Tensor] | None = None, dropout_rate: float = 0.0,
+           generator=None, seq: list[tuple[int, int]] | None = None) -> list[torch.Tensor]:
     """``ffn`` under tensor parallelism: lin1 column-split (rank r's slice of
     the hidden width, its bias slice), lin2 row-split (``linear_row_parallel``
-    with ``reduce`` and ``residual``).  Inference only (no dropout)."""
+    with ``reduce``, ``residual`` and ``seq``).  The input enters the column
+    region through ``column_input``; the hidden dropout draws the solo
+    step's whole-width mask and cuts each rank's columns."""
+    xs = column_input(xs, seq)
     hs = [F.gelu(linear(p['lin1'], x)) for p, x in zip(ps, xs)]
-    return linear_row_parallel([p['lin2'] for p in ps], hs, reduce, residual)
+    if generator is not None and dropout_rate > 0.0:
+        w = hs[0].shape[-1]
+        keep = dropout_mask((*hs[0].shape[:-1], w * len(hs)), dropout_rate, generator)
+        hs = [apply_dropout(h, keep[..., r * w:(r + 1) * w].to(h.device), dropout_rate)
+              for r, h in enumerate(hs)]
+    return linear_row_parallel([p['lin2'] for p in ps], hs, reduce, residual, seq)
+
+
+# ---- Tensor parallelism under autograd (JAX ``psum_replicated_grad`` /
+# ``identity_psum_grad``): one tensor per rank, one controller.  Every model
+# rank carries the FULL cotangent of a replicated value: the row-parallel
+# sum differentiates as the identity, the input of a column-parallel region
+# sums its ranks' cotangents, and a replicated leaf's grad is any one
+# rank's (they are equal). ----
+
+def _sum_ranks(ts: list[torch.Tensor], dtype) -> list[torch.Tensor]:
+    """The rank-ordered float32 sum of ``ts``, rounded to ``dtype`` once,
+    on every rank's device."""
+    dev = ts[0].device
+    acc = ts[0].float()
+    for t in ts[1:]:
+        acc = acc + t.to(dev, torch.float32)
+    acc = acc.to(dtype)
+    return [acc.to(t.device) for t in ts]
+
+
+class _RowReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mp: int, nb: int, dtype, *args):
+        from ..kernels.tp_allreduce import tp_row_reduce
+        parts, biases, residuals = args[:mp], args[mp:mp + nb], args[mp + nb:]
+        ctx.mp, ctx.nb, ctx.nr = mp, nb, len(residuals)
+        ctx.bias_dtypes = [b.dtype for b in biases]
+        return tuple(tp_row_reduce(list(parts), list(biases) if nb else None,
+                                   list(residuals) if residuals else None, dtype))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        gb = [ct.float().sum(dim=tuple(range(ct.dim() - 1))).to(dt)
+              for ct, dt in zip(cts, ctx.bias_dtypes)]
+        return (None, None, None, *[ct.float() for ct in cts], *gb,
+                *(cts if ctx.nr else ()))
+
+
+def psum_replicated_grad(partials: list[torch.Tensor], biases=None, residual=None,
+                         dtype=torch.float32) -> list[torch.Tensor]:
+    """The row-parallel sum (5c with its epilogue, ``tp_row_reduce``:
+    round(x_r + round(s + b_r)) on rank r) whose backward is the identity:
+    rank r's partial takes rank r's cotangent of the sum, a bias its row
+    sum, a residual the cotangent itself."""
+    biases = [] if biases is None or any(b is None for b in biases) else list(biases)
+    residual = [] if residual is None else list(residual)
+    return list(_RowReduce.apply(len(partials), len(biases), dtype, *partials, *biases,
+                                 *residual))
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return tuple(_sum_ranks(list(cts), cts[0].dtype))
+
+
+def identity_psum_grad(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Megatron's *g*: identity forward; backward, every rank's input takes
+    the rank-ordered sum of the ranks' cotangents (each carries only its
+    local columns' share).  The input of a column-parallel region."""
+    return list(_SumGrad.apply(*xs))
+
+
+def seq_bounds(s: int, mp: int) -> list[tuple[int, int]]:
+    """Rank r's [lo, hi) of a length-``s`` sequence over ``mp`` ranks
+    (``torch.tensor_split``'s split: the first ``s % mp`` one longer)."""
+    sizes = [len(c) for c in torch.arange(s).tensor_split(mp)]
+    lo = [sum(sizes[:r]) for r in range(mp)]
+    return [(a, a + n) for a, n in zip(lo, sizes)]
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seq, *xs):
+        ctx.seq = seq
+        return tuple(torch.cat([x.to(dev) for x in xs], dim=1)
+                     for dev in [x.device for x in xs])
+
+    @staticmethod
+    def backward(ctx, *cts):
+        full = _sum_ranks(list(cts), cts[0].dtype)
+        return (None, *[f[:, lo:hi] for f, (lo, hi) in zip(full, ctx.seq)])
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seq, nb: int, dtype, *args):
+        from ..kernels.tp_allreduce import tp_row_reduce
+        mp = len(seq)
+        parts, biases = args[:mp], args[mp:]
+        ctx.seq, ctx.bias_dtypes = seq, [b.dtype for b in biases]
+        full = tp_row_reduce(list(parts), list(biases) if nb else None, None, dtype)
+        return tuple(f[:, lo:hi].contiguous() for f, (lo, hi) in zip(full, seq))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        full = [torch.cat([c.to(ct.device) for c in cts], dim=1) for ct in cts]
+        gb = [f.float().sum(dim=tuple(range(f.dim() - 1))).to(dt)
+              for f, dt in zip(full, ctx.bias_dtypes)]
+        return (None, None, None, *[f.float() for f in full], *gb)
+
+
+def all_gather_seq(xs: list[torch.Tensor], seq) -> list[torch.Tensor]:
+    """Sequence parallelism's gather before a column-parallel region: rank
+    r's slice ``seq[r]`` of each rank -> the whole sequence on every rank;
+    the backward reduce-scatters (each slice takes the rank-ordered sum of
+    the ranks' cotangents over its positions)."""
+    return list(_SeqGather.apply(seq, *xs))
+
+
+def reduce_scatter_seq(partials: list[torch.Tensor], biases, dtype, seq) -> list[torch.Tensor]:
+    """Sequence parallelism's row-parallel sum: 5c's sum with the bias
+    (``tp_row_reduce``), rank r keeping positions ``seq[r]``; the backward
+    all-gathers the ranks' slices of the cotangent."""
+    biases = [] if biases is None or any(b is None for b in biases) else list(biases)
+    return list(_SeqReduceScatter.apply(seq, len(biases), dtype, *partials, *biases))
+
+
+def column_input(xs: list[torch.Tensor], seq=None) -> list[torch.Tensor]:
+    """How a column-parallel region's input enters it: the sequence
+    all-gathered under ``seq``, else ``identity_psum_grad`` while autograd
+    records (nothing to do in inference)."""
+    if seq is not None:
+        return all_gather_seq(xs, seq)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return identity_psum_grad(xs)
+    return xs
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, partial, x):
+        ctx.partial = partial
+        return tuple(x.to(d) if torch.device(d) != x.device else x.view_as(x) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return None, None, _sum_ranks(list(cts), cts[0].dtype)[0] if ctx.partial else cts[0]
+
+
+class _TakeFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.devices = [x.device for x in xs]
+        return xs[0].view_as(xs[0])
+
+    @staticmethod
+    def backward(ctx, ct):
+        return tuple(ct.to(d) for d in ctx.devices)
+
+
+def broadcast_replicated(x: torch.Tensor, devices, partial: bool = False) -> list[torch.Tensor]:
+    """A replicated value onto every rank (the TP stack's input, the AdaLN
+    condition); the backward takes rank 0's cotangent, which every rank
+    carries whole, or with ``partial`` (each rank's use covers only its
+    positions: sequence parallelism) the rank-ordered sum of the ranks'."""
+    return list(_Broadcast.apply(list(devices), partial, x))
+
+
+def take_replicated(xs: list[torch.Tensor]) -> torch.Tensor:
+    """Rank 0's copy of a replicated value (the TP stack's output); the
+    backward hands the cotangent to every rank."""
+    return _TakeFirst.apply(*xs)
 
 
 def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,

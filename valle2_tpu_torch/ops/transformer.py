@@ -17,8 +17,9 @@ import torch
 
 from .attention import merge_heads, mha, mha_init, mha_tp, qkv_proj, sdpa, sdpa_chunked
 from .masks import NEG_INF
-from .nn import (adaln, adaln_init, dropout, ffn, ffn_init, ffn_tp, layernorm,
-                 layernorm_init, linear, linear_row_parallel)
+from .nn import (adaln, adaln_init, apply_dropout, base_generator, broadcast_replicated,
+                 dropout, dropout_mask, ffn, ffn_init, ffn_tp, layernorm, layernorm_init,
+                 linear, linear_row_parallel, seq_bounds, take_replicated)
 
 Params = dict[str, Any]
 
@@ -144,20 +145,38 @@ def _remat_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | 
     recompute draws from a copy set to the state the layer started from, so
     it replays the same masks (``preserve_rng_state`` restores only the
     default generators, not one passed in)."""
+    return _checkpointed(lambda gen, x: encoder_layer(p, x, n_heads, bias, cond, flash=flash,
+                                                      dropout_rate=dropout_rate, generator=gen),
+                         generator, dropout_rate, x)
+
+
+def _fork(generator, state):
+    """A copy of ``generator`` (a ``torch.Generator`` or an ``nn.ShardDraw``)
+    set to ``state``."""
+    from .nn import ShardDraw
+    base = base_generator(generator)
+    gen = torch.Generator(device=base.device)
+    gen.set_state(state)
+    if isinstance(generator, ShardDraw):
+        return ShardDraw(gen, generator.lo, generator.hi, generator.rows)
+    return gen
+
+
+def _checkpointed(layer, generator, dropout_rate: float, *xs):
+    """``layer(generator, *xs)`` under the non-reentrant checkpoint, its
+    recompute drawing from a fork of the generator at the layer's start."""
     from torch.utils.checkpoint import checkpoint
     draws = generator is not None and dropout_rate > 0.0
-    start = generator.get_state() if draws else None
+    start = base_generator(generator).get_state() if draws else None
     runs = []
 
-    def run(x):
+    def run(*xs):
         gen = generator
         if runs and draws:        # the backward's recompute
-            gen = torch.Generator(device=generator.device)
-            gen.set_state(start)
+            gen = _fork(generator, start)
         runs.append(None)
-        return encoder_layer(p, x, n_heads, bias, cond, flash=flash,
-                             dropout_rate=dropout_rate, generator=gen)
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+        return layer(gen, *xs)
+    return checkpoint(run, *xs, use_reentrant=False, preserve_rng_state=False)
 
 
 def transformer_prefill(p: Params, x: torch.Tensor, n_heads: int, max_len: int,
@@ -298,28 +317,90 @@ def _on(t, dev):
 
 
 def encoder_layer_tp(ps: list[Params], xs: list[torch.Tensor], n_heads: int,
-                     bias: torch.Tensor | None, cond: torch.Tensor | None,
-                     return_kv: bool = False, flash: dict | None = None):
-    """``encoder_layer`` (inference) over the ranks; ``n_heads`` per rank.
-    Both residual adds ride in the row-parallel sums' epilogue.  Returns the
-    ranks' outputs, or (outs, ks, vs) with their local k/v."""
-    hs = [_norm(p['norm1'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
+                     bias: torch.Tensor | None, cond, return_kv: bool = False,
+                     flash: dict | None = None, dropout_rate: float = 0.0, generator=None,
+                     seq: list[tuple[int, int]] | None = None):
+    """``encoder_layer`` over the ranks; ``n_heads`` per rank; ``cond`` one
+    tensor, or one per rank (``nn.broadcast_replicated`` under autograd).
+    Without dropout both residual adds ride in the row-parallel sums'
+    epilogue; with it, the three masks of the solo layer are drawn whole
+    from ``generator`` in the solo order and each rank applies its cut (its
+    FFN columns; under ``seq`` its positions).  Returns the ranks' outputs,
+    or (outs, ks, vs) with their local k/v."""
+    conds = cond if isinstance(cond, list) else [_on(cond, x.device) for x in xs]
+    drop = generator is not None and dropout_rate > 0.0
+    hs = [_norm(p['norm1'], x, c) for p, x, c in zip(ps, xs, conds)]
     res = mha_tp([p['attn'] for p in ps], hs, n_heads, bias, return_kv=return_kv, flash=flash,
-                 residual=xs)
-    xs = res[0] if return_kv else res
-    hs = [_norm(p['norm2'], x, _on(cond, x.device)) for p, x in zip(ps, xs)]
-    xs = ffn_tp([p['ffn'] for p in ps], hs, residual=xs)
+                 residual=None if drop else xs, seq=seq)
+    ys = res[0] if return_kv else res
+    xs = _dropout_add(xs, ys, dropout_rate, generator, seq) if drop else ys
+    hs = [_norm(p['norm2'], x, c) for p, x, c in zip(ps, xs, conds)]
+    ys = ffn_tp([p['ffn'] for p in ps], hs, residual=None if drop else xs,
+                dropout_rate=dropout_rate, generator=generator, seq=seq)
+    xs = _dropout_add(xs, ys, dropout_rate, generator, seq) if drop else ys
     return (xs, *res[1:]) if return_kv else xs
 
 
+def _dropout_add(xs, ys, rate: float, generator, seq):
+    """x_r + dropout(y_r) on every rank, from one whole mask (b, s, d) of
+    the solo draw, cut to each rank's positions under ``seq``."""
+    s = seq[-1][1] if seq is not None else ys[0].shape[1]
+    keep = dropout_mask((ys[0].shape[0], s, ys[0].shape[-1]), rate, generator)
+    out = []
+    for r, (x, y) in enumerate(zip(xs, ys)):
+        k = keep if seq is None else keep[:, seq[r][0]:seq[r][1]]
+        out.append(x + apply_dropout(y, k.to(y.device), rate))
+    return out
+
+
 def transformer_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,
-                   bias: torch.Tensor | None = None, cond: torch.Tensor | None = None,
-                   flash: dict | None = None) -> list[torch.Tensor]:
-    """``transformer`` (inference) over the ranks."""
+                   bias: torch.Tensor | None = None, cond=None, flash: dict | None = None,
+                   dropout_rate: float = 0.0, generator=None,
+                   seq: list[tuple[int, int]] | None = None,
+                   remat: bool = False) -> list[torch.Tensor]:
+    """``transformer`` over the ranks (see ``encoder_layer_tp``); ``remat``
+    checkpoints each layer as ``transformer`` does."""
     for i in range(num_layers_of(trees[0])):
-        xs = encoder_layer_tp([layer_slice(t, i) for t in trees], xs, n_heads, bias, cond,
-                              flash=flash)
+        lps = [layer_slice(t, i) for t in trees]
+        if remat and torch.is_grad_enabled():
+            xs = list(_checkpointed(
+                lambda gen, *xs, lps=lps: tuple(encoder_layer_tp(
+                    lps, list(xs), n_heads, bias, cond, flash=flash, dropout_rate=dropout_rate,
+                    generator=gen, seq=seq)), generator, dropout_rate, *xs))
+        else:
+            xs = encoder_layer_tp(lps, xs, n_heads, bias, cond, flash=flash,
+                                  dropout_rate=dropout_rate, generator=generator, seq=seq)
     return xs
+
+
+#: The stack leaves whose grads a sequence-parallel rank holds only in part.
+SP_SUMMED = ('/norm1/', '/norm2/')
+
+
+def transformer_mesh(trees: list[Params], x: torch.Tensor, n_heads: int, devices,
+                     bias: torch.Tensor | None = None, cond: torch.Tensor | None = None,
+                     flash: dict | None = None, dropout_rate: float = 0.0, generator=None,
+                     sequence_parallel: bool = False, remat: bool = False) -> torch.Tensor:
+    """The training stack over one data rank's model ranks (rank r's tree
+    ``trees[r]`` on ``devices[r]``, ``n_heads`` per rank): x (b, s, d) on
+    rank 0's device enters every rank (``nn.broadcast_replicated``; under
+    ``sequence_parallel`` rank r takes its positions ``nn.seq_bounds``), the
+    layers run with the TP autograd pair, and the output comes back to rank
+    0 (``nn.take_replicated``; the positions put back together).  Under
+    sequence parallelism each rank's norm grads cover only its positions:
+    the caller sums them over the ranks (``SP_SUMMED``); every other
+    replicated leaf's grad is whole on every rank."""
+    cond = None if cond is None else broadcast_replicated(cond, devices, sequence_parallel)
+    if sequence_parallel:
+        seq = seq_bounds(x.shape[1], len(devices))
+        xs = [x[:, lo:hi].to(d) for (lo, hi), d in zip(seq, devices)]
+        ys = transformer_tp(trees, xs, n_heads, bias, cond, flash, dropout_rate, generator,
+                            seq, remat)
+        return torch.cat([y.to(x.device) for y in ys], dim=1)
+    xs = broadcast_replicated(x, devices)
+    ys = transformer_tp(trees, xs, n_heads, bias, cond, flash, dropout_rate, generator,
+                        None, remat)
+    return take_replicated(ys)
 
 
 def transformer_prefill_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,

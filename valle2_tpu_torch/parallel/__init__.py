@@ -1,7 +1,16 @@
-"""Tensor-parallel serving over a ('model',) mesh (``valle2_tpu/parallel``)."""
+"""Meshes, the sharding rules and the multi-process runtime (``valle2_tpu/parallel``):
+data-parallel and tensor-parallel training and serving over a ('data', 'model') mesh."""
 
-from .mesh import (Mesh, make_mesh, make_model_mesh, on_device, shard_decode_params,
-                   shard_stack, tp_divisible, tp_permute_qkv, training_mesh)
+from .distributed import init_distributed, is_primary
+from .mesh import (Mesh, PerReplica, Sharded, data_rows, data_shard_map, device_put_global,
+                   gather_params, make_mesh, make_model_mesh, on_device, param_sharding,
+                   placement, sequence_parallel_spec, shard_batch,
+                   shard_decode_params, shard_params, shard_stack, tp_decode_specs,
+                   tp_divisible, tp_permute_qkv, tp_shard_map, tp_unpermute_qkv, training_mesh)
 
-__all__ = ['Mesh', 'make_mesh', 'make_model_mesh', 'on_device', 'shard_decode_params',
-           'shard_stack', 'tp_divisible', 'tp_permute_qkv', 'training_mesh']
+__all__ = ['Mesh', 'PerReplica', 'Sharded', 'data_rows', 'data_shard_map',
+           'device_put_global', 'gather_params', 'init_distributed', 'is_primary',
+           'make_mesh', 'make_model_mesh', 'on_device', 'param_sharding', 'placement',
+           'sequence_parallel_spec', 'shard_batch', 'shard_decode_params',
+           'shard_params', 'shard_stack', 'tp_decode_specs', 'tp_divisible', 'tp_permute_qkv',
+           'tp_shard_map', 'tp_unpermute_qkv', 'training_mesh']

@@ -16,8 +16,10 @@ emissions in one batched ``_nar_wav``.  ASR (``ValleASRPipeline``): audio →
 codec encode → the direction-swapped AR decode over the phoneme vocabulary,
 batched.  ``main`` is the command line of both; ``serve.py`` serves them
 over HTTP.  On a ('model',) mesh (``parallel.make_model_mesh``) the AR and the
-NAR of ``batch_synthesize`` run tensor-parallel.  Not ported yet
-(ROADMAP.md): the data axis and the GSPMD fallback (queue 1 item 14).
+NAR of ``batch_synthesize`` run tensor-parallel; on a ('data', 'model') mesh
+(``parallel.make_mesh``) each data rank runs the pipeline on its rows,
+tensor-parallel over its model ranks.  Not ported yet (ROADMAP.md): the
+GSPMD fallback (queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -183,24 +185,31 @@ class ValleTTS:
                  nar: ValleNAR | None = None, codec: Encodec | None = None,
                  tokenizer: PhonemeTokenizer | None = None, device=None, mesh=None):
         """``mesh``: a ``parallel.Mesh``: ``batch_synthesize`` (and so
-        ``synthesize_fused``) runs the AR and the NAR tensor-parallel over its
-        ranks (JAX ``ValleTTS`` on a ('model',) mesh); the codec, the prompt
-        encode and everything outside the two stacks run on its first
-        device, as do streaming and the hub (on no mesh in the JAX package
-        either).  int8 weights and splits that do not divide take the JAX
-        package's GSPMD path, which is not ported, and raise."""
+        ``synthesize_fused``) runs over it.  On a ('model',) mesh the AR and
+        the NAR run tensor-parallel over its ranks (JAX ``ValleTTS`` on a
+        ('model',) mesh); the codec, the prompt encode and everything
+        outside the two stacks run on its first device, as do streaming and
+        the hub (on no mesh in the JAX package either).  A ('data', 'model')
+        mesh pads the rows to a multiple of the data size and each data rank
+        runs the whole pipeline on its rows on its devices, tensor-parallel
+        over its model ranks where there are several, with its own generator
+        (``ar.replica_generators``).  int8 weights and splits that do not
+        divide take the JAX package's GSPMD path, which is not ported, and
+        raise."""
         self.config = config
         self.mesh = mesh
         if mesh is not None:
             if config.weight_dtype == 'int8':
                 raise NotImplementedError('int8 weights on a mesh take the GSPMD path, which '
                                           'is not ported (ROADMAP.md queue 1 item 14)')
-            ar_mod.check_tp(config, mesh.size)
+            if mesh.model > 1:
+                ar_mod.check_tp(config, mesh.model)
             if ar is not None and ar.mesh is not mesh:
                 raise ValueError('the AR model must be on the pipeline\'s mesh')
             device = mesh.devices[0] if device is None else device
         self.device = resolve_device(device)
         self._mesh_cache: dict[int, tuple] = {}
+        self._replica_cache: dict[tuple, tuple] = {}
         self.ar = ar if ar is not None else ValleAR(config, device=self.device, mesh=mesh)
         self.nar = nar if nar is not None else ValleNAR(config, device=self.device)
         self.codec = codec if codec is not None else Encodec(decode_dtype=config.dtype,
@@ -236,6 +245,59 @@ class ValleTTS:
             hit = self._mesh_cache[id(stack)] = (
                 stack, shard_stack(stack, self.mesh, self.config.torch_dtype))
         return hit[1]
+
+    def _replica_trees(self, i: int, nar_params, o_ar):
+        """Data rank ``i``'s NAR params and codec decoder on its first
+        device, and its TP context (its ('model',) mesh, the AR's and the
+        NAR's rank trees) or None; made once per params tree."""
+        key = (i, id(nar_params), id(o_ar))
+        hit = self._replica_cache.get(key)
+        if hit is not None and hit[0] is nar_params and hit[1] is o_ar:
+            return hit[2]
+        sub = self.mesh.replica(i)
+        dev = sub.devices[0]
+        nar = nar_params if dev == self.device else ar_mod.move_tree(nar_params, dev)
+        codec = self.codec.dec_params if dev == self.device else \
+            ar_mod.move_tree(self.codec.dec_params, dev)
+        tp = None
+        if sub.size > 1:
+            ar_view = self.ar.replicas(o_ar)[i - self.mesh.local_data.start]
+            tp = (sub, ar_view[1][1],
+                  shard_stack(nar_params['transformer'], sub, self.config.torch_dtype))
+        out = (nar, codec, tp)
+        self._replica_cache[key] = (nar_params, o_ar, out)
+        return out
+
+    def _data_synthesize(self, o_ar, o_nar, args, generator, clock):
+        """``_fused_tts_fn`` per data rank on its rows, each with its own
+        generator: ``parallel.data_shard_map`` on a data-only mesh,
+        ``parallel.tp_shard_map`` (the AR's and the NAR's rank trees per
+        model rank) under a model axis, as JAX ``ValleTTS`` picks.  Returns
+        (waveforms, gen_lens, codes) of every row on the first device."""
+        from .parallel import PerReplica, data_shard_map, tp_shard_map
+        cfg, mesh = self.config, self.mesh
+        ar_reps = self.ar.replicas(o_ar)
+        nar_params = self.nar.params if o_nar is None else o_nar
+        reps, trees = PerReplica(), []
+        for k, i in enumerate(mesh.local_data):
+            nar, codec, tp = self._replica_trees(i, nar_params, o_ar)
+            reps.append((ar_reps[k][0], nar, codec))
+            if tp is not None:
+                trees.extend(zip(tp[1], tp[2]))
+        gens = PerReplica(ar_mod.replica_generators(generator, mesh))
+        if mesh.model == 1:
+            def body(rep, tokens, tokens_lens, codes, p_lens, gen):
+                ar_p, nar_p, codec_p = rep
+                return self._fused_jit(ar_p, nar_p, codec_p, tokens, tokens_lens, codes,
+                                       p_lens, cfg, gen, clock, None)
+            return data_shard_map(mesh, body, 6, (1, 2, 3, 4), 3)(reps, *args, gens)
+
+        def tp_body(sub, group, rep, tokens, tokens_lens, codes, p_lens, gen):
+            ar_p, nar_p, codec_p = rep
+            tp = (sub, [a for a, _ in group], [n for _, n in group])
+            return self._fused_jit(ar_p, nar_p, codec_p, tokens, tokens_lens, codes, p_lens,
+                                   cfg, gen, clock, tp)
+        return tp_shard_map(mesh, tp_body, 7, (2, 3, 4, 5), 3)(trees, reps, *args, gens)
 
     def prepare_prompt(self, prompt_audio, prompt_sr: int, prompt_text: str
                        ) -> tuple[np.ndarray, np.ndarray]:
@@ -274,6 +336,11 @@ class ValleTTS:
         tokens_list = [np.concatenate([np.asarray(pt, np.int64), self.tokenizer(text)])
                        for text, pt in zip(texts, prompt_tokens_list)]
         codes_list = [np.asarray(c, np.int64) for c in prompt_codes_list]
+        data_mesh = self.mesh is not None and 'data' in self.mesh.axis_names
+        if data_mesh:          # rows padded to a multiple of the data size (row 0 again)
+            pad_rows = (-len(texts)) % self.mesh.data
+            tokens_list = tokens_list + [tokens_list[0]] * pad_rows
+            codes_list = codes_list + [codes_list[0]] * pad_rows
         ttm = max(len(t) for t in tokens_list)
         pm = max(len(c) for c in codes_list)
         if bucket:
@@ -292,11 +359,15 @@ class ValleTTS:
         with torch.inference_mode(), precision_scope(cfg):
             # The AR decodes from its (possibly quantized) decode params; the
             # NAR and the codec stay in full precision, as in the JAX package.
-            wavs, gen_lens, out_codes = self._fused_jit(
-                self.ar.decode_params if o_ar is None else o_ar,
-                self.nar.params if o_nar is None else o_nar, self.codec.dec_params,
-                to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens,
-                cfg, generator, clock, self._mesh_trees(o_ar, o_nar))
+            args = (to_dev(tokens, torch.long), tokens_lens, to_dev(codes, torch.long), p_lens)
+            if data_mesh:
+                wavs, gen_lens, out_codes = self._data_synthesize(o_ar, o_nar, args,
+                                                                  generator, clock)
+            else:
+                wavs, gen_lens, out_codes = self._fused_jit(
+                    self.ar.decode_params if o_ar is None else o_ar,
+                    self.nar.params if o_nar is None else o_nar, self.codec.dec_params,
+                    *args, cfg, generator, clock, self._mesh_trees(o_ar, o_nar))
         wavs, gen_lens, out_codes = wavs.cpu().numpy(), gen_lens.cpu().numpy(), \
             out_codes.cpu().numpy()
         wall = time.perf_counter() - t0
