@@ -360,18 +360,39 @@ Phases, each printing JSON lines:
                 four-card call only): the 204M AR step (b=16 x 640, bf16)
                 solo, at data=4 (zero1 off and on), 2 x 2 and model=4 over
                 the cards: ms a step and each card's peak memory.
+39. pipe     -- phase_pipe, pipeline parallelism on one card (virtual
+                ranks ['cuda:0'] * n): (a) at the serving width, f32 with
+                TF32 off, b=8 x (64 + 256), the AR and the NAR loss, every
+                leaf's grad and the params after one AdamW step at pipe 4
+                GPipe M=4, pipe 4 1F1B M=8 and data 2 x pipe 2 x model 2
+                with zero1 against the solo step at dropout 0
+                (MESH_GRAD_RTOL, MESH_PARAM_LR), and at dropout 0.1 (the
+                pipeline's draw rule) 1F1B against GPipe; (b) a 2-step
+                Trainer.fit at examples/train_ar_pp.json's mesh (data 2 x
+                pipe 4) at batch 8.  Counts zeroed after the solo
+                references, read after (b): 5c launched, no plain fused
+                call (the path 'pipe').  Then the negative control (a grad
+                completion that drops stage 0's embedding grads must fail
+                MESH_GRAD_RTOL), 5c under autograd at a stage's shape
+                against its plain version, and (c) the 204M AR step (bf16,
+                b=16 x (128 + 512), pipe 4) with GPipe and 1F1B at M=8 and
+                16: ms a step and the card's peak memory, 1F1B's peak at
+                M=16 below GPipe's.  ``phase_pipe_cards`` (the four-card
+                call only): the same 204M step solo and at pipe 4 and pipe
+                2 x model 2 over the cards, GPipe and 1F1B at M=8: ms a
+                step, each card's peak memory and busy share.
 Phase 19 adds a speculative run with decode_chunk 512 (every verify pass
 chunked); phase 20 adds the 204M stack at its default 4 beams through
 batch_synthesize, where chunk_for picks 512 of S=1024 on its own (every
 step chunked), and its greedy IDs in f32 (64 steps) kernels == plain route.
 
 ``python3 chip_smoke.py --mesh-cards 4`` on a four-card host runs phases 1,
-2, ``phase_tp_cards`` and 31 over the four cards, ``phase_tp_large`` and
-``phase_mesh_cards`` (after checking peer access between every pair of
-cards); with no argument it needs one card.
+2, ``phase_tp_cards`` and 31 over the four cards, ``phase_tp_large``,
+``phase_mesh_cards`` and ``phase_pipe_cards`` (after checking peer access
+between every pair of cards); with no argument it needs one card.
 ``main`` runs them in this order: 1-3, 16, 18, 21, 24, 32, 33, 30, 11, 4, 5,
 36, 34, 17, 19, 22, 25, 26, 31, 12-14, 35, 6-8, 15, 9, 37, 10, 23, 20, 27-29,
-38.
+38, 39.
 Then one ``kernels`` JSON line, the raw ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check exits non-zero; there
 is no CPU fallback.
@@ -5809,8 +5830,9 @@ def mesh_grads(model: str, cfg, batch, on, dev):
                                 tt.tree_leaves(tt.gather_state(state))]
 
 
-def mesh_step_ms(cfg, model: str, b: int, frames: int, n: int, on, dev) -> dict:
-    """Wall ms a train step (after two warm-up steps) and each card's peak
+def mesh_step_ms(cfg, model: str, b: int, frames: int, n: int, on, dev,
+                 warmup: int = 2) -> dict:
+    """Wall ms a train step (after ``warmup`` steps) and each card's peak
     memory, solo (``on`` None) or on ``on``."""
     import time
 
@@ -5828,7 +5850,7 @@ def mesh_step_ms(cfg, model: str, b: int, frames: int, n: int, on, dev) -> dict:
     step = tt.make_train_step(cfg, model, on)
     data = bench_data(model, b, frames, dev)
     losses = []
-    for _ in range(2):
+    for _ in range(warmup):
         state, m = step(state, data, 1)
         losses.append(m['loss'])
     for d in cards:
@@ -5857,7 +5879,6 @@ def mesh_step_split(cfg, model: str, b: int, frames: int, on, dev) -> dict:
     share of the step from torch.profiler (the union of its kernels'
     intervals over the step's wall)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from valle2_tpu_torch import train as tt
     cards = sorted({torch.device(d) for d in (on.devices if on else [dev])},
@@ -5886,22 +5907,9 @@ def mesh_step_split(cfg, model: str, b: int, frames: int, on, dev) -> dict:
             torch.cuda.synchronize(d)
         t4 = time.perf_counter()
     wall = t4 - t0
-    busy = {}
-    for d in cards:
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA and e.device_index == d.index)
-        total, end = 0.0, None
-        for a, z in spans:
-            if end is None or a > end:
-                total += z - a
-                end = z
-            elif z > end:
-                total += z - end
-                end = z
-        busy[str(d)] = total / 1e6 / wall          # profiler times are in microseconds
     return dict(wall_ms=1e3 * wall, forward_enqueue_ms=1e3 * (t1 - t0),
                 backward_ms=1e3 * (t2 - t1), update_enqueue_ms=1e3 * (t3 - t2),
-                wait_ms=1e3 * (t4 - t3), busy_share=busy)
+                wait_ms=1e3 * (t4 - t3), busy_share=card_busy(prof, cards, wall))
 
 
 def phase_mesh(smi: str) -> dict:
@@ -6104,6 +6112,323 @@ def phase_mesh_cards(devices, smi: str = '') -> None:
          dtype='bfloat16', warmup=warm, steps=steps, arms=out, split=split, card=smi)
 
 
+# Phase pipe: the training batch of (a) (b=8 x (64 + 256), 4 rows a data rank
+# at data 2), its arms (grid data x pipe x model, schedule, microbatches,
+# zero1), (b)'s fit (examples/train_ar_pp.json's mesh at batch 8), and (c)'s
+# timed arms at the 204M widths (schedule, microbatches) at b=16 x 512, pipe 4
+# on one card.  The limits are phase mesh's (MESH_GRAD_RTOL, MESH_PARAM_LR).
+PIPE_TRAIN = dict(b=8, frames=256)
+PIPE_ARMS = {'pipe4_gpipe_m4': ((1, 4, 1), 'gpipe', 4, False),
+             'pipe4_1f1b_m8': ((1, 4, 1), '1f1b', 8, False),
+             '2x2x2_zero1_1f1b_m2': ((2, 2, 2), '1f1b', 2, True)}
+PIPE_FIT = dict(example='train_ar_pp.json', batch=8, steps=2)
+PIPE_TIMED = (('gpipe', 8), ('1f1b', 8), ('gpipe', 16), ('1f1b', 16))
+PIPE_TIMED_STEPS = 2           # timed steps of each, after one warm-up step
+# The four-card arms (--mesh-cards 4): (data, pipe, model), schedule, M at the
+# 204M geometry, b=16 x 512.
+PIPE_CARDS_ARMS = {'pipe4_gpipe_m8': ((1, 4, 1), 'gpipe', 8),
+                   'pipe4_1f1b_m8': ((1, 4, 1), '1f1b', 8),
+                   'pipe2_model2_gpipe_m8': ((1, 2, 2), 'gpipe', 8),
+                   'pipe2_model2_1f1b_m8': ((1, 2, 2), '1f1b', 8)}
+
+
+@contextlib.contextmanager
+def dropped_stage0_embedding():
+    """The pipe axis's grad completion leaving stage 0's contribution to the
+    embeddings out (the stages' sum starts at stage 1): the fault phase
+    pipe's negative control must see in the grads."""
+    import torch
+    from valle2_tpu_torch import train as tt
+    inner = tt.MeshOptimizer._pipe_complete
+
+    def faulty(self, grads):
+        m, g = self.mesh.model, self.mesh.group_size
+        for base in range(0, len(grads), g):
+            for j in range(m):
+                for k, path in enumerate(self.paths):
+                    if not self.staged[k] and '_emb' in path:
+                        grads[base + j][k] = torch.zeros_like(grads[base + j][k])
+        return inner(self, grads)
+    tt.MeshOptimizer._pipe_complete = faulty
+    try:
+        yield
+    finally:
+        tt.MeshOptimizer._pipe_complete = inner
+
+
+def pipe_grads(model: str, cfg, batch, on, dev):
+    """``mesh_grads`` on a pipe mesh ``on``: (loss, the step's grads as whole
+    CPU tensors, the params after one AdamW step as whole CPU tensors) from
+    fresh seeded params through ``cfg.pp_schedule`` at ``cfg.pp_microbatches``,
+    the step generator's seed 1 (the NAR's stage is its first draw, as solo)."""
+    from valle2_tpu_torch import train as tt
+    from valle2_tpu_torch.parallel.pipeline import PipelineRun, pp_parts
+    from valle2_tpu_torch.parallel.pipeline_1f1b import one_f_one_b
+    state = tt.shard_state(on, tt.init_state(cfg, model, device=dev), cfg)
+    opt = state.opt_state
+    gen = tt.step_generator(1, 0, dev)
+    run = PipelineRun(cfg, on, state.params, pp_parts(model)(cfg, batch, gen), batch, gen,
+                      cfg.pp_microbatches, leaves=opt.ranks)
+    (one_f_one_b if cfg.pp_schedule == '1f1b' else PipelineRun.gpipe)(run)
+    grads = run.grads()
+    whole = opt.whole_grads(grads)
+    opt.update(grads)
+    return float(run.metrics()['loss']), whole, [p.detach().cpu() for p in
+                                                 tt.tree_leaves(tt.gather_state(state))]
+
+
+def apart(got, want) -> tuple[float, float]:
+    """(the worst leaf's largest |grad difference| over its largest |grad|,
+    the largest |param difference|) of two (loss, grads, params)."""
+    worst = max(float((g - w).abs().max()) / max(1e-30, float(w.abs().max()))
+                for g, w in zip(got[1], want[1]))
+    moved = max(float((p - w).abs().max()) for p, w in zip(got[2], want[2]))
+    return worst, moved
+
+
+def phase_pipe(smi: str) -> dict:
+    """Phase 39: pipeline parallelism on one card, virtual ranks
+    ['cuda:0'] * n.  (a) At the serving width, f32 with TF32 off, b=8 x (64 +
+    256): the AR and the NAR loss, every leaf's grad and the params after
+    one AdamW step on each of PIPE_ARMS (pipe 4 GPipe at M=4, pipe 4 1F1B at
+    M=8, data 2 x pipe 2 x model 2 with zero1) against the solo step
+    (MESH_GRAD_RTOL, MESH_PARAM_LR), at dropout 0 (the pipeline draws its
+    masks by its own rule, not the solo step's); at dropout 0.1 the GPipe and
+    the 1F1B step on one grid and seed within the same limits of each other
+    (the rule's masks, replayed by 1F1B's recompute).  (b) A 2-step
+    Trainer.fit from examples/train_ar_pp.json's mesh (data 2 x pipe 4) at
+    batch 8.  Counts zeroed after the solo references, read after (b): 5c
+    launched (the 2 x 2 x 2 arm's row-parallel sums), no plain fused call
+    (the path 'pipe').  Then the negative control (dropped_stage0_embedding
+    beyond MESH_GRAD_RTOL), 5c under autograd at a stage's shape against its
+    plain version, and (c) at the 204M widths in bf16, b=16 x (128 + 512),
+    pipe 4: ms a step and the card's peak memory of GPipe and 1F1B at M=8
+    and 16; 1F1B's peak at M=16 must be below GPipe's.  Returns the
+    launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from valle2_tpu_torch import train as tt
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.data import get_dataloaders
+    from valle2_tpu_torch.kernels import tp_allreduce as ta
+    from valle2_tpu_torch.ops import nn as tnn
+    from valle2_tpu_torch.parallel import make_pp_mesh, training_mesh
+
+    dev = torch.device('cuda:0')
+
+    def grid(args):
+        return make_pp_mesh(*args, ['cuda:0'] * (args[0] * args[1] * args[2]))
+
+    def cfg_for(arm=None):
+        base = dict(dropout=0.0, batch_size=PIPE_TRAIN['b'], matmul_precision='highest')
+        if arm is None:
+            return ConfigValle(**base)
+        args, sched, m, zero1 = PIPE_ARMS[arm]
+        return ConfigValle(**dict(base, mesh_data=args[0], mesh_pipe=args[1],
+                                  mesh_model=args[2], pp_schedule=sched,
+                                  pp_microbatches=m, zero1=zero1))
+
+    def batch(model):
+        return bench_data(model, PIPE_TRAIN['b'], PIPE_TRAIN['frames'], dev)
+    # the solo references (not counted)
+    refs = {m: mesh_grads(m, cfg_for(), batch(m), None, dev)
+            for m in ('ValleAR', 'ValleNAR')}
+    torch.cuda.synchronize()
+
+    reset_counters()
+    t0 = time.perf_counter()
+    train = {}
+    for model in ('ValleAR', 'ValleNAR'):
+        for arm, (args, _s, _m, _z) in PIPE_ARMS.items():
+            c = cfg_for(arm)
+            got = pipe_grads(model, c, batch(model), grid(args), dev)
+            worst, moved = apart(got, refs[model])
+            r_loss = refs[model][0]
+            if (abs(got[0] - r_loss) > 1e-5 * max(1.0, abs(r_loss))
+                    or worst > MESH_GRAD_RTOL or moved > MESH_PARAM_LR * c.lr):
+                fail(f'pipe ({model}, {arm}): loss {got[0]} against solo {r_loss}, worst '
+                     f'grad share {worst:.3e}, params apart {moved:.3e}')
+            train[f'{model}_{arm}'] = dict(loss=got[0], solo_loss=r_loss,
+                                           worst_grad_share=worst, params_apart=moved)
+    dropout = {}
+    for model in ('ValleAR', 'ValleNAR'):
+        runs = {}
+        for sched in ('gpipe', '1f1b'):
+            c = ConfigValle(dropout=0.1, batch_size=PIPE_TRAIN['b'],
+                            matmul_precision='highest', mesh_data=2, mesh_pipe=2,
+                            mesh_model=2, pp_schedule=sched, pp_microbatches=4)
+            runs[sched] = pipe_grads(model, c, batch(model), grid((2, 2, 2)), dev)
+        worst, moved = apart(runs['1f1b'], runs['gpipe'])
+        loss_1f1b, loss_gpipe = runs['1f1b'][0], runs['gpipe'][0]
+        if (abs(loss_1f1b - loss_gpipe) > 1e-6 * max(1.0, abs(loss_gpipe))
+                or worst > MESH_GRAD_RTOL or moved > MESH_PARAM_LR * c.lr):
+            fail(f'pipe ({model}, dropout 0.1): 1F1B against GPipe: loss {loss_1f1b} '
+                 f'against {loss_gpipe}, worst grad share {worst:.3e}, params '
+                 f'apart {moved:.3e}')
+        dropout[model] = dict(loss=runs['gpipe'][0], solo_loss_dropout0=refs[model][0],
+                              worst_grad_share=worst, params_apart=moved)
+    train_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        fcfg = dataclasses.replace(
+            ConfigValle.from_json(ROOT / 'examples' / PIPE_FIT['example']),
+            max_steps=PIPE_FIT['steps'], batch_size=PIPE_FIT['batch'],
+            log_every_n_steps=1, ckpt_every_n_steps=0, prefetch_batches=0,
+            ckpt_path=Path(tmp) / 'ckpt', log_path=Path(tmp) / 'logs')
+        on = training_mesh(fcfg, ['cuda:0'] * (fcfg.mesh_data * fcfg.mesh_pipe))
+        loader, _valid = get_dataloaders('ValleAR', fcfg, synthetic=True)
+        t1 = time.perf_counter()
+        fitted = tt.Trainer(fcfg, 'ValleAR', mesh=on, use_tensorboard=False).fit(
+            tt.init_state(fcfg, 'ValleAR', device=dev), loader)
+        fit_s = time.perf_counter() - t1
+        if fitted.step != PIPE_FIT['steps'] or not (Path(tmp) / 'ckpt' / 'ValleAR' /
+                                                    f'step_{PIPE_FIT["steps"]}').exists():
+            fail(f'pipe: Trainer.fit on {on.shape} ended at step {fitted.step}')
+    torch.cuda.synchronize()
+    launches = read_counters()
+    require_launches('pipe', launches, ('tp_allreduce',))
+    if plain_calls():
+        fail(f'pipe: {plain_calls()} plain fused-step calls')
+
+    # the negative control: stage 0's embedding grads left out of the sum
+    arm = 'pipe4_gpipe_m4'
+    with dropped_stage0_embedding():
+        faulty = pipe_grads('ValleAR', cfg_for(arm), batch('ValleAR'),
+                            grid(PIPE_ARMS[arm][0]), dev)
+    control, _moved = apart(faulty, refs['ValleAR'])
+    if control <= MESH_GRAD_RTOL:
+        fail(f'pipe: a dropped stage-0 embedding grad left the grads {control:.3e} '
+             f'apart, within the limit {MESH_GRAD_RTOL:.1e}')
+    train['control_dropped_stage0_embedding'] = dict(worst_grad_share=control,
+                                                     limit=MESH_GRAD_RTOL)
+
+    # 5c under autograd at the 2 x 2 x 2 arm's stage shape (a microbatch of
+    # 2 rows, s = 64 + 256, d 256) against its plain version
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s = PIPE_TRAIN['frames'] + PIPE_TRAIN['frames'] // 4
+    parts = [torch.randn(2, s, 256, generator=gen, device=dev).requires_grad_()
+             for _ in range(2)]
+    bias = [torch.randn(256, generator=gen, device=dev) for _ in range(2)]
+    res = [torch.randn(2, s, 256, generator=gen, device=dev) for _ in range(2)]
+    outs = tnn.psum_replicated_grad(parts, bias, res, torch.float32)
+    if not all(torch.equal(x, y) for x, y in
+               zip(outs, ta.tp_row_reduce_plain([p.detach() for p in parts], bias, res))):
+        fail('pipe: 5c under autograd differs from its plain version')
+    ct = [torch.randn_like(x) for x in outs]
+    grads = torch.autograd.grad(outs, parts, ct)
+    if not all(torch.equal(g, c) for g, c in zip(grads, ct)):
+        fail('pipe: 5c\'s backward is not the identity')
+
+    # (c) the 204M widths, bf16, pipe 4 on one card: GPipe against 1F1B
+    timed_arms = {}
+    for sched, m in PIPE_TIMED:
+        c = ConfigValle(**LARGE, dropout=0.1, batch_size=16, dtype='bfloat16',
+                        mesh_pipe=4, pp_schedule=sched, pp_microbatches=m)
+        timed_arms[f'{sched}_m{m}'] = mesh_step_ms(
+            c, 'ValleAR', 16, 512, PIPE_TIMED_STEPS, grid((1, 4, 1)), dev, warmup=1)
+    peak = {k: v['peak_mem_gb'][str(dev)] for k, v in timed_arms.items()}
+    if not peak['1f1b_m16'] < peak['gpipe_m16']:
+        fail(f'pipe: 1F1B\'s peak at M=16 ({peak["1f1b_m16"]:.3f} GB) is not below '
+             f'GPipe\'s ({peak["gpipe_m16"]:.3f} GB)')
+    emit(phase='pipe', arms={k: dict(grid=list(v[0]), schedule=v[1], microbatches=v[2],
+                                     zero1=v[3]) for k, v in PIPE_ARMS.items()},
+         dtype='float32', batch=PIPE_TRAIN['b'], s=s, train=train, dropout_0p1=dropout,
+         train_s=train_s, fit=dict(PIPE_FIT, mesh=on.shape, seconds=fit_s),
+         kernel_err={'tp_row_reduce_autograd': 0.0},
+         timed=dict(geometry=LARGE, batch=16, frames=512, s=640, dtype='bfloat16', pipe=4,
+                    steps=PIPE_TIMED_STEPS, arms=timed_arms),
+         launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+def card_busy(prof, cards, wall: float) -> dict:
+    """Each card's busy share of ``wall`` seconds: the union of its kernels'
+    intervals in the torch.profiler trace ``prof`` (a range of
+    ``profiling.annotate``, which the trace also shows on the card, is no
+    kernel)."""
+    from torch.autograd import DeviceType
+    busy = {}
+    for d in cards:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and e.device_index == d.index
+                       and not getattr(e, 'is_user_annotation', False))
+        total, end = 0.0, None
+        for a, z in spans:
+            if end is None or a > end:
+                total += z - a
+                end = z
+            elif z > end:
+                total += z - end
+                end = z
+        busy[str(d)] = total / 1e6 / wall          # profiler times are in microseconds
+    return busy
+
+
+def pipe_step_busy(cfg, model: str, b: int, frames: int, on, dev) -> dict:
+    """One train step (after one warm-up step), solo (``on`` None) or on
+    ``on``, under torch.profiler: its wall ms and each card's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from valle2_tpu_torch import train as tt
+    cards = sorted({torch.device(d) for d in (on.devices if on else [dev])},
+                   key=lambda d: d.index or 0)
+    state = tt.init_state(cfg, model, device=dev)
+    if on is not None:
+        state = tt.shard_state(on, state, cfg)
+    data = bench_data(model, b, frames, dev)
+    step = tt.make_train_step(cfg, model, on)
+    state, _m = step(state, data, 1)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _m = step(state, data, 1)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+    del state, data
+    return dict(wall_ms=1e3 * wall, busy_share=card_busy(prof, cards, wall))
+
+
+def phase_pipe_cards(devices, smi: str = '') -> None:
+    """``--mesh-cards N``: pipeline training over the cards at the 204M
+    geometry (LARGE), bench_data at b=16 x 512 (s = 640), bf16, dropout 0.1:
+    solo (cuda:0) beside each of PIPE_CARDS_ARMS (pipe 4, 4 layers a card,
+    and pipe 2 x model 2, each with GPipe and 1F1B at M=8): the wall ms a
+    step, each card's peak memory (``mesh_step_ms``), and each card's busy
+    share of one profiled step (``pipe_step_busy``).  No speed gate; each
+    arm's first loss within bf16's reach of solo's."""
+    import torch
+    from valle2_tpu_torch.config import ConfigValle
+    from valle2_tpu_torch.parallel import make_pp_mesh
+
+    n = len(devices)
+    _warm, steps = MESH_CARDS_STEPS
+    dev = torch.device(devices[0])
+    base = dict(LARGE, dropout=0.1, batch_size=16, dtype='bfloat16')
+    out, busy = {}, {}
+    for label, spec in {'solo': None, **PIPE_CARDS_ARMS}.items():
+        if spec is None:
+            cfg, on = ConfigValle(**base), None
+        else:
+            args, sched, m = spec
+            if args[0] * args[1] * args[2] > n:
+                continue
+            cfg = ConfigValle(**base, mesh_pipe=args[1], mesh_model=args[2],
+                              pp_schedule=sched, pp_microbatches=m)
+            on = make_pp_mesh(*args, devices[:args[0] * args[1] * args[2]])
+        out[label] = mesh_step_ms(cfg, 'ValleAR', 16, 512, steps, on, dev)
+        busy[label] = pipe_step_busy(cfg, 'ValleAR', 16, 512, on, dev)
+    solo = out['solo']['first_loss']
+    for label, r in out.items():
+        if abs(r['first_loss'] - solo) > 5e-2 * max(1.0, abs(solo)):
+            fail(f'pipe cards: {label}\'s first loss {r["first_loss"]} against solo '
+                 f'{solo}')
+    emit(phase='pipe_cards', cards=n, geometry=LARGE, batch=16, frames=512, s=640,
+         dtype='bfloat16', steps=steps, arms=out, busy=busy, card=smi)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -6155,6 +6480,7 @@ def main() -> int:
     paths['fold'] = timed(phase_fold, smi)
     paths['gemm'] = timed(phase_gemm, results, smi)
     paths['mesh'] = timed(phase_mesh, smi)
+    paths['pipe'] = timed(phase_pipe, smi)
     emit(phase_seconds=PHASE_SECONDS)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol')
     kernels = []
@@ -6206,7 +6532,7 @@ def main() -> int:
             return {k: r[k] for k in keys}
         by_path = {p: paths[p][name] for p in on_paths}
         # the chunked steps, a fine-tune's kernels, the data axis
-        for p in ('server', 'lora', 'checkpoint', 'grammar', 'mesh'):
+        for p in ('server', 'lora', 'checkpoint', 'grammar', 'mesh', 'pipe'):
             if p not in by_path and paths[p][name] > 0:
                 by_path[p] = paths[p][name]
         entry = dict(name=name, route='cuda', source=f'valle2_tpu_torch/csrc/{src}',
@@ -6299,8 +6625,9 @@ def main_mesh(n: int) -> int:
     """``python3 chip_smoke.py --mesh-cards N``, on a host of N cards: the
     cards' peer access (every pair must have it), the build, the persistent
     TP step over the N cards against its phased twin (``phase_tp_cards``),
-    phase tp over cuda:0..N-1 and the 204M stack at mp N
-    (``phase_tp_large``)."""
+    phase tp over cuda:0..N-1, the 204M stack at mp N
+    (``phase_tp_large``), training over the cards (``phase_mesh_cards``)
+    and pipeline training over them (``phase_pipe_cards``)."""
     sys.path.insert(0, str(ROOT))
     import torch
     from valle2_tpu_torch.profiling import H100_PEAK_BF16_FLOPS
@@ -6319,6 +6646,7 @@ def main_mesh(n: int) -> int:
     timed(phase_tp, devices, smi)
     timed(phase_tp_large, devices, smi)
     timed(phase_mesh_cards, devices, smi)
+    timed(phase_pipe_cards, devices, smi)
     emit(phase_seconds=PHASE_SECONDS)
     print(smi, flush=True)
     emit(ok=True, device={'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

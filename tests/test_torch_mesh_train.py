@@ -191,14 +191,14 @@ def test_shard_and_gather_round_trip_with_the_qkv_regrouped():
 
 def test_config_fields_and_training_mesh():
     """The data-axis fields load (``training_mesh`` builds the grid); the
-    pipeline and context axes still raise naming the ROADMAP."""
+    context axis still raises naming the ROADMAP (the pipe axis is ported:
+    tests/test_torch_pipeline.py)."""
     cfg = ConfigValle(**dict(TRAIN, mesh_data=2, mesh_model=2, zero1=True,
                              sequence_parallel=True))
     m = training_mesh(cfg, ['cpu'] * 4)
     assert m.shape == {'data': 2, 'model': 2} and m.size == 4
-    for field in ('mesh_pipe', 'mesh_ctx'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1 item 14'):
-            ConfigValle(**{field: 2})
+    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1 item 14'):
+        ConfigValle(mesh_ctx=2)
     with pytest.raises(ValueError, match='mesh_data'):
         ConfigValle(mesh_data=0)
 

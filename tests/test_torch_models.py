@@ -165,10 +165,11 @@ def test_example_configs_load_alike(example):
 
 
 def test_unported_features_raise_naming_the_roadmap_item():
-    for field, value in (('decode_attn_buckets', 2), ('mesh_pipe', 2), ('mesh_ctx', 2)):
+    for field, value in (('decode_attn_buckets', 2), ('mesh_ctx', 2)):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             ConfigValle(**{field: value})
     ConfigValle(zero1=True, mesh_model=2)              # ported with the data axis
+    ConfigValle(mesh_pipe=2, pp_microbatches=4, pp_schedule='1f1b')   # ported: PP
     ConfigValle(decode_unroll=2, decode_chunk=128)     # ported with streaming
     ConfigValle(lora_rank=4, lora_alpha=8.0)           # ported with lora.py
     ConfigValle(remat=True)                            # ported: activation checkpointing

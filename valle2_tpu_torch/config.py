@@ -10,9 +10,11 @@ quantized weights (``weight_dtype='int8'`` W8A8 or ``'int4'`` W4A16,
 speculative decode (``speculative_k`` >= 2 with one beam), streams
 (``DecodeStream``, ``synthesize_streaming``, ``synthesize_longform``) with
 ``decode_unroll`` and a chunked cache (``decode_chunk``, ``VALLE2_FUSED_CHUNK``),
-fine-tunes LoRA adapters (``lora_rank`` > 0, ``lora.py``), and trains and
+fine-tunes LoRA adapters (``lora_rank`` > 0, ``lora.py``), trains and
 serves over a ('data', 'model') mesh (``mesh_data`` x ``mesh_model``,
-``zero1``, ``sequence_parallel``; ``parallel/``) (ROADMAP.md): a non-default
+``zero1``, ``sequence_parallel``; ``parallel/``), and trains over a
+('data', 'pipe'[, 'model']) mesh (``mesh_pipe``, ``pp_microbatches``,
+``pp_schedule`` 'gpipe' or '1f1b'; ``parallel/pipeline.py``) (ROADMAP.md): a non-default
 value of a feature outside those paths raises ``NotImplementedError`` naming
 the ROADMAP item that will bring it, instead of being silently ignored.
 ``codec_ckpt`` reaches ``Encodec(checkpoint=...)``
@@ -57,10 +59,7 @@ import torch
 # (field, default, ROADMAP.md item that ports it)
 _NOT_YET = (
     ('decode_attn_buckets', 4, 'queue 1 item 2 (the rest of ops/, prefix buckets)'),
-    ('mesh_pipe', 1, 'queue 1 item 14 (parallelism, pipeline: PP)'),
     ('mesh_ctx', 1, 'queue 1 item 14 (parallelism, context: CP)'),
-    ('pp_microbatches', 1, 'queue 1 item 14 (parallelism, pipeline: PP)'),
-    ('pp_schedule', 'gpipe', 'queue 1 item 14 (parallelism, pipeline: PP)'),
 )
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -191,6 +190,13 @@ class ConfigValle:
         if self.mesh_data < 1 or self.mesh_model < 1:
             raise ValueError(f'mesh_data and mesh_model must be >= 1, got {self.mesh_data} '
                              f'and {self.mesh_model}')
+        if self.mesh_pipe < 1:
+            raise ValueError(f'mesh_pipe must be >= 1, got {self.mesh_pipe}')
+        if self.mesh_pipe > 1 and self.mesh_ctx > 1:
+            # JAX train.train: a silent choice would drop one of the two axes
+            raise ValueError('mesh_ctx and mesh_pipe are exclusive: pick the axis that '
+                             'addresses the bottleneck (memory per sequence: ctx; layers '
+                             'across devices: pipe)')
         for name, default, item in _NOT_YET:
             if getattr(self, name) != default:
                 raise NotImplementedError(

@@ -111,7 +111,8 @@ def param_count(params: Params) -> int:
 
 def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: torch.Tensor,
             tokens_lens: torch.Tensor | None, codes_lens: torch.Tensor | None,
-            generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+            generator: torch.Generator | None = None, mesh=None,
+            pp: tuple | None = None) -> torch.Tensor:
     """Logits over the target block: (b, codes_len, target_vocab - 1) f32.
 
     tokens: (b, Tt) source ids; codes: (b, Tc) BOS-prefixed target ids.
@@ -121,7 +122,20 @@ def forward(params: Params, config: ConfigValle, tokens: torch.Tensor, codes: to
     route the same mask materialized (prefix-LM pattern, target-pad and
     source-pad keys).  ``mesh``: ``params`` is the ranks' trees
     (``parallel.shard_params``) and each data rank runs its rows
-    (``mesh_rows``); the logits come back by rows on the mesh's first device."""
+    (``mesh_rows``); the logits come back by rows on the mesh's first device.
+    ``pp`` = (a pipe mesh, microbatches): ``params`` is that mesh's ranks'
+    trees, each data rank's rows run through its pipeline stages on the bias
+    route (``parallel.pipeline``; dropout by the pipeline's rule), and the
+    logits come back by rows on the mesh's first device."""
+    if pp is not None:
+        from ..parallel.pipeline import PipelineRun
+        batch = {'tokens': tokens, 'codes': codes}
+        batch.update({k: v for k, v in (('tokens_lens', tokens_lens),
+                                        ('codes_lens', codes_lens)) if v is not None})
+        parts = pp_microbatch_parts(config, batch)
+        run = PipelineRun(config, pp[0], params, parts, batch, generator, pp[1])
+        outs = run.connected(head=parts['logits'])
+        return torch.cat([o.to(pp[0].devices[0]) for o in outs])
     if mesh is not None:
         batch = {'tokens': tokens, 'codes': codes}
         if tokens_lens is not None:
@@ -299,12 +313,17 @@ def masked_ce(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
 
 
 def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-            generator: torch.Generator | None = None, mesh=None):
+            generator: torch.Generator | None = None, mesh=None, pp: tuple | None = None):
     """Masked cross-entropy over the target stream (``loss_mask``).  Returns
     (loss, metrics) with metrics {'loss', 'acc', 'n_valid'} detached.
     ``mesh``: ``params`` is the ranks' trees; the loss is this process's
     data ranks' share of the whole batch's (``mesh_loss``), the metrics the
-    whole batch's."""
+    whole batch's.  ``pp`` = (a pipe mesh, microbatches): the same through
+    the pipeline (``parallel.pipeline.pipelined_loss``)."""
+    if pp is not None:
+        from ..parallel.pipeline import pipelined_loss
+        return pipelined_loss(pp_microbatch_parts(config, batch), params, config, batch,
+                              generator, pp)
     valid = loss_mask(config, batch)
     if mesh is not None:
         def rows_loss(p, rows, draws, valid_rows, denom, group, flash_ok):
@@ -320,6 +339,66 @@ def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
                      batch.get('codes_lens'), generator)
     loss, acc, n_valid = masked_ce(logits, batch['target'].long(), valid)
     return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'n_valid': n_valid.detach()}
+
+
+def pp_microbatch_parts(config: ConfigValle, batch: dict, generator=None) -> dict:
+    """``loss_fn`` cut into the pipeline's per-microbatch pieces (JAX
+    ``pp_microbatch_parts``): the same math, so the pipeline can run the
+    embeddings on stage 0, the stack over the stages and the head and its
+    backward on the last stage.  ``batch``: the whole batch; ``generator``
+    unused (the AR loss draws no scalar).  Returns:
+
+    - 'valid': ``loss_mask`` of the whole batch (every position without a
+      'target'), 'metrics': {};
+    - 'prep'(top, rows, generator) -> x (mb, s, d) in the compute dtype: the
+      rows' streams embedded with positions, dropout from ``generator``;
+    - 'bias'(rows): the prefix-LM bias; 'cond'(top, rows): None;
+    - 'logits'(top, y, rows) -> (mb, Tc, V) f32, the head on the target block;
+    - 'head_loss'(top, y, rows) -> (nll_sum, acc_sum, n_valid) over
+      ``rows['valid']``, UNNORMALISED (the pipeline divides by the whole
+      batch's count).
+
+    ``rows``: a microbatch's rows of the batch (and 'valid') on the device
+    that uses them; ``top``: a tree's leaves outside the stack, uncast (the
+    pieces cast what they use, so grads stay in the master dtype)."""
+    del generator
+    tt = batch['tokens'].shape[1]
+
+    def prep(top, rows, gen):
+        p = cast_to_compute({'tokens_emb': top['tokens_emb'], 'audio_emb': top['audio_emb']},
+                            config)
+        pe = sinusoidal_table(MAX_POS, config.d_model, device=rows['tokens'].device)
+        drop = config.dropout if gen is not None else 0.0
+        x_tok = add_positional(pe, embedding(p['tokens_emb'], rows['tokens'].long()),
+                               dropout_rate=drop, generator=gen)
+        x_aud = add_positional(pe, embedding(p['audio_emb'], rows['codes'].long()),
+                               dropout_rate=drop, generator=gen)
+        return torch.cat([x_tok, x_aud], dim=1).to(config.torch_dtype)
+
+    def bias(rows):
+        b, tc = rows['codes'].shape
+        dev = rows['codes'].device
+        tv = rows.get('tokens_lens')
+        tv = tv if tv is not None else torch.full((b,), tt, device=dev)
+        cl = rows.get('codes_lens')
+        ce = tt + cl if cl is not None else torch.full((b,), tt + tc, device=dev)
+        return prefix_lm_bias(tt + tc, tt, tv, ce)
+
+    def logits(top, y, rows):
+        proj = cast_to_compute({'proj': top['proj']}, config)['proj']
+        return linear(proj, y[:, tt:]).float()
+
+    def head_loss(top, y, rows):
+        lg = logits(top, y, rows)
+        target, valid = rows['target'].long(), rows['valid']
+        nll = -torch.log_softmax(lg, dim=-1).gather(-1, target[..., None])[..., 0]
+        return ((nll * valid).sum(), ((lg.argmax(-1) == target) & valid).sum().float(),
+                valid.sum())
+
+    valid = (loss_mask(config, batch) if 'target' in batch else
+             torch.ones(batch['codes'].shape, dtype=torch.bool, device=batch['codes'].device))
+    return {'valid': valid, 'metrics': {}, 'prep': prep, 'bias': bias,
+            'cond': lambda top, rows: None, 'logits': logits, 'head_loss': head_loss}
 
 
 @dataclass
@@ -751,6 +830,9 @@ class ValleAR:
         self.config = config
         self.mesh = mesh
         if mesh is not None:
+            if mesh.pipe > 1:
+                raise ValueError('a pipeline mesh trains (parallel.pipeline); decode over a '
+                                 '(\'data\', \'model\') or a (\'model\',) mesh')
             if mesh.model > 1:
                 check_tp(config, mesh.model)
             if 'data' in mesh.axis_names and config.weight_dtype == 'int8':

@@ -124,39 +124,37 @@ def draw_stage(config: ConfigValle, generator: torch.Generator) -> torch.Tensor:
 
 
 def loss_fn(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-            generator: torch.Generator, train: bool = True, mesh=None):
+            generator: torch.Generator, train: bool = True, mesh=None,
+            pp: tuple | None = None):
     """Stage-sampled NAR loss: draws the stage from ``generator``, then
     ``loss_at_stage``.  ``train=False`` keeps the draw and turns dropout and
-    conditioning corruption off (evaluation).  ``mesh``: see
+    conditioning corruption off (evaluation).  ``mesh`` / ``pp``: see
     ``loss_at_stage``; every data rank takes the one stage."""
     stage = draw_stage(config, generator)
-    return loss_at_stage(params, config, batch, stage, generator if train else None, mesh)
+    return loss_at_stage(params, config, batch, stage, generator if train else None, mesh, pp)
 
 
 def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Tensor],
-                  stage, generator: torch.Generator | None = None, mesh=None):
+                  stage, generator: torch.Generator | None = None, mesh=None,
+                  pp: tuple | None = None):
     """The NAR loss body at a given ``stage`` (int or (1,) tensor);
     ``generator`` None = no dropout and no corruption.  Returns (loss,
     metrics) with metrics {'loss', 'acc', 'stage', 'n_valid'} detached.
     ``mesh``: ``params`` is the ranks' trees; the acoustic prefix follows the
     WHOLE batch's longest row and the loss its count of positions
-    (``ar.mesh_loss``)."""
+    (``ar.mesh_loss``).  ``pp`` = (a pipe mesh, microbatches): the same
+    through the pipeline (``parallel.pipeline.pipelined_loss``; dropout and
+    corruption by the pipeline's rule)."""
+    if pp is not None:
+        from ..parallel.pipeline import pipelined_loss
+        return pipelined_loss(pp_microbatch_parts(config, batch, stage=stage), params, config,
+                              batch, generator, pp)
     codes = batch['codes']
-    codes_lens = batch.get('codes_lens')
-    dev = codes.device
     b, t_codes, _ = codes.shape
-    stage = torch.as_tensor(stage, dtype=torch.long, device=dev).reshape(1)
+    stage = torch.as_tensor(stage, dtype=torch.long, device=codes.device).reshape(1)
     # The acoustic prefix follows the batch's longest TRUE length, so the
     # objective does not move with the bucket the batch was padded to.
-    max_true = codes_lens.max() if codes_lens is not None else t_codes
-    prefix_len = prefix_length(config, max_true)
-    pos = torch.arange(t_codes, device=dev)[None, :]
-    valid = pos >= prefix_len
-    if codes_lens is not None:
-        if config.mask_loss_pads:
-            valid = valid & (pos < codes_lens[:, None])
-        else:
-            valid = (valid & (pos < max_true)).expand(b, t_codes)
+    prefix_len, valid = _loss_positions(config, batch)
     if mesh is not None:
         def rows_loss(p, rows, draws, valid_rows, denom, group, flash_ok):
             loss, acc, _ = _stage_rows(p, config, rows, stage.to(valid_rows.device), draws,
@@ -167,6 +165,91 @@ def loss_at_stage(params: Params, config: ConfigValle, batch: dict[str, torch.Te
     loss, acc, n_valid = _stage_rows(params, config, batch, stage, generator, prefix_len, valid)
     return loss, {'loss': loss.detach(), 'acc': acc.detach(), 'stage': stage[0],
                   'n_valid': n_valid.detach()}
+
+
+def _loss_positions(config: ConfigValle, batch: dict):
+    """(prefix length, the positions the loss counts: (b, T), or without
+    ``codes_lens`` (1, T), which counts one row as the JAX loss does) of the
+    whole batch: the prefix from the longest TRUE row."""
+    codes = batch['codes']
+    codes_lens = batch.get('codes_lens')
+    b, t_codes, _ = codes.shape
+    max_true = codes_lens.max() if codes_lens is not None else t_codes
+    prefix_len = prefix_length(config, max_true)
+    pos = torch.arange(t_codes, device=codes.device)[None, :]
+    valid = pos >= prefix_len
+    if codes_lens is not None:
+        if config.mask_loss_pads:
+            valid = valid & (pos < codes_lens[:, None])
+        else:
+            valid = (valid & (pos < max_true)).expand(b, t_codes)
+    return prefix_len, valid
+
+
+def pp_microbatch_parts(config: ConfigValle, batch: dict, generator=None,
+                        stage=None) -> dict:
+    """``loss_at_stage`` cut into the pipeline's per-microbatch pieces (JAX
+    ``pp_microbatch_parts``; the protocol of ``ar.pp_microbatch_parts``).
+    The stage is ``stage``, or the first draw of ``generator`` (as
+    ``loss_fn`` draws it); the prefix follows the whole batch's longest row;
+    'cond'(top, rows) is the stage's AdaLN row of ``top`` on rows' device,
+    so each pipeline stage's row takes its own grad; 'metrics' {'stage'}.
+    ``prep`` draws the token dropout, the corruption of codebook 0 and the
+    code dropout from its generator in ``loss_at_stage``'s order."""
+    dev = batch['codes'].device
+    if stage is None:
+        stage = draw_stage(config, generator)
+    stage = torch.as_tensor(stage, dtype=torch.long, device=dev).reshape(1)
+    prefix_len, valid = _loss_positions(config, batch)
+    t_tok = batch['tokens'].shape[1]
+
+    def prep(top, rows, gen):
+        p = cast_to_compute({'tokens_emb': top['tokens_emb'],
+                             'codes_embs': top['codes_embs']}, config)
+        codes = rows['codes'].long()
+        d = codes.device
+        pe = sinusoidal_table(MAX_POS, config.d_model, device=d)
+        drop = config.dropout if gen is not None else 0.0
+        x_tok = add_positional(pe, embedding(p['tokens_emb'], rows['tokens'].long()),
+                               dropout_rate=drop, generator=gen)
+        pl = prefix_len.to(d) if torch.is_tensor(prefix_len) else prefix_len
+        if gen is not None and config.nar_corrupt_p > 0:
+            codes = corrupt_conditioning(codes, pl, config.nar_corrupt_p, gen,
+                                         config.num_audio_tokens)
+        codes_emb = prepare_audio_embedding(p, codes, stage.to(d), pl)
+        codes_emb = add_positional(pe, codes_emb, dropout_rate=drop, generator=gen)
+        return torch.cat([x_tok, codes_emb], dim=1).to(config.torch_dtype)
+
+    def bias(rows):
+        codes_lens, tokens_lens = rows.get('codes_lens'), rows.get('tokens_lens')
+        if codes_lens is None and tokens_lens is None:
+            return None
+        b, t_codes, _ = rows['codes'].shape
+        pad = torch.zeros((b, t_tok + t_codes), dtype=torch.bool, device=rows['codes'].device)
+        if codes_lens is not None:
+            pad[:, t_tok:] |= build_pad_mask(codes_lens, t_codes)
+        if tokens_lens is not None:
+            pad[:, :t_tok] |= build_pad_mask(tokens_lens, t_tok)
+        return mask_to_bias(pad)[:, None, None, :]
+
+    def cond(top, rows):
+        rows_stage = stage.to(rows['codes'].device)
+        embs = cast_to_compute({'stage_embs': top['stage_embs']}, config)['stage_embs']
+        return embs.index_select(0, rows_stage - 1)
+
+    def head_loss(top, y, rows):
+        heads = cast_to_compute({'proj_layers': top['proj_layers']}, config)['proj_layers']
+        rows_stage = stage.to(y.device)
+        logits = (y[:, t_tok:] @ heads.index_select(0, rows_stage - 1)[0]).float()
+        target = rows['codes'].long().index_select(2, rows_stage)[..., 0]
+        valid_rows = rows['valid']
+        nll = -torch.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
+        return ((nll * valid_rows).sum(),
+                ((logits.argmax(-1) == target) & valid_rows).sum().float(), valid_rows.sum())
+
+    return {'valid': valid.expand(batch['codes'].shape[:2]), 'n_valid': valid.sum(),
+            'metrics': {'stage': stage[0]}, 'prep': prep, 'bias': bias, 'cond': cond,
+            'head_loss': head_loss}
 
 
 def _stage_rows(params: Params, config: ConfigValle, batch: dict, stage, generator,

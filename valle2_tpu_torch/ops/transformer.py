@@ -121,17 +121,36 @@ def encoder_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor |
 def transformer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None = None,
                 cond: torch.Tensor | None = None, flash: dict | None = None,
                 dropout_rate: float = 0.0, generator: torch.Generator | None = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, pp: tuple | None = None) -> torch.Tensor:
     """Full-sequence forward over the stacked layers; dropout masks come from
-    one generator in layer order.  ``remat`` (JAX ``jax.checkpoint`` of the
-    scanned layer): while autograd records, each layer keeps only its input
-    for the backward, which runs the layer's forward again (``_remat_layer``);
-    outputs and grads are those of the plain stack."""
+    one generator in layer order, or from ``generator[i]`` for layer i where
+    it is a list (the pipeline's rule).  ``remat`` (JAX ``jax.checkpoint`` of
+    the scanned layer): while autograd records, each layer keeps only its
+    input for the backward, which runs the layer's forward again
+    (``_remat_layer``); outputs and grads are those of the plain stack.
+
+    ``pp`` = (devices, microbatches): pipeline parallelism (JAX ``pp``),
+    ``parallel.pipeline.pipeline_transformer``: ``p`` is then the stages'
+    stacks, one list of model ranks' trees per stage, ``devices`` theirs,
+    ``n_heads`` the GLOBAL head count, ``generator`` None or a function
+    (global layer, microbatch) -> generator."""
+    if pp is not None:
+        from ..parallel.pipeline import pipeline_transformer
+        devices, microbatches = pp
+        return pipeline_transformer(p, x, n_heads, bias, cond, devices=devices,
+                                    microbatches=microbatches, dropout_rate=dropout_rate,
+                                    generators=generator, remat=remat)
     layer = _remat_layer if remat and torch.is_grad_enabled() else encoder_layer
     for i in range(num_layers_of(p)):
         x = layer(layer_slice(p, i), x, n_heads, bias, cond, flash=flash,
-                  dropout_rate=dropout_rate, generator=generator)
+                  dropout_rate=dropout_rate, generator=layer_generator(generator, i))
     return x
+
+
+def layer_generator(generator, i: int):
+    """Layer i's generator: ``generator[i]`` of a per-layer list, else
+    ``generator`` itself (one stream through every layer)."""
+    return generator[i] if isinstance(generator, (list, tuple)) else generator
 
 
 def _remat_layer(p: Params, x: torch.Tensor, n_heads: int, bias: torch.Tensor | None,
@@ -359,17 +378,19 @@ def transformer_tp(trees: list[Params], xs: list[torch.Tensor], n_heads: int,
                    seq: list[tuple[int, int]] | None = None,
                    remat: bool = False) -> list[torch.Tensor]:
     """``transformer`` over the ranks (see ``encoder_layer_tp``); ``remat``
-    checkpoints each layer as ``transformer`` does."""
+    checkpoints each layer as ``transformer`` does; ``generator`` one, or a
+    list with one per layer."""
     for i in range(num_layers_of(trees[0])):
         lps = [layer_slice(t, i) for t in trees]
+        gen = layer_generator(generator, i)
         if remat and torch.is_grad_enabled():
             xs = list(_checkpointed(
                 lambda gen, *xs, lps=lps: tuple(encoder_layer_tp(
                     lps, list(xs), n_heads, bias, cond, flash=flash, dropout_rate=dropout_rate,
-                    generator=gen, seq=seq)), generator, dropout_rate, *xs))
+                    generator=gen, seq=seq)), gen, dropout_rate, *xs))
         else:
             xs = encoder_layer_tp(lps, xs, n_heads, bias, cond, flash=flash,
-                                  dropout_rate=dropout_rate, generator=generator, seq=seq)
+                                  dropout_rate=dropout_rate, generator=gen, seq=seq)
     return xs
 
 

@@ -3,7 +3,9 @@
 One process drives every rank it holds, as JAX's single controller drives a
 ``jax.shard_map``: a ``Mesh`` is a row-major ``data x model`` grid of
 devices, rank (i, j) on ``devices[i * model + j]`` (JAX ``make_mesh``
-reshapes the same way), or, from ``make_model_mesh``, a ('model',) line.
+reshapes the same way), a ``data x pipe x model`` grid, rank (i, s, j) on
+``devices[(i * pipe + s) * model + j]`` (JAX ``make_pp_mesh``;
+``parallel.pipeline``), or, from ``make_model_mesh``, a ('model',) line.
 
 The rules say which slice of which leaf each rank holds:
 
@@ -28,15 +30,19 @@ stack), so the qkv columns are first regrouped rank-major
 divide the model axis the stack replicates over it, as JAX's flash route
 declines there.
 
+Under a 'pipe' axis the stack's leading layer axis is cut over 'pipe'
+(``pipeline.pp_placement``) and every other leaf replicates there.
+
 A mesh may span processes (``parallel.distributed``): each process holds
-the ranks of its own devices, whole model groups, and the data-axis
-collectives (``Mesh.gather_data``) cross processes in rank order.
+the ranks of its own devices, whole model groups (whole pipe x model
+groups: processes split a pipeline mesh along 'data' only), and the
+data-axis collectives (``Mesh.gather_data``) cross processes in rank order.
 
 Virtual ranks (several ranks on one device, ``devices=['cpu'] * n`` or
 ``['cuda:0'] * n``) run only where the caller lists them; by default a mesh
-takes the CUDA cards.  Pipeline and context meshes (PP, CP) and the GSPMD
-fallback for splits that do not divide are not ported (ROADMAP.md queue 1
-item 14).
+takes the CUDA cards.  Context meshes (CP), a pipe group across processes
+and the GSPMD fallback for splits that do not divide are not ported
+(ROADMAP.md queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -62,24 +68,31 @@ def process_info() -> tuple[int, int]:
 
 
 class Mesh:
-    """The devices of this process's ranks in a ('data', 'model') grid, or
-    of a ('model',) line.  ``devices`` lists the local ranks row-major; with
-    several processes, process p holds the global ranks ``first ..
-    first + len(devices) - 1``.  Each rank has a CUDA stream (made at first
-    use) for the phased twin of the fused TP steps (the persistent TP step
-    runs one launch per card on that card's current stream, and uses none)."""
+    """The devices of this process's ranks in a ('data', 'model') or a
+    ('data', 'pipe', 'model') grid, or of a ('model',) line.  ``devices``
+    lists the local ranks row-major; with several processes, process p holds
+    the global ranks ``first .. first + len(devices) - 1``.  Each rank has a
+    CUDA stream (made at first use) for the phased twin of the fused TP
+    steps (the persistent TP step runs one launch per card on that card's
+    current stream, and uses none)."""
 
     def __init__(self, devices, data: int | None = None, processes: int = 1,
-                 process: int = 0):
+                 process: int = 0, pipe: int = 1):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError('a mesh needs at least one device')
         total = len(self.devices) * processes
         if data is None:
-            if processes != 1:
+            if processes != 1 or pipe != 1:
                 raise ValueError('a (\'model\',) mesh lives in one process')
             self.axis_names = ('model',)
             self.shape = {'model': total}
+        elif pipe > 1:
+            if total % (data * pipe):
+                raise ValueError(f'{total} ranks do not form a data x pipe grid of '
+                                 f'{data} x {pipe}')
+            self.axis_names = ('data', 'pipe', 'model')
+            self.shape = {'data': data, 'pipe': pipe, 'model': total // (data * pipe)}
         else:
             if total % data:
                 raise ValueError(f'{total} ranks do not form a data axis of {data}')
@@ -87,7 +100,11 @@ class Mesh:
             self.shape = {'data': data, 'model': total // data}
         self.processes, self.process = processes, process
         self.first = process * len(self.devices)
-        if len(self.devices) % self.model:
+        if len(self.devices) % self.group_size:
+            if self.pipe > 1:
+                raise NotImplementedError(
+                    f'processes split a pipeline mesh along \'data\' only: {len(self.devices)} '
+                    f'local ranks for pipe x model groups of {self.group_size} ({ITEM14})')
             raise ValueError(f'each process holds whole model groups: {len(self.devices)} '
                              f'local ranks for a model axis of {self.model}')
         self._streams = None
@@ -96,25 +113,45 @@ class Mesh:
     @property
     def size(self) -> int:
         """Ranks of the whole mesh (every process's)."""
-        return self.data * self.model
+        return self.data * self.group_size
 
     @property
     def data(self) -> int:
         return self.shape.get('data', 1)
 
     @property
+    def pipe(self) -> int:
+        return self.shape.get('pipe', 1)
+
+    @property
     def model(self) -> int:
         return self.shape['model']
 
     @property
+    def group_size(self) -> int:
+        """Ranks of one data rank: pipe x model."""
+        return self.pipe * self.model
+
+    def coords(self, g: int) -> tuple[int, int, int]:
+        """Global rank ``g``'s (data, pipe, model) coordinates."""
+        i, c = divmod(g, self.group_size)
+        return (i, *divmod(c, self.model))
+
+    @property
     def local_data(self) -> range:
         """The data ranks this process holds."""
-        return range(self.first // self.model, (self.first + len(self.devices)) // self.model)
+        return range(self.first // self.group_size,
+                     (self.first + len(self.devices)) // self.group_size)
 
     def group(self, i: int) -> list[torch.device]:
-        """The devices of data rank ``i``'s model ranks (a local data rank)."""
-        lo = (i - self.local_data.start) * self.model
-        return self.devices[lo:lo + self.model]
+        """The devices of data rank ``i``'s ranks (a local data rank): its
+        model ranks, or under a 'pipe' axis its pipe x model ranks, row-major."""
+        lo = (i - self.local_data.start) * self.group_size
+        return self.devices[lo:lo + self.group_size]
+
+    def stage(self, i: int, s: int) -> list[torch.device]:
+        """The devices of pipeline stage ``s``'s model ranks of data rank ``i``."""
+        return self.group(i)[s * self.model:(s + 1) * self.model]
 
     def replica(self, i: int) -> Mesh:
         """Data rank ``i``'s model ranks as a ('model',) mesh (made once, so
@@ -166,28 +203,31 @@ def make_model_mesh(mp: int, devices=None) -> Mesh:
     return Mesh(devices[:mp])
 
 
-def make_mesh(data: int | None = None, model: int = 1, devices=None) -> Mesh:
+def make_mesh(data: int | None = None, model: int = 1, devices=None, pipe: int = 1) -> Mesh:
     """A ('data', 'model') mesh, rank (i, j) on ``devices[i * model + j]``
-    (JAX ``make_mesh``).  ``devices``: this process's devices (default: every
+    (JAX ``make_mesh``), or with ``pipe`` > 1 a ('data', 'pipe', 'model')
+    mesh, rank (i, s, j) on ``devices[(i * pipe + s) * model + j]`` (JAX
+    ``make_pp_mesh``).  ``devices``: this process's devices (default: every
     CUDA card; under several processes on one host, this process's share of
     them, ``process_cards``).  ``data`` None takes every device.  Raises when
     too few exist."""
     procs, proc = process_info()
+    group = model * pipe
     if devices is None:
         cards = _cards()
         if procs > 1:
-            n = (data or len(cards) // model) * model // procs
+            n = (data or len(cards) // group) * group // procs
             devices = process_cards(cards, n, procs, proc)
         else:
             devices = cards
     devices = list(devices)
     if data is None:
-        data = len(devices) * procs // model
-    need = data * model
-    if data < 1 or model < 1 or need % procs or need // procs > len(devices):
-        raise ValueError(f'mesh {data}x{model} needs {need} devices, have '
-                         f'{len(devices) * procs}')
-    return Mesh(devices[:need // procs], data=data, processes=procs, process=proc)
+        data = len(devices) * procs // group
+    need = data * group
+    if data < 1 or model < 1 or pipe < 1 or need % procs or need // procs > len(devices):
+        shape = f'{data}x{pipe}x{model}' if pipe > 1 else f'{data}x{model}'
+        raise ValueError(f'mesh {shape} needs {need} devices, have {len(devices) * procs}')
+    return Mesh(devices[:need // procs], data=data, processes=procs, process=proc, pipe=pipe)
 
 
 def process_cards(cards: list, n: int, procs: int, proc: int) -> list:
@@ -204,15 +244,16 @@ def process_cards(cards: list, n: int, procs: int, proc: int) -> list:
 
 
 def training_mesh(config, devices=None) -> Mesh | None:
-    """The mesh a config asks for, ``mesh_data`` x ``mesh_model`` (JAX
-    ``train.train``), or None for one device.  Pipeline and context axes are
-    not ported (the config refuses them)."""
-    if config.mesh_pipe > 1 or config.mesh_ctx > 1:
-        raise NotImplementedError(f'pipeline and context meshes (PP, CP) are not ported '
-                                  f'({ITEM14})')
-    if config.mesh_data * config.mesh_model <= 1:
+    """The mesh a config asks for, ``mesh_data`` x ``mesh_model``, or with
+    ``mesh_pipe`` > 1 ``mesh_data`` x ``mesh_pipe`` x ``mesh_model`` (JAX
+    ``train.train``), or None for one device.  The context axis is not
+    ported (the config refuses it, and refuses it beside a pipe axis with
+    ``ValueError``, as JAX's ``train`` does)."""
+    if config.mesh_ctx > 1:
+        raise NotImplementedError(f'context meshes (CP) are not ported ({ITEM14})')
+    if config.mesh_data * config.mesh_pipe * config.mesh_model <= 1:
         return None
-    return make_mesh(config.mesh_data, config.mesh_model, devices)
+    return make_mesh(config.mesh_data, config.mesh_model, devices, pipe=config.mesh_pipe)
 
 
 def tp_divisible(n_heads: int, d_ff: int, mp: int) -> bool:
@@ -357,14 +398,14 @@ def tp_decode_specs(params: Params) -> Params:
 
 # ---- placement ----
 
-def _cut(value: torch.Tensor, spec: Spec, mesh: Mesh, i: int, j: int) -> torch.Tensor:
-    """Rank (i, j)'s block of ``value`` under ``spec`` (equal blocks: the
-    rules only cut dims that divide)."""
+def _cut(value: torch.Tensor, spec: Spec, mesh: Mesh, coords) -> torch.Tensor:
+    """The block of ``value`` under ``spec`` of the rank at ``coords`` =
+    (data, pipe, model) (equal blocks: the rules only cut dims that divide)."""
+    sizes = {'data': mesh.data, 'pipe': mesh.pipe, 'model': mesh.model}
+    at = dict(zip(('data', 'pipe', 'model'), coords))
     for axis, name in enumerate(spec):
-        if name is None:
-            continue
-        n, k = (mesh.data, i) if name == 'data' else (mesh.model, j)
-        value = torch.tensor_split(value, n, dim=axis)[k]
+        if name is not None:
+            value = torch.tensor_split(value, sizes[name], dim=axis)[at[name]]
     return value
 
 
@@ -375,8 +416,7 @@ def device_put_global(value: torch.Tensor, spec: Spec, mesh: Mesh) -> list[torch
     ranks, so that each rank's leaf takes its own grad."""
     out = []
     for r, dev in enumerate(mesh.devices):
-        g = mesh.first + r
-        block = _cut(value, spec, mesh, g // mesh.model, g % mesh.model)
+        block = _cut(value, spec, mesh, mesh.coords(mesh.first + r))
         out.append(block.detach().to(dev, copy=True).contiguous())
     return out
 
@@ -418,7 +458,11 @@ def placement(mesh: Mesh, params: Params, zero1: bool = False, tp: bool = True) 
     """The spec ``shard_params`` places each leaf by: ``param_sharding``'s,
     with the 'model' cuts dropped where ``tp`` is False (the heads or the
     FFN width do not divide the model axis: the stack replicates over it,
-    ZeRO-1 still cuts over 'data')."""
+    ZeRO-1 still cuts over 'data'); under a 'pipe' axis
+    ``pipeline.pp_placement``'s."""
+    if mesh.pipe > 1:
+        from .pipeline import pp_placement
+        return pp_placement(mesh, params, zero1, tp)
     specs = param_sharding(mesh, params, zero1=zero1)
     if tp:
         return specs
@@ -473,8 +517,8 @@ def gather_params(mesh: Mesh, trees: Sharded, device='cpu', specs=None) -> Param
 def whole_shape(block: torch.Tensor, spec: Spec, mesh: Mesh) -> tuple:
     """The whole leaf's shape from one rank's block under ``spec``."""
     spec = tuple(spec) + (None,) * (block.dim() - len(spec))
-    return tuple(n * (mesh.model if a == 'model' else mesh.data if a == 'data' else 1)
-                 for n, a in zip(block.shape, spec))
+    sizes = {'data': mesh.data, 'pipe': mesh.pipe, 'model': mesh.model, None: 1}
+    return tuple(n * sizes[a] for n, a in zip(block.shape, spec))
 
 
 def _assemble(mesh: Mesh, blocks: list, spec: Spec, device) -> torch.Tensor:
@@ -483,13 +527,19 @@ def _assemble(mesh: Mesh, blocks: list, spec: Spec, device) -> torch.Tensor:
     takes no CPU tensor)."""
     spec = tuple(spec) + (None,) * (blocks[0].dim() - len(spec))
     m_axis = spec.index('model') if 'model' in spec else None
+    p_axis = spec.index('pipe') if 'pipe' in spec else None
     d_axis = spec.index('data') if 'data' in spec else None
     home = blocks[0].device
     rows = []
-    for i in mesh.local_data:
-        grp = blocks[(i - mesh.local_data.start) * mesh.model:][:mesh.model]
-        rows.append(torch.cat([b.detach().to(home) for b in grp], m_axis)
-                    if m_axis is not None else grp[0].detach())
+    for k in range(len(mesh.local_data)):
+        grp = blocks[k * mesh.group_size:(k + 1) * mesh.group_size]
+        stages = []
+        for s in range(mesh.pipe if p_axis is not None else 1):
+            st = grp[s * mesh.model:(s + 1) * mesh.model]
+            stages.append(torch.cat([b.detach().to(home) for b in st], m_axis)
+                          if m_axis is not None else st[0].detach())
+        rows.append(torch.cat([t.to(home) for t in stages], p_axis)
+                    if p_axis is not None else stages[0])
     if d_axis is None:
         return rows[0].to(device)
     rows = mesh.gather_data(rows)

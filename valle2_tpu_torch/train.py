@@ -1,5 +1,5 @@
-"""Training loop: update step, AdamW, checkpoints, metrics, on one device or
-over a ('data', 'model') mesh.
+"""Training loop: update step, AdamW, checkpoints, metrics, on one device,
+over a ('data', 'model') mesh or over a ('data', 'pipe'[, 'model']) mesh.
 
 PyTorch counterpart of ``valle2_tpu/train.py``.  One eager step does forward,
 backward (through the flash attention kernels on the card), global-norm clip
@@ -26,6 +26,10 @@ each data rank its block of the moments).  The step equals the solo step:
 the loss divides by the whole batch's count, and the dropout masks are the
 solo step's cut by rows.  ``init_distributed`` (``$VALLE2_COORDINATOR``,
 ``$VALLE2_NUM_PROCS``, ``$VALLE2_PROC_ID``) spreads a mesh over processes.
+With ``mesh_pipe`` > 1 the stack splits into stages over 'pipe' and the
+step is ``parallel.pipeline``'s GPipe or ``parallel.pipeline_1f1b``'s 1F1B
+(``pp_schedule``), ``pp_microbatches`` microbatches a data rank;
+``MeshOptimizer`` also sums each leaf outside the stack over the stages.
 
     python -m valle2_tpu_torch.train -c cfg.json -m ValleAR --synthetic [--resume]
                                      [--device cuda|cpu] [--profile DIR] [--debug-nans]
@@ -173,18 +177,23 @@ class Optimizer:
 
 class MeshOptimizer:
     """``Optimizer`` over the ranks of a mesh (JAX ``make_train_step`` on a
-    ('data', 'model') mesh).  Each local rank (i, j) holds its trees'
-    trained leaves and an AdamW over them (``use_fused_adam`` on the card).
+    ('data', 'model') mesh, ``make_pp_train_step`` on a ('data', 'pipe',
+    'model') one).  Each local rank (i[, s], j) holds its trees' trained
+    leaves and an AdamW over them (``use_fused_adam`` on the card).
     ``update`` takes every rank's grads and:
 
     1. completes them over 'model': a leaf cut over 'model' keeps its own
        grad; a replicated one takes model rank 0's (every rank carries it
        whole), or under sequence parallelism a norm's the rank-ordered sum
        (``ops.transformer.SP_SUMMED``);
-    2. sums them over 'data' in rank order (``Mesh.gather_data``, across
+    2. completes them over 'pipe': a leaf cut over 'pipe' (the stack) keeps
+       its stage's grad; every other leaf takes the stage-ordered sum of the
+       stages' grads (a stage that did not use it holds zeros), so every
+       stage's copy takes the same update;
+    3. sums them over 'data' in rank order (``Mesh.gather_data``, across
        processes too), so the result does not depend on how the ranks
        spread over processes or cards;
-    3. accumulates ``grad_accum`` micro-batches (the optax running mean),
+    4. accumulates ``grad_accum`` micro-batches (the optax running mean),
        clips by the GLOBAL norm (each cut leaf's blocks once) and steps.
 
     ``zero1`` (ZeRO-1, with a data axis > 1): rank (i, j)'s AdamW holds only
@@ -202,10 +211,12 @@ class MeshOptimizer:
         self.tp = params.tp
         self.paths = [p for p, _ in mesh_mod._paths(specs)]
         self.specs = [sp for _, sp in mesh_mod._paths(specs)]
-        sp_on = params.tp and sequence_parallel_spec(config, mesh) is not None
+        sp_on = (params.tp and mesh.pipe == 1
+                 and sequence_parallel_spec(config, mesh) is not None)
         self.rules = ['own' if 'model' in spec else
                       'sum' if sp_on and any(m in f'/{p}/' for m in SP_SUMMED) else 'first'
                       for p, spec in zip(self.paths, self.specs)]
+        self.staged = ['pipe' in spec for spec in self.specs]
         self.zero1 = bool(config.zero1) and mesh.data > 1
         self.zspecs = [mesh_mod._zero1_extend(spec, mesh_mod.whole_shape(leaf, spec, mesh),
                                               mesh.data) if self.zero1 else spec
@@ -215,7 +226,7 @@ class MeshOptimizer:
         self.k = max(1, config.grad_accum)
         self.masters = []
         for r, leaves in enumerate(self.ranks):
-            i = (mesh.first + r) // mesh.model
+            i = (mesh.first + r) // mesh.group_size
             self.masters.append([self._block(leaf, z, i).detach().clone()
                                  if 'data' in z else leaf
                                  for leaf, z in zip(leaves, self.zspecs)])
@@ -255,10 +266,30 @@ class MeshOptimizer:
                     out[base + j][k] = g0.to(grads[base + j][k].device)
         return out
 
+    def _pipe_complete(self, grads: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
+        """Every leaf outside the stack: the stage-ordered sum of the
+        stages' grads on each stage's rank of the same model index."""
+        p, m, g = self.mesh.pipe, self.mesh.model, self.mesh.group_size
+        if p == 1:
+            return grads
+        out = [list(gs) for gs in grads]
+        for base in range(0, len(grads), g):
+            for k, staged in enumerate(self.staged):
+                if staged:
+                    continue
+                for j in range(m):
+                    total = grads[base + j][k]
+                    for s in range(1, p):
+                        total = total + grads[base + s * m + j][k].to(total.device)
+                    for s in range(p):
+                        out[base + s * m + j][k] = total.to(grads[base + s * m + j][k].device)
+        return out
+
     def _data_reduce(self, grads: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
-        """Per model rank j, the rank-ordered sum over every data rank of
-        its completed grads (flattened into one buffer)."""
-        m, n_local = self.mesh.model, len(grads) // self.mesh.model
+        """Per rank of a data rank's group (model rank j, or stage and model
+        rank), the rank-ordered sum over every data rank of its completed
+        grads (flattened into one buffer)."""
+        m, n_local = self.mesh.group_size, len(grads) // self.mesh.group_size
         shapes = [g.shape for g in grads[0]]
         sizes = [g.numel() for g in grads[0]]
         out = []
@@ -274,19 +305,26 @@ class MeshOptimizer:
         return out
 
     def _norm(self, red: list[list[torch.Tensor]]) -> torch.Tensor:
+        """The global norm: each distinct block of a leaf once (every stage's
+        of a leaf cut over 'pipe', every model rank's of one cut over
+        'model')."""
         dev = red[0][0].device
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        for k, rule in enumerate(self.rules):
-            for j in (range(len(red)) if rule == 'own' else (0,)):
-                total = total + red[j][k].float().square().sum().to(dev)
+        for k, (rule, staged) in enumerate(zip(self.rules, self.staged)):
+            for c in range(len(red)):
+                s, j = divmod(c, self.mesh.model)
+                if (s and not staged) or (j and rule != 'own'):
+                    continue
+                total = total + red[c][k].float().square().sum().to(dev)
         return torch.sqrt(total)
 
     def _reduced(self, grads: list[torch.Tensor]) -> list[list[torch.Tensor]]:
-        """Steps 1 and 2 of ``update``: per model rank, its leaves' grads
-        completed over 'model' and summed over 'data'."""
+        """Steps 1-3 of ``update``: per rank of a data rank's group, its
+        leaves' grads completed over 'model' and 'pipe' and summed over
+        'data'."""
         per = len(self.ranks[0])
         grads = [list(grads[r * per:(r + 1) * per]) for r in range(len(self.ranks))]
-        return self._data_reduce(self._model_complete(grads))
+        return self._data_reduce(self._pipe_complete(self._model_complete(grads)))
 
     @torch.no_grad()
     def whole_grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -294,7 +332,7 @@ class MeshOptimizer:
         ``leaves``), as whole tensors in leaf order on the CPU: what a solo
         step's autograd gives."""
         red = self._reduced(grads)
-        return self._whole([red[(self.mesh.first + r) % self.mesh.model]
+        return self._whole([red[(self.mesh.first + r) % self.mesh.group_size]
                             for r in range(len(self.ranks))], self.specs)
 
     @torch.no_grad()
@@ -317,7 +355,7 @@ class MeshOptimizer:
         clip = norm < self.max_norm
         mesh = self.mesh
         for r, masters in enumerate(self.masters):
-            i, j = divmod(mesh.first + r, mesh.model)
+            i, j = divmod(mesh.first + r, mesh.group_size)
             for leaf, master, z, g in zip(self.ranks[r], masters, self.zspecs, red[j]):
                 g = g.to(master.device)
                 g = torch.where(clip.to(g.device), g, g / norm.to(g.device) * self.max_norm)
@@ -338,7 +376,7 @@ class MeshOptimizer:
     def _gather_blocks(self) -> None:
         """ZeRO-1's all-gather: every data rank's updated block of each cut
         leaf into every local data rank's leaf."""
-        m = self.mesh.model
+        m = self.mesh.group_size
         n_local = len(self.ranks) // m
         for k, z in enumerate(self.zspecs):
             if 'data' not in z:
@@ -377,7 +415,7 @@ class MeshOptimizer:
                               for k, (a, q) in enumerate(zip(avg, sq))}
         acc = None
         if self.acc is not None:
-            acc = self._whole([self.acc[((self.mesh.first + r) % self.mesh.model)]
+            acc = self._whole([self.acc[((self.mesh.first + r) % self.mesh.group_size)]
                                for r in range(len(self.ranks))], self.specs)
         return {'adamw': adamw, 'acc': acc, 'mini_step': self.mini_step, 'count': self.count}
 
@@ -401,7 +439,7 @@ class MeshOptimizer:
         self.acc = None
         if acc is not None:
             placed = self._cut(list(acc), False)
-            self.acc = [placed[j] for j in range(self.mesh.model)]
+            self.acc = [placed[j] for j in range(self.mesh.group_size)]
         self.mini_step, self.count = int(state['mini_step']), int(state['count'])
 
 
@@ -470,10 +508,18 @@ def make_train_step(config: ConfigValle, model_name: str, mesh=None):
     flash per (data, model) shard, 5c under autograd) and ``MeshOptimizer``
     completes, sums and applies the grads (JAX ``make_train_step`` with a
     mesh).  The dropout masks are the solo step's, cut by rows, so the step
-    equals the solo one."""
+    equals the solo one.  A mesh with a 'pipe' axis takes the pipeline step
+    of ``config.pp_schedule`` (``parallel.pipeline.make_pp_train_step``,
+    ``parallel.pipeline_1f1b.make_pp_train_step_1f1b``; JAX ``Trainer``)."""
     loss_fn = LOSS_FNS[model_name]
     lora_mode = config.lora_rank > 0
     mesh = mesh if mesh is not None and mesh.size > 1 else None
+    if mesh is not None and mesh.pipe > 1:
+        if config.pp_schedule == '1f1b':
+            from .parallel.pipeline_1f1b import make_pp_train_step_1f1b
+            return make_pp_train_step_1f1b(config, model_name, mesh)
+        from .parallel.pipeline import make_pp_train_step
+        return make_pp_train_step(config, model_name, mesh)
 
     def step_fn(state: TrainState, batch: dict, seed: int):
         leaves = state.opt_state.leaves
@@ -524,16 +570,22 @@ def mesh_tp(config: ConfigValle, mesh) -> bool:
 
 def shard_state(mesh, state: TrainState, config: ConfigValle) -> TrainState:
     """A one-device state (``init_state``, or restored) placed on ``mesh``
-    (JAX ``Trainer.fit``'s ``shard_params`` of params and optimizer state):
-    each rank's params under ``parallel.placement`` (copies, the trained
-    leaves requiring grad), a ``MeshOptimizer`` carrying the optimizer
-    state (ZeRO-1 cuts it over 'data')."""
+    (JAX ``Trainer.fit``'s ``shard_params`` / ``pp_shard_params`` of params
+    and optimizer state): each rank's params under ``parallel.placement``
+    (copies, the trained leaves requiring grad), a ``MeshOptimizer``
+    carrying the optimizer state (ZeRO-1 cuts it over 'data')."""
     lora_mode = config.lora_rank > 0
-    if lora_mode and mesh.model > 1:
+    if mesh.pipe > 1:
+        from .parallel.pipeline import pp_tp
+        tp = pp_tp(config, mesh)
+    elif lora_mode and mesh.model > 1:
         raise NotImplementedError('LoRA on a model axis takes the GSPMD path, which is not '
-                                  f'ported ({mesh_mod.ITEM14}); LoRA runs on a data mesh')
+                                  f'ported ({mesh_mod.ITEM14}); LoRA runs on a data mesh '
+                                  'or a pipe mesh')
+    else:
+        tp = mesh_tp(config, mesh)
     whole = map_tree(lambda a: a.detach(), state.params)
-    params = shard_params(mesh, whole, tp=mesh_tp(config, mesh))
+    params = shard_params(mesh, whole, tp=tp)
     for tree in params:
         map_tree(lambda a: a.requires_grad_(), tree['lora'] if lora_mode else tree)
     opt = MeshOptimizer(mesh, params, config, 'lora' if lora_mode else None)
@@ -553,10 +605,14 @@ def make_eval_step(config: ConfigValle, model_name: str, mesh=None):
     """``eval(params, batch, generator) -> metrics`` without dropout: the AR
     loss takes no generator; the NAR loss draws its stage from ``generator``
     with ``train=False``.  A LoRA state evaluates its merged weights.
-    ``mesh``: params of a mesh state, the whole batch."""
+    ``mesh``: params of a mesh state, the whole batch; a mesh with a 'pipe'
+    axis evaluates through ``parallel.pipeline.make_pp_eval_step``."""
     loss_fn = LOSS_FNS[model_name]
     is_nar = model_name == 'ValleNAR'
     mesh = mesh if mesh is not None and mesh.size > 1 else None
+    if mesh is not None and mesh.pipe > 1:
+        from .parallel.pipeline import make_pp_eval_step
+        return make_pp_eval_step(config, model_name, mesh)
     kw = {} if mesh is None else {'mesh': mesh}
 
     @torch.no_grad()
@@ -604,10 +660,14 @@ class _PreemptGuard:
 
 class Trainer:
     """Step-driven train loop (max_steps, log_every_n_steps, ckpt_every_n_steps)
-    on one device, or over a ('data', 'model') ``mesh`` (JAX ``Trainer(mesh=)``:
-    ``fit`` places a one-device state with ``shard_state``, batches whose
-    rows the data axis does not divide are dropped, checkpoints hold whole
-    tensors, and only the primary process writes files)."""
+    on one device, or over a ('data', 'model') or ('data', 'pipe'[, 'model'])
+    ``mesh`` (JAX ``Trainer(mesh=)``: ``fit`` places a one-device state with
+    ``shard_state``, batches whose rows the data axis does not divide are
+    dropped, checkpoints hold whole tensors, and only the primary process
+    writes files).  On a pipe mesh the step is GPipe or 1F1B by
+    ``config.pp_schedule`` and evaluation GPipe's forward; a stack that does
+    not split into equal stages, or heads or an FFN width a model axis does
+    not divide, raise ``ValueError``."""
 
     def __init__(self, config: ConfigValle, model_name: str, device=None,
                  use_tensorboard: bool = True, mesh=None):
@@ -866,12 +926,16 @@ def train(hparams_fp: Path | str, model_name: str, synthetic: bool = False,
     enable_compilation_cache(compile_cache, fallback=config.compile_cache_dir)
     enable_aot_cache(aot_cache, fallback=config.aot_cache_dir)
     device = resolve_device(device)
-    # mesh_data x mesh_model from the config: over the cards, or on another
-    # device as virtual ranks.
-    ranks = config.mesh_data * config.mesh_model // process_info()[0]
+    # mesh_data x mesh_pipe x mesh_model from the config: over the cards, or
+    # on another device as virtual ranks.
+    ranks = config.mesh_data * config.mesh_pipe * config.mesh_model // process_info()[0]
     mesh = training_mesh(config, None if device.type == 'cuda' else [device] * ranks)
-    if mesh is not None:
+    if mesh is not None and mesh.pipe > 1:
+        log.info('Mesh from config: %dx%dx%d (data x pipe x model), %s schedule',
+                 config.mesh_data, config.mesh_pipe, config.mesh_model, config.pp_schedule)
+    elif mesh is not None:
         log.info('Mesh from config: %dx%d (data x model)', config.mesh_data, config.mesh_model)
+    if mesh is not None:
         device = mesh.devices[0]
     log.info('Training %s on %s with %s', model_name, device, config)
     state = init_state(config, model_name, device=device)

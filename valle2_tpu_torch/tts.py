@@ -199,6 +199,9 @@ class ValleTTS:
         self.config = config
         self.mesh = mesh
         if mesh is not None:
+            if mesh.pipe > 1:
+                raise ValueError('a pipeline mesh trains (parallel.pipeline); serve over a '
+                                 '(\'data\', \'model\') or a (\'model\',) mesh')
             if config.weight_dtype == 'int8':
                 raise NotImplementedError('int8 weights on a mesh take the GSPMD path, which '
                                           'is not ported (ROADMAP.md queue 1 item 14)')
